@@ -11,7 +11,10 @@ Phases, each printing one JSON line:
   build    nvcc builds csrc/*.cu for sm_90a; ptxas register/smem lines
   parity   each CUDA kernel against its plain PyTorch version on the card,
            element-equal int64, at the main path's shapes and at the edges
-           of the kernels' domain
+           of the kernels' domain and geometry: a table split across the
+           cluster, G = 32768, unaligned n, n below and at one tile, n = 0,
+           and 2^25 + 5 rows of 127 on one group (the sum passes 2^31), also
+           with one lone CTA and one lone cluster taking every row
   data     an SSB-shaped table generated from --seed, built into segments
            with the port's builder and loaded with its loader
   queries  q1, q2, q9, q2 unfused and the flagship GROUP BY through
@@ -22,9 +25,15 @@ Phases, each printing one JSON line:
            collect and combine + reduce
   profile  device busy share and the top device kernels under
            torch.profiler
-  kernel_times_extra, then the kernel table: each kernel's time with CUDA
-           events beside its bound, its plain version's time and one
-           PyTorch library call computing the same sums
+  geometry each main-path shape's launch geometry and the card's
+           cluster occupancy
+  kernels  the kernel table: per kernel and main-path shape, the kernel's
+           own device time per launch (`ms`, torch.profiler, 20 launches
+           rotated over the 4 segments' recorded inputs so that the 50 MB L2
+           holds none of them), the wrapper's time with CUDA events around
+           the calls (`call_ms`), the bytes bound and its share, the plain
+           version's time and one PyTorch library call computing the same
+           sums
 
 The line before the last is the kernel table, the last line
 {"ok": true, "device": {...}}. Any failure raises and the script exits
@@ -164,7 +173,8 @@ def phase_build(_cuda) -> None:
     t0 = time.perf_counter()
     _cuda.library()
     lines = [ln.strip() for ln in _cuda.build_log().splitlines()
-             if "registers" in ln or "smem" in ln or ln.startswith("==")]
+             if "registers" in ln or "spill" in ln or "smem" in ln
+             or ln.startswith("==")]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": lines})
 
@@ -194,11 +204,11 @@ def check_equal(torch, name, got, ref) -> int:
     return err
 
 
-def synthetic_fused_cases(torch, fg, seed):
+def synthetic_fused_cases(torch, fg, seed, n=(1 << 22) + 3):
     """Kernel B cases beyond the main path's plans: an interval term over
-    a uint16 plane, a dict-id run term over a uint8 plane, and a signed SUM
-    (five limbs plus the negative-count plane), at a ragged length."""
-    n = (1 << 22) + 3
+    a uint16 plane, a dict-id run term over a uint8 plane, a signed SUM
+    (five limbs plus the negative-count plane), and 24 planes of 1001
+    groups, at a ragged length."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
 
     def rnd(lo, hi, dtype):
@@ -208,11 +218,12 @@ def synthetic_fused_cases(torch, fg, seed):
     u16, u8 = rnd(0, 2000, torch.uint16), rnd(0, 100, torch.uint8)
     pos, signed = rnd(0, 1 << 20, torch.int32), rnd(-(1 << 30), 1 << 30, torch.int32)
     sc = lambda *v: torch.tensor(v, dtype=torch.int32, device=DEVICE)  # noqa: E731
+    sc_n = max(0, n - 5)
     limbs = lambda slot, bits: tuple(("limb", slot, s) for s in range(0, bits, 7))  # noqa: E731
     cases = {
         "interval": (fg.FusedPlan((("iv", 0, 0, 1, True, True),), ((1, 1),),
                                   (("count",),) + limbs(2, 20), (), (0, 1, 2)),
-                     (u16, u8, pos), sc(n - 5, 0, 500, 1500), 101),
+                     (u16, u8, pos), sc(sc_n, 0, 500, 1500), 101),
         "runs": (fg.FusedPlan((("runs", 1, 0, 3),), ((0, 1),),
                               (("count",),) + limbs(2, 20), (), (1, 0, 2)),
                  (u8, u16, pos), sc(n, 0, 2, 5, 9, 9, 20, 40), 2001),
@@ -220,6 +231,13 @@ def synthetic_fused_cases(torch, fg, seed):
                                     (("count",),) + limbs(1, 32) + (("neg", 1),),
                                     (), (0, 1)),
                        (u16, signed), sc(n, 0), 2001),
+        "P24_G1001": (fg.FusedPlan((), ((0, 1),),
+                                   (("count",),) + limbs(1, 32) + limbs(2, 32)
+                                   + limbs(3, 32) + limbs(4, 32)
+                                   + (("neg", 1), ("neg", 4)) + limbs(2, 7),
+                                   (), (0, 1, 2, 3, 4)),
+                      (rnd(0, 1001, torch.uint16), signed, pos, u8.to(torch.int32),
+                       signed.flip(0)), sc(n, 0), 1001),
     }
     return {k: (fp, planes, scal, G, n) for k, (fp, planes, scal, G) in cases.items()}
 
@@ -309,7 +327,28 @@ def phase_queries(torch, qe, expected, _cuda):
           "docs_scanned": {k: r.num_docs_scanned for k, r in results.items()},
           "device_dispatches": {k: r.num_device_dispatches
                                 for k, r in results.items()}})
-    return launches
+    return launches, per_query
+
+
+def phase_geometry(torch, _cuda, mxu, fg, recorded) -> None:
+    """The launch geometry of each main-path shape, and how many clusters
+    of each size the card holds at that shape's shared memory."""
+    out = {}
+    for qname, recs in recorded.items():
+        if qname in ("q2", "q9"):
+            fp, planes_in, scalars, G, n = recs[0]
+            name, P = "fused_limb_sums", len(fp.planes)
+            layout, index = fg.slot_layout(planes_in), scalars.device.index
+        else:
+            planes, gid, G = recs[0]
+            name, (P, n) = "limb_sums", planes.shape
+            layout, index = mxu.slot_layout(planes, gid), gid.device.index
+        geo = _cuda.geometry_for(name, n, P, G, *layout, index)
+        out[qname] = dict(geometry_of(geo), kernel=name, n=n, P=P, G=G,
+                          active_clusters={c: _cuda.max_active_clusters(
+                              name, c, geo.smem_bytes) for c in (1, 2, 4, 8)})
+    emit({"phase": "geometry", "sms": torch.cuda.get_device_properties(0)
+          .multi_processor_count, "shapes": out})
 
 
 def phase_layers(torch, qe, schema, segments, iters, card) -> dict:
@@ -385,6 +424,8 @@ def phase_profile(torch, qe, card) -> dict:
 
 
 def cuda_ms(torch, fn, iters=20) -> float:
+    """Mean time of fn() with CUDA events around `iters` calls, after a
+    warm-up: what a caller waits for, the host's launch work included."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -397,26 +438,99 @@ def cuda_ms(torch, fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fns, kernel, iters=20):
+    """The kernel's own device time per launch: torch.profiler's
+    self_device_time_total of the CUDA kernel named `kernel`, over `iters`
+    calls cycling through `fns` (one per segment's inputs). The profiler
+    may drop some of a window's kernel events: the mean is over the events
+    it kept, gathered over up to 5 windows until `iters` are in."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    total_us, count, seen = 0.0, 0, set()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and kernel_name(e.key) == kernel):
+                total_us += e.self_device_time_total
+                count += e.count
+                seen.add(e.key)
+        if count >= iters:
+            break
+    if count < iters:
+        raise AssertionError(f"profiler saw {count} launches of {kernel} "
+                             f"in 5 windows of {iters}: {sorted(seen)}")
+    return total_us / 1e3 / count
+
+
+def kernel_name(key: str):
+    """Which of the port's kernels a profiler event key names, if any."""
+    if "fused_limb_sums_kernel" in key:
+        return "fused_limb_sums"
+    if "limb_sums_kernel" in key:
+        return "limb_sums"
+    return None
+
+
 def bound(nbytes: float, ops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_a_row(torch, mxu, planes, gid, G, launches, err, source_note):
-    P, n = planes.shape
-    ms = cuda_ms(torch, lambda: mxu.limb_sums(planes, gid, G))
-    plain_ms = cuda_ms(torch, lambda: mxu.limb_sums_plain(planes, gid, G), 5)
-    planes64, gid64 = planes.to(torch.int64), gid.to(torch.int64)
-    lib_ms = cuda_ms(torch, lambda: torch.zeros(
-        (P, G), dtype=torch.int64, device=DEVICE).index_add_(1, gid64, planes64))
-    bound_ms, by = bound(n * (4 + P) + 8 * P * G, n * P)
-    return {"name": "limb_sums", "route": "cuda",
-            "source": "pinot_tpu_torch/csrc/limb_sums.cu",
-            "replaces": "pinot_tpu/ops/mxu_groupby.py:211",
+def geometry_of(geo) -> dict:
+    return {"mode": geo.mode, "cluster": geo.cluster, "clusters": geo.clusters,
+            "table_planes": geo.table_planes, "table_groups": geo.table_groups,
+            "tile_rows": geo.tile_rows, "stages": geo.stages,
+            "stage_bytes": geo.stage_bytes, "smem_bytes": geo.smem_bytes,
+            "iters": geo.iters, "tail_rows": geo.tail_rows,
+            "warp_agg": geo.warp_agg}
+
+
+def kernel_row(torch, name, calls, plain, library, nbytes, ops, shape,
+               launches, err, note, geo) -> dict:
+    """One row of the kernel table; `calls` are the kernel's wrapper calls
+    on each segment's recorded inputs."""
+    ms = device_ms(torch, calls, name)
+    k = iter(range(1 << 30))
+    call_ms = cuda_ms(torch, lambda: calls[next(k) % len(calls)]())
+    plain_ms = cuda_ms(torch, plain, 5)
+    lib_ms = cuda_ms(torch, library, 5)
+    bound_ms, by = bound(nbytes, ops)
+    src = {"limb_sums": ("pinot_tpu_torch/csrc/limb_sums.cu",
+                         "pinot_tpu/ops/mxu_groupby.py:211"),
+           "fused_limb_sums": ("pinot_tpu_torch/csrc/fused_limb_sums.cu",
+                               "pinot_tpu/ops/fused_groupby.py:314")}[name]
+    return {"name": name, "route": "cuda", "source": src[0], "replaces": src[1],
             "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": lib_ms, "shape": {"n": n, "P": P, "G": G},
-            "inputs": source_note}
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "bound_share": bound_ms / ms,
+            "library_ms": lib_ms, "shape": shape, "inputs": note,
+            "geometry": geometry_of(geo), "redesigned": "PR 3"}
+
+
+def kernel_a_row(torch, mxu, _cuda, recs, launches, err, note):
+    """Kernel A over the recorded (planes, gid, G) of each segment."""
+    planes, gid, G = recs[0]
+    P, n = planes.shape
+    calls = [lambda r=r: mxu.limb_sums(*r) for r in recs]
+    planes64, gid64 = planes.to(torch.int64), gid.to(torch.int64)
+    geo = _cuda.geometry_for("limb_sums", n, P, G,
+                             *mxu.slot_layout(planes, gid), gid.device.index)
+    row = kernel_row(
+        torch, "limb_sums", calls, lambda: mxu.limb_sums_plain(planes, gid, G),
+        lambda: torch.zeros((P, G), dtype=torch.int64, device=DEVICE
+                            ).index_add_(1, gid64, planes64),
+        n * (4 + P) + 8 * P * G, n * P, {"n": n, "P": P, "G": G},
+        launches, err, note, geo)
+    del planes64, gid64
+    return row
 
 
 def fused_cost(fp, planes_in, n, G):
@@ -427,26 +541,89 @@ def fused_cost(fp, planes_in, n, G):
     return n * width + 8 * P * G, ops
 
 
-def kernel_b_row(torch, fg, rec, launches, err, source_note):
-    fp, planes_in, scalars, G, n = rec
-    ms = cuda_ms(torch, lambda: fg.fused_limb_sums(fp, planes_in, scalars, G, n))
-    plain_ms = cuda_ms(torch, lambda: fg.fused_limb_sums_plain(
-        fp, planes_in, scalars, G, n), 5)
+def kernel_b_row(torch, fg, _cuda, recs, launches, err, note):
+    """Kernel B over the recorded (fp, planes_in, scalars, G, n) of each
+    segment."""
+    fp, planes_in, scalars, G, n = recs[0]
+    calls = [lambda r=r: fg.fused_limb_sums(*r) for r in recs]
     gid64, vals = fg.fused_planes(fp, planes_in, scalars, G, n)
     P = len(fp.planes)
-    lib_ms = cuda_ms(torch, lambda: torch.zeros(
-        (P, G), dtype=torch.int64, device=DEVICE).index_add_(1, gid64, vals))
     nbytes, ops = fused_cost(fp, planes_in, n, G)
-    bound_ms, by = bound(nbytes + 4 * scalars.numel(), ops)
-    return {"name": "fused_limb_sums", "route": "cuda",
-            "source": "pinot_tpu_torch/csrc/fused_limb_sums.cu",
-            "replaces": "pinot_tpu/ops/fused_groupby.py:314",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": lib_ms,
-            "shape": {"n": n, "P": P, "G": G,
-                      "slot_bytes_per_row": sum(t.element_size() for t in planes_in)},
-            "inputs": source_note}
+    geo = _cuda.geometry_for("fused_limb_sums", n, P, G,
+                             *fg.slot_layout(planes_in), scalars.device.index)
+    row = kernel_row(
+        torch, "fused_limb_sums", calls,
+        lambda: fg.fused_limb_sums_plain(fp, planes_in, scalars, G, n),
+        lambda: torch.zeros((P, G), dtype=torch.int64, device=DEVICE
+                            ).index_add_(1, gid64, vals),
+        nbytes + 4 * scalars.numel(), ops,
+        {"n": n, "P": P, "G": G,
+         "slot_bytes_per_row": sum(t.element_size() for t in planes_in)},
+        launches, err, note, geo)
+    del gid64, vals
+    return row
+
+
+def phase_edges(torch, mxu, fg, geometry, _cuda, seed) -> dict:
+    """The kernels at the edges of the new geometry, each element-equal to
+    its plain version (or, for the saturation cases, to the exact sum)."""
+    out = {}
+    one_tile = geometry.tile_rows_for((4, 1, 1))
+    for label, (n, P, G) in {"n0": (0, 2, 10), "below_one_tile": (1000, 2, 10),
+                             "one_tile": (one_tile, 2, 10),
+                             "one_tile_plus_3": (one_tile + 3, 2, 10)}.items():
+        planes, gid = limb_inputs(torch, n, P, G, seed)
+        out[f"limb_sums/{label}"] = check_equal(
+            torch, f"limb_sums {label}", mxu.limb_sums(planes, gid, G),
+            mxu.limb_sums_plain(planes, gid, G))
+
+    def only(name, cluster=None):
+        return lambda c, smem: (0 if cluster is not None and c != cluster
+                                else min(1, _cuda.max_active_clusters(name, c, smem)))
+
+    n = (1 << 25) + 5
+    for label, (P, G, occupancy) in {
+            "saturation": (1, 1, None),
+            "saturation_one_cta": (1, 1, only("limb_sums", 1)),
+            "saturation_one_cluster": (8, 7001, only("limb_sums"))}.items():
+        planes = torch.full((P, n), 127, dtype=torch.int8, device=DEVICE)
+        gid = torch.zeros(n, dtype=torch.int32, device=DEVICE)
+        if occupancy is None:
+            got = mxu.limb_sums(planes, gid, G)
+        else:
+            geo = geometry.plan(n, P, G, *mxu.slot_layout(planes, gid),
+                                active_clusters=occupancy)
+            if geo.iters <= geo.epoch_iters:
+                raise AssertionError(f"{label}: no flush mid-run in {geo}")
+            got = mxu.launch(planes, gid, G, geo)
+        want = torch.zeros((P, G), dtype=torch.int64, device=DEVICE)
+        want[:, 0] = 127 * n
+        out[f"limb_sums/{label}"] = check_equal(torch, f"limb_sums {label}",
+                                                got, want)
+        del planes, gid
+    u8 = torch.zeros(n, dtype=torch.uint8, device=DEVICE)
+    val = torch.full((n,), 127, dtype=torch.int32, device=DEVICE)
+    fp = fg.FusedPlan((), ((0, 1),), (("count",), ("limb", 1, 0)), (), (0, 1))
+    scal = torch.tensor([n, 0], dtype=torch.int32, device=DEVICE)
+    want = torch.tensor([[n], [127 * n]], dtype=torch.int64, device=DEVICE)
+    out["fused_limb_sums/saturation"] = check_equal(
+        torch, "fused_limb_sums saturation",
+        fg.fused_limb_sums(fp, (u8, val), scal, 1, n), want)
+    geo = geometry.plan(n, 2, 1, *fg.slot_layout((u8, val)),
+                        active_clusters=only("fused_limb_sums", 1))
+    out["fused_limb_sums/saturation_one_cta"] = check_equal(
+        torch, "fused_limb_sums saturation one CTA",
+        fg.launch(fp, (u8, val), scal, 1, geo), want)
+    del u8, val
+    for label, n in {"n0": 0, "below_one_tile": 1000,
+                     "ragged": (1 << 20) + 3}.items():
+        fp, planes_in, scal, G, _ = synthetic_fused_cases(torch, fg, seed, n)["interval"]
+        out[f"fused_limb_sums/{label}"] = check_equal(
+            torch, f"fused_limb_sums {label}",
+            fg.fused_limb_sums(fp, planes_in, scal, G, n),
+            fg.fused_limb_sums_plain(fp, planes_in, scal, G, n))
+    torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -465,7 +642,7 @@ def main(argv=None) -> int:
         return 2
     try:
         from pinot_tpu_torch.engine.query_executor import QueryExecutor
-        from pinot_tpu_torch.ops import _cuda, fused_groupby, mxu_groupby
+        from pinot_tpu_torch.ops import _cuda, fused_groupby, geometry, mxu_groupby
     except ImportError as e:
         print(f"chip_smoke: the pinot_tpu_torch package is missing ({e}); "
               "run from the repository root", file=sys.stderr)
@@ -480,6 +657,8 @@ def main(argv=None) -> int:
                              "q9_shape": (1 << 23, 8, 7001),
                              "G32768_P1": (1 << 23, 1, 32768),
                              "P24_G128": (1 << 23, 24, 128),
+                             "P24_G1001": (1 << 23, 24, 1001),
+                             "P16_G32768": (1 << 21, 16, 32768),
                              "ragged_n": ((1 << 23) - 12345, 5, 1001),
                              "G1": (100_003, 3, 1)}.items():
         planes, gid = limb_inputs(torch, n, P, G, args.seed)
@@ -494,6 +673,8 @@ def main(argv=None) -> int:
             torch, f"fused_limb_sums {label}",
             fused_groupby.fused_limb_sums(fp, planes_in, scal, G, n),
             fused_groupby.fused_limb_sums_plain(fp, planes_in, scal, G, n))
+    parity.update(phase_edges(torch, mxu_groupby, fused_groupby, geometry,
+                              _cuda, args.seed))
     torch.cuda.empty_cache()
 
     schema, segments, cols, tmp = phase_data(args, torch)
@@ -502,30 +683,35 @@ def main(argv=None) -> int:
         del cols
         qe = QueryExecutor(device=DEVICE)
         qe.add_table(schema, segments)
-        launches = phase_queries(torch, qe, expected, _cuda)
+        launches, per_query = phase_queries(torch, qe, expected, _cuda)
 
-        # the main path's own kernel inputs (segment 0 of each query), for
-        # the parity of B over q2/q9's plans and the kernel timings
-        with recording(fused_groupby, "fused_limb_sums") as fused_calls:
-            qe.execute_sql(Q2)
-            qe.execute_sql(Q9)
-        with recording(mxu_groupby, "limb_sums") as limb_calls:
-            qe.execute_sql(Q2_UNFUSED)
-        fused_q2 = fused_calls[0]
-        fused_q9 = fused_calls[len(segments)]
-        for label, rec in (("q2_plan", fused_q2), ("q9_plan", fused_q9)):
-            fp, planes_in, scal, G, n = rec
-            parity[f"fused_limb_sums/{label}"] = check_equal(
-                torch, f"fused_limb_sums {label}",
-                fused_groupby.fused_limb_sums(fp, planes_in, scal, G, n),
-                fused_groupby.fused_limb_sums_plain(fp, planes_in, scal, G, n))
-        q2_planes, q2_gid, q2_G = limb_calls[0]
-        parity["limb_sums/q2_unfused_inputs"] = check_equal(
-            torch, "limb_sums q2_unfused inputs",
-            mxu_groupby.limb_sums(q2_planes, q2_gid, q2_G),
-            mxu_groupby.limb_sums_plain(q2_planes, q2_gid, q2_G))
+        # the main path's own kernel inputs, one call per segment and query,
+        # for the parity over q2/q9's plans and the kernel timings
+        recorded = {}
+        for qname, owner, fn in (("q2", fused_groupby, "fused_limb_sums"),
+                                 ("q9", fused_groupby, "fused_limb_sums"),
+                                 ("q2_unfused", mxu_groupby, "limb_sums"),
+                                 ("flagship", mxu_groupby, "limb_sums")):
+            with recording(owner, fn) as calls:
+                qe.execute_sql(QUERIES[qname])
+            if len(calls) != len(segments):
+                raise AssertionError(f"{qname}: {len(calls)} calls of {fn}")
+            recorded[qname] = calls
+        for qname in ("q2", "q9"):
+            for k, (fp, planes_in, scal, G, n) in enumerate(recorded[qname]):
+                parity[f"fused_limb_sums/{qname}_plan/segment{k}"] = check_equal(
+                    torch, f"fused_limb_sums {qname} plan, segment {k}",
+                    fused_groupby.fused_limb_sums(fp, planes_in, scal, G, n),
+                    fused_groupby.fused_limb_sums_plain(fp, planes_in, scal, G, n))
+        for qname in ("q2_unfused", "flagship"):
+            for k, (planes, gid, G) in enumerate(recorded[qname]):
+                parity[f"limb_sums/{qname}_inputs/segment{k}"] = check_equal(
+                    torch, f"limb_sums {qname} inputs, segment {k}",
+                    mxu_groupby.limb_sums(planes, gid, G),
+                    mxu_groupby.limb_sums_plain(planes, gid, G))
         emit({"phase": "parity", "max_abs_err": parity,
               "tolerance": "element-equal int64"})
+        phase_geometry(torch, _cuda, mxu_groupby, fused_groupby, recorded)
 
         # -- times ----------------------------------------------------------
         p50, quartiles = {}, {}
@@ -545,22 +731,23 @@ def main(argv=None) -> int:
               "iters": args.iters})
         phase_layers(torch, qe, schema, segments, args.iters, dev["nvidia_smi"])
         phase_profile(torch, qe, dev["nvidia_smi"])
-        kernels = [
-            kernel_a_row(torch, mxu_groupby, q2_planes, q2_gid, q2_G,
-                         launches["limb_sums"],
-                         parity["limb_sums/q2_unfused_inputs"],
-                         "q2 unfused, segment 0: the main path's planes"),
-            kernel_b_row(torch, fused_groupby, fused_q2,
-                         launches["fused_limb_sums"],
-                         parity["fused_limb_sums/q2_plan"],
-                         "q2, segment 0: the main path's raw planes"),
-        ]
-        extra = kernel_b_row(torch, fused_groupby, fused_q9,
-                             launches["fused_limb_sums"],
-                             parity["fused_limb_sums/q9_plan"],
-                             "q9, segment 0: the main path's raw planes")
-        emit({"phase": "kernel_times_extra", "card": dev["nvidia_smi"],
-              "fused_limb_sums_q9": extra})
+        del qe
+        torch.cuda.empty_cache()
+        kernels = []
+        for qname in ("q2_unfused", "flagship"):
+            kernels.append(kernel_a_row(
+                torch, mxu_groupby, _cuda, recorded[qname],
+                per_query[qname]["limb_sums"],
+                parity[f"limb_sums/{qname}_inputs/segment0"],
+                f"{qname}: the main path's planes of the {len(segments)} "
+                "segments, in turn"))
+        for qname in ("q2", "q9"):
+            kernels.append(kernel_b_row(
+                torch, fused_groupby, _cuda, recorded[qname],
+                per_query[qname]["fused_limb_sums"],
+                parity[f"fused_limb_sums/{qname}_plan/segment0"],
+                f"{qname}: the main path's raw planes of the {len(segments)} "
+                "segments, in turn"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

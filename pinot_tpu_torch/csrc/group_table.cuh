@@ -1,85 +1,767 @@
-// Per-block group table shared by the two dense group-by kernels
+// Persistent cluster machinery shared by the two dense group-by kernels
 // (limb_sums.cu, fused_limb_sums.cu).
 //
-// Each block owns an int32 table of `np x G` counters in dynamic shared
-// memory: it zeroes the table, accumulates its rows into it with shared
-// atomics, and flushes the non-zero counters into the (P, G) int64 output
-// with 64-bit global atomics. A block sums at most kMaxBlockRows rows of
-// values <= 127, so its int32 counters stay exact (127 * 2^24 < 2^31).
+// One grid of thread-block clusters, about one CTA per SM, walks the rows
+// in tiles. Warp 0 of each CTA keeps a ring of `stages` tiles in shared
+// memory filled with 1-D bulk asynchronous copies (cp.async.bulk, one per
+// slot plane and tile, completion counted in bytes on a "full" mbarrier),
+// so `stages - 1` tiles are in flight while the CTA consumes one. Every
+// warp reads its rows of a tile from shared memory, arrives on the stage's
+// "empty" mbarrier and goes on to the next tile; warp 0 refills a stage
+// once every warp has arrived, so no block-wide barrier separates tiles.
+// Each row's plane values go into int32 counters:
+//
+//   private  each CTA holds the whole P x G table; at a flush the cluster
+//            sums its C tables through distributed shared memory (DSMEM) in
+//            int64 and adds the sums to the output once;
+//   split    the planes are split across the cluster (CTA r holds planes
+//            [r * TP, (r + 1) * TP) of every group); CTA 0 multicasts each
+//            tile to every CTA of the cluster, each CTA adds its own planes
+//            of every row, and the warps of every CTA arrive on CTA 0's
+//            empty barriers;
+//   shared   the table is split across the cluster by group (group g lives
+//            in CTA g / TG at local group g % TG); a row's adds go to the
+//            owning CTA's table through DSMEM; each CTA flushes its part;
+//   global   no table: one 64-bit global atomic per row and plane.
+//
+// Tables are flushed in int64 and re-zeroed every `epoch_iters` loop steps,
+// so no int32 counter sums more than 2^24 values <= 127. The geometry
+// (tile rows, ring, cluster size, mode, flush interval, slot layout) comes
+// from pinot_tpu_torch/ops/geometry.py and rides in `Geom`, a kernel
+// parameter: the consumers index it with constants, so its fields are
+// operands from the constant bank. Rows past the last whole tile are read
+// from device memory directly and never past row n - 1.
+//
+// Dynamic shared memory: the full and empty mbarriers (kMaxStages each), a
+// junk word per lane, the table at Geom::table_off, the ring at ring_off.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace pinot {
 
-constexpr int kThreads = 512;
-constexpr long long kMaxBlockRows = 1LL << 24;
-// table budget: two 112 KB blocks fit in one SM's 228 KB of shared memory
-constexpr int kTableBytes = 112 * 1024;
-// rows a block takes at least, so small inputs do not spread thin
-constexpr long long kMinBlockRows = 8LL * kThreads;
+namespace cg = cooperative_groups;
 
-struct Geometry {
-  int plane_chunk;       // planes per block (grid.y = ceil(P / plane_chunk))
-  int chunks;
-  int shared;            // 1: shared-memory table, 0: global atomics
-  int row_blocks;        // grid.x
-  long long block_rows;  // rows per block
-  size_t smem_bytes;
+constexpr int kThreads = 1024;
+constexpr int kMaxSlots = 48;
+// ring stages; the "empty" barriers follow the "full" ones
+constexpr int kMaxStages = 4;
+// dynamic shared memory a CTA may take: 232,448 bytes less 3 KB of static
+constexpr int kMaxDynamicSmem = 232448 - 3072;
+constexpr unsigned kFullMask = 0xffffffffu;
+// consecutive rows a thread carries through one step of a tile: one vector
+// load reads a slot's values of all of them, and their adds are independent
+constexpr int kRowsPerStep = 4;
+
+enum TableMode {
+  kGlobalAtomics = 0,
+  kPrivateTables = 1,
+  kSharedTable = 2,
+  kSplitPlanes = 3
 };
 
-inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
+// Layout shared with pinot_tpu_torch/ops/_cuda.py (_Geom).
+struct Geom {
+  long long n;
+  long long full_rows;
+  unsigned long long vec_mask;  // bit s: slot s's rows in a stage start on
+                                // a multiple of 4 rows (one vector load)
+  int tile_rows;
+  int stages;
+  int stage_bytes;
+  int tx_bytes;
+  int num_slots;
+  int mode;
+  int cluster;
+  int clusters;
+  int iters;
+  int epoch_iters;
+  int table_planes;
+  int table_groups;
+  int table_counters;
+  int table_off;
+  int ring_off;
+  int smem_bytes;
+  int warp_agg;
+  unsigned tg_inv;  // ceil(2^32 / table_groups): g / table_groups = umulhi
+  int mis[kMaxSlots];
+  int copy_bytes[kMaxSlots];
+  int smem_off[kMaxSlots];
+  int row_off[kMaxSlots];  // of row 0 within a stage
+};
+
+// -- PTX helpers ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Arrive on the mbarrier at `addr` in the cluster's shared memory (mapa;
+// a shared::cta address of this CTA is one too).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-aligned)
+// from device memory into this CTA's shared memory.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The same copy into the shared memory of every CTA in `mask`, at the same
+// offset, each completing on its own mbarrier at `bar`'s offset.
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src,
+                                                    uint32_t bytes,
+                                                    uint64_t* bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
+      "multicast::cluster [%0], [%1], %2, [%3], %4;" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar)),
+      "h"(mask)
+      : "memory");
+}
+
+// -- counters --------------------------------------------------------------
+
+// One slot plane, as warp 0's copies read it; kept in shared memory.
+struct Slot {
+  const unsigned char* src;  // the aligned address below row 0
+  int width;                 // bytes per row
+  int copy_bytes;            // of one tile's copy
+  int smem_off;              // of the copy within a stage
+};
+
+struct Ctx {
+  int* table;
+  uint32_t table_addr;  // the table's shared-memory address
+  unsigned long long* out;
+  int mode;
+  int rank;
+  int tg;      // groups of one CTA's table
+  unsigned tg_inv;
+  int groups;  // G of the output
+  int p0, p1;  // the planes of this CTA's table (split), else [0, P)
+  uint32_t junk;  // this lane's word of the junk row (shared memory)
+};
+
+// The values of rows r .. r + 3 (r a multiple of 4) of a slot plane at
+// `base` in shared memory: by one vector load when `vec` (the plane's place
+// in the stage is aligned to 4 rows), else by four scalar loads; 0 where
+// !valid.
+__device__ __forceinline__ void load4_u8(const unsigned char* base, int r,
+                                         bool valid, bool vec, int (&out)[4]) {
+  if (!valid) {
+    out[0] = out[1] = out[2] = out[3] = 0;
+  } else if (vec) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(base + r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[k] = (int)((w >> (8 * k)) & 0xffu);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[k] = base[r + k];
   }
-  return sms;
 }
 
-inline Geometry plan_geometry(long long n, int planes, int groups) {
-  Geometry g;
-  const long long per_plane = 4LL * groups;
-  g.shared = per_plane <= kTableBytes;
-  g.plane_chunk = g.shared ? (int)(kTableBytes / per_plane) : planes;
-  if (g.plane_chunk > planes) g.plane_chunk = planes;
-  g.chunks = (planes + g.plane_chunk - 1) / g.plane_chunk;
-  // about four blocks per SM over all plane chunks
-  long long want = (4LL * sm_count() + g.chunks - 1) / g.chunks;
-  long long most = (n + kMinBlockRows - 1) / kMinBlockRows;
-  long long blocks = want < most ? want : most;
-  if (blocks < 1) blocks = 1;
-  long long rows = (n + blocks - 1) / blocks;
-  if (rows > kMaxBlockRows) {
-    blocks = (n + kMaxBlockRows - 1) / kMaxBlockRows;
-    rows = (n + blocks - 1) / blocks;
+__device__ __forceinline__ void load4_s8(const unsigned char* base, int r,
+                                         bool valid, bool vec, int (&out)[4]) {
+  if (!valid) {
+    out[0] = out[1] = out[2] = out[3] = 0;
+  } else if (vec) {
+    const int32_t w = *reinterpret_cast<const int32_t*>(base + r);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[k] = (w << (24 - 8 * k)) >> 24;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      out[k] = reinterpret_cast<const int8_t*>(base)[r + k];
   }
-  g.row_blocks = (int)blocks;
-  g.block_rows = rows;
-  g.smem_bytes = g.shared ? (size_t)per_plane * g.plane_chunk : 0;
-  return g;
 }
 
-__device__ __forceinline__ void table_zero(int* table, int count) {
-  for (int i = threadIdx.x; i < count; i += blockDim.x) table[i] = 0;
+__device__ __forceinline__ void load4_u16(const unsigned char* base, int r,
+                                          bool valid, bool vec, int (&out)[4]) {
+  const uint16_t* b = reinterpret_cast<const uint16_t*>(base);
+  if (!valid) {
+    out[0] = out[1] = out[2] = out[3] = 0;
+  } else if (vec) {
+    const uint2 w = *reinterpret_cast<const uint2*>(b + r);
+    out[0] = (int)(w.x & 0xffffu);
+    out[1] = (int)(w.x >> 16);
+    out[2] = (int)(w.y & 0xffffu);
+    out[3] = (int)(w.y >> 16);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[k] = b[r + k];
+  }
 }
 
-// Flush counters of planes [p0, p0 + np) into out[(p0 + k) * G + g].
-__device__ __forceinline__ void table_flush(const int* table, int np, int p0,
-                                            int groups,
-                                            unsigned long long* out) {
-  const int count = np * groups;
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    const int v = table[i];
-    if (v != 0) {
-      const int k = i / groups;
-      atomicAdd(out + (long long)(p0 + k) * groups + (i - k * groups),
-                (unsigned long long)v);
+__device__ __forceinline__ void load4_i32(const unsigned char* base, int r,
+                                          bool valid, bool vec, int (&out)[4]) {
+  const int32_t* b = reinterpret_cast<const int32_t*>(base);
+  if (!valid) {
+    out[0] = out[1] = out[2] = out[3] = 0;
+  } else if (vec) {
+    const int4 w = *reinterpret_cast<const int4*>(b + r);
+    out[0] = w.x;
+    out[1] = w.y;
+    out[2] = w.z;
+    out[3] = w.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[k] = b[r + k];
+  }
+}
+
+// One add into this CTA's table. A row that adds nothing (a zero payload,
+// or a row the filter drops) adds into its lane's own junk word instead:
+// the add needs no branch around it, and the masked rows of a warp do not
+// pile onto one counter (the trash group).
+__device__ __forceinline__ void red_shared(uint32_t addr, int v) {
+  asm volatile("red.shared::cta.add.u32 [%0], %1;" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+// The same into a table anywhere in the cluster: `addr` from mapa (this
+// CTA's own shared-memory addresses, such as the junk word, are cluster
+// addresses too).
+__device__ __forceinline__ void red_cluster(uint32_t addr, int v) {
+  asm volatile("red.shared::cluster.add.u32 [%0], %1;" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+// A predicated reduction: nothing happens where v == 0.
+__device__ __forceinline__ void red_global(unsigned long long* addr, int v) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.s32 p, %1, 0;\n"
+      "@p red.global.add.u64 [%0], %2;\n}\n" ::"l"(
+          reinterpret_cast<uint64_t>(addr)),
+      "r"(v), "l"((unsigned long long)(unsigned)v)
+      : "memory");
+}
+
+// Adds `bytes` of int64 at `src` (shared memory, 16-aligned) into `dst`
+// (device memory, 16-aligned) with one bulk asynchronous reduction.
+__device__ __forceinline__ void bulk_add_u64(unsigned long long* dst,
+                                             const long long* src,
+                                             uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.u64 [%0], [%1], "
+      "%2;" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Until the bulk reductions issued by this thread have read their source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Until they have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// The address of `addr` (this CTA's shared memory) in CTA `rank`'s.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Adds the plane values of K rows into their groups g[k], for the rows
+// with m[k] (and, with kSkipZero, a non-zero value: kernel A's masked rows
+// are live rows of zero payload in the trash group). Every other add goes
+// to the lane's junk word. vals(p, v) fills v[k] with plane p's value of
+// row k, whatever m[k]; the loop over the planes is unrolled to kMaxP, so
+// the plane index is a constant of the code and per-plane fields of the
+// kernels' parameters are operands from the constant bank. Every lane of
+// the warp calls this together. With warp_agg (private tables of few
+// groups, where lanes often hit one counter) the lanes first sum equal
+// groups within the warp and one lane adds each sum.
+template <int K, int kMaxP, bool kSkipZero, class Vals>
+__device__ __forceinline__ void add_rows(const Ctx& c, const bool (&m)[K],
+                                         const int (&g)[K], int planes,
+                                         const Vals& vals, bool warp_agg) {
+  int v[K];
+  auto at = [&](int k, uint32_t addr) {
+    return (kSkipZero ? m[k] && v[k] != 0 : m[k]) ? addr : c.junk;
+  };
+  if (c.mode == kGlobalAtomics) {
+#pragma unroll
+    for (int p = 0; p < kMaxP; ++p) {
+      if (p >= planes) break;
+      vals(p, v);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        red_global(c.out + (long long)p * c.groups + g[k], m[k] ? v[k] : 0);
+    }
+  } else if (c.mode == kSplitPlanes) {
+    // this CTA's planes [p0, p1) of every group, at (p - p0) * G + g
+    uint32_t a[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      a[k] = c.table_addr + 4u * (uint32_t)(g[k] - c.p0 * c.tg);
+#pragma unroll
+    for (int p = 0; p < kMaxP; ++p) {
+      if (p >= c.p1) break;
+      if (p < c.p0) continue;
+      vals(p, v);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        red_shared(at(k, a[k] + 4u * (uint32_t)(p * c.tg)), v[k]);
+    }
+  } else if (c.mode == kSharedTable) {
+    // group g lives in CTA g / tg at local group g % tg
+    uint32_t a[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int owner = (int)__umulhi((unsigned)g[k], c.tg_inv);
+      a[k] = map_rank(c.table_addr + 4u * (uint32_t)(g[k] - owner * c.tg),
+                      owner);
+    }
+#pragma unroll
+    for (int p = 0; p < kMaxP; ++p) {
+      if (p >= planes) break;
+      vals(p, v);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        red_cluster(at(k, a[k] + 4u * (uint32_t)(p * c.tg)), v[k]);
+    }
+  } else if (warp_agg) {
+    const int lane = threadIdx.x & 31;
+    unsigned peers[K];
+    bool leader[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const unsigned active = __ballot_sync(kFullMask, m[k]);
+      peers[k] = m[k] ? __match_any_sync(active, g[k]) : 0u;
+      leader[k] = m[k] && lane == __ffs(peers[k]) - 1;
+    }
+#pragma unroll
+    for (int p = 0; p < kMaxP; ++p) {
+      if (p >= planes) break;
+      vals(p, v);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (m[k]) {
+          const unsigned sum = __reduce_add_sync(peers[k], (unsigned)v[k]);
+          const uint32_t addr =
+              c.table_addr + 4u * (uint32_t)(p * c.tg + g[k]);
+          red_shared(leader[k] ? addr : c.junk, (int)sum);
+        }
+      }
+    }
+  } else {
+    uint32_t a[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) a[k] = c.table_addr + 4u * (uint32_t)g[k];
+#pragma unroll
+    for (int p = 0; p < kMaxP; ++p) {
+      if (p >= planes) break;
+      vals(p, v);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        red_shared(at(k, a[k] + 4u * (uint32_t)(p * c.tg)), v[k]);
     }
   }
+}
+
+// Zeroes a table of `counters` int32, rounded up to whole int4s (the
+// table's space in shared memory is).
+__device__ __forceinline__ void zero_table(int* table, int counters) {
+  int4* t4 = reinterpret_cast<int4*>(table);
+  const int4 zero = make_int4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < (counters + 3) / 4; i += blockDim.x) t4[i] = zero;
+}
+
+// Where counter i of this CTA's shared or split table goes in the flat
+// (P, G) output (a private table's layout is the output's).
+__device__ __forceinline__ long long out_index(const Ctx& c, int i) {
+  const int p = i / c.tg;
+  const int g = i - p * c.tg;
+  if (c.mode == kSharedTable)
+    return (long long)p * c.groups + c.rank * c.tg + g;
+  return (long long)(c.p0 + p) * c.groups + g;
+}
+
+// Collective over the cluster, between epochs: add the tables into the
+// output (int64) with one global atomic per non-zero counter, and zero them
+// for the next epoch. No CTA re-zeroes while another may still read or add
+// into its table.
+// Counters go four at a time (int4): in private mode CTA `rank` sums the
+// rank-th share of the table's int4s over the C tables.
+__device__ __forceinline__ void flush_tables(const Ctx& c,
+                                             cg::cluster_group& cl,
+                                             int counters, int csize) {
+  cl.sync();
+  const int chunks = (counters + 3) / 4;
+  if (c.mode == kPrivateTables) {
+    const int per = (chunks + csize - 1) / csize;
+    const int lo = c.rank * per;
+    const int hi = min(chunks, lo + per);
+    for (int i4 = lo + (int)threadIdx.x; i4 < hi; i4 += blockDim.x) {
+      long long s[4] = {0, 0, 0, 0};
+      for (int r = 0; r < csize; ++r) {
+        const int4 v =
+            reinterpret_cast<const int4*>(cl.map_shared_rank(c.table, r))[i4];
+        s[0] += v.x;
+        s[1] += v.y;
+        s[2] += v.z;
+        s[3] += v.w;
+      }
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const int i = 4 * i4 + l;
+        if (i < counters && s[l]) {
+          const int p = i / c.tg;
+          atomicAdd(c.out + (long long)p * c.groups + (i - p * c.tg),
+                    (unsigned long long)s[l]);
+        }
+      }
+    }
+  } else if (c.mode != kGlobalAtomics) {
+    for (int i4 = threadIdx.x; i4 < chunks; i4 += blockDim.x) {
+      const int4 v4 = reinterpret_cast<const int4*>(c.table)[i4];
+      const int v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const int i = 4 * i4 + l;
+        if (i < counters && v[l])
+          atomicAdd(c.out + out_index(c, i), (unsigned long long)v[l]);
+      }
+    }
+  }
+  cl.sync();
+  zero_table(c.table, counters);
+  cl.sync();
+}
+
+// Adds values [0, count) to out[dst, dst + count) through `staging` (int64
+// in this CTA's shared memory, room for `cap` values). A round of at most
+// cap - 4 values (a multiple of 4): fill(b, n, at) writes values [b, b + n)
+// to at[0, n); they sit at the parity of their place in `out`, padded with
+// zeros to whole 16 bytes, and thread 0 adds them with one bulk reduction.
+// The output is 16-aligned and has room for the padding past its last
+// counter; adding 0 to a neighbour changes nothing.
+template <class Fill>
+__device__ __forceinline__ void reduce_range(unsigned long long* out,
+                                             long long dst, int count,
+                                             long long* staging, int cap,
+                                             const Fill& fill) {
+  const int step = (cap - 4) & ~3;
+  for (int b = 0; b < count; b += step) {
+    const int n = min(step, count - b);
+    const int sh = (int)((dst + b) & 1);
+    fill(b, n, staging + sh);
+    if (threadIdx.x == 0) {
+      if (sh) staging[0] = 0;
+      if ((sh + n) & 1) staging[sh + n] = 0;
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      bulk_add_u64(out + (dst + b - sh), staging,
+                   8u * (uint32_t)((sh + n + 1) & ~1));
+      bulk_wait_read();
+    }
+    __syncthreads();
+  }
+}
+
+// The last flush: like flush_tables, but each CTA adds its int64 sums to the
+// output by bulk reductions of contiguous ranges, staged in the ring (idle
+// by then), not by one global atomic per counter.
+__device__ __forceinline__ void flush_final(const Ctx& c, cg::cluster_group& cl,
+                                            int counters, int csize,
+                                            long long* staging, int cap) {
+  cl.sync();
+  if (c.mode == kPrivateTables) {
+    // CTA rank sums the rank-th share of the int4s of the flat P x G
+    // tables, whose layout is the output's
+    const int chunks = (counters + 3) / 4;
+    const int per = (chunks + csize - 1) / csize;
+    const int lo = min(counters, 4 * c.rank * per);
+    const int hi = min(counters, 4 * (c.rank + 1) * per);
+    reduce_range(c.out, lo, hi - lo, staging, cap,
+                 [&](int b, int n, long long* at) {
+      for (int i = 4 * (int)threadIdx.x; i < n; i += 4 * blockDim.x) {
+        long long v[4] = {0, 0, 0, 0};
+        for (int r = 0; r < csize; ++r) {
+          const int4 w = *reinterpret_cast<const int4*>(
+              cl.map_shared_rank(c.table + lo + b + i, r));
+          v[0] += w.x;
+          v[1] += w.y;
+          v[2] += w.z;
+          v[3] += w.w;
+        }
+#pragma unroll
+        for (int l = 0; l < 4; ++l)
+          if (i + l < n) at[i + l] = v[l];
+      }
+    });
+  } else if (c.mode == kSplitPlanes) {
+    // planes [p0, p1) of every group: one contiguous range of the output
+    const int n = (c.p1 - c.p0) * c.tg;
+    if (n > 0)
+      reduce_range(c.out, (long long)c.p0 * c.groups, n, staging, cap,
+                   [&](int b, int m, long long* at) {
+        for (int j = threadIdx.x; j < m; j += blockDim.x)
+          at[j] = c.table[b + j];
+      });
+  } else if (c.mode == kSharedTable) {
+    // CTA rank holds groups [rank * tg, (rank + 1) * tg) of every plane
+    const int g0 = c.rank * c.tg;
+    const int n = min(c.tg, c.groups - g0);
+    const int planes = counters / c.tg;
+    for (int p = 0; n > 0 && p < planes; ++p)
+      reduce_range(c.out, (long long)p * c.groups + g0, n, staging, cap,
+                   [&](int b, int m, long long* at) {
+        for (int j = threadIdx.x; j < m; j += blockDim.x)
+          at[j] = c.table[p * c.tg + b + j];
+      });
+  }
+  if (threadIdx.x == 0) bulk_wait();
+  // no CTA leaves while another may still read its table
+  cl.sync();
+}
+
+// -- the persistent loop ------------------------------------------------------
+//
+// Op supplies, for the kernel's slot planes and rows:
+//   int width(int s)                      bytes per row of slot s
+//   const unsigned char* slot_ptr(int s)  slot s in device memory
+//   void smem_rows(Ctx&, stage, r, row0, tile_rows)
+//        rows r .. r + kRowsPerStep - 1 (r a multiple of kRowsPerStep; none
+//        when r >= tile_rows) of the tile of rows [row0, row0 + tile_rows)
+//        in a stage
+//   void global_row(Ctx&, row, valid)    a tail row, from device memory
+// Every lane of a warp calls them together.
+template <class Op>
+__device__ __forceinline__ void run(const Geom& geo, const Op& op, int planes,
+                                    int groups,
+                                    unsigned long long* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ Slot slots[kMaxSlots];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  cg::cluster_group cl = cg::this_cluster();
+  const bool split = geo.mode == kSplitPlanes;
+  Ctx c;
+  c.table = reinterpret_cast<int*>(smem + geo.table_off);
+  c.table_addr = smem_u32(c.table);
+  c.out = out;
+  c.mode = geo.mode;
+  c.rank = (int)cl.block_rank();
+  c.tg = geo.table_groups;
+  c.tg_inv = geo.tg_inv;
+  c.groups = groups;
+  c.p0 = split ? c.rank * geo.table_planes : 0;
+  c.p1 = split ? min(planes, c.p0 + geo.table_planes) : planes;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  c.junk = smem_u32(smem) + 8u * 2 * kMaxStages + 4u * (uint32_t)lane;
+
+  if (tid < geo.num_slots) {
+    Slot& sl = slots[tid];
+    sl.width = op.width(tid);
+    sl.src = op.slot_ptr(tid) - geo.mis[tid];
+    sl.copy_bytes = geo.copy_bytes[tid];
+    sl.smem_off = geo.smem_off[tid];
+  }
+  // a stage is free again once every warp that reads it (of the whole
+  // cluster, in the split mode: CTA 0 refills it for all) has arrived
+  const int warps = blockDim.x / 32;
+  if (tid == 0) {
+    for (int s = 0; s < geo.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, split ? geo.cluster * warps : warps);
+    }
+    fence_mbar_init();
+  }
+  zero_table(c.table, geo.table_counters);
+  // every table and barrier of the cluster is ready before the first
+  // (remote) add, copy or arrival
+  cl.sync();
+
+  const int q = blockIdx.x / geo.cluster;
+  // rows past the last whole tile, spread over the grid: by CTA, or by
+  // cluster in the split mode (every CTA of it adds its own planes)
+  {
+    const int unit = split ? q : (int)blockIdx.x;
+    const int units = split ? geo.clusters : (int)gridDim.x;
+    const long long stride = (long long)units * blockDim.x;
+    for (long long base = geo.full_rows + (long long)unit * blockDim.x;
+         base < geo.n; base += stride) {
+      const long long row = base + tid;
+      op.global_row(c, row, row < geo.n);
+    }
+  }
+
+  const long long num_tiles = geo.full_rows / geo.tile_rows;
+  const int rank = c.rank;
+  const int nslots = geo.num_slots;
+  const uint16_t cta_mask = (uint16_t)((1u << geo.cluster) - 1);
+  auto tile_of = [&](int j) -> long long {
+    return split ? (long long)j * geo.clusters + q
+                 : ((long long)j * geo.clusters + q) * geo.cluster + rank;
+  };
+  // warp 0 only, lane k taking slot k (k < 32, then k + 32): the tile of
+  // step j into stage s, once every warp is done with the stage (phase
+  // `free_parity` of its empty barrier, when `refill`). In the split mode
+  // CTA 0 copies for the whole cluster and every CTA expects the bytes.
+  auto issue = [&](int j, int s, bool refill, uint32_t free_parity) {
+    const long long t = tile_of(j);
+    if (t >= num_tiles) return;
+    unsigned char* dst = smem + geo.ring_off + (size_t)s * geo.stage_bytes;
+    const long long row0 = t * geo.tile_rows;
+    if (lane == 0) mbar_expect_tx(full + s, (uint32_t)geo.tx_bytes);
+    if (split && rank != 0) return;
+    if (refill && lane == 0) mbar_wait(empty + s, free_parity);
+    __syncwarp();
+    for (int k = lane; k < nslots; k += 32) {
+      unsigned char* to = dst + slots[k].smem_off;
+      const unsigned char* from = slots[k].src + row0 * slots[k].width;
+      if (split)
+        bulk_load_multicast(to, from, (uint32_t)slots[k].copy_bytes, full + s,
+                            cta_mask);
+      else
+        bulk_load(to, from, (uint32_t)slots[k].copy_bytes, full + s);
+    }
+  };
+
+  if (tid < 32)
+    for (int j = 0; j < geo.stages - 1; ++j) issue(j, j, false, 0);
+  // Step j reads stage s = j % stages in phase `parity`; the copy issued at
+  // step j fills stage (j - 1) % stages, freed when every warp has read
+  // step j - 1 (whose phase was `fill_parity`). No block-wide barrier
+  // between steps: a warp moves on to the next tile as soon as it is done,
+  // so warps at different tiles overlap their latencies.
+  int s = 0, fill = geo.stages - 1;
+  uint32_t parity = 0, fill_parity = 0;
+  const uint32_t empty_addr = split ? map_rank(smem_u32(empty), 0)
+                                    : smem_u32(empty);
+  for (int j = 0; j < geo.iters; ++j) {
+    if (j > 0 && j % geo.epoch_iters == 0)
+      flush_tables(c, cl, geo.table_counters, geo.cluster);
+    if (tid < 32) issue(j + geo.stages - 1, fill, j > 0, fill_parity);
+    const long long t = tile_of(j);
+    if (t < num_tiles) {
+      mbar_wait(full + s, parity);
+      const unsigned char* stage =
+          smem + geo.ring_off + (size_t)s * geo.stage_bytes;
+      const long long row0 = t * geo.tile_rows;
+      for (int r = kRowsPerStep * tid; r < geo.tile_rows;
+           r += kRowsPerStep * blockDim.x)
+        op.smem_rows(c, stage, r, row0, geo.tile_rows);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      // the stage's reads (generic proxy) come before the next copy into
+      // it (async proxy)
+      fence_proxy_async();
+      mbar_arrive_cluster(empty_addr + 8u * (uint32_t)s);
+    }
+    fill = s;
+    fill_parity = parity;
+    if (++s == geo.stages) {
+      s = 0;
+      parity ^= 1;
+    }
+  }
+  flush_final(c, cl, geo.table_counters, geo.cluster,
+              reinterpret_cast<long long*>(smem + geo.ring_off),
+              (geo.stages * geo.stage_bytes / 8) & ~1);
+}
+
+// -- host side -------------------------------------------------------------
+
+// Launch `kernel` over geo's grid of clusters on `stream`.
+template <class Kernel, class... Args>
+inline cudaError_t launch_clusters(Kernel kernel, const Geom& geo,
+                                   cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(geo.clusters * geo.cluster), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)geo.smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)geo.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// How many clusters of `cluster` CTAs with `smem` bytes of dynamic shared
+// memory the card holds at once.
+template <class Kernel>
+inline cudaError_t max_active_clusters(Kernel kernel, int cluster, int smem,
+                                       int* count) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(count, (const void*)kernel, &cfg);
 }
 
 }  // namespace pinot

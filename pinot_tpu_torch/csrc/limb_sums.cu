@@ -1,4 +1,4 @@
-// Dense per-group sums of small-integer payload planes.
+// Dense per-group sums of small-integer payload planes (kernel A).
 //
 // Replaces the TPU kernel pinot_tpu/ops/mxu_groupby.py:211
 // `_pallas_limb_sums` (body `_kernel` :128 -> `_matmul_tail` :142), which
@@ -9,87 +9,112 @@
 //   out[p, g] = sum over rows r with gid[r] == g of planes[p, r]
 //
 // planes (P, n) int8 holding [0, 127], gid (n,) int32 in [0, G);
-// out (P, G) int64, zeroed by the caller. Rows whose payload is 0 are
-// skipped: masked rows all carry gid G-1 and zero payloads, so they add
-// nothing and do not contend on the trash slot.
+// out (P, G) int64, zeroed by the caller. Rows whose payload is 0 add
+// nothing: masked rows all carry gid G-1 and zero payloads, so they do not
+// contend on the trash slot.
 //
 // Bound on an H100: bytes. The function reads n * (4 + P) bytes and writes
-// 8 * P * G; it does 1 add per non-zero payload. The design reads each
-// input byte once (one pass over the rows, plane chunks re-read only gid)
-// and keeps the per-group partial sums in shared memory, so device memory
-// sees the flush of non-zero counters and nothing else. Loads are one byte
-// per thread and the shared atomics serialize on hot groups: both are left
-// for later work (vector loads, warp-aggregated atomics).
+// 8 * P * G; it does one add per non-zero payload, far below the card's
+// integer rate. The design (group_table.cuh) reads every input byte once,
+// with bulk asynchronous copies keeping 2 tiles (32 KB each at P = 4) in
+// flight per SM, and keeps the per-group sums in shared memory: in each
+// CTA's private table when P x G fits one CTA (the cluster then sums its
+// tables through distributed shared memory and flushes once), else split
+// across the cluster by plane (each tile multicast to every CTA of it) or
+// by group. A plane that does not start on 16 bytes (P planes of a ragged
+// n, stacked) is copied from the aligned address below its tile and read at
+// its offset. Plane p's place in a stage is a constant-bank operand
+// (Geom::row_off), as the loop over the planes is unrolled.
 #include "group_table.cuh"
 
 namespace {
 
-using pinot::kThreads;
+using pinot::Ctx;
+using pinot::Geom;
 
-__global__ void __launch_bounds__(kThreads)
-limb_sums_shared(const int8_t* __restrict__ planes,
-                 const int32_t* __restrict__ gid, long long n, int num_planes,
-                 int groups, int plane_chunk, long long block_rows,
-                 unsigned long long* __restrict__ out) {
-  extern __shared__ int table[];
-  const int p0 = blockIdx.y * plane_chunk;
-  const int np = min(plane_chunk, num_planes - p0);
-  pinot::table_zero(table, np * groups);
-  __syncthreads();
-  const long long start = (long long)blockIdx.x * block_rows;
-  const long long end = min(n, start + block_rows);
-  for (long long r = start + threadIdx.x; r < end; r += blockDim.x) {
-    const int g = gid[r];
-    for (int k = 0; k < np; ++k) {
-      const int v = planes[(long long)(p0 + k) * n + r];
-      if (v != 0) atomicAdd(&table[k * groups + g], v);
-    }
-  }
-  __syncthreads();
-  pinot::table_flush(table, np, p0, groups, out);
-}
+// mxu_groupby.MAX_PLANES
+constexpr int kMaxPlanes = 24;
 
-// Groups too many for one plane's table in shared memory: add straight
-// into the int64 output.
-__global__ void __launch_bounds__(kThreads)
-limb_sums_global(const int8_t* __restrict__ planes,
-                 const int32_t* __restrict__ gid, long long n, int num_planes,
-                 int groups, long long block_rows,
-                 unsigned long long* __restrict__ out) {
-  const long long start = (long long)blockIdx.x * block_rows;
-  const long long end = min(n, start + block_rows);
-  for (long long r = start + threadIdx.x; r < end; r += blockDim.x) {
-    const int g = gid[r];
-    for (int p = 0; p < num_planes; ++p) {
-      const int v = planes[(long long)p * n + r];
-      if (v != 0)
-        atomicAdd(out + (long long)p * groups + g, (unsigned long long)v);
-    }
+struct LimbOp {
+  const Geom& geo;
+  const int8_t* planes;
+  const int32_t* gid;
+  long long n;
+  int num_planes;
+
+  // slot 0 is gid, slot 1 + p is plane p
+  __device__ __forceinline__ int width(int s) const { return s == 0 ? 4 : 1; }
+
+  __device__ __forceinline__ const unsigned char* slot_ptr(int s) const {
+    return s == 0 ? reinterpret_cast<const unsigned char*>(gid)
+                  : reinterpret_cast<const unsigned char*>(
+                        planes + (long long)(s - 1) * n);
   }
+
+  __device__ __forceinline__ bool vec(int s) const {
+    return (geo.vec_mask >> s) & 1ull;
+  }
+
+  __device__ __forceinline__ void smem_rows(Ctx& c, const unsigned char* stage,
+                                            int r, long long,
+                                            int tile_rows) const {
+    constexpr int K = pinot::kRowsPerStep;
+    const bool ok = r < tile_rows;
+    const bool v[K] = {ok, ok, ok, ok};
+    int g[K];
+    pinot::load4_i32(stage + geo.row_off[0], r, ok, vec(0), g);
+    auto vals = [&](int p, int (&out)[K]) {
+      pinot::load4_s8(stage + geo.row_off[p + 1], r, ok, vec(p + 1), out);
+    };
+    pinot::add_rows<K, kMaxPlanes, true>(c, v, g, num_planes, vals,
+                                         geo.warp_agg);
+  }
+
+  __device__ __forceinline__ void global_row(Ctx& c, long long row,
+                                             bool valid) const {
+    const bool v[1] = {valid};
+    const int g[1] = {valid ? gid[row] : 0};
+    auto vals = [&](int p, int (&out)[1]) {
+      out[0] = valid ? (int)planes[(long long)p * n + row] : 0;
+    };
+    pinot::add_rows<1, kMaxPlanes, true>(c, v, g, num_planes, vals,
+                                         geo.warp_agg);
+  }
+};
+
+__global__ void __launch_bounds__(pinot::kThreads, 1)
+limb_sums_kernel(const __grid_constant__ Geom geo,
+                 const int8_t* __restrict__ planes,
+                 const int32_t* __restrict__ gid, int num_planes, int groups,
+                 unsigned long long* __restrict__ out) {
+  const LimbOp op{geo, planes, gid, geo.n, num_planes};
+  pinot::run(geo, op, num_planes, groups, out);
 }
 
 }  // namespace
 
-extern "C" int pinot_limb_sums(const void* planes, const void* gid,
-                               long long n, int num_planes, int groups,
+extern "C" int pinot_limb_sums_setup() {
+  return (int)cudaFuncSetAttribute(limb_sums_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   pinot::kMaxDynamicSmem);
+}
+
+extern "C" int pinot_limb_sums_max_clusters(int cluster, int smem,
+                                            int* count) {
+  return (int)pinot::max_active_clusters(limb_sums_kernel, cluster, smem,
+                                         count);
+}
+
+extern "C" int pinot_limb_sums(const Geom* geo, const void* planes,
+                               const void* gid, int num_planes, int groups,
                                void* out, void* stream) {
-  const pinot::Geometry geo = pinot::plan_geometry(n, num_planes, groups);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* p = static_cast<const int8_t*>(planes);
-  const int32_t* g = static_cast<const int32_t*>(gid);
-  unsigned long long* o = static_cast<unsigned long long*>(out);
-  if (geo.shared) {
-    cudaFuncSetAttribute(limb_sums_shared,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         pinot::kTableBytes);
-    dim3 grid(geo.row_blocks, geo.chunks);
-    limb_sums_shared<<<grid, kThreads, geo.smem_bytes, s>>>(
-        p, g, n, num_planes, groups, geo.plane_chunk, geo.block_rows, o);
-  } else {
-    limb_sums_global<<<geo.row_blocks, kThreads, 0, s>>>(
-        p, g, n, num_planes, groups, geo.block_rows, o);
-  }
-  return (int)cudaGetLastError();
+  if (geo->num_slots != num_planes + 1 || num_planes > kMaxPlanes ||
+      geo->num_slots > pinot::kMaxSlots)
+    return (int)cudaErrorInvalidValue;
+  return (int)pinot::launch_clusters(
+      limb_sums_kernel, *geo, static_cast<cudaStream_t>(stream), *geo,
+      static_cast<const int8_t*>(planes), static_cast<const int32_t*>(gid),
+      num_planes, groups, static_cast<unsigned long long*>(out));
 }
 
 extern "C" const char* pinot_error_string(int code) {

@@ -6,8 +6,11 @@ a plain C interface, loaded with ctypes. The build happens at first use,
 into pinot_tpu_torch/_build/, keyed by a hash of the sources and flags so
 an edited source never loads a stale library. Nothing here runs at import.
 
+At load, each kernel's shared-memory limit is raised once for the process.
 Every launch goes through `launch`, which counts it per kernel and raises
 on a non-zero CUDA error code: there is no fallback to the plain versions.
+Both kernels take their launch geometry (ops/geometry.py) as a `_Geom`
+struct, laid out as `pinot::Geom` in csrc/group_table.cuh.
 """
 
 from __future__ import annotations
@@ -19,9 +22,12 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from functools import lru_cache
 from pathlib import Path
 
 import torch
+
+from . import geometry
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -106,19 +112,94 @@ def library() -> ctypes.CDLL:
         if _LIB is None:
             path, _BUILD_LOG = build()
             lib = ctypes.CDLL(str(path))
-            vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.pinot_limb_sums.argtypes = [vp, vp, ll, i, i, vp, vp]
-            lib.pinot_limb_sums.restype = i
-            lib.pinot_fused_limb_sums.argtypes = [vp, vp, i, ll, i, vp, vp]
-            lib.pinot_fused_limb_sums.restype = i
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            lib.pinot_limb_sums.argtypes = [vp, vp, vp, i, i, vp, vp]
+            lib.pinot_fused_limb_sums.argtypes = [vp, vp, vp, i, i, vp, vp]
             lib.pinot_error_string.argtypes = [i]
             lib.pinot_error_string.restype = ctypes.c_char_p
+            for name in LAUNCHES:
+                getattr(lib, f"pinot_{name}").restype = i
+                getattr(lib, f"pinot_{name}_setup").restype = i
+                getattr(lib, f"pinot_{name}_max_clusters").argtypes = [
+                    i, i, ctypes.POINTER(i)]
+                getattr(lib, f"pinot_{name}_max_clusters").restype = i
+                _check(lib, f"{name} setup",
+                       getattr(lib, f"pinot_{name}_setup")())
             _LIB = lib
         return _LIB
 
 
+def _check(lib, what: str, rc: int) -> None:
+    if rc != 0:
+        msg = lib.pinot_error_string(rc).decode()
+        raise RuntimeError(f"CUDA {what} failed: {msg} ({rc})")
+
+
+@lru_cache(maxsize=None)
+def max_active_clusters(name: str, cluster: int, smem: int) -> int:
+    """How many clusters of `cluster` CTAs with `smem` bytes of dynamic
+    shared memory kernel `name` can keep resident on the current card."""
+    lib = library()
+    count = ctypes.c_int(0)
+    _check(lib, f"{name} occupancy query",
+           getattr(lib, f"pinot_{name}_max_clusters")(
+               cluster, smem, ctypes.byref(count)))
+    return count.value
+
+
+class _Geom(ctypes.Structure):
+    """pinot::Geom (csrc/group_table.cuh)."""
+    _fields_ = [
+        ("n", ctypes.c_longlong),
+        ("full_rows", ctypes.c_longlong),
+        ("vec_mask", ctypes.c_ulonglong),
+        *[(f, ctypes.c_int) for f in (
+            "tile_rows", "stages", "stage_bytes", "tx_bytes", "num_slots",
+            "mode", "cluster", "clusters", "iters", "epoch_iters",
+            "table_planes", "table_groups", "table_counters", "table_off",
+            "ring_off", "smem_bytes", "warp_agg")],
+        ("tg_inv", ctypes.c_uint),
+        *[(f, ctypes.c_int * geometry.MAX_SLOTS)
+          for f in ("mis", "copy_bytes", "smem_off", "row_off")],
+    ]
+
+
+@lru_cache(maxsize=256)
+def geometry_for(name: str, n: int, planes: int, groups: int, widths: tuple,
+                 mis: tuple, device_index: int) -> "geometry.Geometry":
+    """The launch geometry of kernel `name` on the card, with the card's own
+    SM count and cluster occupancy; cached per shape and alignment."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return geometry.plan(
+        n, planes, groups, widths, mis, sms=sms,
+        active_clusters=lambda c, smem: max_active_clusters(name, c, smem))
+
+
+@lru_cache(maxsize=256)
+def geom_struct(geo: "geometry.Geometry") -> _Geom:
+    g = _Geom()
+    for f in ("n", "full_rows", "vec_mask", "tile_rows", "stages",
+              "stage_bytes", "tx_bytes", "cluster", "clusters", "iters",
+              "epoch_iters", "table_planes", "table_groups", "table_counters",
+              "table_off", "ring_off", "smem_bytes", "tg_inv"):
+        setattr(g, f, getattr(geo, f))
+    g.num_slots, g.mode = len(geo.widths), geometry.MODES[geo.mode]
+    g.warp_agg = int(geo.warp_agg)
+    for f in ("mis", "copy_bytes", "smem_off", "row_off"):
+        getattr(g, f)[:len(geo.widths)] = getattr(geo, f)
+    return g
+
+
 def build_log() -> str:
     return _BUILD_LOG
+
+
+def new_output(planes: int, groups: int, device) -> torch.Tensor:
+    """A zeroed (planes, groups) int64 output for the kernels, 16-byte
+    aligned with the spare int64s the last flush's padding may touch."""
+    buf = torch.zeros(geometry.output_len(planes, groups), dtype=torch.int64,
+                      device=device)
+    return buf[:planes * groups].view(planes, groups)
 
 
 def stream_handle(device: torch.device) -> int:
@@ -130,10 +211,7 @@ def launch(name: str, *args) -> None:
     CUDA error; counts the launch."""
     lib = library()
     LAUNCHES[name] += 1
-    rc = getattr(lib, f"pinot_{name}")(*args)
-    if rc != 0:
-        msg = lib.pinot_error_string(rc).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({rc})")
+    _check(lib, f"kernel {name}", getattr(lib, f"pinot_{name}")(*args))
 
 
 def require_cuda(device: torch.device) -> None:

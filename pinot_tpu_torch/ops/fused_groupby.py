@@ -23,12 +23,13 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional
 
 import numpy as np
 import torch
 
-from . import _cuda, mxu_groupby
+from . import _cuda, geometry, mxu_groupby
 from ..engine import ir
 
 _I32_MIN = -(1 << 31)
@@ -270,10 +271,14 @@ def execute(fp: FusedPlan, program: ir.Program, arrays, params, num_docs,
 
 # -- the CUDA kernel's plan descriptor (csrc/fused_limb_sums.cu FusedDesc) --
 
-_MAX_SLOTS = 48
+_MAX_SLOTS = geometry.MAX_SLOTS
 _MAX_GROUP_DIMS = 16
 _SLOT_TYPES = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
+# a load code is a slot type, plus _VEC when the slot's rows in a stage
+# start on a multiple of 4 rows (the kernel reads 4 of them at once)
+_VEC = 4
 _PLANE_KINDS = {"count": 0, "limb": 1, "neg": 2}
+_P = mxu_groupby.MAX_PLANES
 
 
 class _Desc(ctypes.Structure):
@@ -281,42 +286,69 @@ class _Desc(ctypes.Structure):
         ("slot_ptr", ctypes.c_void_p * _MAX_SLOTS),
         ("slot_type", ctypes.c_int * _MAX_SLOTS),
         ("n_terms", ctypes.c_int),
-        ("term_slot", ctypes.c_int * _MAX_TERMS),
-        ("term_runs", ctypes.c_int * _MAX_TERMS),
+        *[(f, ctypes.c_int * _MAX_TERMS) for f in (
+            "term_slot", "term_code", "term_at", "term_runs", "term_bound")],
         ("n_groups", ctypes.c_int),
-        ("group_slot", ctypes.c_int * _MAX_GROUP_DIMS),
-        ("group_stride", ctypes.c_int * _MAX_GROUP_DIMS),
+        *[(f, ctypes.c_int * _MAX_GROUP_DIMS) for f in (
+            "group_slot", "group_code", "group_at", "group_stride")],
         ("n_planes", ctypes.c_int),
-        ("plane_kind", ctypes.c_int * mxu_groupby.MAX_PLANES),
-        ("plane_slot", ctypes.c_int * mxu_groupby.MAX_PLANES),
-        ("plane_shift", ctypes.c_int * mxu_groupby.MAX_PLANES),
+        *[(f, ctypes.c_int * _P) for f in (
+            "plane_kind", "plane_slot", "plane_code", "plane_at",
+            "plane_shift")],
     ]
 
 
-def _descriptor(fp: FusedPlan, planes_in) -> _Desc:
-    """FusedPlan -> the kernel's descriptor: slots are indexed by their
-    position in fp.slots (== planes_in order)."""
+@lru_cache(maxsize=64)
+def _plan_descriptor(fp: FusedPlan, slot_types: tuple,
+                     geo: geometry.Geometry) -> _Desc:
+    """FusedPlan -> the kernel's descriptor without the slot pointers:
+    slots are indexed by their position in fp.slots (== planes_in order).
+    Each term, group dimension and plane carries its slot's load code and
+    the place of the slot's row 0 in a stage of `geo`'s ring."""
     if len(fp.slots) > _MAX_SLOTS or len(fp.groups) > _MAX_GROUP_DIMS:
         raise ValueError(f"fused plan too wide for the kernel: {fp}")
     pos = {s: i for i, s in enumerate(fp.slots)}
+    code = [t | (_VEC if geo.vec_mask >> i & 1 else 0)
+            for i, t in enumerate(slot_types)]
     d = _Desc()
-    for i, t in enumerate(planes_in):
-        d.slot_ptr[i] = t.data_ptr()
-        d.slot_type[i] = _SLOT_TYPES[t.dtype]
+    for i, t in enumerate(slot_types):
+        d.slot_type[i] = t
     d.n_terms = len(fp.terms)
+    bound = 2
     for i, term in enumerate(fp.terms):
-        d.term_slot[i] = pos[term[1]]
+        slot = pos[term[1]]
+        d.term_slot[i], d.term_code[i] = slot, code[slot]
+        d.term_at[i] = geo.row_off[slot]
         d.term_runs[i] = term[3] if term[0] == "runs" else 1
+        d.term_bound[i] = bound
+        bound += 2 * d.term_runs[i]
     d.n_groups = len(fp.groups)
     for i, (slot, stride) in enumerate(fp.groups):
-        d.group_slot[i] = pos[slot]
-        d.group_stride[i] = stride
+        slot = pos[slot]
+        d.group_slot[i], d.group_code[i] = slot, code[slot]
+        d.group_at[i], d.group_stride[i] = geo.row_off[slot], stride
     d.n_planes = len(fp.planes)
     for i, pd in enumerate(fp.planes):
+        slot = pos[pd[1]] if len(pd) > 1 else 0
         d.plane_kind[i] = _PLANE_KINDS[pd[0]]
-        d.plane_slot[i] = pos[pd[1]] if len(pd) > 1 else 0
+        d.plane_slot[i], d.plane_code[i] = slot, code[slot]
+        d.plane_at[i] = geo.row_off[slot]
         d.plane_shift[i] = pd[2] if pd[0] == "limb" else 0
     return d
+
+
+def _descriptor(fp: FusedPlan, planes_in, geo: geometry.Geometry) -> _Desc:
+    d = _Desc.from_buffer_copy(_plan_descriptor(
+        fp, tuple(_SLOT_TYPES[t.dtype] for t in planes_in), geo))
+    for i, t in enumerate(planes_in):
+        d.slot_ptr[i] = t.data_ptr()
+    return d
+
+
+def slot_layout(planes_in):
+    """(widths, addresses modulo 16) of the kernel's slot planes."""
+    return (tuple(t.element_size() for t in planes_in),
+            tuple(t.data_ptr() % 16 for t in planes_in))
 
 
 def fused_limb_sums(fp: FusedPlan, planes_in, scalars: torch.Tensor,
@@ -339,13 +371,25 @@ def fused_limb_sums(fp: FusedPlan, planes_in, scalars: torch.Tensor,
         raise ValueError(f"fused_limb_sums: unsupported device {device}")
     planes_in = tuple(t.contiguous() for t in planes_in)
     scalars = scalars.contiguous()
-    out = torch.zeros((len(fp.planes), num_segments), dtype=torch.int64,
-                      device=device)
-    if n:
-        desc = _descriptor(fp, planes_in)
-        _cuda.launch("fused_limb_sums", ctypes.addressof(desc),
-                     scalars.data_ptr(), scalars.shape[0], n, num_segments,
-                     out.data_ptr(), _cuda.stream_handle(device))
+    if not n:
+        return torch.zeros((len(fp.planes), num_segments), dtype=torch.int64,
+                           device=device)
+    geo = _cuda.geometry_for("fused_limb_sums", n, len(fp.planes),
+                             num_segments, *slot_layout(planes_in),
+                             device.index)
+    return launch(fp, planes_in, scalars, num_segments, geo)
+
+
+def launch(fp: FusedPlan, planes_in, scalars: torch.Tensor, num_segments: int,
+           geo: geometry.Geometry) -> torch.Tensor:
+    """Launch kernel B with geometry `geo` over contiguous CUDA inputs
+    (fused_limb_sums has checked them); returns the (P, num_segments) sums."""
+    out = _cuda.new_output(len(fp.planes), num_segments, scalars.device)
+    desc = _descriptor(fp, planes_in, geo)
+    _cuda.launch("fused_limb_sums", ctypes.addressof(desc),
+                 ctypes.addressof(_cuda.geom_struct(geo)), scalars.data_ptr(),
+                 scalars.shape[0], num_segments, out.data_ptr(),
+                 _cuda.stream_handle(scalars.device))
     return out
 
 

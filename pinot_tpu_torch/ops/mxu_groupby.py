@@ -4,8 +4,9 @@ The port of pinot_tpu/ops/mxu_groupby.py. There the TPU answers the
 reference's `DefaultGroupByExecutor` hot loop
 (pinot-core/.../query/aggregation/groupby/DefaultGroupByExecutor.java:191)
 with a one-hot matmul on the MXU; here `limb_sums` launches the CUDA kernel
-csrc/limb_sums.cu (per-block group tables in shared memory) on a CUDA
-tensor and runs `limb_sums_plain` on a CPU tensor.
+csrc/limb_sums.cu (a persistent grid of clusters with the group tables in
+shared memory, geometry from ops/geometry.py) on a CUDA tensor and runs
+`limb_sums_plain` on a CPU tensor.
 
 Exactness: payloads are int8 planes holding 7-bit limbs ([0, 127]); sums
 are int64. Masked rows must already be routed to the trash slot by the
@@ -14,9 +15,11 @@ caller (gid == num_segments - 1) with zeroed payloads.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import _cuda
+from . import _cuda, geometry
 
 LANES = 128
 # the same domain as the TPU kernel, so planner decisions match
@@ -59,12 +62,32 @@ def limb_sums(planes: torch.Tensor, gid: torch.Tensor,
         raise ValueError(f"limb_sums: unsupported device {gid.device}")
     planes = planes.contiguous()
     gid = gid.contiguous()
-    out = torch.zeros((num_planes, num_segments), dtype=torch.int64,
-                      device=gid.device)
-    if n:
-        _cuda.launch("limb_sums", planes.data_ptr(), gid.data_ptr(), n,
-                     num_planes, num_segments, out.data_ptr(),
-                     _cuda.stream_handle(gid.device))
+    if not n:
+        return torch.zeros((num_planes, num_segments), dtype=torch.int64,
+                           device=gid.device)
+    geo = _cuda.geometry_for("limb_sums", n, num_planes, num_segments,
+                             *slot_layout(planes, gid), gid.device.index)
+    return launch(planes, gid, num_segments, geo)
+
+
+def slot_layout(planes: torch.Tensor, gid: torch.Tensor):
+    """(widths, addresses modulo 16) of the kernel's slot planes: gid, then
+    each payload plane (plane p starts p * n bytes into `planes`)."""
+    n = gid.shape[0]
+    widths = (4,) + (1,) * planes.shape[0]
+    mis = (gid.data_ptr() % 16,) + tuple(
+        (planes.data_ptr() + p * n) % 16 for p in range(planes.shape[0]))
+    return widths, mis
+
+
+def launch(planes: torch.Tensor, gid: torch.Tensor, num_segments: int,
+           geo: geometry.Geometry) -> torch.Tensor:
+    """Launch kernel A with geometry `geo` over contiguous CUDA inputs
+    (limb_sums has checked them); returns the (P, num_segments) sums."""
+    out = _cuda.new_output(planes.shape[0], num_segments, gid.device)
+    _cuda.launch("limb_sums", ctypes.addressof(_cuda.geom_struct(geo)),
+                 planes.data_ptr(), gid.data_ptr(), planes.shape[0],
+                 num_segments, out.data_ptr(), _cuda.stream_handle(gid.device))
     return out
 
 

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from pinot_tpu_torch.engine.query_executor import QueryExecutor
-from pinot_tpu_torch.ops import _cuda, fused_groupby, mxu_groupby
+from pinot_tpu_torch.ops import _cuda, fused_groupby, geometry, mxu_groupby
 from pinot_tpu_torch.segment.builder import SegmentBuilder
 from pinot_tpu_torch.segment.loader import load_segment
 from pinot_tpu_torch.spi.data_types import Schema
@@ -55,11 +55,20 @@ def _limb_inputs(n, p, g, seed, device):
             torch.from_numpy(gid).to(device))
 
 
-# the main path's shape, the shared-table and global-atomic geometries,
-# the edges of supports() and lengths that are no multiple of a block
+# the main path's shapes; a table private to each CTA (q2, G = 1001 with
+# 24 planes, G = 32768 with one plane), one split across a cluster (8 planes
+# of 7001 groups) and none (16 planes of 32768 groups: global atomics);
+# few groups summed within the warp; lengths that are no multiple of 16 (the
+# stacked planes then start off 16 bytes), below one tile, exactly one
+# tile, and empty
+ONE_TILE = geometry.tile_rows_for((4, 1, 1))
+
+
 @pytest.mark.parametrize("n,p,g", [
     (1 << 20, 4, 7001), (1 << 20, 8, 7001), ((1 << 20) + 7, 1, 32768),
-    (300_001, 24, 128), (100_003, 3, 1), (5, 2, 10), (0, 2, 10)])
+    (1 << 20, 24, 1001), (1 << 18, 16, 32768),
+    (300_001, 24, 128), (100_003, 3, 1), (5, 2, 10), (ONE_TILE, 2, 10),
+    (ONE_TILE + 3, 2, 10), (0, 2, 10)])
 def test_limb_sums_kernel_matches_plain(cuda, n, p, g):
     planes, gid = _limb_inputs(n, p, g, n + p + g, cuda)
     before = _cuda.LAUNCHES["limb_sums"]
@@ -68,6 +77,56 @@ def test_limb_sums_kernel_matches_plain(cuda, n, p, g):
     assert got.device.type == "cuda"
     assert _cuda.LAUNCHES["limb_sums"] == before + (1 if n else 0)
     assert torch.equal(got, mxu_groupby.limb_sums_plain(planes, gid, g))
+
+
+def _only(cluster=None, count=1, name="limb_sums"):
+    """An occupancy that lets `count` clusters run, of size `cluster` only
+    when one is named."""
+    def active(c, smem):
+        if cluster is not None and c != cluster:
+            return 0
+        return min(count, _cuda.max_active_clusters(name, c, smem))
+    return active
+
+
+# a table split across the cluster, by plane (each tile multicast to every
+# CTA of the cluster) at every cluster size and by group, and one lone
+# cluster taking every row
+@pytest.mark.parametrize("p,g,cluster,count,mode", [
+    (8, 7001, 2, 66, "split"), (8, 16384, 4, 33, "split"),
+    (8, 32768, 8, 16, "split"), (3, 32768, 4, 33, "shared"),
+    (5, 32768, 8, 16, "shared"), (8, 7001, None, 1, "split")])
+def test_limb_sums_shared_table_at_every_cluster_size(cuda, p, g, cluster,
+                                                      count, mode):
+    n = (1 << 20) + 7
+    planes, gid = _limb_inputs(n, p, g, 5, cuda)
+    geo = geometry.plan(n, p, g, *mxu_groupby.slot_layout(planes, gid),
+                        active_clusters=_only(cluster, count))
+    assert geo.mode == mode
+    got = mxu_groupby.launch(planes, gid, g, geo)
+    assert torch.equal(got, mxu_groupby.limb_sums_plain(planes, gid, g))
+
+
+# 2^25 + 5 rows of 127 on one group: the sum exceeds 2^31, so a table that
+# is not flushed in time wraps. The default geometry, one lone CTA (its
+# private table takes every row) and one cluster sharing one table.
+@pytest.mark.parametrize("p,g,active", [
+    (1, 1, None), (1, 1, "one_cta"), (8, 7001, "one_cluster")])
+def test_limb_sums_int32_saturation(cuda, p, g, active):
+    n = (1 << 25) + 5
+    planes = torch.full((p, n), 127, dtype=torch.int8, device=cuda)
+    gid = torch.zeros(n, dtype=torch.int32, device=cuda)
+    if active is None:
+        got = mxu_groupby.limb_sums(planes, gid, g)
+    else:
+        occupancy = _only(1) if active == "one_cta" else _only()
+        geo = geometry.plan(n, p, g, *mxu_groupby.slot_layout(planes, gid),
+                            active_clusters=occupancy)
+        assert geo.iters > geo.epoch_iters  # the table is flushed mid-run
+        got = mxu_groupby.launch(planes, gid, g, geo)
+    want = torch.zeros((p, g), dtype=torch.int64, device=cuda)
+    want[:, 0] = 127 * n
+    assert torch.equal(got, want)
 
 
 def test_limb_sums_kernel_rejects_bad_inputs(cuda):
@@ -88,6 +147,9 @@ def _fused_cases(device):
     u16, u8 = plane(0, 2000, np.uint16), plane(0, 100, np.uint8)
     pos = plane(0, 1 << 20, np.int32)
     signed = plane(-(1 << 30), 1 << 30, np.int32)
+    region, year = plane(0, 5, np.uint8), plane(0, 7, np.uint8)
+    brand = plane(0, 1000, np.uint16)
+    price, qty = plane(1, 55_001, np.int32), plane(1, 51, np.int32)
 
     def sc(*v):
         return torch.tensor(v, dtype=torch.int32, device=device)
@@ -107,16 +169,23 @@ def _fused_cases(device):
                           (("count",),) + limbs(1, 32) + (("neg", 1),),
                           (), (0, 1)),
                        (u16, signed), sc(n, 0), 2001, n),
-        # 32768 groups: one plane's table outgrows shared memory, so the
-        # kernel adds straight into the output with global atomics
-        "two_dims_global": (FP((("iv", 1, 0, 1, True, True),),
-                               ((0, 16), (1, 1)), (("count",),), (), (0, 1)),
-                            (u16, u8), sc(n, 0, 0, 15), 32768, n),
+        # 32768 groups of one plane: a 128 KB table private to each CTA
+        "two_dims_32768": (FP((("iv", 1, 0, 1, True, True),),
+                              ((0, 16), (1, 1)), (("count",),), (), (0, 1)),
+                           (u16, u8), sc(n, 0, 0, 15), 32768, n),
+        # the q9 plan's shape: 8 planes of 7001 groups, a table split across
+        # the cluster by plane
+        "shared_table": (FP((("iv", 0, 0, 1, True, True),),
+                            ((1, 1000), (2, 1)),
+                            (("count",),) + limbs(3, 20) + limbs(4, 16)
+                            + limbs(5, 7), (), (0, 1, 2, 3, 4, 5)),
+                         (region, year, brand, pos, price, qty),
+                         sc(n - 9, 0, 1, 1), 7001, n),
     }
 
 
 @pytest.mark.parametrize("case", ["interval", "runs", "signed_sum",
-                                  "two_dims_global"])
+                                  "two_dims_32768", "shared_table"])
 def test_fused_kernel_matches_plain(cuda, case):
     fp, planes_in, scalars, g, n = _fused_cases(cuda)[case]
     assert mxu_groupby.supports(g, len(fp.planes))
@@ -126,6 +195,41 @@ def test_fused_kernel_matches_plain(cuda, case):
     assert _cuda.LAUNCHES["fused_limb_sums"] == before + 1
     assert torch.equal(
         got, fused_groupby.fused_limb_sums_plain(fp, planes_in, scalars, g, n))
+
+
+@pytest.mark.parametrize("n", [0, 1000, ONE_TILE, (1 << 20) + 3])
+def test_fused_kernel_small_and_ragged_lengths(cuda, n):
+    rng = np.random.default_rng(n)
+    u8 = torch.from_numpy(rng.integers(0, 100, n).astype(np.uint8)).to(cuda)
+    pos = torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32)).to(cuda)
+    fp = fused_groupby.FusedPlan((("iv", 0, 0, 1, True, True),), ((0, 1),),
+                                 (("count",), ("limb", 1, 0), ("limb", 1, 7)),
+                                 (), (0, 1))
+    scalars = torch.tensor([max(0, n - 2), 0, 10, 80], dtype=torch.int32,
+                           device=cuda)
+    got = fused_groupby.fused_limb_sums(fp, (u8, pos), scalars, 101, n)
+    assert torch.equal(got, fused_groupby.fused_limb_sums_plain(
+        fp, (u8, pos), scalars, 101, n))
+
+
+# 2^25 + 5 rows that pass, all on group 0, with a limb of 127: the default
+# geometry and one lone CTA, whose table must be flushed mid-run
+@pytest.mark.parametrize("one_cta", [False, True])
+def test_fused_kernel_int32_saturation(cuda, one_cta):
+    n = (1 << 25) + 5
+    u8 = torch.zeros(n, dtype=torch.uint8, device=cuda)
+    val = torch.full((n,), 127, dtype=torch.int32, device=cuda)
+    fp = fused_groupby.FusedPlan((), ((0, 1),), (("count",), ("limb", 1, 0)),
+                                 (), (0, 1))
+    scalars = torch.tensor([n, 0], dtype=torch.int32, device=cuda)
+    if one_cta:
+        geo = geometry.plan(n, 2, 1, *fused_groupby.slot_layout((u8, val)),
+                            active_clusters=_only(1, name="fused_limb_sums"))
+        assert geo.iters > geo.epoch_iters
+        got = fused_groupby.launch(fp, (u8, val), scalars, 1, geo)
+    else:
+        got = fused_groupby.fused_limb_sums(fp, (u8, val), scalars, 1, n)
+    assert got.tolist() == [[n], [127 * n]]
 
 
 @pytest.fixture(scope="module")
