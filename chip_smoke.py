@@ -14,26 +14,46 @@ Phases, each printing one JSON line:
            of the kernels' domain and geometry: a table split across the
            cluster, G = 32768, unaligned n, n below and at one tile, n = 0,
            and 2^25 + 5 rows of 127 on one group (the sum passes 2^31), also
-           with one lone CTA and one lone cluster taking every row
-  data     an SSB-shaped table generated from --seed, built into segments
-           with the port's builder and loaded with its loader
-  queries  q1, q2, q9, q2 unfused and the flagship GROUP BY through
-           QueryExecutor(device="cuda").execute_sql, each held against a
-           numpy oracle; kernel launch counts of that run
+           with one lone CTA and one lone cluster taking every row; kernel
+           A with its family axis (one launch for S segments) at S = 1, 16
+           members of a ragged n and ragged live rows, a member with no
+           live row, and one cluster whose range crosses every segment;
+           and both kernels on the recorded inputs of every query that
+           launches them
+  data     an SSB-shaped table generated from --seed, built with the
+           port's builder into --segments segments, and the same rows again
+           into 16 segments (bench.py's 16-segment q4, q3m)
+  queries  every query through QueryExecutor(device="cuda").execute_sql,
+           each held against a numpy oracle, with its launches of each
+           kernel, device dispatches and host fetches (every count set to 0
+           just before the query and read just after):
+             q1, q2, q9, q2 unfused, flagship   SET segmentBatch = false:
+                 one dispatch per segment, kernel B for q2/q9 (as measured
+                 before families existed)
+             q2_family, flagship_family         the default: one batch
+                 family, one dispatch, one fetch, one launch of kernel A
+             q3, q3_sort                        sparse GROUP BY (presorted
+                 keys + the device combine; the sort path + the host merge)
+             q4, q3m, sparse_family             over the 16-segment table:
+                 one family of 16 (q4, sparse_family), the device combine
+                 (q3m, sparse_family)
+             q4_solo, sparse_family_solo        their SET segmentBatch =
+                 false twins (16 dispatches; kernel B on q4_solo)
   times    p50 query latency over --iters warm runs
   layers   a warm query's host time split into parse + plan, dispatch,
-           collect and combine + reduce
+           collect (the query's one fetch and the decode) and combine +
+           reduce
   profile  device busy share and the top device kernels under
            torch.profiler
-  geometry each main-path shape's launch geometry and the card's
-           cluster occupancy
+  geometry each kernel shape's launch geometry and the card's cluster
+           occupancy
   kernels  the kernel table: per kernel and main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
-           rotated over the 4 segments' recorded inputs so that the 50 MB L2
-           holds none of them), the wrapper's time with CUDA events around
-           the calls (`call_ms`), the bytes bound and its share, the plain
-           version's time and one PyTorch library call computing the same
-           sums
+           rotated over the recorded inputs of the query's segments or
+           families, so that the 50 MB L2 holds none of them), the
+           wrapper's time with CUDA events around the calls (`call_ms`), the
+           bytes bound and its share, the plain version's time and one
+           PyTorch library call computing the same sums
 
 The line before the last is the kernel table, the last line
 {"ok": true, "device": {...}}. Any failure raises and the script exits
@@ -78,11 +98,53 @@ Q2_UNFUSED = "SET useFusedKernel = false; " + Q2
 FLAGSHIP = ("SELECT p_brand, SUM(lo_revenue), COUNT(*), MIN(lo_revenue), "
             "MAX(lo_revenue) FROM ssb WHERE d_year >= 1995 "
             "GROUP BY p_brand LIMIT 1000")
-QUERIES = {"q1": Q1, "q2": Q2, "q9": Q9, "q2_unfused": Q2_UNFUSED,
-           "flagship": FLAGSHIP}
-# the kernel each query must launch (q1 is ungrouped: it launches neither)
+# bench.py Q3, verbatim
+Q3 = ("SET numGroupsLimit = 20000000; "
+      "SELECT lo_orderkey, SUM(lo_revenue), COUNT(*) FROM ssb "
+      "GROUP BY lo_orderkey ORDER BY lo_orderkey LIMIT 100000")
+# each segment of 2^23 rows holds about 1.05M distinct lo_orderkey, under
+# the dense limit (2^21): the reference's own switch sends it sparse
+SPARSE = "SET sparseGroupBy = true; "
+Q3_SORT = ("SELECT d_year, lo_orderkey, SUM(lo_revenue), COUNT(*), "
+           "MIN(lo_revenue), MAX(lo_revenue) FROM ssb "
+           "GROUP BY d_year, lo_orderkey ORDER BY d_year, lo_orderkey "
+           "LIMIT 100000")
+SPARSE_FAMILY = ("SELECT p_brand, SUM(lo_revenue), COUNT(*), "
+                 "MIN(lo_revenue), MAX(lo_revenue) FROM ssb "
+                 "GROUP BY p_brand ORDER BY p_brand LIMIT 1000")
+# the queries as measured before batch families existed: one dispatch per
+# segment, kernel B on q2 / q9
+NO_BATCH = "SET segmentBatch = false; "
+# bench.py's ssb16: the same rows in 16 segments
+FAMILY_TABLE, FAMILY_SEGMENTS = "ssb16", 16
+QUERIES = {"q1": NO_BATCH + Q1, "q2": NO_BATCH + Q2, "q9": NO_BATCH + Q9,
+           "q2_unfused": NO_BATCH + Q2_UNFUSED,
+           "flagship": NO_BATCH + FLAGSHIP,
+           "q2_family": Q2, "flagship_family": FLAGSHIP,
+           "q3": SPARSE + Q3, "q3_sort": Q3_SORT,
+           "q4": Q2.replace("FROM ssb", f"FROM {FAMILY_TABLE}"),
+           "q3m": SPARSE + Q3.replace("FROM ssb", f"FROM {FAMILY_TABLE}"),
+           "sparse_family": SPARSE + SPARSE_FAMILY.replace(
+               "FROM ssb", f"FROM {FAMILY_TABLE}")}
+# the SET segmentBatch = false twins of the queries whose segments batch
+# (q3, q3_sort and q3m batch nothing: each segment's key space differs, so
+# each is a family of one either way)
+QUERIES.update({"q4_solo": NO_BATCH + QUERIES["q4"],
+                "sparse_family_solo": NO_BATCH + QUERIES["sparse_family"]})
+# the kernel each query must launch (q1 is ungrouped: it launches neither;
+# the sparse GROUP BYs run torch ops)
 EXPECTED_KERNEL = {"q2": "fused_limb_sums", "q9": "fused_limb_sums",
-                   "q2_unfused": "limb_sums", "flagship": "limb_sums"}
+                   "q2_unfused": "limb_sums", "flagship": "limb_sums",
+                   "q2_family": "limb_sums", "flagship_family": "limb_sums",
+                   "q4": "limb_sums", "q4_solo": "fused_limb_sums"}
+# one batch family: one dispatch, one launch of kernel A (one fetch holds
+# for every query)
+ONE_FAMILY = ("q2_family", "flagship_family", "q4", "sparse_family")
+SPARSE_QUERIES = ("q3", "q3_sort", "q3m", "sparse_family",
+                  "sparse_family_solo")
+DEVICE_COMBINE = ("q3", "q3m", "sparse_family", "sparse_family_solo")
+# results in ORDER BY order, compared row for row
+ORDERED = ("q3", "q3_sort", "q3m", "sparse_family", "sparse_family_solo")
 
 
 def emit(obj) -> None:
@@ -145,6 +207,50 @@ def oracle(cols: dict) -> dict:
     np.maximum.at(fmax, b, r)
     out["flagship"] = [[int(k), float(fsum[k]), int(fcnt[k]), float(fmin[k]),
                         float(fmax[k])] for k in np.nonzero(fcnt)[0]]
+    out["q2_family"] = out["q4"] = out["q2"]
+    out["flagship_family"] = out["flagship"]
+
+    def runs(sorted_keys, limit=100_000):
+        """First row and row count of each run of equal keys, the first
+        `limit` runs."""
+        first = np.flatnonzero(np.r_[True, sorted_keys[1:] != sorted_keys[:-1]])
+        return first[:limit], np.diff(np.r_[first, len(sorted_keys)])[:limit]
+
+    # q3 / q3m: the 100000 smallest lo_orderkey (the column is sorted)
+    okey = cols["lo_orderkey"].astype(np.int64)
+    first, count = runs(okey)
+    rsum = np.add.reduceat(rev, first) if len(first) else []
+    rsum[-1:] = rev[first[-1]:first[-1] + count[-1]].sum() if len(first) else []
+    out["q3"] = out["q3m"] = [[int(okey[a]), float(s), int(c)]
+                              for a, s, c in zip(first, rsum, count)]
+
+    # q3_sort: the 100000 smallest (d_year, lo_orderkey) groups
+    comp = (year << 32) | okey
+    order = np.argsort(comp, kind="stable")
+    sc, sr = comp[order], rev[order]
+    first, count = runs(sc)
+    seg = [(np.add, "sum"), (np.minimum, "min"), (np.maximum, "max")]
+    red = {name: fn.reduceat(sr, first) for fn, name in seg}
+    for fn, name in seg:  # the last run ends at its own count
+        red[name][-1] = getattr(sr[first[-1]:first[-1] + count[-1]], name)()
+    out["q3_sort"] = [
+        [int(sc[a] >> 32), int(sc[a] & 0xFFFFFFFF), float(s), int(c),
+         float(lo), float(hi)]
+        for a, s, c, lo, hi in zip(first, red["sum"], count, red["min"],
+                                   red["max"])]
+
+    # sparse_family: every brand, no filter
+    acnt = np.bincount(brand, minlength=1000)
+    asum = np.bincount(brand, weights=rev.astype(np.float64), minlength=1000)
+    amin = np.full(1000, np.iinfo(np.int64).max)
+    amax = np.full(1000, np.iinfo(np.int64).min)
+    np.minimum.at(amin, brand, rev)
+    np.maximum.at(amax, brand, rev)
+    out["sparse_family"] = [[int(k), float(asum[k]), int(acnt[k]),
+                             float(amin[k]), float(amax[k])]
+                            for k in np.nonzero(acnt)[0]]
+    out["q4_solo"] = out["q4"]
+    out["sparse_family_solo"] = out["sparse_family"]
     return out
 
 
@@ -260,6 +366,9 @@ def recording(owner, name):
 
 
 def phase_data(args, torch):
+    """The generated rows, built once into --segments segments (table
+    `ssb`) and once more into FAMILY_SEGMENTS segments (table `ssb16`);
+    returns {table: (schema, segments)}, the columns and the build dir."""
     from pinot_tpu_torch.segment.builder import SegmentBuilder
     from pinot_tpu_torch.segment.loader import load_segment
     from pinot_tpu_torch.spi.data_types import Schema
@@ -269,45 +378,77 @@ def phase_data(args, torch):
     rows = args.rows_per_segment * args.segments
     cols = gen_ssb(rows, args.seed)
     t_gen = time.perf_counter() - t0
-    schema = Schema.build("ssb", dimensions=SCHEMA_DIMS, metrics=SCHEMA_METRICS)
-    cfg = TableConfig(table_name="ssb", indexing=IndexingConfig(
-        no_dictionary_columns=RAW_COLUMNS))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    segments = []
-    for i in range(args.segments):
-        sl = slice(i * args.rows_per_segment, (i + 1) * args.rows_per_segment)
-        d = f"{tmp}/ssb_{i}"
-        SegmentBuilder(schema, cfg, f"ssb_{i}").build(
-            {k: v[sl] for k, v in cols.items()}, d)
-        segments.append(load_segment(d))
-    setup = time.perf_counter() - t0
-    emit({"phase": "data", "rows": rows, "segments": args.segments,
-          "rows_per_segment": args.rows_per_segment, "seed": args.seed,
-          "generate_s": t_gen, "setup_s": setup, "dir": tmp})
-    return schema, segments, cols, tmp
+    tables, build_s = {}, {}
+    for name, count in (("ssb", args.segments),
+                        (FAMILY_TABLE, FAMILY_SEGMENTS)):
+        t1 = time.perf_counter()
+        schema = Schema.build(name, dimensions=SCHEMA_DIMS,
+                              metrics=SCHEMA_METRICS)
+        cfg = TableConfig(table_name=name, indexing=IndexingConfig(
+            no_dictionary_columns=RAW_COLUMNS))
+        per = rows // count
+        segments = []
+        for i in range(count):
+            sl = slice(i * per, (i + 1) * per)
+            d = f"{tmp}/{name}_{i}"
+            SegmentBuilder(schema, cfg, f"{name}_{i}").build(
+                {k: v[sl] for k, v in cols.items()}, d)
+            segments.append(load_segment(d))
+        tables[name] = (schema, segments)
+        build_s[name] = time.perf_counter() - t1
+    emit({"phase": "data", "rows": rows,
+          "tables": {k: {"segments": len(s), "rows_per_segment": rows // len(s)}
+                     for k, (_, s) in tables.items()},
+          "seed": args.seed, "generate_s": t_gen, "build_s": build_s,
+          "setup_s": time.perf_counter() - t0, "dir": tmp})
+    return tables, cols, tmp
 
 
-def phase_queries(torch, qe, expected, _cuda):
-    """The main path: every query once, counted launches, oracle check."""
+def family_count(qe, sql) -> int:
+    """Batch families (and lone segments) the query's plans form: the
+    device dispatches it makes outside the device combine's merge."""
+    from pinot_tpu_torch.query.optimizer import optimize_filter
+    from pinot_tpu_torch.query.parser.sql import parse_sql
+
+    query = parse_sql(sql)
+    query.filter = optimize_filter(query.filter)
+    segments = qe._table(query.table_name).segments
+    plans = qe.plan_segments(query, segments)
+    return len(qe._batch_families(query, segments, plans)), \
+        {p.program.mode for p in plans}
+
+
+def phase_queries(torch, qe, expected, _cuda, interp):
+    """The main path: every query once, each with its launches, device
+    dispatches and host fetches counted from 0 just before it, held
+    against the oracle and the structure this slice promises."""
     results = {}
     _cuda.reset_launches()
-    per_query, cold = {}, {}
+    per_query, cold, fetches, combines = {}, {}, {}, {}
     for qname, sql in QUERIES.items():
-        before = dict(_cuda.LAUNCHES)
+        _cuda.reset_launches()
+        fetch0 = interp.host_fetches()
         resident = qe.executor.cache.bytes_used()
-        t0 = time.perf_counter()
-        resp = qe.execute_sql(sql)
-        torch.cuda.synchronize()
+        with recording(interp, "combine_sparse_group_tables") as merged:
+            t0 = time.perf_counter()
+            resp = qe.execute_sql(sql)
+            torch.cuda.synchronize()
         # the first run uploads the planes the query needs and has not
-        # found resident yet
+        # found resident yet (and builds a family's stacks)
         cold[qname] = {"ms": (time.perf_counter() - t0) * 1e3,
                        "uploaded_bytes": qe.executor.cache.bytes_used() - resident}
-        per_query[qname] = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+        per_query[qname] = dict(_cuda.LAUNCHES)
+        fetches[qname] = interp.host_fetches() - fetch0
+        combines[qname] = len(merged)
         results[qname] = resp
-    launches = dict(_cuda.LAUNCHES)
+    launches = {k: sum(q[k] for q in per_query.values()) for k in _cuda.LAUNCHES}
+    families = {}
     for qname, resp in results.items():
-        got = sorted(map(tuple, resp.result_table.rows))
-        want = sorted(map(tuple, expected[qname]))
+        got = [tuple(r) for r in resp.result_table.rows]
+        want = [tuple(r) for r in expected[qname]]
+        if qname not in ORDERED:
+            got, want = sorted(got), sorted(want)
         if got != want:
             bad = next((a, b) for a, b in zip(got + [None] * len(want),
                                               want + [None] * len(got))
@@ -317,6 +458,23 @@ def phase_queries(torch, qe, expected, _cuda):
         kernel = EXPECTED_KERNEL.get(qname)
         if kernel is not None and per_query[qname][kernel] == 0:
             raise AssertionError(f"{qname} did not launch {kernel}")
+        if fetches[qname] != 1:
+            raise AssertionError(f"{qname}: {fetches[qname]} host fetches")
+        families[qname], modes = family_count(qe, QUERIES[qname])
+        if qname in ONE_FAMILY and (resp.num_device_dispatches != 1
+                                    or families[qname] != 1):
+            raise AssertionError(f"{qname}: {resp.num_device_dispatches} "
+                                 f"dispatches, {families[qname]} families")
+        if qname in ONE_FAMILY and kernel and per_query[qname][kernel] != 1:
+            raise AssertionError(f"{qname}: {per_query[qname][kernel]} "
+                                 f"launches of {kernel}, want 1")
+        if resp.num_device_dispatches != families[qname]:
+            raise AssertionError(f"{qname}: {resp.num_device_dispatches} "
+                                 f"dispatches for {families[qname]} families")
+        if (modes == {"group_by_sparse"}) != (qname in SPARSE_QUERIES):
+            raise AssertionError(f"{qname}: planned modes {modes}")
+        if (combines[qname] == 1) != (qname in DEVICE_COMBINE):
+            raise AssertionError(f"{qname}: {combines[qname]} device combines")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"the main path never launched {k}")
@@ -324,9 +482,13 @@ def phase_queries(torch, qe, expected, _cuda):
                                                for k, r in results.items()},
           "oracle": "equal", "launches": launches,
           "launches_per_query": per_query, "first_run": cold,
+          "host_fetches": fetches, "device_combines": combines,
+          "batch_families": families,
           "docs_scanned": {k: r.num_docs_scanned for k, r in results.items()},
           "device_dispatches": {k: r.num_device_dispatches
-                                for k, r in results.items()}})
+                                for k, r in results.items()},
+          "resident_bytes": qe.executor.cache.bytes_used(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
     return launches, per_query
 
 
@@ -335,15 +497,17 @@ def phase_geometry(torch, _cuda, mxu, fg, recorded) -> None:
     of each size the card holds at that shape's shared memory."""
     out = {}
     for qname, recs in recorded.items():
+        segments = 1
         if qname in ("q2", "q9"):
             fp, planes_in, scalars, G, n = recs[0]
             name, P = "fused_limb_sums", len(fp.planes)
             layout, index = fg.slot_layout(planes_in), scalars.device.index
         else:
             planes, gid, G = recs[0]
-            name, (P, n) = "limb_sums", planes.shape
+            name, n, P = "limb_sums", gid.shape[-1], planes.shape[-2]
+            segments = planes.shape[0] if planes.dim() == 3 else 1
             layout, index = mxu.slot_layout(planes, gid), gid.device.index
-        geo = _cuda.geometry_for(name, n, P, G, *layout, index)
+        geo = _cuda.geometry_for(name, n, P, G, *layout, index, segments)
         out[qname] = dict(geometry_of(geo), kernel=name, n=n, P=P, G=G,
                           active_clusters={c: _cuda.max_active_clusters(
                               name, c, geo.smem_bytes) for c in (1, 2, 4, 8)})
@@ -351,17 +515,16 @@ def phase_geometry(torch, _cuda, mxu, fg, recorded) -> None:
           .multi_processor_count, "shapes": out})
 
 
-def phase_layers(torch, qe, schema, segments, iters, card) -> dict:
+def phase_layers(torch, qe, iters, card) -> dict:
     """Where a warm query's time goes, layer by layer, with the host clock:
-    parse + plan, dispatch (planes already resident; ends in
-    torch.cuda.synchronize(), so it holds the kernels' device time),
-    collect (the one device->host copy per segment and the key decode),
-    combine + reduce. Medians over `iters` runs."""
+    parse + plan, dispatch (planes already resident; every family or
+    segment, or the device combine; ends in torch.cuda.synchronize(), so it
+    holds the device time), collect (the query's one device->host copy and
+    the decode), combine + reduce. Medians over `iters` runs."""
     from pinot_tpu_torch.engine.reduce import BrokerReducer
     from pinot_tpu_torch.query.optimizer import optimize_filter
     from pinot_tpu_torch.query.parser.sql import parse_sql
 
-    ex = qe.executor
     out = {}
     for qname, sql in QUERIES.items():
         ts = []
@@ -369,15 +532,16 @@ def phase_layers(torch, qe, schema, segments, iters, card) -> dict:
             t0 = time.perf_counter()
             query = parse_sql(sql)
             query.filter = optimize_filter(query.filter)
-            plans = [ex.plan(query, s) for s in segments]
+            table = qe._table(query.table_name)
+            segments = table.segments
+            plans = qe.plan_segments(query, segments)
             t1 = time.perf_counter()
-            pending = [ex.dispatch_plan(s, p) for s, p in zip(segments, plans)]
+            pending = qe.dispatch_segments(query, segments, plans)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            inter = [ex.collect(query, s, p, o)
-                     for s, p, o in zip(segments, plans, pending)]
+            inter = qe.collect_segments(query, segments, plans, pending)
             t3 = time.perf_counter()
-            BrokerReducer(schema).reduce(query, qe._combine(query, inter))
+            BrokerReducer(table.schema).reduce(query, qe._combine(query, inter))
             t4 = time.perf_counter()
             ts.append([t1 - t0, t2 - t1, t3 - t2, t4 - t3])
         med = np.median(np.asarray(ts), axis=0) * 1e3
@@ -394,7 +558,8 @@ def phase_profile(torch, qe, card) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for qname in ("q2", "q2_unfused", "flagship"):
+    for qname in ("q2", "q2_unfused", "flagship", "q2_family", "q3",
+                  "q3_sort", "q3m", "sparse_family", "sparse_family_solo"):
         qe.execute_sql(QUERIES[qname])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -494,7 +659,7 @@ def geometry_of(geo) -> dict:
 
 
 def kernel_row(torch, name, calls, plain, library, nbytes, ops, shape,
-               launches, err, note, geo) -> dict:
+               launches, err, note, geo, redesigned="PR 3") -> dict:
     """One row of the kernel table; `calls` are the kernel's wrapper calls
     on each segment's recorded inputs."""
     ms = device_ms(torch, calls, name)
@@ -512,24 +677,34 @@ def kernel_row(torch, name, calls, plain, library, nbytes, ops, shape,
             "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "bound_share": bound_ms / ms,
             "library_ms": lib_ms, "shape": shape, "inputs": note,
-            "geometry": geometry_of(geo), "redesigned": "PR 3"}
+            "geometry": geometry_of(geo), "redesigned": redesigned}
 
 
 def kernel_a_row(torch, mxu, _cuda, recs, launches, err, note):
-    """Kernel A over the recorded (planes, gid, G) of each segment."""
+    """Kernel A over the recorded (planes, gid, G) of each segment, or of
+    each family ((S, P, n) planes: the family axis)."""
     planes, gid, G = recs[0]
-    P, n = planes.shape
+    family = planes.dim() == 3
+    S, (P, n) = (planes.shape[0] if family else 1), planes.shape[-2:]
     calls = [lambda r=r: mxu.limb_sums(*r) for r in recs]
-    planes64, gid64 = planes.to(torch.int64), gid.to(torch.int64)
+    # the library yardstick: one index_add_ over the family's rows, member
+    # s's groups at s * G
+    flat = (gid.to(torch.int64).reshape(S, n) + G * torch.arange(
+        S, device=DEVICE).unsqueeze(1)).reshape(-1)
+    planes64 = planes.to(torch.int64).reshape(S, P, n).transpose(0, 1) \
+        .reshape(P, S * n)
     geo = _cuda.geometry_for("limb_sums", n, P, G,
-                             *mxu.slot_layout(planes, gid), gid.device.index)
+                             *mxu.slot_layout(planes, gid), gid.device.index, S)
+    shape = {"n": n, "P": P, "G": G}
+    if family:
+        shape["S"] = S
     row = kernel_row(
         torch, "limb_sums", calls, lambda: mxu.limb_sums_plain(planes, gid, G),
-        lambda: torch.zeros((P, G), dtype=torch.int64, device=DEVICE
-                            ).index_add_(1, gid64, planes64),
-        n * (4 + P) + 8 * P * G, n * P, {"n": n, "P": P, "G": G},
-        launches, err, note, geo)
-    del planes64, gid64
+        lambda: torch.zeros((P, S * G), dtype=torch.int64, device=DEVICE
+                            ).index_add_(1, flat, planes64),
+        S * (n * (4 + P) + 8 * P * G), S * n * P, shape, launches, err, note,
+        geo, "PR 3; family axis PR 4" if family else "PR 3")
+    del planes64, flat
     return row
 
 
@@ -562,6 +737,59 @@ def kernel_b_row(torch, fg, _cuda, recs, launches, err, note):
         launches, err, note, geo)
     del gid64, vals
     return row
+
+
+def family_inputs(torch, S, n, P, G, seed, live=None):
+    """S members' kernel A inputs (S, P, n) / (S, n); member s keeps
+    live[s] rows, the rest carrying the trash gid and zero payloads as its
+    pad rows would."""
+    planes, gid = limb_inputs(torch, S * n, P, G, seed)
+    planes = planes.view(P, S, n).transpose(0, 1).contiguous()
+    gid = gid.view(S, n).contiguous()
+    for s, rows in enumerate(live or ()):
+        gid[s, rows:] = G - 1
+        planes[s, :, rows:] = 0
+    return planes, gid
+
+
+def phase_family_edges(torch, mxu, geometry, _cuda, seed) -> dict:
+    """Kernel A with its family axis at its edges, each one launch and
+    element-equal to the plain version of the flattened family: a family
+    of one, 16 members of a ragged n (padded to 16 bytes) with ragged live
+    rows, a member with no live row, each segment's tiles spread over the
+    card's CTAs, and one cluster whose range crosses every segment (its
+    tables flushed at each new segment)."""
+    out = {}
+    n20 = (1 << 20) + 5
+    cases = {
+        "S1": (1, 1 << 22, 4, 7001, None, None),
+        "S16_ragged": (16, n20, 4, 7001,
+                       [n20 - 61_441 * s for s in range(16)], None),
+        "member_n0": (4, 1 << 20, 4, 1001, [1 << 20, 0, 1 << 19, 17], None),
+        "split_over_ctas": (2, 1 << 23, 4, 7001, None, None),
+        "one_cluster": (6, 1 << 20, 4, 7001, None, "one_cluster"),
+    }
+    for label, (S, n, P, G, live, occupancy) in cases.items():
+        planes, gid = family_inputs(torch, S, n, P, G, seed, live)
+        before = _cuda.LAUNCHES["limb_sums"]
+        if occupancy is None:
+            got = mxu.limb_sums(planes, gid, G)
+        else:
+            geo = geometry.plan(
+                n, P, G, *mxu.slot_layout(planes, gid), segments=S,
+                active_clusters=lambda c, smem: min(
+                    1, _cuda.max_active_clusters("limb_sums", c, smem)))
+            if geo.clusters != 1 or geo.units < S:
+                raise AssertionError(f"{label}: {geo}")
+            got = mxu.launch(planes, gid, G, geo)
+        if _cuda.LAUNCHES["limb_sums"] != before + 1:
+            raise AssertionError(f"{label}: not one launch for the family")
+        out[f"limb_sums/family_{label}"] = check_equal(
+            torch, f"limb_sums family {label}", got,
+            mxu.limb_sums_plain(planes, gid, G))
+        del planes, gid, got
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_edges(torch, mxu, fg, geometry, _cuda, seed) -> dict:
@@ -642,7 +870,8 @@ def main(argv=None) -> int:
         return 2
     try:
         from pinot_tpu_torch.engine.query_executor import QueryExecutor
-        from pinot_tpu_torch.ops import _cuda, fused_groupby, geometry, mxu_groupby
+        from pinot_tpu_torch.ops import (_cuda, fused_groupby, geometry,
+                                         kernels as interp, mxu_groupby)
     except ImportError as e:
         print(f"chip_smoke: the pinot_tpu_torch package is missing ({e}); "
               "run from the repository root", file=sys.stderr)
@@ -675,26 +904,35 @@ def main(argv=None) -> int:
             fused_groupby.fused_limb_sums_plain(fp, planes_in, scal, G, n))
     parity.update(phase_edges(torch, mxu_groupby, fused_groupby, geometry,
                               _cuda, args.seed))
+    parity.update(phase_family_edges(torch, mxu_groupby, geometry, _cuda,
+                                     args.seed))
     torch.cuda.empty_cache()
 
-    schema, segments, cols, tmp = phase_data(args, torch)
+    tables, cols, tmp = phase_data(args, torch)
+    segments = tables["ssb"][1]
     try:
         expected = oracle(cols)
         del cols
         qe = QueryExecutor(device=DEVICE)
-        qe.add_table(schema, segments)
-        launches, per_query = phase_queries(torch, qe, expected, _cuda)
+        for schema, segs in tables.values():
+            qe.add_table(schema, segs)
+        launches, per_query = phase_queries(torch, qe, expected, _cuda, interp)
 
-        # the main path's own kernel inputs, one call per segment and query,
-        # for the parity over q2/q9's plans and the kernel timings
+        # the main path's own kernel inputs, one call per segment (per
+        # family) and query, for the parity over every query's inputs and
+        # the kernel timings
         recorded = {}
-        for qname, owner, fn in (("q2", fused_groupby, "fused_limb_sums"),
-                                 ("q9", fused_groupby, "fused_limb_sums"),
-                                 ("q2_unfused", mxu_groupby, "limb_sums"),
-                                 ("flagship", mxu_groupby, "limb_sums")):
+        for qname, owner, fn, calls_want in (
+                ("q2", fused_groupby, "fused_limb_sums", len(segments)),
+                ("q9", fused_groupby, "fused_limb_sums", len(segments)),
+                ("q2_unfused", mxu_groupby, "limb_sums", len(segments)),
+                ("flagship", mxu_groupby, "limb_sums", len(segments)),
+                ("q2_family", mxu_groupby, "limb_sums", 1),
+                ("flagship_family", mxu_groupby, "limb_sums", 1),
+                ("q4", mxu_groupby, "limb_sums", 1)):
             with recording(owner, fn) as calls:
                 qe.execute_sql(QUERIES[qname])
-            if len(calls) != len(segments):
+            if len(calls) != calls_want:
                 raise AssertionError(f"{qname}: {len(calls)} calls of {fn}")
             recorded[qname] = calls
         for qname in ("q2", "q9"):
@@ -709,6 +947,12 @@ def main(argv=None) -> int:
                     torch, f"limb_sums {qname} inputs, segment {k}",
                     mxu_groupby.limb_sums(planes, gid, G),
                     mxu_groupby.limb_sums_plain(planes, gid, G))
+        for qname in ("q2_family", "flagship_family", "q4"):
+            planes, gid, G = recorded[qname][0]
+            parity[f"limb_sums/{qname}_inputs/family"] = check_equal(
+                torch, f"limb_sums {qname} inputs, family of "
+                f"{planes.shape[0]}", mxu_groupby.limb_sums(planes, gid, G),
+                mxu_groupby.limb_sums_plain(planes, gid, G))
         emit({"phase": "parity", "max_abs_err": parity,
               "tolerance": "element-equal int64"})
         phase_geometry(torch, _cuda, mxu_groupby, fused_groupby, recorded)
@@ -729,7 +973,7 @@ def main(argv=None) -> int:
               "query_p50_ms": p50, "query_p25_p75_ms": quartiles,
               "rows_per_s": {k: rows / (v / 1e3) for k, v in p50.items()},
               "iters": args.iters})
-        phase_layers(torch, qe, schema, segments, args.iters, dev["nvidia_smi"])
+        phase_layers(torch, qe, args.iters, dev["nvidia_smi"])
         phase_profile(torch, qe, dev["nvidia_smi"])
         del qe
         torch.cuda.empty_cache()
@@ -748,6 +992,14 @@ def main(argv=None) -> int:
                 parity[f"fused_limb_sums/{qname}_plan/segment0"],
                 f"{qname}: the main path's raw planes of the {len(segments)} "
                 "segments, in turn"))
+        for qname in ("q2_family", "q4"):
+            S = recorded[qname][0][0].shape[0]
+            kernels.append(kernel_a_row(
+                torch, mxu_groupby, _cuda, recorded[qname],
+                per_query[qname]["limb_sums"],
+                parity[f"limb_sums/{qname}_inputs/family"],
+                f"{qname}: the main path's planes of the family of {S} "
+                "segments, one launch"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -198,7 +198,10 @@ struct FusedOp {
     rows<K>(c, idx, valid, row0 + tile_rows + sc[1] > sc[0], load);
   }
 
-  __device__ __forceinline__ void global_row(Ctx& c, long long row,
+  // one input per launch (the reference never batches this kernel)
+  __device__ __forceinline__ long long seg_bytes(int) const { return 0; }
+
+  __device__ __forceinline__ void global_row(Ctx& c, int, long long row,
                                              bool ok) const {
     const long long idx[1] = {row};
     const bool valid[1] = {ok};
@@ -242,7 +245,7 @@ extern "C" int pinot_fused_limb_sums(const FusedDesc* desc, const Geom* geo,
                                      int groups, void* out, void* stream) {
   if (n_scalars > kMaxScalars || desc->n_planes > kMaxPlanes ||
       desc->n_terms > kMaxTerms || desc->n_groups > kMaxGroupDims ||
-      geo->num_slots > pinot::kMaxSlots)
+      geo->num_slots > pinot::kMaxSlots || geo->segments != 1)
     return (int)cudaErrorInvalidValue;
   return (int)pinot::launch_clusters(
       fused_limb_sums_kernel, *geo, static_cast<cudaStream_t>(stream), *desc,

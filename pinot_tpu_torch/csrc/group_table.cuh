@@ -2,7 +2,13 @@
 // (limb_sums.cu, fused_limb_sums.cu).
 //
 // One grid of thread-block clusters, about one CTA per SM, walks the rows
-// in tiles. Warp 0 of each CTA keeps a ring of `stages` tiles in shared
+// of a FAMILY of S equal-length inputs (S = 1 for a single one) in tiles.
+// The work is a sequence of units, segment by segment (a unit is one tile
+// per CTA of a cluster, or one tile multicast to the whole cluster in the
+// split mode), and each cluster walks a contiguous range of it, so its
+// tables hold one segment's sums at a time: they are flushed into that
+// segment's (P, G) block of the output when the next unit belongs to
+// another segment. Warp 0 of each CTA keeps a ring of `stages` tiles in shared
 // memory filled with 1-D bulk asynchronous copies (cp.async.bulk, one per
 // slot plane and tile, completion counted in bytes on a "full" mbarrier),
 // so `stages - 1` tiles are in flight while the CTA consumes one. Every
@@ -29,8 +35,9 @@
 // (tile rows, ring, cluster size, mode, flush interval, slot layout) comes
 // from pinot_tpu_torch/ops/geometry.py and rides in `Geom`, a kernel
 // parameter: the consumers index it with constants, so its fields are
-// operands from the constant bank. Rows past the last whole tile are read
-// from device memory directly and never past row n - 1.
+// operands from the constant bank. Rows past the last whole tile of each
+// segment are read from device memory directly, never past row n - 1, and
+// added into the output by global atomics.
 //
 // Dynamic shared memory: the full and empty mbarriers (kMaxStages each), a
 // junk word per lane, the table at Geom::table_off, the ring at ring_off.
@@ -76,7 +83,7 @@ struct Geom {
   int mode;
   int cluster;
   int clusters;
-  int iters;
+  int units;  // of the whole family: segments * seg_units
   int epoch_iters;
   int table_planes;
   int table_groups;
@@ -85,6 +92,9 @@ struct Geom {
   int ring_off;
   int smem_bytes;
   int warp_agg;
+  int segments;    // S, each n rows of every slot plane
+  int seg_units;   // units of one segment
+  int unit_tiles;  // tiles of one unit: cluster, or 1 in the split mode
   unsigned tg_inv;  // ceil(2^32 / table_groups): g / table_groups = umulhi
   int mis[kMaxSlots];
   int copy_bytes[kMaxSlots];
@@ -172,7 +182,8 @@ __device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src,
 
 // One slot plane, as warp 0's copies read it; kept in shared memory.
 struct Slot {
-  const unsigned char* src;  // the aligned address below row 0
+  const unsigned char* src;  // the aligned address below segment 0's row 0
+  long long seg_bytes;       // from one segment's plane to the next
   int width;                 // bytes per row
   int copy_bytes;            // of one tile's copy
   int smem_off;              // of the copy within a stage
@@ -182,6 +193,7 @@ struct Ctx {
   int* table;
   uint32_t table_addr;  // the table's shared-memory address
   unsigned long long* out;
+  long long seg_off;  // where the current segment's (P, G) block starts
   int mode;
   int rank;
   int tg;      // groups of one CTA's table
@@ -342,7 +354,8 @@ __device__ __forceinline__ void add_rows(const Ctx& c, const bool (&m)[K],
       vals(p, v);
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        red_global(c.out + (long long)p * c.groups + g[k], m[k] ? v[k] : 0);
+        red_global(c.out + c.seg_off + (long long)p * c.groups + g[k],
+                   m[k] ? v[k] : 0);
     }
   } else if (c.mode == kSplitPlanes) {
     // this CTA's planes [p0, p1) of every group, at (p - p0) * G + g
@@ -433,10 +446,10 @@ __device__ __forceinline__ long long out_index(const Ctx& c, int i) {
   return (long long)(c.p0 + p) * c.groups + g;
 }
 
-// Collective over the cluster, between epochs: add the tables into the
-// output (int64) with one global atomic per non-zero counter, and zero them
-// for the next epoch. No CTA re-zeroes while another may still read or add
-// into its table.
+// Collective over the cluster, between epochs and between segments: add
+// the tables into the current segment's output (int64) with one global
+// atomic per non-zero counter, and zero them for what follows. No CTA
+// re-zeroes while another may still read or add into its table.
 // Counters go four at a time (int4): in private mode CTA `rank` sums the
 // rank-th share of the table's int4s over the C tables.
 __device__ __forceinline__ void flush_tables(const Ctx& c,
@@ -463,7 +476,7 @@ __device__ __forceinline__ void flush_tables(const Ctx& c,
         const int i = 4 * i4 + l;
         if (i < counters && s[l]) {
           const int p = i / c.tg;
-          atomicAdd(c.out + (long long)p * c.groups + (i - p * c.tg),
+          atomicAdd(c.out + c.seg_off + (long long)p * c.groups + (i - p * c.tg),
                     (unsigned long long)s[l]);
         }
       }
@@ -476,7 +489,8 @@ __device__ __forceinline__ void flush_tables(const Ctx& c,
       for (int l = 0; l < 4; ++l) {
         const int i = 4 * i4 + l;
         if (i < counters && v[l])
-          atomicAdd(c.out + out_index(c, i), (unsigned long long)v[l]);
+          atomicAdd(c.out + c.seg_off + out_index(c, i),
+                    (unsigned long long)v[l]);
       }
     }
   }
@@ -518,8 +532,8 @@ __device__ __forceinline__ void reduce_range(unsigned long long* out,
 }
 
 // The last flush: like flush_tables, but each CTA adds its int64 sums to the
-// output by bulk reductions of contiguous ranges, staged in the ring (idle
-// by then), not by one global atomic per counter.
+// current segment's output by bulk reductions of contiguous ranges, staged
+// in the ring (idle by then), not by one global atomic per counter.
 __device__ __forceinline__ void flush_final(const Ctx& c, cg::cluster_group& cl,
                                             int counters, int csize,
                                             long long* staging, int cap) {
@@ -531,7 +545,7 @@ __device__ __forceinline__ void flush_final(const Ctx& c, cg::cluster_group& cl,
     const int per = (chunks + csize - 1) / csize;
     const int lo = min(counters, 4 * c.rank * per);
     const int hi = min(counters, 4 * (c.rank + 1) * per);
-    reduce_range(c.out, lo, hi - lo, staging, cap,
+    reduce_range(c.out, c.seg_off + lo, hi - lo, staging, cap,
                  [&](int b, int n, long long* at) {
       for (int i = 4 * (int)threadIdx.x; i < n; i += 4 * blockDim.x) {
         long long v[4] = {0, 0, 0, 0};
@@ -552,8 +566,8 @@ __device__ __forceinline__ void flush_final(const Ctx& c, cg::cluster_group& cl,
     // planes [p0, p1) of every group: one contiguous range of the output
     const int n = (c.p1 - c.p0) * c.tg;
     if (n > 0)
-      reduce_range(c.out, (long long)c.p0 * c.groups, n, staging, cap,
-                   [&](int b, int m, long long* at) {
+      reduce_range(c.out, c.seg_off + (long long)c.p0 * c.groups, n, staging,
+                   cap, [&](int b, int m, long long* at) {
         for (int j = threadIdx.x; j < m; j += blockDim.x)
           at[j] = c.table[b + j];
       });
@@ -563,8 +577,8 @@ __device__ __forceinline__ void flush_final(const Ctx& c, cg::cluster_group& cl,
     const int n = min(c.tg, c.groups - g0);
     const int planes = counters / c.tg;
     for (int p = 0; n > 0 && p < planes; ++p)
-      reduce_range(c.out, (long long)p * c.groups + g0, n, staging, cap,
-                   [&](int b, int m, long long* at) {
+      reduce_range(c.out, c.seg_off + (long long)p * c.groups + g0, n, staging,
+                   cap, [&](int b, int m, long long* at) {
         for (int j = threadIdx.x; j < m; j += blockDim.x)
           at[j] = c.table[p * c.tg + b + j];
       });
@@ -578,12 +592,16 @@ __device__ __forceinline__ void flush_final(const Ctx& c, cg::cluster_group& cl,
 //
 // Op supplies, for the kernel's slot planes and rows:
 //   int width(int s)                      bytes per row of slot s
-//   const unsigned char* slot_ptr(int s)  slot s in device memory
+//   const unsigned char* slot_ptr(int s)  slot s of segment 0 in device
+//                                         memory
+//   long long seg_bytes(int s)            from one segment's slot s to the
+//                                         next's (a multiple of 16)
 //   void smem_rows(Ctx&, stage, r, row0, tile_rows)
 //        rows r .. r + kRowsPerStep - 1 (r a multiple of kRowsPerStep; none
 //        when r >= tile_rows) of the tile of rows [row0, row0 + tile_rows)
-//        in a stage
-//   void global_row(Ctx&, row, valid)    a tail row, from device memory
+//        of a segment in a stage
+//   void global_row(Ctx&, seg, row, valid)  a tail row of segment seg, from
+//                                           device memory
 // Every lane of a warp calls them together.
 template <class Op>
 __device__ __forceinline__ void run(const Geom& geo, const Op& op, int planes,
@@ -599,6 +617,7 @@ __device__ __forceinline__ void run(const Geom& geo, const Op& op, int planes,
   c.table = reinterpret_cast<int*>(smem + geo.table_off);
   c.table_addr = smem_u32(c.table);
   c.out = out;
+  c.seg_off = 0;
   c.mode = geo.mode;
   c.rank = (int)cl.block_rank();
   c.tg = geo.table_groups;
@@ -614,6 +633,7 @@ __device__ __forceinline__ void run(const Geom& geo, const Op& op, int planes,
     Slot& sl = slots[tid];
     sl.width = op.width(tid);
     sl.src = op.slot_ptr(tid) - geo.mis[tid];
+    sl.seg_bytes = op.seg_bytes(tid);
     sl.copy_bytes = geo.copy_bytes[tid];
     sl.smem_off = geo.smem_off[tid];
   }
@@ -632,34 +652,60 @@ __device__ __forceinline__ void run(const Geom& geo, const Op& op, int planes,
   // (remote) add, copy or arrival
   cl.sync();
 
-  const int q = blockIdx.x / geo.cluster;
-  // rows past the last whole tile, spread over the grid: by CTA, or by
-  // cluster in the split mode (every CTA of it adds its own planes)
+  const long long seg_counters = (long long)planes * groups;
+  // rows past the last whole tile of every segment, spread over the
+  // grid's threads (each row once, every plane of it), straight into the
+  // output by global atomics: a table holds one segment at a time
   {
-    const int unit = split ? q : (int)blockIdx.x;
-    const int units = split ? geo.clusters : (int)gridDim.x;
-    const long long stride = (long long)units * blockDim.x;
-    for (long long base = geo.full_rows + (long long)unit * blockDim.x;
-         base < geo.n; base += stride) {
-      const long long row = base + tid;
-      op.global_row(c, row, row < geo.n);
+    const long long tail = geo.n - geo.full_rows;
+    const long long total = tail * geo.segments;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    Ctx g = c;
+    g.mode = kGlobalAtomics;
+    for (long long base = (long long)blockIdx.x * blockDim.x; base < total;
+         base += stride) {
+      const long long i = base + tid;
+      const bool ok = i < total;
+      const int seg = ok ? (int)(i / tail) : 0;
+      g.seg_off = seg * seg_counters;
+      op.global_row(g, seg, geo.full_rows + (ok ? i - seg * tail : 0), ok);
     }
   }
 
+  const int q = blockIdx.x / geo.cluster;
   const long long num_tiles = geo.full_rows / geo.tile_rows;
   const int rank = c.rank;
   const int nslots = geo.num_slots;
   const uint16_t cta_mask = (uint16_t)((1u << geo.cluster) - 1);
-  auto tile_of = [&](int j) -> long long {
-    return split ? (long long)j * geo.clusters + q
-                 : ((long long)j * geo.clusters + q) * geo.cluster + rank;
-  };
+  // this cluster's units [u0, u0 + steps): step j is unit u0 + j, of
+  // segment (u0 + j) / seg_units; the CTA's tile of that segment is
+  // ((u0 + j) % seg_units) * unit_tiles (+ rank), none when >= num_tiles.
+  // Two cursors (segment, unit of it) walk the range one unit at a time,
+  // the producer's ahead of the consumers': a 64-bit division per step
+  // costs the consumers registers and about 15% of the kernel's time
+  const long long u0 = (long long)q * geo.units / geo.clusters;
+  const int steps =
+      (int)((long long)(q + 1) * geo.units / geo.clusters - u0);
+  // (no whole tile at all: no unit, and the table stays segment 0's)
+  const int seg0 = steps > 0 ? (int)(u0 / geo.seg_units) : 0;
+  const int unit0 = (int)(u0 - (long long)seg0 * geo.seg_units);
+  int pj = 0, pseg = seg0, punit = unit0;
+  int cseg = seg0, cunit = unit0;
   // warp 0 only, lane k taking slot k (k < 32, then k + 32): the tile of
-  // step j into stage s, once every warp is done with the stage (phase
-  // `free_parity` of its empty barrier, when `refill`). In the split mode
-  // CTA 0 copies for the whole cluster and every CTA expects the bytes.
-  auto issue = [&](int j, int s, bool refill, uint32_t free_parity) {
-    const long long t = tile_of(j);
+  // the producer's next step into stage s, once every warp is done with
+  // the stage (phase `free_parity` of its empty barrier, when `refill`).
+  // In the split mode CTA 0 copies for the whole cluster and every CTA
+  // expects the bytes.
+  auto issue = [&](int s, bool refill, uint32_t free_parity) {
+    if (pj >= steps) return;
+    const long long seg = pseg;
+    const long long t =
+        (long long)punit * geo.unit_tiles + (split ? 0 : rank);
+    ++pj;
+    if (++punit == geo.seg_units) {
+      punit = 0;
+      ++pseg;
+    }
     if (t >= num_tiles) return;
     unsigned char* dst = smem + geo.ring_off + (size_t)s * geo.stage_bytes;
     const long long row0 = t * geo.tile_rows;
@@ -669,7 +715,8 @@ __device__ __forceinline__ void run(const Geom& geo, const Op& op, int planes,
     __syncwarp();
     for (int k = lane; k < nslots; k += 32) {
       unsigned char* to = dst + slots[k].smem_off;
-      const unsigned char* from = slots[k].src + row0 * slots[k].width;
+      const unsigned char* from =
+          slots[k].src + seg * slots[k].seg_bytes + row0 * slots[k].width;
       if (split)
         bulk_load_multicast(to, from, (uint32_t)slots[k].copy_bytes, full + s,
                             cta_mask);
@@ -679,7 +726,7 @@ __device__ __forceinline__ void run(const Geom& geo, const Op& op, int planes,
   };
 
   if (tid < 32)
-    for (int j = 0; j < geo.stages - 1; ++j) issue(j, j, false, 0);
+    for (int j = 0; j < geo.stages - 1; ++j) issue(j, false, 0);
   // Step j reads stage s = j % stages in phase `parity`; the copy issued at
   // step j fills stage (j - 1) % stages, freed when every warp has read
   // step j - 1 (whose phase was `fill_parity`). No block-wide barrier
@@ -689,11 +736,23 @@ __device__ __forceinline__ void run(const Geom& geo, const Op& op, int planes,
   uint32_t parity = 0, fill_parity = 0;
   const uint32_t empty_addr = split ? map_rank(smem_u32(empty), 0)
                                     : smem_u32(empty);
-  for (int j = 0; j < geo.iters; ++j) {
-    if (j > 0 && j % geo.epoch_iters == 0)
+  int cur = cseg;
+  c.seg_off = cur * seg_counters;
+  for (int j = 0; j < steps; ++j) {
+    // every CTA of the cluster is at the same unit, so they agree on when
+    // to flush: at a new segment, and every epoch_iters steps
+    if (j > 0 && (cseg != cur || j % geo.epoch_iters == 0)) {
       flush_tables(c, cl, geo.table_counters, geo.cluster);
-    if (tid < 32) issue(j + geo.stages - 1, fill, j > 0, fill_parity);
-    const long long t = tile_of(j);
+      cur = cseg;
+      c.seg_off = cur * seg_counters;
+    }
+    if (tid < 32) issue(fill, j > 0, fill_parity);
+    const long long t =
+        (long long)cunit * geo.unit_tiles + (split ? 0 : rank);
+    if (++cunit == geo.seg_units) {
+      cunit = 0;
+      ++cseg;
+    }
     if (t < num_tiles) {
       mbar_wait(full + s, parity);
       const unsigned char* stage =

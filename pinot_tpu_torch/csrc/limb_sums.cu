@@ -8,14 +8,16 @@
 //
 //   out[p, g] = sum over rows r with gid[r] == g of planes[p, r]
 //
-// planes (P, n) int8 holding [0, 127], gid (n,) int32 in [0, G);
-// out (P, G) int64, zeroed by the caller. Rows whose payload is 0 add
-// nothing: masked rows all carry gid G-1 and zero payloads, so they do not
-// contend on the trash slot.
+// planes (S, P, n) int8 holding [0, 127], gid (S, n) int32 in [0, G);
+// out (S, P, G) int64, zeroed by the caller: one launch for a batch family
+// of S segments (the JAX package vmaps the Pallas call, which its batching
+// rule turns into one launch with a batch grid axis), S = 1 for one
+// segment. Rows whose payload is 0 add nothing: masked rows all carry gid
+// G-1 and zero payloads, so they do not contend on the trash slot.
 //
-// Bound on an H100: bytes. The function reads n * (4 + P) bytes and writes
-// 8 * P * G; it does one add per non-zero payload, far below the card's
-// integer rate. The design (group_table.cuh) reads every input byte once,
+// Bound on an H100: bytes. The function reads S * n * (4 + P) bytes and
+// writes 8 * S * P * G; it does one add per non-zero payload, far below the
+// card's integer rate. The design (group_table.cuh) reads every input byte once,
 // with bulk asynchronous copies keeping 2 tiles (32 KB each at P = 4) in
 // flight per SM, and keeps the per-group sums in shared memory: in each
 // CTA's private table when P x G fits one CTA (the cluster then sums its
@@ -24,7 +26,13 @@
 // by group. A plane that does not start on 16 bytes (P planes of a ragged
 // n, stacked) is copied from the aligned address below its tile and read at
 // its offset. Plane p's place in a stage is a constant-bank operand
-// (Geom::row_off), as the loop over the planes is unrolled.
+// (Geom::row_off), as the loop over the planes is unrolled. A family's
+// units run segment by segment, each cluster over a contiguous range of
+// them, so a table holds one segment at a time and is flushed into that
+// segment's block when the range crosses into the next (at most a few
+// times per cluster); the family is never folded into one table of
+// S x G groups, which would leave the shared-memory tables for global
+// atomics.
 #include "group_table.cuh"
 
 namespace {
@@ -51,6 +59,12 @@ struct LimbOp {
                         planes + (long long)(s - 1) * n);
   }
 
+  // segment s's gid follows segment s - 1's n int32s, its planes the
+  // previous segment's P planes of n bytes
+  __device__ __forceinline__ long long seg_bytes(int s) const {
+    return s == 0 ? 4 * n : (long long)num_planes * n;
+  }
+
   __device__ __forceinline__ bool vec(int s) const {
     return (geo.vec_mask >> s) & 1ull;
   }
@@ -70,12 +84,14 @@ struct LimbOp {
                                          geo.warp_agg);
   }
 
-  __device__ __forceinline__ void global_row(Ctx& c, long long row,
+  __device__ __forceinline__ void global_row(Ctx& c, int seg, long long row,
                                              bool valid) const {
     const bool v[1] = {valid};
-    const int g[1] = {valid ? gid[row] : 0};
+    const int g[1] = {valid ? gid[(long long)seg * n + row] : 0};
     auto vals = [&](int p, int (&out)[1]) {
-      out[0] = valid ? (int)planes[(long long)p * n + row] : 0;
+      out[0] = valid
+                   ? (int)planes[((long long)seg * num_planes + p) * n + row]
+                   : 0;
     };
     pinot::add_rows<1, kMaxPlanes, true>(c, v, g, num_planes, vals,
                                          geo.warp_agg);
@@ -109,7 +125,7 @@ extern "C" int pinot_limb_sums(const Geom* geo, const void* planes,
                                const void* gid, int num_planes, int groups,
                                void* out, void* stream) {
   if (geo->num_slots != num_planes + 1 || num_planes > kMaxPlanes ||
-      geo->num_slots > pinot::kMaxSlots)
+      geo->num_slots > pinot::kMaxSlots || geo->segments < 1)
     return (int)cudaErrorInvalidValue;
   return (int)pinot::launch_clusters(
       limb_sums_kernel, *geo, static_cast<cudaStream_t>(stream), *geo,

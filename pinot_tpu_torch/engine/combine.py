@@ -21,6 +21,49 @@ _MERGE_INIT = {"add": 0.0, "min": np.inf, "max": -np.inf}
 _MERGE_AT = {"add": np.add.at, "min": np.minimum.at, "max": np.maximum.at}
 
 
+def combine_batched_dense(outs_b: Sequence, plans: Sequence) -> Optional[list]:
+    """Per-member GroupArrays of a dense group-by FAMILY's host outputs
+    (every array with a leading [S] member dim): ONE np.nonzero over the
+    whole [S, G] counts block and one scanned-docs reduction instead of S
+    of each. Key decodes stay per member (dictionaries are segment-local).
+    Equal to each member's own collect(); None outside the dense mode."""
+    p0 = plans[0].program
+    if p0.mode != "group_by":
+        return None
+    num_groups = p0.num_groups
+    counts_b = np.asarray(outs_b[0])[:, :num_groups]
+    rows, gids = np.nonzero(counts_b)  # row-major: member order preserved
+    bounds = np.searchsorted(rows, np.arange(len(plans) + 1))
+    scanned_b = counts_b.sum(axis=1)
+    result = []
+    for s, pl in enumerate(plans):
+        g = gids[bounds[s]:bounds[s + 1]]
+        outs_s = [o[s] for o in outs_b]  # zero-copy views
+        key_cols = [
+            np.asarray(dim.dictionary.values[(g // stride) % dim.cardinality])
+            for dim, stride in zip(pl.group_dims, pl.program.group_strides)]
+        result.append(GroupArrays(
+            key_cols,
+            [la.vec.extract(outs_s, g) for la in pl.lowered_aggs],
+            [la.vec.spec for la in pl.lowered_aggs],
+            [la.vec.fin_tag for la in pl.lowered_aggs],
+            num_docs_scanned=int(scanned_b[s])))
+    return result
+
+
+def combine_batched_aggregation(outs_b: Sequence, plans: Sequence) -> list:
+    """Per-member AggIntermediates of an aggregation family's host outputs:
+    the scanned-docs column reads once for the whole family. Equal to each
+    member's own collect()."""
+    scanned_b = np.asarray(outs_b[0])[:, 0]
+    return [
+        AggIntermediate(
+            [la.extract([o[s] for o in outs_b], 0)
+             for la in pl.lowered_aggs],
+            num_docs_scanned=int(scanned_b[s]))
+        for s, pl in enumerate(plans)]
+
+
 def combine_group_arrays(
     intermediates: Sequence[GroupArrays],
 ) -> Optional[GroupArrays]:
@@ -31,6 +74,7 @@ def combine_group_arrays(
     merge)."""
     first = intermediates[0]
     scanned = sum(im.num_docs_scanned for im in intermediates)
+    trimmed = any(im.groups_trimmed for im in intermediates)
     if len(intermediates) == 1:
         first.num_docs_scanned = scanned
         return first
@@ -42,7 +86,8 @@ def combine_group_arrays(
         return GroupArrays([np.empty(0, object)] * ndim,
                            [tuple(np.empty(0) for _ in s)
                             for s in first.vec_specs],
-                           first.vec_specs, first.fin_tags, scanned)
+                           first.vec_specs, first.fin_tags, scanned,
+                           groups_trimmed=trimmed)
     uniqs, composite, stride = [], np.zeros(total, dtype=np.int64), 1
     for col in reversed(cat_keys):
         uniq, inv = np.unique(col, return_inverse=True)
@@ -75,7 +120,7 @@ def combine_group_arrays(
             comps.append(out)
         out_states.append(tuple(comps))
     return GroupArrays(out_keys, out_states, first.vec_specs,
-                       first.fin_tags, scanned)
+                       first.fin_tags, scanned, groups_trimmed=trimmed)
 
 
 def combine_group_by(
@@ -83,8 +128,10 @@ def combine_group_by(
 ) -> GroupByIntermediate:
     merged: dict[tuple, list] = {}
     scanned = 0
+    trimmed = False
     for im in intermediates:
         scanned += im.num_docs_scanned
+        trimmed |= im.groups_trimmed
         for key, states in im.groups.items():
             cur = merged.get(key)
             if cur is None:
@@ -92,7 +139,7 @@ def combine_group_by(
             else:
                 for i, sem in enumerate(semantics):
                     cur[i] = sem.merge(cur[i], states[i])
-    return GroupByIntermediate(merged, scanned)
+    return GroupByIntermediate(merged, scanned, groups_trimmed=trimmed)
 
 
 def combine_aggregation(
@@ -165,7 +212,10 @@ def trim_group_by(combined, query, semantics):
             [tuple(comp[sel] for comp in comps)
              for comps in combined.state_cols],
             combined.vec_specs, combined.fin_tags,
-            num_docs_scanned=combined.num_docs_scanned)
+            num_docs_scanned=combined.num_docs_scanned,
+            # the ordered trim is lossless for the final ORDER BY/LIMIT:
+            # it does not read as numGroupsLimitReached
+            groups_trimmed=combined.groups_trimmed)
 
     # dict-form intermediate: sort keys from key values / finalized states
     def sort_value(key, states, expr_str):
@@ -192,7 +242,8 @@ def trim_group_by(combined, query, semantics):
     import heapq
 
     kept = heapq.nsmallest(trim_size, combined.groups.items(), key=rank)
-    return GroupByIntermediate(dict(kept), combined.num_docs_scanned)
+    return GroupByIntermediate(dict(kept), combined.num_docs_scanned,
+                               groups_trimmed=combined.groups_trimmed)
 
 
 class _TrimKey:

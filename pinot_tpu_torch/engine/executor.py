@@ -1,13 +1,17 @@
-"""Per-segment device executor.
+"""Segment executor: one device dispatch per segment, or per batch family.
 
 The port of pinot_tpu/engine/executor.py (`TpuSegmentExecutor`): one
 segment = ONE device dispatch of the kernel-program interpreter
-(ops/kernels.run_program). Host work is limited to planning (dictionary
-lookups), launching, and decoding occupied group keys back to values.
+(ops/kernels.run_program). Segments whose plans agree on everything that
+shapes the kernel's inputs (`batch_family_key`) form a batch FAMILY: their
+planes stack into [S, ...] tensors and run as ONE dispatch
+(ops/kernels.run_program_batch, kernel A with its family axis), whose
+outputs come back in one buffer. Host work is limited to planning
+(dictionary lookups), launching, and decoding occupied group keys back to
+values.
 
 PyTorch launches CUDA work asynchronously, so a caller can dispatch every
-segment first and collect afterwards: the device queue stays full while
-the host decodes earlier results.
+segment and family first and fetch afterwards: the device queue stays full.
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ import numpy as np
 import torch
 
 from ..ops import fused_groupby
-from ..ops.kernels import PackedOuts, pack_outputs, run_program, unpack_outputs
+from ..ops.kernels import (PackedOuts, pack_outputs, run_program,
+                           run_program_batch, unpack_outputs)
 from ..query.context import QueryContext
-from ..segment.device_cache import DeviceSegmentCache
+from ..segment.device_cache import DeviceSegmentCache, pad_bucket
 from ..segment.loader import ImmutableSegment
+from ..spi.data_types import DataType
 from .plan import SegmentPlan, SegmentPlanner
 from .results import AggIntermediate, GroupArrays
 
@@ -45,8 +51,73 @@ def _count_dispatch() -> None:
         _TLS.dispatches += 1
 
 
+class BatchFamilyMismatch(Exception):
+    """A family grouped by the host-side key gathered planes of unequal
+    dtype or shape: a planning decision made before anything runs (the key
+    over-grouped), so the caller dispatches the members one by one."""
+
+
+def _dict_pad(card: int) -> int:
+    """Shape bucket for dictionary-values planes: next power of two >= card.
+    Dict planes are only ever gathered by ids below the segment's OWN
+    cardinality, so zero-padding to a shared bucket lets segments with
+    different dictionary sizes join one family without changing any
+    gathered value."""
+    b = 1
+    while b < card:
+        b <<= 1
+    return b
+
+
+def batch_family_key(segment: ImmutableSegment, plan: SegmentPlan,
+                     packed_on: bool):
+    """Host-computable batch family key: segments with equal keys gather
+    identically shaped device planes and params, so their kernel inputs
+    stack into [S, ...] tensors and run as ONE dispatch.
+
+    The key is (program, padded bucket, per-slot dtype/packing signature,
+    per-param dtype/shape signature), derived from column METADATA alone
+    (no upload); `packed_on` says whether the device keeps narrow id planes
+    (SegmentDeviceView.packed). It mirrors what gather_arrays_packed will
+    produce; the family dispatch re-checks the gathered shapes and raises
+    BatchFamilyMismatch if the mirror ever drifts. None when a slot's
+    shape cannot be predicted."""
+    sig = []
+    for column, kind in plan.slots:
+        m = segment.column_metadata(column)
+        if kind == "ids":
+            bits = m.bits_per_value or 32
+            width = 32
+            if bits <= 16 and packed_on:
+                width = 8 if bits <= 8 else 16
+            sig.append(("ids", width))
+        elif kind == "raw":
+            sig.append(("raw", str(DataType(m.data_type).numpy_dtype)))
+        elif kind == "dict":
+            sig.append(("dict", str(DataType(m.data_type).numpy_dtype),
+                        _dict_pad(int(m.cardinality))))
+        elif kind == "null":
+            sig.append(("null",))
+        else:
+            return None
+    psig = tuple((str(np.asarray(p).dtype), np.asarray(p).shape)
+                 for p in plan.params)
+    return (plan.program, pad_bucket(max(1, segment.num_docs)), tuple(sig),
+            psig)
+
+
+def _stack(planes: list) -> torch.Tensor:
+    """torch.stack of equal planes; uint16 stacks through its int16 view
+    (the unsigned type has only view-level support in torch)."""
+    if planes[0].dtype == torch.uint16:
+        return torch.stack([p.view(torch.int16) for p in planes]) \
+            .view(torch.uint16)
+    return torch.stack(planes)
+
+
 class SegmentExecutor:
-    """Executes one QueryContext against one segment on the device."""
+    """Executes one QueryContext against one segment, or one batch family
+    of segments, on the device."""
 
     def __init__(self, cache: DeviceSegmentCache):
         self.cache = cache
@@ -54,6 +125,11 @@ class SegmentExecutor:
     @property
     def device(self) -> torch.device:
         return self.cache.device
+
+    @property
+    def packed_on(self) -> bool:
+        """Whether the cache keeps narrow id planes (SegmentDeviceView)."""
+        return self.device.type == "cuda"
 
     def plan(self, query: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
         return SegmentPlanner(query, segment).plan()
@@ -87,11 +163,87 @@ class SegmentExecutor:
                            fused_lut_meta=lut_meta, device=view.device)
         return pack_outputs(outs)
 
+    def dispatch_plan_raw(self, segment: ImmutableSegment, plan: SegmentPlan):
+        """dispatch_plan without the fused kernel and the packing: (device
+        outputs, view), for callers that keep computing on the device (the
+        sparse device combine)."""
+        view = self.cache.view(segment)
+        arrays, packed = plan.gather_arrays_packed(view)
+        params = tuple(torch.from_numpy(np.array(p)).to(view.device)
+                       for p in plan.params)
+        _count_dispatch()
+        return run_program(plan.program, arrays, params, segment.num_docs,
+                           view.padded, packed=packed,
+                           device=view.device), view
+
+    def _gather_batch(self, segments: list, plans: list):
+        """Gather and stack a family's kernel inputs: member planes from
+        the per-segment cache (each uploaded once), the [S, ...] stacks
+        from the cache's stacked view. Dictionary planes zero-pad to the
+        family's power-of-two bucket. Raises BatchFamilyMismatch when the
+        members' planes or params disagree in dtype, shape or packing."""
+        views = [self.cache.view(s) for s in segments]
+        gathered = [pl.gather_arrays_packed(v) for pl, v in zip(plans, views)]
+        packed = gathered[0][1]
+        nslots = len(gathered[0][0])
+        for arrs, pk in gathered[1:]:
+            if pk != packed or len(arrs) != nslots:
+                raise BatchFamilyMismatch("packing/slot-count mismatch")
+        sview = self.cache.stacked_view(segments)
+        stacked = []
+        for i in range(nslots):
+            col = [g[0][i] for g in gathered]
+            if plans[0].slots[i][1] == "dict":
+                target = _dict_pad(max(a.shape[0] for a in col))
+                col = [torch.cat([a, a.new_zeros(target - a.shape[0])])
+                       if a.shape[0] != target else a for a in col]
+            a0 = col[0]
+            if any(a.shape != a0.shape or a.dtype != a0.dtype
+                   for a in col[1:]):
+                raise BatchFamilyMismatch(
+                    f"slot {i} ({plans[0].slots[i]}): unequal plane "
+                    "shapes/dtypes across family members")
+            pkey = (plans[0].slots[i], str(a0.dtype), tuple(a0.shape))
+            stacked.append(sview.plane(pkey, lambda c=tuple(col): _stack(c)))
+        nparams = len(plans[0].params)
+        if any(len(pl.params) != nparams for pl in plans):
+            raise BatchFamilyMismatch("param-count mismatch")
+        params_b = []
+        for j in range(nparams):
+            ps = [np.asarray(pl.params[j]) for pl in plans]
+            if any(p.shape != ps[0].shape or p.dtype != ps[0].dtype
+                   for p in ps[1:]):
+                raise BatchFamilyMismatch(f"param {j}: shape/dtype mismatch")
+            params_b.append(torch.from_numpy(np.stack(ps)).to(self.device))
+        num_docs = np.asarray([s.num_docs for s in segments], dtype=np.int64)
+        return views, tuple(stacked), tuple(params_b), packed, num_docs
+
+    def dispatch_plan_batch_raw(self, segments: list, plans: list):
+        """ONE dispatch for a whole batch family (equal batch_family_key):
+        (device outputs, views), every output carrying a leading [S] dim
+        whose row s is what dispatch_plan_raw returns for member s. Raises
+        BatchFamilyMismatch, before anything runs, to ask for the
+        per-segment dispatch."""
+        views, arrays, params_b, packed, num_docs = self._gather_batch(
+            segments, plans)
+        _count_dispatch()
+        outs = run_program_batch(plans[0].program, arrays, params_b,
+                                 num_docs, views[0].padded, packed=packed,
+                                 device=self.device)
+        return outs, views
+
+    def dispatch_plan_batch(self, segments: list, plans: list) -> PackedOuts:
+        """dispatch_plan_batch_raw packed into one device buffer: one
+        launch and one host copy for the whole family."""
+        return pack_outputs(self.dispatch_plan_batch_raw(segments, plans)[0])
+
     def collect(self, query: QueryContext, segment: ImmutableSegment,
-                plan: SegmentPlan, outs: PackedOuts):
-        """Copy the outputs to the host (blocks) and decode the segment's
-        intermediate result."""
-        outs = unpack_outputs(outs)
+                plan: SegmentPlan, outs):
+        """Decode the segment's intermediate result from its outputs: a
+        PackedOuts (copied to the host here, one fetch) or the host arrays
+        of an earlier fetch (a member's row of a family's outputs)."""
+        if isinstance(outs, PackedOuts):
+            outs = unpack_outputs(outs)
         if plan.program.mode == "aggregation":
             states = [la.extract(outs, 0) for la in plan.lowered_aggs]
             return AggIntermediate(states, num_docs_scanned=int(outs[0][0]))
@@ -101,15 +253,28 @@ class SegmentExecutor:
         num_groups = plan.program.num_groups
         counts = outs[0][:num_groups]
         gids = np.nonzero(counts)[0]
+        sparse = plan.program.mode == "group_by_sparse"
+        # sparse kernels emit each slot's composite key as the last output;
+        # dense slots ARE the composite key
+        composite = outs[-1][gids].astype(np.int64) if sparse else gids
         # decompose the composite key -> per-dim dict ids -> values
         # (inverse of DictionaryBasedGroupKeyGenerator's cartesian key)
         key_cols = []
         for dim, stride in zip(plan.group_dims, plan.program.group_strides):
-            ids = (gids // stride) % dim.cardinality
+            ids = (composite // stride) % dim.cardinality
             key_cols.append(np.asarray(dim.dictionary.values[ids]))
+        scanned = int(counts.sum())
+        trimmed = False
+        if sparse:
+            # the sparse trash slot counts valid rows whose group was
+            # trimmed: they were scanned all the same
+            trash = int(outs[0][num_groups])
+            scanned += trash
+            # an ORDER BY pushdown trim is exact, not a groups-limit event
+            trimmed = trash > 0 and not plan.program.exact_trim
         return GroupArrays(
             key_cols,
             [la.vec.extract(outs, gids) for la in plan.lowered_aggs],
             [la.vec.spec for la in plan.lowered_aggs],
             [la.vec.fin_tag for la in plan.lowered_aggs],
-            num_docs_scanned=int(counts.sum()))
+            num_docs_scanned=scanned, groups_trimmed=trimmed)

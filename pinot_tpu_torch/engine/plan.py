@@ -1,15 +1,16 @@
 """Per-segment query planner: QueryContext + segment -> kernel Program.
 
-The port of pinot_tpu/engine/plan.py for the single-stage aggregation and
-dense GROUP BY modes. Predicates resolve against the segment's sorted
-dictionaries at planning time into device kernel parameters: value
-predicates become dict-id intervals or boolean LUTs, so the kernel never
-touches a string. The Program (engine/ir.py) is the same IR the JAX package
-builds, so both interpreters run identical plans.
+The port of pinot_tpu/engine/plan.py for the single-stage aggregation,
+dense GROUP BY and sparse (sort-based) GROUP BY modes. Predicates resolve
+against the segment's sorted dictionaries at planning time into device
+kernel parameters: value predicates become dict-id intervals or boolean
+LUTs, so the kernel never touches a string. The Program (engine/ir.py) is
+the same IR the JAX package builds, so both interpreters run identical
+plans.
 
 Shapes outside the slice raise UnsupportedQueryError: selection queries,
-group-by cardinality products above the dense limit (the sparse, sort-based
-path), multi-value columns, and transforms other than arithmetic.
+multi-value columns, DISTINCTCOUNT and the other matrix-shaped
+aggregations, and transforms other than arithmetic.
 """
 
 from __future__ import annotations
@@ -30,6 +31,33 @@ from ..spi.data_types import DataType
 from . import ir
 from .aggregation import (DENSE_GROUP_LIMIT, AggPlanContext, LoweredAgg,
                           UnsupportedQueryError, lower_aggregation)
+
+SPARSE_KEY_LIMIT = ir.SPARSE_KEY_SPACE  # keys stay below the kernel sentinel
+SPARSE_GROUPS_LIMIT = 1 << 25  # cap on sparse output table slots
+DEFAULT_NUM_GROUPS_LIMIT = 100_000  # reference InstancePlanMakerImplV2 default
+_SPARSE_AGG_KINDS = {"count", "sum", "sumsq", "min", "max"}
+
+
+def _orderby_prefix_trim(q) -> "int | None":
+    """offset+limit when ORDER BY is ALL the group-by keys, in stride
+    order, all ASC with default null ordering and no HAVING: the shape
+    where a per-segment keep-smallest-L composite trim cannot change the
+    final result. The cover must be FULL: with a shorter prefix, a group
+    trimmed in one segment but kept in another could be selected on a
+    prefix tie with an incomplete aggregate."""
+    if q.having_filter is not None or not q.order_by_expressions:
+        return None
+    gb = q.group_by_expressions
+    if q.distinct and not q.is_aggregation_query:
+        gb = q.select_expressions
+    obs = q.order_by_expressions
+    if not gb or len(obs) != len(gb):
+        return None
+    for ob, ge in zip(obs, gb):
+        if not ob.ascending or ob.nulls_last is not None \
+                or str(ob.expression) != str(ge):
+            return None
+    return int(q.offset) + int(q.limit)
 
 
 @dataclass
@@ -564,22 +592,73 @@ class SegmentPlanner(AggPlanContext):
         for i in range(len(cards) - 2, -1, -1):
             strides[i] = strides[i + 1] * cards[i + 1]
 
-        lowered = [lower_aggregation(self, a) for a in q.aggregations]
-        if num_groups > DENSE_GROUP_LIMIT or (
-                group_exprs and self.query.query_options.get(
-                    "sparseGroupBy") in (True, "true", 1)):
+        if num_groups >= SPARSE_KEY_LIMIT:
             raise UnsupportedQueryError(
-                f"group cardinality product {num_groups} needs the sparse "
-                "(sort-based) group-by, which this port does not have")
-        mode = "group_by" if group_exprs else "aggregation"
+                f"group cardinality product {num_groups} exceeds the "
+                "int64 composite-key space")
+        lowered = [lower_aggregation(self, a) for a in q.aggregations]
+        # mode selection: dense when the key product fits the dense table,
+        # else the sort-based sparse path (SET sparseGroupBy = true routes a
+        # dense-eligible group-by there too)
+        sparse = num_groups > DENSE_GROUP_LIMIT
+        reason = f"group cardinality product {num_groups}"
+        if not sparse and group_exprs and self.query.query_options.get(
+                "sparseGroupBy") in (True, "true", 1):
+            sparse, reason = True, "sparseGroupBy=true"
+        if sparse and not group_exprs:
+            raise UnsupportedQueryError(
+                f"{reason} exceeds the dense limit for an un-grouped "
+                "aggregation")
+        for op in self.ops if sparse else ():
+            if op.kind not in _SPARSE_AGG_KINDS:
+                raise UnsupportedQueryError(
+                    f"{reason} needs the sparse (sort-based) group-by, "
+                    f"which does not lower {op.kind} in this port")
+        exact_trim = keys_presorted = False
+        if sparse and not any_derived:
+            # sorted-key fast path: group keys whose composite id is
+            # nondecreasing in doc order need no sort (reference
+            # SortedGroupByOperator): one key whose id plane is sorted
+            # (ColumnMetadata.is_sorted), or keys that are, in order, a
+            # prefix of the segment's lexicographic co-sort chain
+            # (SegmentMetadata.sort_order)
+            if len(group_exprs) == 1:
+                keys_presorted = bool(
+                    self._meta(group_exprs[0].identifier).is_sorted)
+            else:
+                cols = [e.identifier for e in group_exprs]
+                so = list(self.segment.metadata.sort_order or [])
+                keys_presorted = so[:len(cols)] == cols
+        if sparse:
+            # output capacity = numGroupsLimit: groups beyond it are trimmed
+            # on the device (reference InstancePlanMakerImplV2:245-270); an
+            # ORDER BY over all the keys, ascending, makes the keep-smallest-L
+            # trim exact
+            limit = int(q.query_options.get(
+                "numGroupsLimit", DEFAULT_NUM_GROUPS_LIMIT))
+            trim = None if any_derived else _orderby_prefix_trim(q)
+            if trim is not None and trim <= limit:
+                limit, exact_trim = trim, True
+            mode = "group_by_sparse"
+            out_groups = min(num_groups, max(1, limit))
+            if out_groups > SPARSE_GROUPS_LIMIT:
+                raise UnsupportedQueryError(
+                    f"numGroupsLimit {out_groups} exceeds sparse output "
+                    f"cap {SPARSE_GROUPS_LIMIT}")
+        else:
+            mode = "group_by" if group_exprs else "aggregation"
+            out_groups = num_groups
         program = ir.Program(
             mode=mode,
             filter=filt,
             aggs=tuple(self.ops),
             group_slots=() if any_derived else tuple(group_slots),
             group_strides=tuple(strides),
-            num_groups=num_groups,
+            num_groups=out_groups,
             group_vexprs=tuple(group_vexprs) if any_derived else (),
+            key_space=num_groups if sparse else 0,
+            exact_trim=exact_trim,
+            keys_presorted=keys_presorted,
         )
         return SegmentPlan(program, self._slots, self._params,
                            lowered, group_dims, fused_ok=self._fused_ok())

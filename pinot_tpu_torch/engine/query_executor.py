@@ -1,11 +1,16 @@
 """In-process query executor: tables of segments -> BrokerResponse.
 
 The port of pinot_tpu/engine/query_executor.py for single-stage queries:
-parse -> per-segment plan -> dispatch every segment's kernel program ->
-collect each -> combine -> broker reduce. Every segment runs on the
-executor's device. There is no host engine behind it: a query shape this
-port does not lower raises UnsupportedQueryError, and any other failure
-raises as well.
+parse -> per-segment plan -> dispatch -> ONE fetch -> collect -> combine ->
+broker reduce. Segments whose plans agree (engine/executor.py
+`batch_family_key`) run as one batch family: one dispatch and one launch
+of kernel A for all of them (`SET segmentBatch = false` opts out). Every
+packed output of the query, family and solo alike, comes to the host in
+one copy. Multi-segment single-key sparse GROUP BYs merge their tables on
+the device and fetch one merged table (`SET deviceCombine = false` opts
+out). Every segment runs on the executor's device. There is no host engine
+behind it: a query shape this port does not lower raises
+UnsupportedQueryError, and any other failure raises as well.
 """
 
 from __future__ import annotations
@@ -14,9 +19,11 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..ops import _cuda
+from ..ops import _cuda, kernels
+from ..ops.kernels import PackedOuts, fetch_packed_batch
 from ..query.context import QueryContext
 from ..query.optimizer import optimize_filter
 from ..query.parser.sql import SqlParseError, parse_sql
@@ -24,12 +31,30 @@ from ..segment.device_cache import DeviceSegmentCache
 from ..segment.loader import ImmutableSegment
 from ..spi.data_types import Schema
 from .aggregation import UnsupportedQueryError, semantics_for
-from .combine import (combine_aggregation, combine_group_arrays,
+from .combine import (combine_aggregation, combine_batched_aggregation,
+                      combine_batched_dense, combine_group_arrays,
                       combine_group_by, trim_group_by)
-from .executor import (SegmentExecutor, dispatch_counters,
+from .executor import (BatchFamilyMismatch, SegmentExecutor,
+                       batch_family_key, dispatch_counters,
                        reset_dispatch_counters)
 from .reduce import BrokerReducer
 from .results import AggIntermediate, BrokerResponse, GroupArrays, GroupByIntermediate
+
+
+def _opted_out(query: QueryContext, option: str) -> bool:
+    """`SET <option> = false` (or 0 / off) in the query."""
+    return str(query.query_options.get(option)).lower() in ("false", "0", "off")
+
+
+@dataclass
+class Pending:
+    """What a query's dispatch left on the device: per-segment packs
+    (index, PackedOuts), family packs (positions, PackedOuts), or the one
+    merged table of the sparse device combine."""
+
+    solo: list = field(default_factory=list)
+    families: list = field(default_factory=list)
+    merged: Optional[PackedOuts] = None
 
 
 @dataclass
@@ -95,20 +120,177 @@ class QueryExecutor:
             num_segments_processed=len(segments),
             time_used_ms=(time.perf_counter() - t0) * 1000,
             num_device_dispatches=dispatch_counters(),
+            num_groups_limit_reached=getattr(combined, "groups_trimmed",
+                                             False),
         )
 
     def execute_segments(self, query: QueryContext, segments: list):
         """Server-side half of a query: plan every segment, dispatch every
-        segment's program (the device queue fills back to back), then
-        collect each and combine."""
+        family and lone segment (the device queue fills back to back),
+        fetch all outputs in one copy, collect and combine."""
         query.filter = optimize_filter(query.filter)
         reset_dispatch_counters()
+        plans = self.plan_segments(query, segments)
+        pending = self.dispatch_segments(query, segments, plans)
+        return self._combine(query, self.collect_segments(
+            query, segments, plans, pending))
+
+    def plan_segments(self, query: QueryContext, segments: list) -> list:
+        return [self.executor.plan(query, s) for s in segments]
+
+    def dispatch_segments(self, query: QueryContext, segments: list,
+                          plans: list) -> Pending:
+        """Launch the query's device work: the sparse device combine when
+        it applies, else one dispatch per batch family (a family of one,
+        or one that turns out to mismatch, dispatches alone, with the
+        fused kernel where it applies)."""
+        if len(segments) > 1:
+            merged = self._sparse_device_combine(query, segments, plans)
+            if merged is not None:
+                return Pending(merged=merged)
         ex = self.executor
-        plans = [ex.plan(query, s) for s in segments]
-        pending = [ex.dispatch_plan(s, p) for s, p in zip(segments, plans)]
-        intermediates = [ex.collect(query, s, p, o)
-                         for s, p, o in zip(segments, plans, pending)]
-        return self._combine(query, intermediates)
+        pending = Pending()
+        for fkey, positions in self._batch_families(query, segments, plans):
+            if fkey is not None and len(positions) > 1:
+                try:
+                    pack = ex.dispatch_plan_batch(
+                        [segments[i] for i in positions],
+                        [plans[i] for i in positions])
+                except BatchFamilyMismatch:
+                    pass  # the host key over-grouped; members go alone
+                else:
+                    pending.families.append((positions, pack))
+                    continue
+            for i in positions:
+                pending.solo.append((i, ex.dispatch_plan(segments[i],
+                                                         plans[i])))
+        return pending
+
+    def collect_segments(self, query: QueryContext, segments: list,
+                         plans: list, pending: Pending) -> list:
+        """Fetch every output of the query to the host in ONE copy and
+        decode the intermediates: families all members in one pass
+        (engine/combine.py), lone segments one by one."""
+        packs = ([pending.merged] if pending.merged is not None
+                 else [p for _, p in pending.solo + pending.families])
+        fetched = fetch_packed_batch(packs)
+        if pending.merged is not None:
+            return [self._merged_group_arrays(plans, fetched[0])]
+        ex = self.executor
+        inters: list = [None] * len(segments)
+        for (i, _), outs in zip(pending.solo, fetched):
+            inters[i] = ex.collect(query, segments[i], plans[i], outs)
+        for (positions, _), outs_b in zip(pending.families,
+                                          fetched[len(pending.solo):]):
+            plans_f = [plans[i] for i in positions]
+            mode = plans_f[0].program.mode
+            batched = (combine_batched_aggregation(outs_b, plans_f)
+                       if mode == "aggregation"
+                       else combine_batched_dense(outs_b, plans_f))
+            if batched is None:  # sparse: each member's row of the outputs
+                batched = [ex.collect(query, segments[i], plans[i],
+                                      [o[row] for o in outs_b])
+                           for row, i in enumerate(positions)]
+            for i, inter in zip(positions, batched):
+                inters[i] = inter
+        return inters
+
+    def _batch_families(self, query: QueryContext, segments: list,
+                        plans: list) -> list:
+        """Group the segments into batch families by the host-side family
+        key (engine/executor.py batch_family_key): ordered (key, positions)
+        groups, key None for segments that dispatch alone (batching off,
+        or a slot shape the key cannot predict)."""
+        if len(segments) < 2 or _opted_out(query, "segmentBatch"):
+            return [(None, [i]) for i in range(len(segments))]
+        groups: dict = {}
+        for pos, (segment, plan) in enumerate(zip(segments, plans)):
+            fkey = batch_family_key(segment, plan, self.executor.packed_on)
+            groups.setdefault(("__solo__", pos) if fkey is None else fkey,
+                              []).append(pos)
+        return [(None if k[0] == "__solo__" else k, v)
+                for k, v in groups.items()]
+
+    # device merge ops per sparse AggOp kind (count columns merge like sums)
+    _SPARSE_COMBINE_KINDS = {"count": "add", "sum": "add", "sumsq": "add",
+                             "min": "min", "max": "max"}
+
+    def _sparse_device_combine(self, query: QueryContext, segments: list,
+                               plans: list) -> Optional[PackedOuts]:
+        """Server-level merge ON THE DEVICE for multi-segment single-key
+        sparse group-bys: dispatch every family (or segment), translate
+        each key column to dictionary VALUE space on the device
+        (dictionaries are segment-local), merge the S tables with one sort
+        (kernels.combine_sparse_group_tables) and pack the ONE merged
+        table. Only for shapes where value-space keys are exact: one
+        identifier key over an integer dictionary, every agg mergeable;
+        None otherwise, or under SET deviceCombine = false, and the query
+        takes the per-segment collect and host merge."""
+        if _opted_out(query, "deviceCombine"):
+            return None
+        p0 = plans[0].program
+        kinds = tuple(self._SPARSE_COMBINE_KINDS.get(a.kind) for a in p0.aggs)
+        agg_kinds = tuple(a.kind for a in p0.aggs)
+        if p0.mode != "group_by_sparse" or not kinds or None in kinds:
+            return None
+        for pl in plans:
+            p = pl.program
+            if not (p.mode == "group_by_sparse"
+                    and p.group_strides == (1,)
+                    and len(p.group_slots) == 1
+                    and not p.group_vexprs
+                    and p.exact_trim == p0.exact_trim
+                    and tuple(a.kind for a in p.aggs) == agg_kinds
+                    and pl.group_dims
+                    and np.issubdtype(
+                        np.asarray(pl.group_dims[0].dictionary.values).dtype,
+                        np.integer)):
+                return None
+        ex = self.executor
+        member_outs: list = [None] * len(segments)
+        for fkey, positions in self._batch_families(query, segments, plans):
+            if fkey is not None and len(positions) > 1:
+                try:
+                    outs_b, views_b = ex.dispatch_plan_batch_raw(
+                        [segments[i] for i in positions],
+                        [plans[i] for i in positions])
+                except BatchFamilyMismatch:
+                    pass  # the host key over-grouped; members go alone
+                else:
+                    # members' rows of the family's outputs stay on the device
+                    for row, i in enumerate(positions):
+                        member_outs[i] = (tuple(o[row] for o in outs_b),
+                                          views_b[row])
+                    continue
+            for i in positions:
+                member_outs[i] = ex.dispatch_plan_raw(segments[i], plans[i])
+        seg_keys, seg_counts, seg_states = [], [], []
+        for (outs, view), pl in zip(member_outs, plans):
+            seg_keys.append(kernels.ids_to_values_i64(
+                outs[-1], view.dict_values(pl.group_dims[0].column)))
+            seg_counts.append(outs[0])
+            seg_states.append(tuple(outs[1:-1]))
+        return kernels.pack_outputs(kernels.combine_sparse_group_tables(
+            seg_keys, seg_counts, seg_states, kinds))
+
+    @staticmethod
+    def _merged_group_arrays(plans: list, outs: list) -> GroupArrays:
+        """The host GroupArrays of the device-merged sparse table."""
+        p0 = plans[0].program
+        counts = outs[0][:-1]
+        gids = np.nonzero(counts)[0]
+        trash = int(outs[0][-1])
+        dim = plans[0].group_dims[0]
+        key_col = outs[-1][gids].astype(
+            np.asarray(dim.dictionary.values).dtype, copy=False)
+        las = plans[0].lowered_aggs
+        return GroupArrays(
+            [key_col],
+            [la.vec.extract(outs, gids) for la in las],
+            [la.vec.spec for la in las],
+            [la.vec.fin_tag for la in las],
+            num_docs_scanned=int(counts.sum()) + trash,
+            groups_trimmed=trash > 0 and not p0.exact_trim)
 
     def _combine(self, query: QueryContext, intermediates):
         semantics = [semantics_for(a) for a in query.aggregations]

@@ -39,9 +39,12 @@ class BrokerResponse:
     num_segments_queried: int = 0
     num_segments_processed: int = 0
     time_used_ms: float = 0.0
-    # device kernel-program dispatches (engine/executor.py counters):
-    # one per segment in this slice
+    # device kernel-program dispatches (engine/executor.py counters): one
+    # per batch family, one per segment outside a family
     num_device_dispatches: int = 0
+    # a sparse group-by trimmed groups at numGroupsLimit (not by an exact
+    # ORDER BY pushdown)
+    num_groups_limit_reached: bool = False
 
     def to_json(self) -> dict:
         out = {
@@ -52,6 +55,8 @@ class BrokerResponse:
             "numSegmentsProcessed": self.num_segments_processed,
             "timeUsedMs": self.time_used_ms,
         }
+        if self.num_groups_limit_reached:
+            out["numGroupsLimitReached"] = True
         if self.num_device_dispatches:
             out["numDeviceDispatches"] = self.num_device_dispatches
         return out
@@ -66,6 +71,7 @@ class GroupByIntermediate:
 
     groups: dict[tuple, list]
     num_docs_scanned: int = 0
+    groups_trimmed: bool = False
 
 
 class GroupArrays(GroupByIntermediate):
@@ -80,12 +86,13 @@ class GroupArrays(GroupByIntermediate):
     """
 
     def __init__(self, key_cols, state_cols, vec_specs, fin_tags,
-                 num_docs_scanned: int = 0):
+                 num_docs_scanned: int = 0, groups_trimmed: bool = False):
         self.key_cols = list(key_cols)
         self.state_cols = [tuple(c) for c in state_cols]
         self.vec_specs = [tuple(s) for s in vec_specs]
         self.fin_tags = list(fin_tags)
         self.num_docs_scanned = num_docs_scanned
+        self.groups_trimmed = groups_trimmed
         self._groups: Optional[dict] = None
 
     @property

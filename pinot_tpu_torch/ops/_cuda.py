@@ -155,9 +155,10 @@ class _Geom(ctypes.Structure):
         ("vec_mask", ctypes.c_ulonglong),
         *[(f, ctypes.c_int) for f in (
             "tile_rows", "stages", "stage_bytes", "tx_bytes", "num_slots",
-            "mode", "cluster", "clusters", "iters", "epoch_iters",
+            "mode", "cluster", "clusters", "units", "epoch_iters",
             "table_planes", "table_groups", "table_counters", "table_off",
-            "ring_off", "smem_bytes", "warp_agg")],
+            "ring_off", "smem_bytes", "warp_agg", "segments", "seg_units",
+            "unit_tiles")],
         ("tg_inv", ctypes.c_uint),
         *[(f, ctypes.c_int * geometry.MAX_SLOTS)
           for f in ("mis", "copy_bytes", "smem_off", "row_off")],
@@ -166,12 +167,13 @@ class _Geom(ctypes.Structure):
 
 @lru_cache(maxsize=256)
 def geometry_for(name: str, n: int, planes: int, groups: int, widths: tuple,
-                 mis: tuple, device_index: int) -> "geometry.Geometry":
+                 mis: tuple, device_index: int,
+                 segments: int = 1) -> "geometry.Geometry":
     """The launch geometry of kernel `name` on the card, with the card's own
     SM count and cluster occupancy; cached per shape and alignment."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return geometry.plan(
-        n, planes, groups, widths, mis, sms=sms,
+        n, planes, groups, widths, mis, segments=segments, sms=sms,
         active_clusters=lambda c, smem: max_active_clusters(name, c, smem))
 
 
@@ -179,9 +181,10 @@ def geometry_for(name: str, n: int, planes: int, groups: int, widths: tuple,
 def geom_struct(geo: "geometry.Geometry") -> _Geom:
     g = _Geom()
     for f in ("n", "full_rows", "vec_mask", "tile_rows", "stages",
-              "stage_bytes", "tx_bytes", "cluster", "clusters", "iters",
+              "stage_bytes", "tx_bytes", "cluster", "clusters", "units",
               "epoch_iters", "table_planes", "table_groups", "table_counters",
-              "table_off", "ring_off", "smem_bytes", "tg_inv"):
+              "table_off", "ring_off", "smem_bytes", "segments", "seg_units",
+              "unit_tiles", "tg_inv"):
         setattr(g, f, getattr(geo, f))
     g.num_slots, g.mode = len(geo.widths), geometry.MODES[geo.mode]
     g.warp_agg = int(geo.warp_agg)

@@ -3,18 +3,28 @@ csrc/fused_limb_sums.cu), computed on the host and passed to the kernels
 as an argument, so that the CPU tests can check it.
 
 Both kernels run one persistent grid of thread-block clusters over the
-rows. Their shared machinery (csrc/group_table.cuh) reads the input in
-tiles of `tile_rows` rows: each tile holds every slot plane's bytes for its
-rows, brought into a ring of `stages` shared-memory buffers by 1-D bulk
-asynchronous copies (one per slot and tile, completion on an mbarrier).
-Except in the split mode below, tile `t` belongs to CTA `rank` of cluster
-`q` at loop step `j` when
+rows of a FAMILY of `segments` equal-length inputs (kernel A takes
+S >= 1 of them in one launch; kernel B one). Their shared machinery
+(csrc/group_table.cuh) reads the input in tiles of `tile_rows` rows: each
+tile holds every slot plane's bytes for its rows, brought into a ring of
+`stages` shared-memory buffers by 1-D bulk asynchronous copies (one per
+slot and tile, completion on an mbarrier).
 
-    t = (j * clusters + q) * cluster + rank            (`tile_of`)
+The work is a sequence of `units`: segment by segment, each segment's
+tiles in groups of `unit_tiles` (one tile per CTA of a cluster; one tile
+in the split mode below, which every CTA of the cluster reads). Cluster q
+walks the contiguous range of units [q * units // clusters,
+(q + 1) * units // clusters); at its step j, unit u = start + j is tile
 
-so every tile is read by exactly one CTA, once. Rows past the last full
-tile (`tail_rows`, fewer than one tile plus 16 bytes' worth) are read from
-device memory directly.
+    t = (u % seg_units) * unit_tiles (+ rank)   of segment u // seg_units
+
+(`tile_of`), so every tile of every segment is read by exactly one CTA
+(one cluster, in the split mode), once, and a cluster's table holds the
+sums of one segment at a time: it is flushed into that segment's output
+whenever the next unit belongs to another segment. Rows past the last
+full tile of each segment (`tail_rows`, fewer than one tile plus 16
+bytes' worth) are read from device memory directly and added into the
+output by global atomics.
 
 The per-group int32 counters live in shared memory in one of four modes:
 
@@ -43,7 +53,10 @@ global. A table is flushed (in int64) and re-zeroed after at most
 stay below FLUSH_ROWS and every int32 counter of 7-bit values stays exact.
 The last flush adds contiguous ranges of int64 sums to the output with bulk
 reductions, so the output must be 16-byte aligned with OUT_SLACK spare
-int64s past its last counter (`output_len`).
+int64s past its last counter (`output_len`). A family's output is S
+consecutive (P, G) blocks. Segment s of each slot plane must start a
+multiple of 16 bytes after segment 0 (the caller pads n to make it so),
+so every segment shares segment 0's copy layout.
 """
 
 from __future__ import annotations
@@ -108,7 +121,7 @@ class Geometry:
     mode: str
     cluster: int
     clusters: int
-    iters: int           # loop steps of every CTA
+    iters: int           # the most loop steps of a cluster
     epoch_iters: int     # loop steps between flushes
     table_planes: int    # planes of one CTA's table
     table_groups: int    # groups of one CTA's table
@@ -116,10 +129,29 @@ class Geometry:
     ring_off: int
     smem_bytes: int
     warp_agg: bool
+    segments: int = 1
 
     @property
     def tiles(self) -> int:
+        """Whole tiles of one segment."""
         return self.full_rows // self.tile_rows
+
+    @property
+    def unit_tiles(self) -> int:
+        return 1 if self.mode == "split" else self.cluster
+
+    @property
+    def seg_units(self) -> int:
+        return -(-self.tiles // self.unit_tiles)
+
+    @property
+    def units(self) -> int:
+        return self.segments * self.seg_units
+
+    def unit_range(self, q: int) -> tuple:
+        """The units [start, end) cluster q walks."""
+        return (q * self.units // self.clusters,
+                (q + 1) * self.units // self.clusters)
 
     @property
     def tail_rows(self) -> int:
@@ -156,20 +188,27 @@ class Geometry:
     def ctas(self) -> int:
         return self.clusters * self.cluster
 
-    def tile_of(self, j: int, q: int, rank: int) -> int:
-        """The tile CTA `rank` of cluster `q` reads at loop step j (none
-        when >= tiles); the kernels use the same formula."""
-        if self.mode == "split":
-            return j * self.clusters + q
-        return (j * self.clusters + q) * self.cluster + rank
+    def tile_of(self, j: int, q: int, rank: int):
+        """(segment, tile) CTA `rank` of cluster `q` reads at loop step j,
+        or None when it reads none then; the kernels use the same
+        formula."""
+        start, end = self.unit_range(q)
+        u = start + j
+        if u >= end:
+            return None
+        t = (u % self.seg_units) * self.unit_tiles
+        if self.mode != "split":
+            t += rank
+        return (u // self.seg_units, t) if t < self.tiles else None
 
     def feeders(self) -> int:
         """CTAs whose rows add into one table."""
         return self.cluster if self.mode == "shared" else 1
 
     def rows_per_flush(self) -> int:
-        """The most rows that feed one table between two flushes (the tail
-        rows are added in the first epoch); 0 without a table."""
+        """The most rows that feed one table between two flushes, counting
+        the tail rows as if they did (they go to the output directly); 0
+        without a table."""
         if self.mode == "global":
             return 0
         steps = min(self.epoch_iters, self.iters)
@@ -244,14 +283,15 @@ def _ideal_active(sms: int) -> ActiveClusters:
 
 
 def plan(n: int, planes: int, groups: int, widths, mis=None, *,
-         sms: int = H100_SMS,
+         segments: int = 1, sms: int = H100_SMS,
          active_clusters: Optional[ActiveClusters] = None) -> Geometry:
-    """The geometry of one launch over n rows of `planes` sums into
-    `groups` groups, reading slot planes of the given byte widths whose
-    addresses are `mis` modulo 16. `active_clusters(cluster, smem_bytes)`
-    is how many such clusters the card holds at once (the CUDA occupancy
-    query on the card; sms // cluster by default). Raises when no cluster
-    of the chosen shape can be scheduled."""
+    """The geometry of one launch over `segments` inputs of n rows each,
+    of `planes` sums into `groups` groups per segment, reading slot planes
+    of the given byte widths whose addresses (segment 0's) are `mis` modulo
+    16. `active_clusters(cluster, smem_bytes)` is how many such clusters
+    the card holds at once (the CUDA occupancy query on the card;
+    sms // cluster by default). Raises when no cluster of the chosen shape
+    can be scheduled."""
     widths = tuple(int(w) for w in widths)
     mis = tuple(int(m) for m in (mis if mis is not None else (0,) * len(widths)))
     if not 0 < len(widths) <= MAX_SLOTS or len(mis) != len(widths):
@@ -259,8 +299,9 @@ def plan(n: int, planes: int, groups: int, widths, mis=None, *,
     if any(w not in (1, 2, 4) or m % w or not 0 <= m < 16
            for w, m in zip(widths, mis)):
         raise ValueError(f"geometry: widths {widths} / offsets {mis}")
-    if n < 0 or planes < 1 or groups < 1:
-        raise ValueError(f"geometry: n={n} planes={planes} groups={groups}")
+    if n < 0 or planes < 1 or groups < 1 or segments < 1:
+        raise ValueError(f"geometry: n={n} planes={planes} groups={groups} "
+                         f"segments={segments}")
     active = active_clusters or _ideal_active(sms)
 
     def ring(tile_rows, counters):
@@ -278,7 +319,7 @@ def plan(n: int, planes: int, groups: int, widths, mis=None, *,
 
     def want(tile_rows):
         """CTAs (clusters, in the split mode) that get MIN_TILES_PER_CTA."""
-        return max(1, -(-tiles_of(tile_rows) // MIN_TILES_PER_CTA))
+        return max(1, -(-segments * tiles_of(tile_rows) // MIN_TILES_PER_CTA))
 
     tile_rows = tile_rows_for(widths)
     mode, cluster, table_planes, table_groups = "global", 1, 0, 0
@@ -333,12 +374,11 @@ def plan(n: int, planes: int, groups: int, widths, mis=None, *,
         raise RuntimeError(
             f"geometry: no cluster of {cluster} CTAs with {smem} bytes of "
             "shared memory can be scheduled on this card")
-    if mode == "split":
-        clusters = min(fit, want(tile_rows))
-        iters = -(-tiles // clusters)
-    else:
-        clusters = min(fit, -(-want(tile_rows) // cluster))
-        iters = -(-tiles // (clusters * cluster))
+    unit_tiles = 1 if mode == "split" else cluster
+    units = segments * -(-tiles // unit_tiles)
+    clusters = min(fit, want(tile_rows) if mode == "split"
+                   else -(-want(tile_rows) // cluster), max(1, units))
+    iters = -(-units // clusters)
     feeders = cluster if mode == "shared" else 1
     epoch_iters = max(1, (FLUSH_ROWS - (n - full)) // (feeders * tile_rows))
     counters = table_planes * table_groups
@@ -350,4 +390,5 @@ def plan(n: int, planes: int, groups: int, widths, mis=None, *,
         table_planes=table_planes, table_groups=table_groups,
         table_off=BARRIER_BYTES, ring_off=BARRIER_BYTES + _align(4 * counters),
         smem_bytes=smem,
-        warp_agg=(mode == "private" and groups <= WARP_AGG_MAX_GROUPS))
+        warp_agg=(mode == "private" and groups <= WARP_AGG_MAX_GROUPS),
+        segments=segments)

@@ -1,18 +1,31 @@
-"""The per-segment kernel-program interpreter, in PyTorch.
+"""The kernel-program interpreter, in PyTorch.
 
-The port of pinot_tpu/ops/kernels.py for the `aggregation` and dense
-`group_by` modes. One call runs a whole ir.Program over one segment's
-padded column planes:
+The port of pinot_tpu/ops/kernels.py for the `aggregation`, dense
+`group_by` and sparse `group_by_sparse` modes. One call runs a whole
+ir.Program over the padded column planes of one segment (`run_program`)
+or of a batch FAMILY of segments at once (`run_program_batch`):
 
     mask  = filter tree as boolean vector algebra
     gid   = sum of dict_ids[d] * stride[d]  (masked rows -> trash slot)
     out_k = per-group count / sum / min / max
 
+The JAX package runs a family as `jax.vmap` of the per-segment body. Here
+the body itself works over a leading segment axis: planes are [S, N],
+scalar params [S, 1], LUT and gather tables [S, L] (gathered along dim 1:
+dictionaries are per segment), num_docs an (S,) tensor, and every output
+gains a leading S dim. A solo segment is the same code at S = 1, so row s
+of a family's outputs is what the member's own unfused run returns.
+
 COUNT and int32-exact SUMs of a dense group-by ride 7-bit limb planes
-through `mxu_groupby.limb_sums` (CUDA kernel A) or, when the program is in
-its scope, the single-pass `fused_groupby` kernel (CUDA kernel B); MIN/MAX
-and float sums use torch scatters. All outputs pack into one device buffer,
-fetched to the host in one copy.
+through `mxu_groupby.limb_sums` (CUDA kernel A, one launch per family) or,
+for a solo segment whose program is in its scope, the single-pass
+`fused_groupby` kernel (CUDA kernel B); MIN/MAX and float sums use torch
+scatters over the flattened [S * N] rows (slot gid + s * (G + 1)). The
+sparse mode sorts composite keys (torch.sort, stable), finds group edges
+with torch.searchsorted and reduces with prefix sums and scatters, as the
+JAX package does with XLA ops. All outputs pack into one device buffer per
+segment or family; `fetch_packed_batch` brings every buffer of a query to
+the host in one copy.
 
 Type promotion follows JAX with 64-bit types enabled, not PyTorch, so
 both interpreters compute in the same dtypes:
@@ -124,7 +137,8 @@ _CAST_DTYPES = {
 
 
 def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return torch.index_select(table, 0, ids.to(torch.int64))
+    """table[s, ids[s, i]]: a per-segment table [S, L] read at [S, N] ids."""
+    return torch.gather(table, 1, ids.to(torch.int64))
 
 
 def _eval_value(node: ir.ValueExpr, arrays, params):
@@ -178,7 +192,9 @@ def _eval_filter(node: ir.FilterNode, arrays, params):
     if isinstance(node, ir.Isin):
         v, vals = _promote(_eval_value(node.vexpr, arrays, params),
                            params[node.values_param])
-        return torch.isin(v, vals)
+        # each segment against its own value list
+        return torch.stack([torch.isin(v[s], vals[s])
+                            for s in range(v.shape[0])])
     if isinstance(node, ir.Null):
         return arrays[node.null_slot]
     if isinstance(node, ir.FAnd):
@@ -214,8 +230,8 @@ def _apply_packed(arrays: tuple, packed: tuple) -> tuple:
 
 class PackedOuts:
     """Kernel outputs flattened into ONE device byte buffer + host-side
-    (dtype, shape) metas, so a segment's results cross to the host in one
-    copy. float64 travels as its raw bytes."""
+    (dtype, shape) metas, so a segment's (or a family's) results cross to
+    the host in one copy. float64 travels as its raw bytes."""
 
     __slots__ = ("flat", "metas")
 
@@ -241,7 +257,7 @@ def pack_outputs(outs: tuple) -> PackedOuts:
 
 
 # lifetime count of device->host copies of packed outputs: a query makes
-# exactly one per segment
+# exactly one, whatever its number of segments and families
 _HOST_FETCHES = [0]
 
 
@@ -254,15 +270,34 @@ def count_host_fetch() -> None:
     _HOST_FETCHES[0] += 1
 
 
-def unpack_outputs(p: PackedOuts) -> list:
-    count_host_fetch()
-    flat = p.flat.cpu().numpy()  # the segment's single device->host copy
+def _split_flat(flat: np.ndarray, metas) -> list:
     out, off = [], 0
-    for dt, shape in p.metas:
+    for dt, shape in metas:
         nbytes = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
         out.append(flat[off:off + nbytes].view(dt).reshape(shape))
         off += nbytes
     return out
+
+
+def fetch_packed_batch(packs: list) -> list:
+    """Bring many packed outputs (segments' and families') to the host in
+    ONE device->host copy: the flat buffers concatenate on the device and
+    the host splits the copy back into each pack's arrays (zero-copy
+    views). Returns one list of numpy arrays per pack."""
+    if not packs:
+        return []
+    count_host_fetch()
+    flats = [p.flat for p in packs]
+    flat = (torch.cat(flats) if len(flats) > 1 else flats[0]).cpu().numpy()
+    out, off = [], 0
+    for p, f in zip(packs, flats):
+        out.append(_split_flat(flat[off:off + f.shape[0]], p.metas))
+        off += f.shape[0]
+    return out
+
+
+def unpack_outputs(p: PackedOuts) -> list:
+    return fetch_packed_batch([p])[0]
 
 
 # -- programs -----------------------------------------------------------------
@@ -272,18 +307,23 @@ def run_program(program: ir.Program, arrays: tuple, params: tuple,
                 num_docs: int, padded: int, row_offset: int = 0,
                 packed: tuple = (), fused: bool = False,
                 fused_lut_meta: tuple = (), device=None):
-    """Execute a Program over padded column planes. Returns a tuple:
+    """Execute a Program over one segment's padded column planes. Returns a
+    tuple:
 
-    aggregation -> (count, agg_0, agg_1, ...) each shape (2,) (value, trash)
-    group_by    -> (counts[G+1], agg_0[G+1], ...), slot G = trash
+    aggregation     -> (count, agg_0, agg_1, ...) each shape (2,) (value, trash)
+    group_by        -> (counts[G+1], agg_0[G+1], ...), slot G = trash
+    group_by_sparse -> (counts[K+1], agg_0[K+1], ..., keys[K]), slot K =
+                       trash, keys the composite key of each slot (-1 empty)
 
-    `arrays` are tensors of length `padded` on one device; `params` are
-    tensors (0-dim for scalars) on the same device. `packed` marks narrow id
-    slots. `fused` runs the single-pass fused group-by (ops/fused_groupby)
-    for programs in its scope on the RAW narrow planes; `fused_lut_meta`
-    describes the dict-id run arrays appended to `params`
-    (fused_groupby.lut_run_params). `device` is where the outputs live; it
-    defaults to the device of the first plane or param.
+    `arrays` are tensors of length `padded` (dictionary planes: their own
+    length) on one device; `params` are tensors (0-dim for scalars) on the
+    same device. `packed` marks narrow id slots. `fused` runs the
+    single-pass fused group-by (ops/fused_groupby) for programs in its
+    scope on the RAW narrow planes; `fused_lut_meta` describes the dict-id
+    run arrays appended to `params` (fused_groupby.lut_run_params).
+    `device` is where the outputs live; it defaults to the device of the
+    first plane or param. Without `fused`, this is `run_program_batch` of
+    a family of one.
     """
     if device is None:
         device = (arrays or params)[0].device if (arrays or params) \
@@ -294,30 +334,76 @@ def run_program(program: ir.Program, arrays: tuple, params: tuple,
             return fused_groupby.execute(fp, program, arrays, params,
                                          num_docs, padded, row_offset)
     arrays = _apply_packed(arrays, packed)
-    return _run_program_impl(program, arrays, params, num_docs, padded,
-                             row_offset, device)
+    outs = _run_program_impl(
+        program, tuple(a.unsqueeze(0) for a in arrays),
+        tuple(p.reshape(1, -1) for p in params),
+        torch.tensor([int(num_docs)], dtype=torch.int64, device=device),
+        padded, row_offset, device)
+    return tuple(o[0] for o in outs)
+
+
+def run_program_batch(program: ir.Program, arrays: tuple, params: tuple,
+                      num_docs, padded: int, packed: tuple = (),
+                      device=None):
+    """Execute one Program over a stacked FAMILY of segments in one
+    dispatch: every plane in `arrays` and every param in `params` carries
+    a leading [S] dim (one row per member), `num_docs` holds the S
+    members' row counts. Each output gains a leading S dim, and row s is
+    element for element what `run_program(..., fused=False)` returns for
+    member s. Narrow packed planes widen before the body, as in the JAX
+    package; the fused kernel is per segment only."""
+    if device is None:
+        device = arrays[0].device if arrays else params[0].device
+    arrays = _apply_packed(arrays, packed)
+    params = tuple(p.reshape(p.shape[0], -1) for p in params)
+    num_docs = torch.as_tensor(np.asarray(num_docs, dtype=np.int64),
+                               device=device)
+    return _run_program_impl(program, arrays, params, num_docs, padded, 0,
+                             device)
 
 
 def _run_program_impl(program: ir.Program, arrays: tuple, params: tuple,
-                      num_docs: int, padded: int, row_offset: int = 0,
-                      device=torch.device("cpu")):
+                      num_docs: torch.Tensor, padded: int, row_offset: int,
+                      device):
     n = padded
-    valid = (torch.arange(n, dtype=torch.int64, device=device)
-             + row_offset) < num_docs
+    rows = torch.arange(n, dtype=torch.int64, device=device) + row_offset
+    valid = rows.unsqueeze(0) < num_docs.unsqueeze(1)  # [S, N]
     mask = valid
     if program.filter is not None:
         mask = valid & _eval_filter(program.filter, arrays, params)
     if program.mode == "group_by":
         return _dense_group_by_entry(program, arrays, params, mask, n)
+    if program.mode == "group_by_sparse":
+        return _run_sparse_group_by(program, arrays, params, mask, n)
     if program.mode == "aggregation":
         return _run_ungrouped(program, arrays, params, mask, n)
     raise ValueError(f"program mode {program.mode} is not lowered by this port")
 
 
+def _segment_reduce(values: torch.Tensor, index: torch.Tensor, slots: int,
+                    kind: str, init=0) -> torch.Tensor:
+    """Per-slot reduction of `values` ([S, N], or broadcastable to it) by
+    `index` ([S, N] in [0, slots)): out [S, slots], kind "sum" | "amin" |
+    "amax". One scatter over the flattened rows, segment s's slots at
+    s * slots: the batched form of jax.ops.segment_sum/min/max."""
+    s = index.shape[0]
+    flat = (index.to(torch.int64) + torch.arange(
+        s, dtype=torch.int64, device=index.device).unsqueeze(1) * slots)
+    vals = values.expand(index.shape).reshape(-1)
+    if kind == "sum":
+        out = torch.zeros(s * slots, dtype=values.dtype, device=index.device)
+        out.index_add_(0, flat.reshape(-1), vals)
+    else:
+        out = torch.full((s * slots,), init, dtype=values.dtype,
+                         device=index.device)
+        out.scatter_reduce_(0, flat.reshape(-1), vals, kind, include_self=True)
+    return out.view(s, slots)
+
+
 def _dense_group_by_entry(program: ir.Program, arrays, params, mask, n):
     """Dense group-by gid assembly: gid = sum of id * stride over the group
     dims; masked rows route to the trash slot num_groups."""
-    gid = torch.zeros(n, dtype=torch.int32, device=mask.device)
+    gid = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
     if program.group_vexprs:
         for vexpr, stride in zip(program.group_vexprs, program.group_strides):
             v = _eval_value(vexpr, arrays, params)
@@ -333,8 +419,8 @@ def _dense_group_by_entry(program: ir.Program, arrays, params, mask, n):
 def _run_dense_group_by(program: ir.Program, arrays, params, mask, gid,
                         num_segments, n):
     """COUNT and every int32-exact SUM ride ONE limb_sums pass (7-bit limb
-    planes); scatters remain for what the limbs cannot carry (min/max,
-    float sums)."""
+    planes (S, P, N), one launch for the whole family); scatters remain for
+    what the limbs cannot carry (min/max, float sums)."""
     planes = [mask.to(mxu_groupby.PLANE_DTYPE)]  # count plane
     recipes: list = []  # per agg: callable(sums, counts) | None -> _run_agg
     for agg in program.aggs:
@@ -346,13 +432,13 @@ def _run_dense_group_by(program: ir.Program, arrays, params, mask, gid,
         recipes = [r if agg.kind == "count" else None
                    for agg, r in zip(program.aggs, recipes)]
     if planes:
-        sums = mxu_groupby.limb_sums(torch.stack(planes), gid, num_segments)
-        counts = sums[0]
+        sums = mxu_groupby.limb_sums(torch.stack(planes, dim=1), gid,
+                                     num_segments)
+        counts = sums[:, 0]
     else:
         sums = None
-        counts = torch.zeros(num_segments, dtype=torch.int64,
-                             device=mask.device)
-        counts.index_add_(0, gid.to(torch.int64), mask.to(torch.int64))
+        counts = _segment_reduce(mask.to(torch.int64), gid, num_segments,
+                                 "sum")
     outputs = [counts]
     for agg, recipe in zip(program.aggs, recipes):
         if recipe is None:
@@ -372,7 +458,7 @@ def _mxu_agg(agg: ir.AggOp, arrays, params, mask, planes):
     if agg.kind != "sum":
         return None
     v = _eval_value(agg.vexpr, arrays, params)
-    if v.is_floating_point() or v.dtype == torch.bool or not _fits_i32(v, agg):
+    if not _is_fast32(v, agg):
         return None
     b = mxu_groupby.LIMB_BITS
     shifts, nonneg = _limb_shifts(agg.vmin, agg.vmax, b)
@@ -390,58 +476,59 @@ def _mxu_agg(agg: ir.AggOp, arrays, params, mask, planes):
         planes.append((vm < 0).to(mxu_groupby.PLANE_DTYPE))
 
     def recipe(sums, counts, _refs=refs, _neg=neg_ref):
-        total = torch.zeros(counts.shape[0], dtype=torch.int64,
-                            device=counts.device)
+        total = torch.zeros_like(counts)
         for idx, shift in _refs:
-            total = total + (sums[idx] << shift)
+            total = total + (sums[:, idx] << shift)
         if _neg is not None:
-            total = total - (sums[_neg] << 32)
+            total = total - (sums[:, _neg] << 32)
         return total.to(torch.float64)
 
     return recipe
 
 
 def _run_ungrouped(program: ir.Program, arrays, params, mask, n):
-    """Un-grouped aggregation: masked whole-plane reductions shaped
-    (value, trash) to keep the output contract. The card has a 64-bit
-    integer ALU, so integer sums are one int64 sum (the JAX package splits
-    them into 16-bit limbs summed in int32 blocks; the value is the same)."""
+    """Un-grouped aggregation: masked row reductions shaped (value, trash)
+    per segment to keep the output contract. The card has a 64-bit integer
+    ALU, so integer sums are one int64 sum (the JAX package splits them
+    into 16-bit limbs summed in int32 blocks; the value is the same)."""
     i64, f64 = torch.int64, torch.float64
-    dev = mask.device
-    count = mask.sum(dtype=i64)
-    zero_i = torch.zeros((), dtype=i64, device=dev)
-    zero_f = torch.zeros((), dtype=f64, device=dev)
-    inf = torch.full((), float("inf"), dtype=f64, device=dev)
-    outputs = [torch.stack([count, zero_i])]
+    count = mask.sum(-1, dtype=i64)  # [S]
+    zero_i = torch.zeros_like(count)
+    zero_f = torch.zeros(count.shape, dtype=f64, device=mask.device)
+    inf = torch.full(count.shape, float("inf"), dtype=f64, device=mask.device)
+
+    def pair(a, b):
+        return torch.stack([a, b], dim=-1)
+
+    outputs = [pair(count, zero_i)]
     for agg in program.aggs:
         if agg.kind == "count":
-            outputs.append(torch.stack([count, zero_i]))
+            outputs.append(pair(count, zero_i))
             continue
         v = _eval_value(agg.vexpr, arrays, params)
-        is_int = not v.is_floating_point()
-        fast32 = is_int and v.dtype != torch.bool and _fits_i32(v, agg)
+        fast32 = _is_fast32(v, agg)
         if agg.kind == "sum":
-            if is_int:
-                s = torch.where(mask, v, 0).to(i64).sum().to(f64)
+            if not v.is_floating_point():
+                s = torch.where(mask, v, 0).to(i64).sum(-1).to(f64)
             else:
-                s = torch.where(mask, v, 0).to(f64).sum()
-            outputs.append(torch.stack([s, zero_f]))
+                s = torch.where(mask, v, 0).to(f64).sum(-1)
+            outputs.append(pair(s, zero_f))
         elif agg.kind == "sumsq":
             vf = torch.where(mask, v, 0).to(f64)
-            outputs.append(torch.stack([(vf * vf).sum(), zero_f]))
+            outputs.append(pair((vf * vf).sum(-1), zero_f))
         elif agg.kind in ("min", "max"):
             sign = 1.0 if agg.kind == "min" else -1.0
             if fast32:
                 ident = _I32_MAX if agg.kind == "min" else _I32_MIN
                 vm = torch.where(mask, v.to(torch.int32), ident)
-                s = vm.amin() if agg.kind == "min" else vm.amax()
+                s = vm.amin(-1) if agg.kind == "min" else vm.amax(-1)
                 out = torch.where(count > 0, s.to(f64), sign * inf)
             else:
                 # float32 -> float64 is exact, so the order of the cast
                 # and the reduction does not change the result
-                vm = torch.where(mask, v.to(f64), sign * inf)
-                out = vm.amin() if agg.kind == "min" else vm.amax()
-            outputs.append(torch.stack([out, sign * inf]))
+                vm = torch.where(mask, v.to(f64), sign * float("inf"))
+                out = vm.amin(-1) if agg.kind == "min" else vm.amax(-1)
+            outputs.append(pair(out, sign * inf))
         else:
             raise ValueError(f"agg kind {agg.kind} is not lowered by this port")
     return tuple(outputs)
@@ -467,30 +554,29 @@ def _fits_i32(v: torch.Tensor, agg: ir.AggOp) -> bool:
             and agg.vmin >= _I32_MIN and agg.vmax <= _I32_MAX)
 
 
+def _is_fast32(v: torch.Tensor, agg: ir.AggOp) -> bool:
+    return (not v.is_floating_point() and v.dtype != torch.bool
+            and _fits_i32(v, agg))
+
+
 def _run_agg(agg: ir.AggOp, arrays, params, mask, gid, num_segments,
              counts=None):
     """Per-group scatter reductions for what the limb pass does not carry:
     count, sum (int64-exact for integers), sumsq, min and max."""
     i64, f64 = torch.int64, torch.float64
-    dev = mask.device
-    index = gid.to(i64)
     if agg.kind == "count":
-        out = torch.zeros(num_segments, dtype=i64, device=dev)
-        return out.index_add_(0, index, mask.to(i64))
+        return _segment_reduce(mask.to(i64), gid, num_segments, "sum")
     v = _eval_value(agg.vexpr, arrays, params)
-    is_int = not v.is_floating_point()
-    fast32 = is_int and v.dtype != torch.bool and _fits_i32(v, agg)
+    fast32 = _is_fast32(v, agg)
     if agg.kind == "sum":
         if fast32:
-            out = torch.zeros(num_segments, dtype=i64, device=dev)
-            out.index_add_(0, index, torch.where(mask, v, 0).to(i64))
-            return out.to(f64)
-        out = torch.zeros(num_segments, dtype=f64, device=dev)
-        return out.index_add_(0, index, torch.where(mask, v, 0).to(f64))
+            return _segment_reduce(torch.where(mask, v, 0).to(i64), gid,
+                                   num_segments, "sum").to(f64)
+        return _segment_reduce(torch.where(mask, v, 0).to(f64), gid,
+                               num_segments, "sum")
     if agg.kind == "sumsq":
         vf = torch.where(mask, v, 0).to(f64)
-        out = torch.zeros(num_segments, dtype=f64, device=dev)
-        return out.index_add_(0, index, vf * vf)
+        return _segment_reduce(vf * vf, gid, num_segments, "sum")
     if agg.kind in ("min", "max"):
         reduce = "amin" if agg.kind == "min" else "amax"
         inf = float("inf") if agg.kind == "min" else float("-inf")
@@ -498,19 +584,329 @@ def _run_agg(agg: ir.AggOp, arrays, params, mask, gid, num_segments,
             # masked rows route to the trash slot; EMPTY groups are found
             # by the count column, never by a sentinel a value could hit
             ident = _I32_MAX if agg.kind == "min" else _I32_MIN
-            out = torch.full((num_segments,), ident, dtype=torch.int32,
-                             device=dev)
-            out.scatter_reduce_(0, index,
-                                torch.where(mask, v.to(torch.int32), ident),
-                                reduce, include_self=True)
+            out = _segment_reduce(torch.where(mask, v.to(torch.int32), ident),
+                                  gid, num_segments, reduce, ident)
             return torch.where(counts == 0, inf, out.to(f64))
         if v.dtype == torch.float32:
-            out = torch.full((num_segments,), inf, dtype=torch.float32,
-                             device=dev)
-            out.scatter_reduce_(0, index, torch.where(mask, v, inf), reduce,
-                                include_self=True)
-            return out.to(f64)
-        out = torch.full((num_segments,), inf, dtype=f64, device=dev)
-        return out.scatter_reduce_(0, index, torch.where(mask, v.to(f64), inf),
-                                   reduce, include_self=True)
+            return _segment_reduce(torch.where(mask, v, inf), gid,
+                                   num_segments, reduce, inf).to(f64)
+        return _segment_reduce(torch.where(mask, v.to(f64), inf), gid,
+                               num_segments, reduce, inf)
     raise ValueError(f"agg kind {agg.kind} is not lowered by this port")
+
+
+# -- sparse (sort-based) group-by --------------------------------------------
+
+
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int64 prefix sums of an integer [S, N] along N. torch
+    scans a batch of rows with one thread block per row, so the S rows
+    scan as one flat sequence and each row then drops the rows before
+    it (exact in int64)."""
+    flat = x.to(torch.int64).reshape(-1).cumsum(0).view(x.shape)
+    if x.shape[0] == 1:
+        return flat
+    before = torch.cat([flat.new_zeros(1), flat[:-1, -1]]).unsqueeze(1)
+    return flat - before
+
+
+def _edges_of(gidx: torch.Tensor, k: int, n: int):
+    """Slot edges of a nondecreasing group index [S, N]: edges[s, j] = the
+    first row of slot j; fi / li the first and last row of each of the k
+    slots (li clamped to fi for empty slots), and both clamped into
+    [0, n - 1] for gathers (the JAX gathers clamp the same way)."""
+    targets = torch.arange(k + 1, dtype=torch.int64, device=gidx.device)
+    edges = torch.searchsorted(
+        gidx, targets.expand(gidx.shape[0], k + 1).contiguous())
+    fi = edges[:, :k]
+    li = torch.maximum(edges[:, 1:] - 1, fi)
+    return edges, fi.clamp(0, n - 1), li.clamp(0, n - 1)
+
+
+def _transitions(key: torch.Tensor) -> torch.Tensor:
+    """True at row 0 and wherever the key differs from the row before."""
+    first = torch.ones(key.shape, dtype=torch.bool, device=key.device)
+    first[:, 1:] = key[:, 1:] != key[:, :-1]
+    return first
+
+
+def _run_sparse_group_by(program: ir.Program, arrays, params, mask, n):
+    """High-cardinality group-by: sort-based aggregation on the device
+    (the port of the JAX `_run_sparse_group_by`).
+
+        key   = sum of dict_ids[d] * stride[d]   (masked -> sentinel)
+        sort  key, stable, carrying a row permutation
+        first = key[i] != key[i-1]               (group boundaries)
+        gidx  = cumsum(first) - 1                (dense 0-based group index)
+        out_k = per-slot reductions              (K+1 slots, K = groups limit)
+
+    Groups past numGroupsLimit (in key order) route to the trash slot, and
+    the composite key of each surviving slot is the LAST output. Keys sort
+    as int32 when the key space fits, as in the JAX package, so the slot
+    order and the keys match. With `keys_presorted` the key plane is
+    already nondecreasing in doc order and no sort runs
+    (`_presorted_sparse_tail`). The stable sort makes the permutation the
+    one the JAX package's sort of (key, iota) gives.
+    """
+    s_count = mask.shape[0]
+    key32 = 0 < program.key_space < _I32_MAX
+    kdtype = torch.int32 if key32 else torch.int64
+    key = torch.zeros((s_count, n), dtype=kdtype, device=mask.device)
+    if program.group_vexprs:
+        for vexpr, stride in zip(program.group_vexprs, program.group_strides):
+            key = key + _eval_value(vexpr, arrays, params).to(kdtype) * stride
+    else:
+        for slot, stride in zip(program.group_slots, program.group_strides):
+            key = key + arrays[slot].to(kdtype) * stride
+    sentinel = _I32_MAX if key32 else ir.SPARSE_KEY_SPACE
+    if not program.keys_presorted:
+        # masked rows sort to a sentinel tail; the presorted path keeps
+        # the raw keys and skips masked rows by identities and mask sums
+        key = torch.where(mask, key, sentinel)
+
+    # agg inputs with mask-neutral elements, computed before the sort
+    f64 = torch.float64
+    operands = [key]
+    specs = []  # per agg: (reduce kind, operand index, agg)
+    for agg in program.aggs:
+        if agg.kind == "count":
+            specs.append(("count", None, agg))
+            continue
+        v = _eval_value(agg.vexpr, arrays, params)
+        fast32 = _is_fast32(v, agg)
+        if agg.kind == "sumsq":
+            v = torch.where(mask, v, 0).to(f64)
+            v, kind = v * v, "sum_f"
+        elif agg.kind == "sum":
+            if fast32:
+                v, kind = torch.where(mask, v, 0).to(torch.int32), "sum_i"
+            else:
+                v, kind = torch.where(mask, v, 0).to(f64), "sum_f"
+        elif agg.kind in ("min", "max"):
+            lo = agg.kind == "min"
+            if fast32:
+                v = torch.where(mask, v.to(torch.int32),
+                                _I32_MAX if lo else _I32_MIN)
+                kind = "min_i" if lo else "max_i"
+            else:
+                v = torch.where(mask, v.to(f64),
+                                float("inf") if lo else float("-inf"))
+                kind = "min_f" if lo else "max_f"
+        else:
+            raise ValueError(
+                f"agg kind {agg.kind} is not lowered by this port's sparse "
+                "group-by")
+        specs.append((kind, len(operands), agg))
+        operands.append(v.expand(mask.shape))
+
+    if program.keys_presorted:
+        return _presorted_sparse_tail(program, operands, specs, mask, n)
+
+    skey, perm = torch.sort(key, dim=-1, stable=True)
+    sorted_ops = [skey] + [torch.gather(op, 1, perm) for op in operands[1:]]
+    valid = skey < sentinel
+    first = _transitions(skey) & valid
+    gidx = _cumsum(first) - 1
+    k = program.num_groups
+    n_valid = valid.sum(-1)
+    # invalid rows sit in the sentinel tail; pin their gidx above every
+    # slot so the edges never include them
+    edges, fic, lic = _edges_of(torch.where(valid, gidx, 1 << 30), k, n)
+    counts_k = edges[:, 1:] - edges[:, :-1]
+    counts = torch.cat([counts_k, (n_valid - edges[:, k]).unsqueeze(1)], 1)
+    occupied = counts_k > 0
+    # rows of slots [0, k) -> their slot; trimmed and invalid rows -> k
+    slot = torch.where(valid & (gidx < k), gidx, k)
+    outputs = [counts] + _sparse_aggs(specs, sorted_ops, slot, occupied,
+                                      fic, lic, counts, k)
+    outputs.append(torch.where(occupied, torch.gather(skey, 1, fic)
+                               .to(torch.int64), -1))
+    return tuple(outputs)
+
+
+def _presorted_sparse_tail(program: ir.Program, operands, specs, mask, n):
+    """Sorted-key fast path: no sort (reference SortedGroupByOperator).
+
+    The single key plane (operands[0], raw: no sentinel) is nondecreasing
+    over the segment's masked-in rows (the planner checked is_sorted), so
+    group runs are already contiguous in doc order. Masked rows sit inside
+    and after runs, so a group exists only where a key run has a masked-in
+    row, and the run's FIRST masked-in row opens it: fully masked runs
+    consume no numGroupsLimit slot. Reductions skip masked rows through
+    their identities (the operands carry them) and counts come from a mask
+    prefix sum. The padded tail (id 0 past num_docs) is always masked."""
+    key = operands[0]
+    k = program.num_groups
+    n_rows = key.shape[1]
+    first_key = _transitions(key)
+    mi = mask.to(torch.int64)
+    pm = _cumsum(mi)
+    # masked-in rows so far within the key run (inclusive): the row where
+    # it first reaches 1 opens the run's group. Each run's count before
+    # its start lands on the run's index (one add per run start) and is
+    # read back at every row of the run (the JAX package scans instead)
+    run_id = _cumsum(first_key) - 1
+    run_base = torch.gather(_segment_reduce(
+        torch.where(first_key, pm - mi, 0), run_id, n_rows, "sum"), 1, run_id)
+    first = mask & (pm - run_base == 1)
+    gidx = _cumsum(first) - 1  # -1 before group 0
+    _, fic, lic = _edges_of(gidx, k, n)
+    occupied = torch.arange(k, device=key.device).unsqueeze(0) \
+        < gidx[:, -1:] + 1
+    counts_k = torch.where(
+        occupied, torch.gather(pm, 1, lic) - torch.gather(pm, 1, fic)
+        + torch.gather(mi, 1, fic), 0)
+    counts = torch.cat(
+        [counts_k, (pm[:, -1] - counts_k.sum(-1)).unsqueeze(1)], 1)
+    # a masked-in row belongs to the group its run opened
+    slot = torch.where(mask & (gidx >= 0) & (gidx < k), gidx, k)
+    outputs = [counts] + _sparse_aggs(specs, operands, slot, occupied, fic,
+                                      lic, counts, k)
+    outputs.append(torch.where(occupied, torch.gather(key, 1, fic)
+                               .to(torch.int64), -1))
+    return tuple(outputs)
+
+
+def _sparse_aggs(specs, ops, slot, occupied, fic, lic, counts, k) -> list:
+    """Per-slot outputs of the sparse aggregations over rows `ops` whose
+    slot (0..k-1, or the trash k) is `slot`; every slot's rows lie within
+    [fic, lic]. The JAX package reads a segmented tree scan at each slot's
+    last row for DOUBLE sums and MIN/MAX; here a scatter by slot reduces
+    the same rows (MIN/MAX exactly; DOUBLE sums in another order, the
+    rounding still local to each group)."""
+    f64 = torch.float64
+    inf = float("inf")
+    out = []
+    for kind, oi, agg in specs:
+        if kind == "count":
+            out.append(counts)
+            continue
+        v = ops[oi]
+        if kind == "sum_i" and not _prefix_exact_gate(v, agg):
+            # the planner proved no small bound: exact int64 sums by slot,
+            # the trash slot holding the trimmed rows' sum as in the JAX
+            # package's _segment_sum_exact_i64
+            out.append(_segment_sum_exact_i64(v, slot, k + 1).to(f64))
+        elif kind == "sum_i":
+            # prefix sums over the slot's row span [fi, li]: rows of the
+            # span outside the slot are masked and hold 0. int64 prefixes
+            # are exact on the card (the JAX package builds exact f64
+            # prefixes from int32 blocks, `_sorted_prefix_f64`)
+            p = _cumsum(v)
+            s = (torch.gather(p, 1, lic) - torch.gather(p, 1, fic)
+                 + torch.gather(v, 1, fic))
+            out.append(_with_trash(torch.where(occupied, s.to(f64), 0.0), 0.0))
+        elif kind == "sum_f":
+            s = _segment_reduce(v, slot, k + 1, "sum")[:, :k]
+            out.append(_with_trash(torch.where(occupied, s, 0.0), 0.0))
+        else:
+            lo = kind.startswith("min")
+            ident = (_I32_MAX if lo else _I32_MIN) if kind.endswith("_i") \
+                else (inf if lo else -inf)
+            s = _segment_reduce(v, slot, k + 1, "amin" if lo else "amax",
+                                ident)[:, :k]
+            fill = inf if lo else -inf
+            out.append(_with_trash(torch.where(occupied, s.to(f64), fill),
+                                   fill))
+    return out
+
+
+def _with_trash(col: torch.Tensor, value: float) -> torch.Tensor:
+    return torch.cat([col, torch.full((col.shape[0], 1), value,
+                                      dtype=col.dtype, device=col.device)], 1)
+
+
+def _int_prefix_bound(agg):
+    bound = max(abs(int(agg.vmin)), abs(int(agg.vmax))) \
+        if agg is not None and agg.vmin is not None and agg.vmax is not None \
+        else (1 << 31)
+    block = 1 << max(0, min(11, 30 - bound.bit_length()))
+    return bound, block
+
+
+def _prefix_exact_gate(v, agg) -> bool:
+    """The JAX package's gate for its exact f64 prefix sums (`_sorted_
+    prefix_f64`): every partial sum an integer below 2^53, built from int32
+    blocks. Kept as is, since it decides what the trash slot of an integer
+    SUM holds (0 here; the trimmed rows' sum without it)."""
+    if v.is_floating_point():
+        return True
+    n = v.shape[-1]
+    bound, block = _int_prefix_bound(agg)
+    return block >= 8 and n % block == 0 and n * bound < (1 << 53)
+
+
+def _segment_sum_exact_i64(v, gid, num_segments):
+    """Exact int64 per-slot sums. The JAX package builds them from int32
+    limb scatters because 64-bit scatters are emulated on the TPU; the card
+    adds int64 natively."""
+    return _segment_reduce(v.to(torch.int64), gid, num_segments, "sum")
+
+
+# -- device-side sparse combine (server-level merge of segment tables) -------
+
+# empty merged-table slots carry this key; above any real dictionary VALUE
+COMBINE_KEY_SENTINEL = 1 << 62
+
+
+def ids_to_values_i64(keys: torch.Tensor, dict_plane: torch.Tensor):
+    """One segment's sparse key output (dict IDS; -1 = empty slot) in
+    dictionary VALUE space: dictionaries are segment-local, so keys merged
+    across segments must be values. Empty slots take the sort sentinel so
+    they tail the merge."""
+    card = dict_plane.shape[0]
+    ids = keys.clamp(0, max(0, card - 1))
+    return torch.where(keys >= 0, dict_plane[ids].to(torch.int64),
+                       COMBINE_KEY_SENTINEL)
+
+
+def combine_sparse_group_tables(seg_keys, seg_counts, seg_states, kinds):
+    """Merge S per-segment sparse group tables ON THE DEVICE: the S * K
+    rows sort by value-space key (stable) and equal keys reduce into one
+    slot, so only the merged table crosses to the host.
+
+    seg_keys:   S x (K,) int64 value-space keys (ids_to_values_i64)
+    seg_counts: S x (K+1,) int64 count columns (slot K = trash)
+    seg_states: S x tuple of (K+1,) state columns, one per Program agg op
+    kinds:      per state column: "add" | "min" | "max"
+
+    Returns (counts(M+1), *states(M+1), keys(M)) with M = S * K: the
+    per-segment output layout, so LoweredAgg.vec.extract decodes it. Every
+    merged group is kept; the ordered server-level trim runs downstream.
+    """
+    key = torch.cat(list(seg_keys))
+    cnt = torch.cat([c[:-1] for c in seg_counts])
+    trash = torch.stack([c[-1] for c in seg_counts]).sum()
+    states = [torch.cat([s[i][:-1] for s in seg_states])
+              for i in range(len(kinds))]
+    m = key.shape[0]
+    skey, perm = torch.sort(key, stable=True)
+    valid = skey < COMBINE_KEY_SENTINEL
+    first = _transitions(skey.unsqueeze(0))[0] & valid
+    gidx = _cumsum(first.unsqueeze(0))[0] - 1
+    slot = torch.where(valid, gidx, m).unsqueeze(0)
+    occupied = torch.arange(m, device=key.device) < first.sum()
+
+    def merge(v, kind, init):
+        s = _segment_reduce(v[perm].unsqueeze(0), slot, m + 1, kind, init)
+        return s[0, :m]
+
+    outs = [torch.cat([torch.where(occupied, merge(cnt, "sum", 0), 0),
+                       trash.reshape(1)])]
+    inf = float("inf")
+    for v, kind in zip(states, kinds):
+        if kind == "add":
+            merged = torch.where(occupied, merge(v, "sum", 0), 0)
+            tail = 0
+        elif kind == "min":
+            merged = torch.where(occupied, merge(v, "amin", inf), inf)
+            tail = inf
+        else:
+            merged = torch.where(occupied, merge(v, "amax", -inf), -inf)
+            tail = -inf
+        outs.append(torch.cat([merged, torch.full((1,), tail, dtype=v.dtype,
+                                                  device=v.device)]))
+    keys = _segment_reduce(skey.unsqueeze(0), slot, m + 1, "amin",
+                           COMBINE_KEY_SENTINEL)[0, :m]
+    outs.append(torch.where(occupied, keys, -1))
+    return tuple(outs)

@@ -9,6 +9,10 @@ Narrow uint8/uint16 dict-id planes stay narrow in device memory (1/4 or 1/2
 of the int32 bytes) and widen on use (ops/kernels.py `_apply_packed`, or in
 registers inside the fused kernel). They default to on for a CUDA device and
 off for the CPU.
+
+A batch FAMILY of segments (engine/executor.py) reads `[S, ...]` stacks of
+its members' planes from a StackedSegmentView: derived copies, cached under
+the same byte budget and evicted wholesale before any member plane.
 """
 
 from __future__ import annotations
@@ -125,16 +129,47 @@ class SegmentDeviceView:
         self._planes.clear()
 
 
+class StackedSegmentView:
+    """Device-resident [S, ...] planes stacked from the member views of a
+    batch family. Each plane is a `torch.stack` of the members' cached
+    planes, cached here so repeated queries over the same family skip the
+    stack copies. Narrow uint8/uint16 id planes stay narrow in the stack."""
+
+    def __init__(self, key: tuple):
+        self.key = key  # the members' id(segment)s, in order
+        self._planes: dict[tuple, torch.Tensor] = {}
+
+    def plane(self, plane_key: tuple, build) -> torch.Tensor:
+        """The cached stack `plane_key`, built by `build()` on first use;
+        returned through a local reference, as SegmentDeviceView._put."""
+        t = self._planes.get(plane_key)
+        if t is None:
+            t = build()
+            self._planes[plane_key] = t
+        return t
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in list(self._planes.values()))
+
+    def evict(self) -> None:
+        self._planes.clear()
+
+
 class DeviceSegmentCache:
-    """Segment -> device-view cache with byte-budget LRU eviction: the
-    least recently used views are dropped (never the one just touched)
-    while the resident bytes exceed `budget_bytes`."""
+    """Segment -> device-view cache with byte-budget LRU eviction: while
+    the resident bytes exceed `budget_bytes`, the least recently used
+    family stacks go first (derived data: a stack rebuilds from its
+    members' planes without an upload), then the least recently used
+    views; never the entry just touched."""
 
     def __init__(self, device, budget_bytes: Optional[int] = None):
         self.device = torch.device(device)
         self.budget_bytes = budget_bytes
         self._views: dict[int, SegmentDeviceView] = {}
         self._order: list[int] = []  # LRU, most recent last
+        self._stacks: dict[tuple, StackedSegmentView] = {}
+        self._stack_order: list[tuple] = []  # LRU, most recent last
         self.evictions = 0
         self._lock = threading.Lock()
 
@@ -150,16 +185,38 @@ class DeviceSegmentCache:
             self._maybe_evict()
             return v
 
+    def stacked_view(self, segments: list) -> StackedSegmentView:
+        """Get-or-create the stacked view of a batch family, identified by
+        its ordered member segments."""
+        key = tuple(id(s) for s in segments)
+        with self._lock:
+            sv = self._stacks.get(key)
+            if sv is None:
+                sv = self._stacks[key] = StackedSegmentView(key)
+            if key in self._stack_order:
+                self._stack_order.remove(key)
+            self._stack_order.append(key)
+            self._maybe_evict()
+            return sv
+
     def bytes_used(self) -> int:
         with self._lock:
-            return sum(v.nbytes() for v in self._views.values())
+            return (sum(v.nbytes() for v in self._views.values())
+                    + sum(s.nbytes() for s in self._stacks.values()))
 
     def _maybe_evict(self) -> None:
-        # caller holds self._lock. Planes upload lazily after view(), so
-        # the budget is enforced on the next view() call.
+        # caller holds self._lock. Planes upload (and stacks build) lazily
+        # after view() / stacked_view(), so the budget is enforced on the
+        # next call of either.
         if self.budget_bytes is None:
             return
-        total = sum(v.nbytes() for v in self._views.values())
+        total = (sum(v.nbytes() for v in self._views.values())
+                 + sum(s.nbytes() for s in self._stacks.values()))
+        while total > self.budget_bytes and len(self._stack_order) > 1:
+            victim = self._stack_order.pop(0)
+            total -= self._stacks[victim].nbytes()
+            self._stacks.pop(victim).evict()
+            self.evictions += 1
         while total > self.budget_bytes and len(self._order) > 1:
             victim = self._order.pop(0)
             total -= self._views[victim].nbytes()

@@ -8,7 +8,11 @@ machine without one they skip. Run them on the card with
 
     python -m pytest -m gpu tests/test_torch_*.py
 
-Sums are int64 and must be element-equal to the plain versions.
+Sums are int64 and must be element-equal to the plain versions. Kernel A
+with its family axis is one launch per family, equal to the plain version
+of the flattened family; a 16-segment query batched on the card equals the
+same query with SET segmentBatch = false, and sparse GROUP BYs (torch ops
+on the card, the device combine) equal the CPU's.
 """
 
 from __future__ import annotations
@@ -127,6 +131,57 @@ def test_limb_sums_int32_saturation(cuda, p, g, active):
     want = torch.zeros((p, g), dtype=torch.int64, device=cuda)
     want[:, 0] = 127 * n
     assert torch.equal(got, want)
+
+
+def _family_inputs(segments, n, p, g, seed, device, live=None):
+    """S members' inputs; member s keeps live[s] rows (the rest carry the
+    trash gid and zero payloads, as a member's pad rows do)."""
+    planes, gid = _limb_inputs(segments * n, p, g, seed, device)
+    planes = planes.view(p, segments, n).transpose(0, 1).contiguous()
+    gid = gid.view(segments, n).contiguous()
+    for s, rows in enumerate(live or ()):
+        gid[s, rows:] = g - 1
+        planes[s, :, rows:] = 0
+    return planes, gid
+
+
+# S = 1; the q2 and q4 shapes; 16 members of a ragged n (padded to 16
+# bytes) with ragged live rows; a member with no live row; a table split
+# by plane, by group and none (global atomics); tiles of one segment
+# spread over many CTAs, and clusters whose ranges cross segments
+@pytest.mark.parametrize("segments,n,p,g,live", [
+    (1, 1 << 20, 4, 7001, None),
+    (4, 1 << 20, 4, 7001, None),
+    (16, 1 << 18, 4, 7001, None),
+    (16, (1 << 18) + 5, 2, 1001, [(1 << 18) + 5 - 4099 * s for s in range(16)]),
+    (3, 100_000, 3, 700, [100_000, 0, 5]),
+    (4, 1 << 19, 8, 7001, None),
+    (3, 1 << 18, 16, 32768, None),
+    (5, 3000, 24, 128, None),
+])
+def test_family_limb_sums_kernel_matches_plain(cuda, segments, n, p, g, live):
+    planes, gid = _family_inputs(segments, n, p, g, segments + n, cuda, live)
+    before = _cuda.LAUNCHES["limb_sums"]
+    got = mxu_groupby.limb_sums(planes, gid, g)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["limb_sums"] == before + 1  # one per family
+    assert got.shape == (segments, p, g)
+    assert torch.equal(got, mxu_groupby.limb_sums_plain(planes, gid, g))
+
+
+@pytest.mark.parametrize("p,g,cluster,count,mode", [
+    (8, 7001, 2, 66, "split"), (3, 32768, 4, 33, "shared"),
+    (4, 7001, None, 1, "private"), (4, 1001, 1, 132, "private")])
+def test_family_limb_sums_at_forced_geometry(cuda, p, g, cluster, count,
+                                             mode):
+    segments, n = 6, (1 << 18) + 16 * 7
+    planes, gid = _family_inputs(segments, n, p, g, 9, cuda)
+    geo = geometry.plan(n, p, g, *mxu_groupby.slot_layout(planes, gid),
+                        segments=segments,
+                        active_clusters=_only(cluster, count))
+    assert geo.mode == mode
+    got = mxu_groupby.launch(planes, gid, g, geo)
+    assert torch.equal(got, mxu_groupby.limb_sums_plain(planes, gid, g))
 
 
 def test_limb_sums_kernel_rejects_bad_inputs(cuda):
@@ -258,25 +313,107 @@ def small_table(tmp_path_factory):
     return schema, segs
 
 
-@pytest.mark.parametrize("sql,kernel", [
-    ("SELECT d_year, p_brand, SUM(lo_revenue) FROM ssb WHERE "
-     "s_region = 'ASIA' GROUP BY d_year, p_brand LIMIT 10000",
-     "fused_limb_sums"),
+# (sql, kernel, launches): a family (the default) is one launch of kernel
+# A; a lone segment, one of kernel B where its plan is in scope
+@pytest.mark.parametrize("sql,kernel,launches", [
+    ("SET segmentBatch = false; SELECT d_year, p_brand, SUM(lo_revenue) "
+     "FROM ssb WHERE s_region = 'ASIA' GROUP BY d_year, p_brand LIMIT 10000",
+     "fused_limb_sums", 2),
     ("SET useFusedKernel = false; SELECT d_year, p_brand, SUM(lo_revenue) "
      "FROM ssb WHERE s_region = 'ASIA' GROUP BY d_year, p_brand LIMIT 10000",
-     "limb_sums"),
+     "limb_sums", 1),
     ("SELECT p_brand, SUM(lo_revenue), COUNT(*), MIN(lo_revenue), "
      "MAX(lo_revenue) FROM ssb WHERE d_year >= 1995 GROUP BY p_brand "
-     "LIMIT 1000", "limb_sums"),
+     "LIMIT 1000", "limb_sums", 1),
+    ("SELECT d_year, p_brand, SUM(lo_revenue) FROM ssb WHERE "
+     "s_region = 'ASIA' GROUP BY d_year, p_brand LIMIT 10000",
+     "limb_sums", 1),
 ])
-def test_query_on_the_card_matches_cpu(cuda, small_table, sql, kernel):
+def test_query_on_the_card_matches_cpu(cuda, small_table, sql, kernel,
+                                       launches):
     schema, segs = small_table
     gpu, cpu = QueryExecutor(device="cuda"), QueryExecutor(device="cpu")
     for qe in (gpu, cpu):
         qe.add_table(schema, segs)
     before = _cuda.LAUNCHES[kernel]
     got = gpu.execute_sql(sql)
-    assert _cuda.LAUNCHES[kernel] == before + len(segs)
+    assert _cuda.LAUNCHES[kernel] == before + launches
     want = cpu.execute_sql(sql)
     assert sorted(map(tuple, got.result_table.rows)) == \
         sorted(map(tuple, want.result_table.rows))
+
+
+@pytest.fixture(scope="module")
+def table16(tmp_path_factory):
+    """16 segments of 20,000 rows, lo_orderkey sorted in ingestion order."""
+    rng = np.random.default_rng(29)
+    n, segments = 20_000, 16
+    cols = {
+        "d_year": rng.integers(1992, 1999, n * segments).astype(np.int32),
+        "p_brand": rng.integers(0, 1000, n * segments).astype(np.int32),
+        "lo_orderkey": np.sort(rng.integers(0, 1 << 20, n * segments))
+        .astype(np.int32),
+        "lo_revenue": rng.integers(1, 600_000, n * segments).astype(np.int32),
+    }
+    schema = Schema.build("ssb16", dimensions=[
+        ("d_year", "INT"), ("p_brand", "INT"), ("lo_orderkey", "INT")],
+        metrics=[("lo_revenue", "INT")])
+    cfg = TableConfig(table_name="ssb16", indexing=IndexingConfig(
+        no_dictionary_columns=["lo_revenue"]))
+    segs = []
+    for i in range(segments):
+        path = tmp_path_factory.mktemp("torch_cuda16") / f"s{i}"
+        SegmentBuilder(schema, cfg, f"s{i}").build(
+            {k: v[i * n:(i + 1) * n] for k, v in cols.items()}, path)
+        segs.append(load_segment(path))
+    return schema, segs
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT d_year, p_brand, SUM(lo_revenue), COUNT(*) FROM ssb16 "
+    "WHERE d_year > 1993 GROUP BY d_year, p_brand LIMIT 10000",
+    "SELECT p_brand, MIN(lo_revenue), MAX(lo_revenue), SUM(lo_revenue) "
+    "FROM ssb16 GROUP BY p_brand LIMIT 1000",
+    "SELECT COUNT(*), SUM(lo_revenue), MAX(lo_revenue) FROM ssb16 "
+    "WHERE p_brand < 500",
+])
+def test_16_segment_family_equals_unbatched(cuda, table16, sql):
+    schema, segs = table16
+    qe = QueryExecutor(device="cuda")
+    qe.add_table(schema, segs)
+    before = dict(_cuda.LAUNCHES)
+    batched = qe.execute_sql(sql)
+    grouped = "GROUP BY" in sql
+    assert batched.num_device_dispatches == 1
+    assert _cuda.LAUNCHES["limb_sums"] - before["limb_sums"] == int(grouped)
+    solo = qe.execute_sql("SET segmentBatch = false; " + sql)
+    assert solo.num_device_dispatches == len(segs)
+    assert batched.result_table.rows == solo.result_table.rows
+
+
+@pytest.mark.parametrize("sql", [
+    # presorted keys, the exact trim, the device combine
+    "SET sparseGroupBy = true; SELECT lo_orderkey, SUM(lo_revenue), "
+    "COUNT(*) FROM ssb16 GROUP BY lo_orderkey ORDER BY lo_orderkey "
+    "LIMIT 5000",
+    # the sort path with two keys (the host merge)
+    "SELECT d_year, lo_orderkey, SUM(lo_revenue), COUNT(*), "
+    "MIN(lo_revenue), MAX(lo_revenue) FROM ssb16 GROUP BY d_year, "
+    "lo_orderkey ORDER BY d_year, lo_orderkey LIMIT 3000",
+    # one family of 16 through the sort path and the device combine
+    "SET sparseGroupBy = true; SELECT p_brand, SUM(lo_revenue), COUNT(*), "
+    "MIN(lo_revenue), MAX(lo_revenue) FROM ssb16 GROUP BY p_brand "
+    "ORDER BY p_brand LIMIT 1000",
+    "SET sparseGroupBy = true; SET numGroupsLimit = 300; SELECT p_brand, "
+    "COUNT(*), SUM(lo_revenue) FROM ssb16 GROUP BY p_brand",
+])
+def test_sparse_query_on_the_card_matches_cpu(cuda, table16, sql):
+    schema, segs = table16
+    gpu, cpu = QueryExecutor(device="cuda"), QueryExecutor(device="cpu")
+    for qe in (gpu, cpu):
+        qe.add_table(schema, segs)
+    got, want = gpu.execute_sql(sql), cpu.execute_sql(sql)
+    assert got.result_table.rows == want.result_table.rows
+    assert got.num_docs_scanned == want.num_docs_scanned
+    assert got.num_device_dispatches == want.num_device_dispatches
+    assert got.num_groups_limit_reached == want.num_groups_limit_reached

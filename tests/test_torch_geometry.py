@@ -6,7 +6,10 @@ add is fixed by this geometry: every tile of rows goes to exactly one CTA,
 every output counter has exactly one owning CTA, each CTA's table and ring
 fit its shared memory, and a table is flushed before its int32 counters of
 7-bit values could overflow. A shape whose table fits the cluster is read
-in one pass.
+in one pass. A family of S segments (kernel A's batch axis) is one
+launch: the clusters split the family's units into contiguous ranges, so
+every (segment, row) still falls in exactly one tile, and a table holds
+one segment's sums between two flushes.
 """
 
 from __future__ import annotations
@@ -67,6 +70,20 @@ DOMAIN = [(p, g) for p in (1, 2, 3, 4, 7, 8, 12, 16, 24)
           for g in (1, 2, 127, 128, 129, 1001, 7001, 16384, 21760, 32768)
           if mxu_groupby.supports(g, p)]
 
+# family shapes: (n, P, G, widths, mis, segments)
+FAMILY_SHAPES = {
+    "family_S1": (N_MAIN, 4, 7001, limb_widths(4), None, 1),
+    "family_q2_S4": (N_MAIN, 4, 7001, limb_widths(4), None, 4),
+    "family_flagship_S4": (N_MAIN, 4, 1001, limb_widths(4), None, 4),
+    "family_q4_S16": (1 << 21, 4, 7001, limb_widths(4), None, 16),
+    "family_S16_small": (20_000, 3, 700, limb_widths(3), None, 16),
+    "family_S16_ragged": (100_016 + 5 * 16, 2, 1001, limb_widths(2),
+                          stacked_mis(100_096, 2), 16),
+    "family_split_S4": (1 << 20, 24, 1001, limb_widths(24), None, 4),
+    "family_shared_S3": (1 << 20, 16, 32768, limb_widths(16), None, 3),
+    "family_S16_below_one_tile": (1000, 2, 10, limb_widths(2), None, 16),
+}
+
 ONE_CLUSTER = {
     # every cluster size may run, but only one cluster at a time: the
     # rows of the whole input feed one cluster's tables
@@ -76,13 +93,23 @@ ONE_CLUSTER = {
 }
 
 
-def _plan(n, p, g, widths, mis, active=None):
-    return geometry.plan(n, p, g, widths, mis, active_clusters=active)
+def _plan(n, p, g, widths, mis, active=None, segments=1):
+    return geometry.plan(n, p, g, widths, mis, segments=segments,
+                         active_clusters=active)
+
+
+def _unpack(shape):
+    """(n, P, G, widths, mis, segments) of a SHAPES or FAMILY_SHAPES entry."""
+    return tuple(shape[:5]) + ((shape[5],) if len(shape) > 5 else (1,))
 
 
 def _cases():
     for name, shape in SHAPES.items():
         yield pytest.param(shape, None, id=name)
+    for name, shape in FAMILY_SHAPES.items():
+        yield pytest.param(shape, None, id=name)
+    yield pytest.param(FAMILY_SHAPES["family_q2_S4"],
+                       ONE_CLUSTER["one_cluster"], id="family_q2_S4_one_cluster")
     for p, g in DOMAIN:
         yield pytest.param((1 << 20, p, g, limb_widths(p), None), None,
                            id=f"domain_P{p}_G{g}")
@@ -99,8 +126,8 @@ CASES = list(_cases())
 
 @pytest.mark.parametrize("shape,active", CASES)
 def test_every_counter_has_exactly_one_owner(shape, active):
-    n, p, g, widths, mis = shape
-    geo = _plan(n, p, g, widths, mis, active)
+    n, p, g, widths, mis, segments = _unpack(shape)
+    geo = _plan(n, p, g, widths, mis, active, segments)
     if geo.mode == "global":
         assert geo.table_counters == 0
         return
@@ -133,8 +160,8 @@ def test_every_counter_has_exactly_one_owner(shape, active):
 
 @pytest.mark.parametrize("shape,active", CASES)
 def test_table_and_ring_fit_shared_memory(shape, active):
-    n, p, g, widths, mis = shape
-    geo = _plan(n, p, g, widths, mis, active)
+    n, p, g, widths, mis, segments = _unpack(shape)
+    geo = _plan(n, p, g, widths, mis, active, segments)
     assert geo.smem_bytes <= geometry.SMEM_MAX < 232_448
     assert geo.table_off >= 8 * 2 * geometry.MAX_STAGES >= 8 * 2 * geo.stages
     assert geo.table_off + 4 * geo.table_counters <= geo.ring_off
@@ -147,8 +174,8 @@ def test_table_and_ring_fit_shared_memory(shape, active):
 
 @pytest.mark.parametrize("shape,active", CASES)
 def test_flush_keeps_int32_counters_exact(shape, active):
-    n, p, g, widths, mis = shape
-    geo = _plan(n, p, g, widths, mis, active)
+    n, p, g, widths, mis, segments = _unpack(shape)
+    geo = _plan(n, p, g, widths, mis, active, segments)
     assert geo.rows_per_flush() * 127 < 1 << 31
     if geo.mode != "global":
         # the loop steps between flushes cover the rows they claim
@@ -156,31 +183,46 @@ def test_flush_keeps_int32_counters_exact(shape, active):
         assert fed * 127 < 1 << 31
 
 
+def _walk(geo):
+    """The kernels' walk by their own formula (geometry.tile_of, checked
+    at both ends of every range, vectorised in between): for every unit,
+    its cluster, its step in that cluster's range and its segment; and
+    every (segment, tile) read."""
+    bounds = np.array([geo.unit_range(q) for q in range(geo.clusters)])
+    u = np.arange(geo.units)
+    cl = np.searchsorted(bounds[:, 1], u, side="right")
+    step = u - bounds[cl, 0]
+    seg = u // max(1, geo.seg_units)
+    ranks = np.arange(1 if geo.mode == "split" else geo.cluster)
+    tile = ((u % max(1, geo.seg_units)) * geo.unit_tiles)[:, None] + ranks
+    for k in {0, geo.units - 1} if geo.units else ():
+        for r in ranks:
+            want = (int(seg[k]), int(tile[k, r]))
+            got = geo.tile_of(int(step[k]), int(cl[k]), int(r))
+            assert got == (want if want[1] < geo.tiles else None)
+    keep = tile < geo.tiles
+    read = np.broadcast_to(seg[:, None], tile.shape)[keep] * geo.tiles \
+        + tile[keep]
+    return cl, step, seg, read
+
+
 @pytest.mark.parametrize("shape,active", CASES)
 def test_every_row_falls_in_exactly_one_tile(shape, active):
-    n, p, g, widths, mis = shape
-    geo = _plan(n, p, g, widths, mis, active)
+    n, p, g, widths, mis, segments = _unpack(shape)
+    geo = _plan(n, p, g, widths, mis, active, segments)
     mis = mis or (0,) * len(widths)
     assert 0 <= geo.full_rows <= n and geo.full_rows % geo.tile_rows == 0
     assert geo.full_rows + geo.tail_rows == n
     assert geo.tail_rows < geo.tile_rows + 16
-    j = np.arange(geo.iters)[:, None, None]
-    q = np.arange(geo.clusters)[None, :, None]
-    r = np.arange(geo.cluster)[None, None, :]
-    if geo.mode == "split":
-        # every CTA of a cluster reads its cluster's tiles (one multicast)
-        tiles = (j * geo.clusters + q)[:, :, 0].ravel()
-    else:
-        tiles = ((j * geo.clusters + q) * geo.cluster + r).ravel()
-    # the kernels' formula is the one geometry.tile_of states
-    for jj, qq, rr in ((0, 0, 0), (geo.iters - 1, geo.clusters - 1,
-                                   geo.cluster - 1)):
-        want = jj * geo.clusters + qq
-        if geo.mode != "split":
-            want = want * geo.cluster + rr
-        assert geo.tile_of(jj, qq, rr) == want
-    read = np.sort(tiles[tiles < geo.tiles])
-    assert np.array_equal(read, np.arange(geo.tiles))
+    # the clusters' ranges cover the family's units once, in order
+    bounds = [geo.unit_range(q) for q in range(geo.clusters)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == geo.units
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert max(e - s for s, e in bounds) == geo.iters
+    # every whole tile of every segment is read once; the rest of each
+    # segment is its tail
+    _, _, _, read = _walk(geo)
+    assert np.array_equal(np.sort(read), np.arange(segments * geo.tiles))
     for k, (w, m) in enumerate(zip(widths, mis)):
         # the last tile's copy ends inside the plane: never past row n - 1
         end = m + geo.full_rows * w
@@ -189,9 +231,31 @@ def test_every_row_falls_in_exactly_one_tile(shape, active):
 
 
 @pytest.mark.parametrize("shape,active", CASES)
+def test_a_table_holds_one_segment_between_flushes(shape, active):
+    n, p, g, widths, mis, segments = _unpack(shape)
+    geo = _plan(n, p, g, widths, mis, active, segments)
+    cl, step, seg, _ = _walk(geo)
+    # the kernels flush at a step whose segment differs from the step
+    # before, and every epoch_iters steps: between two flushes a table
+    # sees one segment, and at most epoch_iters steps
+    new_seg = np.r_[False, (seg[1:] != seg[:-1]) & (cl[1:] == cl[:-1])]
+    flush = (step > 0) & (new_seg | (step % geo.epoch_iters == 0))
+    epoch = np.cumsum(flush | (step == 0))
+    for e in np.unique(epoch)[:2000]:
+        at = epoch == e
+        assert np.unique(seg[at]).size == 1 and at.sum() <= geo.epoch_iters
+    # a contiguous range touches at most one segment more than it spans
+    for q in range(geo.clusters):
+        at = cl == q
+        if at.any():
+            touched = np.unique(seg[at]).size
+            assert touched <= 1 + -(-at.sum() // max(1, geo.seg_units))
+
+
+@pytest.mark.parametrize("shape,active", CASES)
 def test_one_pass_whenever_the_table_fits_the_cluster(shape, active):
-    n, p, g, widths, mis = shape
-    geo = _plan(n, p, g, widths, mis, active)
+    n, p, g, widths, mis, segments = _unpack(shape)
+    geo = _plan(n, p, g, widths, mis, active, segments)
     least = (geometry.BARRIER_BYTES
              + geometry._align(4 * p * -(-g // geometry.MAX_CLUSTER))
              + min(geometry.STAGES) * geo.stage_bytes)

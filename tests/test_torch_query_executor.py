@@ -6,7 +6,10 @@ port's `QueryExecutor(device="cpu")` (the kernels' plain PyTorch versions)
 must equal the JAX `QueryExecutor(backend="tpu")` rows, with the fused
 Pallas kernel in interpret mode, and the `backend="host"` rows. Integer
 results are element-equal; float64 sums of DOUBLE columns agree to rtol
-1e-12, because the engines add in a different order.
+1e-12, because the engines add in a different order. The three segments
+share a pad bucket and a plan, so both device engines run them as one
+batch family: one dispatch (the JAX package's count, its segment cache
+off so every query dispatches) and one host fetch.
 """
 
 from __future__ import annotations
@@ -149,12 +152,14 @@ def _assert_rows_equal(got, want, exact, ordered, label):
 def test_execute_sql_matches_jax(tables, sql, exact, ordered, monkeypatch):
     port, jax_tpu, jax_host = tables
     monkeypatch.setenv("PINOT_TPU_FUSED", "interpret")
+    monkeypatch.setenv("PINOT_TPU_SEGMENT_CACHE", "0")
     got = port.execute_sql(sql)
-    assert got.num_device_dispatches == SEGMENTS
     assert got.total_docs == ROWS_PER_SEGMENT * SEGMENTS
     for label, qe in (("tpu", jax_tpu), ("host", jax_host)):
         want = qe.execute_sql(sql)
         assert not want.exceptions, want.exceptions
+        if label == "tpu":
+            assert got.num_device_dispatches == want.num_device_dispatches == 1
         assert got.result_table.schema.to_json() == \
             want.result_table.schema.to_json()
         _assert_rows_equal(got.result_table.rows, want.result_table.rows,
@@ -168,7 +173,13 @@ def test_segments_fetch_once_each(tables):
     port = tables[0]
     before = kernels.host_fetches()
     port.execute_sql(QUERIES[1][0])
-    assert kernels.host_fetches() - before == SEGMENTS
+    assert kernels.host_fetches() - before == 1
+    # without batching every segment dispatches alone, and the query
+    # still fetches their outputs in one copy
+    before = kernels.host_fetches()
+    solo = port.execute_sql("SET segmentBatch = false; " + QUERIES[1][0])
+    assert solo.num_device_dispatches == SEGMENTS
+    assert kernels.host_fetches() - before == 1
 
 
 def test_cpu_run_launches_no_kernel(tables):

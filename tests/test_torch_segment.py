@@ -138,6 +138,12 @@ PLAN_SQLS = [
     "FROM t WHERE region LIKE 'A%' GROUP BY year LIMIT 10",
     "SET enableNullHandling = true; SELECT year, COUNT(region), MIN(rev) "
     "FROM t WHERE region <> 'ASIA' GROUP BY year LIMIT 10",
+    # group cardinality product 3000 * 400 * 7 is above the dense limit:
+    # the sparse mode, its ORDER BY trim exact
+    "SELECT code, brand, year, COUNT(*) FROM t GROUP BY code, brand, year "
+    "ORDER BY code, brand, year LIMIT 500",
+    "SET sparseGroupBy = true; SET numGroupsLimit = 50; SELECT brand, "
+    "SUM(rev), MIN(price) FROM t WHERE year > 1993 GROUP BY brand",
 ]
 
 
@@ -155,8 +161,9 @@ def test_programs_equal_jax(built, sql):
 
 @pytest.mark.parametrize("sql", [
     "SELECT year, rev FROM t LIMIT 10",                     # selection
-    # group cardinality product 3000 * 400 * 7 is above the dense limit
-    "SELECT code, brand, year, COUNT(*) FROM t GROUP BY code, brand, year",
+    # DISTINCTCOUNT, also in the sparse (sort-based) mode
+    "SET sparseGroupBy = true; SELECT year, DISTINCTCOUNT(brand) FROM t "
+    "GROUP BY year",
     "SELECT year, PERCENTILE(rev, 50) FROM t GROUP BY year",
     "SELECT year, COUNT(*) FROM t WHERE upper(region) = 'ASIA' GROUP BY year",
 ])
