@@ -22,7 +22,8 @@ Phases, each printing one JSON line:
            launches them
   data     an SSB-shaped table generated from --seed, built with the
            port's builder into --segments segments, and the same rows again
-           into 16 segments (bench.py's 16-segment q4, q3m)
+           into 16 segments (bench.py's 16-segment q4, q3m); bench.py's
+           taxi table (seed 7) in --segments segments, its planes warmed
   queries  every query through QueryExecutor(device="cuda").execute_sql,
            each held against a numpy oracle, with its launches of each
            kernel, device dispatches and host fetches (every count set to 0
@@ -39,12 +40,23 @@ Phases, each printing one JSON line:
                  (q3m, sparse_family)
              q4_solo, sparse_family_solo        their SET segmentBatch =
                  false twins (16 dispatches; kernel B on q4_solo)
-  times    p50 query latency over --iters warm runs
+             q5, q5_total                       bench.py Q5 over `taxi` (one
+                 family of 4: DISTINCTCOUNT and the adaptive histogram of
+                 PERCENTILETDIGEST, kernel A at one plane), and its
+                 un-grouped form with HISTOGRAM
+             aggmix                             every device kind of the
+                 matrix-shaped aggregations in one family query on ssb
+             q6, q6m, q6_sort                   bench.py Q6 (presorted
+                 sparse DISTINCT, the host merge) on ssb and ssb16 (16
+                 dispatches, no device combine), and its sort path with the
+                 ids packed into the key
+  times    p50 query latency over --iters warm runs (3 for a query slower
+           than 1 s)
   layers   a warm query's host time split into parse + plan, dispatch,
            collect (the query's one fetch and the decode) and combine +
            reduce
   profile  device busy share and the top device kernels under
-           torch.profiler
+           torch.profiler (3 warm queries, 1 for a query slower than 1 s)
   geometry each kernel shape's launch geometry and the card's cluster
            occupancy
   kernels  the kernel table: per kernel and main-path shape, the kernel's
@@ -126,6 +138,27 @@ QUERIES = {"q1": NO_BATCH + Q1, "q2": NO_BATCH + Q2, "q9": NO_BATCH + Q9,
            "q3m": SPARSE + Q3.replace("FROM ssb", f"FROM {FAMILY_TABLE}"),
            "sparse_family": SPARSE + SPARSE_FAMILY.replace(
                "FROM ssb", f"FROM {FAMILY_TABLE}")}
+# bench.py Q5 and Q6, verbatim (Q6 over ssb and ssb16)
+TAXI_TABLE = "taxi"
+Q5 = ("SELECT pickup_day, DISTINCTCOUNT(passenger_count), "
+      "PERCENTILETDIGEST(fare, 95) FROM taxi GROUP BY pickup_day LIMIT 1000")
+Q5_TOTAL = ("SELECT DISTINCTCOUNT(passenger_count), PERCENTILETDIGEST(fare, 50), "
+            "HISTOGRAM(fare, 0, 100, 20) FROM taxi")
+AGGMIX = ("SELECT d_year, DISTINCTCOUNT(p_brand), DISTINCTCOUNTHLL(p_brand), "
+          "PERCENTILE(lo_discount, 90), MODE(lo_discount), "
+          "HISTOGRAM(lo_quantity, 0, 50, 10), PERCENTILETDIGEST(lo_revenue, 95), "
+          "STDDEVPOP(lo_extendedprice), CORR(lo_quantity, lo_revenue) "
+          "FROM ssb WHERE s_region = 'ASIA' GROUP BY d_year LIMIT 100")
+Q6 = ("SET numGroupsLimit = 100000; "
+      "SELECT lo_orderkey, DISTINCTCOUNT(lo_discount), SUM(lo_revenue) "
+      "FROM ssb GROUP BY lo_orderkey ORDER BY lo_orderkey LIMIT 100000")
+Q6_SORT = ("SET numGroupsLimit = 100000; "
+           "SELECT d_year, lo_orderkey, DISTINCTCOUNT(lo_discount) FROM ssb "
+           "GROUP BY d_year, lo_orderkey ORDER BY d_year, lo_orderkey "
+           "LIMIT 100000")
+QUERIES.update({"q5": Q5, "q5_total": Q5_TOTAL, "aggmix": AGGMIX, "q6": Q6,
+                "q6m": Q6.replace("FROM ssb", f"FROM {FAMILY_TABLE}"),
+                "q6_sort": Q6_SORT})
 # the SET segmentBatch = false twins of the queries whose segments batch
 # (q3, q3_sort and q3m batch nothing: each segment's key space differs, so
 # each is a family of one either way)
@@ -136,15 +169,34 @@ QUERIES.update({"q4_solo": NO_BATCH + QUERIES["q4"],
 EXPECTED_KERNEL = {"q2": "fused_limb_sums", "q9": "fused_limb_sums",
                    "q2_unfused": "limb_sums", "flagship": "limb_sums",
                    "q2_family": "limb_sums", "flagship_family": "limb_sums",
-                   "q4": "limb_sums", "q4_solo": "fused_limb_sums"}
-# one batch family: one dispatch, one launch of kernel A (one fetch holds
-# for every query)
-ONE_FAMILY = ("q2_family", "flagship_family", "q4", "sparse_family")
+                   "q4": "limb_sums", "q4_solo": "fused_limb_sums",
+                   "q5": "limb_sums", "q5_total": "limb_sums",
+                   "aggmix": "limb_sums"}
+# one batch family: one dispatch, one launch of kernel A per pass (one
+# fetch holds for every query)
+ONE_FAMILY = ("q2_family", "flagship_family", "q4", "sparse_family", "q5",
+              "q5_total", "aggmix")
+# kernel A's passes over a family: the sums (counts) pass, then one pass per
+# occupancy or value histogram and two per adaptive histogram
+FAMILY_LAUNCHES = {"q5": 4, "q5_total": 3, "aggmix": 5}
 SPARSE_QUERIES = ("q3", "q3_sort", "q3m", "sparse_family",
-                  "sparse_family_solo")
+                  "sparse_family_solo", "q6", "q6m", "q6_sort")
 DEVICE_COMBINE = ("q3", "q3m", "sparse_family", "sparse_family_solo")
 # results in ORDER BY order, compared row for row
-ORDERED = ("q3", "q3_sort", "q3m", "sparse_family", "sparse_family_solo")
+ORDERED = ("q3", "q3_sort", "q3m", "sparse_family", "sparse_family_solo",
+           "q6", "q6m", "q6_sort")
+# the queries whose kernel A passes the kernel table times shape by shape
+MATRIX_QUERIES = ("q5", "q5_total", "aggmix")
+# their kernel A passes in launch order
+PASS_LABELS = {"q5": ("counts", "distinct", "percentile pass 1",
+                      "percentile pass 2"),
+               "q5_total": ("distinct", "percentile pass 1",
+                            "percentile pass 2"),
+               "aggmix": ("sums", "distinct", "value histogram",
+                          "percentile pass 1", "percentile pass 2")}
+# a query slower than this takes 3 warm runs in `times` and `layers`, 1 in
+# `profile`
+SLOW_QUERY_MS = 1000.0
 
 
 def emit(obj) -> None:
@@ -169,7 +221,127 @@ def gen_ssb(rows: int, seed: int) -> dict:
     }
 
 
+def gen_taxi(rows: int) -> dict:
+    """bench.py's taxi table: the columns drawn in its order from its
+    generator (seed 7); fare is kept raw."""
+    rng = np.random.default_rng(7)
+    return {
+        "pickup_day": rng.integers(0, 730, rows).astype(np.int32),
+        "passenger_count": rng.integers(1, 9, rows).astype(np.int32),
+        "fare": np.round(rng.gamma(3.0, 9.0, rows), 2),
+    }
+
+
 # -- oracle -------------------------------------------------------------------
+
+
+class Approx:
+    """An oracle cell held to a relative tolerance: the approximate
+    percentiles (2%, bench.py's bar for Q5) and the moment functions'
+    float64 sums added in another order (1e-9)."""
+
+    def __init__(self, value: float, rel: float):
+        self.value, self.rel = float(value), rel
+
+    def __eq__(self, other):
+        return abs(float(other) - self.value) <= self.rel * max(
+            1.0, abs(self.value))
+
+    def __repr__(self):
+        return f"Approx({self.value!r}, rel={self.rel})"
+
+
+def _pct_exact(sorted_vals: np.ndarray, pct: float) -> float:
+    """The reference PERCENTILE: element floor(n pct / 100) of the sorted
+    values, clamped (the JAX package's tests pin it)."""
+    n = len(sorted_vals)
+    return float(sorted_vals[min(int(n * pct / 100.0), n - 1)])
+
+
+def _distinct_per_run(run_of_row: np.ndarray, ids: np.ndarray, card: int,
+                      runs: int) -> np.ndarray:
+    """Distinct ids (in [0, card)) per run, for rows labelled 0..runs-1."""
+    pairs = np.unique(run_of_row.astype(np.int64) * card + ids)
+    return np.bincount(pairs // card, minlength=runs)
+
+
+def matrix_oracle(cols: dict, hll) -> dict:
+    """aggmix, q6, q6m and q6_sort over the ssb columns: the exact
+    functions by their reference semantics, DISTINCTCOUNTHLL as the port's
+    own HyperLogLog class fed with each group's exact distinct values (the
+    device state is built from the same value set), PERCENTILETDIGEST
+    within 2% of numpy's exact quantile, the moments to rtol 1e-9."""
+    out = {}
+    year = cols["d_year"].astype(np.int64)
+    asia = cols["s_region"] == "ASIA"
+    rows = []
+    for y in range(1992, 1999):
+        m = asia & (year == y)
+        brands = np.unique(cols["p_brand"][m])
+        disc = np.sort(cols["lo_discount"][m])
+        qty = cols["lo_quantity"][m].astype(np.float64)
+        rev = cols["lo_revenue"][m].astype(np.float64)
+        price = cols["lo_extendedprice"][m].astype(np.float64)
+        counts = np.bincount(disc)
+        hist, _ = np.histogram(qty[(qty >= 0) & (qty <= 50)], bins=10,
+                               range=(0, 50))
+        rows.append([y, len(brands),
+                     hll(12).add_values(brands).cardinality(),
+                     _pct_exact(disc, 90), float(np.argmax(counts)),
+                     [float(c) for c in hist],
+                     Approx(np.quantile(rev, 0.95), 0.02),
+                     Approx(np.std(price), 1e-9),
+                     Approx(np.corrcoef(qty, rev)[0, 1], 1e-9)])
+    out["aggmix"] = rows
+
+    # q6 / q6m: the 100000 smallest lo_orderkey (the column is sorted)
+    okey = cols["lo_orderkey"].astype(np.int64)
+    disc = cols["lo_discount"].astype(np.int64)
+    rev = cols["lo_revenue"].astype(np.int64)
+    first = np.flatnonzero(np.r_[True, okey[1:] != okey[:-1]])
+    end = first[100_000] if len(first) > 100_000 else len(okey)
+    first = first[:100_000]
+    run = np.repeat(np.arange(len(first)), np.diff(np.r_[first, end]))
+    dc = _distinct_per_run(run, disc[:end], 11, len(first))
+    rsum = np.bincount(run, weights=rev[:end].astype(np.float64),
+                       minlength=len(first))
+    out["q6"] = out["q6m"] = [[int(okey[a]), int(d), float(r)]
+                              for a, d, r in zip(first, dc, rsum)]
+
+    # q6_sort: the 100000 smallest (d_year, lo_orderkey) groups
+    comp = (year << 32) | okey
+    order = np.argsort(comp, kind="stable")
+    sc = comp[order]
+    first = np.flatnonzero(np.r_[True, sc[1:] != sc[:-1]])
+    end = first[100_000] if len(first) > 100_000 else len(sc)
+    first = first[:100_000]
+    run = np.repeat(np.arange(len(first)), np.diff(np.r_[first, end]))
+    dc = _distinct_per_run(run, disc[order[:end]], 11, len(first))
+    out["q6_sort"] = [[int(sc[a] >> 32), int(sc[a] & 0xFFFFFFFF), int(d)]
+                      for a, d in zip(first, dc)]
+    return out
+
+
+def taxi_oracle(cols: dict) -> dict:
+    """q5 and q5_total over the taxi columns: DISTINCTCOUNT exact,
+    HISTOGRAM by numpy's histogram of the values in [lo, hi], the
+    PERCENTILETDIGEST cells within 2% of numpy's exact quantile."""
+    day = cols["pickup_day"].astype(np.int64)
+    fare = cols["fare"]
+    order = np.argsort(day * (1 << 24) + np.round(fare * 100).astype(np.int64))
+    sday, sfare = day[order], fare[order]
+    edges = np.searchsorted(sday, np.arange(731))
+    pairs = np.unique(day * 16 + cols["passenger_count"])
+    dc = np.bincount(pairs // 16, minlength=730)
+    q5 = [[d, int(dc[d]),
+           Approx(np.quantile(sfare[edges[d]:edges[d + 1]], 0.95), 0.02)]
+          for d in range(730) if edges[d + 1] > edges[d]]
+    hist, _ = np.histogram(fare[(fare >= 0) & (fare <= 100)], bins=20,
+                           range=(0, 100))
+    total = [[len(np.unique(cols["passenger_count"])),
+              Approx(np.quantile(fare, 0.5), 0.02), [float(c) for c in hist]]]
+    return {"q5": q5, "q5_total": total}
+
 
 
 def oracle(cols: dict) -> dict:
@@ -367,8 +539,10 @@ def recording(owner, name):
 
 def phase_data(args, torch):
     """The generated rows, built once into --segments segments (table
-    `ssb`) and once more into FAMILY_SEGMENTS segments (table `ssb16`);
-    returns {table: (schema, segments)}, the columns and the build dir."""
+    `ssb`) and once more into FAMILY_SEGMENTS segments (table `ssb16`), and
+    bench.py's taxi rows into --segments segments (table `taxi`); returns
+    {table: (schema, segments)}, the ssb and taxi columns and the build
+    dir."""
     from pinot_tpu_torch.segment.builder import SegmentBuilder
     from pinot_tpu_torch.segment.loader import load_segment
     from pinot_tpu_torch.spi.data_types import Schema
@@ -397,12 +571,28 @@ def phase_data(args, torch):
             segments.append(load_segment(d))
         tables[name] = (schema, segments)
         build_s[name] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    taxi = gen_taxi(rows)
+    schema = Schema.build(TAXI_TABLE, dimensions=[("pickup_day", "INT"),
+                                                  ("passenger_count", "INT")],
+                          metrics=[("fare", "DOUBLE")])
+    cfg = TableConfig(table_name=TAXI_TABLE, indexing=IndexingConfig(
+        no_dictionary_columns=["fare"]))
+    per = rows // args.segments
+    segments = []
+    for i in range(args.segments):
+        d = f"{tmp}/{TAXI_TABLE}_{i}"
+        SegmentBuilder(schema, cfg, f"{TAXI_TABLE}_{i}").build(
+            {k: v[i * per:(i + 1) * per] for k, v in taxi.items()}, d)
+        segments.append(load_segment(d))
+    tables[TAXI_TABLE] = (schema, segments)
+    build_s[TAXI_TABLE] = time.perf_counter() - t1
     emit({"phase": "data", "rows": rows,
           "tables": {k: {"segments": len(s), "rows_per_segment": rows // len(s)}
                      for k, (_, s) in tables.items()},
           "seed": args.seed, "generate_s": t_gen, "build_s": build_s,
           "setup_s": time.perf_counter() - t0, "dir": tmp})
-    return tables, cols, tmp
+    return tables, cols, taxi, tmp
 
 
 def family_count(qe, sql) -> int:
@@ -465,9 +655,14 @@ def phase_queries(torch, qe, expected, _cuda, interp):
                                     or families[qname] != 1):
             raise AssertionError(f"{qname}: {resp.num_device_dispatches} "
                                  f"dispatches, {families[qname]} families")
-        if qname in ONE_FAMILY and kernel and per_query[qname][kernel] != 1:
+        want_launches = FAMILY_LAUNCHES.get(qname, 1)
+        if qname in ONE_FAMILY and kernel \
+                and per_query[qname][kernel] != want_launches:
             raise AssertionError(f"{qname}: {per_query[qname][kernel]} "
-                                 f"launches of {kernel}, want 1")
+                                 f"launches of {kernel}, want {want_launches}")
+        if qname == "q6m" and resp.num_device_dispatches != FAMILY_SEGMENTS:
+            raise AssertionError(f"q6m: {resp.num_device_dispatches} "
+                                 "dispatches")
         if resp.num_device_dispatches != families[qname]:
             raise AssertionError(f"{qname}: {resp.num_device_dispatches} "
                                  f"dispatches for {families[qname]} families")
@@ -515,12 +710,13 @@ def phase_geometry(torch, _cuda, mxu, fg, recorded) -> None:
           .multi_processor_count, "shapes": out})
 
 
-def phase_layers(torch, qe, iters, card) -> dict:
+def phase_layers(torch, qe, iters, card, slow) -> dict:
     """Where a warm query's time goes, layer by layer, with the host clock:
     parse + plan, dispatch (planes already resident; every family or
     segment, or the device combine; ends in torch.cuda.synchronize(), so it
     holds the device time), collect (the query's one device->host copy and
-    the decode), combine + reduce. Medians over `iters` runs."""
+    the decode), combine + reduce. Medians over `iters` runs (3 for the
+    queries in `slow`)."""
     from pinot_tpu_torch.engine.reduce import BrokerReducer
     from pinot_tpu_torch.query.optimizer import optimize_filter
     from pinot_tpu_torch.query.parser.sql import parse_sql
@@ -528,7 +724,7 @@ def phase_layers(torch, qe, iters, card) -> dict:
     out = {}
     for qname, sql in QUERIES.items():
         ts = []
-        for _ in range(iters):
+        for _ in range(3 if qname in slow else iters):
             t0 = time.perf_counter()
             query = parse_sql(sql)
             query.filter = optimize_filter(query.filter)
@@ -547,25 +743,29 @@ def phase_layers(torch, qe, iters, card) -> dict:
         med = np.median(np.asarray(ts), axis=0) * 1e3
         out[qname] = dict(zip(("parse_plan_ms", "dispatch_ms", "collect_ms",
                                "combine_reduce_ms"), map(float, med)))
-    emit({"phase": "layers", "card": card, "iters": iters, "layers": out})
+    emit({"phase": "layers", "card": card, "iters": iters,
+          "iters_3": sorted(slow), "layers": out})
     return out
 
 
-def phase_profile(torch, qe, card) -> dict:
-    """Device busy share of warm q2 and flagship runs under torch.profiler:
-    the device time of every CUDA kernel over the host wall time, and the
-    kernels that take the most of it."""
+def phase_profile(torch, qe, card, slow) -> dict:
+    """Device busy share of warm runs under torch.profiler (3 queries, 1
+    for the queries in `slow`): the device time of every CUDA kernel over
+    the host wall time, and the kernels that take the most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
     for qname in ("q2", "q2_unfused", "flagship", "q2_family", "q3",
-                  "q3_sort", "q3m", "sparse_family", "sparse_family_solo"):
-        qe.execute_sql(QUERIES[qname])
+                  "q3_sort", "q3m", "sparse_family", "sparse_family_solo",
+                  "q5", "q5_total", "aggmix", "q6", "q6m", "q6_sort"):
+        runs = 1 if qname in slow else 3
+        if runs > 1:
+            qe.execute_sql(QUERIES[qname])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(3):
+            for _ in range(runs):
                 qe.execute_sql(QUERIES[qname])
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
@@ -578,11 +778,13 @@ def phase_profile(torch, qe, card) -> dict:
         busy_us = sum(d[1] for d in device)
         device.sort(key=lambda d: -d[1])
         out[qname] = {
-            "wall_ms_per_query": wall_us / 3e3,
-            "device_ms_per_query": busy_us / 3e3 if device else "not measured",
+            "runs": runs,
+            "wall_ms_per_query": wall_us / runs / 1e3,
+            "device_ms_per_query": (busy_us / runs / 1e3 if device
+                                    else "not measured"),
             "device_busy_share": busy_us / wall_us if device else "not measured",
-            "top_device": [{"name": k[:60], "ms_per_query": t / 3e3,
-                            "calls_per_query": c / 3}
+            "top_device": [{"name": k[:60], "ms_per_query": t / runs / 1e3,
+                            "calls_per_query": c / runs}
                            for k, t, c in device[:6]]}
     emit({"phase": "profile", "card": card, "profile": out})
     return out
@@ -872,6 +1074,7 @@ def main(argv=None) -> int:
         from pinot_tpu_torch.engine.query_executor import QueryExecutor
         from pinot_tpu_torch.ops import (_cuda, fused_groupby, geometry,
                                          kernels as interp, mxu_groupby)
+        from pinot_tpu_torch.utils.sketches import HyperLogLog
     except ImportError as e:
         print(f"chip_smoke: the pinot_tpu_torch package is missing ({e}); "
               "run from the repository root", file=sys.stderr)
@@ -906,16 +1109,34 @@ def main(argv=None) -> int:
                               _cuda, args.seed))
     parity.update(phase_family_edges(torch, mxu_groupby, geometry, _cuda,
                                      args.seed))
+    # kernel A at one plane over the family of 4, at the G of every count
+    # pass of the matrix-shaped aggregations (q5 / q5_total / aggmix)
+    for G in (731, 5841, 32121, 9, 65, 7001, 78, 449):
+        planes, gid = family_inputs(torch, args.segments,
+                                    args.rows_per_segment, 1, G, args.seed)
+        parity[f"limb_sums/P1_G{G}_family"] = check_equal(
+            torch, f"limb_sums P = 1, G = {G}, family",
+            mxu_groupby.limb_sums(planes, gid, G),
+            mxu_groupby.limb_sums_plain(planes, gid, G))
+        del planes, gid
     torch.cuda.empty_cache()
 
-    tables, cols, tmp = phase_data(args, torch)
+    tables, cols, taxi_cols, tmp = phase_data(args, torch)
     segments = tables["ssb"][1]
     try:
         expected = oracle(cols)
-        del cols
+        expected.update(matrix_oracle(cols, HyperLogLog))
+        expected.update(taxi_oracle(taxi_cols))
+        del cols, taxi_cols
         qe = QueryExecutor(device=DEVICE)
         for schema, segs in tables.values():
             qe.add_table(schema, segs)
+        t0 = time.perf_counter()
+        warmed = sum(qe.executor.cache.warm(s) for s in tables[TAXI_TABLE][1])
+        torch.cuda.synchronize()
+        emit({"phase": "warm", "table": TAXI_TABLE, "planes": warmed,
+              "seconds": time.perf_counter() - t0,
+              "resident_bytes": qe.executor.cache.bytes_used()})
         launches, per_query = phase_queries(torch, qe, expected, _cuda, interp)
 
         # the main path's own kernel inputs, one call per segment (per
@@ -929,7 +1150,9 @@ def main(argv=None) -> int:
                 ("flagship", mxu_groupby, "limb_sums", len(segments)),
                 ("q2_family", mxu_groupby, "limb_sums", 1),
                 ("flagship_family", mxu_groupby, "limb_sums", 1),
-                ("q4", mxu_groupby, "limb_sums", 1)):
+                ("q4", mxu_groupby, "limb_sums", 1),
+                *((q, mxu_groupby, "limb_sums", FAMILY_LAUNCHES[q])
+                  for q in MATRIX_QUERIES)):
             with recording(owner, fn) as calls:
                 qe.execute_sql(QUERIES[qname])
             if len(calls) != calls_want:
@@ -953,28 +1176,37 @@ def main(argv=None) -> int:
                 torch, f"limb_sums {qname} inputs, family of "
                 f"{planes.shape[0]}", mxu_groupby.limb_sums(planes, gid, G),
                 mxu_groupby.limb_sums_plain(planes, gid, G))
+        for qname in MATRIX_QUERIES:
+            for label, (planes, gid, G) in zip(PASS_LABELS[qname],
+                                               recorded[qname]):
+                parity[f"limb_sums/{qname}_inputs/{label}"] = check_equal(
+                    torch, f"limb_sums {qname} inputs, {label}",
+                    mxu_groupby.limb_sums(planes, gid, G),
+                    mxu_groupby.limb_sums_plain(planes, gid, G))
         emit({"phase": "parity", "max_abs_err": parity,
               "tolerance": "element-equal int64"})
         phase_geometry(torch, _cuda, mxu_groupby, fused_groupby, recorded)
 
         # -- times ----------------------------------------------------------
-        p50, quartiles = {}, {}
+        p50, quartiles, slow = {}, {}, set()
         for qname, sql in QUERIES.items():
             ts = []
-            for _ in range(args.iters):
+            while len(ts) < (3 if qname in slow else args.iters):
                 t0 = time.perf_counter()
                 qe.execute_sql(sql)
                 torch.cuda.synchronize()
                 ts.append((time.perf_counter() - t0) * 1e3)
+                if ts[0] > SLOW_QUERY_MS:
+                    slow.add(qname)
             p50[qname] = float(np.median(ts))
             quartiles[qname] = [float(q) for q in np.percentile(ts, [25, 75])]
         rows = args.rows_per_segment * args.segments
         emit({"phase": "times", "card": dev["nvidia_smi"],
               "query_p50_ms": p50, "query_p25_p75_ms": quartiles,
               "rows_per_s": {k: rows / (v / 1e3) for k, v in p50.items()},
-              "iters": args.iters})
-        phase_layers(torch, qe, args.iters, dev["nvidia_smi"])
-        phase_profile(torch, qe, dev["nvidia_smi"])
+              "iters": args.iters, "iters_3": sorted(slow)})
+        phase_layers(torch, qe, args.iters, dev["nvidia_smi"], slow)
+        phase_profile(torch, qe, dev["nvidia_smi"], slow)
         del qe
         torch.cuda.empty_cache()
         kernels = []
@@ -1000,6 +1232,16 @@ def main(argv=None) -> int:
                 parity[f"limb_sums/{qname}_inputs/family"],
                 f"{qname}: the main path's planes of the family of {S} "
                 "segments, one launch"))
+        # the count passes of the matrix-shaped aggregations, pass by pass:
+        # each is launched once a query
+        for qname in MATRIX_QUERIES:
+            for label, rec in zip(PASS_LABELS[qname], recorded[qname]):
+                S = rec[0].shape[0]
+                kernels.append(kernel_a_row(
+                    torch, mxu_groupby, _cuda, [rec], 1,
+                    parity[f"limb_sums/{qname}_inputs/{label}"],
+                    f"{qname} {label}: the main path's planes of the family "
+                    f"of {S} segments, one launch"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

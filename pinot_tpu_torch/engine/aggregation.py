@@ -1,16 +1,23 @@
 """Aggregation functions: device lowering + host semantics.
 
-The port of pinot_tpu/engine/aggregation.py for the functions this slice
-lowers: COUNT, SUM, MIN, MAX and AVG, each optionally with a FILTER
-(WHERE ...) clause. Each SQL aggregation splits into
-  1. primitive device reductions (ir.AggOp: count/sum/min/max) run by the
-     segment interpreter (ops/kernels.py),
-  2. a host-side intermediate state per group, and
+The port of pinot_tpu/engine/aggregation.py for every aggregation the JAX
+package lowers to its device over single-value columns. Each SQL
+aggregation splits into
+  1. primitive device reductions (ir.AggOp: count / sum / sumsq / min /
+     max, and the matrix-shaped distinct_bitmap / value_hist /
+     hist_adaptive / hist_fixed) run by the segment interpreter
+     (ops/kernels.py),
+  2. a host-side intermediate state per group (a number, a tuple of
+     sums, a set of values, or a sketch of utils/sketches.py), and
   3. `AggSemantics` (merge across segments + finalize at broker reduce).
 
 Result types follow the reference (AggregationFunction
-.getFinalResultColumnType): COUNT -> LONG, SUM/MIN/MAX/AVG -> DOUBLE. Any
-other aggregation raises UnsupportedQueryError.
+.getFinalResultColumnType): COUNT -> LONG, SUM/MIN/MAX/AVG/PERCENTILE* ->
+DOUBLE, DISTINCTCOUNT -> INT, DISTINCTCOUNTHLL/THETA -> LONG. Where the JAX
+package sends a query to its host engine (MV-suffixed functions, EXPRMIN
+and the other object-valued functions, nullable operands of the
+non-filterable functions under enableNullHandling, a FILTER clause over
+them), the port raises UnsupportedQueryError: it has no host engine.
 """
 
 from __future__ import annotations
@@ -21,7 +28,10 @@ from typing import Callable
 
 import numpy as np
 
+from ..query.expressions import PERCENTILE_SUFFIX_RE as _PCT_SUFFIX
 from ..query.expressions import ExpressionContext, FunctionContext
+from ..utils.sketches import (HyperLogLog, SmartDistinctSet, TDigest,
+                              ThetaSketch, ValueHist)
 from . import ir
 
 
@@ -47,6 +57,7 @@ VEC_RECIPES = {
     "min": (("min",), ("id", 0)),
     "max": (("max",), ("id", 0)),
     "avg": (("add", "add"), ("div", 0, 1)),
+    "minmaxrange": (("min", "max"), ("sub", 1, 0)),
 }
 
 
@@ -55,7 +66,8 @@ class VecAgg:
     """Columnar form of one aggregation: extract pulls per-component numpy
     columns for ALL groups at once; spec gives each component's
     cross-segment merge op; fin_tag is the finalize recipe evaluated by the
-    broker reducer (("id", c) | ("div", a, b) over component indices)."""
+    broker reducer (("id", c) | ("div", a, b) | ("sub", a, b) over
+    component indices)."""
 
     spec: tuple  # per component: "add" | "min" | "max"
     extract: Callable  # (outs, gids) -> tuple[np.ndarray, ...]
@@ -66,19 +78,45 @@ class VecAgg:
 class LoweredAgg:
     """Device lowering of one SQL aggregation: how to read kernel outputs.
     extract(outs, g) builds group g's intermediate state from the kernel
-    output tuple (outs[0] is always the per-group row count)."""
+    output tuple (outs[0] is always the per-group row count). vec, when
+    set, is the whole-table columnar form."""
 
     name: str
     semantics: AggSemantics
     extract: Callable  # (outs, g) -> state
-    vec: VecAgg
+    vec: "VecAgg | None" = None
+
+
+# Argument model: leading args are data expressions, the rest literal
+# parameters (PERCENTILE(col, 95), HISTOGRAM(col, 0, 100, 10), ...).
+_DATA_ARITY = {
+    "count": 1,
+    "covarpop": 2,
+    "covarsamp": 2,
+    "corr": 2,
+    "exprmin": 2,
+    "exprmax": 2,
+    "firstwithtime": 2,
+    "lastwithtime": 2,
+}
+
+
+def canonicalize(name: str, extra: tuple) -> tuple[str, tuple]:
+    """Legacy digit-suffixed percentiles: PERCENTILE95(col) is
+    PERCENTILE(col, 95)."""
+    m = _PCT_SUFFIX.match(name)
+    if m:
+        base = m.group(1) + (m.group(3) or "")
+        return base, (int(m.group(2)),) + extra
+    return name, extra
 
 
 def split_args(fn: FunctionContext):
     """-> (data_arg_expressions, literal_extras)."""
-    data = list(fn.arguments[:1])
+    arity = _DATA_ARITY.get(_PCT_SUFFIX.sub(lambda m: m.group(1), fn.name), 1)
+    data = list(fn.arguments[:arity])
     extra = []
-    for a in fn.arguments[1:]:
+    for a in fn.arguments[arity:]:
         if not a.is_literal:
             raise UnsupportedQueryError(
                 f"{fn.name}: parameter {a} must be a literal")
@@ -90,10 +128,86 @@ def semantics_for(expr: ExpressionContext) -> AggSemantics:
     fn = expr.function
     if fn.name == "filter":  # FILTER (WHERE ...) wrapper: inner semantics
         return semantics_for(fn.arguments[0])
-    return get_semantics(fn.name)
+    _, extra = split_args(fn)
+    return get_semantics(fn.name, extra)
 
 
-def get_semantics(name: str) -> AggSemantics:
+def _pct(extra, default=50.0) -> float:
+    return float(extra[0]) if extra else default
+
+
+def _var_finalize(name: str):
+    def fin(state):
+        n, s, sq = state
+        if n == 0 or (name.endswith("samp") and n < 2):
+            return math.nan
+        var = sq / n - (s / n) ** 2
+        if name.endswith("samp"):
+            var = var * n / (n - 1)
+        var = max(var, 0.0)
+        return math.sqrt(var) if name.startswith("stddev") else var
+
+    return fin
+
+
+def _merge3(a, b):
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+
+
+def _merge_tuple(a, b):
+    return tuple(x + y for x, y in zip(a, b))
+
+
+def _covar_finalize(name: str):
+    def fin(state):
+        n, sx, sy, sxy, sxx, syy = state
+        if n == 0 or (name == "covarsamp" and n < 2):
+            return math.nan
+        cov = sxy / n - (sx / n) * (sy / n)
+        if name == "covarsamp":
+            return cov * n / (n - 1)
+        if name == "corr":
+            vx = sxx / n - (sx / n) ** 2
+            vy = syy / n - (sy / n) ** 2
+            denom = math.sqrt(max(vx, 0.0) * max(vy, 0.0))
+            return cov / denom if denom else math.nan
+        return cov
+
+    return fin
+
+
+def _moments_finalize(name: str):
+    def fin(state):
+        n, s1, s2, s3, s4 = state
+        if n == 0:
+            return math.nan
+        mu = s1 / n
+        m2 = s2 / n - mu * mu
+        if m2 <= 0:
+            return math.nan
+        if name == "skewness":
+            m3 = s3 / n - 3 * mu * s2 / n + 2 * mu**3
+            return m3 / m2**1.5
+        m4 = s4 / n - 4 * mu * s3 / n + 6 * mu * mu * s2 / n - 3 * mu**4
+        return m4 / (m2 * m2) - 3.0
+
+    return fin
+
+
+_EXACT_DISTINCT = ("distinctcount", "distinctcountbitmap",
+                   "segmentpartitioneddistinctcount")
+_HLL_FNS = ("distinctcounthll", "distinctcounthllplus", "distinctcountull",
+            "distinctcountcpc")
+_THETA_FNS = ("distinctcounttheta", "distinctcountrawtheta")
+_SMART_FNS = ("distinctcountsmart", "distinctcountsmarthll")
+_PCT_DIGEST = ("percentileest", "percentiletdigest", "percentilekll",
+               "percentilesmarttdigest", "percentilerawest",
+               "percentilerawtdigest", "percentilerawkll")
+_MOMENT_FNS = ("stddevpop", "stddevsamp", "varpop", "varsamp")
+
+
+def get_semantics(name: str, extra: tuple = ()) -> AggSemantics:
+    name, extra = canonicalize(name, extra)
     if name == "count":
         return AggSemantics(lambda a, b: a + b, lambda s: s, "LONG", 0)
     if name == "sum":
@@ -102,10 +216,57 @@ def get_semantics(name: str) -> AggSemantics:
         return AggSemantics(min, lambda s: s, "DOUBLE", math.inf)
     if name == "max":
         return AggSemantics(max, lambda s: s, "DOUBLE", -math.inf)
+    if name == "minmaxrange":
+        return AggSemantics(lambda a, b: (min(a[0], b[0]), max(a[1], b[1])),
+                            lambda s: s[1] - s[0], "DOUBLE", -math.inf)
     if name == "avg":
         return AggSemantics(lambda a, b: (a[0] + b[0], a[1] + b[1]),
                             lambda s: (s[0] / s[1]) if s[1] else math.nan,
                             "DOUBLE", math.nan)
+    if name in _EXACT_DISTINCT:
+        return AggSemantics(lambda a, b: a | b, len, "INT", 0)
+    if name == "distinctsum":
+        return AggSemantics(lambda a, b: a | b, lambda s: float(sum(s)),
+                            "DOUBLE", 0.0)
+    if name == "distinctavg":
+        return AggSemantics(lambda a, b: a | b,
+                            lambda s: sum(s) / len(s) if s else math.nan,
+                            "DOUBLE", math.nan)
+    if name in _HLL_FNS or name in _THETA_FNS:
+        return AggSemantics(lambda a, b: a.merge(b), lambda s: s.cardinality(),
+                            "LONG", 0)
+    if name in _SMART_FNS:
+        return AggSemantics(lambda a, b: a.merge(b), lambda s: s.cardinality(),
+                            "INT", 0)
+    if name == "percentile":
+        pct = _pct(extra)
+        return AggSemantics(lambda a, b: a.merge(b),
+                            lambda s, _p=pct: s.percentile(_p), "DOUBLE",
+                            math.nan)
+    if name in _PCT_DIGEST:
+        pct = _pct(extra)
+        return AggSemantics(lambda a, b: a.merge(b),
+                            lambda s, _p=pct: s.quantile(_p / 100.0),
+                            "DOUBLE", math.nan)
+    if name == "mode":
+        return AggSemantics(lambda a, b: a.merge(b), lambda s: s.mode(),
+                            "DOUBLE", math.nan)
+    if name == "histogram":
+        return AggSemantics(lambda a, b: a + b,
+                            lambda s: [float(x) for x in s], "DOUBLE_ARRAY", [])
+    if name in _MOMENT_FNS:
+        return AggSemantics(_merge3, _var_finalize(name), "DOUBLE", math.nan)
+    if name in ("skewness", "kurtosis"):
+        return AggSemantics(_merge_tuple, _moments_finalize(name), "DOUBLE",
+                            math.nan)
+    if name in ("covarpop", "covarsamp", "corr"):
+        return AggSemantics(_merge_tuple, _covar_finalize(name), "DOUBLE",
+                            math.nan)
+    if name == "booland":
+        # the empty state is the AND identity (True)
+        return AggSemantics(lambda a, b: a and b, bool, "BOOLEAN", True)
+    if name in ("boolor", "boolagg"):
+        return AggSemantics(lambda a, b: a or b, bool, "BOOLEAN", False)
     raise UnsupportedQueryError(f"aggregation {name} is not lowered by this port")
 
 
@@ -122,6 +283,9 @@ class AggPlanContext:
 
     def __init__(self):
         self.ops: list[ir.AggOp] = []
+        # group cardinality product, set by the planner before lowering:
+        # approximate aggs use it to bound their occupancy matrices
+        self.group_card_hint = 1
 
     def add_op(self, op: ir.AggOp) -> int:
         """Register a primitive op, dedup'd; returns its kernel output index
@@ -144,11 +308,32 @@ class AggPlanContext:
     def lower_filter(self, f):  # pragma: no cover
         raise NotImplementedError
 
+    def dict_info(self, e: ExpressionContext):  # pragma: no cover
+        raise NotImplementedError
+
+    def col_meta(self, e: ExpressionContext):  # pragma: no cover
+        raise NotImplementedError
+
     def col_minmax(self, e: ExpressionContext):  # pragma: no cover
+        raise NotImplementedError
+
+    def slot(self, column: str, kind: str) -> int:  # pragma: no cover
         raise NotImplementedError
 
     def param(self, value) -> int:  # pragma: no cover
         raise NotImplementedError
+
+
+_HIST_BINS = 2048  # fixed-bin device histogram resolution for raw columns
+# digest compression for histogram-fed digests: squeezing 2048 weighted
+# bins into the default ~100 centroids compounds the binning error
+_TDIGEST_COMPRESSION = 500
+# the functions a FILTER (WHERE ...) clause composes with on the device
+_FILTERABLE = frozenset(("count", "sum", "min", "max", "avg", "minmaxrange"))
+
+
+def _mul(a: ir.ValueExpr, b: ir.ValueExpr) -> ir.ValueExpr:
+    return ir.Bin("mul", a, b)
 
 
 def _count_op(ctx: AggPlanContext, arg, cond) -> int:
@@ -210,10 +395,13 @@ def lower_aggregation(ctx: AggPlanContext, expr: ExpressionContext,
             if ncond is not None:  # 3VL: a null clause input is false
                 cond = ir.Bin("and", cond, ir.Un("not", ncond))
         return lower_aggregation(ctx, inner, _cond=cond, _label=str(expr))
-    name = fn.name
     label = _label or str(expr)
-    data, _extra = split_args(fn)
-    sem = get_semantics(name)
+    data, extra = split_args(fn)
+    name, extra = canonicalize(fn.name, extra)
+    sem = get_semantics(name, extra)
+    if _cond is not None and name not in _FILTERABLE:
+        raise UnsupportedQueryError(
+            f"FILTER clause over {name} has no device form")
 
     if name == "count":
         i = _count_op(ctx, data[0] if data else None, _cond)
@@ -231,17 +419,201 @@ def lower_aggregation(ctx: AggPlanContext, expr: ExpressionContext,
                        lambda outs, gids, _i=i: (outs[_i][gids].astype(float),),
                        tag))
 
-    # avg: (sum, count of the rows that CONTRIBUTED)
-    i = _scalar_op(ctx, "sum", data[0], _cond)
-    c = _count_op(ctx, data[0], _cond)
-    spec, tag = VEC_RECIPES["avg"]
-    return LoweredAgg(
-        label, sem,
-        lambda outs, g: (float(outs[i][g]), int(outs[c][g])),
-        vec=VecAgg(spec,
-                   lambda outs, gids, _i=i, _c=c: (
-                       outs[_i][gids].astype(float), outs[_c][gids]),
-                   tag))
+    if name == "minmaxrange":
+        i_min = _scalar_op(ctx, "min", data[0], _cond)
+        i_max = _scalar_op(ctx, "max", data[0], _cond)
+        spec, tag = VEC_RECIPES["minmaxrange"]
+        return LoweredAgg(
+            label, sem,
+            lambda outs, g: (float(outs[i_min][g]), float(outs[i_max][g])),
+            vec=VecAgg(spec,
+                       lambda outs, gids: (outs[i_min][gids].astype(float),
+                                           outs[i_max][gids].astype(float)),
+                       tag))
+
+    if name == "avg":
+        # (sum, count of the rows that CONTRIBUTED)
+        i = _scalar_op(ctx, "sum", data[0], _cond)
+        c = _count_op(ctx, data[0], _cond)
+        spec, tag = VEC_RECIPES["avg"]
+        return LoweredAgg(
+            label, sem,
+            lambda outs, g: (float(outs[i][g]), int(outs[c][g])),
+            vec=VecAgg(spec,
+                       lambda outs, gids, _i=i, _c=c: (
+                           outs[_i][gids].astype(float), outs[_c][gids]),
+                       tag))
+
+    # the branches below have no device form that skips null rows: the JAX
+    # package answers a nullable operand under advanced null handling on
+    # its host engine, which this port does not have
+    for a in data:
+        if ctx._null_cond_for(a) is not None:
+            raise UnsupportedQueryError(
+                f"{name} over nullable {a} with enableNullHandling has no "
+                "device form")
+
+    if name in _EXACT_DISTINCT or name in ("distinctsum", "distinctavg"):
+        numeric = name in ("distinctsum", "distinctavg")
+
+        def state(values, _numeric=numeric):
+            if _numeric:
+                return frozenset(float(v) for v in values)
+            return frozenset(values.tolist())
+
+        return _occupancy_agg(ctx, data[0], name, label, sem, state)
+
+    if name in _HLL_FNS:
+        log2m = int(extra[0]) if extra else 12
+        return _occupancy_agg(
+            ctx, data[0], name, label, sem,
+            lambda values, _m=log2m: HyperLogLog(_m).add_values(values))
+
+    if name in _THETA_FNS:
+        return _occupancy_agg(ctx, data[0], name, label, sem,
+                              lambda values: ThetaSketch().add_values(values))
+
+    if name in _SMART_FNS:
+        return _occupancy_agg(
+            ctx, data[0], name, label, sem,
+            lambda values: SmartDistinctSet().add_values(values))
+
+    if name in ("percentile", "mode"):
+        i, dictionary = _value_hist_op(ctx, data[0], name)
+        if not _numeric_dictionary(dictionary):
+            raise UnsupportedQueryError(f"{name} requires a numeric column")
+        return LoweredAgg(label, sem, lambda outs, g, _d=dictionary:
+                          _value_hist(outs[i][g], _d))
+
+    if name in _PCT_DIGEST:
+        return _lower_digest(ctx, data[0], name, label, sem, extra)
+
+    if name == "histogram":
+        if len(extra) != 3:
+            raise UnsupportedQueryError("histogram(col, lower, upper, numBins)")
+        lo, hi, bins = float(extra[0]), float(extra[1]), int(extra[2])
+        if hi <= lo or bins <= 0:
+            raise UnsupportedQueryError(
+                "histogram requires upper > lower and numBins > 0")
+        i = ctx.add_op(ir.AggOp(
+            "hist_fixed", vexpr=ctx.value_expr(data[0]), bins=bins,
+            lo_param=ctx.param(np.float64(lo)),
+            hi_param=ctx.param(np.float64(hi))))
+        return LoweredAgg(label, sem,
+                          lambda outs, g: outs[i][g].astype(np.float64))
+
+    if name in _MOMENT_FNS:
+        i_s = ctx.add_op(ir.AggOp("sum", vexpr=ctx.value_expr(data[0])))
+        i_q = ctx.add_op(ir.AggOp("sumsq", vexpr=ctx.value_expr(data[0])))
+        return LoweredAgg(
+            label, sem,
+            lambda outs, g: (int(outs[0][g]), float(outs[i_s][g]),
+                             float(outs[i_q][g])))
+
+    if name in ("skewness", "kurtosis"):
+        # cast before powering: int32 column planes overflow at v**4
+        v = ir.Cast(ctx.value_expr(data[0]), "DOUBLE")
+        i1 = ctx.add_op(ir.AggOp("sum", vexpr=v))
+        i2 = ctx.add_op(ir.AggOp("sumsq", vexpr=v))
+        i3 = ctx.add_op(ir.AggOp("sum", vexpr=_mul(_mul(v, v), v)))
+        i4 = ctx.add_op(ir.AggOp("sum", vexpr=_mul(_mul(v, v), _mul(v, v))))
+        return LoweredAgg(
+            label, sem,
+            lambda outs, g: (int(outs[0][g]), float(outs[i1][g]),
+                             float(outs[i2][g]), float(outs[i3][g]),
+                             float(outs[i4][g])))
+
+    if name in ("covarpop", "covarsamp", "corr"):
+        x = ir.Cast(ctx.value_expr(data[0]), "DOUBLE")
+        y = ir.Cast(ctx.value_expr(data[1]), "DOUBLE")
+        ix = ctx.add_op(ir.AggOp("sum", vexpr=x))
+        iy = ctx.add_op(ir.AggOp("sum", vexpr=y))
+        ixy = ctx.add_op(ir.AggOp("sum", vexpr=_mul(x, y)))
+        ixx = ctx.add_op(ir.AggOp("sumsq", vexpr=x))
+        iyy = ctx.add_op(ir.AggOp("sumsq", vexpr=y))
+        return LoweredAgg(
+            label, sem,
+            lambda outs, g: (int(outs[0][g]), float(outs[ix][g]),
+                             float(outs[iy][g]), float(outs[ixy][g]),
+                             float(outs[ixx][g]), float(outs[iyy][g])))
+
+    # booland / boolor / boolagg: booleans are 0/1 ints, so AND is a min
+    # (empty -> +inf -> True) and OR a max (empty -> -inf -> False)
+    kind = "min" if name == "booland" else "max"
+    i = ctx.add_op(ir.AggOp(kind, vexpr=ctx.value_expr(data[0])))
+    return LoweredAgg(label, sem, lambda outs, g: bool(outs[i][g] > 0.5))
+
+
+def _lower_digest(ctx: AggPlanContext, arg, name, label, sem,
+                  extra) -> LoweredAgg:
+    """The approximate percentiles, in one of three device forms: the
+    exact value histogram of a dictionary column while groups x card fits
+    the dense table; else the two-pass adaptive histogram where its table
+    fits kernel A; else a fixed histogram of _HIST_BINS bins. Each decodes
+    into a t-digest."""
+    info = ctx.dict_info(arg)
+    if info is not None and _numeric_dictionary(info[2]) \
+            and ctx.group_card_hint * info[1] <= DENSE_GROUP_LIMIT:
+        i, dictionary = _value_hist_op(ctx, arg, name)
+        return LoweredAgg(
+            label, sem, lambda outs, g, _d=dictionary: _value_hist(
+                outs[i][g], _d).to_tdigest(compression=_TDIGEST_COMPRESSION))
+    # raw numeric column (or an occupancy-capped dict column)
+    mm = ctx.col_minmax(arg)
+    if mm is None:
+        raise UnsupportedQueryError(f"{name} needs numeric column stats")
+    lo, hi = float(mm[0]), float(mm[1])
+    if hi <= lo:
+        hi = lo + 1.0
+
+    from ..ops import mxu_groupby
+
+    bins = min(64, max(1, (mxu_groupby.MAX_GROUPS - 1)
+                       // max(1, ctx.group_card_hint)))
+    if bins >= 8 and mxu_groupby.supports(ctx.group_card_hint * bins + 1, 1):
+        # two-level adaptive histogram (two count passes of kernel A, see
+        # ops/kernels.py "hist_adaptive"): quantile resolution
+        # (hi - lo) / bins^2 around the asked percentile. A plain raw
+        # FLOAT/DOUBLE column bins from its pre-rebased f32 plane
+        # ((v - column min), the rawf32r slot); lo is that same min.
+        m = ctx.col_meta(arg)
+        if m is not None and m.encoding == "RAW" \
+                and str(m.data_type) in ("FLOAT", "DOUBLE"):
+            vexpr, prebased = ir.Col(ctx.slot(arg.identifier, "rawf32r")), True
+        else:
+            vexpr, prebased = ctx.value_expr(arg), False
+        i = ctx.add_op(ir.AggOp(
+            "hist_adaptive", vexpr=vexpr, bins=bins,
+            lo_param=ctx.param(np.float64(lo)),
+            hi_param=ctx.param(np.float64(hi)), pct=_pct(extra),
+            prebased=prebased))
+        w1 = (hi - lo) / bins
+        c1 = lo + (np.arange(bins) + 0.5) * w1
+
+        def extract(outs, g, _b=bins, _lo=lo, _w1=w1, _c1=c1):
+            row = outs[i][g]
+            h1 = row[:_b].astype(np.float64)
+            h2 = row[_b:2 * _b].astype(np.float64)
+            bstar = int(row[2 * _b])
+            # coarse weights without the refined bucket, plus the refined
+            # sub-bins centred inside it
+            w = h1.copy()
+            w[bstar] = 0.0
+            lo_g = _lo + bstar * _w1
+            c2 = lo_g + (np.arange(_b) + 0.5) * (_w1 / _b)
+            d = TDigest(_TDIGEST_COMPRESSION).add_weighted(_c1, w)
+            return d.add_weighted(c2, h2)
+
+        return LoweredAgg(label, sem, extract)
+
+    # fixed-bin histogram -> weighted t-digest
+    i = ctx.add_op(ir.AggOp(
+        "hist_fixed", vexpr=ctx.value_expr(arg), bins=_HIST_BINS,
+        lo_param=ctx.param(np.float64(lo)), hi_param=ctx.param(np.float64(hi))))
+    centers = lo + (np.arange(_HIST_BINS) + 0.5) * (hi - lo) / _HIST_BINS
+    return LoweredAgg(label, sem, lambda outs, g: TDigest(
+        _TDIGEST_COMPRESSION).add_weighted(centers,
+                                           outs[i][g].astype(np.float64)))
 
 
 def _int_bounds(ctx, arg) -> dict:
@@ -259,3 +631,49 @@ def _int_bounds(ctx, arg) -> dict:
         qlo = 0 if lo >= 0 else -(1 << max(-lo, 1).bit_length())
         return {"vmin": qlo, "vmax": qhi}
     return {}
+
+
+def _occupancy_agg(ctx: AggPlanContext, arg, name, label, sem,
+                   state_fn) -> LoweredAgg:
+    """A DISTINCT-type function: one per-(group, dict id) occupancy op of
+    the column; state_fn(values present in a group) builds the state."""
+    info = ctx.dict_info(arg)
+    if info is None:
+        raise UnsupportedQueryError(
+            f"{name} needs a dict-encoded SV column: {arg}")
+    ids_slot, card, dictionary = info
+    i = ctx.add_op(ir.AggOp("distinct_bitmap", ids_slot=ids_slot, card=card))
+    return LoweredAgg(label, sem, lambda outs, g: state_fn(
+        dictionary.values[_occ_row_ids(outs[i], g)]))
+
+
+def _occ_row_ids(o: np.ndarray, g) -> np.ndarray:
+    """Dict ids present in group g, from either occupancy form:
+    - dense: (groups, card) boolean matrix -> nonzero of row g
+    - sparse: (slots, W) uint32 id bitmap words, little-endian bit j of
+      word w standing for dict id w * 32 + j"""
+    if o.dtype == np.uint32:
+        return np.nonzero(np.unpackbits(
+            np.ascontiguousarray(o[g]).view(np.uint8),
+            bitorder="little"))[0]
+    return np.nonzero(o[g])[0]
+
+
+def _value_hist_op(ctx: AggPlanContext, arg, name):
+    info = ctx.dict_info(arg)
+    if info is None:
+        raise UnsupportedQueryError(
+            f"{name} needs a dict-encoded SV column: {arg}")
+    ids_slot, card, dictionary = info
+    i = ctx.add_op(ir.AggOp("value_hist", ids_slot=ids_slot, card=card))
+    return i, dictionary
+
+
+def _value_hist(row: np.ndarray, dictionary) -> ValueHist:
+    """The exact value histogram of one group's per-dict-id counts."""
+    nz = np.nonzero(row)[0]
+    return ValueHist.from_arrays(dictionary.values[nz], row[nz])
+
+
+def _numeric_dictionary(d) -> bool:
+    return np.asarray(d.values).dtype.kind in ("i", "u", "f")

@@ -26,9 +26,13 @@ def combine_batched_dense(outs_b: Sequence, plans: Sequence) -> Optional[list]:
     (every array with a leading [S] member dim): ONE np.nonzero over the
     whole [S, G] counts block and one scanned-docs reduction instead of S
     of each. Key decodes stay per member (dictionaries are segment-local).
-    Equal to each member's own collect(); None outside the dense mode."""
+    Equal to each member's own collect(); None outside the dense mode and
+    when an aggregation has no columnar form (its members then decode one
+    by one into object states)."""
     p0 = plans[0].program
     if p0.mode != "group_by":
+        return None
+    if any(la.vec is None for pl in plans for la in pl.lowered_aggs):
         return None
     num_groups = p0.num_groups
     counts_b = np.asarray(outs_b[0])[:, :num_groups]

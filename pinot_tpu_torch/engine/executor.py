@@ -29,7 +29,7 @@ from ..segment.device_cache import DeviceSegmentCache, pad_bucket
 from ..segment.loader import ImmutableSegment
 from ..spi.data_types import DataType
 from .plan import SegmentPlan, SegmentPlanner
-from .results import AggIntermediate, GroupArrays
+from .results import AggIntermediate, GroupArrays, GroupByIntermediate
 
 # Per-QUERY dispatch counter, thread-local because concurrent queries share
 # this module: a reset at query start and a read at its end on the query's
@@ -93,6 +93,8 @@ def batch_family_key(segment: ImmutableSegment, plan: SegmentPlan,
             sig.append(("ids", width))
         elif kind == "raw":
             sig.append(("raw", str(DataType(m.data_type).numpy_dtype)))
+        elif kind == "rawf32r":
+            sig.append(("rawf32r",))
         elif kind == "dict":
             sig.append(("dict", str(DataType(m.data_type).numpy_dtype),
                         _dict_pad(int(m.cardinality))))
@@ -249,7 +251,8 @@ class SegmentExecutor:
             return AggIntermediate(states, num_docs_scanned=int(outs[0][0]))
         return self._group_by_result(plan, outs)
 
-    def _group_by_result(self, plan: SegmentPlan, outs) -> GroupArrays:
+    def _group_by_result(self, plan: SegmentPlan,
+                         outs) -> GroupByIntermediate:
         num_groups = plan.program.num_groups
         counts = outs[0][:num_groups]
         gids = np.nonzero(counts)[0]
@@ -272,9 +275,22 @@ class SegmentExecutor:
             scanned += trash
             # an ORDER BY pushdown trim is exact, not a groups-limit event
             trimmed = trash > 0 and not plan.program.exact_trim
-        return GroupArrays(
-            key_cols,
-            [la.vec.extract(outs, gids) for la in plan.lowered_aggs],
-            [la.vec.spec for la in plan.lowered_aggs],
-            [la.vec.fin_tag for la in plan.lowered_aggs],
-            num_docs_scanned=scanned, groups_trimmed=trimmed)
+        if all(la.vec is not None for la in plan.lowered_aggs):
+            return GroupArrays(
+                key_cols,
+                [la.vec.extract(outs, gids) for la in plan.lowered_aggs],
+                [la.vec.spec for la in plan.lowered_aggs],
+                [la.vec.fin_tag for la in plan.lowered_aggs],
+                num_docs_scanned=scanned, groups_trimmed=trimmed)
+        # object states (sets, sketches, tuples of sums): one per group and
+        # aggregation, keyed by the group's values
+        groups = {}
+        for row, g in enumerate(gids):
+            key = tuple(_to_python(col[row]) for col in key_cols)
+            groups[key] = [la.extract(outs, g) for la in plan.lowered_aggs]
+        return GroupByIntermediate(groups, num_docs_scanned=scanned,
+                                   groups_trimmed=trimmed)
+
+
+def _to_python(v):
+    return v.item() if isinstance(v, np.generic) else v

@@ -9,8 +9,8 @@ the same IR the JAX package builds, so both interpreters run identical
 plans.
 
 Shapes outside the slice raise UnsupportedQueryError: selection queries,
-multi-value columns, DISTINCTCOUNT and the other matrix-shaped
-aggregations, and transforms other than arithmetic.
+multi-value columns, the aggregations the JAX package answers on its host
+engine, and transforms other than arithmetic.
 """
 
 from __future__ import annotations
@@ -35,7 +35,9 @@ from .aggregation import (DENSE_GROUP_LIMIT, AggPlanContext, LoweredAgg,
 SPARSE_KEY_LIMIT = ir.SPARSE_KEY_SPACE  # keys stay below the kernel sentinel
 SPARSE_GROUPS_LIMIT = 1 << 25  # cap on sparse output table slots
 DEFAULT_NUM_GROUPS_LIMIT = 100_000  # reference InstancePlanMakerImplV2 default
-_SPARSE_AGG_KINDS = {"count", "sum", "sumsq", "min", "max"}
+_SPARSE_AGG_KINDS = {"count", "sum", "sumsq", "min", "max", "distinct_bitmap"}
+# the sparse kernel ships ceil(card / 32) bitmap words per slot
+SPARSE_DISTINCT_MAX_CARD = 1024
 
 
 def _orderby_prefix_trim(q) -> "int | None":
@@ -101,7 +103,7 @@ def _coerce_like(vals: np.ndarray, v):
 @dataclass
 class SegmentPlan:
     program: ir.Program
-    slots: list  # (column, kind); kind in ids|raw|dict|null
+    slots: list  # (column, kind); kind in ids|raw|rawf32r|dict|null
     params: list  # host param values in order (numpy scalars / arrays)
     lowered_aggs: list[LoweredAgg] = field(default_factory=list)
     group_dims: list[GroupDim] = field(default_factory=list)
@@ -122,6 +124,8 @@ class SegmentPlan:
                     packed.append((i, width))
             elif kind == "raw":
                 out.append(view.raw(column))
+            elif kind == "rawf32r":
+                out.append(view.raw_f32_rebased(column))
             elif kind == "dict":
                 out.append(view.dict_values(column))
             elif kind == "null":
@@ -165,6 +169,9 @@ class SegmentPlanner(AggPlanContext):
         return m
 
     def dict_info(self, e: ExpressionContext):
+        """(ids slot, cardinality, dictionary) of a dict-encoded column;
+        None for anything else. Every column this port plans is single
+        value (`_meta` raises on the others)."""
         if not e.is_identifier or e.identifier == "*":
             return None
         m = self._meta(e.identifier)
@@ -172,6 +179,12 @@ class SegmentPlanner(AggPlanContext):
             return None
         return (self.slot(e.identifier, "ids"), m.cardinality,
                 self.segment.get_dictionary(e.identifier))
+
+    def col_meta(self, e: ExpressionContext):
+        """Column metadata of a plain identifier, else None."""
+        if not e.is_identifier:
+            return None
+        return self._meta(e.identifier)
 
     def _null_cond_for(self, e: ExpressionContext):
         """Boolean ValueExpr true where any column referenced by e is null
@@ -596,24 +609,43 @@ class SegmentPlanner(AggPlanContext):
             raise UnsupportedQueryError(
                 f"group cardinality product {num_groups} exceeds the "
                 "int64 composite-key space")
+        # approximate aggs size their occupancy matrices by it
+        self.group_card_hint = num_groups
         lowered = [lower_aggregation(self, a) for a in q.aggregations]
-        # mode selection: dense when the key product fits the dense table,
-        # else the sort-based sparse path (SET sparseGroupBy = true routes a
-        # dense-eligible group-by there too)
+        # mode selection: dense when the key product and every matrix
+        # occupancy fit the dense table, else the sort-based sparse path
+        # (SET sparseGroupBy = true routes a dense-eligible group-by there
+        # too)
         sparse = num_groups > DENSE_GROUP_LIMIT
         reason = f"group cardinality product {num_groups}"
+        for op in self.ops:
+            width = op.card if op.kind in ("distinct_bitmap", "value_hist") \
+                else op.bins if op.kind in ("hist_fixed", "hist_adaptive") \
+                else None
+            if width is not None and num_groups * width > DENSE_GROUP_LIMIT:
+                sparse, reason = True, f"{op.kind} occupancy {num_groups}x{width}"
         if not sparse and group_exprs and self.query.query_options.get(
                 "sparseGroupBy") in (True, "true", 1):
             sparse, reason = True, "sparseGroupBy=true"
+        if sparse:
+            distinct = [op for op in self.ops if op.kind == "distinct_bitmap"]
+            if len(distinct) > 1:
+                # one DISTINCT column rides the sort as its secondary key
+                raise UnsupportedQueryError(
+                    "the sparse group-by takes one DISTINCT column")
+            if distinct and distinct[0].card > SPARSE_DISTINCT_MAX_CARD:
+                raise UnsupportedQueryError(
+                    f"sparse DISTINCTCOUNT bitmap over card "
+                    f"{distinct[0].card} > {SPARSE_DISTINCT_MAX_CARD}")
+            for op in self.ops:
+                if op.kind not in _SPARSE_AGG_KINDS:
+                    raise UnsupportedQueryError(
+                        f"{reason} needs the sparse (sort-based) group-by, "
+                        f"which does not lower {op.kind}")
         if sparse and not group_exprs:
             raise UnsupportedQueryError(
                 f"{reason} exceeds the dense limit for an un-grouped "
                 "aggregation")
-        for op in self.ops if sparse else ():
-            if op.kind not in _SPARSE_AGG_KINDS:
-                raise UnsupportedQueryError(
-                    f"{reason} needs the sparse (sort-based) group-by, "
-                    f"which does not lower {op.kind} in this port")
         exact_trim = keys_presorted = False
         if sparse and not any_derived:
             # sorted-key fast path: group keys whose composite id is

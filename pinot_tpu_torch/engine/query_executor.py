@@ -225,7 +225,9 @@ class QueryExecutor:
         table. Only for shapes where value-space keys are exact: one
         identifier key over an integer dictionary, every agg mergeable;
         None otherwise, or under SET deviceCombine = false, and the query
-        takes the per-segment collect and host merge."""
+        takes the per-segment collect and host merge. A DISTINCT bitmap has
+        no device merge (its kind maps to None), so its queries take the
+        host merge."""
         if _opted_out(query, "deviceCombine"):
             return None
         p0 = plans[0].program
@@ -294,9 +296,12 @@ class QueryExecutor:
 
     def _combine(self, query: QueryContext, intermediates):
         semantics = [semantics_for(a) for a in query.aggregations]
-        if intermediates and isinstance(intermediates[0], GroupArrays):
-            merged = combine_group_arrays(intermediates)
-            if merged is None:  # composite key overflow: dict merge
+        first = intermediates[0] if intermediates else None
+        if isinstance(first, GroupByIntermediate):
+            merged = None
+            if all(isinstance(im, GroupArrays) for im in intermediates):
+                merged = combine_group_arrays(intermediates)
+            if merged is None:  # object states, or composite key overflow
                 merged = combine_group_by(intermediates, semantics)
             return trim_group_by(merged, query, semantics)
         if intermediates:

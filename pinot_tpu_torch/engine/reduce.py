@@ -53,6 +53,11 @@ class BrokerReducer:
             if fast is not None:
                 return fast
 
+        medium = self._medium_group_reduce(query, combined, group_exprs,
+                                           agg_exprs, semantics)
+        if medium is not None:
+            return medium
+
         # env rows: expression-string -> value (+ select aliases, so ORDER BY
         # and HAVING can reference them)
         env_rows = []
@@ -81,6 +86,46 @@ class BrokerReducer:
         for env in env_rows[query.offset : query.offset + query.limit]:
             rows.append([_round_type(_eval_post(e, env), t)
                          for e, t in zip(query.select_expressions, types)])
+        return ResultTable(DataSchema(names, types), rows)
+
+    def _medium_group_reduce(self, query: QueryContext, combined,
+                             group_exprs, agg_exprs,
+                             semantics) -> Optional[ResultTable]:
+        """Columnar reduce of object states (sets, sketches) for the plain
+        SELECT keys/aggs ... ORDER BY keys/aggs shape: one finalize pass
+        into columns and one sort with the general path's comparator,
+        instead of an env dict per group. None (-> the env-dict path) for
+        HAVING, post-aggregation expressions, or aliases in ORDER BY."""
+        if query.having_filter is not None or not combined.groups:
+            return None
+        gkeys = [str(ge) for ge in group_exprs]
+        akeys = [str(ae) for ae in agg_exprs]
+        colpos = {k: i for i, k in enumerate(gkeys)}
+        for i, k in enumerate(akeys):
+            colpos.setdefault(k, len(gkeys) + i)
+        sel_keys = [str(e) for e in query.select_expressions]
+        if any(k not in colpos for k in sel_keys):
+            return None
+        if any(str(ob.expression) not in colpos
+               for ob in query.order_by_expressions or []):
+            return None
+        nk = len(gkeys)
+        key_rows = list(combined.groups.keys())
+        cols: list[list] = [[k[d] for k in key_rows] for d in range(nk)]
+        fins = [sem.finalize for sem in semantics]
+        cols += [[] for _ in fins]
+        for states in combined.groups.values():
+            for i, fin in enumerate(fins):
+                cols[nk + i].append(fin(states[i]))
+        idx = list(range(len(key_rows)))
+        for ob in reversed(query.order_by_expressions or []):
+            vals = cols[colpos[str(ob.expression)]]
+            idx.sort(key=lambda i, _v=vals: _sort_key(_v[i]),
+                     reverse=not ob.ascending)
+        names, types = self._select_schema(query, group_exprs)
+        sel_cols = [cols[colpos[k]] for k in sel_keys]
+        rows = [[_round_type(c[i], t) for c, t in zip(sel_cols, types)]
+                for i in idx[query.offset: query.offset + query.limit]]
         return ResultTable(DataSchema(names, types), rows)
 
     def _fast_group_reduce(self, query: QueryContext, ga: GroupArrays,
@@ -287,6 +332,8 @@ def _apply_fin_tag(tag: tuple, comps: tuple) -> np.ndarray:
     """Evaluate a finalize recipe over state component columns."""
     if tag[0] == "id":
         return comps[tag[1]]
+    if tag[0] == "sub":
+        return comps[tag[1]] - comps[tag[2]]
     if tag[0] == "div":
         num, den = comps[tag[1]].astype(float), comps[tag[2]]
         return np.divide(num, den, out=np.full(len(num), math.nan),

@@ -67,7 +67,9 @@ class BrokerResponse:
 
 @dataclass
 class GroupByIntermediate:
-    """group key tuple (values) -> list of per-agg states."""
+    """group key tuple (values) -> list of per-agg states: the form of
+    aggregations without a columnar one (sets, sketches, value histograms,
+    tuples of sums), one Python object per group and aggregation."""
 
     groups: dict[tuple, list]
     num_docs_scanned: int = 0

@@ -7,7 +7,9 @@ or of a batch FAMILY of segments at once (`run_program_batch`):
 
     mask  = filter tree as boolean vector algebra
     gid   = sum of dict_ids[d] * stride[d]  (masked rows -> trash slot)
-    out_k = per-group count / sum / min / max
+    out_k = per-group count / sum / sumsq / min / max, or a matrix per
+            group: dict-id occupancy or counts, an adaptive or fixed
+            histogram
 
 The JAX package runs a family as `jax.vmap` of the per-segment body. Here
 the body itself works over a leading segment axis: planes are [S, N],
@@ -21,11 +23,14 @@ through `mxu_groupby.limb_sums` (CUDA kernel A, one launch per family) or,
 for a solo segment whose program is in its scope, the single-pass
 `fused_groupby` kernel (CUDA kernel B); MIN/MAX and float sums use torch
 scatters over the flattened [S * N] rows (slot gid + s * (G + 1)). The
+matrix-shaped aggregations count rows per (group, dict id) or per (group,
+bin) slot with kernel A at one plane (`_mxu_or_scatter_counts`). The
 sparse mode sorts composite keys (torch.sort, stable), finds group edges
 with torch.searchsorted and reduces with prefix sums and scatters, as the
-JAX package does with XLA ops. All outputs pack into one device buffer per
-segment or family; `fetch_packed_batch` brings every buffer of a query to
-the host in one copy.
+JAX package does with XLA ops; a DISTINCT column rides the sort as a
+secondary key and comes out as per-slot uint32 bitmap words. All outputs
+pack into one device buffer per segment or family; `fetch_packed_batch`
+brings every buffer of a query to the host in one copy.
 
 Type promotion follows JAX with 64-bit types enabled, not PyTorch, so
 both interpreters compute in the same dtypes:
@@ -241,8 +246,8 @@ class PackedOuts:
 
 
 _NP_DTYPES = {torch.bool: np.bool_, torch.int32: np.int32,
-              torch.int64: np.int64, torch.float32: np.float32,
-              torch.float64: np.float64}
+              torch.uint32: np.uint32, torch.int64: np.int64,
+              torch.float32: np.float32, torch.float64: np.float64}
 
 
 def pack_outputs(outs: tuple) -> PackedOuts:
@@ -505,6 +510,11 @@ def _run_ungrouped(program: ir.Program, arrays, params, mask, n):
         if agg.kind == "count":
             outputs.append(pair(count, zero_i))
             continue
+        if agg.kind in _MATRIX_KINDS:
+            # matrix shapes keep the (1 group + trash) layout: [S, 1, width]
+            gid = torch.where(mask, 0, 1).to(torch.int32)
+            outputs.append(_run_agg(agg, arrays, params, mask, gid, 2))
+            continue
         v = _eval_value(agg.vexpr, arrays, params)
         fast32 = _is_fast32(v, agg)
         if agg.kind == "sum":
@@ -559,13 +569,115 @@ def _is_fast32(v: torch.Tensor, agg: ir.AggOp) -> bool:
             and _fits_i32(v, agg))
 
 
+_MATRIX_KINDS = ("distinct_bitmap", "value_hist", "hist_adaptive",
+                 "hist_fixed")
+
+
+def _mxu_or_scatter_counts(mask, sid, num_slots):
+    """Per-slot row counts [S, num_slots] int64 of the rows where `mask`
+    holds, `sid` [S, N] int32 routing every other row to a slot nothing
+    reads: kernel A with one plane when the table is in its domain, an
+    exact int64 scatter otherwise."""
+    if mxu_groupby.supports(num_slots, 1):
+        return mxu_groupby.limb_sums(
+            mask.to(mxu_groupby.PLANE_DTYPE).unsqueeze(1), sid, num_slots)[:, 0]
+    return _segment_reduce(mask.to(torch.int64), sid, num_slots, "sum")
+
+
+def _gather_rows(table: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
+    """table[s, min(gid, G)] for a per-group table [S, G] with a zero row
+    appended for the trash slot G."""
+    g = table.shape[1]
+    padded = torch.cat([table, table.new_zeros((table.shape[0], 1))], 1)
+    return torch.gather(padded, 1, gid.clamp(max=g).to(torch.int64))
+
+
+def _run_matrix_agg(agg: ir.AggOp, arrays, params, mask, gid, num_segments):
+    """The matrix-shaped aggregations, [S, G, width] per family (G =
+    num_segments - 1 groups, no trash row): per-(group, dict id)
+    occupancy (bool) or counts (int64), and the two histograms. Count
+    passes over G x width + 1 slots go through kernel A at one plane."""
+    num_groups = num_segments - 1
+    s_count = mask.shape[0]
+    if agg.kind in ("distinct_bitmap", "value_hist"):
+        card = agg.card
+        ids = arrays[agg.ids_slot].to(torch.int32)
+        sid = torch.where(mask, gid * card + ids, num_groups * card)
+        occ = _mxu_or_scatter_counts(mask, sid, num_groups * card + 1)
+        occ = occ[:, :num_groups * card].reshape(s_count, num_groups, card)
+        return occ > 0 if agg.kind == "distinct_bitmap" else occ
+    if agg.kind == "hist_adaptive":
+        return _hist_adaptive(agg, arrays, params, mask, gid, num_groups)
+    # hist_fixed: equal-width bins over [lo, hi]; rows outside are dropped
+    # (reference HistogramAggregationFunction)
+    bins = agg.bins
+    v = _eval_value(agg.vexpr, arrays, params).to(torch.float64)
+    lo, hi = params[agg.lo_param], params[agg.hi_param]
+    width = (hi - lo) / bins
+    b = ((v - lo) / width).to(torch.int32).clamp(0, bins - 1)
+    inside = mask & (v >= lo) & (v <= hi)
+    sid = torch.where(inside, gid * bins + b, num_groups * bins)
+    counts = _segment_reduce(inside.to(torch.int64), sid,
+                             num_groups * bins + 1, "sum")
+    return counts[:, :num_groups * bins].reshape(s_count, num_groups, bins)
+
+
+def _hist_adaptive(agg: ir.AggOp, arrays, params, mask, gid, num_groups):
+    """Two count passes of a percentile sketch: pass 1 bins each group's
+    values coarsely into `bins` buckets over [lo, hi]; the bucket holding
+    the asked quantile (bstar) is found from the pass-1 table; pass 2
+    re-bins the rows of exactly that bucket `bins` times finer. Returns
+    [S, G, 2 * bins + 1] int64: h1, h2, bstar.
+
+    The binning runs in float32 on (v - lo) offsets (the f64 rebase first,
+    or the pre-rebased rawf32r plane), each op in the JAX package's
+    precision and order, so a row's buckets are bit-identical to its, and
+    pass 2 keeps exactly the rows whose pass-1 bucket is bstar."""
+    bins = agg.bins
+    f32 = torch.float32
+    lo64 = params[agg.lo_param]  # [S, 1] float64
+    if agg.prebased:
+        v = _eval_value(agg.vexpr, arrays, params)
+    else:
+        v64 = _eval_value(agg.vexpr, arrays, params).to(torch.float64)
+        v = (v64 - lo64).to(f32)
+    span = (params[agg.hi_param] - lo64).to(f32)
+    width1 = span / bins
+    b1 = (v / width1).to(torch.int32).clamp(0, bins - 1)
+    inside = mask & (v >= 0) & (v <= span)
+    trash = num_groups * bins
+    s_count = mask.shape[0]
+    sid1 = torch.where(inside, gid * bins + b1, trash)
+    h1 = _mxu_or_scatter_counts(inside, sid1, trash + 1)[:, :trash] \
+        .reshape(s_count, num_groups, bins)
+    cum = torch.cumsum(h1, dim=2)
+    rank = cum[:, :, -1].to(torch.float64) * (agg.pct / 100.0)
+    # the first bucket whose running count reaches the rank (bucket 0
+    # when none does); cum is nondecreasing, so that is the count of
+    # buckets below the rank
+    below = (cum.to(torch.float64) < rank.unsqueeze(2)).sum(2)
+    bstar = torch.where(below == bins, 0, below).to(torch.int32)
+    bstar_r = _gather_rows(bstar, gid)
+    lo_r = _gather_rows(bstar.to(f32) * width1, gid)
+    width2 = width1 / bins
+    inside2 = inside & (b1 == bstar_r)
+    b2 = ((v - lo_r) / width2).to(torch.int32).clamp(0, bins - 1)
+    sid2 = torch.where(inside2, gid * bins + b2, trash)
+    h2 = _mxu_or_scatter_counts(inside2, sid2, trash + 1)[:, :trash] \
+        .reshape(s_count, num_groups, bins)
+    return torch.cat([h1, h2, bstar.to(torch.int64).unsqueeze(2)], dim=2)
+
+
 def _run_agg(agg: ir.AggOp, arrays, params, mask, gid, num_segments,
              counts=None):
-    """Per-group scatter reductions for what the limb pass does not carry:
-    count, sum (int64-exact for integers), sumsq, min and max."""
+    """Per-group reductions for what the limb pass does not carry: count,
+    sum (int64-exact for integers), sumsq, min, max and the matrix
+    kinds."""
     i64, f64 = torch.int64, torch.float64
     if agg.kind == "count":
         return _segment_reduce(mask.to(i64), gid, num_segments, "sum")
+    if agg.kind in _MATRIX_KINDS:
+        return _run_matrix_agg(agg, arrays, params, mask, gid, num_segments)
     v = _eval_value(agg.vexpr, arrays, params)
     fast32 = _is_fast32(v, agg)
     if agg.kind == "sum":
@@ -664,13 +776,33 @@ def _run_sparse_group_by(program: ir.Program, arrays, params, mask, n):
         # the raw keys and skips masked rows by identities and mask sums
         key = torch.where(mask, key, sentinel)
 
+    # COUNT DISTINCT rides the same sort as a secondary key: with dict ids
+    # sorted within each group, the distinct (group, id) pairs are the
+    # first-occurrence rows. The ids pack into the key's low digits when
+    # the combined space fits int32 (key' = key * card + id), else they
+    # sort as a second key
+    distinct = [a for a in program.aggs if a.kind == "distinct_bitmap"]
+    if len(distinct) > 1:
+        raise ValueError("the sparse group-by takes one DISTINCT column")
+    pack_card = None
+    if distinct and key32 and not program.keys_presorted and \
+            0 < program.key_space * distinct[0].card < _I32_MAX:
+        pack_card = int(distinct[0].card)
+        ids = arrays[distinct[0].ids_slot].to(torch.int32)
+        key = torch.where(mask, key * pack_card + ids, sentinel)
+
     # agg inputs with mask-neutral elements, computed before the sort
     f64 = torch.float64
     operands = [key]
+    if distinct and pack_card is None:
+        operands.append(arrays[distinct[0].ids_slot].to(torch.int32))
     specs = []  # per agg: (reduce kind, operand index, agg)
     for agg in program.aggs:
         if agg.kind == "count":
             specs.append(("count", None, agg))
+            continue
+        if agg.kind == "distinct_bitmap":
+            specs.append(("distinct", None if pack_card else 1, agg))
             continue
         v = _eval_value(agg.vexpr, arrays, params)
         fast32 = _is_fast32(v, agg)
@@ -702,10 +834,28 @@ def _run_sparse_group_by(program: ir.Program, arrays, params, mask, n):
     if program.keys_presorted:
         return _presorted_sparse_tail(program, operands, specs, mask, n)
 
-    skey, perm = torch.sort(key, dim=-1, stable=True)
+    if distinct and pack_card is None:
+        # (key, id) lexicographic: two stable sorts, the secondary key
+        # first, give the permutation of the JAX package's two-key sort
+        _, perm = torch.sort(operands[1], dim=-1, stable=True)
+        _, p2 = torch.sort(torch.gather(key, 1, perm), dim=-1, stable=True)
+        perm = torch.gather(perm, 1, p2)
+        skey = torch.gather(key, 1, perm)
+    else:
+        skey, perm = torch.sort(key, dim=-1, stable=True)
     sorted_ops = [skey] + [torch.gather(op, 1, perm) for op in operands[1:]]
     valid = skey < sentinel
+    packed_ids = first_pairs = None
+    if pack_card is not None:
+        # unpack: the group key is the high digits, the id the low digit.
+        # Sentinel rows' quotient stays above every real key
+        skey_raw = skey
+        skey = torch.div(skey_raw, pack_card, rounding_mode="floor")
+        packed_ids = skey_raw - skey * pack_card
+        first_pairs = _transitions(skey_raw) & valid
     first = _transitions(skey) & valid
+    if distinct and pack_card is None:
+        first_pairs = (first | _transitions(sorted_ops[1])) & valid
     gidx = _cumsum(first) - 1
     k = program.num_groups
     n_valid = valid.sum(-1)
@@ -718,7 +868,8 @@ def _run_sparse_group_by(program: ir.Program, arrays, params, mask, n):
     # rows of slots [0, k) -> their slot; trimmed and invalid rows -> k
     slot = torch.where(valid & (gidx < k), gidx, k)
     outputs = [counts] + _sparse_aggs(specs, sorted_ops, slot, occupied,
-                                      fic, lic, counts, k)
+                                      fic, lic, counts, k, packed_ids,
+                                      first_pairs)
     outputs.append(torch.where(occupied, torch.gather(skey, 1, fic)
                                .to(torch.int64), -1))
     return tuple(outputs)
@@ -767,19 +918,28 @@ def _presorted_sparse_tail(program: ir.Program, operands, specs, mask, n):
     return tuple(outputs)
 
 
-def _sparse_aggs(specs, ops, slot, occupied, fic, lic, counts, k) -> list:
+def _sparse_aggs(specs, ops, slot, occupied, fic, lic, counts, k,
+                 packed_ids=None, first_pairs=None) -> list:
     """Per-slot outputs of the sparse aggregations over rows `ops` whose
     slot (0..k-1, or the trash k) is `slot`; every slot's rows lie within
     [fic, lic]. The JAX package reads a segmented tree scan at each slot's
     last row for DOUBLE sums and MIN/MAX; here a scatter by slot reduces
     the same rows (MIN/MAX exactly; DOUBLE sums in another order, the
-    rounding still local to each group)."""
+    rounding still local to each group). The DISTINCT bitmap reads its
+    ids from `ops` or, packed into the sort key, from `packed_ids`;
+    `first_pairs` marks the first row of each (group, id) pair on the
+    sort path."""
     f64 = torch.float64
     inf = float("inf")
     out = []
     for kind, oi, agg in specs:
         if kind == "count":
             out.append(counts)
+            continue
+        if kind == "distinct":
+            ids = packed_ids if oi is None else ops[oi]
+            out.append(_bitmap_words(ids, first_pairs, slot, occupied, k,
+                                     agg.card))
             continue
         v = ops[oi]
         if kind == "sum_i" and not _prefix_exact_gate(v, agg):
@@ -809,6 +969,44 @@ def _sparse_aggs(specs, ops, slot, occupied, fic, lic, counts, k) -> list:
             out.append(_with_trash(torch.where(occupied, s.to(f64), fill),
                                    fill))
     return out
+
+
+def _bitmap_words(ids, first_pairs, slot, occupied, k, card) -> torch.Tensor:
+    """Per-slot dict-id bitmaps [S, k + 1, W] uint32 (W = ceil(card / 32);
+    bit j of word w stands for id 32 w + j; the trash row is zero) of the
+    ids of every row by its `slot`.
+
+    On the sort path `first_pairs` marks the first row of each (group, id)
+    pair, so a word is the SUM of its bits: one int64 scatter, exact (a
+    group's word sum is below 2^32; the JAX package takes it by a
+    wrapping uint32 prefix sum). On the presorted path (`first_pairs` None)
+    ids repeat within a group unsorted (the JAX package ORs them by a
+    segmented scan): each row marks its (slot, id) cell of a (k + 1) x 32 W
+    occupancy table, and the words pack from the cells."""
+    s_count = ids.shape[0]
+    words = -(-card // 32)
+    ids = ids.to(torch.int64)
+    base = (torch.arange(s_count, dtype=torch.int64, device=ids.device)
+            .unsqueeze(1) * (k + 1) + slot)
+    if first_pairs is not None:
+        bits = torch.where(first_pairs, torch.ones_like(ids) << (ids & 31), 0)
+        table = torch.zeros(s_count * (k + 1) * words, dtype=torch.int64,
+                            device=ids.device)
+        table.index_add_(0, (base * words + (ids >> 5)).reshape(-1),
+                         bits.reshape(-1))
+        table = table.view(s_count, k + 1, words)
+    else:
+        cells = torch.zeros(s_count * (k + 1) * words * 32, dtype=torch.uint8,
+                            device=ids.device)
+        cells[(base * (words * 32) + ids).reshape(-1)] = 1
+        shifts = torch.arange(32, dtype=torch.int64, device=ids.device)
+        table = (cells.view(s_count, k + 1, words, 32).to(torch.int64)
+                 << shifts).sum(-1)
+    table = torch.where(occupied.unsqueeze(2), table[:, :k], 0)
+    table = torch.cat([table, table.new_zeros((s_count, 1, words))], 1)
+    # int64 in [0, 2^32) -> the low 32 bits, read as uint32 (the host
+    # decode tells the sparse form by that dtype)
+    return table.to(torch.int32).view(torch.uint32)
 
 
 def _with_trash(col: torch.Tensor, value: float) -> torch.Tensor:

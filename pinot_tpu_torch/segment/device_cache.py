@@ -98,6 +98,22 @@ class SegmentDeviceView:
         vals = self.segment.get_raw(column)
         return self._put(key, self._padded_plane(vals, vals.dtype))
 
+    def raw_f32_rebased(self, column: str) -> torch.Tensor:
+        """(v - column min) as a float32 plane: the histogram-binning view
+        of a raw FLOAT/DOUBLE column (engine/plan.py slot kind rawf32r).
+        The rebase runs on the host in float64 before the cast, as the
+        JAX package's does, so both packages bin from the same bits; a
+        narrow-range column of large values keeps its full precision."""
+        key = (column, "rawf32r")
+        cached = self._planes.get(key)
+        if cached is not None:
+            return cached
+        vals = self.segment.get_raw(column)
+        base = float(self.segment.column_metadata(column).min_value)
+        out = np.zeros(self.padded, dtype=np.float32)
+        out[: vals.shape[0]] = (vals - base).astype(np.float32)
+        return self._put(key, out)
+
     def dict_values(self, column: str) -> torch.Tensor:
         """Numeric dictionary on the device, for on-device decode."""
         key = (column, "dict")
@@ -198,6 +214,33 @@ class DeviceSegmentCache:
             self._stack_order.append(key)
             self._maybe_evict()
             return sv
+
+    def warm(self, segment: ImmutableSegment,
+             columns: Optional[list] = None) -> int:
+        """Upload a segment's column planes before the first query needs
+        them; returns the planes uploaded. Dict-encoded columns warm their
+        (narrow) id planes and, for numeric dictionaries, their values; raw
+        columns their value plane and, for FLOAT/DOUBLE, the rebased f32
+        plane the percentile histograms bin from."""
+        v = self.view(segment)
+        n = 0
+        for col in (columns or segment.columns()):
+            m = segment.column_metadata(col)
+            if m.encoding == "DICT":
+                v.dict_ids_packed(col)
+                n += 1
+                if np.asarray(segment.get_dictionary(col).values).dtype.kind \
+                        in "iuf":
+                    v.dict_values(col)
+                    n += 1
+            else:
+                v.raw(col)
+                n += 1
+                if m.data_type in ("FLOAT", "DOUBLE") \
+                        and m.min_value is not None:
+                    v.raw_f32_rebased(col)
+                    n += 1
+        return n
 
     def bytes_used(self) -> int:
         with self._lock:

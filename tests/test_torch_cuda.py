@@ -169,6 +169,23 @@ def test_family_limb_sums_kernel_matches_plain(cuda, segments, n, p, g, live):
     assert torch.equal(got, mxu_groupby.limb_sums_plain(planes, gid, g))
 
 
+# the count passes of the matrix-shaped aggregations: one plane over
+# groups x width + 1 slots (aggmix's value histogram, q5's occupancy, aggmix's
+# occupancy, q5's adaptive histogram), solo and with the family axis
+@pytest.mark.parametrize("segments", [1, 4])
+@pytest.mark.parametrize("g", [78, 5841, 7001, 32121])
+def test_limb_sums_one_plane_matches_plain(cuda, segments, g):
+    n = 1 << 20
+    planes, gid = _family_inputs(segments, n, 1, g, g + segments, cuda)
+    if segments == 1:
+        planes, gid = planes[0], gid[0]
+    before = _cuda.LAUNCHES["limb_sums"]
+    got = mxu_groupby.limb_sums(planes, gid, g)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["limb_sums"] == before + 1
+    assert torch.equal(got, mxu_groupby.limb_sums_plain(planes, gid, g))
+
+
 @pytest.mark.parametrize("p,g,cluster,count,mode", [
     (8, 7001, 2, 66, "split"), (3, 32768, 4, 33, "shared"),
     (4, 7001, None, 1, "private"), (4, 1001, 1, 132, "private")])
@@ -417,3 +434,115 @@ def test_sparse_query_on_the_card_matches_cpu(cuda, table16, sql):
     assert got.num_docs_scanned == want.num_docs_scanned
     assert got.num_device_dispatches == want.num_device_dispatches
     assert got.num_groups_limit_reached == want.num_groups_limit_reached
+
+
+@pytest.fixture(scope="module")
+def agg_table(tmp_path_factory):
+    """Two segments of 40,000 rows for the matrix-shaped aggregations:
+    lo_orderkey sorted in ingestion order, fare a raw DOUBLE."""
+    rng = np.random.default_rng(31)
+    n, segments = 40_000, 2
+    cols = {
+        "d_year": rng.integers(1992, 1999, n * segments).astype(np.int32),
+        "p_brand": rng.integers(0, 1000, n * segments).astype(np.int32),
+        "lo_discount": rng.integers(0, 11, n * segments).astype(np.int32),
+        "lo_orderkey": np.sort(rng.integers(0, 1 << 16, n * segments))
+        .astype(np.int32),
+        "lo_revenue": rng.integers(1, 600_000, n * segments).astype(np.int32),
+        "fare": np.round(rng.gamma(3.0, 9.0, n * segments), 2),
+    }
+    schema = Schema.build("aggs", dimensions=[
+        ("d_year", "INT"), ("p_brand", "INT"), ("lo_discount", "INT"),
+        ("lo_orderkey", "INT")], metrics=[("lo_revenue", "INT"),
+                                          ("fare", "DOUBLE")])
+    cfg = TableConfig(table_name="aggs", indexing=IndexingConfig(
+        no_dictionary_columns=["lo_revenue", "fare"]))
+    segs = []
+    for i in range(segments):
+        path = tmp_path_factory.mktemp("torch_cuda_aggs") / f"s{i}"
+        SegmentBuilder(schema, cfg, f"s{i}").build(
+            {k: v[i * n:(i + 1) * n] for k, v in cols.items()}, path)
+        segs.append(load_segment(path))
+    return schema, segs
+
+
+# one plan of each matrix kind, and the sparse DISTINCT on the presorted
+# and the sort path: (sql, mode)
+MATRIX_PLANS = [
+    ("SELECT d_year, DISTINCTCOUNT(p_brand), PERCENTILE(lo_discount, 90) "
+     "FROM aggs WHERE lo_revenue > 1000 GROUP BY d_year", "group_by"),
+    ("SELECT d_year, PERCENTILETDIGEST(fare, 95), PERCENTILEEST(lo_revenue, 5), "
+     "HISTOGRAM(fare, 0, 100, 20) FROM aggs GROUP BY d_year", "group_by"),
+    ("SELECT DISTINCTCOUNT(lo_discount), PERCENTILETDIGEST(fare, 50), "
+     "HISTOGRAM(lo_revenue, 0, 600000, 9) FROM aggs", "aggregation"),
+    ("SET sparseGroupBy = true; SET numGroupsLimit = 5000; SELECT "
+     "lo_orderkey, DISTINCTCOUNT(lo_discount), SUM(lo_revenue) FROM aggs "
+     "GROUP BY lo_orderkey ORDER BY lo_orderkey LIMIT 5000", "presorted"),
+    ("SET sparseGroupBy = true; SELECT d_year, lo_orderkey, "
+     "DISTINCTCOUNT(lo_discount) FROM aggs GROUP BY d_year, lo_orderkey",
+     "sort"),
+]
+
+
+@pytest.mark.parametrize("sql,mode", MATRIX_PLANS)
+def test_matrix_run_program_on_the_card_matches_cpu(cuda, agg_table, sql,
+                                                    mode):
+    from pinot_tpu_torch.engine.plan import SegmentPlanner
+    from pinot_tpu_torch.ops.kernels import run_program
+    from pinot_tpu_torch.query.parser.sql import parse_sql
+    from pinot_tpu_torch.segment.device_cache import SegmentDeviceView
+
+    _, segs = agg_table
+    plan = SegmentPlanner(parse_sql(sql), segs[0]).plan()
+    program = plan.program
+    assert program.mode == ("group_by_sparse" if mode in ("presorted", "sort")
+                            else mode)
+    assert program.keys_presorted == (mode == "presorted")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        view = SegmentDeviceView(segs[0], dev)
+        arrays, packed = plan.gather_arrays_packed(view)
+        params = tuple(torch.from_numpy(np.array(p)).to(dev)
+                       for p in plan.params)
+        outs[dev] = run_program(program, arrays, params, segs[0].num_docs,
+                                view.padded, packed=packed, device=dev)
+    torch.cuda.synchronize()
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        got = got.cpu()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if got.is_floating_point():  # float64 sums: another order of adds
+            torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+        else:
+            assert torch.equal(got, want)
+
+
+def test_aggmix_on_the_card_matches_cpu(cuda, agg_table):
+    """The slice's device kinds in one family query: kernel A launches
+    for the sums and for every count pass."""
+    schema, segs = agg_table
+    sql = ("SELECT d_year, DISTINCTCOUNT(p_brand), DISTINCTCOUNTHLL(p_brand), "
+           "PERCENTILE(lo_discount, 90), MODE(lo_discount), "
+           "HISTOGRAM(lo_revenue, 0, 600000, 10), "
+           "PERCENTILETDIGEST(fare, 95), STDDEVPOP(lo_revenue), "
+           "CORR(lo_discount, fare) FROM aggs GROUP BY d_year LIMIT 100")
+    gpu, cpu = QueryExecutor(device="cuda"), QueryExecutor(device="cpu")
+    for qe in (gpu, cpu):
+        qe.add_table(schema, segs)
+    before = _cuda.LAUNCHES["limb_sums"]
+    got = gpu.execute_sql(sql)
+    # the sum planes, the occupancy, the value histogram, two adaptive
+    # passes: one launch each for the family
+    assert _cuda.LAUNCHES["limb_sums"] - before == 5
+    assert got.num_device_dispatches == 1
+    want = cpu.execute_sql(sql)
+    rows_g = sorted(map(tuple, got.result_table.rows))
+    rows_w = sorted(map(tuple, want.result_table.rows))
+    assert len(rows_g) == len(rows_w) == 7
+    for rg, rw in zip(rows_g, rows_w):
+        assert rg[:-2] == rw[:-2]
+        # the moment sums of floats add in another order on the card:
+        # STDDEVPOP to rtol 1e-12; CORR, near 0 here, finalizes by a
+        # difference of nearly equal terms, so its rounding is held
+        # absolutely, to 1e-12 of its [-1, 1] range
+        np.testing.assert_allclose(rg[-2], rw[-2], rtol=1e-12)
+        assert abs(rg[-1] - rw[-1]) <= 1e-12

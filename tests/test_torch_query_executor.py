@@ -126,6 +126,9 @@ QUERIES = [
     # HAVING on an aggregate
     (f"SELECT p_brand, COUNT(*) FROM {TABLE} WHERE d_year = 1996 "
      "GROUP BY p_brand HAVING COUNT(*) > 4 LIMIT 1000", True, False),
+    # PERCENTILE over a dictionary column (a value histogram per group)
+    (f"SELECT d_year, PERCENTILE(lo_discount, 50) FROM {TABLE} "
+     "GROUP BY d_year", True, False),
 ]
 
 
@@ -192,9 +195,12 @@ def test_cpu_run_launches_no_kernel(tables):
 
 @pytest.mark.parametrize("sql", [
     f"SELECT d_year, lo_revenue FROM {TABLE} LIMIT 10",
+    # PERCENTILE over a raw column: the JAX package's host engine
     f"SELECT d_year, PERCENTILE(lo_revenue, 50) FROM {TABLE} GROUP BY d_year",
     f"SELECT lo_revenue, COUNT(*) FROM {TABLE} GROUP BY lo_revenue",
     f"SELECT a.d_year FROM {TABLE} a JOIN {TABLE} b ON a.p_brand = b.p_brand",
+    f"SELECT d_year, SUMMV(lo_revenue) FROM {TABLE} GROUP BY d_year",
+    f"SELECT d_year, EXPRMIN(lo_revenue, lo_tax) FROM {TABLE} GROUP BY d_year",
 ])
 def test_unported_shapes_raise(tables, sql):
     with pytest.raises(UnsupportedQueryError):

@@ -144,6 +144,20 @@ PLAN_SQLS = [
     "ORDER BY code, brand, year LIMIT 500",
     "SET sparseGroupBy = true; SET numGroupsLimit = 50; SELECT brand, "
     "SUM(rev), MIN(price) FROM t WHERE year > 1993 GROUP BY brand",
+    # DISTINCTCOUNT in the sparse (sort-based) mode, the ids packed into
+    # the key
+    "SET sparseGroupBy = true; SELECT year, DISTINCTCOUNT(brand) FROM t "
+    "GROUP BY year",
+    # PERCENTILE over a dictionary column: a value histogram
+    "SELECT year, PERCENTILE(brand, 50) FROM t GROUP BY year",
+    # the adaptive histogram: the rebased f32 plane of a raw DOUBLE, the
+    # value plane of a raw INT; HISTOGRAM's fixed bins; the moments
+    "SELECT region, PERCENTILETDIGEST(price, 95), PERCENTILEEST(rev, 20), "
+    "HISTOGRAM(score, -10, 10, 8), STDDEVSAMP(rev), CORR(price, big), "
+    "KURTOSIS(year), BOOLOR(brand) FROM t GROUP BY region LIMIT 10",
+    # the occupancy of 400 brands x 3000 codes x 7 years sends it sparse
+    "SELECT code, year, DISTINCTCOUNTHLL(brand), COUNT(*) FROM t "
+    "GROUP BY code, year ORDER BY code, year LIMIT 100",
 ]
 
 
@@ -161,11 +175,12 @@ def test_programs_equal_jax(built, sql):
 
 @pytest.mark.parametrize("sql", [
     "SELECT year, rev FROM t LIMIT 10",                     # selection
-    # DISTINCTCOUNT, also in the sparse (sort-based) mode
-    "SET sparseGroupBy = true; SELECT year, DISTINCTCOUNT(brand) FROM t "
-    "GROUP BY year",
+    # PERCENTILE over a raw column: the JAX package's host engine
     "SELECT year, PERCENTILE(rev, 50) FROM t GROUP BY year",
     "SELECT year, COUNT(*) FROM t WHERE upper(region) = 'ASIA' GROUP BY year",
+    # an MV function, and EXPRMIN: the JAX package's host engine
+    "SELECT year, SUMMV(rev) FROM t GROUP BY year",
+    "SELECT year, EXPRMIN(rev, price) FROM t GROUP BY year",
 ])
 def test_out_of_slice_shapes_raise(built, sql):
     with pytest.raises(UnsupportedQueryError):
