@@ -19,11 +19,16 @@ Phases, each printing one JSON line:
            members of a ragged n and ragged live rows, a member with no
            live row, and one cluster whose range crosses every segment;
            and both kernels on the recorded inputs of every query that
-           launches them
+           launches them; and the histogram bins of HISTOGRAM and of the
+           adaptive percentile histogram on the card element-equal to the
+           port's CPU run (on values at bin edges, where a width computed
+           another way moves a row)
   data     an SSB-shaped table generated from --seed, built with the
            port's builder into --segments segments, and the same rows again
-           into 16 segments (bench.py's 16-segment q4, q3m); bench.py's
-           taxi table (seed 7) in --segments segments, its planes warmed
+           into 16 segments (bench.py's 16-segment q4, q3m); the same rows
+           with a tags-like INT multi-value column (1 to 4 values a row of
+           1000) in --segments segments (table `mvt`); bench.py's taxi table
+           (seed 7) in --segments segments, its planes warmed
   queries  every query through QueryExecutor(device="cuda").execute_sql,
            each held against a numpy oracle, with its launches of each
            kernel, device dispatches and host fetches (every count set to 0
@@ -50,11 +55,21 @@ Phases, each printing one JSON line:
                  sparse DISTINCT, the host merge) on ssb and ssb16 (16
                  dispatches, no device combine), and its sort path with the
                  ids packed into the key
-  times    p50 query latency over --iters warm runs (3 for a query slower
+             sel_limit, sel_order               selections on ssb: one
+                 family, one dispatch, one fetch of the 4 packed bitmaps
+             sel_pruned, agg_all_pruned         segment pruning on the
+                 sorted lo_orderkey: 3 of 4 segments pruned, 1 dispatch;
+                 all 4 pruned, no dispatch, rows [[0, []]]
+             mv_filter, mv_group, mv_aggs       on mvt: an any-value MV
+                 filter; GROUP BY the MV column (kernel A over the
+                 (doc x value slot) pairs); the *MV value aggregations (the
+                 matrix-shaped MV functions are refused, as the JAX
+                 package's device planner refuses them)
+  times    p50 query latency over --iters warm runs (1 for a query slower
            than 1 s)
-  layers   a warm query's host time split into parse + plan, dispatch,
-           collect (the query's one fetch and the decode) and combine +
-           reduce
+  layers   a warm query's host time split into parse + prune + plan,
+           dispatch, collect (the query's one fetch and the decode) and
+           combine + reduce (1 run for a query slower than 1 s)
   profile  device busy share and the top device kernels under
            torch.profiler (3 warm queries, 1 for a query slower than 1 s)
   geometry each kernel shape's launch geometry and the card's cluster
@@ -164,6 +179,35 @@ QUERIES.update({"q5": Q5, "q5_total": Q5_TOTAL, "aggmix": AGGMIX, "q6": Q6,
 # each is a family of one either way)
 QUERIES.update({"q4_solo": NO_BATCH + QUERIES["q4"],
                 "sparse_family_solo": NO_BATCH + QUERIES["sparse_family"]})
+# selections and segment pruning on ssb (lo_orderkey is sorted in
+# ingestion order, so the segments hold disjoint key ranges; the BETWEEN
+# range lies inside the second segment's)
+QUERIES.update({
+    "sel_limit": "SELECT lo_orderkey, d_year, lo_revenue FROM ssb "
+                 "WHERE s_region = 'ASIA' AND lo_quantity < 25 LIMIT 1000",
+    "sel_order": "SELECT lo_orderkey, lo_revenue FROM ssb WHERE d_year = 1993 "
+                 "AND lo_quantity < 3 ORDER BY lo_revenue DESC, lo_orderkey "
+                 "LIMIT 100",
+    "sel_pruned": "SELECT lo_orderkey, lo_revenue FROM ssb "
+                  "WHERE lo_orderkey BETWEEN 1500000 AND 1500999 LIMIT 1000",
+    "agg_all_pruned": "SELECT COUNT(*), HISTOGRAM(lo_revenue, 0, 1000000, 4) "
+                      "FROM ssb WHERE lo_orderkey < 0"})
+# the multi-value table: ssb's columns plus lo_tags
+MV_TABLE, MV_CARD, MV_MAX = "mvt", 1000, 4
+MV_TAGS = (3, 17, 42)
+QUERIES.update({
+    "mv_filter": "SELECT d_year, COUNT(*), SUM(lo_revenue) FROM mvt "
+                 "WHERE lo_tags IN (3, 17, 42) GROUP BY d_year",
+    "mv_group": "SELECT lo_tags, COUNT(*), SUM(lo_revenue) FROM mvt "
+                "WHERE s_region = 'ASIA' GROUP BY lo_tags LIMIT 2000",
+    "mv_aggs": "SELECT d_year, COUNTMV(lo_tags), SUMMV(lo_tags), "
+               "MINMV(lo_tags), MAXMV(lo_tags), AVGMV(lo_tags), "
+               "MINMAXRANGEMV(lo_tags) FROM mvt GROUP BY d_year"})
+# the matrix-shaped MV functions: the JAX package's device planner refuses
+# them (its host engine answers), so the port raises
+MV_REFUSED = ("SELECT d_year, DISTINCTCOUNTMV(lo_tags) FROM mvt GROUP BY d_year",
+              "SELECT d_year, PERCENTILEMV(lo_tags, 90) FROM mvt "
+              "GROUP BY d_year")
 # the kernel each query must launch (q1 is ungrouped: it launches neither;
 # the sparse GROUP BYs run torch ops)
 EXPECTED_KERNEL = {"q2": "fused_limb_sums", "q9": "fused_limb_sums",
@@ -171,11 +215,15 @@ EXPECTED_KERNEL = {"q2": "fused_limb_sums", "q9": "fused_limb_sums",
                    "q2_family": "limb_sums", "flagship_family": "limb_sums",
                    "q4": "limb_sums", "q4_solo": "fused_limb_sums",
                    "q5": "limb_sums", "q5_total": "limb_sums",
-                   "aggmix": "limb_sums"}
+                   "aggmix": "limb_sums", "mv_filter": "limb_sums",
+                   "mv_group": "limb_sums", "mv_aggs": "limb_sums"}
 # one batch family: one dispatch, one launch of kernel A per pass (one
 # fetch holds for every query)
 ONE_FAMILY = ("q2_family", "flagship_family", "q4", "sparse_family", "q5",
-              "q5_total", "aggmix")
+              "q5_total", "aggmix", "sel_limit", "sel_order", "mv_filter",
+              "mv_group", "mv_aggs")
+# segments pruned, and the dispatches left
+PRUNED = {"sel_pruned": (3, 1), "agg_all_pruned": (4, 0)}
 # kernel A's passes over a family: the sums (counts) pass, then one pass per
 # occupancy or value histogram and two per adaptive histogram
 FAMILY_LAUNCHES = {"q5": 4, "q5_total": 3, "aggmix": 5}
@@ -184,7 +232,7 @@ SPARSE_QUERIES = ("q3", "q3_sort", "q3m", "sparse_family",
 DEVICE_COMBINE = ("q3", "q3m", "sparse_family", "sparse_family_solo")
 # results in ORDER BY order, compared row for row
 ORDERED = ("q3", "q3_sort", "q3m", "sparse_family", "sparse_family_solo",
-           "q6", "q6m", "q6_sort")
+           "q6", "q6m", "q6_sort", "sel_limit", "sel_order", "sel_pruned")
 # the queries whose kernel A passes the kernel table times shape by shape
 MATRIX_QUERIES = ("q5", "q5_total", "aggmix")
 # their kernel A passes in launch order
@@ -194,7 +242,9 @@ PASS_LABELS = {"q5": ("counts", "distinct", "percentile pass 1",
                             "percentile pass 2"),
                "aggmix": ("sums", "distinct", "value histogram",
                           "percentile pass 1", "percentile pass 2")}
-# a query slower than this takes 3 warm runs in `times` and `layers`, 1 in
+# the MV queries' kernel A launches, one a query (a family of 4)
+MV_QUERIES = ("mv_filter", "mv_group", "mv_aggs")
+# a query slower than this takes 1 warm run in `times`, `layers` and
 # `profile`
 SLOW_QUERY_MS = 1000.0
 
@@ -219,6 +269,14 @@ def gen_ssb(rows: int, seed: int) -> dict:
         "lo_orderkey": np.sort(
             rng.integers(0, max(1 << 22, rows // 10), rows)).astype(np.int32),
     }
+
+
+def gen_tags(rows: int, seed: int):
+    """The lo_tags column of `mvt`: 1 to 4 values a row, each one of
+    MV_CARD, drawn from --seed + 1; (flat values, lengths)."""
+    rng = np.random.default_rng(seed + 1)
+    lens = rng.integers(1, MV_MAX + 1, rows)
+    return rng.integers(0, MV_CARD, int(lens.sum())).astype(np.int32), lens
 
 
 def gen_taxi(rows: int) -> dict:
@@ -342,6 +400,53 @@ def taxi_oracle(cols: dict) -> dict:
               Approx(np.quantile(fare, 0.5), 0.02), [float(c) for c in hist]]]
     return {"q5": q5, "q5_total": total}
 
+
+
+def selection_mv_oracle(cols: dict, tags, per: int) -> dict:
+    """The selections, the pruned queries and the MV queries, from the
+    generated columns with numpy alone: rows in row (= segment) order;
+    the MV columns as (doc, value) pairs, duplicates included."""
+    out = {}
+    okey = cols["lo_orderkey"].astype(np.int64)
+    rev = cols["lo_revenue"].astype(np.int64)
+    year = cols["d_year"].astype(np.int64)
+    qty = cols["lo_quantity"]
+    asia = cols["s_region"] == "ASIA"
+    hit = np.flatnonzero(asia & (qty < 25))[:1000]
+    out["sel_limit"] = [[int(okey[i]), int(year[i]), int(rev[i])] for i in hit]
+    m = np.flatnonzero((year == 1993) & (qty < 3))
+    top = m[np.lexsort((okey[m], -rev[m]))][:100]
+    out["sel_order"] = [[int(okey[i]), int(rev[i])] for i in top]
+    m = np.flatnonzero((okey >= 1500000) & (okey <= 1500999))[:1000]
+    if not (len(m) and per <= m[0] and m[-1] < 2 * per
+            and okey[per - 1] < 1500000 < 1500999 < okey[2 * per]):
+        raise AssertionError("sel_pruned's key range is not inside segment 1")
+    out["sel_pruned"] = [[int(okey[i]), int(rev[i])] for i in m]
+    out["agg_all_pruned"] = [[0, []]]
+
+    flat, lens = tags
+    doc = np.repeat(np.arange(len(lens)), lens)
+    hit = np.zeros(len(lens), dtype=bool)
+    hit[doc[np.isin(flat, MV_TAGS)]] = True
+    out["mv_filter"] = [
+        [y, int((hit & (year == y)).sum()),
+         float(rev[hit & (year == y)].sum())]
+        for y in range(1992, 1999) if (hit & (year == y)).any()]
+    pair = asia[doc]
+    cnt = np.bincount(flat[pair], minlength=MV_CARD)
+    psum = np.bincount(flat[pair], weights=rev[doc[pair]].astype(np.float64),
+                       minlength=MV_CARD)
+    out["mv_group"] = [[int(t), int(cnt[t]), float(psum[t])]
+                       for t in np.nonzero(cnt)[0]]
+    rows = []
+    year_of_value = year[doc]
+    for y in range(1992, 1999):
+        v = flat[year_of_value == y].astype(np.int64)
+        lo, hi = float(v.min()), float(v.max())
+        rows.append([y, len(v), float(v.sum()), lo, hi, float(v.sum()) / len(v),
+                     hi - lo])
+    out["mv_aggs"] = rows
+    return out
 
 
 def oracle(cols: dict) -> dict:
@@ -539,11 +644,12 @@ def recording(owner, name):
 
 def phase_data(args, torch):
     """The generated rows, built once into --segments segments (table
-    `ssb`) and once more into FAMILY_SEGMENTS segments (table `ssb16`), and
+    `ssb`), once more into FAMILY_SEGMENTS segments (table `ssb16`), and
+    with the lo_tags column into --segments segments (table `mvt`), and
     bench.py's taxi rows into --segments segments (table `taxi`); returns
-    {table: (schema, segments)}, the ssb and taxi columns and the build
-    dir."""
-    from pinot_tpu_torch.segment.builder import SegmentBuilder
+    {table: (schema, segments)}, the ssb columns, the tags, the taxi
+    columns and the build dir."""
+    from pinot_tpu_torch.segment.builder import MultiValues, SegmentBuilder
     from pinot_tpu_torch.segment.loader import load_segment
     from pinot_tpu_torch.spi.data_types import Schema
     from pinot_tpu_torch.spi.table_config import IndexingConfig, TableConfig
@@ -572,6 +678,26 @@ def phase_data(args, torch):
         tables[name] = (schema, segments)
         build_s[name] = time.perf_counter() - t1
     t1 = time.perf_counter()
+    tags = gen_tags(rows, args.seed)
+    schema = Schema.build(MV_TABLE,
+                          dimensions=SCHEMA_DIMS + [("lo_tags", "INT", False)],
+                          metrics=SCHEMA_METRICS)
+    cfg = TableConfig(table_name=MV_TABLE, indexing=IndexingConfig(
+        no_dictionary_columns=RAW_COLUMNS))
+    per = rows // args.segments
+    offsets = np.r_[0, np.cumsum(tags[1])]
+    segments = []
+    for i in range(args.segments):
+        sl = slice(i * per, (i + 1) * per)
+        d = f"{tmp}/{MV_TABLE}_{i}"
+        seg_cols = {k: v[sl] for k, v in cols.items()}
+        seg_cols["lo_tags"] = MultiValues(
+            tags[0][offsets[i * per]:offsets[(i + 1) * per]], tags[1][sl])
+        SegmentBuilder(schema, cfg, f"{MV_TABLE}_{i}").build(seg_cols, d)
+        segments.append(load_segment(d))
+    tables[MV_TABLE] = (schema, segments)
+    build_s[MV_TABLE] = time.perf_counter() - t1
+    t1 = time.perf_counter()
     taxi = gen_taxi(rows)
     schema = Schema.build(TAXI_TABLE, dimensions=[("pickup_day", "INT"),
                                                   ("passenger_count", "INT")],
@@ -591,19 +717,19 @@ def phase_data(args, torch):
           "tables": {k: {"segments": len(s), "rows_per_segment": rows // len(s)}
                      for k, (_, s) in tables.items()},
           "seed": args.seed, "generate_s": t_gen, "build_s": build_s,
-          "setup_s": time.perf_counter() - t0, "dir": tmp})
-    return tables, cols, taxi, tmp
+          "setup_s": time.perf_counter() - t0, "dir": tmp,
+          "mv_values": int(tags[1].sum()),
+          "mv_matrix_bytes": rows * MV_MAX * 4})
+    return tables, cols, tags, taxi, tmp
 
 
 def family_count(qe, sql) -> int:
     """Batch families (and lone segments) the query's plans form: the
     device dispatches it makes outside the device combine's merge."""
-    from pinot_tpu_torch.query.optimizer import optimize_filter
     from pinot_tpu_torch.query.parser.sql import parse_sql
 
     query = parse_sql(sql)
-    query.filter = optimize_filter(query.filter)
-    segments = qe._table(query.table_name).segments
+    segments, _ = qe.prune_segments(query, qe._table(query.table_name).segments)
     plans = qe.plan_segments(query, segments)
     return len(qe._batch_families(query, segments, plans)), \
         {p.program.mode for p in plans}
@@ -648,8 +774,14 @@ def phase_queries(torch, qe, expected, _cuda, interp):
         kernel = EXPECTED_KERNEL.get(qname)
         if kernel is not None and per_query[qname][kernel] == 0:
             raise AssertionError(f"{qname} did not launch {kernel}")
-        if fetches[qname] != 1:
+        if fetches[qname] != min(1, resp.num_device_dispatches):
             raise AssertionError(f"{qname}: {fetches[qname]} host fetches")
+        pruned, dispatches = PRUNED.get(qname, (0, None))
+        if resp.num_segments_pruned != pruned or dispatches not in (
+                None, resp.num_device_dispatches):
+            raise AssertionError(
+                f"{qname}: {resp.num_segments_pruned} segments pruned, "
+                f"{resp.num_device_dispatches} dispatches")
         families[qname], modes = family_count(qe, QUERIES[qname])
         if qname in ONE_FAMILY and (resp.num_device_dispatches != 1
                                     or families[qname] != 1):
@@ -673,8 +805,19 @@ def phase_queries(torch, qe, expected, _cuda, interp):
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"the main path never launched {k}")
+    refused = {}
+    for sql in MV_REFUSED:
+        try:
+            qe.execute_sql(sql)
+        except interp_unsupported() as e:
+            refused[sql] = str(e)
+        else:
+            raise AssertionError(f"not refused: {sql}")
     emit({"phase": "queries", "rows_checked": {k: len(r.result_table.rows)
                                                for k, r in results.items()},
+          "refused": refused,
+          "segments_pruned": {k: r.num_segments_pruned
+                              for k, r in results.items()},
           "oracle": "equal", "launches": launches,
           "launches_per_query": per_query, "first_run": cold,
           "host_fetches": fetches, "device_combines": combines,
@@ -685,6 +828,12 @@ def phase_queries(torch, qe, expected, _cuda, interp):
           "resident_bytes": qe.executor.cache.bytes_used(),
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     return launches, per_query
+
+
+def interp_unsupported():
+    from pinot_tpu_torch.engine.aggregation import UnsupportedQueryError
+
+    return UnsupportedQueryError
 
 
 def phase_geometry(torch, _cuda, mxu, fg, recorded) -> None:
@@ -712,24 +861,22 @@ def phase_geometry(torch, _cuda, mxu, fg, recorded) -> None:
 
 def phase_layers(torch, qe, iters, card, slow) -> dict:
     """Where a warm query's time goes, layer by layer, with the host clock:
-    parse + plan, dispatch (planes already resident; every family or
-    segment, or the device combine; ends in torch.cuda.synchronize(), so it
-    holds the device time), collect (the query's one device->host copy and
-    the decode), combine + reduce. Medians over `iters` runs (3 for the
+    parse + prune + plan, dispatch (planes already resident; every family
+    or segment, or the device combine; ends in torch.cuda.synchronize(), so
+    it holds the device time), collect (the query's one device->host copy
+    and the decode), combine + reduce. Medians over `iters` runs (1 for the
     queries in `slow`)."""
     from pinot_tpu_torch.engine.reduce import BrokerReducer
-    from pinot_tpu_torch.query.optimizer import optimize_filter
     from pinot_tpu_torch.query.parser.sql import parse_sql
 
     out = {}
     for qname, sql in QUERIES.items():
         ts = []
-        for _ in range(3 if qname in slow else iters):
+        for _ in range(1 if qname in slow else iters):
             t0 = time.perf_counter()
             query = parse_sql(sql)
-            query.filter = optimize_filter(query.filter)
             table = qe._table(query.table_name)
-            segments = table.segments
+            segments, _ = qe.prune_segments(query, table.segments)
             plans = qe.plan_segments(query, segments)
             t1 = time.perf_counter()
             pending = qe.dispatch_segments(query, segments, plans)
@@ -744,7 +891,7 @@ def phase_layers(torch, qe, iters, card, slow) -> dict:
         out[qname] = dict(zip(("parse_plan_ms", "dispatch_ms", "collect_ms",
                                "combine_reduce_ms"), map(float, med)))
     emit({"phase": "layers", "card": card, "iters": iters,
-          "iters_3": sorted(slow), "layers": out})
+          "iters_1": sorted(slow), "layers": out})
     return out
 
 
@@ -757,7 +904,9 @@ def phase_profile(torch, qe, card, slow) -> dict:
     out = {}
     for qname in ("q2", "q2_unfused", "flagship", "q2_family", "q3",
                   "q3_sort", "q3m", "sparse_family", "sparse_family_solo",
-                  "q5", "q5_total", "aggmix", "q6", "q6m", "q6_sort"):
+                  "q5", "q5_total", "aggmix", "q6", "q6m", "q6_sort",
+                  "sel_limit", "sel_order", "mv_filter", "mv_group",
+                  "mv_aggs"):
         runs = 1 if qname in slow else 3
         if runs > 1:
             qe.execute_sql(QUERIES[qname])
@@ -1056,6 +1205,66 @@ def phase_edges(torch, mxu, fg, geometry, _cuda, seed) -> dict:
     return out
 
 
+def _hist_programs(ir, bins_fixed, bins_adaptive, groups):
+    """A HISTOGRAM over [lo, hi] = params 0 and 1 of the float64 plane 0,
+    and the adaptive percentile histogram of the rebased float32 plane 2
+    over params 2 and 3, both grouped by the int32 plane 1."""
+    fixed = ir.AggOp("hist_fixed", vexpr=ir.Col(0), bins=bins_fixed,
+                     lo_param=0, hi_param=1)
+    adaptive = ir.AggOp("hist_adaptive", vexpr=ir.Col(2), bins=bins_adaptive,
+                        lo_param=2, hi_param=3, pct=99.0, prebased=True)
+    return ir.Program(mode="group_by", filter=None, aggs=(fixed, adaptive),
+                      group_slots=(1,), group_strides=(1,), num_groups=groups)
+
+
+def phase_bin_edges(torch, interp, seed) -> dict:
+    """The histogram bins on the card against the port's CPU run of the
+    same program on the same inputs, element-equal (the CPU tests hold the
+    CPU run to the JAX package's compiled program): the values whose bins
+    an IEEE division of the widths moves (HISTOGRAM(x, 0, 3, 10) of 0.3,
+    0.6, ..., 2.7; the rebased 31.226402 over [-30.9284687, 29.63817787]
+    with 17 bins, fine bin 12 of bucket 8), then 2^22 values on and near
+    bin edges in 1900 groups (kernel A counts the adaptive passes)."""
+    from pinot_tpu_torch.engine import ir
+
+    def run(program, host, nd, params):
+        outs = {}
+        for dev in ("cpu", DEVICE):
+            arrays, tparams = interp.planes_from_numpy(host, params, dev)
+            outs[dev] = [o.cpu() for o in interp.run_program(
+                program, arrays, tparams, nd, len(host[0]), device=dev)]
+        return outs
+
+    out = {}
+    padded = 8192
+    x = np.zeros(padded)
+    x[:8] = [0.3, 0.6, 0.7, 0.9, 1.5, 2.1, 2.4, 2.7]
+    v = np.zeros(padded, np.float32)
+    v[:8] = np.float32(31.226402)
+    params = (np.float64(0.0), np.float64(3.0), np.float64(-30.9284687),
+              np.float64(29.63817787))
+    outs = run(_hist_programs(ir, 10, 17, 1),
+               (x, np.zeros(padded, np.int32), v), 8, params)
+    fixed, adaptive = outs[DEVICE][1][0], outs[DEVICE][2][0]
+    if fixed.tolist() != [1, 1, 2, 0, 1, 0, 1, 1, 0, 1]:
+        raise AssertionError(f"HISTOGRAM edge bins on the card: {fixed}")
+    if int(adaptive[34]) != 8 or int(adaptive[17 + 12]) != 8:
+        raise AssertionError(f"adaptive bins on the card: {adaptive}")
+    big = []
+    rng = np.random.default_rng(seed)
+    n = 1 << 22
+    x = rng.integers(0, 31, n) * 0.1 + rng.choice([0.0, 1e-12, -1e-12], n)
+    gid = rng.integers(0, 1900, n).astype(np.int32)
+    span = 29.63817787 + 30.9284687
+    v = (rng.integers(0, 289 * 4, n) * (span / (289 * 4))).astype(np.float32)
+    big = run(_hist_programs(ir, 10, 17, 1900), (x, gid, v), n, params)
+    for label, o in (("edges", outs), ("edges_2^22", big)):
+        for i, (got, want) in enumerate(zip(o[DEVICE], o["cpu"])):
+            out[f"bins/{label}/output{i}"] = check_equal(
+                torch, f"bins {label} output {i}", got, want)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=2024)
@@ -1121,13 +1330,18 @@ def main(argv=None) -> int:
         del planes, gid
     torch.cuda.empty_cache()
 
-    tables, cols, taxi_cols, tmp = phase_data(args, torch)
+    parity.update(phase_bin_edges(torch, interp, args.seed))
+    torch.cuda.empty_cache()
+
+    tables, cols, tags, taxi_cols, tmp = phase_data(args, torch)
     segments = tables["ssb"][1]
     try:
         expected = oracle(cols)
         expected.update(matrix_oracle(cols, HyperLogLog))
         expected.update(taxi_oracle(taxi_cols))
-        del cols, taxi_cols
+        expected.update(selection_mv_oracle(cols, tags,
+                                            args.rows_per_segment))
+        del cols, taxi_cols, tags
         qe = QueryExecutor(device=DEVICE)
         for schema, segs in tables.values():
             qe.add_table(schema, segs)
@@ -1152,7 +1366,8 @@ def main(argv=None) -> int:
                 ("flagship_family", mxu_groupby, "limb_sums", 1),
                 ("q4", mxu_groupby, "limb_sums", 1),
                 *((q, mxu_groupby, "limb_sums", FAMILY_LAUNCHES[q])
-                  for q in MATRIX_QUERIES)):
+                  for q in MATRIX_QUERIES),
+                *((q, mxu_groupby, "limb_sums", 1) for q in MV_QUERIES)):
             with recording(owner, fn) as calls:
                 qe.execute_sql(QUERIES[qname])
             if len(calls) != calls_want:
@@ -1170,7 +1385,7 @@ def main(argv=None) -> int:
                     torch, f"limb_sums {qname} inputs, segment {k}",
                     mxu_groupby.limb_sums(planes, gid, G),
                     mxu_groupby.limb_sums_plain(planes, gid, G))
-        for qname in ("q2_family", "flagship_family", "q4"):
+        for qname in ("q2_family", "flagship_family", "q4") + MV_QUERIES:
             planes, gid, G = recorded[qname][0]
             parity[f"limb_sums/{qname}_inputs/family"] = check_equal(
                 torch, f"limb_sums {qname} inputs, family of "
@@ -1191,7 +1406,7 @@ def main(argv=None) -> int:
         p50, quartiles, slow = {}, {}, set()
         for qname, sql in QUERIES.items():
             ts = []
-            while len(ts) < (3 if qname in slow else args.iters):
+            while len(ts) < (1 if qname in slow else args.iters):
                 t0 = time.perf_counter()
                 qe.execute_sql(sql)
                 torch.cuda.synchronize()
@@ -1204,7 +1419,7 @@ def main(argv=None) -> int:
         emit({"phase": "times", "card": dev["nvidia_smi"],
               "query_p50_ms": p50, "query_p25_p75_ms": quartiles,
               "rows_per_s": {k: rows / (v / 1e3) for k, v in p50.items()},
-              "iters": args.iters, "iters_3": sorted(slow)})
+              "iters": args.iters, "iters_1": sorted(slow)})
         phase_layers(torch, qe, args.iters, dev["nvidia_smi"], slow)
         phase_profile(torch, qe, dev["nvidia_smi"], slow)
         del qe
@@ -1224,7 +1439,7 @@ def main(argv=None) -> int:
                 parity[f"fused_limb_sums/{qname}_plan/segment0"],
                 f"{qname}: the main path's raw planes of the {len(segments)} "
                 "segments, in turn"))
-        for qname in ("q2_family", "q4"):
+        for qname in ("q2_family", "q4") + MV_QUERIES:
             S = recorded[qname][0][0].shape[0]
             kernels.append(kernel_a_row(
                 torch, mxu_groupby, _cuda, recorded[qname],

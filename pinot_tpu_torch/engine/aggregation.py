@@ -1,8 +1,10 @@
 """Aggregation functions: device lowering + host semantics.
 
 The port of pinot_tpu/engine/aggregation.py for every aggregation the JAX
-package lowers to its device over single-value columns. Each SQL
-aggregation splits into
+package lowers to its device: those over single-value columns, and the
+*MV value functions (COUNTMV, SUMMV, MINMV, MAXMV, AVGMV, MINMAXRANGEMV)
+over a multi-value column, which reduce each doc's values to one value
+first. Each SQL aggregation splits into
   1. primitive device reductions (ir.AggOp: count / sum / sumsq / min /
      max, and the matrix-shaped distinct_bitmap / value_hist /
      hist_adaptive / hist_fixed) run by the segment interpreter
@@ -14,10 +16,12 @@ aggregation splits into
 Result types follow the reference (AggregationFunction
 .getFinalResultColumnType): COUNT -> LONG, SUM/MIN/MAX/AVG/PERCENTILE* ->
 DOUBLE, DISTINCTCOUNT -> INT, DISTINCTCOUNTHLL/THETA -> LONG. Where the JAX
-package sends a query to its host engine (MV-suffixed functions, EXPRMIN
-and the other object-valued functions, nullable operands of the
-non-filterable functions under enableNullHandling, a FILTER clause over
-them), the port raises UnsupportedQueryError: it has no host engine.
+package sends a query to its host engine (the matrix-shaped MV functions
+such as DISTINCTCOUNTMV and PERCENTILEMV, the matrix-shaped functions over
+a multi-value column, EXPRMIN and the other object-valued functions,
+nullable operands of the non-filterable functions under
+enableNullHandling, a FILTER clause over them), the port raises
+UnsupportedQueryError: it has no host engine.
 """
 
 from __future__ import annotations
@@ -208,18 +212,18 @@ _MOMENT_FNS = ("stddevpop", "stddevsamp", "varpop", "varsamp")
 
 def get_semantics(name: str, extra: tuple = ()) -> AggSemantics:
     name, extra = canonicalize(name, extra)
-    if name == "count":
+    if name in ("count", "countmv"):
         return AggSemantics(lambda a, b: a + b, lambda s: s, "LONG", 0)
-    if name == "sum":
+    if name in ("sum", "summv"):
         return AggSemantics(lambda a, b: a + b, lambda s: s, "DOUBLE", 0.0)
-    if name == "min":
+    if name in ("min", "minmv"):
         return AggSemantics(min, lambda s: s, "DOUBLE", math.inf)
-    if name == "max":
+    if name in ("max", "maxmv"):
         return AggSemantics(max, lambda s: s, "DOUBLE", -math.inf)
-    if name == "minmaxrange":
+    if name in ("minmaxrange", "minmaxrangemv"):
         return AggSemantics(lambda a, b: (min(a[0], b[0]), max(a[1], b[1])),
                             lambda s: s[1] - s[0], "DOUBLE", -math.inf)
-    if name == "avg":
+    if name in ("avg", "avgmv"):
         return AggSemantics(lambda a, b: (a[0] + b[0], a[1] + b[1]),
                             lambda s: (s[0] / s[1]) if s[1] else math.nan,
                             "DOUBLE", math.nan)
@@ -308,7 +312,12 @@ class AggPlanContext:
     def lower_filter(self, f):  # pragma: no cover
         raise NotImplementedError
 
-    def dict_info(self, e: ExpressionContext):  # pragma: no cover
+    def dict_info(self, e: ExpressionContext,
+                  sv_only: bool = False):  # pragma: no cover
+        raise NotImplementedError
+
+    def mv_reduce_expr(self, e: ExpressionContext,
+                       op: str):  # pragma: no cover
         raise NotImplementedError
 
     def col_meta(self, e: ExpressionContext):  # pragma: no cover
@@ -330,6 +339,60 @@ _HIST_BINS = 2048  # fixed-bin device histogram resolution for raw columns
 _TDIGEST_COMPRESSION = 500
 # the functions a FILTER (WHERE ...) clause composes with on the device
 _FILTERABLE = frozenset(("count", "sum", "min", "max", "avg", "minmaxrange"))
+_MV_VALUE_FNS = ("countmv", "summv", "minmv", "maxmv", "avgmv",
+                 "minmaxrangemv")
+
+
+def _lower_mv_value_agg(ctx: AggPlanContext, name: str, label: str,
+                        sem: AggSemantics, arg) -> LoweredAgg:
+    """The *MV value functions: the MV column reduces to one value per doc
+    (ir.MvLutReduce), which then rides the scalar aggregations. The totals
+    equal those over every value of the matched docs."""
+
+    def op(kind: str) -> int:
+        if ctx._null_cond_for(arg) is not None:
+            raise UnsupportedQueryError(
+                f"{name} over nullable {arg} with enableNullHandling has no "
+                "device form")
+        r = ctx.mv_reduce_expr(arg, kind)
+        if r is None:
+            raise UnsupportedQueryError(f"{name} on {arg} has no device MV form")
+        ve, vmin, vmax = r
+        agg_kind = "sum" if kind in ("sum", "count") else kind
+        return ctx.add_op(ir.AggOp(agg_kind, vexpr=ve, vmin=vmin, vmax=vmax))
+
+    if name == "countmv":
+        i = op("count")
+        spec, tag = VEC_RECIPES["count"]
+        return LoweredAgg(
+            label, sem, lambda outs, g: int(outs[i][g]),
+            vec=VecAgg(spec, lambda outs, gids: (outs[i][gids],), tag))
+    if name in ("summv", "minmv", "maxmv"):
+        i = op(name[:-2])
+        spec, tag = VEC_RECIPES[name[:-2]]
+        return LoweredAgg(
+            label, sem, lambda outs, g: float(outs[i][g]),
+            vec=VecAgg(spec,
+                       lambda outs, gids: (outs[i][gids].astype(float),), tag))
+    if name == "minmaxrangemv":
+        i_min, i_max = op("min"), op("max")
+        spec, tag = VEC_RECIPES["minmaxrange"]
+        return LoweredAgg(
+            label, sem,
+            lambda outs, g: (float(outs[i_min][g]), float(outs[i_max][g])),
+            vec=VecAgg(spec,
+                       lambda outs, gids: (outs[i_min][gids].astype(float),
+                                           outs[i_max][gids].astype(float)),
+                       tag))
+    # avgmv: (sum of the values, count of the VALUES, not of the docs)
+    i_s, i_c = op("sum"), op("count")
+    spec, tag = VEC_RECIPES["avg"]
+    return LoweredAgg(
+        label, sem,
+        lambda outs, g: (float(outs[i_s][g]), int(outs[i_c][g])),
+        vec=VecAgg(spec,
+                   lambda outs, gids: (outs[i_s][gids].astype(float),
+                                       outs[i_c][gids]), tag))
 
 
 def _mul(a: ir.ValueExpr, b: ir.ValueExpr) -> ir.ValueExpr:
@@ -418,6 +481,9 @@ def lower_aggregation(ctx: AggPlanContext, expr: ExpressionContext,
             vec=VecAgg(spec,
                        lambda outs, gids, _i=i: (outs[_i][gids].astype(float),),
                        tag))
+
+    if name in _MV_VALUE_FNS:
+        return _lower_mv_value_agg(ctx, name, label, sem, data[0])
 
     if name == "minmaxrange":
         i_min = _scalar_op(ctx, "min", data[0], _cond)
@@ -551,7 +617,7 @@ def _lower_digest(ctx: AggPlanContext, arg, name, label, sem,
     the dense table; else the two-pass adaptive histogram where its table
     fits kernel A; else a fixed histogram of _HIST_BINS bins. Each decodes
     into a t-digest."""
-    info = ctx.dict_info(arg)
+    info = ctx.dict_info(arg, sv_only=True)
     if info is not None and _numeric_dictionary(info[2]) \
             and ctx.group_card_hint * info[1] <= DENSE_GROUP_LIMIT:
         i, dictionary = _value_hist_op(ctx, arg, name)
@@ -577,7 +643,7 @@ def _lower_digest(ctx: AggPlanContext, arg, name, label, sem,
         # FLOAT/DOUBLE column bins from its pre-rebased f32 plane
         # ((v - column min), the rawf32r slot); lo is that same min.
         m = ctx.col_meta(arg)
-        if m is not None and m.encoding == "RAW" \
+        if m is not None and m.encoding == "RAW" and m.single_value \
                 and str(m.data_type) in ("FLOAT", "DOUBLE"):
             vexpr, prebased = ir.Col(ctx.slot(arg.identifier, "rawf32r")), True
         else:
@@ -637,7 +703,7 @@ def _occupancy_agg(ctx: AggPlanContext, arg, name, label, sem,
                    state_fn) -> LoweredAgg:
     """A DISTINCT-type function: one per-(group, dict id) occupancy op of
     the column; state_fn(values present in a group) builds the state."""
-    info = ctx.dict_info(arg)
+    info = ctx.dict_info(arg, sv_only=True)
     if info is None:
         raise UnsupportedQueryError(
             f"{name} needs a dict-encoded SV column: {arg}")
@@ -660,7 +726,7 @@ def _occ_row_ids(o: np.ndarray, g) -> np.ndarray:
 
 
 def _value_hist_op(ctx: AggPlanContext, arg, name):
-    info = ctx.dict_info(arg)
+    info = ctx.dict_info(arg, sv_only=True)
     if info is None:
         raise UnsupportedQueryError(
             f"{name} needs a dict-encoded SV column: {arg}")

@@ -4,7 +4,7 @@ The port of pinot_tpu/engine/combine.py (reference: GroupByCombineOperator
 merging into an IndexedTable keyed on group Records). Intermediates are
 already keyed by group VALUES, so combine is a merge using each
 aggregation's AggSemantics, or a vectorized factorize + np.{add,min,max}.at
-over the columnar group tables.
+over the columnar group tables; selection rows concatenate.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ import numpy as np
 
 from . import ir
 from .aggregation import AggSemantics
-from .results import AggIntermediate, GroupArrays, GroupByIntermediate
+from .results import (AggIntermediate, GroupArrays, GroupByIntermediate,
+                      SelectionIntermediate)
 
 _MERGE_INIT = {"add": 0.0, "min": np.inf, "max": -np.inf}
 _MERGE_AT = {"add": np.add.at, "min": np.minimum.at, "max": np.maximum.at}
@@ -26,11 +27,12 @@ def combine_batched_dense(outs_b: Sequence, plans: Sequence) -> Optional[list]:
     (every array with a leading [S] member dim): ONE np.nonzero over the
     whole [S, G] counts block and one scanned-docs reduction instead of S
     of each. Key decodes stay per member (dictionaries are segment-local).
-    Equal to each member's own collect(); None outside the dense mode and
-    when an aggregation has no columnar form (its members then decode one
+    Equal to each member's own collect(); None outside the dense mode, for
+    an MV GROUP BY (its scanned docs are not its pair counts), and when an
+    aggregation has no columnar form (its members then decode one
     by one into object states)."""
     p0 = plans[0].program
-    if p0.mode != "group_by":
+    if p0.mode != "group_by" or p0.mv_group_slot is not None:
         return None
     if any(la.vec is None for pl in plans for la in pl.lowered_aggs):
         return None
@@ -158,6 +160,20 @@ def combine_aggregation(
         for i, sem in enumerate(semantics):
             states[i] = sem.merge(states[i], im.states[i])
     return AggIntermediate(states, scanned)
+
+
+def combine_selection(
+    intermediates: Sequence[SelectionIntermediate],
+) -> SelectionIntermediate:
+    """Concatenate the segments' rows (each already capped or top-k'd to
+    offset + limit); the broker re-sorts and trims."""
+    first = intermediates[0]
+    rows = list(first.rows)
+    scanned = first.num_docs_scanned
+    for im in intermediates[1:]:
+        scanned += im.num_docs_scanned
+        rows.extend(im.rows)
+    return SelectionIntermediate(first.columns, rows, scanned)
 
 
 # -- server-side group trim (reference: TableResizer in the IndexedTable) ----

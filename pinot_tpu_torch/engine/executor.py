@@ -8,7 +8,7 @@ planes stack into [S, ...] tensors and run as ONE dispatch
 (ops/kernels.run_program_batch, kernel A with its family axis), whose
 outputs come back in one buffer. Host work is limited to planning
 (dictionary lookups), launching, and decoding occupied group keys back to
-values.
+values, or, for a selection, gathering the rows its filter bitmap marks.
 
 PyTorch launches CUDA work asynchronously, so a caller can dispatch every
 segment and family first and fetch afterwards: the device queue stays full.
@@ -25,11 +25,14 @@ from ..ops import fused_groupby
 from ..ops.kernels import (PackedOuts, pack_outputs, run_program,
                            run_program_batch, unpack_outputs)
 from ..query.context import QueryContext
+from ..segment.bitpack import unpack_bitmap
 from ..segment.device_cache import DeviceSegmentCache, pad_bucket
 from ..segment.loader import ImmutableSegment
 from ..spi.data_types import DataType
 from .plan import SegmentPlan, SegmentPlanner
-from .results import AggIntermediate, GroupArrays, GroupByIntermediate
+from .results import (AggIntermediate, GroupArrays, GroupByIntermediate,
+                      SelectionIntermediate)
+from .selection import selection_from_mask
 
 # Per-QUERY dispatch counter, thread-local because concurrent queries share
 # this module: a reset at query start and a read at its end on the query's
@@ -85,7 +88,9 @@ def batch_family_key(segment: ImmutableSegment, plan: SegmentPlan,
     sig = []
     for column, kind in plan.slots:
         m = segment.column_metadata(column)
-        if kind == "ids":
+        if kind == "mvids":
+            sig.append(("mvids", max(1, m.max_number_of_multi_values)))
+        elif kind == "ids":
             bits = m.bits_per_value or 32
             width = 32
             if bits <= 16 and packed_on:
@@ -246,6 +251,8 @@ class SegmentExecutor:
         of an earlier fetch (a member's row of a family's outputs)."""
         if isinstance(outs, PackedOuts):
             outs = unpack_outputs(outs)
+        if plan.program.mode == "selection":
+            return self._selection_result(query, segment, plan, outs[0])
         if plan.program.mode == "aggregation":
             states = [la.extract(outs, 0) for la in plan.lowered_aggs]
             return AggIntermediate(states, num_docs_scanned=int(outs[0][0]))
@@ -254,6 +261,12 @@ class SegmentExecutor:
     def _group_by_result(self, plan: SegmentPlan,
                          outs) -> GroupByIntermediate:
         num_groups = plan.program.num_groups
+        mv_docs = None
+        if plan.program.mv_group_slot is not None:
+            # an MV GROUP BY counts (doc, value) pairs; the kernel appends
+            # the matched DOC count as the last output
+            mv_docs = int(outs[-1][0])
+            outs = outs[:-1]
         counts = outs[0][:num_groups]
         gids = np.nonzero(counts)[0]
         sparse = plan.program.mode == "group_by_sparse"
@@ -275,6 +288,8 @@ class SegmentExecutor:
             scanned += trash
             # an ORDER BY pushdown trim is exact, not a groups-limit event
             trimmed = trash > 0 and not plan.program.exact_trim
+        if mv_docs is not None:
+            scanned = mv_docs  # docs matched, not (doc x value) pairs
         if all(la.vec is not None for la in plan.lowered_aggs):
             return GroupArrays(
                 key_cols,
@@ -290,6 +305,16 @@ class SegmentExecutor:
             groups[key] = [la.extract(outs, g) for la in plan.lowered_aggs]
         return GroupByIntermediate(groups, num_docs_scanned=scanned,
                                    groups_trimmed=trimmed)
+
+
+    @staticmethod
+    def _selection_result(query, segment, plan: SegmentPlan,
+                          bitmap) -> SelectionIntermediate:
+        """The selected rows of the segment's packed filter bitmap."""
+        mask = unpack_bitmap(np.asarray(bitmap), segment.num_docs)
+        return selection_from_mask(query, segment, plan.selection_columns,
+                                   mask, extra_exprs=plan.selection_exprs
+                                   or None)
 
 
 def _to_python(v):

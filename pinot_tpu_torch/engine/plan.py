@@ -1,16 +1,20 @@
 """Per-segment query planner: QueryContext + segment -> kernel Program.
 
-The port of pinot_tpu/engine/plan.py for the single-stage aggregation,
-dense GROUP BY and sparse (sort-based) GROUP BY modes. Predicates resolve
-against the segment's sorted dictionaries at planning time into device
-kernel parameters: value predicates become dict-id intervals or boolean
-LUTs, so the kernel never touches a string. The Program (engine/ir.py) is
-the same IR the JAX package builds, so both interpreters run identical
-plans.
+The port of pinot_tpu/engine/plan.py for the single-stage selection,
+aggregation, dense GROUP BY and sparse (sort-based) GROUP BY modes, over
+single- and multi-value columns. Predicates resolve against the segment's
+sorted dictionaries at planning time into device kernel parameters: value
+predicates become dict-id intervals or boolean LUTs, so the kernel never
+touches a string; a predicate on a multi-value column becomes a LUT over
+its (docs, max_mv) id matrix that matches when ANY value does. The Program
+(engine/ir.py) is the same IR the JAX package builds, so both interpreters
+run identical plans.
 
-Shapes outside the slice raise UnsupportedQueryError: selection queries,
-multi-value columns, the aggregations the JAX package answers on its host
-engine, and transforms other than arithmetic.
+Shapes the JAX package answers on its host engine raise
+UnsupportedQueryError here (the port has none): the aggregations it does
+not lower, transforms other than arithmetic, two multi-value GROUP BY
+dimensions, a multi-value aggregation under a multi-value GROUP BY.
+Selecting a multi-value column's values raises too.
 """
 
 from __future__ import annotations
@@ -24,13 +28,14 @@ import numpy as np
 from ..query.context import QueryContext
 from ..query.expressions import ExpressionContext
 from ..query.filter import FilterContext, FilterNodeType, Predicate, PredicateType
-from ..query.transforms import eval_expr_np
+from ..query.transforms import eval_expr_np, np_evaluable
 from ..segment.device_cache import SegmentDeviceView
 from ..segment.loader import ImmutableSegment
 from ..spi.data_types import DataType
 from . import ir
 from .aggregation import (DENSE_GROUP_LIMIT, AggPlanContext, LoweredAgg,
                           UnsupportedQueryError, lower_aggregation)
+from .selection import selection_columns_for
 
 SPARSE_KEY_LIMIT = ir.SPARSE_KEY_SPACE  # keys stay below the kernel sentinel
 SPARSE_GROUPS_LIMIT = 1 << 25  # cap on sparse output table slots
@@ -38,6 +43,47 @@ DEFAULT_NUM_GROUPS_LIMIT = 100_000  # reference InstancePlanMakerImplV2 default
 _SPARSE_AGG_KINDS = {"count", "sum", "sumsq", "min", "max", "distinct_bitmap"}
 # the sparse kernel ships ceil(card / 32) bitmap words per slot
 SPARSE_DISTINCT_MAX_CARD = 1024
+
+
+def _vexpr_uses_slots(ve, slots: set) -> bool:
+    """True when a value expression reads any of the given array slots."""
+    if ve is None:
+        return False
+    if isinstance(ve, (ir.Col, ir.IdsCol)):
+        return ve.slot in slots
+    if isinstance(ve, ir.DictGather):
+        return ve.ids_slot in slots or ve.dict_slot in slots
+    if isinstance(ve, ir.MvLutReduce):
+        return True  # always reads an MV matrix
+    if isinstance(ve, ir.ParamGather):
+        return _vexpr_uses_slots(ve.ids, slots)
+    if isinstance(ve, (ir.Un, ir.Cast)):
+        return _vexpr_uses_slots(ve.a, slots)
+    if isinstance(ve, ir.Bin):
+        return _vexpr_uses_slots(ve.a, slots) or _vexpr_uses_slots(ve.b, slots)
+    if isinstance(ve, ir.Where):
+        return (_vexpr_uses_slots(ve.cond, slots)
+                or _vexpr_uses_slots(ve.a, slots)
+                or _vexpr_uses_slots(ve.b, slots))
+    if isinstance(ve, ir.FilterVal):
+        return _filter_uses_slots(ve.filter, slots)
+    return False
+
+
+def _filter_uses_slots(f, slots: set) -> bool:
+    if isinstance(f, (ir.FAnd, ir.FOr)):
+        return any(_filter_uses_slots(c, slots) for c in f.children)
+    if isinstance(f, ir.FNot):
+        return _filter_uses_slots(f.child, slots)
+    if isinstance(f, ir.Lut):
+        return f.ids_slot in slots
+    if isinstance(f, ir.Null):
+        return f.null_slot in slots
+    if isinstance(f, ir.Interval):
+        return _vexpr_uses_slots(f.vexpr, slots)
+    if isinstance(f, ir.Isin):
+        return _vexpr_uses_slots(f.vexpr, slots)
+    return False
 
 
 def _orderby_prefix_trim(q) -> "int | None":
@@ -103,10 +149,12 @@ def _coerce_like(vals: np.ndarray, v):
 @dataclass
 class SegmentPlan:
     program: ir.Program
-    slots: list  # (column, kind); kind in ids|raw|rawf32r|dict|null
+    slots: list  # (column, kind); kind in ids|mvids|raw|rawf32r|dict|null
     params: list  # host param values in order (numpy scalars / arrays)
     lowered_aggs: list[LoweredAgg] = field(default_factory=list)
     group_dims: list[GroupDim] = field(default_factory=list)
+    selection_columns: list[str] = field(default_factory=list)
+    selection_exprs: dict = field(default_factory=dict)  # label -> transform
     # per-query kill switch for the single-pass fused kernel
     # (SET useFusedKernel = false)
     fused_ok: bool = True
@@ -122,6 +170,8 @@ class SegmentPlan:
                 out.append(plane)
                 if width:
                     packed.append((i, width))
+            elif kind == "mvids":
+                out.append(view.mv_dict_ids(column))
             elif kind == "raw":
                 out.append(view.raw(column))
             elif kind == "rawf32r":
@@ -162,23 +212,51 @@ class SegmentPlanner(AggPlanContext):
     def _meta(self, column: str):
         if not self.segment.has_column(column):
             raise UnsupportedQueryError(f"unknown column {column}")
-        m = self.segment.column_metadata(column)
-        if not m.single_value:
-            raise UnsupportedQueryError(
-                f"multi-value column {column} is not lowered by this port")
-        return m
+        return self.segment.column_metadata(column)
 
-    def dict_info(self, e: ExpressionContext):
-        """(ids slot, cardinality, dictionary) of a dict-encoded column;
-        None for anything else. Every column this port plans is single
-        value (`_meta` raises on the others)."""
+    def dict_info(self, e: ExpressionContext, sv_only: bool = False):
+        """(ids slot, cardinality, dictionary) of a dict-encoded column (its
+        (docs, max_mv) id matrix, slot kind mvids, for a multi-value one,
+        unless `sv_only`); None for anything else."""
         if not e.is_identifier or e.identifier == "*":
             return None
         m = self._meta(e.identifier)
-        if m.encoding != "DICT":
+        if m.encoding != "DICT" or (sv_only and not m.single_value):
             return None
-        return (self.slot(e.identifier, "ids"), m.cardinality,
+        kind = "ids" if m.single_value else "mvids"
+        return (self.slot(e.identifier, kind), m.cardinality,
                 self.segment.get_dictionary(e.identifier))
+
+    def mv_reduce_expr(self, e: ExpressionContext, op: str):
+        """(vexpr, vmin, vmax): the per-doc reduce of a numeric MV dict
+        column for the *MV aggregations, lut[id] over the id matrix with the
+        pad sentinel's LUT slot holding the op identity, so row reduces need
+        no mask. op "count" counts the non-pad slots and needs no LUT.
+        vmin / vmax bound the per-doc result when known (integer sums then
+        take the exact 32-bit paths). None for a column without that form
+        (the JAX package answers it on its host engine)."""
+        if not e.is_identifier:
+            return None
+        m = self._meta(e.identifier)
+        if m.single_value or m.encoding != "DICT":
+            return None
+        slot, card, d = self.dict_info(e)
+        max_mv = max(1, m.max_number_of_multi_values)
+        if op == "count":
+            return ir.MvLutReduce(slot, None, "count", card=card), 0, max_mv
+        vals = np.asarray(d.values)
+        if vals.dtype.kind not in "iuf" or not len(vals):
+            return None  # non-numeric, or every row empty (no dictionary)
+        if op == "sum" and vals.dtype.kind in "iu":
+            # int64 entries and int64 row sums: exact
+            lut = np.concatenate([vals.astype(np.int64),
+                                  np.zeros(1, np.int64)])
+            vmin = min(0, max_mv * int(vals[0]))
+            vmax = max(0, max_mv * int(vals[-1]))
+            return ir.MvLutReduce(slot, self.param(lut), "sum"), vmin, vmax
+        ident = {"sum": 0.0, "min": np.inf, "max": -np.inf}[op]
+        lut = np.concatenate([vals.astype(np.float64), [ident]])
+        return ir.MvLutReduce(slot, self.param(lut), op), None, None
 
     def col_meta(self, e: ExpressionContext):
         """Column metadata of a plain identifier, else None."""
@@ -243,6 +321,9 @@ class SegmentPlanner(AggPlanContext):
             return ir.ConstParam(self.param(np.float64(v) if isinstance(v, float) else np.int64(v)))
         if e.is_identifier:
             m = self._meta(e.identifier)
+            if not m.single_value:
+                raise UnsupportedQueryError(
+                    f"MV column {e.identifier} in value context")
             dt = DataType(m.data_type)
             if not dt.is_fixed_width:
                 raise UnsupportedQueryError(f"var-width column {e.identifier} in value context")
@@ -486,6 +567,7 @@ class SegmentPlanner(AggPlanContext):
     def _lower_dict_predicate(self, p: Predicate, lhs, info) -> ir.FilterNode:
         ids_slot, card, d = info
         m = self._meta(lhs.identifier)
+        mv = not m.single_value
         dt = DataType(m.data_type)
 
         def coerce(v):
@@ -495,10 +577,19 @@ class SegmentPlanner(AggPlanContext):
 
         if p.type in (PredicateType.EQ, PredicateType.NOT_EQ):
             did = d.index_of(coerce(p.values[0]))
+            if mv:
+                # MV predicates hold per VALUE ("any value matches"), so
+                # NOT_EQ inverts the LUT, not the document mask
+                lut = np.zeros(card + 1, dtype=bool)
+                if did >= 0:
+                    lut[did] = True
+                if p.type == PredicateType.NOT_EQ:
+                    lut[:card] = ~lut[:card]
+                return ir.Lut(ids_slot, self.param(lut), mv=True)
             if did < 0:
                 node = ir.FConst(False)
             else:
-                node = self._id_interval(ids_slot, did, did)
+                node = self._id_interval(ids_slot, did, did, mv, card)
             return ir.FNot(node) if p.type == PredicateType.NOT_EQ else node
 
         if p.type == PredicateType.RANGE:
@@ -510,9 +601,9 @@ class SegmentPlanner(AggPlanContext):
                 hi_id = d.insertion_index(coerce(p.upper), "right" if p.upper_inclusive else "left") - 1
             if lo_id > hi_id:
                 return ir.FConst(False)
-            if lo_id <= 0 and hi_id >= card - 1:
+            if lo_id <= 0 and hi_id >= card - 1 and not mv:
                 return ir.FConst(True)
-            return self._id_interval(ids_slot, lo_id, hi_id)
+            return self._id_interval(ids_slot, lo_id, hi_id, mv, card)
 
         if p.type in (PredicateType.IN, PredicateType.NOT_IN):
             lut = np.zeros(card + 1, dtype=bool)
@@ -522,7 +613,7 @@ class SegmentPlanner(AggPlanContext):
                     lut[did] = True
             if p.type == PredicateType.NOT_IN:
                 lut[:card] = ~lut[:card]
-            return ir.Lut(ids_slot, self.param(lut), mv=False)
+            return ir.Lut(ids_slot, self.param(lut), mv=mv)
 
         # LIKE / REGEXP_LIKE
         pattern = p.values[0]
@@ -531,9 +622,14 @@ class SegmentPlanner(AggPlanContext):
         for i, v in enumerate(d.values):
             if regex.search(str(v)) is not None:
                 lut[i] = True
-        return ir.Lut(ids_slot, self.param(lut), mv=False)
+        return ir.Lut(ids_slot, self.param(lut), mv=mv)
 
-    def _id_interval(self, ids_slot, lo_id, hi_id) -> ir.FilterNode:
+    def _id_interval(self, ids_slot, lo_id, hi_id, mv=False,
+                     card=0) -> ir.FilterNode:
+        if mv:
+            lut = np.zeros(card + 1, dtype=bool)
+            lut[lo_id:hi_id + 1] = True
+            return ir.Lut(ids_slot, self.param(lut), mv=True)
         return ir.Interval(
             ir.IdsCol(ids_slot),
             lo_param=self.param(np.int32(lo_id)),
@@ -565,10 +661,9 @@ class SegmentPlanner(AggPlanContext):
     # -- top-level plan ----------------------------------------------------
     def plan(self) -> SegmentPlan:
         q = self.query
-        if not (q.is_aggregation_query or q.distinct or q.is_group_by):
-            raise UnsupportedQueryError(
-                "selection queries are not lowered by this port")
         filt = self.lower_filter(q.filter)
+        if not (q.is_aggregation_query or q.distinct or q.is_group_by):
+            return self._plan_selection(filt)
 
         group_dims: list[GroupDim] = []
         group_exprs = list(q.group_by_expressions)
@@ -578,12 +673,20 @@ class SegmentPlanner(AggPlanContext):
         group_vexprs = []
         cards = []
         any_derived = False
+        mv_group_slot = mv_group_card = None
         for ge in group_exprs:
             if ge.is_identifier:
                 info = self.dict_info(ge)
                 if info is None:
                     raise UnsupportedQueryError(f"group-by on non-dict column {ge}")
                 slot, card, d = info
+                if not self._meta(ge.identifier).single_value:
+                    # ONE MV dim: the kernel expands (doc x mv-slot) pairs;
+                    # a second would need a per-doc cross product
+                    if mv_group_slot is not None:
+                        raise UnsupportedQueryError(
+                            "group-by on two MV columns is not lowered")
+                    mv_group_slot, mv_group_card = slot, card
                 group_slots.append(slot)
                 group_vexprs.append(ir.IdsCol(slot))
                 cards.append(card)
@@ -612,6 +715,20 @@ class SegmentPlanner(AggPlanContext):
         # approximate aggs size their occupancy matrices by it
         self.group_card_hint = num_groups
         lowered = [lower_aggregation(self, a) for a in q.aggregations]
+        if mv_group_slot is not None:
+            if any_derived:
+                raise UnsupportedQueryError(
+                    "MV group-by with expression keys is not lowered")
+            # the expansion rewires every 1-D plane: an aggregation reading
+            # an MV matrix (another MV column, or MvLutReduce of this one)
+            # would see the wrong shape
+            mv_slots = {i for i, (_c, k) in enumerate(self._slots)
+                        if k == "mvids"}
+            for op in self.ops:
+                if (op.ids_slot in mv_slots
+                        or _vexpr_uses_slots(op.vexpr, mv_slots)):
+                    raise UnsupportedQueryError(
+                        "MV aggregation under an MV group-by is not lowered")
         # mode selection: dense when the key product and every matrix
         # occupancy fit the dense table, else the sort-based sparse path
         # (SET sparseGroupBy = true routes a dense-eligible group-by there
@@ -647,7 +764,7 @@ class SegmentPlanner(AggPlanContext):
                 f"{reason} exceeds the dense limit for an un-grouped "
                 "aggregation")
         exact_trim = keys_presorted = False
-        if sparse and not any_derived:
+        if sparse and not any_derived and mv_group_slot is None:
             # sorted-key fast path: group keys whose composite id is
             # nondecreasing in doc order need no sort (reference
             # SortedGroupByOperator): one key whose id plane is sorted
@@ -680,6 +797,8 @@ class SegmentPlanner(AggPlanContext):
         else:
             mode = "group_by" if group_exprs else "aggregation"
             out_groups = num_groups
+        if mode == "aggregation":
+            mv_group_slot = mv_group_card = None
         program = ir.Program(
             mode=mode,
             filter=filt,
@@ -691,9 +810,39 @@ class SegmentPlanner(AggPlanContext):
             key_space=num_groups if sparse else 0,
             exact_trim=exact_trim,
             keys_presorted=keys_presorted,
+            mv_group_slot=mv_group_slot,
+            mv_group_card=mv_group_card,
+            # the per-doc planes the MV expansion broadcasts across max_mv
+            mv_doc_slots=tuple(
+                i for i, (_c, k) in enumerate(self._slots)
+                if k in ("ids", "raw", "rawf32r", "null"))
+            if mv_group_slot is not None else (),
         )
         return SegmentPlan(program, self._slots, self._params,
                            lowered, group_dims, fused_ok=self._fused_ok())
+
+    def _plan_selection(self, filt) -> SegmentPlan:
+        """Selection: the device computes the filter mask; the host
+        materializes the matching rows. Transform select and ORDER BY items
+        evaluate on the host over the filtered doc ids only, by numpy
+        (query/transforms.py eval_expr_np); one it cannot evaluate, or a
+        multi-value column, raises (the JAX package falls back to its host
+        engine)."""
+        sel_cols, sel_exprs = selection_columns_for(self.query, self.segment)
+        for c in sel_cols:
+            e = sel_exprs.get(c)
+            if e is not None and not np_evaluable(e):
+                raise UnsupportedQueryError(
+                    f"selection transform {c} is not evaluated by this port")
+            for col in ([c] if e is None else sorted(e.columns())):
+                if not self._meta(col).single_value:
+                    raise UnsupportedQueryError(
+                        f"selection of MV column {col} is not materialized "
+                        "by this port")
+        return SegmentPlan(ir.Program(mode="selection", filter=filt),
+                           self._slots, self._params,
+                           selection_columns=sel_cols,
+                           selection_exprs=sel_exprs)
 
 
 _LOWERED_PREDICATES = (

@@ -1,8 +1,9 @@
 """In-process query executor: tables of segments -> BrokerResponse.
 
 The port of pinot_tpu/engine/query_executor.py for single-stage queries:
-parse -> per-segment plan -> dispatch -> ONE fetch -> collect -> combine ->
-broker reduce. Segments whose plans agree (engine/executor.py
+parse -> prune -> per-segment plan -> dispatch -> ONE fetch -> collect ->
+combine -> broker reduce. Segments the pruner (engine/pruner.py) proves
+empty are never planned or dispatched. Segments whose plans agree (engine/executor.py
 `batch_family_key`) run as one batch family: one dispatch and one launch
 of kernel A for all of them (`SET segmentBatch = false` opts out). Every
 packed output of the query, family and solo alike, comes to the host in
@@ -33,12 +34,14 @@ from ..spi.data_types import Schema
 from .aggregation import UnsupportedQueryError, semantics_for
 from .combine import (combine_aggregation, combine_batched_aggregation,
                       combine_batched_dense, combine_group_arrays,
-                      combine_group_by, trim_group_by)
+                      combine_group_by, combine_selection, trim_group_by)
 from .executor import (BatchFamilyMismatch, SegmentExecutor,
                        batch_family_key, dispatch_counters,
                        reset_dispatch_counters)
+from .pruner import SegmentPrunerService
 from .reduce import BrokerReducer
-from .results import AggIntermediate, BrokerResponse, GroupArrays, GroupByIntermediate
+from .results import (AggIntermediate, BrokerResponse, GroupArrays,
+                      GroupByIntermediate, SelectionIntermediate)
 
 
 def _opted_out(query: QueryContext, option: str) -> bool:
@@ -79,6 +82,7 @@ class QueryExecutor:
         self.device = device
         self.tables: dict[str, Table] = {}
         self.executor = SegmentExecutor(DeviceSegmentCache(device))
+        self.pruner = SegmentPrunerService()
 
     def add_table(self, schema: Schema, segments: list[ImmutableSegment],
                   name: Optional[str] = None):
@@ -110,24 +114,34 @@ class QueryExecutor:
             raise UnsupportedQueryError("EXPLAIN is not ported")
         table = self._table(query.table_name)
         segments = list(table.segments)
-        combined = self.execute_segments(query, segments)
+        kept, num_pruned = self.prune_segments(query, segments)
+        combined = self.execute_segments(query, kept)
         result = BrokerReducer(table.schema).reduce(query, combined)
         return BrokerResponse(
             result_table=result,
             num_docs_scanned=combined.num_docs_scanned,
             total_docs=sum(s.num_docs for s in segments),
             num_segments_queried=len(segments),
-            num_segments_processed=len(segments),
+            num_segments_processed=len(kept),
+            num_segments_pruned=num_pruned,
             time_used_ms=(time.perf_counter() - t0) * 1000,
             num_device_dispatches=dispatch_counters(),
             num_groups_limit_reached=getattr(combined, "groups_trimmed",
                                              False),
         )
 
+    def prune_segments(self, query: QueryContext, segments: list):
+        """(kept segments, number pruned): the segments whose metadata,
+        partitions or bloom filters do not prove the filter empty, in
+        order. The filter is canonicalized first, as the reference does."""
+        query.filter = optimize_filter(query.filter)
+        return self.pruner.prune(query, segments)
+
     def execute_segments(self, query: QueryContext, segments: list):
-        """Server-side half of a query: plan every segment, dispatch every
-        family and lone segment (the device queue fills back to back),
-        fetch all outputs in one copy, collect and combine."""
+        """Server-side half of a query over its kept segments: plan every
+        segment, dispatch every family and lone segment (the device queue
+        fills back to back), fetch all outputs in one copy, collect and
+        combine."""
         query.filter = optimize_filter(query.filter)
         reset_dispatch_counters()
         plans = self.plan_segments(query, segments)
@@ -241,12 +255,14 @@ class QueryExecutor:
                     and p.group_strides == (1,)
                     and len(p.group_slots) == 1
                     and not p.group_vexprs
+                    and p.mv_group_slot is None
                     and p.exact_trim == p0.exact_trim
                     and tuple(a.kind for a in p.aggs) == agg_kinds
                     and pl.group_dims
                     and np.issubdtype(
                         np.asarray(pl.group_dims[0].dictionary.values).dtype,
-                        np.integer)):
+                        np.integer)
+                    and all(la.vec is not None for la in pl.lowered_aggs)):
                 return None
         ex = self.executor
         member_outs: list = [None] * len(segments)
@@ -304,10 +320,17 @@ class QueryExecutor:
             if merged is None:  # object states, or composite key overflow
                 merged = combine_group_by(intermediates, semantics)
             return trim_group_by(merged, query, semantics)
-        if intermediates:
+        if isinstance(first, AggIntermediate):
             return combine_aggregation(intermediates, semantics)
-        # no segments: shape an empty intermediate from the query
+        if isinstance(first, SelectionIntermediate):
+            return combine_selection(intermediates)
+        # no segments (none in the table, or all pruned): shape an empty
+        # intermediate from the query
         if query.is_aggregation_query and not query.is_group_by \
                 and not query.distinct:
             return AggIntermediate([])
-        return GroupByIntermediate({})
+        if query.is_group_by or query.distinct or query.is_aggregation_query:
+            return GroupByIntermediate({})
+        return SelectionIntermediate(
+            [e.identifier for e in query.select_expressions if e.is_identifier],
+            [])

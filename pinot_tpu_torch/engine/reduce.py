@@ -1,9 +1,12 @@
 """Broker-side reduce: combined intermediates -> final ResultTable.
 
-The port of pinot_tpu/engine/reduce.py for aggregation and GROUP BY
-results (reference: BrokerReduceService and GroupByDataTableReducer —
-HAVING, post-aggregation expressions, ORDER BY, OFFSET/LIMIT).
-Post-aggregation expressions evaluate on the host over finalized values.
+The port of pinot_tpu/engine/reduce.py for aggregation, GROUP BY and
+selection results (reference: BrokerReduceService, GroupByDataTableReducer
+and SelectionDataTableReducer -- HAVING, post-aggregation expressions,
+ORDER BY, OFFSET/LIMIT). Post-aggregation expressions evaluate on the host
+over finalized values; selection rows re-sort by Python's stable sort, one
+pass per ORDER BY key from the last, and hidden ORDER BY-only columns are
+projected away.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from .results import (
     GroupArrays,
     GroupByIntermediate,
     ResultTable,
+    SelectionIntermediate,
 )
 
 
@@ -37,6 +41,8 @@ class BrokerReducer:
             return self._reduce_group_by(query, combined)
         if isinstance(combined, AggIntermediate):
             return self._reduce_aggregation(query, combined)
+        if isinstance(combined, SelectionIntermediate):
+            return self._reduce_selection(query, combined)
         raise TypeError(type(combined))
 
     # -- group by ----------------------------------------------------------
@@ -184,6 +190,59 @@ class BrokerReducer:
         return ResultTable(DataSchema(names, types), [row])
 
     # -- schema ------------------------------------------------------------
+    def _reduce_selection(self, query: QueryContext,
+                          combined: SelectionIntermediate) -> ResultTable:
+        rows = combined.rows
+        if query.order_by_expressions:
+            idx = {c: i for i, c in enumerate(combined.columns)}
+            rows = list(rows)
+            for ob in reversed(query.order_by_expressions):
+                key = (ob.expression.identifier if ob.expression.is_identifier
+                       else str(ob.expression))
+                ci = idx[key]
+                rows.sort(key=lambda r, _ci=ci: _sort_key(r[_ci]),
+                          reverse=not ob.ascending)
+        rows = [list(r) for r in rows[query.offset: query.offset + query.limit]]
+        # project away hidden ORDER BY-only columns the segments appended
+        final_cols = self._selection_final_columns(query, combined.columns)
+        if final_cols != list(combined.columns):
+            idx = {c: i for i, c in enumerate(combined.columns)}
+            keep = [idx[c] for c in final_cols]
+            rows = [[r[i] for i in keep] for r in rows]
+        types = [self._selection_column_type(c, i, rows)
+                 for i, c in enumerate(final_cols)]
+        return ResultTable(DataSchema(final_cols, types), rows)
+
+    def _selection_final_columns(self, query: QueryContext,
+                                 columns) -> list[str]:
+        out = []
+        for e in query.select_expressions:
+            if e.is_identifier and e.identifier == "*":
+                out.extend(c for c in columns
+                           if self.schema is not None
+                           and self.schema.has_column(c))
+            elif e.is_identifier:
+                out.append(e.identifier)
+            else:
+                out.append(str(e))
+        return out
+
+    def _selection_column_type(self, column: str, ci: int, rows) -> str:
+        if self.schema is not None and self.schema.has_column(column):
+            return self.schema.field_spec(column).data_type.value
+        # a transform column: the type of its first materialized value
+        for r in rows:
+            v = r[ci]
+            if isinstance(v, bool):
+                return "BOOLEAN"
+            if isinstance(v, int):
+                return "LONG"
+            if isinstance(v, float):
+                return "DOUBLE"
+            if isinstance(v, str):
+                return "STRING"
+        return "STRING"
+
     def _select_schema(self, query: QueryContext, group_exprs):
         names, types = [], []
         for e, alias in zip(query.select_expressions, query.aliases):

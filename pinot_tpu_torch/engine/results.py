@@ -1,7 +1,7 @@
 """Intermediate + final result containers.
 
-The port of pinot_tpu/engine/results.py for aggregation and GROUP BY
-queries. Intermediates are host-side and keyed by group VALUES, not dict
+The port of pinot_tpu/engine/results.py for aggregation, GROUP BY and
+selection queries. Intermediates are host-side and keyed by group VALUES, not dict
 ids: dict ids are segment-local.
 """
 
@@ -38,6 +38,8 @@ class BrokerResponse:
     total_docs: int = 0
     num_segments_queried: int = 0
     num_segments_processed: int = 0
+    # segments the pruner (engine/pruner.py) skipped before planning
+    num_segments_pruned: int = 0
     time_used_ms: float = 0.0
     # device kernel-program dispatches (engine/executor.py counters): one
     # per batch family, one per segment outside a family
@@ -53,6 +55,7 @@ class BrokerResponse:
             "totalDocs": self.total_docs,
             "numSegmentsQueried": self.num_segments_queried,
             "numSegmentsProcessed": self.num_segments_processed,
+            "numSegmentsPrunedByServer": self.num_segments_pruned,
             "timeUsedMs": self.time_used_ms,
         }
         if self.num_groups_limit_reached:
@@ -125,4 +128,11 @@ class GroupArrays(GroupByIntermediate):
 @dataclass
 class AggIntermediate:
     states: list  # one state per aggregation
+    num_docs_scanned: int = 0
+
+
+@dataclass
+class SelectionIntermediate:
+    columns: list[str]
+    rows: list[tuple]
     num_docs_scanned: int = 0

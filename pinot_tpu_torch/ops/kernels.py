@@ -1,7 +1,7 @@
 """The kernel-program interpreter, in PyTorch.
 
-The port of pinot_tpu/ops/kernels.py for the `aggregation`, dense
-`group_by` and sparse `group_by_sparse` modes. One call runs a whole
+The port of pinot_tpu/ops/kernels.py for the `selection`, `aggregation`,
+dense `group_by` and sparse `group_by_sparse` modes. One call runs a whole
 ir.Program over the padded column planes of one segment (`run_program`)
 or of a batch FAMILY of segments at once (`run_program_batch`):
 
@@ -10,6 +10,14 @@ or of a batch FAMILY of segments at once (`run_program_batch`):
     out_k = per-group count / sum / sumsq / min / max, or a matrix per
             group: dict-id occupancy or counts, an adaptive or fixed
             histogram
+
+A selection returns only its mask, as a little-endian packed bitmap (n / 8
+bytes a segment). A multi-value column is a (docs, max_mv) id matrix
+padded with its cardinality: its predicates match a doc when any value
+does, the *MV aggregations reduce each row through a LUT (ir.MvLutReduce),
+and an MV GROUP BY dimension expands the rows into (doc x value slot)
+pairs, every per-doc plane broadcast across max_mv and the pad slots
+masked, before the dense or sparse group-by runs as usual.
 
 The JAX package runs a family as `jax.vmap` of the per-segment body. Here
 the body itself works over a leading segment axis: planes are [S, N],
@@ -142,8 +150,29 @@ _CAST_DTYPES = {
 
 
 def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table[s, ids[s, i]]: a per-segment table [S, L] read at [S, N] ids."""
-    return torch.gather(table, 1, ids.to(torch.int64))
+    """table[s, ids[s, ...]]: a per-segment table [S, L] read at [S, N]
+    ids, or at an [S, N, W] MV id matrix."""
+    flat = ids.to(torch.int64).reshape(ids.shape[0], -1)
+    return torch.gather(table, 1, flat).view(ids.shape)
+
+
+def _mv_reduce(node: ir.MvLutReduce, arrays, params) -> torch.Tensor:
+    """Per-doc reduce of an MV id matrix [S, N, W]: the non-pad count, or
+    the sum / min / max of LUT values (the pad slot holds the identity).
+    Sums add the W slots left to right, the order of the JAX package's
+    reduce over its MV axis."""
+    ids = arrays[node.ids_slot]
+    if node.op == "count":
+        return (ids != node.card).sum(-1, dtype=torch.int32)
+    vals = _gather(params[node.lut_param], ids)
+    if node.op == "min":
+        return vals.amin(-1)
+    if node.op == "max":
+        return vals.amax(-1)
+    out = vals[..., 0]
+    for w in range(1, vals.shape[-1]):
+        out = out + vals[..., w]
+    return out
 
 
 def _eval_value(node: ir.ValueExpr, arrays, params):
@@ -173,6 +202,8 @@ def _eval_value(node: ir.ValueExpr, arrays, params):
         return arrays[node.null_slot]
     if isinstance(node, ir.FilterVal):
         return _eval_filter(node.filter, arrays, params)
+    if isinstance(node, ir.MvLutReduce):
+        return _mv_reduce(node, arrays, params)
     raise TypeError(f"value node {node} is not lowered by this port")
 
 
@@ -191,9 +222,12 @@ def _eval_filter(node: ir.FilterNode, arrays, params):
             hi = params[node.hi_param]
             mask &= (_BIN_OPS["le"] if node.hi_inclusive
                      else _BIN_OPS["lt"])(v, hi)
+        if mask.dim() == 3:  # MV matrix: a doc matches if any value does
+            mask = mask.any(-1)
         return mask
     if isinstance(node, ir.Lut):
-        return _gather(params[node.lut_param], arrays[node.ids_slot])
+        m = _gather(params[node.lut_param], arrays[node.ids_slot])
+        return m.any(-1) if m.dim() == 3 else m
     if isinstance(node, ir.Isin):
         v, vals = _promote(_eval_value(node.vexpr, arrays, params),
                            params[node.values_param])
@@ -245,7 +279,8 @@ class PackedOuts:
         self.metas = metas  # [(np.dtype, shape), ...]
 
 
-_NP_DTYPES = {torch.bool: np.bool_, torch.int32: np.int32,
+_NP_DTYPES = {torch.bool: np.bool_, torch.uint8: np.uint8,
+              torch.int32: np.int32,
               torch.uint32: np.uint32, torch.int64: np.int64,
               torch.float32: np.float32, torch.float64: np.float64}
 
@@ -315,10 +350,16 @@ def run_program(program: ir.Program, arrays: tuple, params: tuple,
     """Execute a Program over one segment's padded column planes. Returns a
     tuple:
 
+    selection       -> (bitmap[padded / 8] uint8,): the filter mask packed
+                       little-endian (bit j of byte i is row 8 i + j)
     aggregation     -> (count, agg_0, agg_1, ...) each shape (2,) (value, trash)
     group_by        -> (counts[G+1], agg_0[G+1], ...), slot G = trash
     group_by_sparse -> (counts[K+1], agg_0[K+1], ..., keys[K]), slot K =
                        trash, keys the composite key of each slot (-1 empty)
+
+    With an MV GROUP BY dimension the group-by outputs gain a last one,
+    the matched DOC count (shape (1,)): the counts are of (doc, value)
+    pairs.
 
     `arrays` are tensors of length `padded` (dictionary planes: their own
     length) on one device; `params` are tensors (0-dim for scalars) on the
@@ -376,6 +417,11 @@ def _run_program_impl(program: ir.Program, arrays: tuple, params: tuple,
     mask = valid
     if program.filter is not None:
         mask = valid & _eval_filter(program.filter, arrays, params)
+    if program.mode == "selection":
+        return (_packbits(mask),)
+    if program.mv_group_slot is not None and program.mode in (
+            "group_by", "group_by_sparse"):
+        return _run_mv_group_by(program, arrays, params, mask, n)
     if program.mode == "group_by":
         return _dense_group_by_entry(program, arrays, params, mask, n)
     if program.mode == "group_by_sparse":
@@ -383,6 +429,44 @@ def _run_program_impl(program: ir.Program, arrays: tuple, params: tuple,
     if program.mode == "aggregation":
         return _run_ungrouped(program, arrays, params, mask, n)
     raise ValueError(f"program mode {program.mode} is not lowered by this port")
+
+
+def _packbits(mask: torch.Tensor) -> torch.Tensor:
+    """[S, n] bool -> [S, n / 8] uint8, little-endian within each byte
+    (numpy's packbits(bitorder="little"), segment/bitpack.unpack_bitmap's
+    order). n is a padded bucket, a multiple of 8."""
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                           device=mask.device)
+    bits = mask.view(mask.shape[0], -1, 8).to(torch.uint8) * weights
+    return bits.sum(-1, dtype=torch.uint8)
+
+
+def _run_mv_group_by(program: ir.Program, arrays, params, mask, n):
+    """MV GROUP BY: expand the rows into (doc x value slot) pairs (the MV
+    id matrix [S, n, W] flattens to [S, n W]; every per-doc plane of
+    `mv_doc_slots` repeats W times; pad slots are masked) and run the
+    dense or sparse group-by over the n W pairs unchanged, kernel A
+    included. The matched DOC count, taken before the expansion, is
+    appended as [S, 1] int64. Matrices read only by the filter, and
+    dictionary planes, pass through."""
+    s_count = mask.shape[0]
+    scanned = mask.sum(-1, dtype=torch.int64).unsqueeze(1)
+    mv = arrays[program.mv_group_slot]
+    width = mv.shape[2]
+    doc_slots = set(program.mv_doc_slots)
+    arrays = tuple(
+        mv.reshape(s_count, n * width) if i == program.mv_group_slot
+        else a.unsqueeze(2).expand(s_count, n, width).reshape(
+            s_count, n * width) if i in doc_slots
+        else a
+        for i, a in enumerate(arrays))
+    mask = (mask.unsqueeze(2) & (mv != program.mv_group_card)).reshape(
+        s_count, n * width)
+    if program.mode == "group_by_sparse":
+        outs = _run_sparse_group_by(program, arrays, params, mask, n * width)
+    else:
+        outs = _dense_group_by_entry(program, arrays, params, mask, n * width)
+    return outs + (scanned,)
 
 
 def _segment_reduce(values: torch.Tensor, index: torch.Tensor, slots: int,
@@ -613,13 +697,21 @@ def _run_matrix_agg(agg: ir.AggOp, arrays, params, mask, gid, num_segments):
     bins = agg.bins
     v = _eval_value(agg.vexpr, arrays, params).to(torch.float64)
     lo, hi = params[agg.lo_param], params[agg.hi_param]
-    width = (hi - lo) / bins
+    # XLA compiles the JAX package's `(hi - lo) / bins` to a multiply by
+    # the reciprocal rounded once to float64; bins on an edge depend on it
+    width = (hi - lo) * (1.0 / bins)
     b = ((v - lo) / width).to(torch.int32).clamp(0, bins - 1)
     inside = mask & (v >= lo) & (v <= hi)
     sid = torch.where(inside, gid * bins + b, num_groups * bins)
     counts = _segment_reduce(inside.to(torch.int64), sid,
                              num_groups * bins + 1, "sum")
     return counts[:, :num_groups * bins].reshape(s_count, num_groups, bins)
+
+
+def _f32_scalar(x: float, device) -> torch.Tensor:
+    """A 0-dim float32 tensor of x rounded once: multiplying by it keeps
+    float32, where a Python float would be rounded by the op itself."""
+    return torch.tensor(np.float32(x), device=device)
 
 
 def _hist_adaptive(agg: ir.AggOp, arrays, params, mask, gid, num_groups):
@@ -630,9 +722,13 @@ def _hist_adaptive(agg: ir.AggOp, arrays, params, mask, gid, num_groups):
     [S, G, 2 * bins + 1] int64: h1, h2, bstar.
 
     The binning runs in float32 on (v - lo) offsets (the f64 rebase first,
-    or the pre-rebased rawf32r plane), each op in the JAX package's
-    precision and order, so a row's buckets are bit-identical to its, and
-    pass 2 keeps exactly the rows whose pass-1 bucket is bstar."""
+    or the pre-rebased rawf32r plane), each op in the precision and order
+    of the JAX package's COMPILED program, so a row's buckets are
+    bit-identical to its, and pass 2 keeps exactly the rows whose pass-1
+    bucket is bstar. XLA folds `span / bins` into `span * f32(1 / bins)`
+    and `width1 / bins` into `span * f32(1 / bins^2)`; the constants are
+    rounded to float32 once, as XLA rounds them. Every op is its own
+    kernel, so no multiply and add contract into one FMA on the card."""
     bins = agg.bins
     f32 = torch.float32
     lo64 = params[agg.lo_param]  # [S, 1] float64
@@ -642,7 +738,7 @@ def _hist_adaptive(agg: ir.AggOp, arrays, params, mask, gid, num_groups):
         v64 = _eval_value(agg.vexpr, arrays, params).to(torch.float64)
         v = (v64 - lo64).to(f32)
     span = (params[agg.hi_param] - lo64).to(f32)
-    width1 = span / bins
+    width1 = span * _f32_scalar(1.0 / bins, span.device)
     b1 = (v / width1).to(torch.int32).clamp(0, bins - 1)
     inside = mask & (v >= 0) & (v <= span)
     trash = num_groups * bins
@@ -659,7 +755,7 @@ def _hist_adaptive(agg: ir.AggOp, arrays, params, mask, gid, num_groups):
     bstar = torch.where(below == bins, 0, below).to(torch.int32)
     bstar_r = _gather_rows(bstar, gid)
     lo_r = _gather_rows(bstar.to(f32) * width1, gid)
-    width2 = width1 / bins
+    width2 = span * _f32_scalar(1.0 / (bins * bins), span.device)
     inside2 = inside & (b1 == bstar_r)
     b2 = ((v - lo_r) / width2).to(torch.int32).clamp(0, bins - 1)
     sid2 = torch.where(inside2, gid * bins + b2, trash)

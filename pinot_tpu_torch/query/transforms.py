@@ -4,8 +4,10 @@ comparisons, logic, unary math and CAST.
 The port of the generic evaluator of pinot_tpu/query/transforms.py
 (`eval_expr_np`, `NP_BIN`, `NP_UN`, `np_cast`). The planner uses it to
 evaluate an expression over a column's DICTIONARY (a derived group-by key
-such as `d_year + 1`, or a predicate over such an expression); the per-row
-arithmetic itself lowers to ir.Bin/ir.Un nodes, not through here. Every
+such as `d_year + 1`, or a predicate over such an expression), and the
+selection path evaluates a transform select or ORDER BY item over the
+matching docs' values; the per-row arithmetic of a device plan lowers to
+ir.Bin/ir.Un nodes, not through here. Every
 other transform function (date/time, string, JSON, geo, lookup) raises
 UnsupportedQueryError.
 """
@@ -78,3 +80,15 @@ def eval_expr_np(e, resolve: Callable[[str], object]):
             out = np.where(cond, eval_expr_np(args[i + 1], resolve), out)
         return out
     raise UnsupportedQueryError(f"transform function {name}")
+
+
+def np_evaluable(e) -> bool:
+    """Whether eval_expr_np evaluates `e` (every function in it is one of
+    the lowered transforms)."""
+    if not e.is_function:
+        return True
+    name = e.function.name
+    if name not in NP_BIN and name not in NP_UN \
+            and name not in ("cast", "case"):
+        return False
+    return all(np_evaluable(a) for a in e.function.arguments)

@@ -5,14 +5,17 @@ SegmentIndexCreationDriverImpl.java (init:116, build:231) — a two-pass build
 (stats collection, then per-column index creation). Here ingestion is columnar,
 so stats + dictionary + encode happen in one vectorized pass per column.
 
-Single-value columns only, dictionary-encoded or raw fixed-width
-(noDictionaryColumns); no auxiliary indexes. The on-disk format and its CRCs
-are the JAX package's, byte for byte.
+Single-value columns, dictionary-encoded or raw fixed-width
+(noDictionaryColumns), and dictionary-encoded multi-value columns; no
+auxiliary indexes. The on-disk format and its CRCs are the JAX package's,
+byte for byte.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterable, Mapping, Optional
 
@@ -23,6 +26,20 @@ from ..spi.table_config import TableConfig
 from . import bitpack
 from .dictionary import build_dictionary, serialize_dictionary
 from .format import ColumnMetadata, SegmentMetadata, SegmentWriter
+
+
+@dataclass
+class MultiValues:
+    """A multi-value column in flat form: document i holds
+    values[offsets[i]:offsets[i + 1]] with offsets the running sum of
+    `lengths`. The builder takes it, or one list (or array) of values per
+    document; both build the same bytes."""
+
+    values: np.ndarray
+    lengths: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.lengths)
 
 
 class SegmentBuilder:
@@ -50,17 +67,19 @@ class SegmentBuilder:
             spec = self.schema.field_spec(name)
             if name not in columns:
                 raise KeyError(f"schema column {name!r} missing from input columns {sorted(columns)}")
-            if not spec.single_value:
-                raise ValueError(f"column {name!r}: multi-value columns are not built")
             values = columns[name]
-            if not isinstance(values, np.ndarray):
+            if not isinstance(values, (np.ndarray, MultiValues)):
                 values = list(values)
             if num_docs is None:
                 num_docs = len(values)
             elif len(values) != num_docs:
                 raise ValueError(f"column {name}: {len(values)} values, expected {num_docs}")
-            col_metas[name] = self._build_sv_column(
-                writer, name, spec, values, num_docs, raw=name in no_dict)
+            if spec.single_value:
+                col_metas[name] = self._build_sv_column(
+                    writer, name, spec, values, num_docs, raw=name in no_dict)
+            else:
+                col_metas[name] = self._build_mv_column(
+                    writer, name, spec, values, num_docs)
 
         num_docs = num_docs or 0
         time_col = self.table_config.validation.time_column_name
@@ -160,6 +179,49 @@ class SegmentBuilder:
                 is_sorted=bool(num_docs == 0 or np.all(np.diff(dict_ids) >= 0)),
                 total_number_of_entries=num_docs,
             )
+        if nulls.any():
+            writer.add_buffer(f"{name}.nulls", bitpack.pack_bitmap(nulls))
+            meta.has_nulls = True
+        return meta
+
+    def _build_mv_column(self, writer, name, spec, values,
+                         num_docs) -> ColumnMetadata:
+        """MV column: the flattened values dict-encoded into one id stream,
+        with u32 row offsets; a null document holds one default value and
+        its null bit. The JAX builder's layout and metadata, built by
+        whole-column numpy ops instead of a loop over documents. The device
+        view is made at load time: a (docs, max_mv) id matrix padded with
+        the cardinality (segment/loader.py get_mv_dict_id_matrix)."""
+        if isinstance(values, MultiValues):
+            flat = np.asarray(values.values)
+            lens = np.asarray(values.lengths, dtype=np.int64)
+            nulls = np.zeros(num_docs, dtype=bool)
+        else:
+            nulls = np.fromiter((v is None for v in values), dtype=bool,
+                                count=num_docs)
+            dv = spec.default_null_value
+            docs = [[dv] if v is None
+                    else v if isinstance(v, (list, tuple, np.ndarray))
+                    else [v] for v in values]
+            lens = np.fromiter(map(len, docs), dtype=np.int64,
+                               count=num_docs)
+            flat = list(itertools.chain.from_iterable(docs))
+        offsets = np.zeros(num_docs + 1, dtype=np.uint32)
+        np.cumsum(lens, out=offsets[1:], dtype=np.uint32)
+        dictionary, dict_ids = build_dictionary(flat, spec.data_type)
+        bits = bitpack.num_bits_for_cardinality(dictionary.cardinality)
+        writer.add_buffer(f"{name}.fwd", bitpack.pack(dict_ids, bits))
+        writer.add_buffer(f"{name}.dict", serialize_dictionary(dictionary))
+        writer.add_buffer(f"{name}.mvoff", offsets)
+        meta = ColumnMetadata(
+            name=name, data_type=spec.data_type.value,
+            field_type=spec.field_type.value, encoding="DICT",
+            single_value=False, cardinality=dictionary.cardinality,
+            bits_per_value=bits, min_value=dictionary.min_value,
+            max_value=dictionary.max_value,
+            total_number_of_entries=len(flat),
+            max_number_of_multi_values=int(lens.max()) if num_docs else 0,
+        )
         if nulls.any():
             writer.add_buffer(f"{name}.nulls", bitpack.pack_bitmap(nulls))
             meta.has_nulls = True

@@ -5,8 +5,10 @@ is copied to the device ONCE per segment and cached. Planes are padded to a
 shape bucket (next power of two), so every plane of a segment has the same
 length; `num_docs` rides along as a runtime scalar and masks the pad rows.
 
-Narrow uint8/uint16 dict-id planes stay narrow in device memory (1/4 or 1/2
-of the int32 bytes) and widen on use (ops/kernels.py `_apply_packed`, or in
+A multi-value column lives on the device as a (padded, max_mv) int32
+dict-id matrix padded with its cardinality. Narrow uint8/uint16 dict-id
+planes stay narrow in device memory (1/4 or 1/2 of the int32 bytes) and
+widen on use (ops/kernels.py `_apply_packed`, or in
 registers inside the fused kernel). They default to on for a CUDA device and
 off for the CPU.
 
@@ -89,6 +91,20 @@ class SegmentDeviceView:
         ids = self.segment.get_dict_ids(column)
         dtype = np.uint8 if width == 8 else np.uint16
         return self._put(key, self._padded_plane(ids, dtype)), width
+
+    def mv_dict_ids(self, column: str) -> torch.Tensor:
+        """A multi-value column's (padded, max_mv) int32 dict-id matrix,
+        every pad slot (and every pad row) holding the sentinel
+        `cardinality`, which no predicate matches."""
+        key = (column, "mvids")
+        cached = self._planes.get(key)
+        if cached is not None:
+            return cached
+        mat = self.segment.get_mv_dict_id_matrix(column)
+        card = self.segment.column_metadata(column).cardinality
+        out = np.full((self.padded, mat.shape[1]), card, dtype=np.int32)
+        out[: mat.shape[0]] = mat
+        return self._put(key, out)
 
     def raw(self, column: str) -> torch.Tensor:
         key = (column, "raw")
@@ -221,12 +237,16 @@ class DeviceSegmentCache:
         them; returns the planes uploaded. Dict-encoded columns warm their
         (narrow) id planes and, for numeric dictionaries, their values; raw
         columns their value plane and, for FLOAT/DOUBLE, the rebased f32
-        plane the percentile histograms bin from."""
+        plane the percentile histograms bin from; multi-value columns their
+        id matrix."""
         v = self.view(segment)
         n = 0
         for col in (columns or segment.columns()):
             m = segment.column_metadata(col)
-            if m.encoding == "DICT":
+            if not m.single_value:
+                v.mv_dict_ids(col)
+                n += 1
+            elif m.encoding == "DICT":
                 v.dict_ids_packed(col)
                 n += 1
                 if np.asarray(segment.get_dictionary(col).values).dtype.kind \

@@ -7,10 +7,11 @@ of PinotDataBuffer.mapFile, pinot-segment-spi/.../memory/PinotDataBuffer.java:27
 and columns decode lazily into host int32/value planes, cached, ready for one
 copy to the device via device_cache.DeviceSegmentCache.
 
-Single-value dictionary-encoded and raw fixed-width columns only; the
-on-disk format is shared with the JAX package, so either package's builder
-output loads here. Columns of other encodings load their metadata but raise
-when their planes are read.
+Dictionary-encoded columns, single- and multi-value, and raw fixed-width
+single-value columns; bloom filters for pruning. The on-disk format is
+shared with the JAX package, so either package's builder output loads
+here. Columns of other encodings load their metadata but raise when their
+planes are read.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from ..spi.data_types import DataType
 from . import bitpack
 from .dictionary import Dictionary, deserialize_dictionary
 from .format import DATA_FILE, ColumnMetadata, SegmentMetadata, read_metadata
+from .indexes import deserialize_bloom
 
 
 class SegmentIntegrityError(RuntimeError):
@@ -54,6 +56,8 @@ class ImmutableSegment:
         self._dict_ids: dict[str, np.ndarray] = {}
         self._raw: dict[str, np.ndarray] = {}
         self._nulls: dict[str, Optional[np.ndarray]] = {}
+        self._mv_offsets: dict[str, np.ndarray] = {}
+        self._blooms: dict[str, object] = {}
 
     # -- integrity ----------------------------------------------------------
     def verify_integrity(self) -> None:
@@ -150,13 +154,36 @@ class ImmutableSegment:
         return self._dictionaries[column]
 
     def get_dict_ids(self, column: str) -> np.ndarray:
-        """Decoded int32 dict-id plane of a single-value column."""
+        """Decoded int32 dict-id plane (SV) or flat MV dict-id stream."""
         if column not in self._dict_ids:
-            m = self._sv(column, "DICT")
+            m = self.column_metadata(column)
+            if m.encoding != "DICT":
+                raise ValueError(f"{column} has no dictionary")
             self._dict_ids[column] = bitpack.unpack(
                 self._buffer(f"{column}.fwd"), m.bits_per_value,
                 m.total_number_of_entries)
         return self._dict_ids[column]
+
+    def get_mv_offsets(self, column: str) -> np.ndarray:
+        """int64 row offsets (num_docs + 1) into an MV column's id stream."""
+        if column not in self._mv_offsets:
+            self._mv_offsets[column] = np.frombuffer(
+                self._buffer(f"{column}.mvoff"), dtype=np.uint32,
+                count=self.num_docs + 1).astype(np.int64)
+        return self._mv_offsets[column]
+
+    def get_mv_dict_id_matrix(self, column: str) -> np.ndarray:
+        """(num_docs, max_mv) int32 matrix of an MV column's dict ids,
+        padded with the sentinel `cardinality`: out of dictionary range, so
+        every predicate is false on a pad slot and MV predicates reduce
+        with any() across the row."""
+        m = self.column_metadata(column)
+        ids = self.get_dict_ids(column)
+        lens = np.diff(self.get_mv_offsets(column))
+        max_mv = max(1, m.max_number_of_multi_values)
+        out = np.full((self.num_docs, max_mv), m.cardinality, dtype=np.int32)
+        out[np.arange(max_mv)[None, :] < lens[:, None]] = ids
+        return out
 
     def get_raw(self, column: str) -> np.ndarray:
         """Raw fixed-width value plane of a single-value RAW column."""
@@ -181,7 +208,40 @@ class ImmutableSegment:
                 self._nulls[column] = bitpack.unpack_bitmap(self._buffer(f"{column}.nulls"), self.num_docs)
         return self._nulls[column]
 
-    # -- materialized values (test oracle) ---------------------------------
+    def get_bloom_filter(self, column: str):
+        """The column's bloom filter (segment/indexes.py), or None."""
+        if column not in self._blooms:
+            bf = None
+            if f"{column}.bloom.hdr" in self.metadata.buffers:
+                bf = deserialize_bloom(
+                    np.frombuffer(self._buffer(f"{column}.bloom.hdr"),
+                                  dtype=np.int64),
+                    np.frombuffer(self._buffer(f"{column}.bloom.bits"),
+                                  dtype=np.uint8))
+            self._blooms[column] = bf
+        return self._blooms[column]
+
+    # -- materialized values (selection rows) --------------------------------
+    def get_values_at(self, column: str, doc_ids: np.ndarray) -> np.ndarray:
+        """The values of a single-value column at `doc_ids` (the JAX
+        package's `get_values(column)[doc_ids]`), decoding only those
+        docs' values."""
+        m = self.column_metadata(column)
+        if m.encoding == "RAW":
+            return self.get_raw(column)[doc_ids]
+        if not m.single_value:
+            raise ValueError(f"{column} is MV; use get_mv_values")
+        return self.get_dictionary(column).take(
+            self.get_dict_ids(column)[doc_ids])
+
+    def get_mv_values(self, column: str) -> list[np.ndarray]:
+        """Per-document value arrays of an MV column."""
+        d = self.get_dictionary(column)
+        ids = self.get_dict_ids(column)
+        offsets = self.get_mv_offsets(column)
+        return [d.take(ids[offsets[i]:offsets[i + 1]])
+                for i in range(self.num_docs)]
+
 def load_segment(directory: str | Path, verify: bool = True) -> ImmutableSegment:
     """Load (and by default verify) a segment directory. Verification
     happens ONCE here — load time — never per query."""

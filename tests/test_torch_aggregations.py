@@ -557,3 +557,97 @@ def test_host_engine_shapes_raise(tables, sql):
 
     with pytest.raises(JaxUnsupported):
         JaxPlanner(jax_parse(sql), jsegs[0]).plan()
+
+
+# -- the compiled reference's bin widths (faults F3 and F4) ---------------------
+
+# values on HISTOGRAM(x, 0, 3, 10)'s bin edges: (hi - lo) / 10 by IEEE
+# division puts 0.3, 0.9, 1.5, 2.1 and 2.7 one bin lower than the JAX
+# package's compiled `(hi - lo) * f64(1 / 10)` does
+EDGE_VALUES = [0.3, 0.6, 0.7, 0.9, 1.5, 2.1, 2.4, 2.7]
+
+
+@pytest.fixture(scope="module")
+def edge_table(tmp_path_factory):
+    schema = Schema.build("e", dimensions=[("g", "INT")],
+                          metrics=[("x", "DOUBLE")])
+    cfg = TableConfig(table_name="e",
+                      indexing=IndexingConfig(no_dictionary_columns=["x"]))
+    path = tmp_path_factory.mktemp("torch_edges") / "s0"
+    SegmentBuilder(schema, cfg, "s0").build(
+        {"g": np.arange(8, dtype=np.int32) % 2,
+         "x": np.asarray(EDGE_VALUES)}, path)
+    port = QueryExecutor(device="cpu")
+    port.add_table(schema, [load_segment(path)])
+    jax = JaxQueryExecutor(backend="tpu")
+    jax.add_table(JaxSchema.build("e", dimensions=[("g", "INT")],
+                                  metrics=[("x", "DOUBLE")]), [jax_load(path)])
+    return port, jax, path
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT HISTOGRAM(x, 0, 3, 10) FROM e",
+    "SELECT g, HISTOGRAM(x, 0, 3, 10), HISTOGRAM(x, 0.3, 2.7, 8) FROM e "
+    "GROUP BY g",
+])
+def test_hist_fixed_edges_equal_jax(edge_table, sql):
+    """F3: run_program's fixed-bin counts element-equal to the JAX
+    package's compiled program on values at bin edges, and the rows
+    equal its rows."""
+    port, jax, path = edge_table
+    jseg, pseg = jax_load(path), load_segment(path)
+    jplan = JaxPlanner(jax_parse(sql), jseg).plan()
+    pplan = SegmentPlanner(parse_sql(sql), pseg).plan()
+    view = JaxView(jseg)
+    arrays, packed = jplan.gather_arrays_packed(view)
+    arrays = tuple(np.asarray(a) for a in arrays)
+    params = tuple(np.asarray(p) for p in jplan.params)
+    want = jax_kernels.run_program(jplan.program, arrays, params,
+                                   np.int32(jseg.num_docs), view.padded,
+                                   packed=packed, fused="")
+    targs, tparams = planes_from_numpy(arrays, params, "cpu")
+    got = run_program(pplan.program, targs, tparams, pseg.num_docs,
+                      view.padded, packed=packed, device="cpu")
+    _compare([o.numpy() for o in got], want)
+    assert port.execute_sql(sql).result_table.rows == \
+        jax.execute_sql(sql).result_table.rows
+    if "GROUP BY" not in sql:
+        assert port.execute_sql(sql).result_table.rows == \
+            [[[1.0, 1.0, 2.0, 0.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0]]]
+
+
+def _adaptive_program(ir_mod, bins):
+    agg = ir_mod.AggOp("hist_adaptive", vexpr=ir_mod.Col(0), bins=bins,
+                       lo_param=0, hi_param=1, pct=99.0, prebased=True)
+    return ir_mod.Program(mode="group_by", filter=None, aggs=(agg,),
+                          group_slots=(1,), group_strides=(1,), num_groups=2)
+
+
+@pytest.mark.parametrize("v,group", [(31.226402, 0), (31.226402, 1),
+                                     (28.501868, 0), (60.56665, 1)])
+def test_hist_adaptive_widths_equal_jax(v, group):
+    """F4: the adaptive histogram's two widths are the compiled
+    reference's `span * f32(1 / bins)` and `span * f32(1 / bins^2)`. The
+    rebased value 31.226402 over lo -30.9284687, hi 29.63817787 and 17
+    bins sits on a pass-2 edge of bucket 8: the reference puts it in fine
+    bin 12 (IEEE `width1 / bins` gave 13)."""
+    from pinot_tpu.engine import ir as jax_ir
+    from pinot_tpu_torch.engine import ir
+
+    bins, padded = 17, 8192
+    plane = np.zeros(padded, np.float32)
+    plane[0] = np.float32(v)
+    gids = np.zeros(padded, np.int32)
+    gids[0] = group
+    params = (np.float64(-30.9284687), np.float64(29.63817787))
+    want = jax_kernels.run_program(_adaptive_program(jax_ir, bins),
+                                   (plane, gids), params, np.int32(1), padded,
+                                   fused="")
+    targs, tparams = planes_from_numpy((plane, gids), params, "cpu")
+    got = run_program(_adaptive_program(ir, bins), targs, tparams, 1, padded,
+                      device="cpu")
+    _compare([o.numpy() for o in got], want)
+    if v == 31.226402:
+        row = got[1][group].numpy()
+        assert row[2 * bins] == 8                     # bstar
+        assert row[bins + 12] == 1 and row[bins:2 * bins].sum() == 1

@@ -12,7 +12,9 @@ Sums are int64 and must be element-equal to the plain versions. Kernel A
 with its family axis is one launch per family, equal to the plain version
 of the flattened family; a 16-segment query batched on the card equals the
 same query with SET segmentBatch = false, and sparse GROUP BYs (torch ops
-on the card, the device combine) equal the CPU's.
+on the card, the device combine) equal the CPU's, as do selections, pruned
+queries, multi-value filters, GROUP BYs and aggregations (kernel A over
+the expanded (doc, value) pairs) and the histogram bins of edge values.
 """
 
 from __future__ import annotations
@@ -546,3 +548,160 @@ def test_aggmix_on_the_card_matches_cpu(cuda, agg_table):
         # absolutely, to 1e-12 of its [-1, 1] range
         np.testing.assert_allclose(rg[-2], rw[-2], rtol=1e-12)
         assert abs(rg[-1] - rw[-1]) <= 1e-12
+
+
+# -- selection, pruning and multi-value columns on the card ---------------------
+
+@pytest.fixture(scope="module")
+def mv_table(tmp_path_factory):
+    """Three segments of 30,000 rows with a tags-like INT multi-value
+    column (1 to 4 values a row of 1000)."""
+    from pinot_tpu_torch.segment.builder import MultiValues
+
+    rng = np.random.default_rng(37)
+    n, segments = 30_000, 3
+    schema = Schema.build("mvt", dimensions=[
+        ("d_year", "INT"), ("s_region", "STRING"), ("lo_orderkey", "INT"),
+        ("lo_tags", "INT", False)], metrics=[("lo_revenue", "INT")])
+    cfg = TableConfig(table_name="mvt", indexing=IndexingConfig(
+        no_dictionary_columns=["lo_revenue"]))
+    segs = []
+    for i in range(segments):
+        lens = rng.integers(1, 5, n)
+        cols = {
+            "d_year": rng.integers(1992, 1999, n).astype(np.int32),
+            "s_region": np.asarray(["AMERICA", "ASIA", "EUROPE"],
+                                   dtype=object)[rng.integers(0, 3, n)],
+            "lo_orderkey": (100_000 * i + np.arange(n)).astype(np.int32),
+            "lo_tags": MultiValues(
+                rng.integers(0, 1000, int(lens.sum())).astype(np.int32), lens),
+            "lo_revenue": rng.integers(1, 600_000, n).astype(np.int32),
+        }
+        path = tmp_path_factory.mktemp("torch_cuda_mv") / f"s{i}"
+        SegmentBuilder(schema, cfg, f"s{i}").build(cols, path)
+        segs.append(load_segment(path))
+    return schema, segs
+
+
+# (sql, launches of kernel A): the MV GROUP BY runs kernel A once over the
+# family's (doc x value slot) pairs; the *MV aggregations' sums pass once
+@pytest.mark.parametrize("sql,launches", [
+    ("SELECT d_year, COUNT(*), SUM(lo_revenue) FROM mvt "
+     "WHERE lo_tags IN (3, 17, 42) GROUP BY d_year", 1),
+    ("SELECT lo_tags, COUNT(*), SUM(lo_revenue) FROM mvt "
+     "WHERE s_region = 'ASIA' GROUP BY lo_tags LIMIT 2000", 1),
+    ("SET segmentBatch = false; SELECT lo_tags, COUNT(*), SUM(lo_revenue) "
+     "FROM mvt GROUP BY lo_tags LIMIT 2000", 3),
+    ("SELECT d_year, COUNTMV(lo_tags), SUMMV(lo_tags), MINMV(lo_tags), "
+     "MAXMV(lo_tags), AVGMV(lo_tags), MINMAXRANGEMV(lo_tags) FROM mvt "
+     "GROUP BY d_year", 1),
+    ("SET sparseGroupBy = true; SELECT lo_tags, COUNT(*), MAX(lo_revenue) "
+     "FROM mvt GROUP BY lo_tags ORDER BY lo_tags LIMIT 100", 0),
+    ("SELECT lo_orderkey, lo_revenue FROM mvt WHERE lo_tags = 7 "
+     "ORDER BY lo_revenue DESC, lo_orderkey LIMIT 50", 0),
+    ("SELECT lo_orderkey, d_year FROM mvt WHERE s_region = 'ASIA' "
+     "LIMIT 100", 0),
+    ("SELECT COUNT(*), HISTOGRAM(lo_revenue, 0, 1000000, 4) FROM mvt "
+     "WHERE lo_orderkey < 0", 0),
+    ("SELECT lo_orderkey FROM mvt WHERE lo_orderkey BETWEEN 100100 AND "
+     "100200 LIMIT 500", 0),
+])
+def test_mv_and_selection_on_the_card_match_cpu(cuda, mv_table, sql,
+                                                launches):
+    schema, segs = mv_table
+    gpu, cpu = QueryExecutor(device="cuda"), QueryExecutor(device="cpu")
+    for qe in (gpu, cpu):
+        qe.add_table(schema, segs)
+    before = _cuda.LAUNCHES["limb_sums"]
+    got = gpu.execute_sql(sql)
+    assert _cuda.LAUNCHES["limb_sums"] - before == launches
+    want = cpu.execute_sql(sql)
+    if "ORDER BY" in sql or "GROUP BY" not in sql:
+        assert got.result_table.rows == want.result_table.rows
+    else:
+        assert sorted(map(tuple, got.result_table.rows)) == \
+            sorted(map(tuple, want.result_table.rows))
+    assert got.num_docs_scanned == want.num_docs_scanned
+    assert got.num_segments_pruned == want.num_segments_pruned
+    assert got.num_device_dispatches == want.num_device_dispatches
+
+
+def test_mv_group_expanded_rows_kernel_matches_plain(cuda, mv_table):
+    """Kernel A on the MV GROUP BY's recorded family inputs ((S, P, n W)
+    planes, G = card + 1) equals its plain version."""
+    schema, segs = mv_table
+    gpu = QueryExecutor(device="cuda")
+    gpu.add_table(schema, segs)
+    calls = []
+    orig = mxu_groupby.limb_sums
+
+    def record(*args):
+        calls.append(args)
+        return orig(*args)
+
+    mxu_groupby.limb_sums = record
+    try:
+        gpu.execute_sql("SELECT lo_tags, COUNT(*), SUM(lo_revenue) FROM mvt "
+                        "GROUP BY lo_tags LIMIT 2000")
+    finally:
+        mxu_groupby.limb_sums = orig
+    ((planes, gid, g),) = calls
+    assert planes.shape[0] == 3 and planes.shape[2] == 4 * 32768
+    assert g == 1001
+    assert torch.equal(mxu_groupby.limb_sums(planes, gid, g),
+                       mxu_groupby.limb_sums_plain(planes, gid, g))
+
+
+def test_selection_bitmap_on_the_card_matches_cpu(cuda, mv_table):
+    from pinot_tpu_torch.engine.plan import SegmentPlanner
+    from pinot_tpu_torch.ops.kernels import run_program
+    from pinot_tpu_torch.query.parser.sql import parse_sql
+    from pinot_tpu_torch.segment.device_cache import SegmentDeviceView
+
+    _, segs = mv_table
+    plan = SegmentPlanner(parse_sql(
+        "SELECT lo_orderkey FROM mvt WHERE lo_tags IN (1, 2, 3) "
+        "AND d_year > 1994 LIMIT 10"), segs[0]).plan()
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        view = SegmentDeviceView(segs[0], dev)
+        arrays, packed = plan.gather_arrays_packed(view)
+        params = tuple(torch.from_numpy(np.array(p)).to(dev)
+                       for p in plan.params)
+        (outs[dev],) = run_program(plan.program, arrays, params,
+                                   segs[0].num_docs, view.padded,
+                                   packed=packed, device=dev)
+    assert outs["cuda"].dtype == torch.uint8
+    assert torch.equal(outs["cuda"].cpu(), outs["cpu"])
+
+
+@pytest.mark.parametrize("bins", [10, 7, 17])
+def test_histogram_bins_on_the_card_match_cpu(cuda, bins):
+    """HISTOGRAM and the adaptive percentile histogram bin every value,
+    edges included, as the CPU run does (each op its own kernel: no FMA
+    contraction of the width arithmetic)."""
+    from pinot_tpu_torch.engine import ir
+    from pinot_tpu_torch.ops.kernels import planes_from_numpy, run_program
+
+    rng = np.random.default_rng(bins)
+    n = 1 << 20
+    x = rng.integers(0, 31, n) * 0.1
+    gid = rng.integers(0, 500, n).astype(np.int32)
+    span = 29.63817787 + 30.9284687
+    v = (rng.integers(0, bins * bins * 4, n)
+         * (span / (bins * bins * 4))).astype(np.float32)
+    program = ir.Program(
+        mode="group_by", filter=None, aggs=(
+            ir.AggOp("hist_fixed", vexpr=ir.Col(0), bins=bins, lo_param=0,
+                     hi_param=1),
+            ir.AggOp("hist_adaptive", vexpr=ir.Col(2), bins=bins, lo_param=2,
+                     hi_param=3, pct=95.0, prebased=True)),
+        group_slots=(1,), group_strides=(1,), num_groups=500)
+    params = (np.float64(0.0), np.float64(3.0), np.float64(-30.9284687),
+              np.float64(29.63817787))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        arrays, tparams = planes_from_numpy((x, gid, v), params, dev)
+        outs[dev] = run_program(program, arrays, tparams, n, n, device=dev)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert torch.equal(got.cpu(), want)

@@ -129,6 +129,9 @@ QUERIES = [
     # PERCENTILE over a dictionary column (a value histogram per group)
     (f"SELECT d_year, PERCENTILE(lo_discount, 50) FROM {TABLE} "
      "GROUP BY d_year", True, False),
+    # selection: the first matching rows, in segment order
+    (f"SELECT d_year, lo_revenue FROM {TABLE} WHERE s_region = 'ASIA' "
+     "LIMIT 10", True, True),
 ]
 
 
@@ -194,7 +197,9 @@ def test_cpu_run_launches_no_kernel(tables):
 
 
 @pytest.mark.parametrize("sql", [
-    f"SELECT d_year, lo_revenue FROM {TABLE} LIMIT 10",
+    # a selection transform numpy does not evaluate here: the JAX
+    # package's host engine
+    f"SELECT upper(s_region) FROM {TABLE} LIMIT 10",
     # PERCENTILE over a raw column: the JAX package's host engine
     f"SELECT d_year, PERCENTILE(lo_revenue, 50) FROM {TABLE} GROUP BY d_year",
     f"SELECT lo_revenue, COUNT(*) FROM {TABLE} GROUP BY lo_revenue",

@@ -158,6 +158,10 @@ PLAN_SQLS = [
     # the occupancy of 400 brands x 3000 codes x 7 years sends it sparse
     "SELECT code, year, DISTINCTCOUNTHLL(brand), COUNT(*) FROM t "
     "GROUP BY code, year ORDER BY code, year LIMIT 100",
+    # selection: the device computes the filter mask only
+    "SELECT year, rev FROM t LIMIT 10",
+    "SELECT rev * 2, year FROM t WHERE region = 'ASIA' ORDER BY year DESC, "
+    "price + 1 LIMIT 10",
 ]
 
 
@@ -171,10 +175,13 @@ def test_programs_equal_jax(built, sql):
     for a, b in zip(pplan.params, jplan.params):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
         assert np.asarray(a).dtype == np.asarray(b).dtype
+    assert pplan.selection_columns == jplan.selection_columns
+    assert pplan.selection_exprs.keys() == jplan.selection_exprs.keys()
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT year, rev FROM t LIMIT 10",                     # selection
+    # a selection transform numpy does not evaluate here
+    "SELECT upper(region) FROM t LIMIT 10",
     # PERCENTILE over a raw column: the JAX package's host engine
     "SELECT year, PERCENTILE(rev, 50) FROM t GROUP BY year",
     "SELECT year, COUNT(*) FROM t WHERE upper(region) = 'ASIA' GROUP BY year",

@@ -347,3 +347,28 @@ def test_execute_sql_16_segments_matches_jax(ssb16, sql, ordered):
     assert got.num_device_dispatches == want.num_device_dispatches
     if sql in (Q4, SPARSE_FAMILY):
         assert got.num_device_dispatches == 1  # one family of 16
+
+
+@pytest.mark.parametrize("sql", [
+    "SET sparseGroupBy = true; SELECT d_year, VAR_SAMP(p_brand) FROM ssb16 "
+    "GROUP BY d_year",
+    "SET sparseGroupBy = true; SELECT p_brand, COUNT(*), STDDEVPOP(lo_revenue), "
+    "BOOL_OR(lo_delta) FROM ssb16 GROUP BY p_brand",
+])
+def test_device_combine_declines_aggs_without_columnar_form(ssb16, sql):
+    """The moment functions and BOOL_AND/BOOL_OR lower to sum / sumsq /
+    min / max ops (kinds the device merge takes) but have no columnar
+    form: the device combine declines them, as the reference's eligibility
+    check does, and the segments merge on the host (it used to decode the
+    merged table by a columnar form that is None)."""
+    port, jax = ssb16
+    got = port.execute_sql(sql)
+    want = jax.execute_sql(sql)
+    assert not want.exceptions, want.exceptions
+    _rows_equal(got.result_table.rows, want.result_table.rows, False)
+    assert got.num_docs_scanned == want.num_docs_scanned
+    assert got.num_device_dispatches == want.num_device_dispatches
+    off = port.execute_sql(sql.replace("SET sparseGroupBy = true; ",
+                                       "SET sparseGroupBy = true; "
+                                       "SET deviceCombine = false; "))
+    assert off.result_table.rows == got.result_table.rows
