@@ -28,7 +28,11 @@ Phases, each printing one JSON line:
            into 16 segments (bench.py's 16-segment q4, q3m); the same rows
            with a tags-like INT multi-value column (1 to 4 values a row of
            1000) in --segments segments (table `mvt`); bench.py's taxi table
-           (seed 7) in --segments segments, its planes warmed
+           (seed 7) in --segments segments, its planes warmed; the same rows
+           with two TIMESTAMP columns (table `ssbt`: lo_orderdate, a day of
+           the row's d_year, dictionary-encoded; lo_commit_ts, up to 90
+           days later in millis, raw); bench.py's `brands` dimension table
+           (1000 rows), registered with QueryExecutor.add_dimension_table
   queries  every query through QueryExecutor(device="cuda").execute_sql,
            each held against a numpy oracle, with its launches of each
            kernel, device dispatches and host fetches (every count set to 0
@@ -65,6 +69,21 @@ Phases, each printing one JSON line:
                  (doc x value slot) pairs); the *MV value aggregations (the
                  matrix-shaped MV functions are refused, as the JAX
                  package's device planner refuses them)
+             q7                                 bench.py Q7 verbatim: LOOKUP
+                 into `brands` as a filter (a LUT over p_brand's ids) and a
+                 GROUP BY key (a derived dimension), kernel A at 7 x 40
+             time_group, str_group              on ssbt: GROUP BY
+                 DATETRUNC('MONTH', ...) and by toDateTime(..., 'yyyy-MM'),
+                 LOWER(s_region) under a SUBSTR filter, all evaluated over
+                 the dictionaries and gathered by id
+             time_raw                           on ssbt: the int64
+                 civil-date chain of MONTH(lo_commit_ts) over the raw
+                 column in the filter, an int64 expression summed
+             post_agg                           ROUNDDECIMAL over SUM / COUNT
+                 in the reduce (the registry's scalar form); a GROUP BY on a
+                 transform of a raw column and a two-column transform past
+                 the 2^18 table are refused, as the JAX package's device
+                 planner refuses them
   times    p50 query latency over --iters warm runs (1 for a query slower
            than 1 s)
   layers   a warm query's host time split into parse + prune + plan,
@@ -72,8 +91,12 @@ Phases, each printing one JSON line:
            combine + reduce (1 run for a query slower than 1 s)
   profile  device busy share and the top device kernels under
            torch.profiler (3 warm queries, 1 for a query slower than 1 s)
+  chain    time_raw's MONTH(lo_commit_ts) chain alone over the family's raw
+           plane: its time, the torch kernels it launches, the bytes they
+           move against one fused pass's
   geometry each kernel shape's launch geometry and the card's cluster
            occupancy
+  total    the run's wall time, the build included
   kernels  the kernel table: per kernel and main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
            rotated over the recorded inputs of the query's segments or
@@ -208,6 +231,42 @@ QUERIES.update({
 MV_REFUSED = ("SELECT d_year, DISTINCTCOUNTMV(lo_tags) FROM mvt GROUP BY d_year",
               "SELECT d_year, PERCENTILEMV(lo_tags, 90) FROM mvt "
               "GROUP BY d_year")
+# the transform registry: bench.py Q7 verbatim over the `brands`
+# dimension table (bench.py's, built here: 1000 rows), and `ssbt`, the ssb
+# rows plus two TIMESTAMP columns: lo_orderdate, a day of the row's d_year
+# (dictionary-encoded, 2557 days, as SSB's date dimension over 1992-1998),
+# and lo_commit_ts, lo_orderdate plus up to 90 days in millis (raw)
+TIME_TABLE, DIM_TABLE = "ssbt", "brands"
+N_BRANDS, BRAND_CATEGORIES = 1000, 40
+DAY_MS = 86_400_000
+QUERIES.update({
+    "q7": "SELECT d_year, LOOKUP('brands', 'b_category', 'b_id', p_brand), "
+          "SUM(lo_revenue) FROM ssb "
+          "WHERE LOOKUP('brands', 'b_region', 'b_id', p_brand) = 'ASIA' "
+          "GROUP BY d_year, LOOKUP('brands', 'b_category', 'b_id', p_brand) "
+          "LIMIT 1000",
+    "time_group": "SELECT DATETRUNC('MONTH', lo_orderdate), COUNT(*), "
+                  "SUM(lo_revenue) FROM ssbt WHERE s_region = 'ASIA' "
+                  "GROUP BY DATETRUNC('MONTH', lo_orderdate) LIMIT 100",
+    "str_group": "SELECT toDateTime(lo_orderdate, 'yyyy-MM'), LOWER(s_region), "
+                 "COUNT(*), SUM(lo_revenue) FROM ssbt "
+                 "WHERE SUBSTR(s_region, 0, 1) = 'A' "
+                 "GROUP BY toDateTime(lo_orderdate, 'yyyy-MM'), LOWER(s_region) "
+                 "LIMIT 1000",
+    "time_raw": "SELECT d_year, COUNT(*), SUM(toEpochDays(lo_commit_ts) - "
+                "toEpochDays(lo_orderdate)) FROM ssbt "
+                "WHERE MONTH(lo_commit_ts) = 12 GROUP BY d_year",
+    "post_agg": "SELECT d_year, ROUNDDECIMAL(SUM(lo_revenue) / COUNT(*), 1) "
+                "FROM ssb GROUP BY d_year ORDER BY d_year"})
+# shapes the JAX package's device planner refuses (its host engine answers
+# them): a GROUP BY on a transform of a raw column, and a transform of two
+# dictionary columns past the 2^18-entry table
+TRANSFORM_REFUSED = (
+    "SELECT YEAR(lo_commit_ts), COUNT(*) FROM ssbt GROUP BY YEAR(lo_commit_ts)",
+    "SELECT lo_orderkey + toEpochDays(lo_orderdate), COUNT(*) FROM ssbt "
+    "GROUP BY lo_orderkey + toEpochDays(lo_orderdate) LIMIT 10")
+# the transform queries that launch a new kernel A shape, one launch each
+TRANSFORM_QUERIES = ("q7", "time_group", "str_group", "time_raw")
 # the kernel each query must launch (q1 is ungrouped: it launches neither;
 # the sparse GROUP BYs run torch ops)
 EXPECTED_KERNEL = {"q2": "fused_limb_sums", "q9": "fused_limb_sums",
@@ -216,12 +275,16 @@ EXPECTED_KERNEL = {"q2": "fused_limb_sums", "q9": "fused_limb_sums",
                    "q4": "limb_sums", "q4_solo": "fused_limb_sums",
                    "q5": "limb_sums", "q5_total": "limb_sums",
                    "aggmix": "limb_sums", "mv_filter": "limb_sums",
-                   "mv_group": "limb_sums", "mv_aggs": "limb_sums"}
+                   "mv_group": "limb_sums", "mv_aggs": "limb_sums",
+                   "q7": "limb_sums", "time_group": "limb_sums",
+                   "str_group": "limb_sums", "time_raw": "limb_sums",
+                   "post_agg": "limb_sums"}
 # one batch family: one dispatch, one launch of kernel A per pass (one
 # fetch holds for every query)
 ONE_FAMILY = ("q2_family", "flagship_family", "q4", "sparse_family", "q5",
               "q5_total", "aggmix", "sel_limit", "sel_order", "mv_filter",
-              "mv_group", "mv_aggs")
+              "mv_group", "mv_aggs", "q7", "time_group", "str_group",
+              "time_raw", "post_agg")
 # segments pruned, and the dispatches left
 PRUNED = {"sel_pruned": (3, 1), "agg_all_pruned": (4, 0)}
 # kernel A's passes over a family: the sums (counts) pass, then one pass per
@@ -232,7 +295,8 @@ SPARSE_QUERIES = ("q3", "q3_sort", "q3m", "sparse_family",
 DEVICE_COMBINE = ("q3", "q3m", "sparse_family", "sparse_family_solo")
 # results in ORDER BY order, compared row for row
 ORDERED = ("q3", "q3_sort", "q3m", "sparse_family", "sparse_family_solo",
-           "q6", "q6m", "q6_sort", "sel_limit", "sel_order", "sel_pruned")
+           "q6", "q6m", "q6_sort", "sel_limit", "sel_order", "sel_pruned",
+           "post_agg")
 # the queries whose kernel A passes the kernel table times shape by shape
 MATRIX_QUERIES = ("q5", "q5_total", "aggmix")
 # their kernel A passes in launch order
@@ -277,6 +341,29 @@ def gen_tags(rows: int, seed: int):
     rng = np.random.default_rng(seed + 1)
     lens = rng.integers(1, MV_MAX + 1, rows)
     return rng.integers(0, MV_CARD, int(lens.sum())).astype(np.int32), lens
+
+
+def gen_dates(d_year: np.ndarray, seed: int):
+    """`ssbt`'s lo_orderdate (epoch millis of a uniform day of the row's
+    d_year) and lo_commit_ts (lo_orderdate plus a uniform [0, 90 days) in
+    millis), drawn from seed + 2."""
+    rng = np.random.default_rng(seed + 2)
+    first = np.asarray([f"{y}-01-01" for y in range(1992, 2000)],
+                       dtype="datetime64[D]").astype(np.int64)
+    k = d_year.astype(np.int64) - 1992
+    day = first[k] + (rng.random(len(k)) * np.diff(first)[k]).astype(np.int64)
+    order = day * DAY_MS
+    return order, order + rng.integers(0, 90 * DAY_MS, len(k))
+
+
+def gen_brands() -> dict:
+    """bench.py's brands dimension table (`_register_brands_dim`)."""
+    ids = np.arange(N_BRANDS, dtype=np.int32)
+    return {"b_id": ids,
+            "b_category": np.asarray([f"MFGR#{i % BRAND_CATEGORIES}"
+                                      for i in ids], dtype=object),
+            "b_region": np.asarray([REGIONS[i % len(REGIONS)] for i in ids],
+                                   dtype=object)}
 
 
 def gen_taxi(rows: int) -> dict:
@@ -446,6 +533,60 @@ def selection_mv_oracle(cols: dict, tags, per: int) -> dict:
         rows.append([y, len(v), float(v.sum()), lo, hi, float(v.sum()) / len(v),
                      hi - lo])
     out["mv_aggs"] = rows
+    return out
+
+
+def transform_oracle(cols: dict, dates) -> dict:
+    """q7, time_group, str_group, time_raw and post_agg with numpy alone:
+    the calendar through numpy's datetime64, the group sums by bincount
+    with float64 weights (exact below 2^53)."""
+    year = cols["d_year"].astype(np.int64)
+    brand = cols["p_brand"].astype(np.int64)
+    rev = cols["lo_revenue"].astype(np.float64)
+    out = {}
+    asia_brand = (brand % len(REGIONS)) == REGIONS.index("ASIA")
+    key = (year - 1992) * BRAND_CATEGORIES + brand % BRAND_CATEGORIES
+    sums = np.bincount(key[asia_brand], weights=rev[asia_brand],
+                       minlength=7 * BRAND_CATEGORIES)
+    cnt = np.bincount(key[asia_brand], minlength=7 * BRAND_CATEGORIES)
+    out["q7"] = [[int(1992 + k // BRAND_CATEGORIES),
+                  f"MFGR#{k % BRAND_CATEGORIES}", float(sums[k])]
+                 for k in np.nonzero(cnt)[0]]
+
+    order, commit = dates
+    month = (order // DAY_MS).astype("datetime64[D]").astype("datetime64[M]")
+    mkey = month.astype(np.int64)  # months since 1970-01
+    m0 = int(mkey.min())
+    asia = cols["s_region"] == "ASIA"
+    cnt = np.bincount(mkey[asia] - m0)
+    sums = np.bincount(mkey[asia] - m0, weights=rev[asia])
+    first_ms = (np.arange(len(cnt)) + m0).astype("datetime64[M]") \
+        .astype("datetime64[D]").astype(np.int64) * DAY_MS
+    out["time_group"] = [[float(first_ms[k]), int(cnt[k]), float(sums[k])]
+                         for k in np.nonzero(cnt)[0]]
+    regions = [r for r in REGIONS if r.startswith("A")]
+    rows = []
+    for r in regions:
+        m = cols["s_region"] == r
+        c = np.bincount(mkey[m] - m0, minlength=len(first_ms))
+        sm = np.bincount(mkey[m] - m0, weights=rev[m], minlength=len(first_ms))
+        rows += [[str(np.datetime64(int(k) + m0, "M")), r.lower(), int(c[k]),
+                  float(sm[k])] for k in np.nonzero(c)[0]]
+    out["str_group"] = rows
+
+    cmonth = (commit // DAY_MS).astype("datetime64[D]") \
+        .astype("datetime64[M]").astype(np.int64) % 12 + 1
+    dec = cmonth == 12
+    lag = (commit // DAY_MS - order // DAY_MS).astype(np.float64)
+    cnt = np.bincount(year[dec] - 1992, minlength=7)
+    sums = np.bincount(year[dec] - 1992, weights=lag[dec], minlength=7)
+    out["time_raw"] = [[int(1992 + k), int(cnt[k]), float(sums[k])]
+                       for k in np.nonzero(cnt)[0]]
+
+    cnt = np.bincount(year - 1992, minlength=7)
+    sums = np.bincount(year - 1992, weights=rev, minlength=7)
+    out["post_agg"] = [[1992 + k, float(np.floor(
+        float(sums[k]) / int(cnt[k]) * 10.0 + 0.5) / 10.0)] for k in range(7)]
     return out
 
 
@@ -644,10 +785,12 @@ def recording(owner, name):
 
 def phase_data(args, torch):
     """The generated rows, built once into --segments segments (table
-    `ssb`), once more into FAMILY_SEGMENTS segments (table `ssb16`), and
-    with the lo_tags column into --segments segments (table `mvt`), and
-    bench.py's taxi rows into --segments segments (table `taxi`); returns
-    {table: (schema, segments)}, the ssb columns, the tags, the taxi
+    `ssb`), once more into FAMILY_SEGMENTS segments (table `ssb16`), with
+    the lo_tags column into --segments segments (table `mvt`), and with
+    lo_orderdate and lo_commit_ts (table `ssbt`); bench.py's taxi rows
+    into --segments segments (table `taxi`), and the `brands` dimension
+    table; returns {table: (schema, segments)}, the brands (schema,
+    segments), the ssb columns, the two date columns, the tags, the taxi
     columns and the build dir."""
     from pinot_tpu_torch.segment.builder import MultiValues, SegmentBuilder
     from pinot_tpu_torch.segment.loader import load_segment
@@ -713,14 +856,42 @@ def phase_data(args, torch):
         segments.append(load_segment(d))
     tables[TAXI_TABLE] = (schema, segments)
     build_s[TAXI_TABLE] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    dates = gen_dates(cols["d_year"], args.seed)
+    schema = Schema.build(TIME_TABLE, dimensions=SCHEMA_DIMS + [
+        ("lo_orderdate", "TIMESTAMP"), ("lo_commit_ts", "TIMESTAMP")],
+        metrics=SCHEMA_METRICS)
+    cfg = TableConfig(table_name=TIME_TABLE, indexing=IndexingConfig(
+        no_dictionary_columns=RAW_COLUMNS + ["lo_commit_ts"]))
+    per = rows // args.segments
+    segments = []
+    for i in range(args.segments):
+        sl = slice(i * per, (i + 1) * per)
+        d = f"{tmp}/{TIME_TABLE}_{i}"
+        seg_cols = {k: v[sl] for k, v in cols.items()}
+        seg_cols["lo_orderdate"], seg_cols["lo_commit_ts"] = (
+            dates[0][sl], dates[1][sl])
+        SegmentBuilder(schema, cfg, f"{TIME_TABLE}_{i}").build(seg_cols, d)
+        segments.append(load_segment(d))
+    tables[TIME_TABLE] = (schema, segments)
+    build_s[TIME_TABLE] = time.perf_counter() - t1
+    schema = Schema.build(DIM_TABLE, dimensions=[
+        ("b_id", "INT"), ("b_category", "STRING"), ("b_region", "STRING")],
+        primary_key_columns=["b_id"])
+    d = f"{tmp}/{DIM_TABLE}"
+    SegmentBuilder(schema, TableConfig(table_name=DIM_TABLE),
+                   DIM_TABLE).build(gen_brands(), d)
+    dim = (schema, [load_segment(d)])
     emit({"phase": "data", "rows": rows,
           "tables": {k: {"segments": len(s), "rows_per_segment": rows // len(s)}
                      for k, (_, s) in tables.items()},
           "seed": args.seed, "generate_s": t_gen, "build_s": build_s,
           "setup_s": time.perf_counter() - t0, "dir": tmp,
           "mv_values": int(tags[1].sum()),
-          "mv_matrix_bytes": rows * MV_MAX * 4})
-    return tables, cols, tags, taxi, tmp
+          "mv_matrix_bytes": rows * MV_MAX * 4,
+          "order_days": int(len(np.unique(dates[0]))),
+          "dim_rows": N_BRANDS})
+    return tables, dim, cols, dates, tags, taxi, tmp
 
 
 def family_count(qe, sql) -> int:
@@ -806,7 +977,7 @@ def phase_queries(torch, qe, expected, _cuda, interp):
         if v == 0:
             raise AssertionError(f"the main path never launched {k}")
     refused = {}
-    for sql in MV_REFUSED:
+    for sql in MV_REFUSED + TRANSFORM_REFUSED:
         try:
             qe.execute_sql(sql)
         except interp_unsupported() as e:
@@ -906,7 +1077,7 @@ def phase_profile(torch, qe, card, slow) -> dict:
                   "q3_sort", "q3m", "sparse_family", "sparse_family_solo",
                   "q5", "q5_total", "aggmix", "q6", "q6m", "q6_sort",
                   "sel_limit", "sel_order", "mv_filter", "mv_group",
-                  "mv_aggs"):
+                  "mv_aggs") + TRANSFORM_QUERIES + ("post_agg",):
         runs = 1 if qname in slow else 3
         if runs > 1:
             qe.execute_sql(QUERIES[qname])
@@ -936,6 +1107,85 @@ def phase_profile(torch, qe, card, slow) -> dict:
                             "calls_per_query": c / runs}
                            for k, t, c in device[:6]]}
     emit({"phase": "profile", "card": card, "profile": out})
+    return out
+
+
+def phase_chain(torch, qe, interp, card) -> dict:
+    """time_raw's filter chain, MONTH(lo_commit_ts), alone over the family's
+    raw (4, padded) int64 plane: its time with CUDA events and its device
+    time under torch.profiler (5 evaluations each), the torch kernels it
+    launches (one per distinct op of the expression DAG), the bytes those
+    eager ops move (each op reads its plane operands and writes its
+    output), and the least time of one fused pass (read the plane once,
+    write one byte a row), both over the card's memory rate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pinot_tpu_torch.engine import ir
+    from pinot_tpu_torch.engine.plan import SegmentPlanner
+    from pinot_tpu_torch.query.parser.sql import parse_sql
+
+    segs = qe._table(TIME_TABLE).segments
+    planner = SegmentPlanner(parse_sql(QUERIES["time_raw"]), segs[0])
+    node = planner.plan().program.filter
+    if not isinstance(node, ir.Interval):
+        raise AssertionError(f"time_raw's filter lowered to {node}")
+    ve = node.vexpr
+    raw = [(c, k) for c, k in planner._slots if k == "raw"]
+    if raw != [("lo_commit_ts", "raw")]:
+        raise AssertionError(f"time_raw's chain reads {raw}")
+    slot = planner._slots.index(raw[0])
+    plane = torch.stack([qe.executor.cache.view(s).raw("lo_commit_ts")
+                         for s in segs])
+    arrays = tuple(plane if i == slot else None
+                   for i in range(len(planner._slots)))
+    params = tuple(torch.from_numpy(np.array(p)).to(DEVICE).reshape(1, -1)
+                   for p in planner._params)
+
+    memo, cost = {}, {"ops": 0, "bytes": 0}
+
+    def ev(n):
+        if id(n) not in memo:
+            out = interp._eval_node(n, arrays, params, ev)
+            kids = [memo[id(c)] for c in interp._children(n)]
+            if kids and not any(out is k for k in kids):
+                cost["ops"] += 1
+                cost["bytes"] += out.numel() * out.element_size() + sum(
+                    k.numel() * k.element_size() for k in kids
+                    if k.numel() == out.numel())
+            memo[id(n)] = out
+        return memo[id(n)]
+
+    month = ev(ve)
+    want = ((plane // DAY_MS).cpu().numpy().astype("datetime64[D]")
+            .astype("datetime64[M]").astype(np.int64) % 12 + 1)
+    if not np.array_equal(month.cpu().numpy(), want):
+        raise AssertionError("MONTH(lo_commit_ts) on the card differs from "
+                             "numpy's calendar")
+    del memo, month
+    torch.cuda.empty_cache()
+    ms = cuda_ms(torch, lambda: interp._eval_value(ve, arrays, params), 5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            interp._eval_value(ve, arrays, params)
+        torch.cuda.synchronize()
+    device = [(e.key, e.self_device_time_total, e.count)
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    device.sort(key=lambda d: -d[1])
+    rows = plane.numel()
+    out = {"phase": "chain", "card": card, "expr": "MONTH(lo_commit_ts)",
+           "rows": rows, "ops": cost["ops"], "eager_bytes": cost["bytes"],
+           "eager_bound_ms": cost["bytes"] / HBM_BYTES_PER_S * 1e3,
+           "fused_bound_ms": rows * 9 / HBM_BYTES_PER_S * 1e3,
+           "ms": ms,
+           "device_ms": sum(d[1] for d in device) / 5 / 1e3,
+           "kernels_per_eval": sum(d[2] for d in device) / 5,
+           "top_device": [{"name": k[:60], "ms_per_eval": t / 5 / 1e3,
+                           "calls_per_eval": c / 5}
+                          for k, t, c in device[:6]]}
+    emit(out)
     return out
 
 
@@ -1272,6 +1522,7 @@ def main(argv=None) -> int:
     ap.add_argument("--segments", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1333,7 +1584,7 @@ def main(argv=None) -> int:
     parity.update(phase_bin_edges(torch, interp, args.seed))
     torch.cuda.empty_cache()
 
-    tables, cols, tags, taxi_cols, tmp = phase_data(args, torch)
+    tables, dim, cols, dates, tags, taxi_cols, tmp = phase_data(args, torch)
     segments = tables["ssb"][1]
     try:
         expected = oracle(cols)
@@ -1341,10 +1592,12 @@ def main(argv=None) -> int:
         expected.update(taxi_oracle(taxi_cols))
         expected.update(selection_mv_oracle(cols, tags,
                                             args.rows_per_segment))
-        del cols, taxi_cols, tags
+        expected.update(transform_oracle(cols, dates))
+        del cols, taxi_cols, tags, dates
         qe = QueryExecutor(device=DEVICE)
         for schema, segs in tables.values():
             qe.add_table(schema, segs)
+        qe.add_dimension_table(*dim)
         t0 = time.perf_counter()
         warmed = sum(qe.executor.cache.warm(s) for s in tables[TAXI_TABLE][1])
         torch.cuda.synchronize()
@@ -1367,7 +1620,8 @@ def main(argv=None) -> int:
                 ("q4", mxu_groupby, "limb_sums", 1),
                 *((q, mxu_groupby, "limb_sums", FAMILY_LAUNCHES[q])
                   for q in MATRIX_QUERIES),
-                *((q, mxu_groupby, "limb_sums", 1) for q in MV_QUERIES)):
+                *((q, mxu_groupby, "limb_sums", 1) for q in MV_QUERIES),
+                *((q, mxu_groupby, "limb_sums", 1) for q in TRANSFORM_QUERIES)):
             with recording(owner, fn) as calls:
                 qe.execute_sql(QUERIES[qname])
             if len(calls) != calls_want:
@@ -1385,7 +1639,8 @@ def main(argv=None) -> int:
                     torch, f"limb_sums {qname} inputs, segment {k}",
                     mxu_groupby.limb_sums(planes, gid, G),
                     mxu_groupby.limb_sums_plain(planes, gid, G))
-        for qname in ("q2_family", "flagship_family", "q4") + MV_QUERIES:
+        for qname in (("q2_family", "flagship_family", "q4") + MV_QUERIES
+                      + TRANSFORM_QUERIES):
             planes, gid, G = recorded[qname][0]
             parity[f"limb_sums/{qname}_inputs/family"] = check_equal(
                 torch, f"limb_sums {qname} inputs, family of "
@@ -1422,6 +1677,7 @@ def main(argv=None) -> int:
               "iters": args.iters, "iters_1": sorted(slow)})
         phase_layers(torch, qe, args.iters, dev["nvidia_smi"], slow)
         phase_profile(torch, qe, dev["nvidia_smi"], slow)
+        phase_chain(torch, qe, interp, dev["nvidia_smi"])
         del qe
         torch.cuda.empty_cache()
         kernels = []
@@ -1439,7 +1695,7 @@ def main(argv=None) -> int:
                 parity[f"fused_limb_sums/{qname}_plan/segment0"],
                 f"{qname}: the main path's raw planes of the {len(segments)} "
                 "segments, in turn"))
-        for qname in ("q2_family", "q4") + MV_QUERIES:
+        for qname in ("q2_family", "q4") + MV_QUERIES + TRANSFORM_QUERIES:
             S = recorded[qname][0][0].shape[0]
             kernels.append(kernel_a_row(
                 torch, mxu_groupby, _cuda, recorded[qname],
@@ -1460,6 +1716,7 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

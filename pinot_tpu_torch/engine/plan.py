@@ -10,11 +10,19 @@ its (docs, max_mv) id matrix that matches when ANY value does. The Program
 (engine/ir.py) is the same IR the JAX package builds, so both interpreters
 run identical plans.
 
+Transforms (query/transforms.py) lower in the reference's order: a
+registered device lowering (date/time chains over int64, rounding) first,
+else an evaluation over the DICTIONARY of one or two dict-encoded columns
+on the host, gathered by id on the device (ir.ParamGather), which also
+serves string-valued transforms as GROUP BY keys (a derived dimension) and
+in predicates (a LUT over the ids), LOOKUP joins included.
+
 Shapes the JAX package answers on its host engine raise
 UnsupportedQueryError here (the port has none): the aggregations it does
-not lower, transforms other than arithmetic, two multi-value GROUP BY
-dimensions, a multi-value aggregation under a multi-value GROUP BY.
-Selecting a multi-value column's values raises too.
+not lower, a GROUP BY on a transform of a raw column, a transform of
+dictionary columns whose cartesian product exceeds the LUT limits, two
+multi-value GROUP BY dimensions, a multi-value aggregation under a
+multi-value GROUP BY. Selecting a multi-value column's values raises too.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ import numpy as np
 from ..query.context import QueryContext
 from ..query.expressions import ExpressionContext
 from ..query.filter import FilterContext, FilterNodeType, Predicate, PredicateType
-from ..query.transforms import eval_expr_np, np_evaluable
+from ..query.transforms import (IRBuilder, eval_expr_np, get_transform,
+                                np_evaluable)
 from ..segment.device_cache import SegmentDeviceView
 from ..segment.loader import ImmutableSegment
 from ..spi.data_types import DataType
@@ -352,6 +361,12 @@ class SegmentPlanner(AggPlanContext):
                 return base
             null_slot = self.slot(args[0].identifier, "null")
             return ir.Where(ir.Un("not", ir.Col(null_slot)), base, self.value_expr(args[1]))
+        td = get_transform(name)
+        if td is not None and td.lower is not None:
+            try:
+                return td.lower(IRBuilder(self), list(args))
+            except (UnsupportedQueryError, ValueError, KeyError):
+                pass
         ve = self._dict_transform_expr(e)
         if ve is not None:
             return ve
@@ -824,10 +839,10 @@ class SegmentPlanner(AggPlanContext):
     def _plan_selection(self, filt) -> SegmentPlan:
         """Selection: the device computes the filter mask; the host
         materializes the matching rows. Transform select and ORDER BY items
-        evaluate on the host over the filtered doc ids only, by numpy
-        (query/transforms.py eval_expr_np); one it cannot evaluate, or a
-        multi-value column, raises (the JAX package falls back to its host
-        engine)."""
+        evaluate on the host over the filtered doc ids only, through the
+        registry's numpy forms (query/transforms.py eval_expr_np); COALESCE
+        or a multi-value column (the array functions included) raises (the
+        JAX package answers those on its host engine)."""
         sel_cols, sel_exprs = selection_columns_for(self.query, self.segment)
         for c in sel_cols:
             e = sel_exprs.get(c)

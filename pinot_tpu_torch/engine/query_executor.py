@@ -35,6 +35,7 @@ from .aggregation import UnsupportedQueryError, semantics_for
 from .combine import (combine_aggregation, combine_batched_aggregation,
                       combine_batched_dense, combine_group_arrays,
                       combine_group_by, combine_selection, trim_group_by)
+from .dim_tables import register_dimension_table
 from .executor import (BatchFamilyMismatch, SegmentExecutor,
                        batch_family_key, dispatch_counters,
                        reset_dispatch_counters)
@@ -88,6 +89,25 @@ class QueryExecutor:
                   name: Optional[str] = None):
         name = name or schema.schema_name
         self.tables[name] = Table(name, schema, list(segments))
+
+    def add_dimension_table(self, schema: Schema, segments: list,
+                            name: Optional[str] = None) -> None:
+        """Register a queryable table that also serves LOOKUP joins
+        (reference: TableConfig.isDimTable + DimensionTableDataManager).
+        The schema must declare exactly one primary key column; duplicate
+        keys raise. The port's registry is per process
+        (engine/dim_tables.py)."""
+        name = name or schema.schema_name
+        self.add_table(schema, segments, name)
+        if len(schema.primary_key_columns) != 1:
+            raise ValueError("dimension tables need exactly one primary key")
+        cols = {}
+        for c in schema.column_names():
+            # a multi-value column raises ValueError, as in the reference
+            parts = [s.get_values_at(c, np.arange(s.num_docs))
+                     for s in self.tables[name].segments]
+            cols[c] = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        register_dimension_table(name, schema.primary_key_columns[0], cols)
 
     def execute_sql(self, sql: str) -> BrokerResponse:
         try:

@@ -4,8 +4,10 @@ The port of pinot_tpu/engine/reduce.py for aggregation, GROUP BY and
 selection results (reference: BrokerReduceService, GroupByDataTableReducer
 and SelectionDataTableReducer -- HAVING, post-aggregation expressions,
 ORDER BY, OFFSET/LIMIT). Post-aggregation expressions evaluate on the host
-over finalized values; selection rows re-sort by Python's stable sort, one
-pass per ORDER BY key from the last, and hidden ORDER BY-only columns are
+over finalized values, any registered transform (ROUNDDECIMAL, DATETRUNC,
+string functions, ...) through its scalar form (query/transforms.py
+`eval_scalar`); selection rows re-sort by Python's stable sort, one pass
+per ORDER BY key from the last, and hidden ORDER BY-only columns are
 projected away.
 """
 
@@ -19,6 +21,7 @@ import numpy as np
 from ..query.context import QueryContext
 from ..query.expressions import ExpressionContext, is_aggregation
 from ..query.filter import FilterContext, FilterNodeType, Predicate, PredicateType
+from ..query.transforms import eval_scalar
 from ..spi.data_types import Schema
 from .aggregation import UnsupportedQueryError, semantics_for
 from .plan import like_to_regex
@@ -342,7 +345,9 @@ def _eval_post(e: ExpressionContext, env: dict):
             if v is not None:
                 return v
         return None
-    raise UnsupportedQueryError(f"post-aggregation function {name}")
+    # every other function: the registry's scalar form (an unregistered
+    # name raises UnsupportedQueryError)
+    return eval_scalar(name, a)
 
 
 def _eval_having(f: FilterContext, env: dict) -> bool:

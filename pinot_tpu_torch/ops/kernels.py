@@ -176,6 +176,53 @@ def _mv_reduce(node: ir.MvLutReduce, arrays, params) -> torch.Tensor:
 
 
 def _eval_value(node: ir.ValueExpr, arrays, params):
+    """Evaluate a value expression. The planner's IRBuilder shares
+    subexpressions as one Python object (a civil-date chain reads `doe` or
+    `yoe` many times: DATETRUNC('MONTH', ts) is 55 distinct nodes but 9368
+    as a tree), so each distinct node evaluates once, as XLA's CSE does for
+    the reference, and its result is dropped after its last use."""
+    uses: dict = {}
+    _count_uses(node, uses)
+    return _eval_shared(node, arrays, params, {}, uses)
+
+
+def _children(node):
+    if isinstance(node, ir.Bin):
+        return (node.a, node.b)
+    if isinstance(node, (ir.Un, ir.Cast)):
+        return (node.a,)
+    if isinstance(node, ir.Where):
+        return (node.cond, node.a, node.b)
+    if isinstance(node, ir.ParamGather):
+        return (node.ids,)
+    return ()
+
+
+def _count_uses(node, uses: dict) -> None:
+    k = id(node)
+    uses[k] = uses.get(k, 0) + 1
+    if uses[k] == 1:
+        for c in _children(node):
+            _count_uses(c, uses)
+
+
+def _eval_shared(node, arrays, params, memo: dict, uses: dict):
+    k = id(node)
+    if k in memo:
+        out = memo[k]
+    else:
+        out = _eval_node(node, arrays, params, lambda c: _eval_shared(
+            c, arrays, params, memo, uses))
+        if uses[k] > 1:
+            memo[k] = out
+    uses[k] -= 1
+    if uses[k] == 0:
+        memo.pop(k, None)
+    return out
+
+
+def _eval_node(node: ir.ValueExpr, arrays, params, ev):
+    """One node, its children evaluated through `ev`."""
     if isinstance(node, (ir.Col, ir.IdsCol)):
         return arrays[node.slot]
     if isinstance(node, ir.DictGather):
@@ -183,21 +230,16 @@ def _eval_value(node: ir.ValueExpr, arrays, params):
     if isinstance(node, ir.ConstParam):
         return params[node.idx]
     if isinstance(node, ir.ParamGather):
-        return _gather(params[node.param_idx],
-                       _eval_value(node.ids, arrays, params))
+        return _gather(params[node.param_idx], ev(node.ids))
     if isinstance(node, ir.Bin):
-        a = _eval_value(node.a, arrays, params)
-        b = _eval_value(node.b, arrays, params)
-        return _BIN_OPS[node.op](a, b)
+        return _BIN_OPS[node.op](ev(node.a), ev(node.b))
     if isinstance(node, ir.Un):
-        return _UN_OPS[node.op](_eval_value(node.a, arrays, params))
+        return _UN_OPS[node.op](ev(node.a))
     if isinstance(node, ir.Cast):
-        return _eval_value(node.a, arrays, params).to(_CAST_DTYPES[node.to])
+        return ev(node.a).to(_CAST_DTYPES[node.to])
     if isinstance(node, ir.Where):
-        a, b = _promote(_eval_value(node.a, arrays, params),
-                        _eval_value(node.b, arrays, params))
-        return torch.where(_eval_value(node.cond, arrays, params).to(torch.bool),
-                           a, b)
+        a, b = _promote(ev(node.a), ev(node.b))
+        return torch.where(ev(node.cond).to(torch.bool), a, b)
     if isinstance(node, ir.NullCol):
         return arrays[node.null_slot]
     if isinstance(node, ir.FilterVal):

@@ -705,3 +705,96 @@ def test_histogram_bins_on_the_card_match_cpu(cuda, bins):
         outs[dev] = run_program(program, arrays, tparams, n, n, device=dev)
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert torch.equal(got.cpu(), want)
+
+
+# -- the transform registry's int64 date chains on the card ---------------------
+
+_MS_1900, _MS_2101 = -2_208_988_800_000, 4_133_980_800_000
+# leap days and the turns of 1900, 2000 and 2100, in epoch millis
+_MS_EDGES = [-2_208_988_800_000, -2_203_977_600_000, -2_203_891_200_000,
+             951_782_400_000, 951_868_800_000, 946_684_799_999,
+             946_684_800_000, 4_107_456_000_000, 4_107_542_400_000,
+             4_102_444_799_999, 4_102_444_800_000, -1, 0, 1]
+_DATE_CHAINS = ["year(tsr)", "month(tsr)", "quarter(tsr)", "day(tsr)",
+                "dayofyear(tsr)", "dayofweek(tsr)", "hour(tsr)",
+                "minute(tsr)", "second(tsr)", "millisecond(tsr)",
+                "datetrunc('WEEK', tsr)", "datetrunc('MONTH', tsr)",
+                "datetrunc('QUARTER', tsr)", "datetrunc('YEAR', tsr)",
+                "datetrunc('MONTH', ts)", "toepochdays(tsr) - toepochdays(ts)",
+                "timestampdiff('WEEK', ts, tsr)", "toepochminutesbucket(tsr, 15)",
+                "datetimeconvert(tsr, '1:MILLISECONDS:EPOCH', '1:HOURS:EPOCH', "
+                "'15:MINUTES')"]
+
+
+@pytest.fixture(scope="module")
+def time_table(tmp_path_factory):
+    """2^20 rows: tsr raw millis from 1900 to 2100 (edges first), ts a
+    day of the same span (dictionary-encoded), d_year, lo_revenue."""
+    rng = np.random.default_rng(1900)
+    n = 1 << 20
+    tsr = rng.integers(_MS_1900, _MS_2101, n).astype(np.int64)
+    tsr[:len(_MS_EDGES)] = _MS_EDGES
+    cols = {"tsr": tsr,
+            "ts": rng.integers(-25567, 47482, n).astype(np.int64) * 86_400_000,
+            "d_year": rng.integers(1992, 1999, n).astype(np.int32),
+            "lo_revenue": rng.integers(1, 600_000, n).astype(np.int32)}
+    schema = Schema.build("tt", dimensions=[("tsr", "TIMESTAMP"),
+                                            ("ts", "TIMESTAMP"),
+                                            ("d_year", "INT")],
+                          metrics=[("lo_revenue", "INT")])
+    cfg = TableConfig(table_name="tt", indexing=IndexingConfig(
+        no_dictionary_columns=["tsr", "lo_revenue"]))
+    path = tmp_path_factory.mktemp("torch_cuda_time") / "tt"
+    SegmentBuilder(schema, cfg, "tt").build(cols, path)
+    return schema, load_segment(path)
+
+
+@pytest.mark.parametrize("expr", _DATE_CHAINS)
+def test_int64_date_chain_on_the_card_matches_cpu(cuda, time_table, expr):
+    """Each lowered chain (int64 floor division and modulo over negative
+    millis), element-equal on the card to the port's CPU run, which equals
+    the registry's numpy form."""
+    from pinot_tpu_torch.engine.plan import SegmentPlan, SegmentPlanner
+    from pinot_tpu_torch.engine import ir
+    from pinot_tpu_torch.ops import kernels
+    from pinot_tpu_torch.query.parser.sql import parse_sql
+    from pinot_tpu_torch.query.transforms import eval_expr_np
+    from pinot_tpu_torch.segment.device_cache import SegmentDeviceView
+
+    _, seg = time_table
+    q = parse_sql(f"SELECT {expr} FROM tt")
+    planner = SegmentPlanner(q, seg)
+    ve = planner.value_expr(q.select_expressions[0])
+    assert not isinstance(ve, ir.ParamGather)
+    plan = SegmentPlan(ir.Program(mode="selection", filter=None),
+                       planner._slots, planner._params)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        arrays, packed = plan.gather_arrays_packed(SegmentDeviceView(seg, dev))
+        arrays = kernels._apply_packed(arrays, packed)
+        params = tuple(torch.from_numpy(np.array(p)).to(dev).reshape(1, -1)
+                       for p in plan.params)
+        outs[dev] = kernels._eval_value(
+            ve, tuple(a.unsqueeze(0) for a in arrays), params)[0]
+    assert outs["cuda"].dtype == torch.int64
+    assert torch.equal(outs["cuda"].cpu(), outs["cpu"])
+    want = eval_expr_np(q.select_expressions[0], lambda c: seg.get_values_at(
+        c, np.arange(seg.num_docs)))
+    np.testing.assert_array_equal(outs["cpu"][:seg.num_docs].numpy(), want)
+
+
+def test_time_raw_on_the_card_matches_cpu(cuda, time_table):
+    """chip_smoke.py's time_raw shape: the chain in a filter and an int64
+    expression operand, through kernel A, rows equal to the CPU run's."""
+    schema, seg = time_table
+    sql = ("SELECT d_year, COUNT(*), SUM(toEpochDays(tsr) - toEpochDays(ts)) "
+           "FROM tt WHERE MONTH(tsr) = 12 GROUP BY d_year")
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        qe = QueryExecutor(device=dev)
+        qe.add_table(schema, [seg])
+        before = _cuda.LAUNCHES["limb_sums"]
+        rows[dev] = sorted(qe.execute_sql(sql).result_table.rows)
+        if dev == "cuda":
+            assert _cuda.LAUNCHES["limb_sums"] == before + 1
+    assert rows["cuda"] == rows["cpu"] and len(rows["cpu"]) == 7

@@ -9,6 +9,14 @@ raw and dictionary columns and an MV column: the port's
 segment cache off). Every query gives rows equal to the reference's (in
 order where the query orders them, or is a selection), with the same
 scanned docs, pruned segments and device dispatches.
+
+The transform templates add TIMESTAMP columns (day-resolution millis
+dictionary-encoded, raw millis from 1900 to 2100) and a dimension table
+in both packages: date/time over raw and dictionary columns, string
+transforms in filters and GROUP BY keys, LOOKUP, post-aggregation and
+HAVING functions, and selections with transform items. Where the JAX
+package's device planner refuses a segment's plan (it answers such
+shapes on its host engine), the port must raise UnsupportedQueryError.
 """
 
 from __future__ import annotations
@@ -18,9 +26,16 @@ import math
 import numpy as np
 import pytest
 
+from pinot_tpu.engine import dim_tables as jax_dim_tables
+from pinot_tpu.engine.aggregation import \
+    UnsupportedQueryError as JaxUnsupportedQueryError
+from pinot_tpu.engine.plan import SegmentPlanner as JaxPlanner
 from pinot_tpu.engine.query_executor import QueryExecutor as JaxQueryExecutor
+from pinot_tpu.query.parser.sql import parse_sql as jax_parse
 from pinot_tpu.segment.loader import load_segment as jax_load
 from pinot_tpu.spi.data_types import Schema as JaxSchema
+from pinot_tpu_torch.engine import dim_tables
+from pinot_tpu_torch.engine.aggregation import UnsupportedQueryError
 from pinot_tpu_torch.engine.query_executor import QueryExecutor
 from pinot_tpu_torch.segment.builder import SegmentBuilder
 from pinot_tpu_torch.segment.loader import load_segment
@@ -30,11 +45,17 @@ from pinot_tpu_torch.spi.table_config import IndexingConfig, TableConfig
 TABLE = "d"
 SIZES = [1200, 1200, 700, 9000]
 DIMS = [("d_year", "INT"), ("s_region", "STRING"), ("p_brand", "INT"),
-        ("tags", "INT", False), ("lo_orderkey", "LONG")]
+        ("tags", "INT", False), ("lo_orderkey", "LONG"),
+        ("ts", "TIMESTAMP"), ("tsr", "TIMESTAMP")]
 METRICS = [("lo_revenue", "INT"), ("lo_tax", "DOUBLE"), ("lo_qty", "FLOAT")]
-RAW = ["lo_revenue", "lo_tax", "lo_qty"]
+RAW = ["lo_revenue", "lo_tax", "lo_qty", "tsr"]
 REGIONS = ["AMERICA", "ASIA", "EUROPE", "AFRICA", None]
 PER_TEMPLATE = 22
+DAY = 86_400_000
+# 1900-01-01 and 2101-01-01 in epoch millis
+MS_LO, MS_HI = -2_208_988_800_000, 4_133_980_800_000
+DIM_TABLE = "dd_brands"
+DIM_KEYS = 35  # p_brand runs to 39: keys 35..39 are missing
 
 
 @pytest.fixture(autouse=True)
@@ -60,6 +81,20 @@ def _cols(rng, rows, base):
     }
 
 
+def _time_cols(rng, rows):
+    """ts: a day of 1992-1998 (dictionary-encoded), tsr: millis from 1900
+    to 2100 (raw), from a generator of their own."""
+    return {"ts": rng.integers(8035, 10592, rows).astype(np.int64) * DAY,
+            "tsr": rng.integers(MS_LO, MS_HI, rows).astype(np.int64)}
+
+
+def _dim_cols():
+    keys = np.arange(DIM_KEYS, dtype=np.int32)
+    return {"b_id": keys,
+            "b_cat": np.asarray([f"C{k % 7}" for k in keys], dtype=object),
+            "b_rank": (keys * 3) % 17}
+
+
 @pytest.fixture(scope="module")
 def tables(tmp_path_factory):
     rng = np.random.default_rng(2026)
@@ -69,15 +104,20 @@ def tables(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_differential")
     paths = []
     for i, rows in enumerate(SIZES):
-        SegmentBuilder(schema, cfg, f"s{i}").build(
-            _cols(rng, rows, 100_000 * i), root / f"s{i}")
+        cols = _cols(rng, rows, 100_000 * i)
+        cols.update(_time_cols(np.random.default_rng(1000 + i), rows))
+        SegmentBuilder(schema, cfg, f"s{i}").build(cols, root / f"s{i}")
         paths.append(root / f"s{i}")
     port = QueryExecutor(device="cpu")
     port.add_table(schema, [load_segment(p) for p in paths])
     jax = JaxQueryExecutor(backend="tpu")
     jax.add_table(JaxSchema.build(TABLE, dimensions=DIMS, metrics=METRICS),
                   [jax_load(p) for p in paths])
-    return port, jax
+    dim_tables.register_dimension_table(DIM_TABLE, "b_id", _dim_cols())
+    jax_dim_tables.register_dimension_table(DIM_TABLE, "b_id", _dim_cols())
+    yield port, jax, paths
+    dim_tables.unregister_dimension_table(DIM_TABLE)
+    jax_dim_tables.unregister_dimension_table(DIM_TABLE)
 
 
 def _tags(r, k):
@@ -132,15 +172,74 @@ TEMPLATES = [
 ]
 
 
-def _queries():
-    rng = np.random.default_rng(20261017)
+_UNITS = ["MONTH", "QUARTER", "YEAR", "WEEK"]
+_LOOKUP = f"LOOKUP('{DIM_TABLE}', '{{}}', 'b_id', p_brand)"
+# the GROUP BY keys of x9: the JAX device planner takes a transform of a
+# dictionary column, refuses one of a raw column (tsr) and a two-column
+# transform past the 2^18 LUT limit
+_KEYS = ["YEAR(tsr)", "YEAR(ts)", "toEpochDays(tsr)", "MONTH(ts) + d_year",
+         "lo_orderkey - toEpochDays(ts)", "CONCAT(s_region, p_brand, '/')"]
+
+def _datetrunc_query(r, unit):
+    return (f"SELECT DATETRUNC('{unit}', ts), COUNT(*), SUM(lo_revenue) "
+            f"FROM d WHERE s_region = '{REGIONS[r.integers(0, 4)]}' "
+            f"GROUP BY DATETRUNC('{unit}', ts) ORDER BY DATETRUNC('{unit}', "
+            f"ts) LIMIT {r.integers(1, 400)}")
+
+
+def _key_query(r, key):
+    return (f"SELECT {key}, COUNT(*) FROM d WHERE d_year > "
+            f"{r.integers(1990, 1998)} GROUP BY {key} ORDER BY "
+            f"COUNT(*) DESC, {key} LIMIT 50")
+
+
+# (the selections keep a matching row: with every segment pruned, the JAX
+# package's reduce fails on a selection's transform columns)
+TRANSFORM_TEMPLATES = [
+    lambda r: (f"SELECT d_year, COUNT(*), SUM(toEpochDays(tsr) - "
+               f"toEpochDays(ts)) FROM d WHERE MONTH(tsr) = "
+               f"{r.integers(1, 13)} GROUP BY d_year"),
+    lambda r: _datetrunc_query(r, _UNITS[r.integers(0, 4)]),
+    lambda r: (f"SELECT COUNT(*), MIN(HOUR(tsr)), MAX(DAYOFWEEK(tsr)), "
+               f"SUM(MINUTE(tsr)) FROM d WHERE YEAR(tsr) BETWEEN "
+               f"{r.integers(1890, 2000)} AND {r.integers(2000, 2110)} AND "
+               f"DAYOFWEEK(tsr) <> {r.integers(1, 8)}"),
+    lambda r: (f"SELECT UPPER(s_region), COUNT(*), MAX(lo_tax) FROM d WHERE "
+               f"SUBSTR(s_region, 0, {r.integers(1, 3)}) IN ('A', 'AS', 'EU', "
+               f"'{['AF', 'n', 'nu'][r.integers(0, 3)]}') "
+               f"GROUP BY UPPER(s_region)"),
+    lambda r: (f"SELECT {_LOOKUP.format('b_cat')}, SUM(lo_revenue), COUNT(*) "
+               f"FROM d WHERE {_LOOKUP.format('b_rank')} > "
+               f"{r.integers(-1, 17)} AND d_year >= {r.integers(1992, 1999)} "
+               f"GROUP BY {_LOOKUP.format('b_cat')}"),
+    lambda r: (f"SELECT d_year, ROUNDDECIMAL(SUM(lo_tax) / COUNT(*), "
+               f"{r.integers(0, 4)}), TRUNCATE(AVG(lo_qty), 1), "
+               f"todatetime(MAX(ts), 'yyyy-MM-dd') FROM d WHERE p_brand < "
+               f"{r.integers(1, 41)} GROUP BY d_year ORDER BY d_year"),
+    lambda r: (f"SELECT s_region, COUNT(*) FROM d GROUP BY s_region HAVING "
+               f"ROUND(SUM(lo_revenue) / 1000) > {r.integers(0, 6000)} "
+               f"ORDER BY s_region"),
+    lambda r: (f"SELECT lo_orderkey, toDateTime(tsr, 'yyyy-MM-dd'), "
+               f"CONCAT(s_region, 'x', '-') FROM d WHERE d_year = "
+               f"{r.integers(1992, 1999)} ORDER BY lo_orderkey "
+               f"LIMIT {r.integers(1, 50)}"),
+    lambda r: (f"SELECT lo_orderkey, YEAR(ts), LOWER(s_region) FROM d WHERE "
+               f"lo_qty < {r.integers(1, 14)} ORDER BY YEAR(ts) DESC, "
+               f"lo_orderkey LIMIT {r.integers(1, 60)}"),
+    lambda r: _key_query(r, _KEYS[r.integers(0, len(_KEYS))]),
+]
+
+
+def _queries(templates=TEMPLATES, prefix="t", seed=20261017,
+             per_template=PER_TEMPLATE):
+    rng = np.random.default_rng(seed)
     out = []
-    for t, make in enumerate(TEMPLATES):
-        for i in range(PER_TEMPLATE):
+    for t, make in enumerate(templates):
+        for i in range(per_template):
             sql = make(rng)
             if i % 2:
                 sql = "SET segmentBatch = false; " + sql
-            out.append(pytest.param(sql, id=f"t{t}-{i}"))
+            out.append(pytest.param(sql, id=f"{prefix}{t}-{i}"))
     return out
 
 
@@ -155,7 +254,27 @@ def _cell_equal(a, b):
 
 @pytest.mark.parametrize("sql", _queries())
 def test_random_query_matches_jax(tables, sql):
-    port, jax = tables
+    _assert_matches_jax(*tables[:2], sql)
+
+
+@pytest.mark.parametrize("sql", _queries(TRANSFORM_TEMPLATES, "x", 20261018,
+                                         20))
+def test_random_transform_query_matches_jax(tables, sql):
+    port, jax, paths = tables
+    refused = False
+    for p in paths:
+        try:
+            JaxPlanner(jax_parse(sql), jax_load(p)).plan()
+        except JaxUnsupportedQueryError:
+            refused = True
+    if refused:
+        with pytest.raises(UnsupportedQueryError):
+            port.execute_sql(sql)
+    else:
+        _assert_matches_jax(port, jax, sql)
+
+
+def _assert_matches_jax(port, jax, sql):
     want = jax.execute_sql(sql)
     assert not want.exceptions, want.exceptions
     got = port.execute_sql(sql)

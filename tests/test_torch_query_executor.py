@@ -197,9 +197,9 @@ def test_cpu_run_launches_no_kernel(tables):
 
 
 @pytest.mark.parametrize("sql", [
-    # a selection transform numpy does not evaluate here: the JAX
-    # package's host engine
-    f"SELECT upper(s_region) FROM {TABLE} LIMIT 10",
+    # a selection transform numpy does not evaluate here (null planes):
+    # the JAX package's host engine
+    f"SELECT coalesce(lo_tax, 0) FROM {TABLE} LIMIT 10",
     # PERCENTILE over a raw column: the JAX package's host engine
     f"SELECT d_year, PERCENTILE(lo_revenue, 50) FROM {TABLE} GROUP BY d_year",
     f"SELECT lo_revenue, COUNT(*) FROM {TABLE} GROUP BY lo_revenue",

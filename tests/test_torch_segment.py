@@ -180,11 +180,12 @@ def test_programs_equal_jax(built, sql):
 
 
 @pytest.mark.parametrize("sql", [
-    # a selection transform numpy does not evaluate here
-    "SELECT upper(region) FROM t LIMIT 10",
+    # a selection transform numpy does not evaluate here (null planes)
+    "SELECT coalesce(rev, 0) FROM t LIMIT 10",
     # PERCENTILE over a raw column: the JAX package's host engine
     "SELECT year, PERCENTILE(rev, 50) FROM t GROUP BY year",
-    "SELECT year, COUNT(*) FROM t WHERE upper(region) = 'ASIA' GROUP BY year",
+    # a GROUP BY on a transform of a raw column: the host engine's
+    "SELECT year(rev), COUNT(*) FROM t GROUP BY year(rev)",
     # an MV function, and EXPRMIN: the JAX package's host engine
     "SELECT year, SUMMV(rev) FROM t GROUP BY year",
     "SELECT year, EXPRMIN(rev, price) FROM t GROUP BY year",
