@@ -84,6 +84,35 @@ Phases, each printing one JSON line:
                  transform of a raw column and a two-column transform past
                  the 2^18 table are refused, as the JAX package's device
                  planner refuses them
+           and, after phase `realtime`, a second line for its queries at
+           their final state:
+             rt_q1, rt_q2, rt_range             bench.py Q1 and Q2 and a
+                 RANGE on d_year over `ssb_rt`: the family of 4, then the
+                 consuming snapshot (2 dispatches, 1 fetch; kernel B on its
+                 Q2 and RANGE, the RANGE a LUT over its insertion-ordered
+                 dictionary)
+             ups                                GROUP BY d_year over `ups`:
+                 kernel A on the committed and on the consuming segment,
+                 each with its upsert validity plane in the filter
+  realtime consuming segments on the card (the same counts, set to 0 just
+           before the phase and read after it): `ssb_rt`, the 4 ssb
+           segments plus a consuming segment of the ssb schema fed a row at
+           a time (gen_ssb rows from --seed + 3) through generations g0
+           (2^22 - 2^15 rows), g1 (+2^16, crossing into the 2^23 bucket:
+           every plane grows on the card) and g2 (+2^10), each query cold
+           then warm: rows equal to the numpy oracle over every row the
+           pinned snapshot holds, 2 dispatches and 1 fetch; per generation
+           the delta bytes and uploads, the host-clock ms of reading the
+           delta out of the consuming segment and of uploading it, the warm
+           p50 and the plane bytes. g0's warm repeat must upload nothing,
+           g1's tail must be below 1/8 of g0's bytes. Then `ups`, an upsert
+           table (FULL, comparison column ts = arrival order, one row in
+           64 older than every version) of the ssb columns plus a pk LONG
+           drawn from 2^20 keys: one committed segment of 2^21 rows (built,
+           then replayed with add_segment) and one consuming segment of
+           2^21 rows (index + add_record), queried before and after 2^16
+           more rows overwrite keys: rows equal to the oracle of the
+           newest version of each key, and the overwrite must change them
   times    p50 query latency over --iters warm runs (1 for a query slower
            than 1 s)
   layers   a warm query's host time split into parse + prune + plan,
@@ -97,13 +126,17 @@ Phases, each printing one JSON line:
   geometry each kernel shape's launch geometry and the card's cluster
            occupancy
   total    the run's wall time, the build included
-  kernels  the kernel table: per kernel and main-path shape, the kernel's
+  kernels  the kernel table (the realtime queries' launches included, one
+           row each): per kernel and main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
            rotated over the recorded inputs of the query's segments or
-           families, so that the 50 MB L2 holds none of them), the
-           wrapper's time with CUDA events around the calls (`call_ms`), the
-           bytes bound and its share, the plain version's time and one
-           PyTorch library call computing the same sums
+           families and, where those are small, fresh copies of them, so
+           that the 50 MB L2 holds none of them), the wrapper's time with
+           CUDA events around the calls (`call_ms`), the bound over the rows
+           the function needs (a consuming snapshot's live rows, not its pad
+           bucket; `padded_bound_ms` counts the whole padded input) and its
+           share, the plain version's time and one PyTorch library call
+           computing the same sums, both rotated over the same inputs
 
 The line before the last is the kernel table, the last line
 {"ok": true, "device": {...}}. Any failure raises and the script exits
@@ -129,6 +162,7 @@ DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet figures (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12  # the card's non-tensor-core peak, used for int32 ops
+L2_BYTES = 50 * (1 << 20)
 
 SCHEMA_DIMS = [("d_year", "INT"), ("p_brand", "INT"), ("s_region", "STRING"),
                ("lo_discount", "INT"), ("lo_quantity", "INT"),
@@ -308,6 +342,31 @@ PASS_LABELS = {"q5": ("counts", "distinct", "percentile pass 1",
                           "percentile pass 1", "percentile pass 2")}
 # the MV queries' kernel A launches, one a query (a family of 4)
 MV_QUERIES = ("mv_filter", "mv_group", "mv_aggs")
+# the realtime tables: `ssb_rt`, the 4 ssb segments (the same objects) and
+# one consuming segment with the ssb schema fed a row at a time through
+# MutableSegment.index, in three generations (g0 ends just below the 2^22
+# bucket, g1 crosses into 2^23, g2 adds a small tail); `ups`, an upsert
+# table (FULL, comparison column ts) of one committed segment and one
+# consuming segment, then overwritten with UPS_OVERWRITE more rows
+RT_TABLE, UPS_TABLE = "ssb_rt", "ups"
+RT_GENERATIONS = (("g0", (1 << 22) - (1 << 15)), ("g1", 1 << 16),
+                  ("g2", 1 << 10))
+UPS_ROWS, UPS_KEYS, UPS_OVERWRITE = 1 << 21, 1 << 20, 1 << 16
+UPS_STALE_EVERY = 64  # one row in 64 arrives older than every version
+RT_QUERIES = {
+    "rt_q1": Q1.replace("FROM ssb", f"FROM {RT_TABLE}"),
+    "rt_q2": Q2.replace("FROM ssb", f"FROM {RT_TABLE}"),
+    # a RANGE on a dictionary column: an id interval on the immutable
+    # segments, a LUT over the insertion-ordered dictionary on the
+    # consuming one
+    "rt_range": f"SELECT d_year, COUNT(*), SUM(lo_revenue) FROM {RT_TABLE} "
+                "WHERE d_year BETWEEN 1993 AND 1995 GROUP BY d_year",
+    "ups": f"SELECT d_year, SUM(lo_revenue), COUNT(*) FROM {UPS_TABLE} "
+           "WHERE s_region = 'ASIA' GROUP BY d_year"}
+# the realtime queries that launch the kernels (rt_q1 is ungrouped): kernel
+# A over the immutable family, or the committed segment, and kernel A or B
+# over the consuming snapshot
+RT_KERNEL_QUERIES = ("rt_q2", "rt_range", "ups")
 # a query slower than this takes 1 warm run in `times`, `layers` and
 # `profile`
 SLOW_QUERY_MS = 1000.0
@@ -672,6 +731,52 @@ def oracle(cols: dict) -> dict:
     return out
 
 
+def rt_partials(cols: dict) -> dict:
+    """What the ssb_rt queries sum over a block of ssb rows: q1's sum, q2's
+    ASIA counts and sums by (d_year, p_brand), the RANGE's counts and sums
+    by d_year. Blocks add up: the immutable rows' partials once, the
+    consuming prefix's at each generation."""
+    year = cols["d_year"].astype(np.int64) - 1992
+    rev = cols["lo_revenue"].astype(np.float64)
+    m1 = ((year == 1) & (cols["lo_discount"] >= 1)
+          & (cols["lo_discount"] <= 3) & (cols["lo_quantity"] < 25))
+    asia = cols["s_region"] == "ASIA"
+    key = (year * 1000 + cols["p_brand"])[asia]
+    rng = (year >= 1) & (year <= 3)
+    return {"q1": float(cols["lo_extendedprice"][m1].astype(np.int64).sum()),
+            "q2_cnt": np.bincount(key, minlength=7000),
+            "q2_sum": np.bincount(key, weights=rev[asia], minlength=7000),
+            "range_cnt": np.bincount(year[rng], minlength=7),
+            "range_sum": np.bincount(year[rng], weights=rev[rng],
+                                     minlength=7)}
+
+
+def rt_expected(parts: list) -> dict:
+    """The ssb_rt queries' rows over the rows of every partial."""
+    tot = {k: sum(p[k] for p in parts) for k in parts[0]}
+    occ = np.nonzero(tot["q2_cnt"])[0]
+    return {"rt_q1": [[tot["q1"]]],
+            "rt_q2": [[int(1992 + k // 1000), int(k % 1000),
+                       float(tot["q2_sum"][k])] for k in occ],
+            "rt_range": [[int(1992 + y), int(tot["range_cnt"][y]),
+                          float(tot["range_sum"][y])]
+                         for y in np.nonzero(tot["range_cnt"])[0]]}
+
+
+def ups_expected(cols: dict, pk: np.ndarray, ts: np.ndarray) -> list:
+    """The ups query's rows: the newest version of each key, newest by ts
+    and then by arrival (the upsert manager's rule), ASIA by d_year."""
+    order = np.lexsort((np.arange(len(pk)), ts, pk))
+    last = order[np.r_[pk[order][1:] != pk[order][:-1], True]]
+    keep = last[cols["s_region"][last] == "ASIA"]
+    year = cols["d_year"][keep].astype(np.int64)
+    cnt = np.bincount(year - 1992, minlength=7)
+    rev = np.bincount(year - 1992, minlength=7,
+                      weights=cols["lo_revenue"][keep].astype(np.float64))
+    return [[int(1992 + y), float(rev[y]), int(cnt[y])]
+            for y in np.nonzero(cnt)[0]]
+
+
 # -- phases -------------------------------------------------------------------
 
 
@@ -767,13 +872,14 @@ def synthetic_fused_cases(torch, fg, seed, n=(1 << 22) + 3):
 
 
 @contextlib.contextmanager
-def recording(owner, name):
-    """Record the arguments of every call to owner.name (calls go through)."""
+def recording(owner, name, tag=None):
+    """Record the arguments of every call to owner.name (calls go through),
+    each with tag()'s value at the call when a tag is given."""
     calls = []
     orig = getattr(owner, name)
 
     def wrapper(*args, **kwargs):
-        calls.append(args)
+        calls.append(args if tag is None else (args, tag()))
         return orig(*args, **kwargs)
 
     setattr(owner, name, wrapper)
@@ -781,6 +887,29 @@ def recording(owner, name):
         yield calls
     finally:
         setattr(owner, name, orig)
+
+
+@contextlib.contextmanager
+def dispatch_rows(ex):
+    """While active, the yielded callable gives the row counts of the
+    segments that the executor's dispatch in progress covers: one segment,
+    or the members of a batch family."""
+    cur = []
+    solo, batch = ex.dispatch_plan, ex.dispatch_plan_batch
+
+    def one(segment, plan):
+        cur[:] = [segment.num_docs]
+        return solo(segment, plan)
+
+    def family(segments, plans):
+        cur[:] = [s.num_docs for s in segments]
+        return batch(segments, plans)
+
+    ex.dispatch_plan, ex.dispatch_plan_batch = one, family
+    try:
+        yield lambda: list(cur)
+    finally:
+        del ex.dispatch_plan, ex.dispatch_plan_batch
 
 
 def phase_data(args, torch):
@@ -900,20 +1029,23 @@ def family_count(qe, sql) -> int:
     from pinot_tpu_torch.query.parser.sql import parse_sql
 
     query = parse_sql(sql)
-    segments, _ = qe.prune_segments(query, qe._table(query.table_name).segments)
+    segments, _ = qe.prune_segments(
+        query, qe.pinned_segments(qe._table(query.table_name)))
     plans = qe.plan_segments(query, segments)
     return len(qe._batch_families(query, segments, plans)), \
         {p.program.mode for p in plans}
 
 
-def phase_queries(torch, qe, expected, _cuda, interp):
-    """The main path: every query once, each with its launches, device
-    dispatches and host fetches counted from 0 just before it, held
-    against the oracle and the structure this slice promises."""
+def phase_queries(torch, qe, expected, _cuda, interp, names=None):
+    """The main path: every query once (or the queries `names`), each with
+    its launches, device dispatches and host fetches counted from 0 just
+    before it, held against the oracle and the structure each slice
+    promises."""
     results = {}
     _cuda.reset_launches()
     per_query, cold, fetches, combines = {}, {}, {}, {}
-    for qname, sql in QUERIES.items():
+    for qname in names or QUERIES:
+        sql = QUERIES[qname]
         _cuda.reset_launches()
         fetch0 = interp.host_fetches()
         resident = qe.executor.cache.bytes_used()
@@ -977,7 +1109,7 @@ def phase_queries(torch, qe, expected, _cuda, interp):
         if v == 0:
             raise AssertionError(f"the main path never launched {k}")
     refused = {}
-    for sql in MV_REFUSED + TRANSFORM_REFUSED:
+    for sql in () if names else MV_REFUSED + TRANSFORM_REFUSED:
         try:
             qe.execute_sql(sql)
         except interp_unsupported() as e:
@@ -999,6 +1131,227 @@ def phase_queries(torch, qe, expected, _cuda, interp):
           "resident_bytes": qe.executor.cache.bytes_used(),
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     return launches, per_query
+
+
+@contextlib.contextmanager
+def delta_timer(torch):
+    """Host-clock seconds of the realtime delta work: `read`, the consuming
+    segment's rows since the watermark turned into numpy (segment/mutable.py
+    ids_slice, raw_slice, null_slice, dict_values_numeric), and `upload`,
+    their writes into the device planes (each ending in a synchronize, so
+    the host->device copy is inside)."""
+    from pinot_tpu_torch.realtime.device_plane import RealtimePlaneSet
+    from pinot_tpu_torch.segment.mutable import _MutableColumn
+
+    spent = {"read": 0.0, "upload": 0.0}
+    patched = [(_MutableColumn, m, "read") for m in (
+        "ids_slice", "raw_slice", "null_slice", "dict_values_numeric")]
+    patched.append((RealtimePlaneSet, "_upload", "upload"))
+    origs = [getattr(owner, m) for owner, m, _ in patched]
+
+    def timed(orig, key):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = orig(*args)
+            if key == "upload":
+                torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    for (owner, m, key), orig in zip(patched, origs):
+        setattr(owner, m, timed(orig, key))
+    try:
+        yield spent
+    finally:
+        for (owner, m, _), orig in zip(patched, origs):
+            setattr(owner, m, orig)
+
+
+def _rt_query(torch, qe, interp, device_plane, qname, sql, want):
+    """One realtime query, its counters set to 0 just before it: rows held
+    against `want`, 2 dispatches (the immutable family or committed
+    segment, then the consuming snapshot) and 1 host fetch."""
+    from pinot_tpu_torch.ops import _cuda
+
+    _cuda.reset_launches()
+    device_plane.reset_realtime_stats()
+    fetch0 = interp.host_fetches()
+    with delta_timer(torch) as spent:
+        t0 = time.perf_counter()
+        resp = qe.execute_sql(sql)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    st = dict(device_plane.realtime_stats())
+    got = sorted(tuple(r) for r in resp.result_table.rows)
+    if got != sorted(tuple(r) for r in want):
+        raise AssertionError(f"{qname}: {len(got)} rows differ from the "
+                             f"oracle's {len(want)}")
+    fetches = interp.host_fetches() - fetch0
+    if resp.num_device_dispatches != 2 or fetches != 1:
+        raise AssertionError(f"{qname}: {resp.num_device_dispatches} "
+                             f"dispatches, {fetches} host fetches")
+    return {"ms": ms, "delta_bytes": st["deltaBytes"],
+            "uploads": st["uploads"], "read_ms": spent["read"] * 1e3,
+            "upload_ms": spent["upload"] * 1e3,
+            "launches": dict(_cuda.LAUNCHES),
+            "device_dispatches": resp.num_device_dispatches,
+            "host_fetches": fetches}, resp
+
+
+def phase_realtime(args, torch, qe, tables, rt_base, interp, tmp, card):
+    """The consuming-segment path: `ssb_rt` through generations g0, g1, g2
+    (each query cold, then warm; g0's warm repeat must upload nothing, g1
+    grows every plane on the device into the next bucket and ships only its
+    tail, below 1/8 of g0's bytes) and `ups` before and after an overwrite
+    of UPS_OVERWRITE keys (visibility must flip). Each checked query's
+    counts are set to 0 just before it and read just after; the phase sums
+    them, and kernel A must have run. Returns the final rows of RT_QUERIES
+    and the phase's launches."""
+    from pinot_tpu_torch.ops import _cuda
+    from pinot_tpu_torch.realtime import device_plane
+    from pinot_tpu_torch.segment.builder import SegmentBuilder
+    from pinot_tpu_torch.segment.device_cache import pad_bucket
+    from pinot_tpu_torch.segment.loader import load_segment
+    from pinot_tpu_torch.segment.mutable import MutableSegment
+    from pinot_tpu_torch.spi.data_types import Schema
+    from pinot_tpu_torch.spi.table_config import (IndexingConfig, TableConfig,
+                                                  UpsertConfig)
+    from pinot_tpu_torch.upsert import TableUpsertMetadataManager
+
+    t_phase = time.perf_counter()
+    _cuda.reset_launches()
+    schema, ssb_segments = tables["ssb"]
+    live = MutableSegment(Schema.build(RT_TABLE, dimensions=SCHEMA_DIMS,
+                                       metrics=SCHEMA_METRICS), f"{RT_TABLE}_0")
+    qe.add_table(live.schema, ssb_segments + [live], RT_TABLE)
+    total = sum(n for _, n in RT_GENERATIONS)
+    cols = gen_ssb(total, args.seed + 3)
+    names = list(cols)
+    rows = zip(*[cols[c].tolist() for c in names])
+    planes = device_plane.REALTIME_PLANES.plane_set(live, DEVICE)
+    rt_queries = ("rt_q1", "rt_q2", "rt_range")
+    gens, fed, launches = {}, 0, dict(_cuda.LAUNCHES)
+    for gname, add in RT_GENERATIONS:
+        t0 = time.perf_counter()
+        for _ in range(add):
+            live.index(dict(zip(names, next(rows))))
+        feed_s = time.perf_counter() - t0
+        fed += add
+        want = rt_expected([rt_base, rt_partials(
+            {c: v[:fed] for c, v in cols.items()})])
+        cap0 = planes.capacity("d_year", "ids")
+        gen = {"rows": fed, "feed_s": feed_s, "feed_us_per_row":
+               feed_s / add * 1e6, "queries": {}}
+        for qname in rt_queries:
+            gen["queries"][qname], _ = _rt_query(
+                torch, qe, interp, device_plane, qname, RT_QUERIES[qname],
+                want[qname])
+            for k, v in gen["queries"][qname]["launches"].items():
+                launches[k] += v
+        if gname == "g0":
+            gen["warm_repeat"] = {}
+            for qname in rt_queries:
+                rec, _ = _rt_query(torch, qe, interp, device_plane, qname,
+                                   RT_QUERIES[qname], want[qname])
+                if rec["delta_bytes"] or rec["uploads"]:
+                    raise AssertionError(f"g0 warm {qname}: {rec}")
+                gen["warm_repeat"][qname] = rec
+        gen["warm_p50_ms"] = {}
+        for qname in rt_queries:
+            ts = []
+            for _ in range(args.iters):
+                t0 = time.perf_counter()
+                qe.execute_sql(RT_QUERIES[qname])
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            gen["warm_p50_ms"][qname] = float(np.median(ts))
+        gen["delta_bytes"] = sum(q["delta_bytes"]
+                                 for q in gen["queries"].values())
+        gen["uploads"] = sum(q["uploads"] for q in gen["queries"].values())
+        for key in ("read_ms", "upload_ms"):
+            gen[key] = sum(q[key] for q in gen["queries"].values())
+        gen["plane_capacity_rows"] = planes.capacity("d_year", "ids")
+        gen["plane_bytes"] = planes.nbytes()
+        if gen["plane_capacity_rows"] != pad_bucket(fed):
+            raise AssertionError(f"{gname}: planes hold "
+                                 f"{gen['plane_capacity_rows']} rows for "
+                                 f"{fed}")
+        gen["grew_on_device"] = cap0 not in (0, gen["plane_capacity_rows"])
+        gens[gname] = gen
+    if not gens["g1"]["grew_on_device"] or gens["g0"]["grew_on_device"]:
+        raise AssertionError("g1 did not cross into the next bucket")
+    if not 0 < gens["g1"]["delta_bytes"] < gens["g0"]["delta_bytes"] / 8:
+        raise AssertionError(f"g1 shipped {gens['g1']['delta_bytes']} bytes "
+                             f"against g0's {gens['g0']['delta_bytes']}")
+    final = rt_expected([rt_base, rt_partials(cols)])
+    del cols, rows
+
+    # -- ups: an upsert table of a committed and a consuming segment ------
+    t0 = time.perf_counter()
+    n_all = 2 * UPS_ROWS + UPS_OVERWRITE
+    ucols = gen_ssb(n_all, args.seed + 4)
+    ucols["pk"] = np.random.default_rng(args.seed + 5).integers(
+        0, UPS_KEYS, n_all)
+    ts = np.arange(n_all, dtype=np.int64)
+    stale = np.arange(n_all) % UPS_STALE_EVERY == UPS_STALE_EVERY - 1
+    ts[stale] = -1 - ts[stale]
+    ucols["ts"] = ts
+    uschema = Schema.build(UPS_TABLE, dimensions=SCHEMA_DIMS + [("pk", "LONG")],
+                           metrics=SCHEMA_METRICS, date_times=[("ts", "LONG")],
+                           primary_key_columns=["pk"])
+    cfg = TableConfig(table_name=UPS_TABLE, indexing=IndexingConfig(
+        no_dictionary_columns=RAW_COLUMNS + ["pk", "ts"]),
+        upsert=UpsertConfig(mode="FULL", comparison_columns=["ts"]))
+    mgr = TableUpsertMetadataManager(uschema, cfg)
+    d = f"{tmp}/{UPS_TABLE}_0"
+    SegmentBuilder(uschema, cfg, f"{UPS_TABLE}_0").build(
+        {c: v[:UPS_ROWS] for c, v in ucols.items()}, d)
+    committed = load_segment(d)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.add_segment(committed)
+    replay_s = time.perf_counter() - t0
+    consuming = MutableSegment(uschema, f"{UPS_TABLE}_1")
+    qe.add_table(uschema, [committed, consuming], UPS_TABLE)
+    unames = list(ucols)
+    urows = zip(*[ucols[c][UPS_ROWS:].tolist() for c in unames])
+    ups = {"committed_rows": UPS_ROWS, "build_s": build_s,
+           "replay_s": replay_s}
+    prev = None
+    for label, add in (("before", UPS_ROWS), ("after", UPS_OVERWRITE)):
+        t0 = time.perf_counter()
+        for _ in range(add):
+            r = dict(zip(unames, next(urows)))
+            mgr.add_record(consuming, consuming.index(r), r)
+        feed_s = time.perf_counter() - t0
+        n = UPS_ROWS + consuming.num_docs
+        want = ups_expected({c: v[:n] for c, v in ucols.items()},
+                            ucols["pk"][:n], ucols["ts"][:n])
+        rec, resp = _rt_query(torch, qe, interp, device_plane, "ups",
+                              RT_QUERIES["ups"], want)
+        for k, v in rec["launches"].items():
+            launches[k] += v
+        rec.update(feed_s=feed_s, feed_us_per_row=feed_s / add * 1e6,
+                   consuming_rows=consuming.num_docs,
+                   primary_keys=mgr.num_primary_keys(),
+                   valid_docs=committed.valid_doc_ids.num_valid(UPS_ROWS)
+                   + consuming.valid_doc_ids.num_valid(consuming.num_docs))
+        got = sorted(tuple(r) for r in resp.result_table.rows)
+        if got == prev:
+            raise AssertionError("ups: the overwrite did not flip visibility")
+        prev = got
+        ups[label] = rec
+    final["ups"] = want
+    del ucols
+    if launches["limb_sums"] == 0:
+        raise AssertionError("the realtime path never launched limb_sums")
+    emit({"phase": "realtime", "card": card,
+          "generations": gens, "ups": ups, "launches": launches,
+          "rt_plane_bytes": planes.nbytes(),
+          "registry": device_plane.REALTIME_PLANES.stats(),
+          "seconds": time.perf_counter() - t_phase})
+    return final, launches
 
 
 def interp_unsupported():
@@ -1047,7 +1400,7 @@ def phase_layers(torch, qe, iters, card, slow) -> dict:
             t0 = time.perf_counter()
             query = parse_sql(sql)
             table = qe._table(query.table_name)
-            segments, _ = qe.prune_segments(query, table.segments)
+            segments, _ = qe.prune_segments(query, qe.pinned_segments(table))
             plans = qe.plan_segments(query, segments)
             t1 = time.perf_counter()
             pending = qe.dispatch_segments(query, segments, plans)
@@ -1073,11 +1426,12 @@ def phase_profile(torch, qe, card, slow) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for qname in ("q2", "q2_unfused", "flagship", "q2_family", "q3",
-                  "q3_sort", "q3m", "sparse_family", "sparse_family_solo",
-                  "q5", "q5_total", "aggmix", "q6", "q6m", "q6_sort",
-                  "sel_limit", "sel_order", "mv_filter", "mv_group",
-                  "mv_aggs") + TRANSFORM_QUERIES + ("post_agg",):
+    for qname in (("q2", "q2_unfused", "flagship", "q2_family", "q3",
+                   "q3_sort", "q3m", "sparse_family", "sparse_family_solo",
+                   "q5", "q5_total", "aggmix", "q6", "q6m", "q6_sort",
+                   "sel_limit", "sel_order", "mv_filter", "mv_group",
+                   "mv_aggs") + TRANSFORM_QUERIES + ("post_agg",)
+                  + RT_KERNEL_QUERIES):
         runs = 1 if qname in slow else 3
         if runs > 1:
             qe.execute_sql(QUERIES[qname])
@@ -1207,7 +1561,7 @@ def cuda_ms(torch, fn, iters=20) -> float:
 def device_ms(torch, fns, kernel, iters=20):
     """The kernel's own device time per launch: torch.profiler's
     self_device_time_total of the CUDA kernel named `kernel`, over `iters`
-    calls cycling through `fns` (one per segment's inputs). The profiler
+    calls cycling through `fns` (one per input of the row's L2 pool). The profiler
     may drop some of a window's kernel events: the mean is over the events
     it kept, gathered over up to 5 windows until `iters` are in."""
     from torch.profiler import ProfilerActivity, profile
@@ -1259,16 +1613,49 @@ def geometry_of(geo) -> dict:
             "warp_agg": geo.warp_agg}
 
 
-def kernel_row(torch, name, calls, plain, library, nbytes, ops, shape,
-               launches, err, note, geo, redesigned="PR 3") -> dict:
-    """One row of the kernel table; `calls` are the kernel's wrapper calls
-    on each segment's recorded inputs."""
-    ms = device_ms(torch, calls, name)
+def rotating(fns):
+    """One callable taking fns in turn."""
     k = iter(range(1 << 30))
-    call_ms = cuda_ms(torch, lambda: calls[next(k) % len(calls)]())
-    plain_ms = cuda_ms(torch, plain, 5)
-    lib_ms = cuda_ms(torch, library, 5)
-    bound_ms, by = bound(nbytes, ops)
+    return lambda: fns[next(k) % len(fns)]()
+
+
+def clone_at(torch, t):
+    """A contiguous copy of t at t's address modulo 16 (the kernels choose
+    their vector loads by the planes' alignment)."""
+    nb = t.numel() * t.element_size()
+    buf = torch.empty(nb + 16, dtype=torch.uint8, device=t.device)
+    off = (t.data_ptr() - buf.data_ptr()) % 16
+    out = buf[off:off + nb].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def l2_pool(recs, nbytes, clone):
+    """recs, with fresh copies of them added in turn while an input could
+    still sit in the card's L2 when a rotation over the pool comes back to
+    it: until the rest of the pool moves at least twice L2 between two uses
+    of any one input, unless each input alone is larger than L2."""
+    pool = list(recs)
+    sizes = [nbytes(r) for r in pool]
+    while min(sizes) < L2_BYTES and sum(sizes) - max(sizes) < 2 * L2_BYTES:
+        pool.append(clone(recs[len(pool) % len(recs)]))
+        sizes.append(nbytes(pool[-1]))
+    return pool
+
+
+def kernel_row(torch, name, calls, plains, libraries, cost, padded_cost,
+               shape, launches, err, note, geo, redesigned="PR 3") -> dict:
+    """One row of the kernel table. `calls`, `plains` and `libraries` are
+    the kernel's wrapper, its plain version and the library call on each
+    input of the L2 pool in turn (the recorded inputs of each segment or
+    family and their copies); `cost` is the (bytes, operations) of the
+    rows the function needs, `padded_cost` that of the whole padded input
+    the kernel is given."""
+    ms = device_ms(torch, calls, name)
+    call_ms = cuda_ms(torch, rotating(calls))
+    plain_ms = cuda_ms(torch, rotating(plains), 5)
+    lib_ms = cuda_ms(torch, rotating(libraries), 5)
+    bound_ms, by = bound(*cost)
     src = {"limb_sums": ("pinot_tpu_torch/csrc/limb_sums.cu",
                          "pinot_tpu/ops/mxu_groupby.py:211"),
            "fused_limb_sums": ("pinot_tpu_torch/csrc/fused_limb_sums.cu",
@@ -1277,36 +1664,56 @@ def kernel_row(torch, name, calls, plain, library, nbytes, ops, shape,
             "launches": launches, "max_abs_err": err, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "bound_share": bound_ms / ms,
+            "padded_bound_ms": bound(*padded_cost)[0],
             "library_ms": lib_ms, "shape": shape, "inputs": note,
+            "rotated_inputs": len(calls),
             "geometry": geometry_of(geo), "redesigned": redesigned}
 
 
-def kernel_a_row(torch, mxu, _cuda, recs, launches, err, note):
+def kernel_a_row(torch, mxu, _cuda, recs, launches, err, note, live=None):
     """Kernel A over the recorded (planes, gid, G) of each segment, or of
-    each family ((S, P, n) planes: the family axis)."""
+    each family ((S, P, n) planes: the family axis). `live` is the live rows
+    of each member (default n: a segment that fills its pad bucket); the
+    bound counts those, the pad rows past them carrying the trash gid."""
     planes, gid, G = recs[0]
     family = planes.dim() == 3
     S, (P, n) = (planes.shape[0] if family else 1), planes.shape[-2:]
-    calls = [lambda r=r: mxu.limb_sums(*r) for r in recs]
+    live = list(live) if live is not None else [n] * S
+    pool = l2_pool(recs, lambda r: r[0].numel() + 4 * r[1].numel(),
+                   lambda r: (clone_at(torch, r[0]), clone_at(torch, r[1]),
+                              r[2]))
+    calls = [lambda r=r: mxu.limb_sums(*r) for r in pool]
+    plains = [lambda r=r: mxu.limb_sums_plain(*r) for r in pool]
+
     # the library yardstick: one index_add_ over the family's rows, member
     # s's groups at s * G
-    flat = (gid.to(torch.int64).reshape(S, n) + G * torch.arange(
-        S, device=DEVICE).unsqueeze(1)).reshape(-1)
-    planes64 = planes.to(torch.int64).reshape(S, P, n).transpose(0, 1) \
-        .reshape(P, S * n)
+    def library(r):
+        flat = (r[1].to(torch.int64).reshape(S, n) + G * torch.arange(
+            S, device=DEVICE).unsqueeze(1)).reshape(-1)
+        planes64 = r[0].to(torch.int64).reshape(S, P, n).transpose(0, 1) \
+            .reshape(P, S * n)
+        return lambda: torch.zeros((P, S * G), dtype=torch.int64,
+                                   device=DEVICE).index_add_(1, flat, planes64)
+
     geo = _cuda.geometry_for("limb_sums", n, P, G,
                              *mxu.slot_layout(planes, gid), gid.device.index, S)
     shape = {"n": n, "P": P, "G": G}
     if family:
         shape["S"] = S
-    row = kernel_row(
-        torch, "limb_sums", calls, lambda: mxu.limb_sums_plain(planes, gid, G),
-        lambda: torch.zeros((P, S * G), dtype=torch.int64, device=DEVICE
-                            ).index_add_(1, flat, planes64),
-        S * (n * (4 + P) + 8 * P * G), S * n * P, shape, launches, err, note,
-        geo, "PR 3; family axis PR 4" if family else "PR 3")
-    del planes64, flat
-    return row
+    if live != [n] * S:
+        shape["live_rows"] = live
+    return kernel_row(
+        torch, "limb_sums", calls, plains, [library(r) for r in pool],
+        (sum(live) * (4 + P) + S * 8 * P * G, sum(live) * P),
+        (S * (n * (4 + P) + 8 * P * G), S * n * P), shape, launches, err,
+        note, geo, "PR 3; family axis PR 4" if family else "PR 3")
+
+
+def fused_live(scalars, n) -> int:
+    """Kernel B's rows below num_docs: row r is live when r + scalars[1] <
+    scalars[0] (fused_groupby.fused_planes)."""
+    num_docs, offset = scalars[:2].tolist()
+    return max(0, min(n, num_docs - offset))
 
 
 def fused_cost(fp, planes_in, n, G):
@@ -1319,25 +1726,36 @@ def fused_cost(fp, planes_in, n, G):
 
 def kernel_b_row(torch, fg, _cuda, recs, launches, err, note):
     """Kernel B over the recorded (fp, planes_in, scalars, G, n) of each
-    segment."""
+    segment; the bound counts the rows below num_docs (the kernel streams
+    every tile of n and masks the rest)."""
     fp, planes_in, scalars, G, n = recs[0]
-    calls = [lambda r=r: fg.fused_limb_sums(*r) for r in recs]
-    gid64, vals = fg.fused_planes(fp, planes_in, scalars, G, n)
+    pool = l2_pool(recs, lambda r: sum(t.numel() * t.element_size()
+                                       for t in r[1]),
+                   lambda r: (r[0], [clone_at(torch, t) for t in r[1]],
+                              r[2].clone(), r[3], r[4]))
+    calls = [lambda r=r: fg.fused_limb_sums(*r) for r in pool]
+    plains = [lambda r=r: fg.fused_limb_sums_plain(*r) for r in pool]
+
+    def library(r):
+        gid64, vals = fg.fused_planes(*r)
+        return lambda: torch.zeros((P, G), dtype=torch.int64, device=DEVICE
+                                   ).index_add_(1, gid64, vals)
+
     P = len(fp.planes)
-    nbytes, ops = fused_cost(fp, planes_in, n, G)
+    live = fused_live(scalars, n)
+    nbytes, ops = fused_cost(fp, planes_in, live, G)
+    padded_bytes, padded_ops = fused_cost(fp, planes_in, n, G)
     geo = _cuda.geometry_for("fused_limb_sums", n, P, G,
                              *fg.slot_layout(planes_in), scalars.device.index)
-    row = kernel_row(
-        torch, "fused_limb_sums", calls,
-        lambda: fg.fused_limb_sums_plain(fp, planes_in, scalars, G, n),
-        lambda: torch.zeros((P, G), dtype=torch.int64, device=DEVICE
-                            ).index_add_(1, gid64, vals),
-        nbytes + 4 * scalars.numel(), ops,
-        {"n": n, "P": P, "G": G,
-         "slot_bytes_per_row": sum(t.element_size() for t in planes_in)},
+    shape = {"n": n, "P": P, "G": G,
+             "slot_bytes_per_row": sum(t.element_size() for t in planes_in)}
+    if live != n:
+        shape["live_rows"] = live
+    return kernel_row(
+        torch, "fused_limb_sums", calls, plains, [library(r) for r in pool],
+        (nbytes + 4 * scalars.numel(), ops),
+        (padded_bytes + 4 * scalars.numel(), padded_ops), shape,
         launches, err, note, geo)
-    del gid64, vals
-    return row
 
 
 def family_inputs(torch, S, n, P, G, seed, live=None):
@@ -1588,6 +2006,7 @@ def main(argv=None) -> int:
     segments = tables["ssb"][1]
     try:
         expected = oracle(cols)
+        rt_base = rt_partials(cols)
         expected.update(matrix_oracle(cols, HyperLogLog))
         expected.update(taxi_oracle(taxi_cols))
         expected.update(selection_mv_oracle(cols, tags,
@@ -1605,6 +2024,15 @@ def main(argv=None) -> int:
               "seconds": time.perf_counter() - t0,
               "resident_bytes": qe.executor.cache.bytes_used()})
         launches, per_query = phase_queries(torch, qe, expected, _cuda, interp)
+        rt_final, rt_launches = phase_realtime(
+            args, torch, qe, tables, rt_base, interp, tmp, dev["nvidia_smi"])
+        # the realtime queries at their final state join every later phase
+        QUERIES.update(RT_QUERIES)
+        EXPECTED_KERNEL.update({q: "limb_sums" for q in RT_KERNEL_QUERIES})
+        expected.update(rt_final)
+        _, rt_per_query = phase_queries(torch, qe, expected, _cuda, interp,
+                                        names=list(RT_QUERIES))
+        per_query.update(rt_per_query)
 
         # the main path's own kernel inputs, one call per segment (per
         # family) and query, for the parity over every query's inputs and
@@ -1653,27 +2081,63 @@ def main(argv=None) -> int:
                     torch, f"limb_sums {qname} inputs, {label}",
                     mxu_groupby.limb_sums(planes, gid, G),
                     mxu_groupby.limb_sums_plain(planes, gid, G))
+        # the realtime queries' launches: kernel A over the family (or the
+        # committed segment), kernel A or B over the consuming snapshot,
+        # each with the live rows of the segments its dispatch covers
+        rt_recorded, rt_live = {}, {}
+        for qname in RT_KERNEL_QUERIES:
+            with dispatch_rows(qe.executor) as rows, \
+                    recording(mxu_groupby, "limb_sums", rows) as a_calls, \
+                    recording(fused_groupby, "fused_limb_sums",
+                              rows) as b_calls:
+                qe.execute_sql(QUERIES[qname])
+            made = {"limb_sums": len(a_calls), "fused_limb_sums": len(b_calls)}
+            if made != {k: per_query[qname][k] for k in made}:
+                raise AssertionError(
+                    f"{qname}: the recording run made {made} calls, the main "
+                    f"path {per_query[qname]} launches")
+            rt_recorded[qname] = ([("limb_sums", r) for r, _ in a_calls]
+                                  + [("fused_limb_sums", r)
+                                     for r, _ in b_calls])
+            rt_live[qname] = [live for _, live in a_calls + b_calls]
+            for (name, rec), live in zip(rt_recorded[qname], rt_live[qname]):
+                S = (rec[0].shape[0] if name == "limb_sums"
+                     and rec[0].dim() == 3 else 1)
+                masked = (fused_live(rec[2], rec[4])
+                          if name == "fused_limb_sums" else live[0])
+                if len(live) != S or masked != live[0]:
+                    raise AssertionError(f"{qname}: a {name} launch over {S} "
+                                         f"members masking {masked} rows, "
+                                         f"its dispatch's segments {live}")
+            for k, (name, rec) in enumerate(rt_recorded[qname]):
+                label = f"{name}/{qname}_inputs/launch{k}"
+                if name == "limb_sums":
+                    got = mxu_groupby.limb_sums(*rec)
+                    ref = mxu_groupby.limb_sums_plain(*rec)
+                else:
+                    got = fused_groupby.fused_limb_sums(*rec)
+                    ref = fused_groupby.fused_limb_sums_plain(*rec)
+                parity[label] = check_equal(torch, label, got, ref)
         emit({"phase": "parity", "max_abs_err": parity,
               "tolerance": "element-equal int64"})
         phase_geometry(torch, _cuda, mxu_groupby, fused_groupby, recorded)
 
         # -- times ----------------------------------------------------------
-        p50, quartiles, slow = {}, {}, set()
+        p50, quartiles, slow, docs = {}, {}, set(), {}
         for qname, sql in QUERIES.items():
             ts = []
             while len(ts) < (1 if qname in slow else args.iters):
                 t0 = time.perf_counter()
-                qe.execute_sql(sql)
+                docs[qname] = qe.execute_sql(sql).total_docs
                 torch.cuda.synchronize()
                 ts.append((time.perf_counter() - t0) * 1e3)
                 if ts[0] > SLOW_QUERY_MS:
                     slow.add(qname)
             p50[qname] = float(np.median(ts))
             quartiles[qname] = [float(q) for q in np.percentile(ts, [25, 75])]
-        rows = args.rows_per_segment * args.segments
         emit({"phase": "times", "card": dev["nvidia_smi"],
               "query_p50_ms": p50, "query_p25_p75_ms": quartiles,
-              "rows_per_s": {k: rows / (v / 1e3) for k, v in p50.items()},
+              "rows_per_s": {k: docs[k] / (v / 1e3) for k, v in p50.items()},
               "iters": args.iters, "iters_1": sorted(slow)})
         phase_layers(torch, qe, args.iters, dev["nvidia_smi"], slow)
         phase_profile(torch, qe, dev["nvidia_smi"], slow)
@@ -1713,6 +2177,24 @@ def main(argv=None) -> int:
                     parity[f"limb_sums/{qname}_inputs/{label}"],
                     f"{qname} {label}: the main path's planes of the family "
                     f"of {S} segments, one launch"))
+        # the realtime queries' kernel inputs, one row per launch: each row
+        # stands for the main path's launches of its kernel in the query
+        # over the recorded launches of it (asserted equal above, so 1)
+        for qname, recs in rt_recorded.items():
+            for k, ((name, rec), live) in enumerate(zip(recs, rt_live[qname])):
+                label = f"{name}/{qname}_inputs/launch{k}"
+                launches = per_query[qname][name] // sum(
+                    n == name for n, _ in recs)
+                note = (f"{qname}: the main path's planes of {len(live)} "
+                        f"segment(s), one launch")
+                if name == "limb_sums":
+                    kernels.append(kernel_a_row(
+                        torch, mxu_groupby, _cuda, [rec], launches,
+                        parity[label], note, live))
+                else:
+                    kernels.append(kernel_b_row(
+                        torch, fused_groupby, _cuda, [rec], launches,
+                        parity[label], note))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

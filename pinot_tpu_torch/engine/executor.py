@@ -91,6 +91,8 @@ def batch_family_key(segment: ImmutableSegment, plan: SegmentPlan,
         if kind == "mvids":
             sig.append(("mvids", max(1, m.max_number_of_multi_values)))
         elif kind == "ids":
+            # a consuming snapshot's metadata has no bits_per_value: its id
+            # planes are unpacked int32 (realtime/device_plane.py)
             bits = m.bits_per_value or 32
             width = 32
             if bits <= 16 and packed_on:
@@ -139,13 +141,29 @@ class SegmentExecutor:
         return self.device.type == "cuda"
 
     def plan(self, query: QueryContext, segment: ImmutableSegment) -> SegmentPlan:
+        if getattr(segment, "is_mutable", False):
+            # consuming-segment snapshots lower through the realtime
+            # planner (value-space ranges, no MV or rebased planes)
+            from ..realtime.device_plane import realtime_plan
+
+            return realtime_plan(query, segment)
         return SegmentPlanner(query, segment).plan()
+
+    def _view_for(self, segment):
+        """Device view: the segment cache for immutable segments, the
+        realtime plane registry (delta-uploaded append-only planes) for
+        consuming-segment snapshots."""
+        if getattr(segment, "is_mutable", False):
+            from ..realtime.device_plane import REALTIME_PLANES
+
+            return REALTIME_PLANES.view(segment, self.device)
+        return self.cache.view(segment)
 
     def dispatch_plan(self, segment: ImmutableSegment,
                       plan: SegmentPlan) -> PackedOuts:
         """Launch the segment's program and return its outputs packed into
         one device buffer, not yet copied to the host."""
-        view = self.cache.view(segment)
+        view = self._view_for(segment)
         arrays, packed = plan.gather_arrays_packed(view)
         host_params = tuple(np.asarray(p) for p in plan.params)
         # the fused kernel applies when the program is in its scope; dict
@@ -174,7 +192,7 @@ class SegmentExecutor:
         """dispatch_plan without the fused kernel and the packing: (device
         outputs, view), for callers that keep computing on the device (the
         sparse device combine)."""
-        view = self.cache.view(segment)
+        view = self._view_for(segment)
         arrays, packed = plan.gather_arrays_packed(view)
         params = tuple(torch.from_numpy(np.array(p)).to(view.device)
                        for p in plan.params)
@@ -189,7 +207,7 @@ class SegmentExecutor:
         from the cache's stacked view. Dictionary planes zero-pad to the
         family's power-of-two bucket. Raises BatchFamilyMismatch when the
         members' planes or params disagree in dtype, shape or packing."""
-        views = [self.cache.view(s) for s in segments]
+        views = [self._view_for(s) for s in segments]
         gathered = [pl.gather_arrays_packed(v) for pl, v in zip(plans, views)]
         packed = gathered[0][1]
         nslots = len(gathered[0][0])

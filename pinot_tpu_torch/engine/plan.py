@@ -38,7 +38,7 @@ from ..query.expressions import ExpressionContext
 from ..query.filter import FilterContext, FilterNodeType, Predicate, PredicateType
 from ..query.transforms import (IRBuilder, eval_expr_np, get_transform,
                                 np_evaluable)
-from ..segment.device_cache import SegmentDeviceView
+from ..segment.device_cache import SegmentDeviceView, pad_bucket
 from ..segment.loader import ImmutableSegment
 from ..spi.data_types import DataType
 from . import ir
@@ -195,7 +195,16 @@ class SegmentPlan:
 
 
 class SegmentPlanner(AggPlanContext):
+    # realtime/device_plane.py's planner subclass lifts this: a pinned
+    # MutableSegmentView exposes enough immutable state (snapshot
+    # dictionaries, pinned metadata, pinned validity) to lower plans safely
+    allow_mutable = False
+
     def __init__(self, query: QueryContext, segment: ImmutableSegment):
+        if not self.allow_mutable and getattr(segment, "is_mutable", False):
+            raise UnsupportedQueryError(
+                "consuming (mutable) segments plan through "
+                "realtime/device_plane.py realtime_plan")
         super().__init__()
         self.query = query
         self.segment = segment
@@ -639,6 +648,26 @@ class SegmentPlanner(AggPlanContext):
                 lut[i] = True
         return ir.Lut(ids_slot, self.param(lut), mv=mv)
 
+    def _mask_param(self, mask: np.ndarray) -> ir.MaskParam:
+        """A host-computed doc mask as a boolean param plane padded to the
+        segment's shape bucket (pad rows False)."""
+        padded = np.zeros(pad_bucket(max(1, self.segment.num_docs)),
+                          dtype=bool)
+        padded[:len(mask)] = mask
+        return ir.MaskParam(self.param(padded))
+
+    def _and_valid_docs(self, filt: Optional[ir.FilterNode]
+                        ) -> Optional[ir.FilterNode]:
+        """Upsert tables AND the segment's validity plane into the filter
+        (reference: FilterPlanNode wraps the filter with the validDocIds
+        bitmap of upsert-enabled tables); a param plane, so the program is
+        the same as validity evolves."""
+        vd = getattr(self.segment, "valid_doc_ids", None)
+        if vd is None:
+            return filt
+        node = self._mask_param(vd.mask(self.segment.num_docs))
+        return node if filt is None else ir.FAnd((filt, node))
+
     def _id_interval(self, ids_slot, lo_id, hi_id, mv=False,
                      card=0) -> ir.FilterNode:
         if mv:
@@ -676,7 +705,7 @@ class SegmentPlanner(AggPlanContext):
     # -- top-level plan ----------------------------------------------------
     def plan(self) -> SegmentPlan:
         q = self.query
-        filt = self.lower_filter(q.filter)
+        filt = self._and_valid_docs(self.lower_filter(q.filter))
         if not (q.is_aggregation_query or q.distinct or q.is_group_by):
             return self._plan_selection(filt)
 
@@ -791,7 +820,8 @@ class SegmentPlanner(AggPlanContext):
                     self._meta(group_exprs[0].identifier).is_sorted)
             else:
                 cols = [e.identifier for e in group_exprs]
-                so = list(self.segment.metadata.sort_order or [])
+                so = list(getattr(getattr(self.segment, "metadata", None),
+                                  "sort_order", None) or [])
                 keys_presorted = so[:len(cols)] == cols
         if sparse:
             # output capacity = numGroupsLimit: groups beyond it are trimmed

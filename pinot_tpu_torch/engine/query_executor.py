@@ -9,7 +9,10 @@ of kernel A for all of them (`SET segmentBatch = false` opts out). Every
 packed output of the query, family and solo alike, comes to the host in
 one copy. Multi-segment single-key sparse GROUP BYs merge their tables on
 the device and fetch one merged table (`SET deviceCombine = false` opts
-out). Every segment runs on the executor's device. There is no host engine
+out). A consuming segment of a realtime table runs as a snapshot pinned
+for the query (realtime/device_plane.py: append-only device planes, only
+the rows appended since the last query uploaded). Every segment runs on
+the executor's device. There is no host engine
 behind it: a query shape this port does not lower raises
 UnsupportedQueryError, and any other failure raises as well.
 """
@@ -28,6 +31,7 @@ from ..ops.kernels import PackedOuts, fetch_packed_batch
 from ..query.context import QueryContext
 from ..query.optimizer import optimize_filter
 from ..query.parser.sql import SqlParseError, parse_sql
+from ..realtime.device_plane import note_realtime_device_query
 from ..segment.device_cache import DeviceSegmentCache
 from ..segment.loader import ImmutableSegment
 from ..spi.data_types import Schema
@@ -85,8 +89,11 @@ class QueryExecutor:
         self.executor = SegmentExecutor(DeviceSegmentCache(device))
         self.pruner = SegmentPrunerService()
 
-    def add_table(self, schema: Schema, segments: list[ImmutableSegment],
+    def add_table(self, schema: Schema, segments: list,
                   name: Optional[str] = None):
+        """Register a table of ImmutableSegments and, for a realtime or
+        hybrid table, consuming MutableSegments (segment/mutable.py): each
+        query pins a snapshot of every consuming segment."""
         name = name or schema.schema_name
         self.tables[name] = Table(name, schema, list(segments))
 
@@ -133,9 +140,11 @@ class QueryExecutor:
         if getattr(query, "explain", False):
             raise UnsupportedQueryError("EXPLAIN is not ported")
         table = self._table(query.table_name)
-        segments = list(table.segments)
+        segments = self.pinned_segments(table)
         kept, num_pruned = self.prune_segments(query, segments)
         combined = self.execute_segments(query, kept)
+        if any(getattr(s, "is_mutable", False) for s in kept):
+            note_realtime_device_query()
         result = BrokerReducer(table.schema).reduce(query, combined)
         return BrokerResponse(
             result_table=result,
@@ -149,6 +158,14 @@ class QueryExecutor:
             num_groups_limit_reached=getattr(combined, "groups_trimmed",
                                              False),
         )
+
+    @staticmethod
+    def pinned_segments(table) -> list:
+        """A table's segments as one query sees them: each consuming
+        segment's snapshot pinned (row count, dictionary cardinalities,
+        upsert validity) for the whole query."""
+        return [s.snapshot_view() if getattr(s, "is_mutable", False)
+                else s for s in table.segments]
 
     def prune_segments(self, query: QueryContext, segments: list):
         """(kept segments, number pruned): the segments whose metadata,

@@ -278,6 +278,10 @@ def _eval_filter(node: ir.FilterNode, arrays, params):
                             for s in range(v.shape[0])])
     if isinstance(node, ir.Null):
         return arrays[node.null_slot]
+    if isinstance(node, ir.MaskParam):
+        # a host-computed [S, padded] doc mask (upsert validity), its pad
+        # rows False
+        return params[node.idx]
     if isinstance(node, ir.FAnd):
         m = _eval_filter(node.children[0], arrays, params)
         for c in node.children[1:]:

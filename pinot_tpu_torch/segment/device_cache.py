@@ -168,7 +168,9 @@ class StackedSegmentView:
     stack copies. Narrow uint8/uint16 id planes stay narrow in the stack."""
 
     def __init__(self, key: tuple):
-        self.key = key  # the members' id(segment)s, in order
+        # the members' id(segment)s in order; a consuming snapshot's member
+        # is ("rt", name, snapshot_generation)
+        self.key = key
         self._planes: dict[tuple, torch.Tensor] = {}
 
     def plane(self, plane_key: tuple, build) -> torch.Tensor:
@@ -219,9 +221,35 @@ class DeviceSegmentCache:
 
     def stacked_view(self, segments: list) -> StackedSegmentView:
         """Get-or-create the stacked view of a batch family, identified by
-        its ordered member segments."""
-        key = tuple(id(s) for s in segments)
+        its ordered member segments. Consuming-segment snapshots are keyed
+        by (name, snapshot_generation), not id(): a snapshot object is new
+        on every query (and its id may be reused once it is collected), but
+        an unchanged generation has the same plane contents, so a warm
+        repeat reuses the stack. A newer generation supersedes the old
+        stack, which is evicted at once (it can never be asked for again).
+        A mutable object WITHOUT a pinned generation gets an uncached view
+        (it could never be hit again and would only hold dead device
+        bytes)."""
+        members = []
+        rt_names = set()
+        for s in segments:
+            if not getattr(s, "is_mutable", False):
+                members.append(id(s))
+                continue
+            gen = getattr(s, "snapshot_generation", None)
+            if gen is None:
+                return StackedSegmentView(tuple(id(m) for m in segments))
+            rt_names.add(str(s.name))
+            members.append(("rt", str(s.name), gen))
+        key = tuple(members)
         with self._lock:
+            if rt_names and key not in self._stacks:
+                for skey in [k for k in self._stacks if any(
+                        isinstance(m, tuple) and m[0] == "rt"
+                        and m[1] in rt_names for m in k)]:
+                    self._stacks.pop(skey).evict()
+                    self._stack_order.remove(skey)
+                    self.evictions += 1
             sv = self._stacks.get(key)
             if sv is None:
                 sv = self._stacks[key] = StackedSegmentView(key)

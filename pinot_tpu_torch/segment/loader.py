@@ -48,6 +48,10 @@ class SegmentIntegrityError(RuntimeError):
 class ImmutableSegment:
     """A loaded immutable segment: metadata + lazily decoded column planes."""
 
+    # upsert validity plane, set by upsert/manager.py on an upsert table's
+    # committed segments; the planner ANDs it into the filter
+    valid_doc_ids = None
+
     def __init__(self, directory: str | Path):
         self.directory = Path(directory)
         self.metadata: SegmentMetadata = read_metadata(self.directory)
@@ -234,6 +238,21 @@ class ImmutableSegment:
         return self.get_dictionary(column).take(
             self.get_dict_ids(column)[doc_ids])
 
+    def read_cell(self, column: str, doc_id: int):
+        """Single-cell point read: a partial upsert reads the previous
+        version of a row (decoded planes are cached, so O(1) after the
+        first read of a column)."""
+        m = self.column_metadata(column)
+        if m.encoding == "RAW":
+            return _py(self.get_raw(column)[doc_id])
+        d = self.get_dictionary(column)
+        ids = self.get_dict_ids(column)
+        if m.single_value:
+            return _py(d.get(int(ids[doc_id])))
+        offsets = self.get_mv_offsets(column)
+        return [_py(d.get(int(i)))
+                for i in ids[offsets[doc_id]:offsets[doc_id + 1]]]
+
     def get_mv_values(self, column: str) -> list[np.ndarray]:
         """Per-document value arrays of an MV column."""
         d = self.get_dictionary(column)
@@ -241,6 +260,11 @@ class ImmutableSegment:
         offsets = self.get_mv_offsets(column)
         return [d.take(ids[offsets[i]:offsets[i + 1]])
                 for i in range(self.num_docs)]
+
+
+def _py(v):
+    return v.item() if isinstance(v, np.generic) else v
+
 
 def load_segment(directory: str | Path, verify: bool = True) -> ImmutableSegment:
     """Load (and by default verify) a segment directory. Verification

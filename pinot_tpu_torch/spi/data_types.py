@@ -206,3 +206,22 @@ class Schema:
                 FieldSpec(f["name"], DataType(f["dataType"]), FieldType.DATE_TIME,
                           format=f.get("format"), granularity=f.get("granularity")))
         return s
+
+
+def coerce_value(v, dt: DataType):
+    """Canonical value -> declared-type coercion (the JAX package's
+    `spi/data_types.py` `coerce_value`), used by the mutable segment.
+    Raises TypeError/ValueError on unparseable input."""
+    if dt in (DataType.INT, DataType.LONG, DataType.TIMESTAMP):
+        return int(float(v)) if isinstance(v, str) else int(v)
+    if dt in (DataType.FLOAT, DataType.DOUBLE):
+        return float(v)
+    if dt == DataType.BOOLEAN:
+        if isinstance(v, str):
+            return int(v.strip().lower() in ("true", "1", "yes"))
+        return int(bool(v))
+    if dt == DataType.STRING:
+        return v if isinstance(v, str) else str(v)
+    if dt == DataType.BYTES:
+        return v if isinstance(v, bytes) else bytes(str(v), "utf-8")
+    return v

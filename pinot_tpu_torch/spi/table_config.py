@@ -1,9 +1,11 @@
-"""Table configuration model: the subset the segment builder reads.
+"""Table configuration model: the subset the segment builder, the realtime
+converter and the upsert/dedup managers read.
 
 Subset of the reference's TableConfig
 (pinot-spi/.../spi/config/table/TableConfig.java:38): table type, the
-dictionary-less (raw) column list and the time column. The JSON layout is
-the same as the full model's, so a config written by either reads back here.
+dictionary-less (raw) column list, the sorted column, the time column and
+the upsert and dedup configs. The JSON layout is the same as the full
+model's, so a config written by either reads back here.
 """
 
 from __future__ import annotations
@@ -20,15 +22,40 @@ class TableType(enum.Enum):
 
 @dataclass
 class IndexingConfig:
-    """Per-table index declarations (reference IndexingConfig.java): only
-    'noDictionaryColumns' — columns stored as raw fixed-width values."""
+    """Per-table index declarations (reference IndexingConfig.java):
+    'noDictionaryColumns', columns stored as raw fixed-width values, and
+    'sortedColumn', the column a committed realtime segment is sorted on
+    (realtime/converter.py)."""
 
     no_dictionary_columns: list[str] = field(default_factory=list)
+    sorted_column: Optional[str] = None
 
 
 @dataclass
 class SegmentsValidationConfig:
     time_column_name: Optional[str] = None
+
+
+@dataclass
+class UpsertConfig:
+    mode: str = "NONE"  # NONE | FULL | PARTIAL
+    partial_upsert_strategies: dict[str, str] = field(default_factory=dict)
+    comparison_columns: list[str] = field(default_factory=list)
+    # reference UpsertConfig.metadataTTL: pk entries whose comparison value
+    # falls behind the high-watermark by more than this stop being tracked
+    metadata_ttl: float = 0.0  # 0 -> disabled; units of the comparison column
+    # reference UpsertConfig.deleteRecordColumn: a truthy value tombstones
+    # the key; deleted_keys_ttl bounds how long the tombstone is remembered
+    delete_record_column: str = ""
+    deleted_keys_ttl: float = 0.0
+    # reference UpsertConfig.ConsistencyMode: NONE | SYNC. SYNC makes the
+    # invalidate-old/validate-new pair atomic against query mask snapshots
+    consistency_mode: str = "NONE"
+
+
+@dataclass
+class DedupConfig:
+    enabled: bool = False
 
 
 @dataclass
@@ -38,6 +65,8 @@ class TableConfig:
     indexing: IndexingConfig = field(default_factory=IndexingConfig)
     validation: SegmentsValidationConfig = field(
         default_factory=SegmentsValidationConfig)
+    upsert: UpsertConfig = field(default_factory=UpsertConfig)
+    dedup: DedupConfig = field(default_factory=DedupConfig)
 
     def __post_init__(self):
         if isinstance(self.table_type, str):
@@ -49,9 +78,19 @@ class TableConfig:
             "tableType": self.table_type.value,
             "tableIndexConfig": {
                 "noDictionaryColumns": self.indexing.no_dictionary_columns,
+                "sortedColumn": self.indexing.sorted_column,
             },
             "segmentsConfig": {
                 "timeColumnName": self.validation.time_column_name,
+            },
+            "upsertConfig": {
+                "mode": self.upsert.mode,
+                "partialUpsertStrategies": self.upsert.partial_upsert_strategies,
+                "comparisonColumns": self.upsert.comparison_columns,
+                "metadataTTL": self.upsert.metadata_ttl,
+                "deleteRecordColumn": self.upsert.delete_record_column,
+                "deletedKeysTTL": self.upsert.deleted_keys_ttl,
+                "consistencyMode": self.upsert.consistency_mode,
             },
         }
 
@@ -59,11 +98,22 @@ class TableConfig:
     def from_json(cls, d: dict) -> "TableConfig":
         idx = d.get("tableIndexConfig", {})
         seg = d.get("segmentsConfig", {})
+        up = d.get("upsertConfig") or {}
         return cls(
             table_name=d["tableName"],
             table_type=TableType(d.get("tableType", "OFFLINE")),
             indexing=IndexingConfig(
-                no_dictionary_columns=idx.get("noDictionaryColumns") or []),
+                no_dictionary_columns=idx.get("noDictionaryColumns") or [],
+                sorted_column=idx.get("sortedColumn")),
             validation=SegmentsValidationConfig(
                 time_column_name=seg.get("timeColumnName")),
+            upsert=UpsertConfig(
+                mode=up.get("mode", "NONE"),
+                partial_upsert_strategies=up.get(
+                    "partialUpsertStrategies") or {},
+                comparison_columns=up.get("comparisonColumns") or [],
+                metadata_ttl=float(up.get("metadataTTL", 0.0)),
+                delete_record_column=up.get("deleteRecordColumn", ""),
+                deleted_keys_ttl=float(up.get("deletedKeysTTL", 0.0)),
+                consistency_mode=up.get("consistencyMode", "NONE")),
         )

@@ -798,3 +798,118 @@ def test_time_raw_on_the_card_matches_cpu(cuda, time_table):
         if dev == "cuda":
             assert _cuda.LAUNCHES["limb_sums"] == before + 1
     assert rows["cuda"] == rows["cpu"] and len(rows["cpu"]) == 7
+
+
+def _live_rows(n, seed, t0=0):
+    rng = np.random.default_rng(seed)
+    regions = ["AMERICA", "ASIA", "EUROPE", "AFRICA", "MIDDLE EAST"]
+    return [{"d_year": int(rng.integers(1992, 1999)),
+             "p_brand": int(rng.integers(0, 100)),
+             "s_region": regions[int(rng.integers(5))],
+             "lo_revenue": int(rng.integers(1, 600_000)),
+             "pk": int(rng.integers(0, 4096)), "ts": t0 + i}
+            for i in range(n)]
+
+
+_LIVE_SCHEMA = dict(dimensions=[("d_year", "INT"), ("p_brand", "INT"),
+                                ("s_region", "STRING"), ("pk", "LONG")],
+                    metrics=[("lo_revenue", "INT")],
+                    date_times=[("ts", "LONG")])
+
+
+def test_realtime_delta_upload_on_the_card_matches_cpu(cuda):
+    """A consuming segment's planes on the card: per generation (cold, a
+    warm repeat, a tail, a tail across the 8192-row bucket, grown on the
+    device) the same delta bytes and uploads as the CPU run, the same plane
+    contents and the same rows, kernel A launched for the GROUP BY."""
+    from pinot_tpu_torch.realtime.device_plane import (
+        REALTIME_PLANES, realtime_stats, reset_realtime_stats)
+    from pinot_tpu_torch.segment.mutable import MutableSegment
+
+    schema = Schema.build("live", **_LIVE_SCHEMA)
+    seg = MutableSegment(schema, "card_live_0")
+    qes = {dev: QueryExecutor(device=dev) for dev in ("cpu", "cuda")}
+    for qe in qes.values():
+        qe.add_table(schema, [seg])
+    sql = ("SET useFusedKernel = false; SELECT d_year, SUM(lo_revenue), "
+           "COUNT(*) FROM live WHERE d_year BETWEEN 1993 AND 1995 "
+           "GROUP BY d_year")
+    for n, seed in ((6000, 1), (0, None), (300, 2), (4000, 3)):
+        for r in _live_rows(n, seed) if n else ():
+            seg.index(r)
+        rows, stats = {}, {}
+        for dev, qe in qes.items():
+            before = _cuda.LAUNCHES["limb_sums"]
+            reset_realtime_stats()
+            rows[dev] = sorted(qe.execute_sql(sql).result_table.rows)
+            stats[dev] = dict(realtime_stats())
+            if dev == "cuda":
+                assert _cuda.LAUNCHES["limb_sums"] == before + 1
+        assert rows["cuda"] == rows["cpu"]
+        assert stats["cuda"] == stats["cpu"]
+        if not n:
+            assert stats["cuda"]["deltaBytes"] == 0
+    view = seg.snapshot_view()
+    for column, kind in (("d_year", "ids"), ("lo_revenue", "raw")):
+        planes = {dev: REALTIME_PLANES.plane_set(seg, dev)
+                  for dev in ("cpu", "cuda")}
+        assert planes["cuda"].capacity(column, kind) == 16384
+        got = planes["cuda"].row_plane(view, column, kind)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(),
+                           planes["cpu"].row_plane(view, column, kind))
+
+
+def test_hybrid_and_upsert_queries_on_the_card_match_cpu(cuda, tmp_path):
+    """chip_smoke.py's `ssb_rt` and `ups` shapes at a small size: 2
+    immutable segments and a consuming one (2 dispatches), and an upsert
+    table (FULL, `ts` the comparison column) of a committed and a
+    consuming segment, each carrying a validity MaskParam, before and
+    after an overwrite; rows on the card equal the CPU's."""
+    from pinot_tpu_torch.segment.mutable import MutableSegment
+    from pinot_tpu_torch.spi.table_config import UpsertConfig
+    from pinot_tpu_torch.upsert import TableUpsertMetadataManager
+
+    schema = Schema.build("rt", primary_key_columns=["pk"], **_LIVE_SCHEMA)
+    rows = _live_rows(12_000, 4)
+    segs = []
+    for i in range(2):
+        part = rows[i * 4000:(i + 1) * 4000]
+        path = tmp_path / f"rt{i}"
+        SegmentBuilder(schema, TableConfig(table_name="rt"), f"rt{i}").build(
+            {c: [r[c] for r in part] for c in schema.column_names()}, path)
+        segs.append(load_segment(path))
+    live = MutableSegment(schema, "card_hybrid")
+    for r in rows[8000:]:
+        live.index(r)
+    qes = {dev: QueryExecutor(device=dev) for dev in ("cpu", "cuda")}
+    for qe in qes.values():
+        qe.add_table(schema, segs + [live])
+    hybrid = ("SELECT d_year, p_brand, SUM(lo_revenue) FROM rt "
+              "WHERE s_region = 'ASIA' GROUP BY d_year, p_brand LIMIT 10000")
+    got = {dev: qe.execute_sql(hybrid) for dev, qe in qes.items()}
+    assert got["cuda"].num_device_dispatches == 2
+    assert sorted(got["cuda"].result_table.rows) == \
+        sorted(got["cpu"].result_table.rows)
+
+    cfg = TableConfig(table_name="ups", upsert=UpsertConfig(
+        mode="FULL", comparison_columns=["ts"]))
+    mgr = TableUpsertMetadataManager(schema, cfg)
+    committed = load_segment(tmp_path / "rt0")
+    mgr.add_segment(committed)
+    consuming = MutableSegment(schema, "card_ups")
+    for qe in qes.values():
+        qe.add_table(schema, [committed, consuming], "ups")
+
+    def put(batch):
+        for r in batch:
+            mgr.add_record(consuming, consuming.index(r), r)
+
+    put(_live_rows(4000, 5, t0=10_000))
+    ups = ("SELECT d_year, SUM(lo_revenue), COUNT(*) FROM ups "
+           "WHERE s_region = 'ASIA' GROUP BY d_year")
+    for _ in range(2):
+        got = {dev: sorted(qe.execute_sql(ups).result_table.rows)
+               for dev, qe in qes.items()}
+        assert got["cuda"] == got["cpu"]
+        put(_live_rows(500, 6, t0=20_000))
