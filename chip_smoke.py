@@ -33,6 +33,14 @@ Phases, each printing one JSON line:
            the row's d_year, dictionary-encoded; lo_commit_ts, up to 90
            days later in millis, raw); bench.py's `brands` dimension table
            (1000 rows), registered with QueryExecutor.add_dimension_table
+  index_data
+           the index tables, their segments built by the port's builder
+           in parallel worker processes: `ssb_st`, the ssb rows with a
+           star-tree (split order d_year, s_region, p_brand; COUNT, the
+           three SUMs and MIN/MAX of lo_quantity); `events`, 4 x 2^20
+           gen_ssb rows (seed 2030) with a JSON (`attrs`), a text (`msg`)
+           and a map (`props`) index column; `vecs`, 4 x 2^16 rows with a
+           384-wide FLOAT embedding and its vector index (IVF)
   queries  every query through QueryExecutor(device="cuda").execute_sql,
            each held against a numpy oracle, with its launches of each
            kernel, device dispatches and host fetches (every count set to 0
@@ -84,6 +92,16 @@ Phases, each printing one JSON line:
                  transform of a raw column and a two-column transform past
                  the 2^18 table are refused, as the JAX package's device
                  planner refuses them
+             st_q2, st_q9, st_avg, st_bypass    on ssb_st: bench.py Q2
+                 and Q9 answered from the star-tree's pre-aggregated rows
+                 (one family of the 4 views, kernel A at 7001 groups),
+                 COUNT and AVG sharing one count pair, and bench.py Q1,
+                 which filters a column off the split order (no rewrite)
+             ix_json, ix_text, ix_map, ix_vec   JSON_MATCH, TEXT_MATCH (a
+                 phrase OR a prefix, AND a dictionary predicate), a
+                 mapValue RANGE over the map index, VECTOR_SIMILARITY
+                 top-100 a segment: each a host-evaluated mask plane in one
+                 family dispatch (ix_vec's rows are the port's CPU run's)
            and, after phase `realtime`, a second line for its queries at
            their final state:
              rt_q1, rt_q2, rt_range             bench.py Q1 and Q2 and a
@@ -113,21 +131,30 @@ Phases, each printing one JSON line:
            2^21 rows (index + add_record), queried before and after 2^16
            more rows overwrite keys: rows equal to the oracle of the
            newest version of each key, and the overwrite must change them
+  index_checks
+           the star-tree queries' routes (rewritten but for st_bypass),
+           st_q2's scanned rows equal to the views' ASIA rows and
+           st_bypass's to q1's; ix_vec's recall@100 against the exact
+           cosine top-100 of each segment (at least 0.95); each index
+           query's mask planes, their bytes and the host ms of evaluating
+           them
   times    p50 query latency over --iters warm runs (1 for a query slower
            than 1 s)
   layers   a warm query's host time split into parse + prune + plan,
            dispatch, collect (the query's one fetch and the decode) and
-           combine + reduce (1 run for a query slower than 1 s)
+           combine + reduce (1 run for a query slower than 1 s); q6, q6m
+           and q6_sort are left out (host-held, PERF.md §5)
   profile  device busy share and the top device kernels under
-           torch.profiler (3 warm queries, 1 for a query slower than 1 s)
+           torch.profiler (3 warm queries, 1 for a query slower than 1 s;
+           q6, q6m and q6_sort left out)
   chain    time_raw's MONTH(lo_commit_ts) chain alone over the family's raw
            plane: its time, the torch kernels it launches, the bytes they
            move against one fused pass's
   geometry each kernel shape's launch geometry and the card's cluster
            occupancy
   total    the run's wall time, the build included
-  kernels  the kernel table (the realtime queries' launches included, one
-           row each): per kernel and main-path shape, the kernel's
+  kernels  the kernel table (the realtime and index queries' launches
+           included, one row each): per kernel and main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
            rotated over the recorded inputs of the query's segments or
            families and, where those are small, fresh copies of them, so
@@ -149,11 +176,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import multiprocessing
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -367,6 +396,70 @@ RT_QUERIES = {
 # A over the immutable family, or the committed segment, and kernel A or B
 # over the consuming snapshot
 RT_KERNEL_QUERIES = ("rt_q2", "rt_range", "ups")
+# the index tables: `ssb_st`, the ssb rows with a star-tree of Pinot's
+# documented config shape (dimensionsSplitOrder, functionColumnPairs,
+# maxLeafRecords default 10,000); `events`, a log/event table of gen_ssb
+# rows (EVENTS_SEED) with a JSON (`attrs`), a text (`msg`) and a map
+# (`props`) index column; `vecs`, a 384-wide embedding (the width of
+# common sentence-embedding models) with a vector index, Gaussian around
+# VEC_CENTRES seeded centres
+ST_TABLE, EVENTS_TABLE, VEC_TABLE = "ssb_st", "events", "vecs"
+ST_CONFIG = {"dimensionsSplitOrder": ["d_year", "s_region", "p_brand"],
+             "functionColumnPairs": ["COUNT__*", "SUM__lo_revenue",
+                                     "SUM__lo_extendedprice",
+                                     "SUM__lo_quantity", "MIN__lo_quantity",
+                                     "MAX__lo_quantity"]}
+INDEX_SEGMENTS = 4
+# worker processes building the index tables beside phase data's builds in
+# the main process (the card's host has 8 cores)
+INDEX_WORKERS = 6
+EVENTS_SEED, VEC_SEED = 2030, 2031
+EVENTS_SSB = ("d_year", "p_brand", "s_region", "lo_revenue", "lo_quantity")
+EVENTS_DIMS = [("d_year", "INT"), ("p_brand", "INT"), ("s_region", "STRING"),
+               ("lo_quantity", "INT"), ("attrs", "JSON"), ("msg", "STRING"),
+               ("props", "STRING")]
+N_COUNTRIES, MAX_VER, N_TAGS, JSON_TAG = 50, 20, 100, 7
+OS_NAMES = ("ios", "android", "linux", "windows")
+# a 10,000-word vocabulary drawn by Zipf rank; it holds the phrase
+# "connection reset" and three words of the prefix "time"
+TEXT_WORDS = [f"w{i}" for i in range(10_000)]
+PHRASE_RANKS, PREFIX_RANKS = (40, 41), (300, 1000, 3000)
+for _rank, _word in zip(PHRASE_RANKS + PREFIX_RANKS,
+                        ("connection", "reset", "time", "timeout",
+                         "timestamp")):
+    TEXT_WORDS[_rank] = _word
+TEXT_ZIPF, PHRASE_EVERY, MAP_ABSENT_EVERY, MAP_CLICKS = 1.3, 64, 11, 40
+VEC_DIM, VEC_CENTRES, VEC_NOISE, VEC_K, VEC_RECALL = 384, 256, 0.25, 100, 0.95
+# the query vector is drawn by index_tables; its literal is filled in there
+VEC_QUERY = ("SELECT d_year, COUNT(*) FROM vecs WHERE VECTOR_SIMILARITY(emb, "
+             "ARRAY[{}], " + str(VEC_K) + ") GROUP BY d_year")
+ST_QUERIES = ("st_q2", "st_q9", "st_avg", "st_bypass")
+INDEX_QUERIES = ("ix_json", "ix_text", "ix_map", "ix_vec")
+QUERIES.update({
+    "st_q2": Q2.replace("FROM ssb", f"FROM {ST_TABLE}"),
+    "st_q9": Q9.replace("FROM ssb", f"FROM {ST_TABLE}"),
+    "st_avg": f"SELECT s_region, COUNT(*), AVG(lo_revenue), "
+              f"MINMAXRANGE(lo_quantity) FROM {ST_TABLE} "
+              "WHERE d_year BETWEEN 1993 AND 1995 GROUP BY s_region",
+    # filters lo_discount, not a split dimension: no rewrite
+    "st_bypass": Q1.replace("FROM ssb", f"FROM {ST_TABLE}"),
+    "ix_json": f"SELECT d_year, COUNT(*), SUM(lo_revenue) FROM {EVENTS_TABLE} "
+               "WHERE JSON_MATCH(attrs, '\"$.device.os\" = ''ios'' AND "
+               f"\"$.tags[*]\" = ''t{JSON_TAG}''') GROUP BY d_year",
+    "ix_text": f"SELECT d_year, COUNT(*), SUM(lo_revenue) FROM {EVENTS_TABLE} "
+               "WHERE TEXT_MATCH(msg, '\"connection reset\" OR time*') "
+               "AND s_region = 'ASIA' GROUP BY d_year",
+    "ix_map": f"SELECT s_region, COUNT(*), SUM(lo_revenue) FROM {EVENTS_TABLE} "
+              f"WHERE mapValue(props, 'clicks') > {MAP_CLICKS} "
+              "GROUP BY s_region",
+    "ix_vec": VEC_QUERY})
+# the index queries that launch kernel A, once each (a family of 4)
+INDEX_KERNEL_QUERIES = ("st_q2", "st_q9", "st_avg") + INDEX_QUERIES
+EXPECTED_KERNEL.update({q: "limb_sums" for q in INDEX_KERNEL_QUERIES})
+ONE_FAMILY += ST_QUERIES + INDEX_QUERIES
+# q6, q6m and q6_sort are held by the host decode (PERF.md §5): they run
+# in `queries` and `times`, and leave `layers` and `profile`
+HOST_HELD = ("q6", "q6m", "q6_sort")
 # a query slower than this takes 1 warm run in `times`, `layers` and
 # `profile`
 SLOW_QUERY_MS = 1000.0
@@ -912,15 +1005,15 @@ def dispatch_rows(ex):
         del ex.dispatch_plan, ex.dispatch_plan_batch
 
 
-def phase_data(args, torch):
+def phase_data(args, torch, tmp: str):
     """The generated rows, built once into --segments segments (table
     `ssb`), once more into FAMILY_SEGMENTS segments (table `ssb16`), with
     the lo_tags column into --segments segments (table `mvt`), and with
     lo_orderdate and lo_commit_ts (table `ssbt`); bench.py's taxi rows
     into --segments segments (table `taxi`), and the `brands` dimension
-    table; returns {table: (schema, segments)}, the brands (schema,
-    segments), the ssb columns, the two date columns, the tags, the taxi
-    columns and the build dir."""
+    table, under the build dir `tmp`; returns {table: (schema,
+    segments)}, the brands (schema, segments), the ssb columns, the two
+    date columns, the tags and the taxi columns."""
     from pinot_tpu_torch.segment.builder import MultiValues, SegmentBuilder
     from pinot_tpu_torch.segment.loader import load_segment
     from pinot_tpu_torch.spi.data_types import Schema
@@ -930,7 +1023,6 @@ def phase_data(args, torch):
     rows = args.rows_per_segment * args.segments
     cols = gen_ssb(rows, args.seed)
     t_gen = time.perf_counter() - t0
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     tables, build_s = {}, {}
     for name, count in (("ssb", args.segments),
                         (FAMILY_TABLE, FAMILY_SEGMENTS)):
@@ -1020,7 +1112,341 @@ def phase_data(args, torch):
           "mv_matrix_bytes": rows * MV_MAX * 4,
           "order_days": int(len(np.unique(dates[0]))),
           "dim_rows": N_BRANDS})
-    return tables, dim, cols, dates, tags, taxi, tmp
+    return tables, dim, cols, dates, tags, taxi
+
+
+# -- the index tables: star-tree, JSON, text, map and vector indexes ---------
+
+
+def _events_columns(rng, n: int):
+    """One events segment's indexed columns from rng, and the rows each
+    index query must match, computed from the drawn values (not from the
+    strings or the indexes): attrs JSON {"country", "device": {"os",
+    "ver"}, "tags": 0 to 3 of 100}; msg, 8 to 16 Zipf-drawn words with the
+    phrase "connection reset" put in one row in PHRASE_EVERY; props,
+    {"clicks": 0..50, "dwell": float} without "clicks" in one row in
+    MAP_ABSENT_EVERY."""
+    country = rng.integers(0, N_COUNTRIES, n)
+    os_id = rng.integers(0, len(OS_NAMES), n)
+    ver = rng.integers(1, MAX_VER + 1, n)
+    ntags = rng.integers(0, 4, n)
+    tags = rng.integers(0, N_TAGS, int(ntags.sum()))
+    toff = np.r_[0, np.cumsum(ntags)].tolist()
+    tag_str = [f'"t{t}"' for t in tags.tolist()]
+    attrs = [f'{{"country": "c{c}", "device": {{"os": "{OS_NAMES[o]}", '
+             f'"ver": {v}}}, "tags": [{", ".join(tag_str[a:b])}]}}'
+             for c, o, v, a, b in zip(country.tolist(), os_id.tolist(),
+                                      ver.tolist(), toff[:-1], toff[1:])]
+    tag_doc = np.repeat(np.arange(n), ntags)
+    json_hit = (os_id == 0) & np.isin(
+        np.arange(n), tag_doc[tags == JSON_TAG])
+    words = np.asarray(TEXT_WORDS, dtype=object)
+    lens = rng.integers(8, 17, n)
+    off = np.r_[0, np.cumsum(lens)]
+    ranks = (rng.zipf(TEXT_ZIPF, int(off[-1])) - 1) % len(TEXT_WORDS)
+    phrase = np.flatnonzero(rng.random(n) < 1 / PHRASE_EVERY)
+    at = off[phrase] + (rng.random(len(phrase)) * (lens[phrase] - 1)
+                        ).astype(np.int64)
+    ranks[at], ranks[at + 1] = PHRASE_RANKS
+    toks = words[ranks].tolist()
+    bounds = off.tolist()
+    msg = [" ".join(toks[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+    tok_doc = np.repeat(np.arange(n), lens)
+    pair = (ranks[:-1] == PHRASE_RANKS[0]) & (ranks[1:] == PHRASE_RANKS[1]) \
+        & (tok_doc[:-1] == tok_doc[1:])
+    text_hit = np.zeros(n, dtype=bool)
+    text_hit[tok_doc[:-1][pair]] = True
+    text_hit[tok_doc[np.isin(ranks, PREFIX_RANKS)]] = True
+    clicks = rng.integers(0, 51, n)
+    dwell = np.round(rng.random(n) * 600, 3)
+    absent = rng.random(n) < 1 / MAP_ABSENT_EVERY
+    props = [f'{{"dwell": {d!r}}}' if a else f'{{"clicks": {c}, "dwell": {d!r}}}'
+             for c, d, a in zip(clicks.tolist(), dwell.tolist(),
+                                absent.tolist())]
+    map_hit = (clicks > MAP_CLICKS) & ~absent
+    return ({"attrs": attrs, "msg": msg, "props": props},
+            {"ix_json": json_hit, "ix_text": text_hit, "ix_map": map_hit})
+
+
+def build_index_segment(task):
+    """Build one segment of `ssb_st`, `events` or `vecs` (a worker of
+    index_tables' process pool): (table, seconds, the rows the query
+    oracles need)."""
+    from pinot_tpu_torch.segment.builder import MultiValues, SegmentBuilder
+    from pinot_tpu_torch.spi.data_types import Schema
+    from pinot_tpu_torch.spi.table_config import IndexingConfig, TableConfig
+
+    table, i, seed, part, path, extra = task
+    t0 = time.perf_counter()
+    out = None
+    if table == ST_TABLE:
+        schema = Schema.build(table, dimensions=SCHEMA_DIMS,
+                              metrics=SCHEMA_METRICS)
+        cfg = IndexingConfig(no_dictionary_columns=RAW_COLUMNS,
+                             star_tree_index_configs=[ST_CONFIG])
+        cols = part
+    elif table == EVENTS_TABLE:
+        schema = Schema.build(table, dimensions=EVENTS_DIMS,
+                              metrics=[("lo_revenue", "INT")])
+        cfg = IndexingConfig(
+            no_dictionary_columns=["lo_revenue", "lo_quantity"],
+            json_index_columns=["attrs"], text_index_columns=["msg"],
+            custom_index_configs={"props": {"type": "map", "maxKeys": 8}})
+        strings, out = _events_columns(np.random.default_rng([seed, i]),
+                                       len(part["d_year"]))
+        cols = dict(part, **strings)
+    else:
+        centres, query = extra
+        rng = np.random.default_rng([seed, i])
+        n = len(part["d_year"])
+        emb = (centres[rng.integers(0, len(centres), n)]
+               + rng.normal(0.0, VEC_NOISE, (n, VEC_DIM))).astype(np.float32)
+        schema = Schema.build(table, dimensions=[("d_year", "INT"),
+                                                 ("emb", "FLOAT", False)],
+                              metrics=[("lo_revenue", "INT")])
+        cfg = IndexingConfig(no_dictionary_columns=["lo_revenue"],
+                             vector_index_columns=["emb"])
+        cols = dict(part, emb=MultiValues(emb.reshape(-1),
+                                          np.full(n, VEC_DIM)))
+        # the exact top-K by cosine, in float64: the recall oracle
+        e64 = emb.astype(np.float64)
+        sims = (e64 / np.linalg.norm(e64, axis=1, keepdims=True)) @ (
+            query / np.linalg.norm(query))
+        out = np.argsort(-sims, kind="stable")[:VEC_K]
+    SegmentBuilder(schema, TableConfig(table_name=table, indexing=cfg),
+                   f"{table}_{i}").build(cols, path)
+    return table, i, time.perf_counter() - t0, out
+
+
+def submit_index_builds(args, tmp: str, pool) -> dict:
+    """Start building the `events` and `vecs` segments in the worker pool
+    (they need none of the ssb rows, so they build while phase data builds
+    the other tables): `events`, gen_ssb rows from EVENTS_SEED with JSON,
+    text and map index columns, 4 x --events-rows; `vecs`, --vec-rows rows
+    a segment with a VEC_DIM-wide embedding (Gaussian around VEC_CENTRES
+    centres) and a vector index. Returns the pending builds, the events'
+    ssb rows and the query vector."""
+    ev_rows, vec_rows = args.events_rows, args.vec_rows
+    ev = gen_ssb(ev_rows * INDEX_SEGMENTS, EVENTS_SEED)
+    ev = {k: ev[k] for k in EVENTS_SSB}
+    tasks = [(EVENTS_TABLE, i, EVENTS_SEED,
+              {k: v[i * ev_rows:(i + 1) * ev_rows] for k, v in ev.items()},
+              f"{tmp}/{EVENTS_TABLE}_{i}", None)
+             for i in range(INDEX_SEGMENTS)]
+    rng = np.random.default_rng(VEC_SEED)
+    centres = rng.normal(size=(VEC_CENTRES, VEC_DIM))
+    query = (centres[0] + rng.normal(0.0, VEC_NOISE, VEC_DIM)).astype(
+        np.float32)
+    vec = gen_ssb(vec_rows * INDEX_SEGMENTS, VEC_SEED)
+    vec = {k: vec[k] for k in ("d_year", "lo_revenue")}
+    tasks += [(VEC_TABLE, i, VEC_SEED,
+               {k: v[i * vec_rows:(i + 1) * vec_rows] for k, v in vec.items()},
+               f"{tmp}/{VEC_TABLE}_{i}", (centres, query))
+              for i in range(INDEX_SEGMENTS)]
+    return {"t0": time.perf_counter(), "ev": ev, "query": query,
+            "futures": [pool.submit(build_index_segment, t) for t in tasks]}
+
+
+def index_tables(args, cols: dict, tmp: str, pool, pending: dict):
+    """The three index tables, their segments built in the worker pool (the
+    JSON and text index builds are host Python): `ssb_st`, the ssb rows
+    with a star-tree (ST_CONFIG), in --segments segments, submitted here,
+    and the builds submit_index_builds started. Returns {table: (schema,
+    segments)}, the expected rows of the index queries and the facts
+    phase index_checks holds them to."""
+    from pinot_tpu_torch.segment.loader import load_segment
+    from pinot_tpu_torch.spi.data_types import Schema
+
+    t0 = time.perf_counter()
+    per = args.rows_per_segment
+    futures = [pool.submit(build_index_segment, (
+        ST_TABLE, i, args.seed,
+        {k: v[i * per:(i + 1) * per] for k, v in cols.items()},
+        f"{tmp}/{ST_TABLE}_{i}", None)) for i in range(args.segments)]
+    seconds, hits, exact = {}, {}, {}
+    for fut in pending["futures"] + futures:
+        table, i, s, out = fut.result()
+        seconds.setdefault(table, []).append(s)
+        if table == EVENTS_TABLE:
+            for q, m in out.items():
+                hits.setdefault(q, []).append(m)
+        elif table == VEC_TABLE:
+            exact[i] = out
+    schemas = {ST_TABLE: Schema.build(ST_TABLE, dimensions=SCHEMA_DIMS,
+                                      metrics=SCHEMA_METRICS),
+               EVENTS_TABLE: Schema.build(EVENTS_TABLE, dimensions=EVENTS_DIMS,
+                                          metrics=[("lo_revenue", "INT")]),
+               VEC_TABLE: Schema.build(VEC_TABLE, dimensions=[
+                   ("d_year", "INT"), ("emb", "FLOAT", False)],
+                   metrics=[("lo_revenue", "INT")])}
+    tables = {t: (schemas[t], [load_segment(f"{tmp}/{t}_{i}")
+                               for i in range(len(seconds[t]))])
+              for t in schemas}
+    expected, views = st_oracle(cols, args.segments, per)
+    expected.update(events_oracle(pending["ev"], {q: np.concatenate(m)
+                                                  for q, m in hits.items()}))
+    emit({"phase": "index_data",
+          "tables": {t: {"segments": len(s), "rows_per_segment": s[0].num_docs,
+                         "star_tree_rows": [v.num_docs for x in s
+                                            for v in x.star_trees()]}
+                     for t, (_, s) in tables.items()},
+          "workers": INDEX_WORKERS,
+          "since_submit_s": time.perf_counter() - pending["t0"],
+          "wait_after_data_s": time.perf_counter() - t0,
+          "build_s": {t: {"per_segment": v, "sum": sum(v)}
+                      for t, v in seconds.items()},
+          "matching_rows": {q: int(np.concatenate(m).sum())
+                            for q, m in hits.items()}})
+    facts = {"st_views": views[0], "st_asia": views[1],
+             "vec_exact": [exact[i] for i in sorted(exact)],
+             "vec_query": pending["query"]}
+    return tables, expected, facts
+
+
+def st_oracle(cols: dict, segments: int, per: int) -> dict:
+    """st_avg's rows by numpy (st_q2, st_q9 and st_bypass are q2, q9 and
+    q1 over the same rows: their oracles), and the pre-aggregated rows each
+    segment's tree holds, in all and for ASIA (what st_q2 scans)."""
+    year = cols["d_year"].astype(np.int64) - 1992
+    region = np.zeros(len(year), dtype=np.int64)
+    for k, r in enumerate(REGIONS):
+        region[cols["s_region"] == r] = k
+    key = (year * len(REGIONS) + region) * 1000 + cols["p_brand"]
+    views, asia = [], []
+    for i in range(segments):
+        occ = np.bincount(key[i * per:(i + 1) * per],
+                          minlength=7 * len(REGIONS) * 1000) > 0
+        views.append(int(occ.sum()))
+        asia.append(int(occ.reshape(7, len(REGIONS), 1000)[
+            :, REGIONS.index("ASIA")].sum()))
+    m = (year >= 1) & (year <= 3)
+    rows = []
+    for k, r in enumerate(REGIONS):
+        sel = m & (region == k)
+        rev = cols["lo_revenue"][sel].astype(np.int64)
+        qty = cols["lo_quantity"][sel].astype(np.int64)
+        if len(rev):
+            rows.append([r, int(len(rev)), float(rev.sum()) / len(rev),
+                         float(qty.max() - qty.min())])
+    return {"st_avg": rows}, (views, asia)
+
+
+def vec_cpu_rows(schema, segments) -> list:
+    """ix_vec's oracle rows: the port's CPU run over the same segments (the
+    IVF top-K is the index's own; phase index_checks holds its recall
+    against the exact top-K)."""
+    from pinot_tpu_torch.engine.query_executor import QueryExecutor
+
+    cpu = QueryExecutor(device="cpu")
+    cpu.add_table(schema, segments)
+    return cpu.execute_sql(QUERIES["ix_vec"]).result_table.rows
+
+
+def events_oracle(ev: dict, hits: dict) -> dict:
+    """ix_json, ix_text and ix_map over the events rows: the matching rows
+    from the drawn values, grouped and summed by numpy."""
+    out = {}
+    year = ev["d_year"].astype(np.int64)
+    rev = ev["lo_revenue"].astype(np.float64)
+    for q in ("ix_json", "ix_text"):
+        m = hits[q] & ((ev["s_region"] == "ASIA") if q == "ix_text" else True)
+        cnt = np.bincount(year[m] - 1992, minlength=7)
+        tot = np.bincount(year[m] - 1992, weights=rev[m], minlength=7)
+        out[q] = [[1992 + y, int(cnt[y]), float(tot[y])]
+                  for y in np.flatnonzero(cnt)]
+    m = hits["ix_map"]
+    out["ix_map"] = [[r, int((m & (ev["s_region"] == r)).sum()),
+                      float(rev[m & (ev["s_region"] == r)].sum())]
+                     for r in REGIONS if (m & (ev["s_region"] == r)).any()]
+    return out
+
+
+def phase_index_checks(qe, results, facts, card):
+    """What the index queries promise beyond their rows: the star-tree
+    queries ran over the pre-aggregated views (st_q2 scanned the views'
+    ASIA rows, not the table's) and st_bypass did not (it scanned as q1
+    did), and st_avg's COUNT and AVG read one count pair; ix_vec keeps
+    VEC_K rows a segment, and its per-segment top-K recall against the
+    exact cosine top-K is at least VEC_RECALL; the mask planes each index query uploads and the host
+    ms of evaluating them."""
+    from pinot_tpu_torch.engine import ir, plan as plan_mod
+    from pinot_tpu_torch.query.parser.sql import parse_sql
+
+    st_rows = sum(facts["st_views"])
+    for qname in ST_QUERIES:
+        routes = qe.route_segments(parse_sql(QUERIES[qname]),
+                                   qe._table(ST_TABLE).segments)
+        rewritten = [r.rewrite is not None for r in routes]
+        if rewritten != [qname != "st_bypass"] * len(routes):
+            raise AssertionError(f"{qname}: star-tree routes {rewritten}")
+        if qname == "st_avg":
+            inner = [str(a) for a in routes[0].query.aggregations]
+            if inner.count("sum(__count__star)") != 1:
+                raise AssertionError(f"st_avg's COUNT and AVG read {inner}")
+    if results["st_q2"].num_docs_scanned != sum(facts["st_asia"]):
+        raise AssertionError(
+            f"st_q2 scanned {results['st_q2'].num_docs_scanned} docs, the "
+            f"views hold {sum(facts['st_asia'])} ASIA rows")
+    if results["st_bypass"].num_docs_scanned != results["q1"].num_docs_scanned:
+        raise AssertionError("st_bypass scanned another row count than q1")
+    vt = qe._table(VEC_TABLE)
+    top = sum(r[1] for r in results["ix_vec"].result_table.rows)
+    if top != VEC_K * len(vt.segments):
+        raise AssertionError(f"ix_vec counted {top} rows, not {VEC_K} a "
+                             "segment")
+    recall = []
+    for seg, want in zip(vt.segments, facts["vec_exact"]):
+        got, _ = seg.get_vector_index("emb").top_k(facts["vec_query"], VEC_K)
+        recall.append(len(np.intersect1d(got, want)) / VEC_K)
+    if min(recall) < VEC_RECALL:
+        raise AssertionError(f"ix_vec recall@{VEC_K} {recall}")
+    masks = {}
+    for qname in INDEX_QUERIES:
+        timed = {"ms": 0.0}
+
+        def timer(fn):
+            def call(*a):
+                t = time.perf_counter()
+                try:
+                    return fn(*a)
+                finally:
+                    timed["ms"] += (time.perf_counter() - t) * 1e3
+            return call
+
+        orig = plan_mod.eval_host_mask, plan_mod.eval_map_index_predicate
+        plan_mod.eval_host_mask, plan_mod.eval_map_index_predicate = map(
+            timer, orig)
+        try:
+            query_ctx = parse_sql(QUERIES[qname])
+            segments, _ = qe.prune_segments(
+                query_ctx, qe.pinned_segments(qe._table(query_ctx.table_name)))
+            plans = qe.plan_segments(qe.route_segments(query_ctx, segments))
+        finally:
+            plan_mod.eval_host_mask, plan_mod.eval_map_index_predicate = orig
+        planes = [np.asarray(pl.params[m.idx]) for pl in plans
+                  for m in _mask_params(pl.program.filter, ir)]
+        if len(planes) != len(plans):
+            raise AssertionError(f"{qname}: {len(planes)} mask planes for "
+                                 f"{len(plans)} segments")
+        masks[qname] = {"mask_planes": len(planes),
+                        "mask_bytes": sum(p.nbytes for p in planes),
+                        "mask_eval_ms": timed["ms"]}
+    emit({"phase": "index_checks", "card": card,
+          "star_tree_rows": st_rows,
+          "st_q2_docs_scanned": results["st_q2"].num_docs_scanned,
+          "st_bypass_docs_scanned": results["st_bypass"].num_docs_scanned,
+          "vec_recall": recall, "masks": masks})
+
+
+def _mask_params(node, ir) -> list:
+    """The ir.MaskParam leaves of a filter tree."""
+    if node is None:
+        return []
+    if isinstance(node, ir.MaskParam):
+        return [node]
+    kids = getattr(node, "children", None) or (
+        [node.child] if isinstance(node, ir.FNot) else [])
+    return [m for k in kids for m in _mask_params(k, ir)]
 
 
 def family_count(qe, sql) -> int:
@@ -1031,9 +1457,10 @@ def family_count(qe, sql) -> int:
     query = parse_sql(sql)
     segments, _ = qe.prune_segments(
         query, qe.pinned_segments(qe._table(query.table_name)))
-    plans = qe.plan_segments(query, segments)
-    return len(qe._batch_families(query, segments, plans)), \
-        {p.program.mode for p in plans}
+    routes = qe.route_segments(query, segments)
+    plans = qe.plan_segments(routes)
+    return len(qe._batch_families(query, [r.segment for r in routes],
+                                  plans)), {p.program.mode for p in plans}
 
 
 def phase_queries(torch, qe, expected, _cuda, interp, names=None):
@@ -1130,7 +1557,7 @@ def phase_queries(torch, qe, expected, _cuda, interp, names=None):
                                 for k, r in results.items()},
           "resident_bytes": qe.executor.cache.bytes_used(),
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
-    return launches, per_query
+    return launches, per_query, results
 
 
 @contextlib.contextmanager
@@ -1395,18 +1822,21 @@ def phase_layers(torch, qe, iters, card, slow) -> dict:
 
     out = {}
     for qname, sql in QUERIES.items():
+        if qname in HOST_HELD:
+            continue
         ts = []
         for _ in range(1 if qname in slow else iters):
             t0 = time.perf_counter()
             query = parse_sql(sql)
             table = qe._table(query.table_name)
             segments, _ = qe.prune_segments(query, qe.pinned_segments(table))
-            plans = qe.plan_segments(query, segments)
+            routes = qe.route_segments(query, segments)
+            plans = qe.plan_segments(routes)
             t1 = time.perf_counter()
-            pending = qe.dispatch_segments(query, segments, plans)
+            pending = qe.dispatch_segments(query, routes, plans)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            inter = qe.collect_segments(query, segments, plans, pending)
+            inter = qe.collect_segments(routes, plans, pending)
             t3 = time.perf_counter()
             BrokerReducer(table.schema).reduce(query, qe._combine(query, inter))
             t4 = time.perf_counter()
@@ -1415,7 +1845,8 @@ def phase_layers(torch, qe, iters, card, slow) -> dict:
         out[qname] = dict(zip(("parse_plan_ms", "dispatch_ms", "collect_ms",
                                "combine_reduce_ms"), map(float, med)))
     emit({"phase": "layers", "card": card, "iters": iters,
-          "iters_1": sorted(slow), "layers": out})
+          "iters_1": sorted(slow), "left_out": list(HOST_HELD),
+          "layers": out})
     return out
 
 
@@ -1428,10 +1859,10 @@ def phase_profile(torch, qe, card, slow) -> dict:
     out = {}
     for qname in (("q2", "q2_unfused", "flagship", "q2_family", "q3",
                    "q3_sort", "q3m", "sparse_family", "sparse_family_solo",
-                   "q5", "q5_total", "aggmix", "q6", "q6m", "q6_sort",
-                   "sel_limit", "sel_order", "mv_filter", "mv_group",
-                   "mv_aggs") + TRANSFORM_QUERIES + ("post_agg",)
-                  + RT_KERNEL_QUERIES):
+                   "q5", "q5_total", "aggmix", "sel_limit", "sel_order",
+                   "mv_filter", "mv_group", "mv_aggs") + TRANSFORM_QUERIES
+                  + ("post_agg",) + RT_KERNEL_QUERIES + ST_QUERIES
+                  + INDEX_QUERIES):
         runs = 1 if qname in slow else 3
         if runs > 1:
             qe.execute_sql(QUERIES[qname])
@@ -1939,6 +2370,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rows-per-segment", type=int, default=1 << 23)
     ap.add_argument("--segments", type=int, default=4)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--events-rows", type=int, default=1 << 20,
+                    help="rows of each of the 4 `events` segments")
+    ap.add_argument("--vec-rows", type=int, default=1 << 16,
+                    help="rows of each of the 4 `vecs` segments")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2002,9 +2437,16 @@ def main(argv=None) -> int:
     parity.update(phase_bin_edges(torch, interp, args.seed))
     torch.cuda.empty_cache()
 
-    tables, dim, cols, dates, tags, taxi_cols, tmp = phase_data(args, torch)
-    segments = tables["ssb"][1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        with ProcessPoolExecutor(INDEX_WORKERS, mp_context=multiprocessing
+                                 .get_context("spawn")) as pool:
+            pending = submit_index_builds(args, tmp, pool)
+            tables, dim, cols, dates, tags, taxi_cols = phase_data(
+                args, torch, tmp)
+            index, index_expected, facts = index_tables(args, cols, tmp, pool,
+                                                        pending)
+        segments = tables["ssb"][1]
         expected = oracle(cols)
         rt_base = rt_partials(cols)
         expected.update(matrix_oracle(cols, HyperLogLog))
@@ -2013,6 +2455,13 @@ def main(argv=None) -> int:
                                             args.rows_per_segment))
         expected.update(transform_oracle(cols, dates))
         del cols, taxi_cols, tags, dates
+        tables.update(index)
+        expected.update(index_expected)
+        expected.update({"st_q2": expected["q2"], "st_q9": expected["q9"],
+                         "st_bypass": expected["q1"]})
+        QUERIES["ix_vec"] = VEC_QUERY.format(", ".join(
+            f"{float(x):.9g}" for x in facts["vec_query"]))
+        expected["ix_vec"] = vec_cpu_rows(*tables[VEC_TABLE])
         qe = QueryExecutor(device=DEVICE)
         for schema, segs in tables.values():
             qe.add_table(schema, segs)
@@ -2023,15 +2472,17 @@ def main(argv=None) -> int:
         emit({"phase": "warm", "table": TAXI_TABLE, "planes": warmed,
               "seconds": time.perf_counter() - t0,
               "resident_bytes": qe.executor.cache.bytes_used()})
-        launches, per_query = phase_queries(torch, qe, expected, _cuda, interp)
+        launches, per_query, results = phase_queries(torch, qe, expected,
+                                                     _cuda, interp)
+        phase_index_checks(qe, results, facts, dev["nvidia_smi"])
         rt_final, rt_launches = phase_realtime(
             args, torch, qe, tables, rt_base, interp, tmp, dev["nvidia_smi"])
         # the realtime queries at their final state join every later phase
         QUERIES.update(RT_QUERIES)
         EXPECTED_KERNEL.update({q: "limb_sums" for q in RT_KERNEL_QUERIES})
         expected.update(rt_final)
-        _, rt_per_query = phase_queries(torch, qe, expected, _cuda, interp,
-                                        names=list(RT_QUERIES))
+        _, rt_per_query, _ = phase_queries(torch, qe, expected, _cuda,
+                                           interp, names=list(RT_QUERIES))
         per_query.update(rt_per_query)
 
         # the main path's own kernel inputs, one call per segment (per
@@ -2082,10 +2533,12 @@ def main(argv=None) -> int:
                     mxu_groupby.limb_sums(planes, gid, G),
                     mxu_groupby.limb_sums_plain(planes, gid, G))
         # the realtime queries' launches: kernel A over the family (or the
-        # committed segment), kernel A or B over the consuming snapshot,
-        # each with the live rows of the segments its dispatch covers
+        # committed segment), kernel A or B over the consuming snapshot;
+        # the index queries': kernel A over the family of star-tree views
+        # or of events / vecs segments; each with the live rows of the
+        # segments its dispatch covers
         rt_recorded, rt_live = {}, {}
-        for qname in RT_KERNEL_QUERIES:
+        for qname in RT_KERNEL_QUERIES + INDEX_KERNEL_QUERIES:
             with dispatch_rows(qe.executor) as rows, \
                     recording(mxu_groupby, "limb_sums", rows) as a_calls, \
                     recording(fused_groupby, "fused_limb_sums",

@@ -17,6 +17,11 @@ on the host, gathered by id on the device (ir.ParamGather), which also
 serves string-valued transforms as GROUP BY keys (a derived dimension) and
 in predicates (a LUT over the ids), LOOKUP joins included.
 
+Index-backed predicates (JSON_MATCH, TEXT_MATCH, VECTOR_SIMILARITY, and a
+`mapvalue` predicate over a map index) evaluate on the host through the
+segment's index into a doc mask, a boolean param plane of the same device
+program (ir.MaskParam), as in the JAX package's device planner.
+
 Shapes the JAX package answers on its host engine raise
 UnsupportedQueryError here (the port has none): the aggregations it does
 not lower, a GROUP BY on a transform of a raw column, a transform of
@@ -44,6 +49,7 @@ from ..spi.data_types import DataType
 from . import ir
 from .aggregation import (DENSE_GROUP_LIMIT, AggPlanContext, LoweredAgg,
                           UnsupportedQueryError, lower_aggregation)
+from .host_masks import eval_host_mask, eval_map_index_predicate
 from .selection import selection_columns_for
 
 SPARSE_KEY_LIMIT = ir.SPARSE_KEY_SPACE  # keys stay below the kernel sentinel
@@ -532,11 +538,18 @@ class SegmentPlanner(AggPlanContext):
             return ir.FNot(node) if p.type == PredicateType.IS_NOT_NULL else node
         if p.type not in _LOWERED_PREDICATES:
             raise UnsupportedQueryError(f"predicate {p.type} is not lowered by this port")
+        if p.type in _HOST_MASK_PREDICATES:
+            return self._lower_host_mask(p)
 
         info = self.dict_info(lhs) if lhs.is_identifier else None
         if info is not None:
             return self._lower_dict_predicate(p, lhs, info)
         if lhs.is_function:
+            # mapvalue(col, 'key') over a map index: a compare of the
+            # index's dense plane on the host, shipped as a mask plane
+            mm = eval_map_index_predicate(p, self.segment)
+            if mm is not None:
+                return self._mask_param(mm)
             try:
                 return self._lower_value_predicate(p)
             except UnsupportedQueryError:
@@ -647,6 +660,14 @@ class SegmentPlanner(AggPlanContext):
             if regex.search(str(v)) is not None:
                 lut[i] = True
         return ir.Lut(ids_slot, self.param(lut), mv=mv)
+
+    def _lower_host_mask(self, p: Predicate) -> ir.FilterNode:
+        """JSON_MATCH, TEXT_MATCH and VECTOR_SIMILARITY have no vector form:
+        they evaluate on the host through the column's index into a doc
+        mask, shipped as a param plane (engine/host_masks.py)."""
+        if not p.lhs.is_identifier:
+            raise UnsupportedQueryError(f"{p.type} needs a column lhs")
+        return self._mask_param(eval_host_mask(p, self.segment))
 
     def _mask_param(self, mask: np.ndarray) -> ir.MaskParam:
         """A host-computed doc mask as a boolean param plane padded to the
@@ -890,10 +911,14 @@ class SegmentPlanner(AggPlanContext):
                            selection_exprs=sel_exprs)
 
 
+# index-backed predicates, evaluated on the host into a mask plane
+_HOST_MASK_PREDICATES = (
+    PredicateType.JSON_MATCH, PredicateType.TEXT_MATCH,
+    PredicateType.VECTOR_SIMILARITY)
 _LOWERED_PREDICATES = (
     PredicateType.EQ, PredicateType.NOT_EQ, PredicateType.RANGE,
     PredicateType.IN, PredicateType.NOT_IN, PredicateType.LIKE,
-    PredicateType.REGEXP_LIKE)
+    PredicateType.REGEXP_LIKE) + _HOST_MASK_PREDICATES
 
 _BIN_FN = {
     "plus": "add", "minus": "sub", "times": "mul", "divide": "div", "mod": "mod",

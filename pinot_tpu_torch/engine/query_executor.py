@@ -11,8 +11,11 @@ one copy. Multi-segment single-key sparse GROUP BYs merge their tables on
 the device and fetch one merged table (`SET deviceCombine = false` opts
 out). A consuming segment of a realtime table runs as a snapshot pinned
 for the query (realtime/device_plane.py: append-only device planes, only
-the rows appended since the last query uploaded). Every segment runs on
-the executor's device. There is no host engine
+the rows appended since the last query uploaded). An aggregation that fits
+a segment's star-tree runs over its pre-aggregated rows instead
+(segment/startree.py; `use_star_tree`), through the same planner, families
+and kernels; its states map back to the query's afterwards. Every segment
+runs on the executor's device. There is no host engine
 behind it: a query shape this port does not lower raises
 UnsupportedQueryError, and any other failure raises as well.
 """
@@ -34,6 +37,7 @@ from ..query.parser.sql import SqlParseError, parse_sql
 from ..realtime.device_plane import note_realtime_device_query
 from ..segment.device_cache import DeviceSegmentCache
 from ..segment.loader import ImmutableSegment
+from ..segment.startree import StarTreeRewrite, remap_states, try_rewrite
 from ..spi.data_types import Schema
 from .aggregation import UnsupportedQueryError, semantics_for
 from .combine import (combine_aggregation, combine_batched_aggregation,
@@ -66,6 +70,17 @@ class Pending:
 
 
 @dataclass
+class Route:
+    """How one segment runs a query: the query and segment it dispatches
+    (a star-tree's rewritten query over its pre-aggregated view, or the
+    query itself over the segment) and the rewrite to map states back."""
+
+    query: QueryContext
+    segment: object
+    rewrite: Optional[StarTreeRewrite] = None
+
+
+@dataclass
 class Table:
     name: str
     schema: Schema
@@ -88,6 +103,8 @@ class QueryExecutor:
         self.tables: dict[str, Table] = {}
         self.executor = SegmentExecutor(DeviceSegmentCache(device))
         self.pruner = SegmentPrunerService()
+        # reference: the useStarTree query option, default true
+        self.use_star_tree = True
 
     def add_table(self, schema: Schema, segments: list,
                   name: Optional[str] = None):
@@ -175,27 +192,44 @@ class QueryExecutor:
         return self.pruner.prune(query, segments)
 
     def execute_segments(self, query: QueryContext, segments: list):
-        """Server-side half of a query over its kept segments: plan every
-        segment, dispatch every family and lone segment (the device queue
-        fills back to back), fetch all outputs in one copy, collect and
-        combine."""
+        """Server-side half of a query over its kept segments: route and
+        plan every segment, dispatch every family and lone segment (the
+        device queue fills back to back), fetch all outputs in one copy,
+        collect and combine."""
         query.filter = optimize_filter(query.filter)
         reset_dispatch_counters()
-        plans = self.plan_segments(query, segments)
-        pending = self.dispatch_segments(query, segments, plans)
+        routes = self.route_segments(query, segments)
+        plans = self.plan_segments(routes)
+        pending = self.dispatch_segments(query, routes, plans)
         return self._combine(query, self.collect_segments(
-            query, segments, plans, pending))
+            routes, plans, pending))
 
-    def plan_segments(self, query: QueryContext, segments: list) -> list:
-        return [self.executor.plan(query, s) for s in segments]
+    def route_segments(self, query: QueryContext, segments: list) -> list:
+        """Each segment's Route: a star-tree rewrite where one fits the
+        query, else the query itself. Upsert segments never take the tree:
+        its pre-aggregates ignore validity."""
+        routes = []
+        for s in segments:
+            rewrite = None
+            if self.use_star_tree \
+                    and getattr(s, "valid_doc_ids", None) is None:
+                rewrite = try_rewrite(query, s)
+            routes.append(Route(query, s) if rewrite is None
+                          else Route(rewrite.query, rewrite.view, rewrite))
+        return routes
 
-    def dispatch_segments(self, query: QueryContext, segments: list,
+    def plan_segments(self, routes: list) -> list:
+        return [self.executor.plan(r.query, r.segment) for r in routes]
+
+    def dispatch_segments(self, query: QueryContext, routes: list,
                           plans: list) -> Pending:
         """Launch the query's device work: the sparse device combine when
         it applies, else one dispatch per batch family (a family of one,
         or one that turns out to mismatch, dispatches alone, with the
-        fused kernel where it applies)."""
-        if len(segments) > 1:
+        fused kernel where it applies). `query` is the query as sent: its
+        options decide the batching."""
+        segments = [r.segment for r in routes]
+        if len(segments) > 1 and all(r.rewrite is None for r in routes):
             merged = self._sparse_device_combine(query, segments, plans)
             if merged is not None:
                 return Pending(merged=merged)
@@ -217,20 +251,22 @@ class QueryExecutor:
                                                          plans[i])))
         return pending
 
-    def collect_segments(self, query: QueryContext, segments: list,
-                         plans: list, pending: Pending) -> list:
+    def collect_segments(self, routes: list, plans: list,
+                         pending: Pending) -> list:
         """Fetch every output of the query to the host in ONE copy and
         decode the intermediates: families all members in one pass
-        (engine/combine.py), lone segments one by one."""
+        (engine/combine.py), lone segments one by one; a star-tree
+        member's states map back to the query's."""
         packs = ([pending.merged] if pending.merged is not None
                  else [p for _, p in pending.solo + pending.families])
         fetched = fetch_packed_batch(packs)
         if pending.merged is not None:
             return [self._merged_group_arrays(plans, fetched[0])]
         ex = self.executor
-        inters: list = [None] * len(segments)
+        inters: list = [None] * len(routes)
         for (i, _), outs in zip(pending.solo, fetched):
-            inters[i] = ex.collect(query, segments[i], plans[i], outs)
+            inters[i] = ex.collect(routes[i].query, routes[i].segment,
+                                   plans[i], outs)
         for (positions, _), outs_b in zip(pending.families,
                                           fetched[len(pending.solo):]):
             plans_f = [plans[i] for i in positions]
@@ -239,12 +275,27 @@ class QueryExecutor:
                        if mode == "aggregation"
                        else combine_batched_dense(outs_b, plans_f))
             if batched is None:  # sparse: each member's row of the outputs
-                batched = [ex.collect(query, segments[i], plans[i],
-                                      [o[row] for o in outs_b])
+                batched = [ex.collect(routes[i].query, routes[i].segment,
+                                      plans[i], [o[row] for o in outs_b])
                            for row, i in enumerate(positions)]
             for i, inter in zip(positions, batched):
                 inters[i] = inter
-        return inters
+        return [inter if r.rewrite is None
+                else self._remap_star_tree(r.rewrite, inter)
+                for r, inter in zip(routes, inters)]
+
+    @staticmethod
+    def _remap_star_tree(rewrite: StarTreeRewrite, result):
+        """Inner (pre-aggregated) states -> the query's aggregation states;
+        the scanned-doc count stays the pre-aggregated rows read (the
+        star-tree speedup shows in numDocsScanned, as in the reference)."""
+        if isinstance(result, GroupByIntermediate):
+            return GroupByIntermediate(
+                {k: remap_states(rewrite, v)
+                 for k, v in result.groups.items()},
+                result.num_docs_scanned)
+        return AggIntermediate(remap_states(rewrite, result.states),
+                               result.num_docs_scanned)
 
     def _batch_families(self, query: QueryContext, segments: list,
                         plans: list) -> list:

@@ -514,3 +514,15 @@ def _literal_value(tok: Token):
 def parse_sql(sql: str) -> QueryContext:
     """Parse a SQL string into a finished QueryContext."""
     return _Parser(tokenize(sql)).parse_query()
+
+
+def parse_filter_expression(expr: str):
+    """Parse a standalone boolean expression into a FilterContext: the
+    inner filter string of JSON_MATCH (segment/indexes.py
+    JsonIndex.mask_match; reference: Pinot parses those with its own
+    mini-grammar in JsonMatchPredicate; here the main parser serves)."""
+    p = _Parser(tokenize(expr))
+    e = p.parse_expression()
+    if p.peek().kind != "eof":
+        raise SqlParseError(f"trailing input in filter expression: {expr!r}")
+    return p._to_filter(e)

@@ -6,9 +6,10 @@ SegmentIndexCreationDriverImpl.java (init:116, build:231) — a two-pass build
 so stats + dictionary + encode happen in one vectorized pass per column.
 
 Single-value columns, dictionary-encoded or raw fixed-width
-(noDictionaryColumns), and dictionary-encoded multi-value columns; no
-auxiliary indexes. The on-disk format and its CRCs are the JAX package's,
-byte for byte.
+(noDictionaryColumns), and dictionary-encoded multi-value columns; the
+JSON, text and vector indexes, custom indexes (segment/index_spi.py: the
+map index) and star-trees (segment/startree.py) the table config asks for.
+The on-disk format and its CRCs are the JAX package's, byte for byte.
 """
 
 from __future__ import annotations
@@ -24,8 +25,13 @@ import numpy as np
 from ..spi.data_types import DataType, Schema
 from ..spi.table_config import TableConfig
 from . import bitpack
-from .dictionary import build_dictionary, serialize_dictionary
+from .dictionary import (build_dictionary, deserialize_dictionary,
+                         serialize_dictionary)
 from .format import ColumnMetadata, SegmentMetadata, SegmentWriter
+from .index_spi import build_custom_indexes
+from .indexes import (JsonIndex, TextIndex, VectorIndex, serialize_json_index,
+                      serialize_text_index, serialize_vector_index)
+from .startree import StarTreeConfig, build_star_tree
 
 
 @dataclass
@@ -81,6 +87,9 @@ class SegmentBuilder:
                 col_metas[name] = self._build_mv_column(
                     writer, name, spec, values, num_docs)
 
+        self._build_indexes(writer, columns)
+        star_tree_metas = self._build_star_trees(writer, col_metas)
+
         num_docs = num_docs or 0
         time_col = self.table_config.validation.time_column_name
         start_t = end_t = None
@@ -98,6 +107,7 @@ class SegmentBuilder:
             start_time=start_t,
             end_time=end_t,
             creation_time_ms=int(time.time() * 1000),
+            star_trees=star_tree_metas,
             sort_order=self._compute_sort_order(writer, col_metas),
         )
         writer.write(meta)
@@ -139,6 +149,84 @@ class SegmentBuilder:
                         else (new_run | (d != 0))
                     progress = True
         return chain
+
+    def _build_indexes(self, writer, columns) -> None:
+        """The JSON, text and vector indexes and the custom indexes the
+        table config asks for, in the JAX builder's order and bytes
+        (reference: per-column IndexCreators invoked by
+        SegmentColumnarIndexCreator)."""
+        idx = self.table_config.indexing
+
+        def add(col: str, bufs: list):
+            for suffix, arr in bufs:
+                writer.add_buffer(f"{col}.{suffix}", np.ascontiguousarray(arr))
+
+        for col in idx.json_index_columns:
+            if col in columns:
+                add(col, serialize_json_index(JsonIndex.build(columns[col])))
+        for col in idx.text_index_columns:
+            if col in columns:
+                add(col, serialize_text_index(TextIndex.build(columns[col])))
+        for col in idx.vector_index_columns:
+            if col in columns:
+                add(col, serialize_vector_index(VectorIndex.build(
+                    _vector_matrix(columns[col]))))
+        for name, arr in build_custom_indexes(columns,
+                                              idx.custom_index_configs):
+            writer.add_buffer(name, np.ascontiguousarray(arr))
+
+    def _build_star_trees(self, writer, col_metas) -> list:
+        """Pre-aggregated dense tables per star_tree_index_configs
+        (segment/startree.py); their metadata rides SegmentMetadata."""
+        metas = []
+        for tree_id, cfg_json in enumerate(
+                self.table_config.indexing.star_tree_index_configs):
+            cfg = (StarTreeConfig.from_json(cfg_json)
+                   if isinstance(cfg_json, dict) else cfg_json)
+            if not cfg.split_order:
+                raise ValueError(
+                    "star-tree requires a non-empty dimensionsSplitOrder")
+            for d in cfg.split_order:
+                m = col_metas.get(d)
+                if m is None or m.encoding != "DICT" or not m.single_value:
+                    raise ValueError(f"star-tree split dim {d!r} must be a "
+                                     "dict-encoded SV column")
+            for fn, col in cfg.pairs():
+                if (col == "*") != (fn == "count"):
+                    raise ValueError(
+                        f"star-tree pair {fn}__{col}: '*' is COUNT-only")
+                if col != "*" and col not in col_metas:
+                    raise ValueError(
+                        f"star-tree pair references unknown column {col!r}")
+
+            def decode_ids(col):
+                m = col_metas[col]
+                return bitpack.unpack(writer.peek_buffer(f"{col}.fwd"),
+                                      m.bits_per_value,
+                                      m.total_number_of_entries)
+
+            dict_ids = {d: decode_ids(d) for d in cfg.split_order}
+            raw_values = {}
+            for fn, col in cfg.pairs():
+                if col == "*" or col in raw_values:
+                    continue
+                m = col_metas[col]
+                if m.encoding == "RAW":
+                    raw_values[col] = writer.peek_buffer(f"{col}.fwd").view(
+                        DataType(m.data_type).numpy_dtype)
+                else:
+                    d = deserialize_dictionary(
+                        bytes(writer.peek_buffer(f"{col}.dict")),
+                        DataType(m.data_type), m.cardinality)
+                    ids = dict_ids.get(col)
+                    raw_values[col] = d.take(
+                        ids if ids is not None else decode_ids(col))
+            buffers, meta = build_star_tree(tree_id, cfg, dict_ids,
+                                            raw_values)
+            for name, arr in buffers:
+                writer.add_buffer(name, np.ascontiguousarray(arr))
+            metas.append(meta)
+        return metas
 
     def _replace_nulls(self, values, spec) -> tuple[list, np.ndarray]:
         if isinstance(values, np.ndarray) and values.dtype != object:
@@ -226,3 +314,17 @@ class SegmentBuilder:
             writer.add_buffer(f"{name}.nulls", bitpack.pack_bitmap(nulls))
             meta.has_nulls = True
         return meta
+
+
+def _vector_matrix(values) -> np.ndarray:
+    """A vector column's (docs, dim) float32 matrix: from MultiValues of
+    equal lengths, or one list (or array) per document, as the JAX builder
+    stacks them."""
+    if isinstance(values, MultiValues):
+        lens = np.asarray(values.lengths)
+        dim = int(lens[0]) if len(lens) else 0
+        if np.any(lens != dim):
+            raise ValueError("vector index: documents of unequal lengths")
+        return np.asarray(values.values, dtype=np.float32).reshape(
+            len(lens), dim)
+    return np.stack([np.asarray(v, dtype=np.float32) for v in values])

@@ -8,10 +8,11 @@ and columns decode lazily into host int32/value planes, cached, ready for one
 copy to the device via device_cache.DeviceSegmentCache.
 
 Dictionary-encoded columns, single- and multi-value, and raw fixed-width
-single-value columns; bloom filters for pruning. The on-disk format is
-shared with the JAX package, so either package's builder output loads
-here. Columns of other encodings load their metadata but raise when their
-planes are read.
+single-value columns; bloom filters for pruning; the JSON, text, vector and
+custom (map) indexes, read lazily and cached; the star-trees' pre-aggregated
+views. The on-disk format is shared with the JAX package, so either
+package's builder output loads here. Columns of other encodings load their
+metadata but raise when their planes are read.
 """
 
 from __future__ import annotations
@@ -26,7 +27,11 @@ from ..spi.data_types import DataType
 from . import bitpack
 from .dictionary import Dictionary, deserialize_dictionary
 from .format import DATA_FILE, ColumnMetadata, SegmentMetadata, read_metadata
-from .indexes import deserialize_bloom
+from .index_spi import load_custom_index
+from .indexes import (JsonIndex, TextIndex, VectorIndex, deserialize_bloom,
+                      deserialize_json_index, deserialize_text_index,
+                      deserialize_vector_index)
+from .startree import StarTreeView
 
 
 class SegmentIntegrityError(RuntimeError):
@@ -61,7 +66,7 @@ class ImmutableSegment:
         self._raw: dict[str, np.ndarray] = {}
         self._nulls: dict[str, Optional[np.ndarray]] = {}
         self._mv_offsets: dict[str, np.ndarray] = {}
-        self._blooms: dict[str, object] = {}
+        self._indexes: dict[tuple, object] = {}
 
     # -- integrity ----------------------------------------------------------
     def verify_integrity(self) -> None:
@@ -212,20 +217,95 @@ class ImmutableSegment:
                 self._nulls[column] = bitpack.unpack_bitmap(self._buffer(f"{column}.nulls"), self.num_docs)
         return self._nulls[column]
 
+    def buffer_array(self, name: str) -> np.ndarray:
+        """Raw uint8 view of a stored buffer (custom index SPI surface)."""
+        return self._buffer(name)
+
+    def _has_buffer(self, name: str) -> bool:
+        return name in self.metadata.buffers
+
+    def _index(self, key: tuple, load, build=None):
+        """The cached index `key`: load() (None when the segment stores
+        none), else, when asked for, build() from the column's values,
+        cached so repeated queries parse the column once."""
+        if key not in self._indexes:
+            self._indexes[key] = load()
+        if self._indexes[key] is None and build:
+            self._indexes[key] = build()
+        return self._indexes[key]
+
+    def _bufs(self, column: str, suffixes) -> dict:
+        return {s: np.frombuffer(self._buffer(f"{column}.{s}"), dtype=np.uint8)
+                for s in suffixes if self._has_buffer(f"{column}.{s}")}
+
     def get_bloom_filter(self, column: str):
         """The column's bloom filter (segment/indexes.py), or None."""
-        if column not in self._blooms:
-            bf = None
-            if f"{column}.bloom.hdr" in self.metadata.buffers:
-                bf = deserialize_bloom(
-                    np.frombuffer(self._buffer(f"{column}.bloom.hdr"),
-                                  dtype=np.int64),
-                    np.frombuffer(self._buffer(f"{column}.bloom.bits"),
-                                  dtype=np.uint8))
-            self._blooms[column] = bf
-        return self._blooms[column]
+        def load():
+            if not self._has_buffer(f"{column}.bloom.hdr"):
+                return None
+            return deserialize_bloom(
+                np.frombuffer(self._buffer(f"{column}.bloom.hdr"),
+                              dtype=np.int64),
+                np.frombuffer(self._buffer(f"{column}.bloom.bits"),
+                              dtype=np.uint8))
+        return self._index(("bloom", column), load)
 
-    # -- materialized values (selection rows) --------------------------------
+    def get_json_index(self, column: str, or_build: bool = False):
+        """Persisted JSON index, or (or_build=True) a transient one built
+        from the column's values and cached."""
+        def load():
+            if not self._has_buffer(f"{column}.json.keys.names"):
+                return None
+            return deserialize_json_index(self._bufs(column, (
+                "json.keys.names", "json.keys.off", "json.keys.docs",
+                "json.paths.names", "json.paths.off", "json.paths.docs")))
+        return self._index(("json", column), load, or_build and (
+            lambda: JsonIndex.build(self.get_values(column))))
+
+    def get_text_index(self, column: str, or_build: bool = False):
+        def load():
+            if not self._has_buffer(f"{column}.text.terms"):
+                return None
+            return deserialize_text_index(self._bufs(column, (
+                "text.terms", "text.off", "text.docs", "text.pos")))
+        return self._index(("text", column), load, or_build and (
+            lambda: TextIndex.build(self.get_values(column))))
+
+    def get_vector_index(self, column: str, or_build: bool = False):
+        def load():
+            if not self._has_buffer(f"{column}.vec.hdr"):
+                return None
+            return deserialize_vector_index(self._bufs(column, (
+                "vec.hdr", "vec.data", "vec.centroids", "vec.assign")))
+        return self._index(("vector", column), load, or_build and (
+            lambda: VectorIndex.build(np.stack([
+                np.asarray(v, dtype=np.float32)
+                for v in self.get_mv_values(column)]))))
+
+    def get_custom_index(self, column: str, type_name: str):
+        """A custom index built through the index SPI
+        (segment/index_spi.py), deserialized once; None if this segment
+        carries none."""
+        return self._index(("custom", column, type_name),
+                           lambda: load_custom_index(self, column, type_name))
+
+    def get_map_index(self, column: str):
+        """Dense per-key planes of a MAP column (segment/map_index.py);
+        None when this segment has no map index for the column."""
+        return self.get_custom_index(column, "map")
+
+    def star_trees(self):
+        """The segment's star-trees as pre-aggregated pseudo-segments
+        (segment/startree.py StarTreeView), cached: a view keeps its device
+        planes under one identity."""
+        return self._index(("startree", "*"), lambda: [
+            StarTreeView(self, m) for m in self.metadata.star_trees])
+
+    # -- materialized values (selection rows, transient indexes) -------------
+    def get_values(self, column: str) -> np.ndarray:
+        """Every value of a single-value column."""
+        return self.get_values_at(column, slice(None))
+
     def get_values_at(self, column: str, doc_ids: np.ndarray) -> np.ndarray:
         """The values of a single-value column at `doc_ids` (the JAX
         package's `get_values(column)[doc_ids]`), decoding only those

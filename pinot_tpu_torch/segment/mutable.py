@@ -224,7 +224,33 @@ class _MutableColumn:
         return np.asarray(self.dictionary._values[a:b], dtype=dtype)
 
 
-class MutableSegment:
+class _NoIndexes:
+    """A consuming segment carries no persisted indexes and no star-trees
+    (the JAX package's mutable segments answer the same): a TEXT_MATCH,
+    VECTOR_SIMILARITY or JSON_MATCH on one raises (engine/host_masks.py),
+    and a `mapvalue` predicate takes the row-wise transform."""
+
+    def get_bloom_filter(self, column: str):
+        return None
+
+    def get_json_index(self, column: str, or_build: bool = False):
+        return None
+
+    def get_text_index(self, column: str, or_build: bool = False):
+        return None
+
+    def get_vector_index(self, column: str, or_build: bool = False):
+        return None
+
+    def get_map_index(self, column: str):
+        return None
+
+    @property
+    def star_trees(self):
+        return []
+
+
+class MutableSegment(_NoIndexes):
     """Duck-types the ImmutableSegment read API (segment/loader.py) over
     append-only buffers; queried through `snapshot_view()`."""
 
@@ -322,7 +348,7 @@ class _PinnedValidity:
         return out
 
 
-class MutableSegmentView:
+class MutableSegmentView(_NoIndexes):
     """Read-only consistent-prefix view over a MutableSegment.
 
     Beyond the row count, the view pins everything a query plan can
@@ -403,6 +429,3 @@ class MutableSegmentView:
     def get_values_at(self, column: str, doc_ids: np.ndarray) -> np.ndarray:
         """Values of a single-value column at `doc_ids` (selection rows)."""
         return self.get_values(column)[doc_ids]
-
-    def get_bloom_filter(self, column: str):
-        return None

@@ -3,9 +3,10 @@ converter and the upsert/dedup managers read.
 
 Subset of the reference's TableConfig
 (pinot-spi/.../spi/config/table/TableConfig.java:38): table type, the
-dictionary-less (raw) column list, the sorted column, the time column and
-the upsert and dedup configs. The JSON layout is the same as the full
-model's, so a config written by either reads back here.
+dictionary-less (raw) column list, the sorted column, the star-tree, JSON,
+text, vector and custom index declarations, the time column and the upsert
+and dedup configs. The JSON layout is the same as the full model's, so a
+config written by either reads back here.
 """
 
 from __future__ import annotations
@@ -23,12 +24,21 @@ class TableType(enum.Enum):
 @dataclass
 class IndexingConfig:
     """Per-table index declarations (reference IndexingConfig.java):
-    'noDictionaryColumns', columns stored as raw fixed-width values, and
+    'noDictionaryColumns', columns stored as raw fixed-width values;
     'sortedColumn', the column a committed realtime segment is sorted on
-    (realtime/converter.py)."""
+    (realtime/converter.py); star-tree configs, pre-aggregated tables
+    (segment/startree.py); the JSON, text and vector index columns
+    (segment/indexes.py); custom index types by column
+    (segment/index_spi.py: {"colA": {"type": "map", ...}}), which, as in the
+    full model, do not ride the JSON form."""
 
     no_dictionary_columns: list[str] = field(default_factory=list)
     sorted_column: Optional[str] = None
+    star_tree_index_configs: list[dict] = field(default_factory=list)
+    json_index_columns: list[str] = field(default_factory=list)
+    text_index_columns: list[str] = field(default_factory=list)
+    vector_index_columns: list[str] = field(default_factory=list)
+    custom_index_configs: dict[str, dict] = field(default_factory=dict)
 
 
 @dataclass
@@ -79,6 +89,10 @@ class TableConfig:
             "tableIndexConfig": {
                 "noDictionaryColumns": self.indexing.no_dictionary_columns,
                 "sortedColumn": self.indexing.sorted_column,
+                "starTreeIndexConfigs": self.indexing.star_tree_index_configs,
+                "jsonIndexColumns": self.indexing.json_index_columns,
+                "textIndexColumns": self.indexing.text_index_columns,
+                "vectorIndexColumns": self.indexing.vector_index_columns,
             },
             "segmentsConfig": {
                 "timeColumnName": self.validation.time_column_name,
@@ -104,7 +118,11 @@ class TableConfig:
             table_type=TableType(d.get("tableType", "OFFLINE")),
             indexing=IndexingConfig(
                 no_dictionary_columns=idx.get("noDictionaryColumns") or [],
-                sorted_column=idx.get("sortedColumn")),
+                sorted_column=idx.get("sortedColumn"),
+                star_tree_index_configs=idx.get("starTreeIndexConfigs") or [],
+                json_index_columns=idx.get("jsonIndexColumns") or [],
+                text_index_columns=idx.get("textIndexColumns") or [],
+                vector_index_columns=idx.get("vectorIndexColumns") or []),
             validation=SegmentsValidationConfig(
                 time_column_name=seg.get("timeColumnName")),
             upsert=UpsertConfig(

@@ -14,7 +14,10 @@ of the flattened family; a 16-segment query batched on the card equals the
 same query with SET segmentBatch = false, and sparse GROUP BYs (torch ops
 on the card, the device combine) equal the CPU's, as do selections, pruned
 queries, multi-value filters, GROUP BYs and aggregations (kernel A over
-the expanded (doc, value) pairs) and the histogram bins of edge values.
+the expanded (doc, value) pairs), the histogram bins of edge values, and
+star-tree queries (kernel A over the pre-aggregated views) and
+index-backed predicates (JSON_MATCH, TEXT_MATCH, mapValue over a map
+index, VECTOR_SIMILARITY: mask planes on the card).
 """
 
 from __future__ import annotations
@@ -913,3 +916,97 @@ def test_hybrid_and_upsert_queries_on_the_card_match_cpu(cuda, tmp_path):
                for dev, qe in qes.items()}
         assert got["cuda"] == got["cpu"]
         put(_live_rows(500, 6, t0=20_000))
+
+
+@pytest.fixture(scope="module")
+def index_table(tmp_path_factory):
+    """Three segments with a star-tree (split d_year, s_region, p_brand)
+    and JSON, text, map and vector index columns; integer metrics, so
+    every sum is exact in any order."""
+    import json
+
+    rng = np.random.default_rng(29)
+    n = 20_000
+    words = np.asarray(["connection", "reset", "time", "timeout"]
+                       + [f"w{i}" for i in range(40)], dtype=object)
+    schema = Schema.build("ix", dimensions=[
+        ("d_year", "INT"), ("s_region", "STRING"), ("p_brand", "INT"),
+        ("attrs", "JSON"), ("msg", "STRING"), ("props", "STRING"),
+        ("emb", "FLOAT", False)],
+        metrics=[("lo_revenue", "INT"), ("lo_quantity", "INT")])
+    cfg = TableConfig(table_name="ix", indexing=IndexingConfig(
+        no_dictionary_columns=["lo_revenue", "lo_quantity"],
+        star_tree_index_configs=[{
+            "dimensionsSplitOrder": ["d_year", "s_region", "p_brand"],
+            "functionColumnPairs": ["COUNT__*", "SUM__lo_revenue",
+                                    "SUM__lo_quantity", "MIN__lo_quantity",
+                                    "MAX__lo_quantity"]}],
+        json_index_columns=["attrs"], text_index_columns=["msg"],
+        vector_index_columns=["emb"],
+        custom_index_configs={"props": {"type": "map", "maxKeys": 8}}))
+    segs = []
+    for i in range(3):
+        cols = {
+            "d_year": rng.integers(1992, 1999, n).astype(np.int32),
+            "s_region": np.asarray(["AMERICA", "ASIA", "EUROPE"],
+                                   dtype=object)[rng.integers(0, 3, n)],
+            "p_brand": rng.integers(0, 200, n).astype(np.int32),
+            "attrs": [json.dumps({"os": ["ios", "android"][k % 2],
+                                  "tags": [f"t{k % 9}", f"t{k % 7}"]})
+                      for k in rng.integers(0, 1000, n)],
+            "msg": [" ".join(words[rng.integers(0, len(words), 6)])
+                    for _ in range(n)],
+            "props": [json.dumps({"clicks": int(c)} if c % 11 else {})
+                      for c in rng.integers(0, 51, n)],
+            "emb": [list(v) for v in rng.normal(size=(n, 16)).astype(
+                np.float32)],
+            "lo_revenue": rng.integers(1, 600_000, n).astype(np.int32),
+            "lo_quantity": rng.integers(1, 51, n).astype(np.int32),
+        }
+        path = tmp_path_factory.mktemp("torch_cuda_index") / f"ix{i}"
+        SegmentBuilder(schema, cfg, f"ix{i}").build(cols, path)
+        segs.append(load_segment(path))
+    return schema, segs
+
+
+_QVEC = "ARRAY[" + ", ".join(f"{x:.5f}" for x in np.random.default_rng(
+    31).normal(size=16)) + "]"
+
+
+# star-tree rewrites (one family of the views: one launch of kernel A; its
+# SET segmentBatch = false twin, three) and index-backed mask planes (one
+# family)
+@pytest.mark.parametrize("sql,launches", [
+    ("SELECT d_year, p_brand, SUM(lo_revenue) FROM ix WHERE s_region = "
+     "'ASIA' GROUP BY d_year, p_brand LIMIT 10000", 1),
+    ("SELECT s_region, COUNT(*), AVG(lo_revenue), MINMAXRANGE(lo_quantity) "
+     "FROM ix WHERE d_year BETWEEN 1993 AND 1995 GROUP BY s_region", 1),
+    ("SET segmentBatch = false; SELECT d_year, SUM(lo_quantity), COUNT(*) "
+     "FROM ix GROUP BY d_year", 3),
+    ("SELECT SUM(lo_revenue) FROM ix WHERE d_year = 1993 AND "
+     "lo_quantity < 25", 0),
+    ("SELECT d_year, COUNT(*), SUM(lo_revenue) FROM ix WHERE "
+     "JSON_MATCH(attrs, '\"$.os\" = ''ios'' AND \"$.tags[*]\" = ''t7''') "
+     "GROUP BY d_year", 1),
+    ("SELECT d_year, COUNT(*), SUM(lo_revenue) FROM ix WHERE "
+     "TEXT_MATCH(msg, '\"connection reset\" OR time*') AND s_region = "
+     "'ASIA' GROUP BY d_year", 1),
+    ("SELECT s_region, COUNT(*), SUM(lo_revenue) FROM ix WHERE "
+     "mapValue(props, 'clicks') > 40 GROUP BY s_region", 1),
+    (f"SELECT d_year, COUNT(*) FROM ix WHERE VECTOR_SIMILARITY(emb, {_QVEC}, "
+     "100) GROUP BY d_year", 1),
+])
+def test_index_queries_on_the_card_match_cpu(cuda, index_table, sql,
+                                             launches):
+    schema, segs = index_table
+    gpu, cpu = QueryExecutor(device="cuda"), QueryExecutor(device="cpu")
+    for qe in (gpu, cpu):
+        qe.add_table(schema, segs)
+    before = _cuda.LAUNCHES["limb_sums"]
+    got = gpu.execute_sql(sql)
+    assert _cuda.LAUNCHES["limb_sums"] - before == launches
+    want = cpu.execute_sql(sql)
+    assert sorted(map(tuple, got.result_table.rows)) == \
+        sorted(map(tuple, want.result_table.rows))
+    assert got.num_docs_scanned == want.num_docs_scanned
+    assert got.num_device_dispatches == want.num_device_dispatches

@@ -17,10 +17,17 @@ transforms in filters and GROUP BY keys, LOOKUP, post-aggregation and
 HAVING functions, and selections with transform items. Where the JAX
 package's device planner refuses a segment's plan (it answers such
 shapes on its host engine), the port must raise UnsupportedQueryError.
+
+The index templates run over a second table with JSON, text, map and
+vector indexes and a star-tree: random index predicates ANDed and ORed
+with dictionary and raw predicates, and star-tree-eligible GROUP BYs
+(three segments read their pre-aggregated views, one with a null split
+dimension scans its rows).
 """
 
 from __future__ import annotations
 
+import json
 import math
 
 import numpy as np
@@ -37,6 +44,7 @@ from pinot_tpu.spi.data_types import Schema as JaxSchema
 from pinot_tpu_torch.engine import dim_tables
 from pinot_tpu_torch.engine.aggregation import UnsupportedQueryError
 from pinot_tpu_torch.engine.query_executor import QueryExecutor
+from pinot_tpu_torch.query.parser.sql import parse_sql
 from pinot_tpu_torch.segment.builder import SegmentBuilder
 from pinot_tpu_torch.segment.loader import load_segment
 from pinot_tpu_torch.spi.data_types import Schema
@@ -291,3 +299,152 @@ def _assert_matches_jax(port, jax, sql):
     assert got.num_docs_scanned == want.num_docs_scanned
     assert got.num_segments_pruned == want.num_segments_pruned
     assert got.num_device_dispatches == want.num_device_dispatches
+
+
+# -- index predicates and star-tree GROUP BYs --------------------------------
+# a second table: JSON, text, map and vector index columns and a star-tree,
+# segments of unequal sizes, one with a null in a split dimension (its tree
+# cannot answer, so that segment scans its rows while the others read their
+# pre-aggregated views)
+
+INDEX_TABLE = "dx"
+INDEX_SIZES = [1500, 1500, 900, 4000]
+INDEX_DIMS = [("d_year", "INT"), ("s_region", "STRING"), ("p_brand", "INT"),
+              ("attrs", "JSON"), ("msg", "STRING"), ("props", "STRING"),
+              ("emb", "FLOAT", False)]
+INDEX_METRICS = [("lo_revenue", "INT"), ("lo_qty", "INT")]
+INDEX_TREE = {"dimensionsSplitOrder": ["d_year", "s_region", "p_brand"],
+              "functionColumnPairs": ["COUNT__*", "SUM__lo_revenue",
+                                      "SUM__lo_qty", "MIN__lo_qty",
+                                      "MAX__lo_qty"]}
+INDEX_WORDS = ["connection", "reset", "time", "timeout", "error", "disk"] + [
+    f"w{i}" for i in range(20)]
+INDEX_OS = ["ios", "android", "linux"]
+EMB_DIM = 6
+
+
+def _index_cols(rng, rows, null_region):
+    attrs, props = [], []
+    for i in range(rows):
+        attrs.append(json.dumps({
+            "os": INDEX_OS[rng.integers(0, 3)], "ver": int(rng.integers(1, 5)),
+            "tags": [f"t{t}" for t in rng.integers(0, 8, rng.integers(0, 3))]}))
+        m = {"dwell": float(np.round(rng.random() * 40, 1))}
+        if i % 9:
+            m["clicks"] = int(rng.integers(0, 51))
+        props.append(json.dumps(m))
+    words = np.asarray(INDEX_WORDS, dtype=object)
+    regions = list(np.asarray(REGIONS[:4], dtype=object)[
+        rng.integers(0, 4, rows)])
+    if null_region:
+        regions[3] = None
+    return {
+        "d_year": rng.integers(1992, 1999, rows).astype(np.int32),
+        "s_region": regions,
+        "p_brand": rng.integers(0, 12, rows).astype(np.int32),
+        "attrs": attrs, "props": props,
+        "msg": [" ".join(words[rng.integers(0, len(words),
+                                            rng.integers(1, 7))])
+                for _ in range(rows)],
+        "emb": [list(v) for v in rng.normal(size=(rows, EMB_DIM)).astype(
+            np.float32)],
+        "lo_revenue": rng.integers(-500, 5000, rows).astype(np.int32),
+        "lo_qty": rng.integers(0, 50, rows).astype(np.int32),
+    }
+
+
+@pytest.fixture(scope="module")
+def index_tables(tmp_path_factory):
+    rng = np.random.default_rng(2027)
+    schema = Schema.build(INDEX_TABLE, dimensions=INDEX_DIMS,
+                          metrics=INDEX_METRICS)
+    cfg = TableConfig(table_name=INDEX_TABLE, indexing=IndexingConfig(
+        no_dictionary_columns=["lo_revenue", "lo_qty"],
+        star_tree_index_configs=[INDEX_TREE], json_index_columns=["attrs"],
+        text_index_columns=["msg"], vector_index_columns=["emb"],
+        custom_index_configs={"props": {"type": "map", "maxKeys": 4}}))
+    root = tmp_path_factory.mktemp("torch_differential_index")
+    paths = []
+    for i, rows in enumerate(INDEX_SIZES):
+        SegmentBuilder(schema, cfg, f"x{i}").build(
+            _index_cols(rng, rows, null_region=i == 2), root / f"x{i}")
+        paths.append(root / f"x{i}")
+    port = QueryExecutor(device="cpu")
+    port.add_table(schema, [load_segment(p) for p in paths])
+    jax = JaxQueryExecutor(backend="tpu")
+    jax.add_table(JaxSchema.build(INDEX_TABLE, dimensions=INDEX_DIMS,
+                                  metrics=INDEX_METRICS),
+                  [jax_load(p) for p in paths])
+    return port, jax
+
+
+def _vec(r):
+    return "ARRAY[" + ", ".join(f"{x:.4f}" for x in r.normal(size=EMB_DIM)) \
+        + "]"
+
+
+def _os(r):
+    return INDEX_OS[r.integers(0, 3)]
+
+
+def _word(r):
+    return INDEX_WORDS[r.integers(0, len(INDEX_WORDS))]
+
+
+INDEX_TEMPLATES = [
+    lambda r: (f"SELECT d_year, COUNT(*), SUM(lo_revenue) FROM dx WHERE "
+               f"JSON_MATCH(attrs, '\"$.os\" = ''{_os(r)}'' AND "
+               f"\"$.tags[*]\" = ''t{r.integers(0, 8)}''') AND d_year >= "
+               f"{r.integers(1992, 1999)} GROUP BY d_year"),
+    lambda r: (f"SELECT COUNT(*), SUM(lo_qty), MIN(lo_revenue) FROM dx WHERE "
+               f"TEXT_MATCH(msg, '\"{_word(r)} {_word(r)}\" OR "
+               f"{_word(r)[:2]}*') AND lo_qty < {r.integers(1, 50)}"),
+    lambda r: (f"SELECT s_region, COUNT(*), SUM(lo_revenue) FROM dx WHERE "
+               f"mapValue(props, 'clicks') > {r.integers(0, 50)} AND "
+               f"s_region <> '{REGIONS[r.integers(0, 4)]}' GROUP BY s_region"),
+    lambda r: (f"SELECT d_year, COUNT(*) FROM dx WHERE VECTOR_SIMILARITY(emb, "
+               f"{_vec(r)}, {r.integers(1, 60)}) AND lo_revenue > "
+               f"{r.integers(-500, 3000)} GROUP BY d_year"),
+    lambda r: (f"SELECT p_brand, lo_revenue FROM dx WHERE JSON_MATCH(attrs, "
+               f"'\"$.ver\" IN ({r.integers(1, 5)}, {r.integers(1, 5)})') "
+               f"AND TEXT_MATCH(msg, '{_word(r)}') ORDER BY lo_revenue DESC, "
+               f"p_brand LIMIT {r.integers(1, 30)}"),
+    lambda r: (f"SELECT COUNT(*) FROM dx WHERE NOT TEXT_MATCH(msg, "
+               f"'{_word(r)}') OR mapValue(props, 'dwell') BETWEEN "
+               f"{r.integers(0, 20)} AND {r.integers(20, 41)}"),
+]
+STAR_TEMPLATES = [
+    lambda r: (f"SELECT d_year, SUM(lo_revenue), COUNT(*) FROM dx WHERE "
+               f"s_region IN ('{REGIONS[r.integers(0, 4)]}', "
+               f"'{REGIONS[r.integers(0, 4)]}') GROUP BY d_year"),
+    lambda r: (f"SELECT s_region, p_brand, MIN(lo_qty), MAX(lo_qty), "
+               f"AVG(lo_revenue) FROM dx WHERE d_year BETWEEN "
+               f"{r.integers(1991, 1996)} AND {r.integers(1995, 2000)} GROUP "
+               f"BY s_region, p_brand ORDER BY s_region, p_brand "
+               f"LIMIT {r.integers(1, 60)}"),
+    lambda r: (f"SELECT COUNT(*), SUM(lo_qty), MINMAXRANGE(lo_qty) FROM dx "
+               f"WHERE p_brand < {r.integers(0, 13)} AND NOT d_year = "
+               f"{r.integers(1992, 1999)}"),
+    lambda r: (f"SELECT p_brand, COUNT(*), SUM(lo_revenue) FROM dx GROUP BY "
+               f"p_brand HAVING COUNT(*) > {r.integers(0, 700)} ORDER BY "
+               f"SUM(lo_revenue) DESC, p_brand LIMIT {r.integers(1, 13)}"),
+    lambda r: (f"SELECT d_year, s_region, AVG(lo_qty) FROM dx WHERE "
+               f"s_region = '{REGIONS[r.integers(0, 4)]}' OR p_brand = "
+               f"{r.integers(0, 12)} GROUP BY d_year, s_region"),
+]
+
+
+@pytest.mark.parametrize("sql", _queries(INDEX_TEMPLATES, "i", 20261019, 12))
+def test_random_index_query_matches_jax(index_tables, sql):
+    _assert_matches_jax(*index_tables, sql)
+
+
+@pytest.mark.parametrize("sql", _queries(STAR_TEMPLATES, "s", 20261020, 12))
+def test_random_star_tree_query_matches_jax(index_tables, sql):
+    port, _ = index_tables
+    routes = port.route_segments(parse_sql(sql),
+                                 port.tables[INDEX_TABLE].segments)
+    # every segment but the one with a null split dimension takes its tree
+    assert [r.rewrite is not None for r in routes] == [True, True, False,
+                                                       True]
+    _assert_matches_jax(*index_tables, sql)
