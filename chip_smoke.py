@@ -138,8 +138,36 @@ Phases, each printing one JSON line:
            cosine top-100 of each segment (at least 0.95); each index
            query's mask planes, their bytes and the host ms of evaluating
            them
+  mse      the multi-stage engine over ssb, through the same
+           execute_sql, each statement once with its launches, device
+           dispatches, host fetches, pair-join calls and per-stage stats
+           (workers, rows, join_impl, host_crossings, wall ms), its rows
+           held against a numpy oracle:
+             q8, q9j, q10                       bench.py Q8, Q9J and Q10
+                 verbatim: two (three) columnar scan leaves and one fused
+                 join+aggregate stage on the card (q9j a LEFT join with a
+                 build-side residual as a mask; q10's middle join absorbed,
+                 its values gathered on the card); one host crossing each
+             mse_pairs                          a join returning rows: the
+                 pair join (device_join_indices, gather_payload) on the
+                 card in each of its 2 join workers (about 4.4M key rows
+                 each), the sort on the host
+             mse_agg                            bench.py Q2 under SET
+                 useMultistageEngine = true: the leaf partial aggregate runs
+                 the single-stage family (kernel A), the final on the host
+  mse_layers
+           per statement: parse + plan, the leaf stages, the join stage
+           and the rest (shuffles, final aggregate, sort), host clock over
+           the `times` runs
+  join_ops the fused stages' torch ops of q8 and q10 alone on the inputs
+           the statements gave them: device ms (torch.profiler, each call
+           after a 256 MB write), the bytes they must move and the bound at
+           3.35 TB/s
+  sync_debug
+           one q8 with torch.cuda.set_sync_debug_mode("warn"): the
+           synchronizing calls inside its fused stage
   times    p50 query latency over --iters warm runs (1 for a query slower
-           than 1 s)
+           than 1 s), the multi-stage statements included
   layers   a warm query's host time split into parse + prune + plan,
            dispatch, collect (the query's one fetch and the decode) and
            combine + reduce (1 run for a query slower than 1 s); q6, q6m
@@ -177,6 +205,7 @@ import argparse
 import contextlib
 import json
 import multiprocessing
+import os
 import shutil
 import subprocess
 import sys
@@ -457,6 +486,40 @@ QUERIES.update({
 INDEX_KERNEL_QUERIES = ("st_q2", "st_q9", "st_avg") + INDEX_QUERIES
 EXPECTED_KERNEL.update({q: "limb_sums" for q in INDEX_KERNEL_QUERIES})
 ONE_FAMILY += ST_QUERIES + INDEX_QUERIES
+# the multi-stage engine over ssb: bench.py Q8, Q9J and Q10 verbatim (a
+# JOIN sends them there), a pair join that returns rows, and bench.py Q2
+# under SET useMultistageEngine = true (a leaf partial aggregate)
+MSE = "SET useMultistageEngine = true; "
+MSE_QUERIES = {
+    "q8": "SELECT a.d_year, COUNT(*), SUM(b.lo_revenue) FROM ssb a "
+          "JOIN ssb b ON a.lo_orderkey = b.lo_orderkey "
+          "WHERE a.lo_quantity < 3 AND b.lo_discount = 0 "
+          "GROUP BY a.d_year ORDER BY a.d_year LIMIT 100",
+    "q9j": "SELECT a.d_year, COUNT(*), SUM(b.lo_revenue) FROM ssb a "
+           "LEFT JOIN ssb b ON a.lo_orderkey = b.lo_orderkey "
+           "AND b.lo_discount = 0 WHERE a.lo_quantity < 3 "
+           "GROUP BY a.d_year ORDER BY a.d_year LIMIT 100",
+    "q10": "SELECT a.d_year, COUNT(*), SUM(c.lo_revenue) FROM ssb a "
+           "JOIN ssb b ON a.lo_orderkey = b.lo_orderkey "
+           "JOIN ssb c ON b.lo_orderkey = c.lo_orderkey "
+           "WHERE a.lo_quantity < 3 AND b.lo_discount = 0 "
+           "AND c.lo_quantity < 2 "
+           "GROUP BY a.d_year ORDER BY a.d_year LIMIT 100",
+    "mse_pairs": MSE + "SELECT a.lo_orderkey, a.d_year, b.lo_revenue "
+                 "FROM ssb a JOIN ssb b ON a.lo_orderkey = b.lo_orderkey "
+                 "WHERE a.lo_quantity < 5 AND b.lo_discount <= 1 "
+                 "ORDER BY b.lo_revenue DESC, a.lo_orderkey, a.d_year "
+                 "LIMIT 1000",
+    "mse_agg": MSE + Q2}
+# the statements whose aggregate-over-join stage runs fused on the card, one
+# host crossing each (q10's middle join absorbed into it)
+FUSED_MSE = ("q8", "q9j", "q10")
+# the deployment's maxRowsInJoin (PINOT_TPU_MAX_ROWS_IN_JOIN; the
+# reference's default is 5,000,000): the guard counts a join's key matches
+# before its ON residual, and q9j's LEFT join matches its 1.34M a rows
+# with all 2^25 b rows' keys, about 10.7M pairs, of which its residual
+# (lo_discount = 0) keeps about 1M
+MAX_ROWS_IN_JOIN = 1 << 24
 # q6, q6m and q6_sort are held by the host decode (PERF.md §5): they run
 # in `queries` and `times`, and leave `layers` and `profile`
 HOST_HELD = ("q6", "q6m", "q6_sort")
@@ -824,6 +887,59 @@ def oracle(cols: dict) -> dict:
     return out
 
 
+def mse_oracle(cols: dict) -> dict:
+    """Expected rows of the multi-stage statements from the generated
+    columns. Per join key k, cb[k] and sb[k] count and sum the b rows
+    (lo_discount = 0): an a row (lo_quantity < 3) of key k makes cb[k]
+    pairs summing sb[k] in q8; max(cb[k], 1) rows in q9j (its LEFT join
+    keeps an unmatched a row); cb[k] * cc[k] pairs summing cb[k] * sc[k]
+    in q10, c the rows of lo_quantity < 2. Sums are float64 of integers
+    below 2^53: exact. mse_pairs joins its filtered rows with numpy and
+    sorts them as the statement does; mse_agg is q2."""
+    key = cols["lo_orderkey"].astype(np.int64)
+    year = cols["d_year"].astype(np.int64)
+    rev = cols["lo_revenue"].astype(np.int64)
+    qty, disc = cols["lo_quantity"], cols["lo_discount"]
+    K = int(key.max()) + 1
+
+    def per_key(m):
+        return (np.bincount(key[m], minlength=K),
+                np.bincount(key[m], weights=rev[m].astype(np.float64),
+                            minlength=K))
+
+    cb, sb = per_key(disc == 0)
+    cc, sc = per_key(qty < 2)
+    a = qty < 3
+    ka, ya = key[a], year[a] - 1992
+
+    def by_year(w):
+        return np.bincount(ya, weights=w.astype(np.float64), minlength=7)
+
+    out = {}
+    for qname, cnt, tot in (
+            ("q8", cb[ka], sb[ka]),
+            ("q10", cb[ka] * cc[ka], cb[ka] * sc[ka])):
+        c, t = by_year(cnt), by_year(tot)
+        out[qname] = [[1992 + y, int(c[y]), float(t[y])]
+                      for y in range(7) if c[y] > 0]
+    c, t, m = by_year(np.maximum(cb[ka], 1)), by_year(sb[ka]), by_year(cb[ka])
+    out["q9j"] = [[1992 + y, int(c[y]), float(t[y]) if m[y] else None]
+                  for y in range(7) if c[y] > 0]
+
+    pa, pb = np.nonzero(qty < 5)[0], np.nonzero(disc <= 1)[0]
+    pb = pb[np.argsort(key[pb], kind="stable")]
+    starts = np.searchsorted(key[pb], key[pa], "left")
+    counts = np.searchsorted(key[pb], key[pa], "right") - starts
+    li = np.repeat(pa, counts)
+    ri = pb[np.repeat(starts, counts) + np.arange(len(li)) - np.repeat(
+        np.cumsum(counts) - counts, counts)]
+    top = np.lexsort((year[li], key[li], -rev[ri]))[:1000]
+    out["mse_pairs"] = [[int(key[li[i]]), int(year[li[i]]), int(rev[ri[i]])]
+                        for i in top]
+    out["mse_pairs_total"] = int(len(li))
+    return out
+
+
 def rt_partials(cols: dict) -> dict:
     """What the ssb_rt queries sum over a block of ssb rows: q1's sum, q2's
     ASIA counts and sums by (d_year, p_brand), the RANGE's counts and sums
@@ -965,14 +1081,16 @@ def synthetic_fused_cases(torch, fg, seed, n=(1 << 22) + 3):
 
 
 @contextlib.contextmanager
-def recording(owner, name, tag=None):
-    """Record the arguments of every call to owner.name (calls go through),
-    each with tag()'s value at the call when a tag is given."""
+def recording(owner, name, tag=None, with_kwargs=False):
+    """Record the arguments of every call to owner.name (calls go through):
+    its positional arguments, or (args, kwargs) with `with_kwargs`, each
+    with tag()'s value at the call when a tag is given."""
     calls = []
     orig = getattr(owner, name)
 
     def wrapper(*args, **kwargs):
-        calls.append(args if tag is None else (args, tag()))
+        got = (args, kwargs) if with_kwargs else args
+        calls.append(got if tag is None else (got, tag()))
         return orig(*args, **kwargs)
 
     setattr(owner, name, wrapper)
@@ -1781,6 +1899,243 @@ def phase_realtime(args, torch, qe, tables, rt_base, interp, tmp, card):
     return final, launches
 
 
+def _has_join(node) -> bool:
+    from pinot_tpu_torch.mse.logical import JoinNode
+
+    return isinstance(node, JoinNode) or any(_has_join(i) for i in node.inputs)
+
+
+def _stage_view(resp) -> dict:
+    keep = ("workers", "leaf_pushdown", "rows_in", "rows_out", "join_impl",
+            "host_crossings", "wall_ms", "device_partition_ms",
+            "shuffled_bytes")
+    return {str(k): {f: st[f] for f in keep}
+            for k, st in resp.mse_stage_stats.items()}
+
+
+def _op_cost(name: str, args: tuple, kwargs: dict):
+    """(bytes, shape) of a join pipeline op: the bytes it must move, each
+    input it reads once and each output it writes once (int64 codes,
+    groups and plane entries, float64 values, bool masks)."""
+    if name == "partition_planes":
+        codes, n, P, cap = args[:4]
+        return 8 * n + 8 * P * cap + 8 * P, {
+            "n": n, "P": P, "cap": cap,
+            "key_sorted": bool(kwargs.get("key_sorted"))}
+    if name == "fused_join_agg":
+        (pk, pg, pvals, pplane, pcounts, bk, bvals, bplane, bcounts, pn, bn,
+         spec, P, Gp) = args
+        vp = len({v for k, sd, v in spec if sd == "probe" and k != "count"})
+        vb = len({v for k, sd, v in spec if sd == "build"})
+        masks = sum(n for n, m in ((pn, kwargs.get("pmask")),
+                                   (bn, kwargs.get("bmask"))) if m is not None)
+        cap_l, cap_r = pplane.shape[1], bplane.shape[1]
+        return (pn * (16 + 8 * vp) + bn * (8 + 8 * vb) + masks
+                + 8 * P * (cap_l + cap_r) + 16 * P
+                + 8 * Gp * (len(spec) + 3)), {
+            "pn": pn, "bn": bn, "P": P, "cap_l": cap_l, "cap_r": cap_r,
+            "Gp": Gp, "spec": [list(x) for x in spec],
+            "join_type": kwargs.get("join_type", "INNER"),
+            "masks": masks > 0}
+    cols, idx, n, n_to, _device = args  # gather_stack
+    return 8 * n + 8 * n * len(cols) + 8 * n_to * len(cols), {
+        "n": n, "n_to": n_to, "cols": len(cols),
+        "uploads_bytes": 8 * sum(len(c) for c in cols)}
+
+
+def _tensors(rec):
+    args, kwargs = rec
+    return [x for x in list(args) + list(kwargs.values())
+            if hasattr(x, "data_ptr")]
+
+
+def _clone_call(torch, rec):
+    """A recorded (args, kwargs) call with each tensor argument copied."""
+    args, kwargs = rec
+
+    def c(x):
+        return clone_at(torch, x) if hasattr(x, "data_ptr") else x
+
+    return tuple(c(x) for x in args), {k: c(v) for k, v in kwargs.items()}
+
+
+def phase_mse(torch, qe, expected, _cuda, interp, mxu, iters, card) -> dict:
+    """The multi-stage statements on the card. The main path first: each
+    statement once, every count set to 0 just before it and read just
+    after, its rows held against the numpy oracle, the fused stage (one
+    host crossing, measured) of q8 / q9j / q10, every leaf on the
+    single-stage path and one host fetch a leaf and a fused stage, the
+    pair join's device calls of mse_pairs and kernel A under mse_agg. Then each statement's warm p50
+    and its layer times (parse + plan; the leaf stages; the join stage;
+    the rest: shuffles, final aggregate, sort, broker) over the same runs
+    (a statement slower than 1 s: its main-path run, the planes resident);
+    the join stages' torch ops of q8 and q10 alone against their bytes
+    bound (`join_ops`); and one q8 with torch's sync debug mode on, counting
+    the synchronizing calls inside its fused stage."""
+    from pinot_tpu_torch.mse import device_join
+    from pinot_tpu_torch.mse.parser import parse_relational
+    from pinot_tpu_torch.ops import join_pipeline as jp
+
+    results, per_query, fetches, calls, stages = {}, {}, {}, {}, {}
+    agg_recs, first_ms = [], {}
+    for qname, sql in MSE_QUERIES.items():
+        leaves = {s.stage_id for s in qe.multistage.plan(parse_relational(sql))
+                  if s.is_leaf}
+        _cuda.reset_launches()
+        fetch0 = interp.host_fetches()
+        with recording(device_join, "device_join_indices") as pairs, \
+                recording(device_join, "gather_payload") as gathers, \
+                recording(device_join, "run_fused") as fused, \
+                recording(mxu, "limb_sums") as a_calls:
+            t0 = time.perf_counter()
+            resp = qe.execute_sql(sql)
+            torch.cuda.synchronize()
+            first_ms[qname] = (time.perf_counter() - t0) * 1e3
+        per_query[qname] = dict(_cuda.LAUNCHES)
+        fetches[qname] = interp.host_fetches() - fetch0
+        calls[qname] = {"device_join_indices": len(pairs),
+                        "gather_payload": len(gathers),
+                        "run_fused": len(fused)}
+        if resp.exceptions:
+            raise AssertionError(f"{qname}: {resp.exceptions}")
+        got = [tuple(r) for r in resp.result_table.rows]
+        want = [tuple(r) for r in expected[qname]]
+        if qname == "mse_agg":
+            got, want = sorted(got), sorted(want)
+        if got != want:
+            bad = next((a, b) for a, b in zip(got + [None] * len(want),
+                                              want + [None] * len(got))
+                       if a != b)
+            raise AssertionError(f"{qname}: {len(got)} rows vs oracle "
+                                 f"{len(want)}; first difference {bad}")
+        st = resp.mse_stage_stats
+        impls = {s["join_impl"] for s in st.values() if s["join_impl"]}
+        crossings = sum(s["host_crossings"] for s in st.values())
+        if qname in FUSED_MSE and (impls != {"device-fused"} or len(fused) != 1
+                                   or crossings != 1):
+            raise AssertionError(f"{qname}: join {impls}, {len(fused)} fused "
+                                 f"stages, {crossings} host crossings")
+        # every leaf ran on the single-stage engine, and the statement made
+        # one host fetch for each leaf and each fused stage (measured)
+        if not all(st[k]["leaf_pushdown"] for k in leaves):
+            raise AssertionError(f"{qname}: a leaf of {sorted(leaves)} did "
+                                 f"not push down: {_stage_view(resp)}")
+        if fetches[qname] != len(leaves) + len(fused):
+            raise AssertionError(f"{qname}: {fetches[qname]} host fetches, "
+                                 f"{len(leaves)} leaves, {len(fused)} fused "
+                                 "stages")
+        if qname == "mse_pairs" and (not pairs or not gathers):
+            raise AssertionError(f"mse_pairs: device join calls {calls}")
+        if qname == "mse_agg":
+            if per_query[qname]["limb_sums"] == 0:
+                raise AssertionError("mse_agg did not launch limb_sums")
+            agg_recs = list(a_calls)
+        stages[qname] = _stage_view(resp)
+        results[qname] = resp
+    emit({"phase": "mse", "oracle": "equal",
+          "rows_checked": {k: len(r.result_table.rows)
+                           for k, r in results.items()},
+          "mse_pairs_join_rows": expected["mse_pairs_total"],
+          "launches_per_query": per_query, "host_fetches": fetches,
+          "device_dispatches": {k: r.num_device_dispatches
+                                for k, r in results.items()},
+          "docs_scanned": {k: r.num_docs_scanned for k, r in results.items()},
+          "pair_join_calls": calls, "stages": stages})
+
+    p50, quartiles, docs, layers = {}, {}, {}, {}
+    slow = {q for q, ms in first_ms.items() if ms > SLOW_QUERY_MS}
+    for qname, sql in MSE_QUERIES.items():
+        t0 = time.perf_counter()
+        plan = qe.multistage.plan(parse_relational(sql))
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        join_sids = {s.stage_id for s in plan if s.root is not None
+                     and _has_join(s.root)}
+        ts, parts = [], []
+
+        def sample(resp, ms):
+            st = resp.mse_stage_stats
+            leaves = sum(s["wall_ms"] for s in st.values()
+                         if s["leaf_pushdown"])
+            join = sum(st[k]["wall_ms"] for k in join_sids if k in st)
+            ts.append(ms)
+            parts.append([leaves, join, ms - plan_ms - leaves - join])
+            docs[qname] = resp.total_docs
+
+        if qname in slow:
+            sample(results[qname], first_ms[qname])
+        while len(ts) < (1 if qname in slow else iters):
+            t0 = time.perf_counter()
+            resp = qe.execute_sql(sql)
+            torch.cuda.synchronize()
+            sample(resp, (time.perf_counter() - t0) * 1e3)
+        p50[qname] = float(np.median(ts))
+        quartiles[qname] = [float(q) for q in np.percentile(ts, [25, 75])]
+        med = np.median(np.asarray(parts), axis=0)
+        layers[qname] = {"parse_plan_ms": plan_ms, "leaves_ms": float(med[0]),
+                         "join_stage_ms": float(med[1]),
+                         "rest_ms": float(med[2])}
+    emit({"phase": "mse_layers", "card": card, "iters": iters,
+          "iters_1": sorted(slow), "layers": layers})
+
+    # the join stages' device ops alone, on the inputs q8 and q10 gave them;
+    # each call's tensors in an L2 pool, as the main path finds them
+    ops = []
+    for qname in ("q8", "q10"):
+        with recording(jp, "partition_planes", with_kwargs=True) as parts, \
+                recording(jp, "fused_join_agg", with_kwargs=True) as joins, \
+                recording(jp, "gather_stack", with_kwargs=True) as stacks:
+            qe.execute_sql(MSE_QUERIES[qname])
+            torch.cuda.synchronize()
+        for name, fn, recs in (("partition_planes", jp.partition_planes, parts),
+                               ("fused_join_agg", jp.fused_join_agg, joins),
+                               ("gather_stack", jp.gather_stack, stacks)):
+            for k, (a, kw) in enumerate(recs):
+                pool = l2_pool(
+                    [(a, kw)],
+                    lambda rec: sum(t.numel() * t.element_size()
+                                    for t in _tensors(rec)),
+                    lambda rec: _clone_call(torch, rec))
+                fns = [lambda fn=fn, r=r: fn(*r[0], **r[1]) for r in pool]
+                ms = device_ms(torch, fns, None, iters=10)
+                run = fns[0]
+                nbytes, shape = _op_cost(name, a, kw)
+                bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops.append({"query": qname, "op": name, "call": k,
+                            "source": "pinot_tpu_torch/ops/join_pipeline.py",
+                            "ms": ms, "call_ms": cuda_ms(torch, run, 5),
+                            "bytes": nbytes, "bound_ms": bound_ms,
+                            "bound_share": bound_ms / ms if ms > 0 else None,
+                            "shape": shape})
+    stage_ms = {q: sum(o["ms"] for o in ops if o["query"] == q)
+                for q in ("q8", "q10")}
+    emit({"phase": "join_ops", "card": card, "ops": ops,
+          "stage_device_ms": stage_ms,
+          "share_of_p50": {q: stage_ms[q] / p50[q] for q in stage_ms},
+          "hbm_bytes_per_s": HBM_BYTES_PER_S})
+
+    # synchronizing calls inside q8's fused stage (informational): torch's
+    # sync debug mode warns at each; the stages above the fused one run on
+    # the host, so the warnings from its start on are its own
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                recording(device_join, "run_fused",
+                          tag=lambda: len(caught)) as fused:
+            warnings.simplefilter("always")
+            qe.execute_sql(MSE_QUERIES["q8"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).split("\n")[0][:120]
+             for w in caught[fused[0][1]:] if "synchroniz" in str(w.message)]
+    emit({"phase": "sync_debug", "query": "q8", "fused_stages": len(fused),
+          "synchronizing_calls": len(syncs), "first_messages": syncs[:6]})
+    return {"p50": p50, "quartiles": quartiles, "slow": slow, "docs": docs,
+            "agg_recs": agg_recs,
+            "agg_launches": per_query["mse_agg"]["limb_sums"]}
+
+
 def interp_unsupported():
     from pinot_tpu_torch.engine.aggregation import UnsupportedQueryError
 
@@ -1994,7 +2349,9 @@ def device_ms(torch, fns, kernel, iters=20):
     self_device_time_total of the CUDA kernel named `kernel`, over `iters`
     calls cycling through `fns` (one per input of the row's L2 pool). The profiler
     may drop some of a window's kernel events: the mean is over the events
-    it kept, gathered over up to 5 windows until `iters` are in."""
+    it kept, gathered over up to 5 windows until `iters` are in. With
+    `kernel` None: every CUDA event of one window (an op of several kernels
+    and copies), per call."""
     from torch.profiler import ProfilerActivity, profile
 
     for fn in fns:
@@ -2009,10 +2366,12 @@ def device_ms(torch, fns, kernel, iters=20):
             torch.cuda.synchronize()
         for e in prof.key_averages():
             if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and kernel_name(e.key) == kernel):
+                    and (kernel is None or kernel_name(e.key) == kernel)):
                 total_us += e.self_device_time_total
                 count += e.count
                 seen.add(e.key)
+        if kernel is None:
+            return total_us / 1e3 / iters
         if count >= iters:
             break
     if count < iters:
@@ -2376,6 +2735,7 @@ def main(argv=None) -> int:
                     help="rows of each of the 4 `vecs` segments")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    os.environ["PINOT_TPU_MAX_ROWS_IN_JOIN"] = str(MAX_ROWS_IN_JOIN)
 
     import torch
 
@@ -2454,6 +2814,8 @@ def main(argv=None) -> int:
         expected.update(selection_mv_oracle(cols, tags,
                                             args.rows_per_segment))
         expected.update(transform_oracle(cols, dates))
+        expected.update(mse_oracle(cols))
+        expected["mse_agg"] = expected["q2"]
         del cols, taxi_cols, tags, dates
         tables.update(index)
         expected.update(index_expected)
@@ -2484,6 +2846,13 @@ def main(argv=None) -> int:
         _, rt_per_query, _ = phase_queries(torch, qe, expected, _cuda,
                                            interp, names=list(RT_QUERIES))
         per_query.update(rt_per_query)
+        mse = phase_mse(torch, qe, expected, _cuda, interp, mxu_groupby,
+                        args.iters, dev["nvidia_smi"])
+        planes, gid, G = mse["agg_recs"][0]
+        parity["limb_sums/mse_agg_inputs/family"] = check_equal(
+            torch, f"limb_sums mse_agg inputs, family of {planes.shape[0]}",
+            mxu_groupby.limb_sums(planes, gid, G),
+            mxu_groupby.limb_sums_plain(planes, gid, G))
 
         # the main path's own kernel inputs, one call per segment (per
         # family) and query, for the parity over every query's inputs and
@@ -2588,6 +2957,10 @@ def main(argv=None) -> int:
                     slow.add(qname)
             p50[qname] = float(np.median(ts))
             quartiles[qname] = [float(q) for q in np.percentile(ts, [25, 75])]
+        p50.update(mse["p50"])
+        quartiles.update(mse["quartiles"])
+        docs.update(mse["docs"])
+        slow |= mse["slow"]
         emit({"phase": "times", "card": dev["nvidia_smi"],
               "query_p50_ms": p50, "query_p25_p75_ms": quartiles,
               "rows_per_s": {k: docs[k] / (v / 1e3) for k, v in p50.items()},
@@ -2630,6 +3003,12 @@ def main(argv=None) -> int:
                     parity[f"limb_sums/{qname}_inputs/{label}"],
                     f"{qname} {label}: the main path's planes of the family "
                     f"of {S} segments, one launch"))
+        # the multi-stage leaf partial aggregate's launch of kernel A
+        kernels.append(kernel_a_row(
+            torch, mxu_groupby, _cuda, mse["agg_recs"], mse["agg_launches"],
+            parity["limb_sums/mse_agg_inputs/family"],
+            f"mse_agg: the leaf partial aggregate's planes of the family of "
+            f"{mse['agg_recs'][0][0].shape[0]} segments, one launch"))
         # the realtime queries' kernel inputs, one row per launch: each row
         # stands for the main path's launches of its kernel in the query
         # over the recorded launches of it (asserted equal above, so 1)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from decimal import Decimal
 from typing import Callable
 
 import numpy as np
@@ -271,7 +272,44 @@ def get_semantics(name: str, extra: tuple = ()) -> AggSemantics:
         return AggSemantics(lambda a, b: a and b, bool, "BOOLEAN", True)
     if name in ("boolor", "boolagg"):
         return AggSemantics(lambda a, b: a or b, bool, "BOOLEAN", False)
+    # the host-only functions below: the multi-stage engine aggregates them
+    # (host_state_full); lower_aggregation refuses them, as the JAX
+    # package's device planner does
+    if name == "sumprecision":
+        return AggSemantics(lambda a, b: a + b, str, "BIG_DECIMAL", "0")
+    if name in ("exprmin", "firstwithtime"):
+        return AggSemantics(_merge_maybe(lambda a, b: a if a[0] <= b[0] else b),
+                            lambda s: None if s is None else s[1], "OBJECT",
+                            None)
+    if name in ("exprmax", "lastwithtime"):
+        return AggSemantics(_merge_maybe(lambda a, b: a if a[0] >= b[0] else b),
+                            lambda s: None if s is None else s[1], "OBJECT",
+                            None)
+    if name in ("arrayagg", "listagg"):
+        distinct = len(extra) > 1 and bool(extra[1])
+        dtype = str(extra[0]).upper() if extra else "DOUBLE"
+        return AggSemantics(
+            lambda a, b: a + b,
+            lambda s, _d=distinct: list(dict.fromkeys(s)) if _d else list(s),
+            f"{dtype}_ARRAY", [])
     raise UnsupportedQueryError(f"aggregation {name} is not lowered by this port")
+
+
+_HOST_ONLY = ("sumprecision", "exprmin", "exprmax", "firstwithtime",
+              "lastwithtime", "arrayagg", "listagg")
+
+
+def _merge_maybe(pick):
+    """Merge for states that may be None (an empty group)."""
+
+    def merge(a, b):
+        if a is None:
+            return b
+        if b is None:
+            return a
+        return pick(a, b)
+
+    return merge
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +500,8 @@ def lower_aggregation(ctx: AggPlanContext, expr: ExpressionContext,
     data, extra = split_args(fn)
     name, extra = canonicalize(fn.name, extra)
     sem = get_semantics(name, extra)
+    if name in _HOST_ONLY:
+        raise UnsupportedQueryError(f"aggregation {name} has no device form")
     if _cond is not None and name not in _FILTERABLE:
         raise UnsupportedQueryError(
             f"FILTER clause over {name} has no device form")
@@ -743,3 +783,105 @@ def _value_hist(row: np.ndarray, dictionary) -> ValueHist:
 
 def _numeric_dictionary(d) -> bool:
     return np.asarray(d.values).dtype.kind in ("i", "u", "f")
+
+
+# ---------------------------------------------------------------------------
+# Host (numpy) states: the multi-stage engine's host aggregates
+# ---------------------------------------------------------------------------
+
+
+def host_state_full(name: str, cols: list, extra: tuple):
+    """Per-group intermediate state from the group's (already filtered) raw
+    value arrays, one array per data argument: the copy of
+    pinot_tpu/engine/aggregation.py host_state_full for the functions
+    `get_semantics` knows, so every state merges and finalizes through
+    it. The multi-stage operators (mse/operators.py) aggregate with it."""
+    name, extra = canonicalize(name, extra)
+    get_semantics(name, extra)  # refuses the functions this port lacks
+    values = cols[0] if cols else None
+    n = 0 if values is None else len(values)
+
+    if name in ("count", "countmv"):
+        return n
+    if values is None:
+        raise UnsupportedQueryError(f"{name} requires an argument")
+
+    if name in ("sum", "summv"):
+        return float(np.sum(values)) if n else 0.0
+    if name in ("min", "minmv"):
+        return float(np.min(values)) if n else math.inf
+    if name in ("max", "maxmv"):
+        return float(np.max(values)) if n else -math.inf
+    if name in ("minmaxrange", "minmaxrangemv"):
+        return ((float(np.min(values)), float(np.max(values))) if n
+                else (math.inf, -math.inf))
+    if name in ("avg", "avgmv"):
+        return (float(np.sum(values)), n)
+    if name in _EXACT_DISTINCT:
+        return frozenset(np.unique(values).tolist())
+    if name in ("distinctsum", "distinctavg"):
+        return frozenset(float(v) for v in np.unique(values))
+    if name in _HLL_FNS:
+        log2m = int(extra[0]) if extra else 12
+        return HyperLogLog(log2m).add_values(np.unique(values))
+    if name in _THETA_FNS:
+        return ThetaSketch().add_values(np.unique(values))
+    if name in _SMART_FNS:
+        return SmartDistinctSet().add_values(np.unique(values))
+    if name in ("percentile", "mode"):
+        if np.asarray(values).dtype.kind not in ("i", "u", "f", "b"):
+            raise UnsupportedQueryError(f"{name} requires a numeric column")
+        return ValueHist.from_values(values)
+    if name in _PCT_DIGEST:
+        return TDigest().add_values(np.asarray(values, dtype=np.float64))
+    if name == "histogram":
+        if len(extra) != 3:
+            raise UnsupportedQueryError("histogram(col, lower, upper, numBins)")
+        lo, hi, bins = float(extra[0]), float(extra[1]), int(extra[2])
+        if hi <= lo or bins <= 0:
+            raise UnsupportedQueryError(
+                "histogram requires upper > lower and numBins > 0")
+        v = np.asarray(values, dtype=np.float64)
+        counts, _ = np.histogram(v[(v >= lo) & (v <= hi)], bins=bins,
+                                 range=(lo, hi))
+        return counts.astype(np.float64)
+    if name in _MOMENT_FNS:
+        v = np.asarray(values, dtype=np.float64)
+        return (n, float(v.sum()), float((v * v).sum()))
+    if name in ("skewness", "kurtosis"):
+        v = np.asarray(values, dtype=np.float64)
+        return (n, float(v.sum()), float((v**2).sum()), float((v**3).sum()),
+                float((v**4).sum()))
+    if name in ("covarpop", "covarsamp", "corr"):
+        x = np.asarray(cols[0], dtype=np.float64)
+        y = np.asarray(cols[1], dtype=np.float64)
+        return (n, float(x.sum()), float(y.sum()), float((x * y).sum()),
+                float((x * x).sum()), float((y * y).sum()))
+    if name == "booland":
+        return bool(np.all(values)) if n else True
+    if name in ("boolor", "boolagg"):
+        return bool(np.any(values)) if n else False
+    if name == "sumprecision":
+        # exact decimal sum (reference SumPrecisionAggregationFunction's
+        # BigDecimal); the column may hold strings
+        return sum((Decimal(str(v)) for v in values), Decimal(0))
+    if name in ("exprmin", "exprmax", "firstwithtime", "lastwithtime"):
+        # EXPR_MIN(projection, measure); FIRST_WITH_TIME(data, time)
+        if n == 0:
+            return None
+        proj, measure = cols[0], cols[1]
+        pick = np.argmin if name in ("exprmin", "firstwithtime") else np.argmax
+        idx = int(pick(measure))
+        return (_item(measure[idx]), _item(proj[idx]))
+    if name in ("arrayagg", "listagg"):
+        return tuple(_item(v) for v in values)
+    raise UnsupportedQueryError(f"aggregation {name} has no host state")
+
+
+def _item(v):
+    return v.item() if isinstance(v, np.generic) else v
+
+
+def host_state(name: str, values, extra: tuple = ()):
+    """Single-data-argument convenience wrapper."""
+    return host_state_full(name, [values] if values is not None else [], extra)

@@ -18,6 +18,12 @@ and kernels; its states map back to the query's afterwards. Every segment
 runs on the executor's device. There is no host engine
 behind it: a query shape this port does not lower raises
 UnsupportedQueryError, and any other failure raises as well.
+
+`execute_sql` sends multi-stage statements (joins, IN / NOT IN subqueries,
+set operations, windows, CTEs; anything the single-stage parser rejects,
+and `SET useMultistageEngine = true`) to the multi-stage engine (mse/),
+whose leaf stages come back here: `execute` for a leaf aggregate and
+`execute_selection_columnar` for a scan leaf.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ..query.context import QueryContext
 from ..query.optimizer import optimize_filter
 from ..query.parser.sql import SqlParseError, parse_sql
 from ..realtime.device_plane import note_realtime_device_query
+from ..segment.bitpack import unpack_bitmap
 from ..segment.device_cache import DeviceSegmentCache
 from ..segment.loader import ImmutableSegment
 from ..segment.startree import StarTreeRewrite, remap_states, try_rewrite
@@ -51,6 +58,13 @@ from .pruner import SegmentPrunerService
 from .reduce import BrokerReducer
 from .results import (AggIntermediate, BrokerResponse, GroupArrays,
                       GroupByIntermediate, SelectionIntermediate)
+
+
+class ReduceRefused(UnsupportedQueryError):
+    """The broker reduce refused a query-level shape (a reference to a
+    column outside the group-by result, a HAVING predicate it does not
+    evaluate): the single-stage refusals the reference's engine selection
+    retries on its multi-stage engine."""
 
 
 def _opted_out(query: QueryContext, option: str) -> bool:
@@ -78,6 +92,22 @@ class Route:
     query: QueryContext
     segment: object
     rewrite: Optional[StarTreeRewrite] = None
+
+
+@dataclass
+class PlannedQuery:
+    """A query with its planning done and none of its device work: the
+    pinned and kept segments, each kept segment's route (None for a
+    columnar selection) and plan. Every refusal of the query's shape is
+    behind it."""
+
+    query: QueryContext
+    segments: list
+    kept: list
+    num_pruned: int
+    routes: Optional[list]
+    plans: list
+    t0: float
 
 
 @dataclass
@@ -134,14 +164,36 @@ class QueryExecutor:
         register_dimension_table(name, schema.primary_key_columns[0], cols)
 
     def execute_sql(self, sql: str) -> BrokerResponse:
+        """Engine selection as the reference's BrokerRequestHandlerDelegate
+        (pinot_tpu/engine/query_executor.py:147-166): the multi-stage
+        engine for a statement the single-stage parser rejects and for
+        `SET useMultistageEngine = true`; the single-stage engine
+        otherwise, and the multi-stage engine's answer, where it has one,
+        for a shape the broker reduce refuses (ReduceRefused). A segment
+        planner's refusal stays a refusal: the reference answers those in
+        its single-stage host engine, which the port does not have."""
         try:
             query = parse_sql(sql)
-        except SqlParseError as e:
-            raise UnsupportedQueryError(
-                f"not a single-stage query this port runs: {e}") from e
+        except SqlParseError:
+            return self.multistage.execute_sql(sql)
         if query.query_options.get("useMultistageEngine") in (True, "true", 1):
-            raise UnsupportedQueryError("the multi-stage engine is not ported")
-        return self.execute(query)
+            return self.multistage.execute_sql(sql)
+        try:
+            return self.execute(query)
+        except ReduceRefused:
+            mse = self.multistage.execute_sql(sql)
+            if not mse.exceptions:
+                return mse
+            raise
+
+    @property
+    def multistage(self):
+        """The multi-stage engine over this executor's tables (mse/)."""
+        if not hasattr(self, "_multistage"):
+            from ..mse.executor import MultistageExecutor
+
+            self._multistage = MultistageExecutor(self)
+        return self._multistage
 
     def _table(self, name: str) -> Table:
         table = self.tables.get(name)
@@ -153,28 +205,121 @@ class QueryExecutor:
         return table
 
     def execute(self, query: QueryContext) -> BrokerResponse:
+        return self.run_planned(self.plan_query(query))
+
+    def plan_query(self, query: QueryContext) -> PlannedQuery:
+        """The planning half of `execute`: prune, route and plan every
+        segment. A shape the port does not lower raises
+        UnsupportedQueryError here, before anything reaches the device."""
         t0 = time.perf_counter()
         if getattr(query, "explain", False):
             raise UnsupportedQueryError("EXPLAIN is not ported")
-        table = self._table(query.table_name)
-        segments = self.pinned_segments(table)
+        segments = self.pinned_segments(self._table(query.table_name))
         kept, num_pruned = self.prune_segments(query, segments)
-        combined = self.execute_segments(query, kept)
-        if any(getattr(s, "is_mutable", False) for s in kept):
+        routes = self.route_segments(query, kept)
+        return PlannedQuery(query, segments, kept, num_pruned, routes,
+                            self.plan_segments(routes), t0)
+
+    def run_planned(self, p: PlannedQuery) -> BrokerResponse:
+        """The running half of `execute`: dispatch every family and lone
+        segment (the device queue fills back to back), fetch all outputs
+        in one copy, collect, combine and reduce."""
+        query = p.query
+        reset_dispatch_counters()
+        pending = self.dispatch_segments(query, p.routes, p.plans)
+        combined = self._combine(query, self.collect_segments(
+            p.routes, p.plans, pending))
+        if any(getattr(s, "is_mutable", False) for s in p.kept):
             note_realtime_device_query()
-        result = BrokerReducer(table.schema).reduce(query, combined)
+        try:
+            result = BrokerReducer(
+                self._table(query.table_name).schema).reduce(query, combined)
+        except UnsupportedQueryError as e:
+            raise ReduceRefused(str(e)) from e
         return BrokerResponse(
             result_table=result,
             num_docs_scanned=combined.num_docs_scanned,
-            total_docs=sum(s.num_docs for s in segments),
-            num_segments_queried=len(segments),
-            num_segments_processed=len(kept),
-            num_segments_pruned=num_pruned,
-            time_used_ms=(time.perf_counter() - t0) * 1000,
+            total_docs=sum(s.num_docs for s in p.segments),
+            num_segments_queried=len(p.segments),
+            num_segments_processed=len(p.kept),
+            num_segments_pruned=p.num_pruned,
+            time_used_ms=(time.perf_counter() - p.t0) * 1000,
             num_device_dispatches=dispatch_counters(),
             num_groups_limit_reached=getattr(combined, "groups_trimmed",
                                              False),
         )
+
+    def execute_selection_columnar(self, query: QueryContext):
+        """The multi-stage engine's scan leaf (reference:
+        pinot_tpu/engine/query_executor.py:285-371): the filter bitmap of
+        every kept segment on the device, all fetched in one copy, then a
+        numpy gather of the selected source columns, with no row
+        materialization. Returns (column arrays, stats), or None for a
+        shape the row path must run; a shape the planner refuses raises
+        UnsupportedQueryError."""
+        planned = self.plan_selection_columnar(query)
+        return None if planned is None else self.run_selection_columnar(
+            planned)
+
+    def plan_selection_columnar(self, query: QueryContext):
+        """The planning half of `execute_selection_columnar`: None for a
+        shape the row path must run (not a plain identifier selection, or
+        one with ordering, DISTINCT, offset or null handling)."""
+        if (not query.is_selection or query.distinct
+                or query.group_by_expressions or query.order_by_expressions
+                or query.having_filter is not None or query.offset
+                or query.null_handling):
+            return None
+        if not query.select_expressions or not all(
+                e.is_identifier and e.identifier != "*"
+                for e in query.select_expressions):
+            return None
+        t0 = time.perf_counter()
+        segments = self.pinned_segments(self._table(query.table_name))
+        kept, num_pruned = self.prune_segments(query, segments)
+        plans = [self.executor.plan(query, seg) for seg in kept]
+        if any(p.program.mode != "selection" or p.selection_exprs
+               for p in plans):
+            return None
+        return PlannedQuery(query, segments, kept, num_pruned, None, plans,
+                            t0)
+
+    def run_selection_columnar(self, planned: PlannedQuery):
+        """The running half of `execute_selection_columnar`."""
+        query, kept = planned.query, planned.kept
+        names = [e.identifier for e in query.select_expressions]
+        reset_dispatch_counters()
+        fetched = fetch_packed_batch(
+            [self.executor.dispatch_plan(seg, plan)
+             for seg, plan in zip(kept, planned.plans)])
+        parts: dict[str, list] = {c: [] for c in names}
+        scanned = 0
+        remaining = max(0, int(query.limit))
+        for seg, outs in zip(kept, fetched):
+            if remaining <= 0:
+                break
+            doc_ids = np.nonzero(unpack_bitmap(outs[0], seg.num_docs))[0]
+            doc_ids = doc_ids[:remaining]
+            scanned += len(doc_ids)
+            remaining -= len(doc_ids)
+            for c in names:
+                parts[c].append(seg.get_values_at(c, doc_ids))
+        if any(getattr(s, "is_mutable", False) for s in kept):
+            note_realtime_device_query()
+        cols: dict = {}
+        for c, ps in parts.items():
+            if not ps:
+                cols[c] = np.empty(0)
+            elif len(ps) == 1:
+                cols[c] = ps[0]
+            else:
+                if any(p.dtype.kind == "O" for p in ps):
+                    ps = [p.astype(object) for p in ps]
+                cols[c] = np.concatenate(ps)
+        return cols, {"num_docs_scanned": scanned,
+                      "total_docs": sum(s.num_docs
+                                        for s in planned.segments),
+                      "num_device_dispatches": dispatch_counters()}
 
     @staticmethod
     def pinned_segments(table) -> list:
@@ -190,19 +335,6 @@ class QueryExecutor:
         order. The filter is canonicalized first, as the reference does."""
         query.filter = optimize_filter(query.filter)
         return self.pruner.prune(query, segments)
-
-    def execute_segments(self, query: QueryContext, segments: list):
-        """Server-side half of a query over its kept segments: route and
-        plan every segment, dispatch every family and lone segment (the
-        device queue fills back to back), fetch all outputs in one copy,
-        collect and combine."""
-        query.filter = optimize_filter(query.filter)
-        reset_dispatch_counters()
-        routes = self.route_segments(query, segments)
-        plans = self.plan_segments(routes)
-        pending = self.dispatch_segments(query, routes, plans)
-        return self._combine(query, self.collect_segments(
-            routes, plans, pending))
 
     def route_segments(self, query: QueryContext, segments: list) -> list:
         """Each segment's Route: a star-tree rewrite where one fits the

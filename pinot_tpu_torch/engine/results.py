@@ -7,7 +7,7 @@ ids: dict ids are segment-local.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -47,6 +47,15 @@ class BrokerResponse:
     # a sparse group-by trimmed groups at numGroupsLimit (not by an exact
     # ORDER BY pushdown)
     num_groups_limit_reached: bool = False
+    # multi-stage statements only (mse/executor.py): a failure, as
+    # "<ExceptionType>: <message>" (the single-stage path raises instead)
+    exceptions: list = field(default_factory=list)
+    # a BREAK-mode join guard truncated the result (reference:
+    # maxRowsInJoinReached)
+    partial_result: bool = False
+    # stage_id -> {rows_in, rows_out, shuffled_rows, shuffled_bytes,
+    # wall_ms, workers, leaf_pushdown, join_impl, host_crossings, ...}
+    mse_stage_stats: Optional[dict] = None
 
     def to_json(self) -> dict:
         out = {
@@ -57,7 +66,13 @@ class BrokerResponse:
             "numSegmentsProcessed": self.num_segments_processed,
             "numSegmentsPrunedByServer": self.num_segments_pruned,
             "timeUsedMs": self.time_used_ms,
+            "exceptions": self.exceptions,
         }
+        if self.partial_result:
+            out["partialResult"] = True
+        if self.mse_stage_stats is not None:
+            out["mseStageStats"] = {str(k): v for k, v in
+                                    self.mse_stage_stats.items()}
         if self.num_groups_limit_reached:
             out["numGroupsLimitReached"] = True
         if self.num_device_dispatches:

@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"limb_sums": 0, "fused_limb_sums": 0}
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIB: "ctypes.CDLL | None" = None
 _BUILD_LOG = ""
 
@@ -213,7 +214,8 @@ def launch(name: str, *args) -> None:
     """Launch kernel `name` (its C entry point pinot_<name>) and raise on a
     CUDA error; counts the launch."""
     lib = library()
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
     _check(lib, f"kernel {name}", getattr(lib, f"pinot_{name}")(*args))
 
 

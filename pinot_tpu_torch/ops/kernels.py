@@ -53,6 +53,8 @@ both interpreters compute in the same dtypes:
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -343,17 +345,29 @@ def pack_outputs(outs: tuple) -> PackedOuts:
 
 
 # lifetime count of device->host copies of packed outputs: a query makes
-# exactly one, whatever its number of segments and families
+# exactly one, whatever its number of segments and families (a fused
+# multi-stage join stage one more). Multi-stage statements on several
+# threads count through the lock; each thread also keeps its own count,
+# which a stage reads around its own device work.
 _HOST_FETCHES = [0]
+_FETCH_LOCK = threading.Lock()
+_FETCH_TLS = threading.local()
 
 
 def host_fetches() -> int:
     return _HOST_FETCHES[0]
 
 
+def thread_host_fetches() -> int:
+    """Host fetches made so far by the calling thread."""
+    return getattr(_FETCH_TLS, "n", 0)
+
+
 def count_host_fetch() -> None:
     """Record one deliberate device->host crossing."""
-    _HOST_FETCHES[0] += 1
+    with _FETCH_LOCK:
+        _HOST_FETCHES[0] += 1
+    _FETCH_TLS.n = thread_host_fetches() + 1
 
 
 def _split_flat(flat: np.ndarray, metas) -> list:

@@ -76,6 +76,10 @@ class QueryContext:
         return bool(self.group_by_expressions)
 
     @property
+    def is_selection(self) -> bool:
+        return not self.aggregations and not self.distinct
+
+    @property
     def null_handling(self) -> bool:
         """Advanced null handling (reference
         QueryContext.isNullHandlingEnabled; SET enableNullHandling = true):

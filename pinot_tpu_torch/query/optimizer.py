@@ -7,7 +7,7 @@ intersection under AND), MergeRangeFilterOptimizer (range intersection under
 AND), and constant folding. NOT elimination (De Morgan + predicate
 inversion) plays the role Calcite's rewrites play upstream of the reference.
 
-Applied once per query on the server execution path (execute_segments), so
+Applied once per query on the server execution path (prune_segments), so
 the single-stage engine, the cluster scatter path, and MSE leaf pushdowns
 all see optimized trees. Every pass is semantics-preserving; passes that
 need value comparisons skip groups with incomparable mixed types rather

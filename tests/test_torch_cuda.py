@@ -17,7 +17,11 @@ queries, multi-value filters, GROUP BYs and aggregations (kernel A over
 the expanded (doc, value) pairs), the histogram bins of edge values, and
 star-tree queries (kernel A over the pre-aggregated views) and
 index-backed predicates (JSON_MATCH, TEXT_MATCH, mapValue over a map
-index, VECTOR_SIMILARITY: mask planes on the card).
+index, VECTOR_SIMILARITY: mask planes on the card). The multi-stage join
+pipeline's device stages (partition planes, the fused join+aggregate, the
+chain gather, the pair join) on the card equal the same torch ops on the
+CPU element for element at about 2^20 skewed keys, and a q8-shaped
+statement on the card equals the CPU executor's rows.
 """
 
 from __future__ import annotations
@@ -1010,3 +1014,159 @@ def test_index_queries_on_the_card_match_cpu(cuda, index_table, sql,
         sorted(map(tuple, want.result_table.rows))
     assert got.num_docs_scanned == want.num_docs_scanned
     assert got.num_device_dispatches == want.num_device_dispatches
+
+
+# -- the multi-stage join pipeline --------------------------------------------
+
+
+def _skewed_keys(rng, n):
+    """About 2^20 keys: a tenth on one heavy hitter, a Zipf tail and a
+    uniform body over 2^18 values."""
+    keys = rng.integers(0, 1 << 18, n)
+    heavy = rng.random(n) < 0.1
+    keys[heavy] = 777
+    tail = rng.random(n) < 0.2
+    keys[tail] = np.minimum(rng.zipf(1.4, int(tail.sum())), 1 << 20)
+    return keys.astype(np.int64)
+
+
+def _join_inputs(seed):
+    from pinot_tpu_torch.ops import join_pipeline as jp
+
+    rng = np.random.default_rng(seed)
+    pn, bn = (1 << 20) - 3, (1 << 19) + 11
+    Np, Nb = jp.bucket(pn), jp.bucket(bn)
+    pk, bk, pg = (np.zeros(Np, np.int64), np.zeros(Nb, np.int64),
+                  np.zeros(Np, np.int64))
+    pk[:pn] = _skewed_keys(rng, pn)
+    bk[:bn] = _skewed_keys(rng, bn)
+    pg[:pn] = rng.integers(0, 7, pn)
+    pvals = np.zeros((1, Np))
+    pvals[0, :pn] = rng.integers(-1000, 1000, pn)
+    bvals = np.zeros((1, Nb))
+    bvals[0, :bn] = rng.integers(0, 10_000, bn)
+    pmask = np.zeros(Np, bool)
+    pmask[:pn] = rng.random(pn) < 0.5
+    bmask = np.zeros(Nb, bool)
+    bmask[:bn] = rng.random(bn) < 0.1
+    P = 8
+    cap_l = jp.bucket(int(jp.host_partition_counts(pk[:pn], P).max()))
+    cap_r = jp.bucket(int(jp.host_partition_counts(bk[:bn], P).max()))
+    return dict(pk=pk, bk=bk, pg=pg, pvals=pvals, bvals=bvals, pmask=pmask,
+                bmask=bmask, pn=pn, bn=bn, P=P, cap_l=cap_l, cap_r=cap_r,
+                bmin=int(bk[:bn].min()), bmax=int(bk[:bn].max()))
+
+
+def _run_join(x, device, join_type, masks):
+    from pinot_tpu_torch.ops import join_pipeline as jp
+
+    t = {k: torch.as_tensor(x[k], device=device)
+         for k in ("pk", "bk", "pg", "pvals", "bvals", "pmask", "bmask")}
+    pplane, pcounts = jp.partition_planes(t["pk"], x["pn"], x["P"],
+                                          x["cap_l"])
+    bplane, bcounts = jp.partition_planes(
+        t["bk"], x["bn"], x["P"], x["cap_r"], key_sorted=True,
+        cmin=x["bmin"], cmax=x["bmax"])
+    spec = (("count", "probe", 0), ("sum", "probe", 0), ("min", "probe", 0),
+            ("sum", "build", 0), ("max", "build", 0), ("min", "build", 0))
+    packed = jp.fused_join_agg(
+        t["pk"], t["pg"], t["pvals"], pplane, pcounts, t["bk"], t["bvals"],
+        bplane, bcounts, x["pn"], x["bn"], spec, x["P"], 8,
+        join_type=join_type,
+        pmask=t["pmask"] if masks else None,
+        bmask=t["bmask"] if masks else None)
+    return [a.cpu().numpy() for a in (pplane, pcounts, bplane, bcounts,
+                                      packed)]
+
+
+@pytest.mark.parametrize("join_type", ["INNER", "LEFT", "SEMI", "ANTI"])
+@pytest.mark.parametrize("masks", [False, True])
+def test_join_pipeline_on_the_card_matches_cpu(cuda, join_type, masks):
+    x = _join_inputs(41)
+    got = _run_join(x, cuda, join_type, masks)
+    want = _run_join(x, "cpu", join_type, masks)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g.view(np.int64),
+                                                     w.view(np.int64))
+
+
+@pytest.mark.parametrize("mode", ["rows", "packed", "keyed"])
+def test_partition_modes_on_the_card_match_cpu(cuda, mode):
+    from pinot_tpu_torch.ops import join_pipeline as jp
+
+    rng = np.random.default_rng(5)
+    n = (1 << 20) - 5
+    codes = np.zeros(1 << 20, np.int64)
+    codes[:n] = _skewed_keys(rng, n) * (1 << 40 if mode == "keyed" else 1)
+    cmin = int(codes[:n].min())
+    for cap in (1 << 17, 1 << 15):  # fits; overflows the heavy partition
+        got = jp._partition(torch.as_tensor(codes, device=cuda), n, cmin, 8,
+                            cap, mode)
+        want = jp._partition(torch.as_tensor(codes), n, cmin, 8, cap, mode)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.cpu().numpy(), w.numpy())
+
+
+def test_chain_gather_and_pair_join_on_the_card_match_cpu(cuda):
+    from pinot_tpu_torch.mse import device_join
+    from pinot_tpu_torch.ops import join_pipeline as jp
+
+    rng = np.random.default_rng(8)
+    cols = [rng.integers(-1 << 30, 1 << 30, 1 << 20).astype(np.int32),
+            rng.integers(0, 1 << 40, 1 << 20).astype(np.int64)]
+    idx = rng.integers(0, 1 << 20, 3 << 18)
+    got = jp.gather_stack(cols, idx, len(idx), 1 << 20, cuda).cpu().numpy()
+    want = jp.gather_stack(cols, idx, len(idx), 1 << 20, "cpu").numpy()
+    assert np.array_equal(got, want)
+    lk = _skewed_keys(rng, (1 << 20) - 1)[::3]
+    rk = _skewed_keys(rng, 1 << 18)[::7]
+    for max_out in (5_000_000, 100_000):
+        g = device_join.device_join_indices(lk, rk, max_out, cuda)
+        w = device_join.device_join_indices(lk, rk, max_out, "cpu")
+        assert g[2] == w[2]
+        assert np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+    payload = {"a": cols[0], "b": cols[1]}
+    g = device_join.gather_payload(payload, idx, cuda)
+    for name, v in payload.items():
+        assert np.array_equal(g[name], v[idx])
+
+
+def test_q8_shape_on_the_card_matches_cpu(cuda, tmp_path):
+    """The bench's q8 statement end to end: leaves on the selection bitmap,
+    the fused join stage on the card, one host crossing."""
+    rng = np.random.default_rng(12)
+    n = 1 << 20
+    cols = {"lo_orderkey": rng.integers(0, n // 8, n).astype(np.int32),
+            "lo_quantity": rng.integers(1, 51, n).astype(np.int32),
+            "lo_discount": rng.integers(0, 11, n).astype(np.int32),
+            "d_year": rng.integers(1992, 1999, n).astype(np.int32),
+            "lo_revenue": rng.integers(1, 600_000, n).astype(np.int32)}
+    schema = Schema.build("ssb", dimensions=[
+        ("lo_orderkey", "INT"), ("lo_quantity", "INT"),
+        ("lo_discount", "INT"), ("d_year", "INT")],
+        metrics=[("lo_revenue", "INT")])
+    cfg = TableConfig(table_name="ssb", indexing=IndexingConfig(
+        no_dictionary_columns=["lo_orderkey", "lo_revenue"]))
+    segs = []
+    for i in range(2):
+        sl = slice(i * n // 2, (i + 1) * n // 2)
+        SegmentBuilder(schema, cfg, f"q8_{i}").build(
+            {k: v[sl] for k, v in cols.items()}, tmp_path / f"q8_{i}")
+        segs.append(load_segment(tmp_path / f"q8_{i}"))
+    sql = ("SET useMultistageEngine = true; SET deviceJoin = true; "
+           "SELECT a.d_year, COUNT(*), SUM(b.lo_revenue) FROM ssb a "
+           "JOIN ssb b ON a.lo_orderkey = b.lo_orderkey "
+           "WHERE a.lo_quantity < 3 AND b.lo_discount = 0 "
+           "GROUP BY a.d_year ORDER BY a.d_year LIMIT 100")
+    got, want = [], []
+    for device, out in ((cuda, got), ("cpu", want)):
+        qe = QueryExecutor(device=device)
+        qe.add_table(schema, segs)
+        resp = qe.execute_sql(sql)
+        assert not resp.exceptions, resp.exceptions
+        fused = [st for st in resp.mse_stage_stats.values()
+                 if st["join_impl"]]
+        assert [st["join_impl"] for st in fused] == ["device-fused"]
+        assert [st["host_crossings"] for st in fused] == [1]
+        out.extend(resp.result_table.rows)
+    assert got == want and len(got) == 7

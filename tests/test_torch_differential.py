@@ -448,3 +448,73 @@ def test_random_star_tree_query_matches_jax(index_tables, sql):
     assert [r.rewrite is not None for r in routes] == [True, True, False,
                                                        True]
     _assert_matches_jax(*index_tables, sql)
+
+
+# -- multi-stage statements --------------------------------------------------
+# joins (the fused device join forced on or off), IN / NOT IN subqueries,
+# set operations, windows and derived tables over the first table; rows
+# equal to the JAX package's multi-stage engine exactly (integer-gated on
+# the device path, the same numpy operators elsewhere), with the same
+# scanned docs and device dispatches
+
+def _dj(r):
+    return f"SET deviceJoin = {['true', 'false'][r.integers(0, 2)]}; "
+
+
+def _years(r):
+    return int(r.integers(1992, 1999))
+
+
+MSE_TEMPLATES = [
+    lambda r: (f"{_dj(r)}SELECT a.d_year, COUNT(*), SUM(b.lo_revenue), "
+               f"MIN(b.lo_revenue), MAX(a.lo_revenue) FROM d a JOIN d b "
+               f"ON a.p_brand = b.p_brand WHERE a.lo_revenue < "
+               f"{r.integers(0, 500)} AND b.d_year = {_years(r)} AND "
+               f"b.lo_revenue < {r.integers(0, 1500)} GROUP BY a.d_year "
+               f"ORDER BY a.d_year"),
+    lambda r: (f"{_dj(r)}SELECT a.d_year, COUNT(*), SUM(b.lo_revenue) "
+               f"FROM d a LEFT JOIN d b ON a.p_brand = b.p_brand AND "
+               f"b.d_year = {_years(r)} AND b.lo_revenue < "
+               f"{r.integers(0, 400)} WHERE a.lo_revenue < "
+               f"{r.integers(0, 400)} GROUP BY a.d_year ORDER BY a.d_year"),
+    lambda r: (f"{_dj(r)}SELECT d_year, COUNT(*), SUM(lo_revenue) FROM d "
+               f"WHERE lo_revenue < {r.integers(0, 2000)} AND p_brand "
+               f"{['IN', 'NOT IN'][r.integers(0, 2)]} (SELECT p_brand FROM d "
+               f"WHERE d_year = {_years(r)} AND lo_qty < "
+               f"{r.integers(0, 4)}) GROUP BY d_year ORDER BY d_year"),
+    lambda r: (f"SELECT p_brand FROM d WHERE d_year = {_years(r)} AND "
+               f"lo_revenue < {r.integers(0, 900)} "
+               f"{['UNION', 'UNION ALL', 'INTERSECT', 'EXCEPT'][r.integers(0, 4)]}"
+               f" SELECT p_brand FROM d WHERE lo_revenue < "
+               f"{r.integers(-500, 0)} ORDER BY p_brand LIMIT 100"),
+    lambda r: (f"SELECT lo_orderkey, p_brand, RANK() OVER (PARTITION BY "
+               f"p_brand ORDER BY lo_revenue DESC), SUM(lo_revenue) OVER "
+               f"(PARTITION BY p_brand) FROM d WHERE d_year = {_years(r)} AND "
+               f"lo_revenue < {r.integers(0, 600)} ORDER BY lo_orderkey "
+               f"LIMIT 60"),
+    lambda r: (f"SELECT t.p_brand, t.s, y.n FROM (SELECT p_brand, d_year, "
+               f"SUM(lo_revenue) AS s FROM d WHERE lo_qty < "
+               f"{r.integers(1, 6)} GROUP BY p_brand, d_year) t JOIN (SELECT "
+               f"d_year, COUNT(*) AS n FROM d GROUP BY d_year) y ON "
+               f"t.d_year = y.d_year WHERE t.d_year = {_years(r)} "
+               f"ORDER BY t.p_brand"),
+]
+
+
+@pytest.mark.parametrize("sql", _queries(MSE_TEMPLATES, "m", 20261021, 8))
+def test_random_multistage_statement_matches_jax(tables, sql):
+    port, jax, _ = tables
+    sql = "SET resultCache = false; " + sql
+    want = jax.execute_sql(sql)
+    assert not want.exceptions, want.exceptions
+    got = port.execute_sql(sql)
+    assert not got.exceptions, got.exceptions
+    assert got.mse_stage_stats is not None
+    norm = [[None if isinstance(v, float) and math.isnan(v) else v
+             for v in row] for row in got.result_table.rows]
+    assert norm == [[None if isinstance(v, float) and math.isnan(v) else v
+                     for v in row] for row in want.result_table.rows]
+    assert got.result_table.schema.to_json() == \
+        want.result_table.schema.to_json()
+    assert got.num_docs_scanned == want.num_docs_scanned
+    assert got.num_device_dispatches == want.num_device_dispatches

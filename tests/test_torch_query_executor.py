@@ -203,10 +203,21 @@ def test_cpu_run_launches_no_kernel(tables):
     # PERCENTILE over a raw column: the JAX package's host engine
     f"SELECT d_year, PERCENTILE(lo_revenue, 50) FROM {TABLE} GROUP BY d_year",
     f"SELECT lo_revenue, COUNT(*) FROM {TABLE} GROUP BY lo_revenue",
-    f"SELECT a.d_year FROM {TABLE} a JOIN {TABLE} b ON a.p_brand = b.p_brand",
     f"SELECT d_year, SUMMV(lo_revenue) FROM {TABLE} GROUP BY d_year",
     f"SELECT d_year, EXPRMIN(lo_revenue, lo_tax) FROM {TABLE} GROUP BY d_year",
 ])
 def test_unported_shapes_raise(tables, sql):
     with pytest.raises(UnsupportedQueryError):
         tables[0].execute_sql(sql)
+
+
+def test_join_is_answered_by_the_multistage_engine(tables):
+    """A JOIN goes to the multi-stage engine (mse/), as in the JAX package:
+    the same rows."""
+    sql = (f"SELECT a.s_region, COUNT(*), SUM(b.lo_revenue) FROM {TABLE} a "
+           f"JOIN {TABLE} b ON a.p_brand = b.p_brand WHERE a.d_year = 1993 "
+           "AND a.lo_quantity < 5 AND b.lo_discount = 0 GROUP BY a.s_region")
+    got = tables[0].execute_sql(sql)
+    want = tables[1].execute_sql(sql)
+    assert not want.exceptions and got.mse_stage_stats
+    assert sorted(got.result_table.rows) == sorted(want.result_table.rows)
