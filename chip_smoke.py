@@ -155,6 +155,24 @@ Phases, each printing one JSON line:
              mse_agg                            bench.py Q2 under SET
                  useMultistageEngine = true: the leaf partial aggregate runs
                  the single-stage family (kernel A), the final on the host
+  cache    the caches on (PINOT_TPU_SEGMENT_CACHE=1 and
+           PINOT_TPU_RESULT_CACHE=1 around this phase alone, both cleared
+           first; every other phase runs with both 0, so a warm run still
+           dispatches, launches and fetches as before the caches existed):
+           per case the cold run, the warm run's hits, misses, device
+           dispatches, host fetches and launches, the warm p50 cached and
+           with the cache opted out by SET, every run's rows against the
+           oracle and a hit's rows equal to the recompute's: q2_family (a
+           full hit: no dispatch, no fetch), a partial overlap of its
+           family (1 member cached, a new family of 3), q3 (the merged
+           sparse table, then the device-resident per-segment tables alone:
+           no dispatch, the device combine), rt_q2 after one more
+           generation (the 4 committed segments hit, the snapshot runs
+           kernel B), ups after overwrites of committed keys (the
+           committed segment misses: its validity plane is in the key; the
+           fingerprints' ms), q8 and mse_agg through the multi-stage result
+           cache (a hit: no dispatch), and mse_agg's leaf served by the
+           partial cache with the result cache off
   mse_layers
            per statement: parse + plan, the leaf stages, the join stage
            and the rest (shuffles, final aggregate, sort), host clock over
@@ -178,6 +196,13 @@ Phases, each printing one JSON line:
   chain    time_raw's MONTH(lo_commit_ts) chain alone over the family's raw
            plane: its time, the torch kernels it launches, the bytes they
            move against one fused pass's
+  oom      device-memory relief under torch.cuda.set_per_process_memory_
+           fraction: q4's 16 segments made cold, a cap a quarter of q4's
+           uploads above what is reserved, so q4 runs only after one relief
+           (rows equal to the oracle); then a cap 1 MiB above an emptied
+           card's reservation: q4 fails alone with HbmExhaustedError, and
+           q2_family answers once the cap is lifted; the caps, the bytes
+           freed and the relief's ms
   geometry each kernel shape's launch geometry and the card's cluster
            occupancy
   total    the run's wall time, the build included
@@ -411,6 +436,9 @@ RT_GENERATIONS = (("g0", (1 << 22) - (1 << 15)), ("g1", 1 << 16),
                   ("g2", 1 << 10))
 UPS_ROWS, UPS_KEYS, UPS_OVERWRITE = 1 << 21, 1 << 20, 1 << 16
 UPS_STALE_EVERY = 64  # one row in 64 arrives older than every version
+# phase `cache`: rows fed to ssb_rt's consuming segment after the realtime
+# phase (a new generation), and ups overwrites of committed keys
+RT_NEXT_GENERATION, UPS_CACHE_OVERWRITE = 1 << 10, 1 << 10
 RT_QUERIES = {
     "rt_q1": Q1.replace("FROM ssb", f"FROM {RT_TABLE}"),
     "rt_q2": Q2.replace("FROM ssb", f"FROM {RT_TABLE}"),
@@ -1752,7 +1780,7 @@ def phase_realtime(args, torch, qe, tables, rt_base, interp, tmp, card):
     of UPS_OVERWRITE keys (visibility must flip). Each checked query's
     counts are set to 0 just before it and read just after; the phase sums
     them, and kernel A must have run. Returns the final rows of RT_QUERIES
-    and the phase's launches."""
+    and the phase's launches, and the tables' state for phase `cache`."""
     from pinot_tpu_torch.ops import _cuda
     from pinot_tpu_torch.realtime import device_plane
     from pinot_tpu_torch.segment.builder import SegmentBuilder
@@ -1829,7 +1857,8 @@ def phase_realtime(args, torch, qe, tables, rt_base, interp, tmp, card):
     if not 0 < gens["g1"]["delta_bytes"] < gens["g0"]["delta_bytes"] / 8:
         raise AssertionError(f"g1 shipped {gens['g1']['delta_bytes']} bytes "
                              f"against g0's {gens['g0']['delta_bytes']}")
-    final = rt_expected([rt_base, rt_partials(cols)])
+    live_parts = rt_partials(cols)
+    final = rt_expected([rt_base, live_parts])
     del cols, rows
 
     # -- ups: an upsert table of a committed and a consuming segment ------
@@ -1888,6 +1917,14 @@ def phase_realtime(args, torch, qe, tables, rt_base, interp, tmp, card):
         prev = got
         ups[label] = rec
     final["ups"] = want
+    # what phase `cache` feeds on: the consuming segments, the upsert
+    # manager and the oracle's columns of every ups row so far
+    state = {"live": live, "live_parts": [rt_base, live_parts],
+             "ups_mgr": mgr, "ups_committed": committed,
+             "ups_consuming": consuming, "ups_schema": uschema,
+             "ups_cols": {c: ucols[c][:UPS_ROWS + consuming.num_docs]
+                          for c in ("pk", "ts", "s_region", "d_year",
+                                    "lo_revenue")}}
     del ucols
     if launches["limb_sums"] == 0:
         raise AssertionError("the realtime path never launched limb_sums")
@@ -1896,7 +1933,317 @@ def phase_realtime(args, torch, qe, tables, rt_base, interp, tmp, card):
           "rt_plane_bytes": planes.nbytes(),
           "registry": device_plane.REALTIME_PLANES.stats(),
           "seconds": time.perf_counter() - t_phase})
-    return final, launches
+    return final, launches, state
+
+
+def _rows_equal(qname, resp, want, ordered) -> None:
+    got = [tuple(r) for r in resp.result_table.rows]
+    want = [tuple(r) for r in want]
+    if not ordered:
+        got, want = sorted(got), sorted(want)
+    if got != want:
+        bad = next((a, b) for a, b in zip(got + [None] * len(want),
+                                          want + [None] * len(got))
+                   if a != b)
+        raise AssertionError(f"cache {qname}: {len(got)} rows vs oracle "
+                             f"{len(want)}; first difference {bad}")
+
+
+def _cache_run(torch, qe, interp, sql):
+    """One run with its counts set to 0 just before it: (response, ms,
+    record)."""
+    from pinot_tpu_torch.ops import _cuda
+
+    _cuda.reset_launches()
+    fetch0 = interp.host_fetches()
+    resident = qe.executor.cache.bytes_used()
+    with recording(interp, "combine_sparse_group_tables") as merged:
+        t0 = time.perf_counter()
+        resp = qe.execute_sql(sql)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    if resp.exceptions:
+        raise AssertionError(f"cache: {resp.exceptions}")
+    return resp, ms, {
+        "hits": resp.num_segments_cache_hit,
+        "misses": resp.num_segments_cache_miss,
+        "cache_outcome": resp.cache_outcome,
+        "device_dispatches": resp.num_device_dispatches,
+        "host_fetches": interp.host_fetches() - fetch0,
+        "device_combines": len(merged),
+        "launches": {k: v for k, v in _cuda.LAUNCHES.items() if v},
+        "uploaded_bytes": qe.executor.cache.bytes_used() - resident}
+
+
+def phase_cache(args, torch, qe, expected, interp, state, card) -> dict:
+    """The caches on (PINOT_TPU_SEGMENT_CACHE=1, PINOT_TPU_RESULT_CACHE=1
+    around this phase, both cleared first). Per case: the cold run, the
+    warm run's counts (hits, misses, device dispatches, host fetches,
+    launches), the warm p50 cached and with the cache opted out by SET, and
+    every run's rows against the oracle (a hit's rows equal the
+    recompute's). q2_family: a full hit; q3: the merged sparse table, then
+    the device tier alone; a partial overlap of q2_family's family (one
+    member cached, the other three a new family of three); rt_q2 after one
+    more generation (the committed segments hit, the snapshot dispatches
+    kernel B); ups after overwrites of committed keys (the committed
+    segment misses: its validity plane is in the key), with the
+    fingerprint's time; q8 and mse_agg through the result cache, and
+    mse_agg's leaf through the partial cache with the result cache off.
+    Returns the oracle rows of the realtime queries at their new state."""
+    import pinot_tpu_torch.engine.query_executor as qx
+    from pinot_tpu_torch.cache.keys import program_fingerprint
+    from pinot_tpu_torch.cache.partial import GLOBAL_PARTIAL_CACHE
+    from pinot_tpu_torch.realtime import device_plane
+
+    t_phase = time.perf_counter()
+    os.environ["PINOT_TPU_SEGMENT_CACHE"] = "1"
+    os.environ["PINOT_TPU_RESULT_CACHE"] = "1"
+    dcache, rcache = qe.executor.cache, qe.multistage.result_cache
+
+    def clear():
+        GLOBAL_PARTIAL_CACHE.clear()
+        dcache.drop_partials()
+        rcache.clear()
+
+    clear()
+    cases, slow = {}, SLOW_QUERY_MS
+
+    def case(name, sql, want, ordered, opt_out, warm_expect):
+        rec = {}
+        resp, rec["cold_ms"], rec["cold"] = _cache_run(torch, qe, interp, sql)
+        _rows_equal(name, resp, want, ordered)
+        cold_rows = resp.result_table.rows
+        resp, _, rec["warm"] = _cache_run(torch, qe, interp, sql)
+        _rows_equal(name, resp, want, ordered)
+        for k, v in warm_expect.items():
+            if rec["warm"][k] != v:
+                raise AssertionError(f"cache {name}: warm {k} "
+                                     f"{rec['warm'][k]}, want {v}")
+        for label, q in (("warm_p50_ms", sql),
+                         ("opted_out_p50_ms", opt_out + sql)):
+            ts = []
+            while len(ts) < (1 if ts and ts[0] > slow else args.iters):
+                r, ms, _ = _cache_run(torch, qe, interp, q)
+                ts.append(ms)
+            if r.result_table.rows != cold_rows:
+                raise AssertionError(f"cache {name}: {label} rows differ "
+                                     "from the cold run's")
+            rec[label] = float(np.median(ts))
+            rec[label[:-len("_p50_ms")] + "_runs"] = len(ts)
+        cases[name] = rec
+        return rec
+
+    seg_off, res_off = "SET segmentCache = false; ", "SET resultCache = false; "
+    full_hit = {"device_dispatches": 0, "host_fetches": 0}
+    case("q2_family", QUERIES["q2_family"], expected["q2_family"], False,
+         seg_off, {**full_hit, "hits": 4, "misses": 0})
+    # a partial overlap: one member cached, three dispatch as a new family
+    names = [s.name for s in qe.tables["ssb"].segments]
+    for n in names[1:]:
+        GLOBAL_PARTIAL_CACHE.invalidate_segment(n)
+    stacks0 = dcache.stats()["stackBytes"]
+    resp, ms, rec = _cache_run(torch, qe, interp, QUERIES["q2_family"])
+    _rows_equal("q2_family", resp, expected["q2_family"], False)
+    if (rec["hits"], rec["misses"], rec["device_dispatches"]) != (1, 3, 1):
+        raise AssertionError(f"cache q2_family overlap: {rec}")
+    rec.update(ms=ms, new_stack_bytes=dcache.stats()["stackBytes"] - stacks0)
+    cases["q2_family_overlap_3_of_4"] = rec
+
+    # the merged table may not fit the partial budget: then the warm run is
+    # served by the device tier (no dispatch, the device combine, a fetch)
+    rec = case("q3", QUERIES["q3"], expected["q3"], True, seg_off,
+               {"device_dispatches": 0, "hits": 4})
+    rec["partial_cache"] = GLOBAL_PARTIAL_CACHE.stats()
+    rec["merged_fits_budget"] = any(k[0] == "sparse_merged" for k in
+                                    GLOBAL_PARTIAL_CACHE._entries)
+    GLOBAL_PARTIAL_CACHE.clear()
+    resp, rec["device_tier_ms"], rec["device_tier"] = _cache_run(
+        torch, qe, interp, QUERIES["q3"])
+    _rows_equal("q3", resp, expected["q3"], True)
+    if (rec["device_tier"]["device_dispatches"],
+            rec["device_tier"]["device_combines"],
+            rec["device_tier"]["hits"]) != (0, 1, 4):
+        raise AssertionError(f"cache q3 device tier: {rec['device_tier']}")
+    rec["device_partials"] = dcache.stats()
+    if not all(t.device.type == dcache.device.type
+               for ent in dcache._partials.values() for t in ent[0]):
+        raise AssertionError("cache q3: a device-tier table left the card")
+
+    # rt_q2: cold and warm at the realtime phase's final state, then one
+    # more generation: the 4 committed segments hit, the snapshot misses
+    want = rt_expected(state["live_parts"])
+    case("rt_q2", RT_QUERIES["rt_q2"], want["rt_q2"], False, seg_off,
+         {**full_hit, "hits": 5})
+    extra = gen_ssb(RT_NEXT_GENERATION, args.seed + 6)
+    live, cnames = state["live"], list(extra)
+    for row in zip(*[extra[c].tolist() for c in cnames]):
+        live.index(dict(zip(cnames, row)))
+    state["live_parts"].append(rt_partials(extra))
+    want = rt_expected(state["live_parts"])
+    device_plane.reset_realtime_stats()
+    resp, ms, rec = _cache_run(torch, qe, interp, RT_QUERIES["rt_q2"])
+    _rows_equal("rt_q2", resp, want["rt_q2"], False)
+    if (rec["hits"], rec["misses"], rec["device_dispatches"],
+            rec["launches"].get("fused_limb_sums")) != (4, 1, 1, 1):
+        raise AssertionError(f"cache rt_q2 next generation: {rec}")
+    rec.update(ms=ms, rows_added=RT_NEXT_GENERATION,
+               delta_bytes=device_plane.realtime_stats()["deltaBytes"])
+    cases["rt_q2_next_generation"] = rec
+
+    # ups: overwrite keys of the committed segment; its key changes
+    mgr, consuming = state["ups_mgr"], state["ups_consuming"]
+    ucols = state["ups_cols"]
+    case("ups", RT_QUERIES["ups"], ups_expected(
+        ucols, ucols["pk"], ucols["ts"]), False, seg_off,
+        {**full_hit, "hits": 2})
+    over = gen_ssb(UPS_CACHE_OVERWRITE, args.seed + 7)
+    rng = np.random.default_rng(args.seed + 8)
+    over["pk"] = ucols["pk"][rng.integers(0, UPS_ROWS, UPS_CACHE_OVERWRITE)]
+    over["ts"] = np.arange(UPS_CACHE_OVERWRITE, dtype=np.int64) + \
+        int(ucols["ts"].max()) + 1
+    onames = list(over)
+    for row in zip(*[over[c].tolist() for c in onames]):
+        r = dict(zip(onames, row))
+        mgr.add_record(consuming, consuming.index(r), r)
+    ucols = {c: np.concatenate([ucols[c], over[c]]) for c in ucols}
+    fp_ms = []
+
+    def timed_fp(plan, query):
+        t0 = time.perf_counter()
+        out = program_fingerprint(plan, query)
+        fp_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    qx.program_fingerprint = timed_fp
+    try:
+        resp, ms, rec = _cache_run(torch, qe, interp, RT_QUERIES["ups"])
+    finally:
+        qx.program_fingerprint = program_fingerprint
+    _rows_equal("ups", resp, ups_expected(ucols, ucols["pk"], ucols["ts"]),
+                False)
+    if (rec["hits"], rec["misses"]) != (0, 2):
+        raise AssertionError(f"cache ups after overwrite: {rec}")
+    rec.update(ms=ms, overwrites=UPS_CACHE_OVERWRITE,
+               fingerprint_ms=fp_ms,
+               validity_rows=state["ups_committed"].num_docs)
+    cases["ups_after_overwrite"] = rec
+
+    # the multi-stage result cache, and the leaf's partial cache
+    for qname in ("q8", "mse_agg"):
+        case(qname, MSE_QUERIES[qname], expected[qname], qname != "mse_agg",
+             res_off, {"device_dispatches": 0, "cache_outcome": "hit"})
+    sql = res_off + MSE_QUERIES["mse_agg"]
+    resp, ms, rec = _cache_run(torch, qe, interp, sql)
+    _rows_equal("mse_agg", resp, expected["mse_agg"], False)
+    # (an MSE response carries no segment counts: no dispatch, no result
+    # cache, so the leaf was served by the partial cache)
+    if rec["device_dispatches"] != 0 or rec["cache_outcome"]:
+        raise AssertionError(f"cache mse_agg leaf: {rec}")
+    rec["ms"] = ms
+    cases["mse_agg_leaf_partial_hit"] = rec
+    stats = {"partial_cache": GLOBAL_PARTIAL_CACHE.stats(),
+             "device_cache": dcache.stats(), "result_cache": rcache.stats()}
+    clear()
+    os.environ["PINOT_TPU_SEGMENT_CACHE"] = "0"
+    os.environ["PINOT_TPU_RESULT_CACHE"] = "0"
+    emit({"phase": "cache", "card": card, "oracle": "equal", "cases": cases,
+          "stats": stats, "seconds": time.perf_counter() - t_phase})
+    final = rt_expected(state["live_parts"])
+    final["ups"] = ups_expected(ucols, ucols["pk"], ucols["ts"])
+    return final
+
+
+def fill_free_blocks(torch) -> list:
+    """Tensors that take the caching allocator's free blocks under the
+    current cap, largest chunks first: blocks freed inside segments that
+    still hold live tensors are not released by empty_cache, and a query
+    could run in them whatever the cap."""
+    ballast = []
+    for size in (64 << 20, 2 << 20, 512 << 10):
+        while True:
+            try:
+                ballast.append(torch.empty(size, dtype=torch.uint8,
+                                           device="cuda"))
+            except torch.cuda.OutOfMemoryError:
+                break
+    return ballast
+
+
+def phase_oom(torch, qe, expected, card) -> None:
+    """Device-memory relief under a per-process cap
+    (torch.cuda.set_per_process_memory_fraction). q4's 16 segments are made
+    cold (their planes dropped from the card); the cap leaves room for a
+    quarter of what q4 uploads beside everything still resident (the
+    allocator's free blocks taken, `fill_free_blocks`), so q4 cannot run
+    without eviction: one relief, rows equal to the oracle.
+    Then, everything evicted, a cap 1 MiB above what is allocated and the
+    allocator's free blocks taken (`fill_free_blocks`), below q4's own
+    need: it fails alone with HbmExhaustedError, and under the lifted cap
+    the next query answers. Prints the caps, the bytes freed and the
+    relief time."""
+    from pinot_tpu_torch.engine.oom import (HbmExhaustedError, oom_stats,
+                                            reset_oom_stats)
+
+    dcache = qe.executor.cache
+    for s in qe.tables["ssb16"].segments:
+        dcache.drop(s)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"phase": "oom", "card": card, "total_memory": total}
+    try:
+        need = dcache.bytes_used()
+        qe.execute_sql(QUERIES["q4"])  # measures q4's uploads
+        need = dcache.bytes_used() - need
+        for s in qe.tables["ssb16"].segments:
+            dcache.drop(s)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        cap = torch.cuda.memory_reserved() + need // 4
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        ballast = fill_free_blocks(torch)
+        first_ballast = sum(b.numel() for b in ballast)
+        reset_oom_stats()
+        t0 = time.perf_counter()
+        resp = qe.execute_sql(QUERIES["q4"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ballast = None
+        _rows_equal("oom q4", resp, expected["q4"], False)
+        st = oom_stats()
+        if st["reliefs"] != 1 or st["failures"]:
+            raise AssertionError(f"oom: {st}")
+        out.update(q4_upload_bytes=need, cap_bytes=cap,
+                   first_ballast_bytes=first_ballast,
+                   fraction=cap / total, relieved=st, ms=ms,
+                   resident_after=dcache.bytes_used(),
+                   reserved_after=torch.cuda.memory_reserved())
+        dcache.evict_all_except(None)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        low = torch.cuda.memory_allocated() + (1 << 20)
+        torch.cuda.set_per_process_memory_fraction(low / total)
+        ballast = fill_free_blocks(torch)
+        reset_oom_stats()
+        try:
+            qe.execute_sql(QUERIES["q4"])
+        except HbmExhaustedError as e:
+            out.update(low_cap_bytes=low, failed_with=type(e).__name__,
+                       failing=oom_stats(),
+                       ballast_bytes=sum(b.numel() for b in ballast))
+        else:
+            raise AssertionError("oom: q4 answered under a cap below its "
+                                 "need")
+    finally:
+        ballast = None
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    t0 = time.perf_counter()
+    resp = qe.execute_sql(QUERIES["q2_family"])
+    torch.cuda.synchronize()
+    _rows_equal("oom next query", resp, expected["q2_family"], False)
+    out.update(next_query="q2_family", next_query_ms=(time.perf_counter()
+                                                      - t0) * 1e3)
+    emit(out)
 
 
 def _has_join(node) -> bool:
@@ -2736,6 +3083,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     os.environ["PINOT_TPU_MAX_ROWS_IN_JOIN"] = str(MAX_ROWS_IN_JOIN)
+    # every phase but `cache` runs uncached: a warm run must dispatch, so
+    # the launches, dispatches, fetches and p50s mean what they measured
+    # before the caches existed
+    os.environ["PINOT_TPU_SEGMENT_CACHE"] = "0"
+    os.environ["PINOT_TPU_RESULT_CACHE"] = "0"
 
     import torch
 
@@ -2837,7 +3189,7 @@ def main(argv=None) -> int:
         launches, per_query, results = phase_queries(torch, qe, expected,
                                                      _cuda, interp)
         phase_index_checks(qe, results, facts, dev["nvidia_smi"])
-        rt_final, rt_launches = phase_realtime(
+        rt_final, rt_launches, rt_state = phase_realtime(
             args, torch, qe, tables, rt_base, interp, tmp, dev["nvidia_smi"])
         # the realtime queries at their final state join every later phase
         QUERIES.update(RT_QUERIES)
@@ -2848,6 +3200,9 @@ def main(argv=None) -> int:
         per_query.update(rt_per_query)
         mse = phase_mse(torch, qe, expected, _cuda, interp, mxu_groupby,
                         args.iters, dev["nvidia_smi"])
+        expected.update(phase_cache(args, torch, qe, expected, interp,
+                                    rt_state, dev["nvidia_smi"]))
+        del rt_state
         planes, gid, G = mse["agg_recs"][0]
         parity["limb_sums/mse_agg_inputs/family"] = check_equal(
             torch, f"limb_sums mse_agg inputs, family of {planes.shape[0]}",
@@ -2968,6 +3323,7 @@ def main(argv=None) -> int:
         phase_layers(torch, qe, args.iters, dev["nvidia_smi"], slow)
         phase_profile(torch, qe, dev["nvidia_smi"], slow)
         phase_chain(torch, qe, interp, dev["nvidia_smi"])
+        phase_oom(torch, qe, expected, dev["nvidia_smi"])
         del qe
         torch.cuda.empty_cache()
         kernels = []

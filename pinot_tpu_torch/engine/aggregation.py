@@ -45,6 +45,14 @@ class UnsupportedQueryError(Exception):
     other engine to answer it: the query fails with this error."""
 
 
+class MultistageRefusal(UnsupportedQueryError):
+    """A query-level shape the single-stage engine refuses and the
+    multi-stage engine answers (a selection ORDER BY on an unselected
+    column, a HAVING predicate the broker reduce does not evaluate):
+    `QueryExecutor.execute_sql` retries these there, as the reference's
+    engine selection does."""
+
+
 @dataclass
 class AggSemantics:
     """Cross-segment merge + broker finalize for one aggregation function."""

@@ -48,7 +48,8 @@ from ..segment.loader import ImmutableSegment
 from ..spi.data_types import DataType
 from . import ir
 from .aggregation import (DENSE_GROUP_LIMIT, AggPlanContext, LoweredAgg,
-                          UnsupportedQueryError, lower_aggregation)
+                          MultistageRefusal, UnsupportedQueryError,
+                          lower_aggregation)
 from .host_masks import eval_host_mask, eval_map_index_predicate
 from .selection import selection_columns_for
 
@@ -893,8 +894,15 @@ class SegmentPlanner(AggPlanContext):
         evaluate on the host over the filtered doc ids only, through the
         registry's numpy forms (query/transforms.py eval_expr_np); COALESCE
         or a multi-value column (the array functions included) raises (the
-        JAX package answers those on its host engine)."""
+        JAX package answers those on its host engine); an ORDER BY on an
+        unselected column raises MultistageRefusal, before any dispatch
+        (`execute_sql` retries it on the multi-stage engine)."""
         sel_cols, sel_exprs = selection_columns_for(self.query, self.segment)
+        for ob in self.query.order_by_expressions:
+            if ob.expression.is_identifier \
+                    and ob.expression.identifier not in sel_cols:
+                raise MultistageRefusal(
+                    "selection ORDER BY must reference selected columns")
         for c in sel_cols:
             e = sel_exprs.get(c)
             if e is not None and not np_evaluable(e):

@@ -19,6 +19,15 @@ runs on the executor's device. There is no host engine
 behind it: a query shape this port does not lower raises
 UnsupportedQueryError, and any other failure raises as well.
 
+The segment partial cache (cache/partial.py, on by default as in the JAX
+package) serves a segment's aggregation or group-by partial it holds
+without a dispatch; keys are content-addressed (cache/keys.py: the plan's
+fingerprint and the segment's (name, crc), or a consuming snapshot's
+generation), so a changed segment, a new row or an upsert flip misses.
+`SET segmentCache = false` or PINOT_TPU_SEGMENT_CACHE=0 turns it off. A
+device OOM in a dispatch or the fetch relieves pressure once and retries
+(engine/oom.py); a second fails the query alone with HbmExhaustedError.
+
 `execute_sql` sends multi-stage statements (joins, IN / NOT IN subqueries,
 set operations, windows, CTEs; anything the single-stage parser rejects,
 and `SET useMultistageEngine = true`) to the multi-stage engine (mse/),
@@ -30,11 +39,13 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..cache.keys import program_fingerprint, segment_token
+from ..cache.partial import GLOBAL_PARTIAL_CACHE, partial_cache_enabled
 from ..ops import _cuda, kernels
 from ..ops.kernels import PackedOuts, fetch_packed_batch
 from ..query.context import QueryContext
@@ -46,7 +57,8 @@ from ..segment.device_cache import DeviceSegmentCache
 from ..segment.loader import ImmutableSegment
 from ..segment.startree import StarTreeRewrite, remap_states, try_rewrite
 from ..spi.data_types import Schema
-from .aggregation import UnsupportedQueryError, semantics_for
+from .aggregation import (MultistageRefusal, UnsupportedQueryError,
+                          semantics_for)
 from .combine import (combine_aggregation, combine_batched_aggregation,
                       combine_batched_dense, combine_group_arrays,
                       combine_group_by, combine_selection, trim_group_by)
@@ -54,13 +66,14 @@ from .dim_tables import register_dimension_table
 from .executor import (BatchFamilyMismatch, SegmentExecutor,
                        batch_family_key, dispatch_counters,
                        reset_dispatch_counters)
+from .oom import HbmExhaustedError, with_oom_retry
 from .pruner import SegmentPrunerService
 from .reduce import BrokerReducer
 from .results import (AggIntermediate, BrokerResponse, GroupArrays,
                       GroupByIntermediate, SelectionIntermediate)
 
 
-class ReduceRefused(UnsupportedQueryError):
+class ReduceRefused(MultistageRefusal):
     """The broker reduce refused a query-level shape (a reference to a
     column outside the group-by result, a HAVING predicate it does not
     evaluate): the single-stage refusals the reference's engine selection
@@ -76,11 +89,24 @@ def _opted_out(query: QueryContext, option: str) -> bool:
 class Pending:
     """What a query's dispatch left on the device: per-segment packs
     (index, PackedOuts), family packs (positions, PackedOuts), or the one
-    merged table of the sparse device combine."""
+    merged table of the sparse device combine; and the query's segment
+    partial-cache state, from dispatch to collect: the hits (index ->
+    intermediate, or the merged table's GroupArrays), the misses to insert
+    once collected ((index, key, segment name), or the merged table's key)
+    and the counts."""
 
     solo: list = field(default_factory=list)
     families: list = field(default_factory=list)
     merged: Optional[PackedOuts] = None
+    hits: dict = field(default_factory=dict)
+    inserts: list = field(default_factory=list)
+    merged_hit: Optional[GroupArrays] = None
+    merged_key: Optional[tuple] = None
+    cache_hits: int = 0
+    cache_misses: int = 0
+    # re-dispatches the packs above in order: the fetch's retry after
+    # device-memory relief (the packs' inputs may be freed stacks)
+    redispatch: Optional[Callable[[], list]] = None
 
 
 @dataclass
@@ -169,9 +195,12 @@ class QueryExecutor:
         engine for a statement the single-stage parser rejects and for
         `SET useMultistageEngine = true`; the single-stage engine
         otherwise, and the multi-stage engine's answer, where it has one,
-        for a shape the broker reduce refuses (ReduceRefused). A segment
-        planner's refusal stays a refusal: the reference answers those in
-        its single-stage host engine, which the port does not have."""
+        for a query-level shape the single-stage engine refuses
+        (MultistageRefusal: the broker reduce's ReduceRefused, and a
+        selection ORDER BY on an unselected column, refused while planning
+        so no dispatch is spent). A segment planner's other refusals stay
+        refusals: the reference answers those in its single-stage host
+        engine, which the port does not have."""
         try:
             query = parse_sql(sql)
         except SqlParseError:
@@ -180,7 +209,7 @@ class QueryExecutor:
             return self.multistage.execute_sql(sql)
         try:
             return self.execute(query)
-        except ReduceRefused:
+        except MultistageRefusal:
             mse = self.multistage.execute_sql(sql)
             if not mse.exceptions:
                 return mse
@@ -221,9 +250,12 @@ class QueryExecutor:
                             self.plan_segments(routes), t0)
 
     def run_planned(self, p: PlannedQuery) -> BrokerResponse:
-        """The running half of `execute`: dispatch every family and lone
-        segment (the device queue fills back to back), fetch all outputs
-        in one copy, collect, combine and reduce."""
+        """The running half of `execute`: serve what the segment partial
+        cache holds, dispatch every family and lone segment of the rest
+        (the device queue fills back to back), fetch all outputs in one
+        copy, collect (inserting the misses), combine and reduce. A device
+        OOM relieves pressure once and retries (engine/oom.py); a second
+        fails this query alone with HbmExhaustedError."""
         query = p.query
         reset_dispatch_counters()
         pending = self.dispatch_segments(query, p.routes, p.plans)
@@ -247,6 +279,8 @@ class QueryExecutor:
             num_device_dispatches=dispatch_counters(),
             num_groups_limit_reached=getattr(combined, "groups_trimmed",
                                              False),
+            num_segments_cache_hit=pending.cache_hits,
+            num_segments_cache_miss=pending.cache_misses,
         )
 
     def execute_selection_columnar(self, query: QueryContext):
@@ -289,9 +323,18 @@ class QueryExecutor:
         query, kept = planned.query, planned.kept
         names = [e.identifier for e in query.select_expressions]
         reset_dispatch_counters()
-        fetched = fetch_packed_batch(
-            [self.executor.dispatch_plan(seg, plan)
-             for seg, plan in zip(kept, planned.plans)])
+        ex = self.executor
+
+        def dispatch_all():
+            return [with_oom_retry(
+                lambda seg=seg, plan=plan: ex.dispatch_plan(seg, plan),
+                keep_segment=seg, cache=ex.cache)
+                for seg, plan in zip(kept, planned.plans)]
+
+        packs = dispatch_all()
+        fetched = with_oom_retry(
+            lambda: fetch_packed_batch(packs), cache=ex.cache,
+            retry_fn=lambda: fetch_packed_batch(dispatch_all()))
         parts: dict[str, list] = {c: [] for c in names}
         scanned = 0
         remaining = max(0, int(query.limit))
@@ -359,43 +402,105 @@ class QueryExecutor:
         it applies, else one dispatch per batch family (a family of one,
         or one that turns out to mismatch, dispatches alone, with the
         fused kernel where it applies). `query` is the query as sent: its
-        options decide the batching."""
+        options decide the batching and the cache. With the segment
+        partial cache on, a segment it holds fills its intermediate and
+        never reaches dispatch; the families form over the rest."""
         segments = [r.segment for r in routes]
+        cache_on = bool(routes) and self._segment_cache_enabled(query)
         if len(segments) > 1 and all(r.rewrite is None for r in routes):
-            merged = self._sparse_device_combine(query, segments, plans)
+            merged = self._sparse_device_combine(query, segments, plans,
+                                                 cache_on)
             if merged is not None:
-                return Pending(merged=merged)
+                return merged
         ex = self.executor
         pending = Pending()
-        for fkey, positions in self._batch_families(query, segments, plans):
+        todo = list(range(len(routes)))
+        if cache_on:
+            todo = []
+            for i, (r, plan) in enumerate(zip(routes, plans)):
+                key = self._partial_cache_key(r, plan)
+                hit = None if key is None else GLOBAL_PARTIAL_CACHE.get(key)
+                if hit is not None:
+                    pending.hits[i] = hit
+                    pending.cache_hits += 1
+                    continue
+                if key is not None:
+                    pending.inserts.append(
+                        (i, key, getattr(r.segment, "name", "?")))
+                    pending.cache_misses += 1
+                todo.append(i)
+        for fkey, positions in self._batch_families(
+                query, [segments[i] for i in todo], [plans[i] for i in todo]):
+            positions = [todo[p] for p in positions]
             if fkey is not None and len(positions) > 1:
                 try:
-                    pack = ex.dispatch_plan_batch(
-                        [segments[i] for i in positions],
-                        [plans[i] for i in positions])
-                except BatchFamilyMismatch:
-                    pass  # the host key over-grouped; members go alone
+                    pack = self._dispatch_family(segments, plans, positions)
+                except (BatchFamilyMismatch, HbmExhaustedError):
+                    # the host key over-grouped, or the [S, N] stacks do
+                    # not fit even after relief: the members go alone
+                    pass
                 else:
                     pending.families.append((positions, pack))
                     continue
             for i in positions:
-                pending.solo.append((i, ex.dispatch_plan(segments[i],
-                                                         plans[i])))
+                pending.solo.append((i, self._dispatch_one(segments[i],
+                                                           plans[i])))
+
+        def redispatch():
+            return ([ex.dispatch_plan(segments[i], plans[i])
+                     for i, _ in pending.solo]
+                    + [ex.dispatch_plan_batch([segments[i] for i in pos],
+                                              [plans[i] for i in pos])
+                       for pos, _ in pending.families])
+
+        pending.redispatch = redispatch
         return pending
+
+    def _dispatch_family(self, segments: list, plans: list, positions: list,
+                         raw: bool = False):
+        """One dispatch of a batch family, relieving device memory once on
+        an OOM (engine/oom.py)."""
+        ex = self.executor
+        run = ex.dispatch_plan_batch_raw if raw else ex.dispatch_plan_batch
+        return with_oom_retry(
+            lambda: run([segments[i] for i in positions],
+                        [plans[i] for i in positions]),
+            keep_segment=segments[positions[0]], cache=ex.cache)
+
+    def _dispatch_one(self, segment, plan, raw: bool = False):
+        """One segment's dispatch, relieving device memory once on an
+        OOM."""
+        ex = self.executor
+        run = ex.dispatch_plan_raw if raw else ex.dispatch_plan
+        return with_oom_retry(lambda: run(segment, plan),
+                              keep_segment=segment, cache=ex.cache)
 
     def collect_segments(self, routes: list, plans: list,
                          pending: Pending) -> list:
         """Fetch every output of the query to the host in ONE copy and
         decode the intermediates: families all members in one pass
         (engine/combine.py), lone segments one by one; a star-tree
-        member's states map back to the query's."""
+        member's states map back to the query's; cache hits as they came.
+        The misses' aggregation and group-by partials go into the segment
+        partial cache (selections bypass it)."""
+        if pending.merged_hit is not None:
+            return [pending.merged_hit]
+        ex = self.executor
         packs = ([pending.merged] if pending.merged is not None
                  else [p for _, p in pending.solo + pending.families])
-        fetched = fetch_packed_batch(packs)
+        fetched = with_oom_retry(
+            lambda: fetch_packed_batch(packs), cache=ex.cache,
+            retry_fn=lambda: fetch_packed_batch(pending.redispatch()))
         if pending.merged is not None:
-            return [self._merged_group_arrays(plans, fetched[0])]
-        ex = self.executor
+            ga = self._merged_group_arrays(plans, fetched[0])
+            if pending.merged_key is not None:
+                GLOBAL_PARTIAL_CACHE.put(
+                    pending.merged_key, ga,
+                    tuple(getattr(r.segment, "name", "?") for r in routes))
+            return [ga]
         inters: list = [None] * len(routes)
+        for i, hit in pending.hits.items():
+            inters[i] = hit
         for (i, _), outs in zip(pending.solo, fetched):
             inters[i] = ex.collect(routes[i].query, routes[i].segment,
                                    plans[i], outs)
@@ -412,9 +517,37 @@ class QueryExecutor:
                            for row, i in enumerate(positions)]
             for i, inter in zip(positions, batched):
                 inters[i] = inter
+        for i, key, name in pending.inserts:
+            # LIMIT makes a selection's rows order-dependent across
+            # segments, and its cost is the host's row work: not cached
+            if isinstance(inters[i], (AggIntermediate, GroupByIntermediate)):
+                GLOBAL_PARTIAL_CACHE.put(key, inters[i], (name,))
         return [inter if r.rewrite is None
                 else self._remap_star_tree(r.rewrite, inter)
                 for r, inter in zip(routes, inters)]
+
+    @staticmethod
+    def _segment_cache_enabled(query: QueryContext) -> bool:
+        """The segment partial cache is on by default; `SET segmentCache =
+        false` opts a query out (checked first, so an opted-out query
+        never fingerprints) and PINOT_TPU_SEGMENT_CACHE=0 turns it off."""
+        return not _opted_out(query, "segmentCache") \
+            and partial_cache_enabled()
+
+    @staticmethod
+    def _partial_cache_key(route: Route, plan) -> Optional[tuple]:
+        """(program fingerprint, segment token) of one routed segment, or
+        None where it cannot take part: a star-tree rewrite (its partial
+        is pre-remap, over a derived view), a segment without a crc, a
+        mutable object without a pinned generation, a plan without a
+        canonical encoding."""
+        if route.rewrite is not None:
+            return None
+        token = segment_token(route.segment)
+        if token is None:
+            return None
+        fp = program_fingerprint(plan, route.query)
+        return None if fp is None else (fp, token)
 
     @staticmethod
     def _remap_star_tree(rewrite: StarTreeRewrite, result):
@@ -450,7 +583,8 @@ class QueryExecutor:
                              "min": "min", "max": "max"}
 
     def _sparse_device_combine(self, query: QueryContext, segments: list,
-                               plans: list) -> Optional[PackedOuts]:
+                               plans: list, cache_on: bool
+                               ) -> Optional[Pending]:
         """Server-level merge ON THE DEVICE for multi-segment single-key
         sparse group-bys: dispatch every family (or segment), translate
         each key column to dictionary VALUE space on the device
@@ -461,7 +595,13 @@ class QueryExecutor:
         None otherwise, or under SET deviceCombine = false, and the query
         takes the per-segment collect and host merge. A DISTINCT bitmap has
         no device merge (its kind maps to None), so its queries take the
-        host merge."""
+        host merge.
+
+        Two cache tiers serve this path: the merged host GroupArrays in
+        the segment partial cache, keyed by the sorted member keys (a hit
+        is the whole query with no dispatch), and each member's value-space
+        table kept on the device (segment/device_cache.py `put_partial`),
+        so a member it holds skips its dispatch and feeds the merge."""
         if _opted_out(query, "deviceCombine"):
             return None
         p0 = plans[0].program
@@ -484,16 +624,61 @@ class QueryExecutor:
                         np.integer)
                     and all(la.vec is not None for la in pl.lowered_aggs)):
                 return None
-        ex = self.executor
+        pending = Pending()
+        keys = None
+        if cache_on:
+            keys = [self._partial_cache_key(Route(query, seg), pl)
+                    for seg, pl in zip(segments, plans)]
+            if all(k is not None for k in keys):
+                # sorted: the merge is order-insensitive, so any order of
+                # the same members hits
+                pending.merged_key = ("sparse_merged",) + tuple(sorted(keys))
+                hit = GLOBAL_PARTIAL_CACHE.get(pending.merged_key)
+                if hit is not None:
+                    pending.merged_hit = hit
+                    pending.cache_hits = len(segments)
+                    return pending
+        pending.merged = self._sparse_merge(query, segments, plans, kinds,
+                                            keys, pending)
+        pending.redispatch = lambda: [self._sparse_merge(
+            query, segments, plans, kinds, None, Pending())]
+        return pending
+
+    @staticmethod
+    def _owned(t: torch.Tensor) -> torch.Tensor:
+        """`t`, or a copy of it when it is a view into a larger buffer (a
+        family member's row): a cached table must not pin the family's
+        outputs, which the budget does not count."""
+        if t.untyped_storage().nbytes() == t.numel() * t.element_size():
+            return t
+        return t.clone()
+
+    def _sparse_merge(self, query: QueryContext, segments: list, plans: list,
+                      kinds: tuple, keys: Optional[list],
+                      pending: Pending) -> PackedOuts:
+        """The device half of `_sparse_device_combine`: each member's
+        value-space table from the device tier (`keys` given) or from its
+        family's (or its own) dispatch, kept in the tier on a miss, then
+        the merge and its pack. Counts hits and misses into `pending`."""
+        dcache = self.executor.cache
+        cached: dict = {}
+        if keys is not None:
+            for i, k in enumerate(keys):
+                if k is not None:
+                    tab = dcache.get_partial(("sparse_tab",) + k)
+                    if tab is not None:
+                        cached[i] = tab
         member_outs: list = [None] * len(segments)
         for fkey, positions in self._batch_families(query, segments, plans):
+            positions = [i for i in positions if i not in cached]
+            if not positions:
+                continue
             if fkey is not None and len(positions) > 1:
                 try:
-                    outs_b, views_b = ex.dispatch_plan_batch_raw(
-                        [segments[i] for i in positions],
-                        [plans[i] for i in positions])
-                except BatchFamilyMismatch:
-                    pass  # the host key over-grouped; members go alone
+                    outs_b, views_b = self._dispatch_family(
+                        segments, plans, positions, raw=True)
+                except (BatchFamilyMismatch, HbmExhaustedError):
+                    pass  # the members go alone
                 else:
                     # members' rows of the family's outputs stay on the device
                     for row, i in enumerate(positions):
@@ -501,15 +686,29 @@ class QueryExecutor:
                                           views_b[row])
                     continue
             for i in positions:
-                member_outs[i] = ex.dispatch_plan_raw(segments[i], plans[i])
+                member_outs[i] = self._dispatch_one(segments[i], plans[i],
+                                                    raw=True)
         seg_keys, seg_counts, seg_states = [], [], []
-        for (outs, view), pl in zip(member_outs, plans):
-            seg_keys.append(kernels.ids_to_values_i64(
-                outs[-1], view.dict_values(pl.group_dims[0].column)))
-            seg_counts.append(outs[0])
-            seg_states.append(tuple(outs[1:-1]))
-        return kernels.pack_outputs(kernels.combine_sparse_group_tables(
-            seg_keys, seg_counts, seg_states, kinds))
+        for i, (seg, pl) in enumerate(zip(segments, plans)):
+            tab = cached.get(i)
+            if tab is not None:
+                pending.cache_hits += 1
+            else:
+                outs, view = member_outs[i]
+                tab = (kernels.ids_to_values_i64(
+                    outs[-1], view.dict_values(pl.group_dims[0].column)),
+                       outs[0]) + tuple(outs[1:-1])
+                if keys is not None and keys[i] is not None:
+                    dcache.put_partial(("sparse_tab",) + keys[i],
+                                       tuple(self._owned(t) for t in tab),
+                                       getattr(seg, "name", "?"))
+                    pending.cache_misses += 1
+            seg_keys.append(tab[0])
+            seg_counts.append(tab[1])
+            seg_states.append(tuple(tab[2:]))
+        return with_oom_retry(
+            lambda: kernels.pack_outputs(kernels.combine_sparse_group_tables(
+                seg_keys, seg_counts, seg_states, kinds)), cache=dcache)
 
     @staticmethod
     def _merged_group_arrays(plans: list, outs: list) -> GroupArrays:

@@ -8,11 +8,13 @@ over finalized values, any registered transform (ROUNDDECIMAL, DATETRUNC,
 string functions, ...) through its scalar form (query/transforms.py
 `eval_scalar`); selection rows re-sort by Python's stable sort, one pass
 per ORDER BY key from the last, and hidden ORDER BY-only columns are
-projected away.
+projected away. A GAPFILL query's rows are filled before OFFSET/LIMIT
+(engine/gapfill.py).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -24,6 +26,7 @@ from ..query.filter import FilterContext, FilterNodeType, Predicate, PredicateTy
 from ..query.transforms import eval_scalar
 from ..spi.data_types import Schema
 from .aggregation import UnsupportedQueryError, semantics_for
+from .gapfill import apply_gapfill, extract_gapfill
 from .plan import like_to_regex
 from .results import (
     AggIntermediate,
@@ -41,6 +44,17 @@ class BrokerReducer:
 
     def reduce(self, query: QueryContext, combined) -> ResultTable:
         if isinstance(combined, GroupByIntermediate):
+            spec = extract_gapfill(query)
+            if spec is not None:
+                # fill the full reduced group-by, then paginate (reference:
+                # GapfillProcessor runs before the limit applies)
+                full_query = copy.copy(query)
+                full_query.offset = 0
+                full_query.limit = 1 << 40
+                filled = apply_gapfill(
+                    self._reduce_group_by(full_query, combined), spec)
+                return ResultTable(filled.schema, filled.rows[
+                    query.offset: query.offset + query.limit])
             return self._reduce_group_by(query, combined)
         if isinstance(combined, AggIntermediate):
             return self._reduce_aggregation(query, combined)

@@ -56,6 +56,13 @@ class BrokerResponse:
     # stage_id -> {rows_in, rows_out, shuffled_rows, shuffled_bytes,
     # wall_ms, workers, leaf_pushdown, join_impl, host_crossings, ...}
     mse_stage_stats: Optional[dict] = None
+    # segment partial-result cache (cache/partial.py): kept segments served
+    # from the cache and kept segments computed and inserted
+    num_segments_cache_hit: int = 0
+    num_segments_cache_miss: int = 0
+    # multi-stage result cache (mse/executor.py): "hit", "miss", or "" when
+    # the statement bypassed it
+    cache_outcome: str = ""
 
     def to_json(self) -> dict:
         out = {
@@ -77,6 +84,9 @@ class BrokerResponse:
             out["numGroupsLimitReached"] = True
         if self.num_device_dispatches:
             out["numDeviceDispatches"] = self.num_device_dispatches
+        if self.num_segments_cache_hit or self.num_segments_cache_miss:
+            out["numSegmentsCacheHit"] = self.num_segments_cache_hit
+            out["numSegmentsCacheMiss"] = self.num_segments_cache_miss
         return out
 
 

@@ -14,7 +14,6 @@ from __future__ import annotations
 import numpy as np
 
 from ..query.transforms import eval_expr_np
-from .aggregation import UnsupportedQueryError
 from .results import SelectionIntermediate
 
 
@@ -45,9 +44,6 @@ def selection_from_mask(query, segment, columns: list[str], mask: np.ndarray,
         for ob in reversed(query.order_by_expressions):
             key = (ob.expression.identifier if ob.expression.is_identifier
                    else str(ob.expression))
-            if key not in idx:
-                raise UnsupportedQueryError(
-                    "selection ORDER BY must reference selected columns")
             arr = cols[idx[key]].tolist()
             order.sort(key=lambda i, _a=arr: _a[i], reverse=not ob.ascending)
         rows = [rows[i] for i in order[:cap]]

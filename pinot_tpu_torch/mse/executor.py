@@ -7,18 +7,25 @@ submitAndReduce) collapsed into one in-process entry point, the same
 topology the reference uses in its own in-process MSE tests
 (QueryRunnerTestBase).
 
-Not ported: the result cache (every statement recomputes; ``SET
-resultCache = false`` is accepted and changes nothing) and EXPLAIN
-ANALYZE with its stage spans (it raises UnsupportedQueryError).
+A statement's response is cached (cache/results.py, on by default as in
+the JAX package), keyed by the fingerprint of its stage DAG and the token
+of every segment its scans read (cache/keys.py), so a replaced segment
+misses; a statement over a consuming segment is not cached. A hit is the
+cached rows with no dispatch. `SET resultCache = false` or
+PINOT_TPU_RESULT_CACHE=0 turns it off. Not ported: EXPLAIN ANALYZE with
+its stage spans (it raises UnsupportedQueryError).
 """
 
 from __future__ import annotations
 
 import re
 import time
+from typing import Optional
 
 import numpy as np
 
+from ..cache.keys import mse_plan_fingerprint, segment_token
+from ..cache.results import BrokerResultCache, result_cache_enabled
 from ..engine.aggregation import UnsupportedQueryError
 from ..engine.results import BrokerResponse, DataSchema, ResultTable
 from .fragmenter import explain_stages, fragment
@@ -37,6 +44,32 @@ class MultistageExecutor:
     def __init__(self, query_executor, parallelism: int = 2):
         self.qe = query_executor
         self.parallelism = parallelism
+        # the executor lives as long as its QueryExecutor, so a warm repeat
+        # of a statement skips the runner entirely
+        self.result_cache = BrokerResultCache()
+
+    def _cache_key(self, stages, options) -> Optional[tuple]:
+        """(plan fingerprint, every scanned segment's (table,) + token,
+        sorted), or None: an unfingerprintable plan, a missing table, a
+        consuming or crc-less segment. Computed after the resultCache gate,
+        so an opted-out statement never fingerprints."""
+        fp = mse_plan_fingerprint(stages, options, self.parallelism)
+        if fp is None:
+            return None
+        toks = []
+        for st in stages:
+            if st.root is None:
+                continue
+            for scan in st.scans():
+                t = self.qe.tables.get(scan.table)
+                if t is None:
+                    return None
+                for seg in list(t.segments):
+                    tok = segment_token(seg)
+                    if tok is None:
+                        return None
+                    toks.append((scan.table,) + tok)
+        return (fp, tuple(sorted(toks)))
 
     # -- catalog -----------------------------------------------------------
     def _catalog(self) -> dict[str, list[str]]:
@@ -122,6 +155,18 @@ class MultistageExecutor:
             stages = self.plan(query)
             if query.explain is True:
                 return _plan_response(explain_stages(stages), t0)
+            cache_key = None
+            if query.explain is False and result_cache_enabled() \
+                    and not _option_false(query.options, "resultCache"):
+                cache_key = self._cache_key(stages, query.options)
+            if cache_key is not None:
+                cached = self.result_cache.get(cache_key)
+                if cached is not None:
+                    # the cached rows, no dispatch: restamp the shallow copy
+                    cached.cache_outcome = "hit"
+                    cached.num_device_dispatches = 0
+                    cached.time_used_ms = (time.perf_counter() - t0) * 1000
+                    return cached
             pop_join_overflow()  # clear any stale flag on this thread
             runner = StageRunner(
                 stages, self.parallelism, self.qe, self._read_table,
@@ -132,7 +177,7 @@ class MultistageExecutor:
                 # measured rows/bytes/time
                 return _plan_response(
                     explain_stages(stages, runner.stage_stats), t0)
-            return BrokerResponse(
+            resp = BrokerResponse(
                 result_table=_block_to_result(block, stages[0].root.schema),
                 num_docs_scanned=runner.stats["num_docs_scanned"],
                 total_docs=runner.stats["total_docs"],
@@ -143,8 +188,20 @@ class MultistageExecutor:
                 num_device_dispatches=runner.stats["num_device_dispatches"],
                 mse_stage_stats=runner.stage_stats,
                 time_used_ms=(time.perf_counter() - t0) * 1000)
+            if cache_key is not None:
+                resp.cache_outcome = "miss"
+                if not resp.partial_result:  # a truncated join is not kept
+                    self.result_cache.put(cache_key, resp)
+            return resp
         except Exception as e:
             return _error_response(e, t0)
+
+
+def _option_false(options: dict, name: str) -> bool:
+    for k, v in (options or {}).items():
+        if str(k).lower() == name.lower():
+            return v is False or str(v).lower() in ("0", "false", "off")
+    return False
 
 
 def _error_response(e: Exception, t0: float) -> BrokerResponse:

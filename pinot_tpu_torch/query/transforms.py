@@ -856,8 +856,8 @@ TRANSFORMS: dict[str, TransformDef] = {
         // MILLIS[str(b).upper()],
         _lower_timeconvert),
     "datetimeconvert": TransformDef(_np_datetimeconvert, _lower_datetimeconvert),
-    # gapfill markers (pinot_tpu/engine/gapfill.py): identity of arg0
-    # during execution; the reference's broker reads the other literals
+    # gapfill markers: identity of arg0 during execution; the broker
+    # reduce reads the other literals (engine/gapfill.py)
     "gapfill": TransformDef(lambda x, *rest: x, lambda B, a: B.v(a[0])),
     "fill": TransformDef(lambda x, *rest: x, lambda B, a: B.v(a[0])),
     "timestampadd": TransformDef(_np_timestampadd, _lower_timestampadd),

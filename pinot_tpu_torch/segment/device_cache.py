@@ -15,11 +15,18 @@ off for the CPU.
 A batch FAMILY of segments (engine/executor.py) reads `[S, ...]` stacks of
 its members' planes from a StackedSegmentView: derived copies, cached under
 the same byte budget and evicted wholesale before any member plane.
+
+Cached partials (`put_partial`: the sparse device combine's per-segment
+value-space tables, cache tier 2) stay on the device under the same
+budget. They are derived data too and evict first, before any stack or
+view. Under device-memory pressure `evict_all_except` sheds every partial,
+every stack and every view but the executing segment's (engine/oom.py).
 """
 
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -167,10 +174,12 @@ class StackedSegmentView:
     planes, cached here so repeated queries over the same family skip the
     stack copies. Narrow uint8/uint16 id planes stay narrow in the stack."""
 
-    def __init__(self, key: tuple):
+    def __init__(self, key: tuple, names: tuple = ()):
         # the members' id(segment)s in order; a consuming snapshot's member
         # is ("rt", name, snapshot_generation)
         self.key = key
+        # the members' names: a dropped segment finds its stacks by name
+        self.names = frozenset(str(n) for n in names)
         self._planes: dict[tuple, torch.Tensor] = {}
 
     def plane(self, plane_key: tuple, build) -> torch.Tensor:
@@ -190,12 +199,17 @@ class StackedSegmentView:
         self._planes.clear()
 
 
+def _tensor_bytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
 class DeviceSegmentCache:
     """Segment -> device-view cache with byte-budget LRU eviction: while
-    the resident bytes exceed `budget_bytes`, the least recently used
-    family stacks go first (derived data: a stack rebuilds from its
-    members' planes without an upload), then the least recently used
-    views; never the entry just touched."""
+    the resident bytes exceed `budget_bytes`, cached partials go first
+    (any of them, the newest too: a miss costs one dispatch), then the
+    least recently used family stacks (derived data: a stack rebuilds from
+    its members' planes without an upload), then the least recently used
+    views; never the stack or view just touched."""
 
     def __init__(self, device, budget_bytes: Optional[int] = None):
         self.device = torch.device(device)
@@ -204,6 +218,10 @@ class DeviceSegmentCache:
         self._order: list[int] = []  # LRU, most recent last
         self._stacks: dict[tuple, StackedSegmentView] = {}
         self._stack_order: list[tuple] = []  # LRU, most recent last
+        # key -> (tensors, nbytes, segment name); LRU, most recent last
+        self._partials: OrderedDict[tuple, tuple] = OrderedDict()
+        self.partial_hits = 0
+        self.partial_misses = 0
         self.evictions = 0
         self._lock = threading.Lock()
 
@@ -232,13 +250,15 @@ class DeviceSegmentCache:
         bytes)."""
         members = []
         rt_names = set()
+        names = tuple(getattr(s, "name", "") for s in segments)
         for s in segments:
             if not getattr(s, "is_mutable", False):
                 members.append(id(s))
                 continue
             gen = getattr(s, "snapshot_generation", None)
             if gen is None:
-                return StackedSegmentView(tuple(id(m) for m in segments))
+                return StackedSegmentView(tuple(id(m) for m in segments),
+                                          names)
             rt_names.add(str(s.name))
             members.append(("rt", str(s.name), gen))
         key = tuple(members)
@@ -252,7 +272,7 @@ class DeviceSegmentCache:
                     self.evictions += 1
             sv = self._stacks.get(key)
             if sv is None:
-                sv = self._stacks[key] = StackedSegmentView(key)
+                sv = self._stacks[key] = StackedSegmentView(key, names)
             if key in self._stack_order:
                 self._stack_order.remove(key)
             self._stack_order.append(key)
@@ -290,19 +310,157 @@ class DeviceSegmentCache:
                     n += 1
         return n
 
+    # -- device-resident cached partials (cache tier 2) ---------------------
+    def put_partial(self, key: tuple, tensors: tuple,
+                    segment_name: str) -> None:
+        """Keep a cached partial (a tuple of device tensors: a sparse group
+        table's keys, counts and state columns) against the byte budget.
+        A partial larger than the whole budget is not kept."""
+        nbytes = sum(_tensor_bytes(t) for t in tensors)
+        with self._lock:
+            if self.budget_bytes is not None and nbytes > self.budget_bytes:
+                return
+            old = self._partials.pop(key, None)
+            self._partials[key] = (tuple(tensors), nbytes, str(segment_name))
+            if old is None:
+                self._maybe_evict()
+
+    def get_partial(self, key: tuple) -> Optional[tuple]:
+        with self._lock:
+            ent = self._partials.get(key)
+            if ent is None:
+                self.partial_misses += 1
+                return None
+            self._partials.move_to_end(key)
+            self.partial_hits += 1
+            return ent[0]
+
+    def drop_partials(self, segment_name: Optional[str] = None) -> int:
+        """Evict cached partials: all of them, or those derived from
+        `segment_name` (a segment replaced or deleted). Returns how many."""
+        with self._lock:
+            stale = [k for k, ent in self._partials.items()
+                     if segment_name is None or ent[2] == str(segment_name)]
+            for k in stale:
+                del self._partials[k]
+            self.evictions += len(stale)
+            return len(stale)
+
+    def drop(self, segment) -> None:
+        """Release a retired segment's device planes, every stack holding
+        it (by member id, or by name for a stack of an earlier incarnation
+        of it) and its cached partials."""
+        key = id(segment)
+        name = getattr(segment, "name", None)
+        with self._lock:
+            victims = 0
+            v = self._views.pop(key, None)
+            if v is not None:
+                v.evict()
+                victims += 1
+            if key in self._order:
+                self._order.remove(key)
+            for skey in [k for k, sv in self._stacks.items()
+                         if key in k
+                         or (name is not None and str(name) in sv.names)]:
+                self._stacks.pop(skey).evict()
+                self._stack_order.remove(skey)
+                victims += 1
+            if name is not None:
+                for pkey in [k for k, ent in self._partials.items()
+                             if ent[2] == str(name)]:
+                    del self._partials[pkey]
+                    victims += 1
+            self.evictions += victims
+
+    def drop_named(self, segment_name: str) -> int:
+        """Release every view, stack and partial derived from a segment of
+        this name, when the segment object is no longer in hand (views and
+        stacks are keyed by id(segment)). Returns the bytes freed."""
+        name = str(segment_name)
+        freed = victims = 0
+        with self._lock:
+            dead = [k for k, v in self._views.items()
+                    if str(getattr(v.segment, "name", "")) == name]
+            for key in dead:
+                v = self._views.pop(key)
+                freed += v.nbytes()
+                v.evict()
+                if key in self._order:
+                    self._order.remove(key)
+                victims += 1
+            dead_ids = set(dead)
+            for skey in [k for k, sv in self._stacks.items()
+                         if name in sv.names or dead_ids.intersection(k)]:
+                sv = self._stacks.pop(skey)
+                freed += sv.nbytes()
+                sv.evict()
+                self._stack_order.remove(skey)
+                victims += 1
+            for pkey in [k for k, ent in self._partials.items()
+                         if ent[2] == name]:
+                freed += self._partials.pop(pkey)[1]
+                victims += 1
+            self.evictions += victims
+        return freed
+
+    def evict_all_except(self, keep_segment=None) -> tuple[int, int]:
+        """Device-memory pressure relief (engine/oom.py): evict every
+        cached partial, then every stack, then every view but
+        `keep_segment`'s. Returns (bytes freed, victims)."""
+        keep_key = id(keep_segment) if keep_segment is not None else None
+        freed = victims = 0
+        with self._lock:
+            for _, nbytes, _ in self._partials.values():
+                freed += nbytes
+                victims += 1
+            self._partials.clear()
+            for sv in self._stacks.values():
+                freed += sv.nbytes()
+                sv.evict()
+                victims += 1
+            self._stacks.clear()
+            self._stack_order.clear()
+            for key in [k for k in self._views if k != keep_key]:
+                v = self._views.pop(key)
+                freed += v.nbytes()
+                v.evict()
+                self._order.remove(key)
+                victims += 1
+            self.evictions += victims
+        return freed, victims
+
+    def stats(self) -> dict:
+        """Resident bytes by kind, and the partial tier's counters."""
+        with self._lock:
+            return {"viewBytes": sum(v.nbytes() for v in self._views.values()),
+                    "stackBytes": sum(s.nbytes()
+                                      for s in self._stacks.values()),
+                    "partialEntries": len(self._partials),
+                    "partialBytes": sum(e[1] for e in self._partials.values()),
+                    "partialHits": self.partial_hits,
+                    "partialMisses": self.partial_misses,
+                    "evictions": self.evictions}
+
     def bytes_used(self) -> int:
         with self._lock:
             return (sum(v.nbytes() for v in self._views.values())
-                    + sum(s.nbytes() for s in self._stacks.values()))
+                    + sum(s.nbytes() for s in self._stacks.values())
+                    + sum(e[1] for e in self._partials.values()))
 
     def _maybe_evict(self) -> None:
         # caller holds self._lock. Planes upload (and stacks build) lazily
         # after view() / stacked_view(), so the budget is enforced on the
-        # next call of either.
+        # next call of either (or of put_partial).
         if self.budget_bytes is None:
             return
         total = (sum(v.nbytes() for v in self._views.values())
-                 + sum(s.nbytes() for s in self._stacks.values()))
+                 + sum(s.nbytes() for s in self._stacks.values())
+                 + sum(e[1] for e in self._partials.values()))
+        while total > self.budget_bytes and self._partials:
+            _, (_, freed, _) = self._partials.popitem(last=False)
+            total -= freed
+            self.evictions += 1
         while total > self.budget_bytes and len(self._stack_order) > 1:
             victim = self._stack_order.pop(0)
             total -= self._stacks[victim].nbytes()

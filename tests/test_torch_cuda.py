@@ -26,6 +26,8 @@ statement on the card equals the CPU executor's rows.
 
 from __future__ import annotations
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,16 @@ from pinot_tpu_torch.spi.data_types import Schema
 from pinot_tpu_torch.spi.table_config import IndexingConfig, TableConfig
 
 pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _caches_off(monkeypatch):
+    # the segment partial cache is process-wide: a CUDA and a CPU executor
+    # over one segment would share partials, and a repeat would dispatch
+    # nothing; these tests compare devices and count dispatches
+    # (the cache tests below turn both caches on for themselves)
+    monkeypatch.setenv("PINOT_TPU_SEGMENT_CACHE", "0")
+    monkeypatch.setenv("PINOT_TPU_RESULT_CACHE", "0")
 
 
 @pytest.fixture(autouse=True)
@@ -1170,3 +1182,166 @@ def test_q8_shape_on_the_card_matches_cpu(cuda, tmp_path):
         assert [st["host_crossings"] for st in fused] == [1]
         out.extend(resp.result_table.rows)
     assert got == want and len(got) == 7
+
+
+# -- the caches and device-memory relief on the card ---------------------------
+
+
+@pytest.fixture
+def caches_on(monkeypatch):
+    from pinot_tpu_torch.cache.partial import GLOBAL_PARTIAL_CACHE
+
+    monkeypatch.setenv("PINOT_TPU_SEGMENT_CACHE", "1")
+    monkeypatch.setenv("PINOT_TPU_RESULT_CACHE", "1")
+    GLOBAL_PARTIAL_CACHE.clear()
+    yield
+    GLOBAL_PARTIAL_CACHE.clear()
+
+
+SPARSE16 = ("SET sparseGroupBy = true; SELECT lo_orderkey, SUM(lo_revenue), "
+            "COUNT(*) FROM ssb16 GROUP BY lo_orderkey ORDER BY lo_orderkey "
+            "LIMIT 5000")
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT d_year, p_brand, SUM(lo_revenue), COUNT(*) FROM ssb16 "
+    "WHERE d_year > 1993 GROUP BY d_year, p_brand LIMIT 10000",
+    "SELECT p_brand, MIN(lo_revenue), MAX(lo_revenue), AVG(lo_revenue) "
+    "FROM ssb16 GROUP BY p_brand LIMIT 1000",
+    "SELECT COUNT(*), SUM(lo_revenue), MAX(lo_revenue) FROM ssb16",
+    SPARSE16,
+], ids=["dense", "minmax-avg", "agg", "sparse"])
+def test_cache_hit_equals_recompute_on_the_card(cuda, caches_on, table16,
+                                                sql):
+    """A hit's rows are the recompute's, bit for bit (floats compared with
+    ==), with no dispatch."""
+    schema, segs = table16
+    qe = QueryExecutor(device="cuda")
+    qe.add_table(schema, segs)
+    cold = qe.execute_sql(sql)
+    warm = qe.execute_sql(sql)
+    again = qe.execute_sql("SET segmentCache = false; " + sql)
+    assert (warm.num_segments_cache_hit, warm.num_device_dispatches) == \
+        (len(segs), 0)
+    assert again.num_device_dispatches > 0
+    assert warm.result_table.rows == cold.result_table.rows == \
+        again.result_table.rows
+
+
+def test_sparse_table_tier_stays_on_the_card(cuda, caches_on, table16):
+    """The device combine's per-segment tables are kept as CUDA tensors,
+    counted in the device cache's bytes, evicted first under its budget."""
+    from pinot_tpu_torch.cache.partial import GLOBAL_PARTIAL_CACHE
+
+    schema, segs = table16
+    qe = QueryExecutor(device="cuda")
+    qe.add_table(schema, segs)
+    cache = qe.executor.cache
+    cold = qe.execute_sql(SPARSE16)
+    st = cache.stats()
+    assert st["partialEntries"] == len(segs)
+    tensors = [t for ent in cache._partials.values() for t in ent[0]]
+    assert all(t.device.type == "cuda" for t in tensors)
+    assert st["partialBytes"] == sum(t.numel() * t.element_size()
+                                     for t in tensors)
+    assert cache.bytes_used() == st["viewBytes"] + st["stackBytes"] + \
+        st["partialBytes"]
+    GLOBAL_PARTIAL_CACHE.clear()
+    warm = qe.execute_sql(SPARSE16)
+    assert warm.num_device_dispatches == 0
+    assert warm.result_table.rows == cold.result_table.rows
+    # a budget the partials overflow: they go before any view or stack
+    cache.budget_bytes = st["viewBytes"] + st["stackBytes"] + \
+        st["partialBytes"] // 2
+    cache.view(segs[0])
+    after = cache.stats()
+    assert after["partialBytes"] <= st["partialBytes"] // 2
+    assert after["viewBytes"] == st["viewBytes"]
+
+
+def _raw_table(tmp_path, name, segments, rows, seed):
+    rng = np.random.default_rng(seed)
+    schema = Schema.build(name, dimensions=[("d_year", "INT")],
+                          metrics=[("m1", "INT"), ("m2", "INT")])
+    cfg = TableConfig(table_name=name, indexing=IndexingConfig(
+        no_dictionary_columns=["m1", "m2"]))
+    segs = []
+    for i in range(segments):
+        cols = {"d_year": rng.integers(1992, 1999, rows).astype(np.int32),
+                "m1": rng.integers(0, 1000, rows).astype(np.int32),
+                "m2": rng.integers(0, 1000, rows).astype(np.int32)}
+        SegmentBuilder(schema, cfg, f"{name}{i}").build(
+            cols, tmp_path / f"{name}{i}")
+        segs.append(load_segment(tmp_path / f"{name}{i}"))
+    return schema, segs
+
+
+def _fill_free_blocks():
+    """Tensors that take the caching allocator's free blocks under the
+    current cap (blocks inside segments that still hold live tensors,
+    which empty_cache cannot release): then the cap binds."""
+    ballast = []
+    for size in (64 << 20, 2 << 20, 512 << 10):
+        while True:
+            try:
+                ballast.append(torch.empty(size, dtype=torch.uint8,
+                                           device="cuda"))
+            except torch.cuda.OutOfMemoryError:
+                break
+    return ballast
+
+
+def test_capped_allocation_relieves_once_and_answers(cuda, tmp_path):
+    """Under a per-process cap a cold table cannot upload beside a resident
+    one: one relief evicts the resident planes and the query answers as on
+    the CPU. Under a cap below the query's own need it fails alone with
+    HbmExhaustedError, and answers again once the cap is lifted."""
+    from pinot_tpu_torch.engine.oom import (HbmExhaustedError, oom_stats,
+                                            reset_oom_stats)
+
+    # the resident planes (144 MB) free far more than one cold segment
+    # needs (9 MB of planes and the kernel's temporaries), and its planes
+    # need new blocks of the caching allocator past the cap; each segment
+    # dispatches alone (a family's stacks and temporaries can outgrow what
+    # relief frees: it then falls back to this path, phase `oom` of
+    # chip_smoke.py covers that seam)
+    resident = _raw_table(tmp_path, "res", 4, 1 << 22, 3)
+    cold = _raw_table(tmp_path, "cold", 4, 1 << 20, 4)
+    sql = ("SET segmentBatch = false; SELECT d_year, SUM(m1), SUM(m2), "
+           "COUNT(*) FROM cold GROUP BY d_year ORDER BY d_year")
+    cpu = QueryExecutor(device="cpu")
+    cpu.add_table(*cold)
+    want = cpu.execute_sql(sql).result_table.rows
+    qe = QueryExecutor(device="cuda")
+    qe.add_table(*resident)
+    qe.add_table(*cold)
+    for s in resident[1]:
+        qe.executor.cache.warm(s)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    try:
+        cap = torch.cuda.memory_reserved() + (4 << 20)
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        ballast = _fill_free_blocks()
+        reset_oom_stats()
+        got = qe.execute_sql(sql)
+        ballast = None
+        assert got.result_table.rows == want
+        assert (oom_stats()["reliefs"], oom_stats()["failures"]) == (1, 0)
+        assert oom_stats()["freedBytes"] >= 4 * 2 * (1 << 22) * 4
+        torch.cuda.empty_cache()
+        qe.executor.cache.evict_all_except(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(
+            (torch.cuda.memory_allocated() + (1 << 20)) / total)
+        ballast = _fill_free_blocks()
+        with pytest.raises(HbmExhaustedError):
+            qe.execute_sql(sql)
+        assert oom_stats()["failures"] >= 1
+    finally:
+        ballast = None
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    assert qe.execute_sql(sql).result_table.rows == want

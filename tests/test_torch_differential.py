@@ -69,6 +69,7 @@ DIM_KEYS = 35  # p_brand runs to 39: keys 35..39 are missing
 @pytest.fixture(autouse=True)
 def _jax_dispatches_every_query(monkeypatch):
     monkeypatch.setenv("PINOT_TPU_SEGMENT_CACHE", "0")
+    monkeypatch.setenv("PINOT_TPU_RESULT_CACHE", "0")
     monkeypatch.setenv("PINOT_TPU_MESH_DEVICES", "1")
     monkeypatch.setenv("PINOT_TPU_FUSED", "interpret")
 
@@ -299,6 +300,63 @@ def _assert_matches_jax(port, jax, sql):
     assert got.num_docs_scanned == want.num_docs_scanned
     assert got.num_segments_pruned == want.num_segments_pruned
     assert got.num_device_dispatches == want.num_device_dispatches
+
+
+# -- GAPFILL -----------------------------------------------------------------
+# yearly buckets of the day column over 1992-1998 (365-day buckets: a leap
+# year's DATETRUNC snaps onto the grid), years dropped by the filter left
+# as gaps to fill, with and without a series key
+
+_GAPFILL = ("gapfill(DATETRUNC('YEAR', ts), '694224000000', '915148800000', "
+            "'31536000000')")
+GAPFILL_TEMPLATES = [
+    lambda r: (f"SELECT {_GAPFILL}, fill(COUNT(*), 'FILL_PREVIOUS_VALUE'), "
+               f"fill(SUM(lo_revenue), 'FILL_DEFAULT_VALUE'), MAX(p_brand) "
+               f"FROM d WHERE YEAR(ts) NOT IN ({r.integers(1992, 1999)}, "
+               f"{r.integers(1992, 1999)}) AND p_brand < "
+               f"{r.integers(5, 41)} GROUP BY {_GAPFILL} "
+               f"LIMIT {r.integers(3, 12)}"),
+    lambda r: (f"SELECT {_GAPFILL}, d_year, fill(SUM(lo_revenue), "
+               f"'FILL_PREVIOUS_VALUE') FROM d WHERE d_year IN "
+               f"({r.integers(1992, 1999)}, {r.integers(1992, 1999)}) AND "
+               f"YEAR(ts) <> {r.integers(1992, 1999)} GROUP BY {_GAPFILL}, "
+               f"d_year LIMIT {r.integers(5, 20)}"),
+]
+
+
+@pytest.mark.parametrize("sql", _queries(GAPFILL_TEMPLATES, "g", 20261022, 6))
+def test_random_gapfill_query_matches_jax(tables, sql):
+    """Filled rows in the reference's order (time-major, then series), with
+    OFFSET/LIMIT applied after filling."""
+    port, jax, _ = tables
+    want = jax.execute_sql(sql)
+    assert not want.exceptions, want.exceptions
+    got = port.execute_sql(sql)
+    assert got.result_table.rows == want.result_table.rows
+    assert got.result_table.schema.to_json() == \
+        want.result_table.schema.to_json()
+    assert got.num_device_dispatches == want.num_device_dispatches
+
+
+# a selection ordered by a column it does not select: the single-stage
+# engine refuses it while planning and the multi-stage engine answers
+@pytest.mark.parametrize("sql,rows", [
+    ("SELECT lo_orderkey FROM d ORDER BY lo_revenue DESC, lo_orderkey "
+     "LIMIT 5", [[20], [100409], [302847], [301688], [300283]]),
+    ("SELECT lo_orderkey, d_year FROM d WHERE d_year = 1993 ORDER BY "
+     "p_brand, lo_orderkey LIMIT 3", None),
+])
+def test_order_by_unselected_column_matches_jax(tables, sql, rows):
+    port, jax, _ = tables
+    want = jax.execute_sql(sql)
+    assert not want.exceptions, want.exceptions
+    got = port.execute_sql(sql)
+    assert not got.exceptions and got.mse_stage_stats is not None
+    assert got.result_table.rows == want.result_table.rows
+    assert got.result_table.schema.to_json() == \
+        want.result_table.schema.to_json()
+    if rows is not None:
+        assert got.result_table.rows == rows
 
 
 # -- index predicates and star-tree GROUP BYs --------------------------------

@@ -195,7 +195,10 @@ SQLITE = {
 
 @pytest.fixture(autouse=True)
 def _jax_dispatches_every_query(monkeypatch):
+    # both packages' result caches off too: a repeated statement (a fault
+    # injected into a statement run before) must run its stages
     monkeypatch.setenv("PINOT_TPU_SEGMENT_CACHE", "0")
+    monkeypatch.setenv("PINOT_TPU_RESULT_CACHE", "0")
     monkeypatch.setenv("PINOT_TPU_MESH_DEVICES", "1")
     monkeypatch.setenv("PINOT_TPU_FUSED", "interpret")
 

@@ -154,6 +154,15 @@ def _assert_rows_equal(got, want, exact, ordered, label):
             (label, rg, rw)
 
 
+@pytest.fixture(autouse=True)
+def _caches_off(monkeypatch):
+    # the port's segment partial cache (on by default, as the JAX
+    # package's) would answer a repeated statement with no dispatch and no
+    # fetch: these tests count both
+    monkeypatch.setenv("PINOT_TPU_SEGMENT_CACHE", "0")
+    monkeypatch.setenv("PINOT_TPU_RESULT_CACHE", "0")
+
+
 @pytest.mark.parametrize("sql,exact,ordered", QUERIES)
 def test_execute_sql_matches_jax(tables, sql, exact, ordered, monkeypatch):
     port, jax_tpu, jax_host = tables

@@ -252,5 +252,38 @@ def test_selection_bitmap_matches_jax(tables, sql):
     "SELECT d_year FROM t ORDER BY lo_tax LIMIT 5",  # key not selected
 ])
 def test_unported_selection_shapes_raise(tables, sql):
+    """The single-stage path refuses both while planning (`execute_sql`
+    retries the second on the multi-stage engine, below)."""
     with pytest.raises(UnsupportedQueryError):
-        tables[0].execute_sql(sql)
+        tables[0].execute(parse_sql(sql))
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT lo_orderkey FROM t ORDER BY lo_revenue DESC, lo_orderkey LIMIT 5",
+    "SELECT lo_orderkey, d_year FROM t WHERE d_year = 1993 "
+    "ORDER BY s_region, lo_orderkey LIMIT 3",
+    "SELECT d_year FROM t ORDER BY lo_tax LIMIT 5",
+])
+def test_order_by_unselected_column_answers_on_the_mse(tables, sql,
+                                                       monkeypatch):
+    """A selection ordered by a column it does not select is refused while
+    planning and answered by the multi-stage engine, as the reference's
+    engine selection answers it: its rows and schema, and no dispatch spent
+    on the single-stage path (every dispatch made is the MSE leaves')."""
+    port, jax = tables
+    made = []
+    for name in ("dispatch_plan", "dispatch_plan_batch",
+                 "dispatch_plan_batch_raw", "dispatch_plan_raw"):
+        real = getattr(port.executor, name)
+        monkeypatch.setattr(port.executor, name,
+                            lambda *a, _r=real, _n=name, **k:
+                            made.append(_n) or _r(*a, **k))
+    want = jax.execute_sql(sql)
+    assert not want.exceptions, want.exceptions
+    got = port.execute_sql(sql)
+    assert not got.exceptions, got.exceptions
+    assert got.mse_stage_stats is not None
+    assert got.result_table.rows == want.result_table.rows
+    assert got.result_table.schema.to_json() == \
+        want.result_table.schema.to_json()
+    assert len(made) == got.num_device_dispatches
