@@ -173,6 +173,24 @@ Phases, each printing one JSON line:
            fingerprints' ms), q8 and mse_agg through the multi-stage result
            cache (a hit: no dispatch), and mse_agg's leaf served by the
            partial cache with the result cache off
+  coalesce cross-query coalescing of q2_family (both caches off), from 1,
+           2, 4, 8 and 16 client threads: a structure round per count (the
+           group closing when its N-th member joins: one dispatch and one
+           launch of kernel A for the N queries, each response saying
+           num_coalesced_queries N - 1; kernel A's group inputs recorded at
+           N = 8 and 16, S * Q = 32 and 64 members); then closed-loop
+           clients with PINOT_TPU_COALESCE_WINDOW_MS = 2 and MAX_QUERIES =
+           N, and with the window at 0, over identical SQL and over a mix
+           of region literals: p50 and p99 ms, queries/s, rows/s,
+           dispatches a query, groups formed, the [S*Q] plane bytes built;
+           every response's rows against the oracle
+  explain  EXPLAIN PLAN FOR and EXPLAIN IMPLEMENTATION FOR of q1, q2,
+           q2_family, q3, q5, sel_order, mv_group, st_q2, ix_text and rt_q2
+           on the card equal to a CPU executor's rows; EXPLAIN ANALYZE of
+           q2_family, q2 and q8: one family_dispatch span per dispatch of
+           the untraced run, each on cuda with deviceExecMs > 0, a traced
+           run's rows equal to the oracle's; an untraced warm q2_family
+           makes no synchronize, no span and one host fetch
   mse_layers
            per statement: parse + plan, the leaf stages, the join stage
            and the rest (shuffles, final aggregate, sort), host clock over
@@ -228,6 +246,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import multiprocessing
 import os
@@ -854,6 +873,15 @@ def oracle(cols: dict) -> dict:
     occ = np.nonzero(cnt)[0]
     out["q2"] = [[int(1992 + k // 1000), int(k % 1000), float(sums[0][k])]
                  for k in occ]
+    for region in REGIONS:  # phase coalesce's mixed literals
+        m = cols["s_region"] == region
+        rkey = ((year - 1992) * 1000 + brand)[m]
+        rsum = np.bincount(rkey, weights=rev[m].astype(np.float64),
+                           minlength=7000)
+        out[f"q2/{region}"] = [[int(1992 + k // 1000), int(k % 1000),
+                                float(rsum[k])]
+                               for k in np.nonzero(np.bincount(
+                                   rkey, minlength=7000))[0]]
     out["q2_unfused"] = out["q2"]
     out["q9"] = [[int(1992 + k // 1000), int(k % 1000), float(sums[0][k]),
                   float(sums[1][k]), float(sums[2][k])] for k in occ]
@@ -1140,9 +1168,9 @@ def dispatch_rows(ex):
         cur[:] = [segment.num_docs]
         return solo(segment, plan)
 
-    def family(segments, plans):
-        cur[:] = [s.num_docs for s in segments]
-        return batch(segments, plans)
+    def family(segments, plans, repeat=1):
+        cur[:] = [s.num_docs for s in segments] * repeat
+        return batch(segments, plans, repeat)
 
     ex.dispatch_plan, ex.dispatch_plan_batch = one, family
     try:
@@ -2169,6 +2197,317 @@ def fill_free_blocks(torch) -> list:
     return ballast
 
 
+# -- coalescing and tracing ----------------------------------------------------
+
+# client threads of phase `coalesce`; each runs COALESCE_ITERS queries in
+# a closed loop
+COALESCE_CLIENTS = (1, 2, 4, 8, 16)
+COALESCE_ITERS = 16
+COALESCE_WINDOW_MS = "2"
+# the queries whose EXPLAIN rows on the card must equal the CPU executor's
+EXPLAIN_QUERIES = ("q1", "q2", "q2_family", "q3", "q5", "sel_order",
+                   "mv_group", "st_q2", "ix_text", "rt_q2")
+
+
+def _q2_region(region: str) -> str:
+    return QUERIES["q2_family"].replace("'ASIA'", f"'{region}'")
+
+
+def _clients(qe, sqls, iters, barrier_rounds):
+    """Run one client thread per SQL, each `iters` queries back to back
+    (with `barrier_rounds`, all released together for every query):
+    ([(sql, response, ms)], wall seconds)."""
+    import threading
+
+    barrier = threading.Barrier(len(sqls)) if barrier_rounds else None
+    out: list = [[] for _ in sqls]
+    errors: list = []
+
+    def client(i, sql):
+        try:
+            for _ in range(iters):
+                if barrier is not None:
+                    barrier.wait(timeout=120)
+                t0 = time.perf_counter()
+                resp = qe.execute_sql(sql)
+                out[i].append((sql, resp, (time.perf_counter() - t0) * 1e3))
+        except Exception as e:  # raised below, on the main thread
+            errors.append(e)
+            if barrier is not None:
+                barrier.abort()
+
+    threads = [threading.Thread(target=client, args=(i, s))
+               for i, s in enumerate(sqls)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return [r for rs in out for r in rs], wall
+
+
+def phase_coalesce(torch, qe, expected, mxu, card) -> dict:
+    """Cross-query coalescing (engine/coalesce.py) with both caches off:
+    q2_family from 1, 2, 4, 8 and 16 client threads. First a structure
+    round per count, the window long and the group closing when its N-th
+    member joins: one dispatch for the N queries, every response saying
+    num_coalesced_queries N - 1 (kernel A's inputs of the group recorded
+    at N = 8 and 16: S*Q = 32 and 64 members). Then, per count, closed-loop
+    clients with the window at COALESCE_WINDOW_MS and MAX_QUERIES = N, and
+    with the window at 0: p50 and p99 ms, queries/s, rows/s, dispatches a
+    query, groups formed and the [S*Q] bytes built; identical SQL (a
+    dashboard refreshed by N viewers), and the region literal varied across
+    clients (it rides as a param plane). Every response's rows equal the
+    numpy oracle's."""
+    from pinot_tpu_torch.engine.coalesce import FamilyTraffic, QueryCoalescer
+
+    t_phase = time.perf_counter()
+    table_rows = sum(s.num_docs for s in qe._table("ssb").segments)
+    want = {QUERIES["q2_family"]: sorted(map(tuple, expected["q2"]))}
+    for r in REGIONS:
+        want[_q2_region(r)] = sorted(map(tuple, expected[f"q2/{r}"]))
+
+    def check(runs):
+        for sql, resp, _ in runs:
+            if sorted(map(tuple, resp.result_table.rows)) != want[sql]:
+                raise AssertionError(f"coalesce: rows differ from the "
+                                     f"oracle for {sql}")
+
+    saved = {k: os.environ.get(k) for k in ("PINOT_TPU_COALESCE_WINDOW_MS",
+                                             "PINOT_TPU_COALESCE_MAX_QUERIES")}
+    coalescer = qe.coalescer
+    group_inputs, structure, timed = {}, {}, {}
+    # the script's own heap (the oracle rows above all) made a full
+    # collection take about 1 s, landing in about half of the timed runs:
+    # the heap is frozen out of the collector for the phase, as a server
+    # freezes its own after loading, and the pause it would cost is timed
+    t0 = time.perf_counter()
+    gc.collect()
+    full_collect_ms = (time.perf_counter() - t0) * 1e3
+    gc.freeze()
+    frozen = gc.get_freeze_count()
+    try:
+        for n in COALESCE_CLIENTS:
+            # structure: the group closes when full, never on the window
+            # (a lone client has no peer to wait for)
+            qe.coalescer = QueryCoalescer(FamilyTraffic(min_traffic=1.0))
+            os.environ["PINOT_TPU_COALESCE_WINDOW_MS"] = \
+                "60000" if n > 1 else "0"
+            os.environ["PINOT_TPU_COALESCE_MAX_QUERIES"] = str(max(2, n))
+            sql = QUERIES["q2_family"]
+            with recording(mxu, "limb_sums") as calls:
+                runs, _ = _clients(qe, [sql] * n, 1, True)
+            torch.cuda.synchronize()
+            check(runs)
+            dispatches = sum(r.num_device_dispatches for _, r, _ in runs)
+            peers = sorted({r.num_coalesced_queries for _, r, _ in runs})
+            want_peers = [n - 1] if n > 1 else [0]
+            if dispatches != 1 or peers != want_peers or len(calls) != 1:
+                raise AssertionError(
+                    f"coalesce: {n} clients made {dispatches} dispatches, "
+                    f"{len(calls)} launches of kernel A, peers {peers}")
+            if n in (8, 16):
+                group_inputs[n] = calls[0]
+            structure[n] = {"dispatches": dispatches, "launches": len(calls),
+                            "num_coalesced_queries": peers[0],
+                            "group_members": int(calls[0][0].shape[0])}
+            # timed: closed-loop clients, with the window and without
+            for traffic in ("identical", "mixed_literals"):
+                sqls = ([sql] * n if traffic == "identical" else
+                        [_q2_region(REGIONS[i % len(REGIONS)])
+                         for i in range(n)])
+                for window in (COALESCE_WINDOW_MS, "0"):
+                    qe.coalescer = QueryCoalescer(
+                        FamilyTraffic(min_traffic=1.0))
+                    os.environ["PINOT_TPU_COALESCE_WINDOW_MS"] = window
+                    os.environ["PINOT_TPU_COALESCE_MAX_QUERIES"] = str(
+                        max(2, n))
+                    rep0 = qe.executor.repeat_stats()
+                    mem0, gc0 = torch.cuda.memory_stats(), gc.get_stats()[2]
+                    runs, wall = _clients(qe, sqls, COALESCE_ITERS, False)
+                    torch.cuda.synchronize()
+                    check(runs)
+                    rep = qe.executor.repeat_stats()
+                    mem, gc2 = torch.cuda.memory_stats(), gc.get_stats()[2]
+                    ms = [m for _, _, m in runs]
+                    snap = qe.coalescer.snapshot()
+                    timed[f"{traffic}/clients{n}/window{window}"] = {
+                        "queries": len(runs),
+                        "p50_ms": float(np.percentile(ms, 50)),
+                        "p99_ms": float(np.percentile(ms, 99)),
+                        "queries_per_s": len(runs) / wall,
+                        "rows_per_s": len(runs) * table_rows / wall,
+                        "dispatches_per_query": sum(
+                            r.num_device_dispatches for _, r, _ in runs)
+                        / len(runs),
+                        "coalesced_peers_mean": float(np.mean(
+                            [r.num_coalesced_queries for _, r, _ in runs])),
+                        "coalesce_wait_ms_p50": float(np.percentile(
+                            [r.coalesce_wait_ms for _, r, _ in runs], 50)),
+                        "groups_formed": snap["groupsFormed"],
+                        "solo_fallbacks": snap["soloFallbacks"],
+                        "group_plane_bytes": rep["bytes"] - rep0["bytes"],
+                        "group_plane_host_ms": rep["ms"] - rep0["ms"],
+                        # what could stall a query for long: the caching
+                        # allocator's cudaMallocs and its retries after
+                        # freeing its cache, and full Python collections
+                        "device_allocs": mem.get("num_device_alloc", 0)
+                        - mem0.get("num_device_alloc", 0),
+                        "alloc_retries": mem.get("num_alloc_retries", 0)
+                        - mem0.get("num_alloc_retries", 0),
+                        "sync_all_streams": mem.get(
+                            "num_sync_all_streams", 0)
+                        - mem0.get("num_sync_all_streams", 0),
+                        "gc_gen2_collections": gc2["collections"]
+                        - gc0["collections"]}
+    finally:
+        gc.unfreeze()
+        qe.coalescer = coalescer
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    # the device time of one group's plane repeat (Q = 16) against the
+    # family's own stack: what a group pays that a family does not
+    stack = max(qe.executor.cache.stacked_view(
+        qe._table("ssb").segments)._planes.values(),
+        key=lambda t: t.numel() * t.element_size())
+    repeat_ms = cuda_ms(torch, lambda: stack.repeat(
+        (16,) + (1,) * (stack.dim() - 1)), 5)
+    emit({"phase": "coalesce", "card": card, "query": "q2_family",
+          "window_ms": float(COALESCE_WINDOW_MS), "iters": COALESCE_ITERS,
+          "structure": structure, "timed": timed,
+          "largest_stack_bytes": stack.numel() * stack.element_size(),
+          "largest_stack_repeat16_ms": repeat_ms,
+          "full_collect_ms_before_freeze": full_collect_ms,
+          "frozen_objects": frozen, "oracle": "equal",
+          "seconds": time.perf_counter() - t_phase})
+    return group_inputs
+
+
+def _explain_sql(sql: str, prefix: str) -> str:
+    """`sql` with an EXPLAIN prefix after its SET options."""
+    sets = ""
+    while sql.startswith("SET "):
+        cut = sql.index("; ") + 2
+        sets, sql = sets + sql[:cut], sql[cut:]
+    return sets + prefix + sql
+
+
+def phase_explain(torch, qe, expected, card) -> None:
+    """EXPLAIN, tracing and EXPLAIN ANALYZE on the card: the EXPLAIN PLAN
+    FOR and EXPLAIN IMPLEMENTATION FOR rows of EXPLAIN_QUERIES equal a CPU
+    executor's over the same segments (planning is host-only); EXPLAIN
+    ANALYZE of q2_family, q2 and q8 renders one family_dispatch span per
+    dispatch its untraced run made, each on cuda with deviceExecMs > 0,
+    and a traced run's rows equal the oracle's; an untraced warm q2_family
+    makes no synchronize, no span, no device timing and its one host
+    fetch, as before tracing existed (a traced one synchronizes once per
+    dispatch)."""
+    import warnings
+
+    import pinot_tpu_torch.engine.executor as ex_mod
+    from pinot_tpu_torch.engine.query_executor import QueryExecutor
+    from pinot_tpu_torch.ops import kernels as interp
+    from pinot_tpu_torch.spi.trace import span_allocations
+
+    t_phase = time.perf_counter()
+    cpu = QueryExecutor(device="cpu")
+    for name, t in qe.tables.items():
+        cpu.add_table(t.schema, t.segments, name)
+    rows = {}
+    for qname in EXPLAIN_QUERIES:
+        for prefix in ("EXPLAIN PLAN FOR ", "EXPLAIN IMPLEMENTATION FOR "):
+            sql = _explain_sql(QUERIES[qname], prefix)
+            got, want = qe.execute_sql(sql), cpu.execute_sql(sql)
+            if got.result_table.rows != want.result_table.rows:
+                raise AssertionError(f"explain {qname}: the card's rows "
+                                     f"{got.result_table.rows} vs the CPU's "
+                                     f"{want.result_table.rows}")
+            if got.num_device_dispatches:
+                raise AssertionError(f"explain {qname} dispatched")
+            rows[f"{prefix.split()[1].lower()}/{qname}"] = len(
+                got.result_table.rows)
+    del cpu
+
+    analyze = {}
+    statements = {"q2_family": QUERIES["q2_family"], "q2": QUERIES["q2"],
+                  "q8": MSE_QUERIES["q8"]}
+    for qname, sql in statements.items():
+        with recording(ex_mod, "_count_dispatch") as counted:
+            plain = qe.execute_sql(sql)
+        traced = qe.execute_sql("SET trace = true; " + sql)
+        _rows_equal(qname, traced, expected[qname], qname == "q8")
+        _rows_equal(qname, plain, expected[qname], qname == "q8")
+        resp = qe.execute_sql(_explain_sql(sql, "EXPLAIN ANALYZE "))
+        if resp.exceptions:
+            raise AssertionError(f"analyze {qname}: {resp.exceptions}")
+        spans = [sp for sp in resp.trace_info
+                 if sp["operator"] == "family_dispatch"]
+        exec_ms = [sp["attributes"]["deviceExecMs"] for sp in spans]
+        devices = {sp["attributes"]["device"] for sp in spans}
+        root = resp.result_table.rows[0][0]
+        if (len(spans) != len(counted) or devices != {DEVICE}
+                or min(exec_ms) <= 0
+                or f"rows:{len(expected[qname])}," not in root):
+            raise AssertionError(
+                f"analyze {qname}: {len(spans)} family_dispatch spans on "
+                f"{devices} ({exec_ms} ms) for {len(counted)} dispatches; "
+                f"root {root}")
+        analyze[qname] = {"family_dispatch_spans": len(spans),
+                          "untraced_dispatches": len(counted),
+                          "device_exec_ms": exec_ms,
+                          "tree_rows": len(resp.result_table.rows),
+                          "root": root}
+
+    # the tracing-off guard on the card
+    def counted_run(sql):
+        timers = []
+        real_timer = ex_mod._DeviceTimer
+
+        class Counting(real_timer):
+            def __init__(self, device):
+                timers.append(device)
+                super().__init__(device)
+
+        ex_mod._DeviceTimer = Counting
+        spans0, fetch0 = span_allocations(), interp.host_fetches()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught, \
+                    recording(torch.cuda, "synchronize") as syncs, \
+                    recording(torch.cuda.Event, "synchronize") as ev_syncs:
+                warnings.simplefilter("always")
+                qe.execute_sql(sql)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            ex_mod._DeviceTimer = real_timer
+        return {"synchronize": len(syncs), "event_synchronize": len(ev_syncs),
+                "sync_debug_warnings": sum("synchroniz" in str(w.message)
+                                           for w in caught),
+                "device_timers": len(timers),
+                "spans": span_allocations() - spans0,
+                "host_fetches": interp.host_fetches() - fetch0}
+
+    qe.execute_sql(QUERIES["q2_family"])
+    untraced = counted_run(QUERIES["q2_family"])
+    traced = counted_run("SET trace = true; " + QUERIES["q2_family"])
+    if (untraced["synchronize"], untraced["event_synchronize"],
+            untraced["device_timers"], untraced["spans"],
+            untraced["host_fetches"]) != (0, 0, 0, 0, 1):
+        raise AssertionError(f"explain: tracing off added work {untraced}")
+    if traced["event_synchronize"] != 1 or traced["spans"] == 0:
+        raise AssertionError(f"explain: the traced run {traced}")
+    emit({"phase": "explain", "card": card, "explain_rows": rows,
+          "explain": "equal to the CPU executor's", "analyze": analyze,
+          "untraced_q2_family": untraced, "traced_q2_family": traced,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def phase_oom(torch, qe, expected, card) -> None:
     """Device-memory relief under a per-process cap
     (torch.cuda.set_per_process_memory_fraction). q4's 16 segments are made
@@ -2827,8 +3166,8 @@ def kernel_a_row(torch, mxu, _cuda, recs, launches, err, note, live=None):
     def library(r):
         flat = (r[1].to(torch.int64).reshape(S, n) + G * torch.arange(
             S, device=DEVICE).unsqueeze(1)).reshape(-1)
-        planes64 = r[0].to(torch.int64).reshape(S, P, n).transpose(0, 1) \
-            .reshape(P, S * n)
+        planes64 = r[0].reshape(S, P, n).transpose(0, 1).reshape(
+            P, S * n).to(torch.int64)
         return lambda: torch.zeros((P, S * G), dtype=torch.int64,
                                    device=DEVICE).index_add_(1, flat, planes64)
 
@@ -3203,6 +3542,18 @@ def main(argv=None) -> int:
         expected.update(phase_cache(args, torch, qe, expected, interp,
                                     rt_state, dev["nvidia_smi"]))
         del rt_state
+        # kernel A as a coalesced group of q2_family launches it: S * Q
+        # members, Q = 8 and 16 queries
+        group_inputs = phase_coalesce(torch, qe, expected, mxu_groupby,
+                                      dev["nvidia_smi"])
+        for q, (planes, gid, G) in group_inputs.items():
+            parity[f"limb_sums/q2_family_group{q}_inputs"] = check_equal(
+                torch, f"limb_sums q2_family group of {q} queries, "
+                f"{planes.shape[0]} members", mxu_groupby.limb_sums(
+                    planes, gid, G),
+                mxu_groupby.limb_sums_plain(planes, gid, G))
+        torch.cuda.empty_cache()
+        phase_explain(torch, qe, expected, dev["nvidia_smi"])
         planes, gid, G = mse["agg_recs"][0]
         parity["limb_sums/mse_agg_inputs/family"] = check_equal(
             torch, f"limb_sums mse_agg inputs, family of {planes.shape[0]}",
@@ -3359,6 +3710,15 @@ def main(argv=None) -> int:
                     parity[f"limb_sums/{qname}_inputs/{label}"],
                     f"{qname} {label}: the main path's planes of the family "
                     f"of {S} segments, one launch"))
+        # a coalesced group's launch: one for the Q queries' S * Q members
+        for q, rec in group_inputs.items():
+            kernels.append(kernel_a_row(
+                torch, mxu_groupby, _cuda, [rec], 1,
+                parity[f"limb_sums/q2_family_group{q}_inputs"],
+                f"q2_family coalesced: {q} queries over the family of "
+                f"{len(segments)} segments ({rec[0].shape[0]} members), "
+                "one launch"))
+        del group_inputs
         # the multi-stage leaf partial aggregate's launch of kernel A
         kernels.append(kernel_a_row(
             torch, mxu_groupby, _cuda, mse["agg_recs"], mse["agg_launches"],

@@ -12,11 +12,21 @@ values, or, for a selection, gathering the rows its filter bitmap marks.
 
 PyTorch launches CUDA work asynchronously, so a caller can dispatch every
 segment and family first and fetch afterwards: the device queue stays full.
+
+While a trace is active (spi/trace.py), each dispatch runs under a
+`family_dispatch` span with the reference's attributes (segment or
+numSegments, mode, padded, fused, compileMs, deviceExecMs, transferBytes)
+and `device`. deviceExecMs is the device's time: CUDA events around the
+launches, waited for only while traced (on the CPU, where the plain
+versions run synchronously, the host clock). Eager PyTorch compiles no
+program, so compileMs is 0. Tracing off, a dispatch pays one thread-local
+read: no span, no event, no synchronize.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
@@ -26,9 +36,12 @@ from ..ops.kernels import (PackedOuts, pack_outputs, run_program,
                            run_program_batch, unpack_outputs)
 from ..query.context import QueryContext
 from ..segment.bitpack import unpack_bitmap
-from ..segment.device_cache import DeviceSegmentCache, pad_bucket
+from ..segment.device_cache import (DeviceSegmentCache, clear_transfer_stats,
+                                    pad_bucket, reset_transfer_stats,
+                                    transfer_stats)
 from ..segment.loader import ImmutableSegment
 from ..spi.data_types import DataType
+from ..spi.trace import TRACING
 from .plan import SegmentPlan, SegmentPlanner
 from .results import (AggIntermediate, GroupArrays, GroupByIntermediate,
                       SelectionIntermediate)
@@ -52,6 +65,61 @@ def dispatch_counters() -> int:
 def _count_dispatch() -> None:
     if hasattr(_TLS, "dispatches"):
         _TLS.dispatches += 1
+
+
+class _DeviceTimer:
+    """A traced dispatch's deviceExecMs: CUDA events recorded around its
+    launches on the current stream and waited for at `stop`, or the host
+    clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self, span) -> None:
+        if self.cuda:
+            self.end.record()
+            self.end.synchronize()
+            ms = self.start.elapsed_time(self.end)
+        else:
+            ms = (time.perf_counter() - self.t0) * 1000
+        span.set_attribute("compileMs", 0.0)
+        span.set_attribute("deviceExecMs", round(ms, 3))
+
+
+def _traced(dispatch):
+    """Run `dispatch(span)` under a family_dispatch span when a trace is
+    active (transfer counters armed for its uploads), else `dispatch(None)`
+    with nothing added."""
+    if TRACING.active_trace() is None:
+        return dispatch(None)
+    with TRACING.scope("family_dispatch") as span:
+        reset_transfer_stats()
+        try:
+            return dispatch(span)
+        finally:
+            stats = transfer_stats()
+            span.set_attribute("transferBytes", stats["transferBytes"])
+            if stats["transfers"]:
+                span.set_attribute("transfers", dict(stats["transfers"]))
+            span.set_attribute("stackHits", stats["stackHits"])
+            span.set_attribute("stackMisses", stats["stackMisses"])
+            clear_transfer_stats()
+
+
+def _span_plan(span, plan, view, device: torch.device, fused=False) -> None:
+    span.set_attribute("mode", plan.program.mode)
+    span.set_attribute("padded", view.padded)
+    span.set_attribute("device", device.type)
+    if fused:
+        # the fused kernel: its CUDA build, or its plain version on the CPU
+        span.set_attribute("fused", "cuda" if device.type == "cuda"
+                           else "plain")
 
 
 class BatchFamilyMismatch(Exception):
@@ -124,12 +192,31 @@ def _stack(planes: list) -> torch.Tensor:
     return torch.stack(planes)
 
 
+def _repeat(stack: torch.Tensor, q: int) -> torch.Tensor:
+    """An [S, ...] stack repeated q times along its first dim (a new
+    tensor); uint16 through its int16 view, as _stack."""
+    reps = (q,) + (1,) * (stack.dim() - 1)
+    if stack.dtype == torch.uint16:
+        return stack.view(torch.int16).repeat(reps).view(torch.uint16)
+    return stack.repeat(reps)
+
+
 class SegmentExecutor:
     """Executes one QueryContext against one segment, or one batch family
     of segments, on the device."""
 
     def __init__(self, cache: DeviceSegmentCache):
         self.cache = cache
+        # the [S*Q, ...] planes built for coalesced groups (never cached):
+        # builds, bytes and host ms, summed over the executor's life
+        self._repeats = {"builds": 0, "bytes": 0, "ms": 0.0}
+        self._repeats_lock = threading.Lock()
+
+    def repeat_stats(self) -> dict:
+        """What the coalesced groups' `[S*Q, ...]` planes cost so far:
+        builds, bytes and the host ms spent launching the repeats."""
+        with self._repeats_lock:
+            return dict(self._repeats)
 
     @property
     def device(self) -> torch.device:
@@ -163,6 +250,12 @@ class SegmentExecutor:
                       plan: SegmentPlan) -> PackedOuts:
         """Launch the segment's program and return its outputs packed into
         one device buffer, not yet copied to the host."""
+        return _traced(lambda span: self._dispatch_plan(segment, plan, span))
+
+    def _dispatch_plan(self, segment, plan: SegmentPlan, span) -> PackedOuts:
+        if span is not None:
+            span.set_attribute("segment", segment.name)
+            span.set_attribute("numSegments", 1)
         view = self._view_for(segment)
         arrays, packed = plan.gather_arrays_packed(view)
         host_params = tuple(np.asarray(p) for p in plan.params)
@@ -183,32 +276,58 @@ class SegmentExecutor:
         params = tuple(torch.from_numpy(np.array(p)).to(view.device)
                        for p in host_params)
         _count_dispatch()
+        timer = None
+        if span is not None:
+            _span_plan(span, plan, view, self.device, fused)
+            timer = _DeviceTimer(self.device)
         outs = run_program(plan.program, arrays, params, segment.num_docs,
                            view.padded, packed=packed, fused=fused,
                            fused_lut_meta=lut_meta, device=view.device)
+        if timer is not None:
+            timer.stop(span)
         return pack_outputs(outs)
 
     def dispatch_plan_raw(self, segment: ImmutableSegment, plan: SegmentPlan):
         """dispatch_plan without the fused kernel and the packing: (device
         outputs, view), for callers that keep computing on the device (the
         sparse device combine)."""
+        return _traced(lambda span: self._dispatch_plan_raw(segment, plan,
+                                                            span))
+
+    def _dispatch_plan_raw(self, segment, plan: SegmentPlan, span):
+        if span is not None:
+            span.set_attribute("segment", segment.name)
+            span.set_attribute("numSegments", 1)
         view = self._view_for(segment)
         arrays, packed = plan.gather_arrays_packed(view)
         params = tuple(torch.from_numpy(np.array(p)).to(view.device)
                        for p in plan.params)
         _count_dispatch()
-        return run_program(plan.program, arrays, params, segment.num_docs,
-                           view.padded, packed=packed,
-                           device=view.device), view
+        timer = None
+        if span is not None:
+            _span_plan(span, plan, view, self.device)
+            timer = _DeviceTimer(self.device)
+        outs = run_program(plan.program, arrays, params, segment.num_docs,
+                           view.padded, packed=packed, device=view.device)
+        if timer is not None:
+            timer.stop(span)
+        return outs, view
 
-    def _gather_batch(self, segments: list, plans: list):
+    def _gather_batch(self, segments: list, plans: list, repeat: int = 1):
         """Gather and stack a family's kernel inputs: member planes from
         the per-segment cache (each uploaded once), the [S, ...] stacks
         from the cache's stacked view. Dictionary planes zero-pad to the
         family's power-of-two bucket. Raises BatchFamilyMismatch when the
-        members' planes or params disagree in dtype, shape or packing."""
+        members' planes or params disagree in dtype, shape or packing.
+
+        `repeat` = Q > 1 is a coalesced group (engine/coalesce.py): Q
+        queries over the same S segments, `plans` their S*Q plans in query
+        order. Each plane is the family's cached [S, ...] stack repeated
+        Q times for this launch only: caching [S*Q, ...] stacks would keep
+        a new copy of the family for every group size."""
         views = [self._view_for(s) for s in segments]
-        gathered = [pl.gather_arrays_packed(v) for pl, v in zip(plans, views)]
+        gathered = [pl.gather_arrays_packed(v)
+                    for pl, v in zip(plans[:len(segments)], views)]
         packed = gathered[0][1]
         nslots = len(gathered[0][0])
         for arrs, pk in gathered[1:]:
@@ -230,6 +349,14 @@ class SegmentExecutor:
                     "shapes/dtypes across family members")
             pkey = (plans[0].slots[i], str(a0.dtype), tuple(a0.shape))
             stacked.append(sview.plane(pkey, lambda c=tuple(col): _stack(c)))
+        if repeat > 1:
+            t0 = time.perf_counter()
+            stacked = [_repeat(t, repeat) for t in stacked]
+            with self._repeats_lock:
+                self._repeats["builds"] += 1
+                self._repeats["bytes"] += sum(
+                    t.numel() * t.element_size() for t in stacked)
+                self._repeats["ms"] += (time.perf_counter() - t0) * 1000
         nparams = len(plans[0].params)
         if any(len(pl.params) != nparams for pl in plans):
             raise BatchFamilyMismatch("param-count mismatch")
@@ -240,27 +367,46 @@ class SegmentExecutor:
                    for p in ps[1:]):
                 raise BatchFamilyMismatch(f"param {j}: shape/dtype mismatch")
             params_b.append(torch.from_numpy(np.stack(ps)).to(self.device))
-        num_docs = np.asarray([s.num_docs for s in segments], dtype=np.int64)
+        num_docs = np.asarray([s.num_docs for s in segments] * repeat,
+                              dtype=np.int64)
         return views, tuple(stacked), tuple(params_b), packed, num_docs
 
-    def dispatch_plan_batch_raw(self, segments: list, plans: list):
+    def dispatch_plan_batch_raw(self, segments: list, plans: list,
+                                repeat: int = 1):
         """ONE dispatch for a whole batch family (equal batch_family_key):
         (device outputs, views), every output carrying a leading [S] dim
         whose row s is what dispatch_plan_raw returns for member s. Raises
         BatchFamilyMismatch, before anything runs, to ask for the
-        per-segment dispatch."""
+        per-segment dispatch. With `repeat` = Q, a coalesced group of Q
+        queries over `segments` (see _gather_batch): the outputs' leading
+        dim is S*Q, query q's rows q*S to (q+1)*S."""
+        return _traced(lambda span: self._dispatch_batch(segments, plans,
+                                                         repeat, span))
+
+    def _dispatch_batch(self, segments: list, plans: list, repeat: int,
+                        span):
+        if span is not None:
+            span.set_attribute("numSegments", len(plans))
         views, arrays, params_b, packed, num_docs = self._gather_batch(
-            segments, plans)
+            segments, plans, repeat)
         _count_dispatch()
+        timer = None
+        if span is not None:
+            _span_plan(span, plans[0], views[0], self.device)
+            timer = _DeviceTimer(self.device)
         outs = run_program_batch(plans[0].program, arrays, params_b,
                                  num_docs, views[0].padded, packed=packed,
                                  device=self.device)
+        if timer is not None:
+            timer.stop(span)
         return outs, views
 
-    def dispatch_plan_batch(self, segments: list, plans: list) -> PackedOuts:
+    def dispatch_plan_batch(self, segments: list, plans: list,
+                            repeat: int = 1) -> PackedOuts:
         """dispatch_plan_batch_raw packed into one device buffer: one
-        launch and one host copy for the whole family."""
-        return pack_outputs(self.dispatch_plan_batch_raw(segments, plans)[0])
+        launch and one host copy for the whole family (or group)."""
+        return pack_outputs(self.dispatch_plan_batch_raw(segments, plans,
+                                                         repeat)[0])
 
     def collect(self, query: QueryContext, segment: ImmutableSegment,
                 plan: SegmentPlan, outs):

@@ -33,10 +33,26 @@ set operations, windows, CTEs; anything the single-stage parser rejects,
 and `SET useMultistageEngine = true`) to the multi-stage engine (mse/),
 whose leaf stages come back here: `execute` for a leaf aggregate and
 `execute_selection_columnar` for a scan leaf.
+
+EXPLAIN PLAN FOR and EXPLAIN IMPLEMENTATION PLAN FOR plan without running
+(engine/explain.py); EXPLAIN ANALYZE runs the query under an analyze trace
+and renders its spans. `SET trace = true` attaches the query's spans
+(spi/trace.py: QUERY_PLAN_EXECUTION, family_dispatch, segment:<name>,
+SERVER_COMBINE, BROKER_REDUCE) as `trace_info`; a traced run bypasses the
+segment partial cache, except under EXPLAIN ANALYZE, which shows what a
+real run does.
+
+Concurrent queries of one batch family over the same segments can share
+one dispatch (engine/coalesce.py): with `PINOT_TPU_COALESCE_WINDOW_MS` set,
+the first holds the family open for the others, launches once over all
+their plans and fetches once; each query decodes its own rows. Traced
+queries, consuming segments' families and `SET coalesce = false` never
+join.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -57,12 +73,16 @@ from ..segment.device_cache import DeviceSegmentCache
 from ..segment.loader import ImmutableSegment
 from ..segment.startree import StarTreeRewrite, remap_states, try_rewrite
 from ..spi.data_types import Schema
+from ..spi.trace import TRACING, ServerQueryPhase
 from .aggregation import (MultistageRefusal, UnsupportedQueryError,
                           semantics_for)
+from .coalesce import (QueryCoalescer, coalesce_enabled, coalesce_stats,
+                       reset_coalesce_stats)
 from .combine import (combine_aggregation, combine_batched_aggregation,
                       combine_batched_dense, combine_group_arrays,
                       combine_group_by, combine_selection, trim_group_by)
 from .dim_tables import register_dimension_table
+from .explain import analyze_table, explain_plan
 from .executor import (BatchFamilyMismatch, SegmentExecutor,
                        batch_family_key, dispatch_counters,
                        reset_dispatch_counters)
@@ -80,6 +100,13 @@ class ReduceRefused(MultistageRefusal):
     retries on its multi-stage engine."""
 
 
+def _group_arrays_bytes(ga: GroupArrays) -> int:
+    """The host bytes of a GroupArrays' key and state columns."""
+    return int(sum(np.asarray(k).nbytes for k in ga.key_cols)
+               + sum(np.asarray(c).nbytes
+                     for comps in ga.state_cols for c in comps))
+
+
 def _opted_out(query: QueryContext, option: str) -> bool:
     """`SET <option> = false` (or 0 / off) in the query."""
     return str(query.query_options.get(option)).lower() in ("false", "0", "off")
@@ -89,14 +116,18 @@ def _opted_out(query: QueryContext, option: str) -> bool:
 class Pending:
     """What a query's dispatch left on the device: per-segment packs
     (index, PackedOuts), family packs (positions, PackedOuts), or the one
-    merged table of the sparse device combine; and the query's segment
-    partial-cache state, from dispatch to collect: the hits (index ->
-    intermediate, or the merged table's GroupArrays), the misses to insert
-    once collected ((index, key, segment name), or the merged table's key)
-    and the counts."""
+    merged table of the sparse device combine; the host arrays of families
+    a coalesced group already fetched (positions, this query's [S, ...]
+    rows); the dispatched segments' indexes in dispatch order; and the
+    query's segment partial-cache state, from dispatch to collect: the hits
+    (index -> intermediate, or the merged table's GroupArrays), the misses
+    to insert once collected ((index, key, segment name), or the merged
+    table's key) and the counts."""
 
     solo: list = field(default_factory=list)
     families: list = field(default_factory=list)
+    hosts: list = field(default_factory=list)
+    order: list = field(default_factory=list)
     merged: Optional[PackedOuts] = None
     hits: dict = field(default_factory=dict)
     inserts: list = field(default_factory=list)
@@ -161,6 +192,8 @@ class QueryExecutor:
         self.pruner = SegmentPrunerService()
         # reference: the useStarTree query option, default true
         self.use_star_tree = True
+        # cross-query coalescing: shared by every concurrent query here
+        self.coalescer = QueryCoalescer()
 
     def add_table(self, schema: Schema, segments: list,
                   name: Optional[str] = None):
@@ -234,15 +267,51 @@ class QueryExecutor:
         return table
 
     def execute(self, query: QueryContext) -> BrokerResponse:
+        """Run a parsed query; EXPLAIN plans it, EXPLAIN ANALYZE runs it
+        under an analyze trace and returns the annotated span tree."""
+        explain = getattr(query, "explain", False)
+        if explain == "analyze":
+            return self._execute_analyze(query)
+        if explain:
+            t0 = time.perf_counter()
+            rt = explain_plan(query, self._table(query.table_name),
+                              self.pruner, self.executor.packed_on,
+                              use_star_tree=self.use_star_tree)
+            return BrokerResponse(
+                result_table=rt,
+                time_used_ms=(time.perf_counter() - t0) * 1000)
         return self.run_planned(self.plan_query(query))
+
+    def _execute_analyze(self, query: QueryContext) -> BrokerResponse:
+        """EXPLAIN ANALYZE: run the query for real under an analyze trace
+        (the caches stay on) and return its span tree rendered as the
+        annotated plan table, with the run's counts."""
+        sub = copy.copy(query)
+        sub.explain = False
+        sub.query_options = dict(query.query_options)
+        sub.query_options["trace"] = True
+        owns = TRACING.active_trace() is None
+        trace = TRACING.start_trace(f"analyze:{query.table_name}",
+                                    analyze=True) if owns \
+            else TRACING.active_trace()
+        try:
+            resp = self.run_planned(self.plan_query(sub))
+        finally:
+            if owns:
+                TRACING.end_trace()
+        trace_json = resp.trace_info if resp.trace_info is not None \
+            else trace.to_json()
+        out = copy.copy(resp)
+        out.result_table = analyze_table(trace_json, resp,
+                                         table_name=query.table_name)
+        out.trace_info = trace_json
+        return out
 
     def plan_query(self, query: QueryContext) -> PlannedQuery:
         """The planning half of `execute`: prune, route and plan every
         segment. A shape the port does not lower raises
         UnsupportedQueryError here, before anything reaches the device."""
         t0 = time.perf_counter()
-        if getattr(query, "explain", False):
-            raise UnsupportedQueryError("EXPLAIN is not ported")
         segments = self.pinned_segments(self._table(query.table_name))
         kept, num_pruned = self.prune_segments(query, segments)
         routes = self.route_segments(query, kept)
@@ -257,17 +326,36 @@ class QueryExecutor:
         OOM relieves pressure once and retries (engine/oom.py); a second
         fails this query alone with HbmExhaustedError."""
         query = p.query
+        # own the trace only when nobody upstream (EXPLAIN ANALYZE, the
+        # multi-stage engine) started one: a nested run joins its tree
+        owns_trace = query.query_options.get("trace") in (True, "true", 1) \
+            and TRACING.active_trace() is None
+        trace = TRACING.start_trace(f"{query.table_name}:{id(query):x}") \
+            if owns_trace else None
+        try:
+            return self._run_planned(p, trace)
+        finally:
+            if owns_trace:
+                TRACING.end_trace()
+
+    def _run_planned(self, p: PlannedQuery, trace) -> BrokerResponse:
+        query = p.query
         reset_dispatch_counters()
-        pending = self.dispatch_segments(query, p.routes, p.plans)
-        combined = self._combine(query, self.collect_segments(
-            p.routes, p.plans, pending))
+        reset_coalesce_stats()
+        with TRACING.scope(ServerQueryPhase.QUERY_PLAN_EXECUTION):
+            pending = self.dispatch_segments(query, p.routes, p.plans)
+            inters = self.collect_segments(p.routes, p.plans, pending)
+            with TRACING.scope(ServerQueryPhase.SERVER_COMBINE):
+                combined = self._combine(query, inters)
         if any(getattr(s, "is_mutable", False) for s in p.kept):
             note_realtime_device_query()
         try:
-            result = BrokerReducer(
-                self._table(query.table_name).schema).reduce(query, combined)
+            with TRACING.scope("BROKER_REDUCE"):
+                result = BrokerReducer(self._table(
+                    query.table_name).schema).reduce(query, combined)
         except UnsupportedQueryError as e:
             raise ReduceRefused(str(e)) from e
+        peers, wait_ms = coalesce_stats()
         return BrokerResponse(
             result_table=result,
             num_docs_scanned=combined.num_docs_scanned,
@@ -281,6 +369,9 @@ class QueryExecutor:
                                              False),
             num_segments_cache_hit=pending.cache_hits,
             num_segments_cache_miss=pending.cache_misses,
+            num_coalesced_queries=peers,
+            coalesce_wait_ms=wait_ms,
+            trace_info=None if trace is None else trace.to_json(),
         )
 
     def execute_selection_columnar(self, query: QueryContext):
@@ -298,11 +389,13 @@ class QueryExecutor:
     def plan_selection_columnar(self, query: QueryContext):
         """The planning half of `execute_selection_columnar`: None for a
         shape the row path must run (not a plain identifier selection, or
-        one with ordering, DISTINCT, offset or null handling)."""
+        one with ordering, DISTINCT, offset or null handling, or traced:
+        the row path records the query's spans)."""
         if (not query.is_selection or query.distinct
                 or query.group_by_expressions or query.order_by_expressions
                 or query.having_filter is not None or query.offset
-                or query.null_handling):
+                or query.null_handling
+                or query.query_options.get("trace") in (True, "true", 1)):
             return None
         if not query.select_expressions or not all(
                 e.is_identifier and e.identifier != "*"
@@ -407,11 +500,18 @@ class QueryExecutor:
         never reaches dispatch; the families form over the rest."""
         segments = [r.segment for r in routes]
         cache_on = bool(routes) and self._segment_cache_enabled(query)
+        traced = TRACING.active_trace() is not None
+        # a traced run's dispatch spans must describe device work: the
+        # cache is bypassed, except under EXPLAIN ANALYZE
+        bypass = cache_on and traced and not TRACING.analyze_active()
         if len(segments) > 1 and all(r.rewrite is None for r in routes):
             merged = self._sparse_device_combine(query, segments, plans,
-                                                 cache_on)
+                                                 cache_on and not bypass)
             if merged is not None:
                 return merged
+        if bypass:
+            with TRACING.scope("SEGMENT_CACHE(bypass:trace)"):
+                cache_on = False
         ex = self.executor
         pending = Pending()
         todo = list(range(len(routes)))
@@ -429,10 +529,24 @@ class QueryExecutor:
                         (i, key, getattr(r.segment, "name", "?")))
                     pending.cache_misses += 1
                 todo.append(i)
+        # a traced query's spans describe its own device work, and a
+        # consuming segment's family is keyed without its snapshot
+        # generation: neither joins a coalesced group
+        co_on = not traced and coalesce_enabled(query)
         for fkey, positions in self._batch_families(
                 query, [segments[i] for i in todo], [plans[i] for i in todo]):
             positions = [todo[p] for p in positions]
+            pending.order.extend(positions)
             if fkey is not None and len(positions) > 1:
+                fam = [segments[i] for i in positions]
+                if co_on and not any(getattr(s, "is_mutable", False)
+                                     for s in fam):
+                    co = self.coalescer.offer(
+                        query.table_name, fkey, fam,
+                        [plans[i] for i in positions], self._run_group)
+                    if co is not None:
+                        pending.hosts.append((positions, co.outs))
+                        continue
                 try:
                     pack = self._dispatch_family(segments, plans, positions)
                 except (BatchFamilyMismatch, HbmExhaustedError):
@@ -467,6 +581,23 @@ class QueryExecutor:
                         [plans[i] for i in positions]),
             keep_segment=segments[positions[0]], cache=ex.cache)
 
+    def _run_group(self, segments: list, plans_all: list, q: int) -> list:
+        """A coalesced group's leader (engine/coalesce.py): ONE family
+        launch over the Q queries' plans on the family's planes repeated Q
+        times, and ONE fetch; the host arrays, leading dim S*Q. Device OOM
+        relieves once for each, as the solo family path does."""
+        ex = self.executor
+
+        def dispatch():
+            return with_oom_retry(
+                lambda: ex.dispatch_plan_batch(segments, plans_all, q),
+                keep_segment=segments[0], cache=ex.cache)
+
+        pack = dispatch()
+        return with_oom_retry(
+            lambda: fetch_packed_batch([pack]), cache=ex.cache,
+            retry_fn=lambda: fetch_packed_batch([dispatch()]))[0]
+
     def _dispatch_one(self, segment, plan, raw: bool = False):
         """One segment's dispatch, relieving device memory once on an
         OOM."""
@@ -479,10 +610,11 @@ class QueryExecutor:
                          pending: Pending) -> list:
         """Fetch every output of the query to the host in ONE copy and
         decode the intermediates: families all members in one pass
-        (engine/combine.py), lone segments one by one; a star-tree
-        member's states map back to the query's; cache hits as they came.
-        The misses' aggregation and group-by partials go into the segment
-        partial cache (selections bypass it)."""
+        (engine/combine.py), a coalesced group's rows as a family's, then
+        each segment in dispatch order (under its `segment:<name>` span);
+        a star-tree member's states map back to the query's; cache hits as
+        they came. The misses' aggregation and group-by partials go into
+        the segment partial cache (selections bypass it)."""
         if pending.merged_hit is not None:
             return [pending.merged_hit]
         ex = self.executor
@@ -501,22 +633,29 @@ class QueryExecutor:
         inters: list = [None] * len(routes)
         for i, hit in pending.hits.items():
             inters[i] = hit
-        for (i, _), outs in zip(pending.solo, fetched):
-            inters[i] = ex.collect(routes[i].query, routes[i].segment,
-                                   plans[i], outs)
-        for (positions, _), outs_b in zip(pending.families,
-                                          fetched[len(pending.solo):]):
+        outs_of = {i: outs for (i, _), outs in zip(pending.solo, fetched)}
+        for positions, outs_b in (
+                [(pos, outs) for (pos, _), outs in zip(
+                    pending.families, fetched[len(pending.solo):])]
+                + pending.hosts):
             plans_f = [plans[i] for i in positions]
             mode = plans_f[0].program.mode
             batched = (combine_batched_aggregation(outs_b, plans_f)
                        if mode == "aggregation"
                        else combine_batched_dense(outs_b, plans_f))
             if batched is None:  # sparse: each member's row of the outputs
-                batched = [ex.collect(routes[i].query, routes[i].segment,
-                                      plans[i], [o[row] for o in outs_b])
-                           for row, i in enumerate(positions)]
-            for i, inter in zip(positions, batched):
-                inters[i] = inter
+                for row, i in enumerate(positions):
+                    outs_of[i] = [o[row] for o in outs_b]
+            else:
+                for i, inter in zip(positions, batched):
+                    inters[i] = inter
+        for i in pending.order:
+            with TRACING.scope(
+                    f"segment:{getattr(routes[i].segment, 'name', '?')}"):
+                if inters[i] is None:
+                    inters[i] = ex.collect(routes[i].query,
+                                           routes[i].segment, plans[i],
+                                           outs_of[i])
         for i, key, name in pending.inserts:
             # LIMIT makes a selection's rows order-dependent across
             # segments, and its cost is the host's row work: not cached
@@ -637,6 +776,12 @@ class QueryExecutor:
                 if hit is not None:
                     pending.merged_hit = hit
                     pending.cache_hits = len(segments)
+                    with TRACING.scope("SEGMENT_CACHE(hit:merged)") as sp:
+                        if sp is not None:
+                            sp.set_attribute("segments", len(segments))
+                            sp.set_attribute("cache", "hit")
+                            sp.set_attribute("cacheHitBytes",
+                                             _group_arrays_bytes(hit))
                     return pending
         pending.merged = self._sparse_merge(query, segments, plans, kinds,
                                             keys, pending)

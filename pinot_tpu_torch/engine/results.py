@@ -42,8 +42,19 @@ class BrokerResponse:
     num_segments_pruned: int = 0
     time_used_ms: float = 0.0
     # device kernel-program dispatches (engine/executor.py counters): one
-    # per batch family, one per segment outside a family
+    # per batch family, one per segment outside a family, one per
+    # coalesced group (counted on its leader's query alone)
     num_device_dispatches: int = 0
+    # programs compiled for this query: always 0, eager PyTorch compiles
+    # none (the JAX package counts its jit compiles here)
+    num_compiles: int = 0
+    # the span list of a traced query (`SET trace = true`, spi/trace.py)
+    trace_info: Optional[list] = None
+    # cross-query coalescing (engine/coalesce.py): the peer queries whose
+    # family dispatch this query shared (every member reports the group
+    # size less one) and how long this query held for its group
+    num_coalesced_queries: int = 0
+    coalesce_wait_ms: float = 0.0
     # a sparse group-by trimmed groups at numGroupsLimit (not by an exact
     # ORDER BY pushdown)
     num_groups_limit_reached: bool = False
@@ -75,6 +86,8 @@ class BrokerResponse:
             "timeUsedMs": self.time_used_ms,
             "exceptions": self.exceptions,
         }
+        if self.trace_info is not None:
+            out["traceInfo"] = self.trace_info
         if self.partial_result:
             out["partialResult"] = True
         if self.mse_stage_stats is not None:
@@ -84,9 +97,13 @@ class BrokerResponse:
             out["numGroupsLimitReached"] = True
         if self.num_device_dispatches:
             out["numDeviceDispatches"] = self.num_device_dispatches
+            out["numCompiles"] = self.num_compiles
         if self.num_segments_cache_hit or self.num_segments_cache_miss:
             out["numSegmentsCacheHit"] = self.num_segments_cache_hit
             out["numSegmentsCacheMiss"] = self.num_segments_cache_miss
+        if self.num_coalesced_queries:
+            out["numCoalescedQueries"] = self.num_coalesced_queries
+            out["coalesceWindowMs"] = self.coalesce_wait_ms
         return out
 
 

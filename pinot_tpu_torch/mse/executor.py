@@ -12,8 +12,13 @@ the JAX package), keyed by the fingerprint of its stage DAG and the token
 of every segment its scans read (cache/keys.py), so a replaced segment
 misses; a statement over a consuming segment is not cached. A hit is the
 cached rows with no dispatch. `SET resultCache = false` or
-PINOT_TPU_RESULT_CACHE=0 turns it off. Not ported: EXPLAIN ANALYZE with
-its stage spans (it raises UnsupportedQueryError).
+PINOT_TPU_RESULT_CACHE=0 turns it off.
+
+`SET trace = true` and EXPLAIN ANALYZE start a trace here (unless one is
+active): each stage records an `mse_stage:<id>` span with its stats, and
+the leaf stages' single-stage spans (family_dispatch included) nest under
+their stage. EXPLAIN ANALYZE renders the tree (engine/explain.py
+`analyze_table`); a traced statement bypasses the result cache.
 """
 
 from __future__ import annotations
@@ -26,8 +31,9 @@ import numpy as np
 
 from ..cache.keys import mse_plan_fingerprint, segment_token
 from ..cache.results import BrokerResultCache, result_cache_enabled
-from ..engine.aggregation import UnsupportedQueryError
+from ..engine.explain import analyze_table
 from ..engine.results import BrokerResponse, DataSchema, ResultTable
+from ..spi.trace import TRACING
 from .fragmenter import explain_stages, fragment
 from .logical import LogicalPlanner, prune_columns
 from .mailbox import Block, block_len
@@ -142,59 +148,78 @@ class MultistageExecutor:
 
     def execute_sql(self, sql: str) -> BrokerResponse:
         """Run a statement; a failure of any stage comes back as the
-        response's exception (the reference's broker contract). EXPLAIN
-        ANALYZE raises UnsupportedQueryError."""
+        response's exception (the reference's broker contract)."""
         t0 = time.perf_counter()
         try:
             query = parse_relational(sql)
         except Exception as e:
             return _error_response(e, t0)
-        if query.explain == "analyze":
-            raise UnsupportedQueryError("EXPLAIN ANALYZE is not ported")
+        # the statement owns the span tree: stage spans and the leaves'
+        # nested single-stage spans join it. EXPLAIN ANALYZE arms it
+        # always, flagged so the segment partial cache stays on
+        analyze = query.explain == "analyze"
+        trace = None
+        if (analyze or query.options.get("trace") in (True, "true", 1)) \
+                and TRACING.active_trace() is None:
+            trace = TRACING.start_trace(f"mse:{id(query):x}",
+                                        analyze=analyze)
         try:
-            stages = self.plan(query)
-            if query.explain is True:
-                return _plan_response(explain_stages(stages), t0)
-            cache_key = None
-            if query.explain is False and result_cache_enabled() \
-                    and not _option_false(query.options, "resultCache"):
-                cache_key = self._cache_key(stages, query.options)
-            if cache_key is not None:
-                cached = self.result_cache.get(cache_key)
-                if cached is not None:
-                    # the cached rows, no dispatch: restamp the shallow copy
-                    cached.cache_outcome = "hit"
-                    cached.num_device_dispatches = 0
-                    cached.time_used_ms = (time.perf_counter() - t0) * 1000
-                    return cached
-            pop_join_overflow()  # clear any stale flag on this thread
-            runner = StageRunner(
-                stages, self.parallelism, self.qe, self._read_table,
-                query_options=query.options, device=self.qe.device)
-            block = runner.run()
-            if query.explain == "implementation":
-                # the query RAN; the plan text carries each stage's
-                # measured rows/bytes/time
-                return _plan_response(
-                    explain_stages(stages, runner.stage_stats), t0)
-            resp = BrokerResponse(
-                result_table=_block_to_result(block, stages[0].root.schema),
-                num_docs_scanned=runner.stats["num_docs_scanned"],
-                total_docs=runner.stats["total_docs"],
-                partial_result=pop_join_overflow()
-                or bool(runner.stats.get("join_overflow")),
-                num_groups_limit_reached=runner.stats[
-                    "num_groups_limit_reached"],
-                num_device_dispatches=runner.stats["num_device_dispatches"],
-                mse_stage_stats=runner.stage_stats,
-                time_used_ms=(time.perf_counter() - t0) * 1000)
-            if cache_key is not None:
-                resp.cache_outcome = "miss"
-                if not resp.partial_result:  # a truncated join is not kept
-                    self.result_cache.put(cache_key, resp)
-            return resp
+            return self._execute(query, trace, analyze, t0)
         except Exception as e:
             return _error_response(e, t0)
+        finally:
+            if trace is not None:
+                TRACING.end_trace()
+
+    def _execute(self, query, trace, analyze: bool,
+                 t0: float) -> BrokerResponse:
+        stages = self.plan(query)
+        if query.explain is True:
+            return _plan_response(explain_stages(stages), t0)
+        cache_key = None
+        if query.explain is False and trace is None \
+                and result_cache_enabled() \
+                and not _option_false(query.options, "resultCache"):
+            cache_key = self._cache_key(stages, query.options)
+        if cache_key is not None:
+            cached = self.result_cache.get(cache_key)
+            if cached is not None:
+                # the cached rows, no dispatch: restamp the shallow copy
+                cached.cache_outcome = "hit"
+                cached.num_device_dispatches = 0
+                cached.time_used_ms = (time.perf_counter() - t0) * 1000
+                return cached
+        pop_join_overflow()  # clear any stale flag on this thread
+        runner = StageRunner(
+            stages, self.parallelism, self.qe, self._read_table,
+            query_options=query.options, device=self.qe.device)
+        block = runner.run()
+        if query.explain == "implementation":
+            # the query RAN; the plan text carries each stage's
+            # measured rows/bytes/time
+            return _plan_response(
+                explain_stages(stages, runner.stage_stats), t0)
+        resp = BrokerResponse(
+            result_table=_block_to_result(block, stages[0].root.schema),
+            num_docs_scanned=runner.stats["num_docs_scanned"],
+            total_docs=runner.stats["total_docs"],
+            partial_result=pop_join_overflow()
+            or bool(runner.stats.get("join_overflow")),
+            num_groups_limit_reached=runner.stats[
+                "num_groups_limit_reached"],
+            num_device_dispatches=runner.stats["num_device_dispatches"],
+            mse_stage_stats=runner.stage_stats,
+            time_used_ms=(time.perf_counter() - t0) * 1000)
+        if cache_key is not None:
+            resp.cache_outcome = "miss"
+            if not resp.partial_result:  # a truncated join is not kept
+                self.result_cache.put(cache_key, resp)
+        if trace is not None:
+            resp.trace_info = trace.to_json()
+        if analyze:
+            resp.result_table = analyze_table(resp.trace_info or [],
+                                              resp)
+        return resp
 
 
 def _option_false(options: dict, name: str) -> bool:

@@ -13,10 +13,14 @@ selection bitmap, the segment combine); the fused join stages run on the
 executor's device (mse/device_join.py); other stages above the first
 exchange run on the host.
 
-The port's copy of pinot_tpu/mse/runtime.py without the stage spans,
-server meters and perf-ledger events, and without the reference's
-recovery from a device failure: an error in a fused stage fails the query
-(only the deterministic gates of run_fused send a stage to the host path).
+While a trace is active, each stage runs under an `mse_stage:<id>` span
+carrying its stats; the partition workers adopt the trace with the stage's
+span as parent, so the leaves' spans nest under their stage.
+
+The port's copy of pinot_tpu/mse/runtime.py without the server meters and
+perf-ledger events, and without the reference's recovery from a device
+failure: an error in a fused stage fails the query (only the
+deterministic gates of run_fused send a stage to the host path).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..ops import kernels
 from ..query.context import QueryContext
 from ..query.converter import FilterConversionError, filter_from_expression
 from ..query.expressions import ExpressionContext
+from ..spi.trace import TRACING
 from .fragmenter import MailboxReceiveNode, Stage, receive_nodes
 from .logical import (
     AggregateNode,
@@ -253,8 +258,25 @@ class StageRunner:
                 self.stats["join_overflow"] = True
         return block
 
-    def _run_stage(self, stage: Stage) -> None:
+    # the stage stats an mse_stage span carries
+    _SPAN_STATS = ("workers", "rows_in", "rows_out", "shuffled_rows",
+                   "shuffled_bytes", "cross_stage_bytes",
+                   "device_partition_ms", "join_impl", "host_crossings",
+                   "leaf_pushdown")
 
+    def _run_stage(self, stage: Stage) -> None:
+        if TRACING.active_trace() is None:
+            return self._run_stage_inner(stage)
+        # one span per stage, so broker reduce -> stage -> the leaf's
+        # family_dispatch spans line up in one tree
+        with TRACING.scope(f"mse_stage:{stage.stage_id}") as span:
+            self._run_stage_inner(stage)
+            st = self._sstat(stage.stage_id)
+            for k in self._SPAN_STATS:
+                if k in st and st[k] != "":
+                    span.set_attribute(k, st[k])
+
+    def _run_stage_inner(self, stage: Stage) -> None:
         parent = self.stages[stage.parent_stage]
         parent_workers = 1 if parent.stage_id == 0 else self.workers_of(parent)
         st = self._sstat(stage.stage_id)
@@ -286,8 +308,22 @@ class StageRunner:
                 # independent partitions of the stage execute concurrently;
                 # sends stay in worker order below, so mailbox contents are
                 # deterministic regardless of completion order
+                caller_trace = TRACING.active_trace()
+                caller_span = TRACING.current_span()
+
+                def run_worker(w):
+                    if caller_trace is None:
+                        return self._worker_block(stage, w)
+                    # traces are thread-local: nest the worker's scopes
+                    # under this stage's span
+                    TRACING.adopt(caller_trace, caller_span)
+                    try:
+                        return self._worker_block(stage, w)
+                    finally:
+                        TRACING.adopt(None)
+
                 with ThreadPoolExecutor(max_workers=pool_size) as pool:
-                    futs = [pool.submit(self._worker_block, stage, w)
+                    futs = [pool.submit(run_worker, w)
                             for w in range(st["workers"])]
                     blocks = [f.result() for f in futs]
             else:

@@ -103,14 +103,19 @@ _ID_DTYPES = (torch.uint8, torch.uint16, torch.int32)
 def plan(program: ir.Program, arrays,
          lut_meta: tuple = ()) -> Optional[FusedPlan]:
     """Static shape analysis; `arrays` contributes only dtypes/ndims.
-    Returns None when the program leaves the fused scope. ``lut_meta`` is
-    lut_run_params' description of the appended run arrays."""
+    Returns None when the program leaves the fused scope. ``arrays=None``
+    checks the program's structure only (EXPLAIN's eligibility: a Lut leaf
+    counts as eligible, its run compression being a property of the
+    dispatch's params). ``lut_meta`` is lut_run_params' description of the
+    appended run arrays."""
     if program.mode != "group_by" or program.mv_group_slot is not None:
         return None
     if program.group_vexprs or not program.group_slots:
         return None
 
     def plane_ok(slot, payload=False):
+        if arrays is None:
+            return True
         a = arrays[slot]
         if a.dim() != 1:
             return False
@@ -131,6 +136,9 @@ def plan(program: ir.Program, arrays,
                     return None
                 m = runs_of.get(leaf.lut_param)
                 if m is None:
+                    if arrays is None:
+                        terms.append(("runs", leaf.ids_slot, -1, 1))
+                        continue
                     return None
                 terms.append(("runs", leaf.ids_slot, m[1], m[2]))
                 continue

@@ -46,7 +46,7 @@ from ..engine.aggregation import UnsupportedQueryError
 from ..engine.executor import _dict_pad
 from ..engine.plan import SegmentPlanner, _coerce_like
 from ..query.filter import PredicateType
-from ..segment.device_cache import pad_bucket
+from ..segment.device_cache import note_upload, pad_bucket
 from ..spi.data_types import DataType
 
 # smallest delta chunk written in one upload: power-of-two chunks bound the
@@ -144,6 +144,7 @@ class RealtimePlaneSet:
         self._gen_rows = 0  # highest row watermark any plane reached
 
     def _account(self, nbytes: int) -> None:
+        note_upload((f"rt:{self.name}", "delta"), nbytes)
         _note_delta(nbytes)
         self.registry._note(nbytes)
 

@@ -21,6 +21,15 @@ value-space tables, cache tier 2) stay on the device under the same
 budget. They are derived data too and evict first, before any stack or
 view. Under device-memory pressure `evict_all_except` sheds every partial,
 every stack and every view but the executing segment's (engine/oom.py).
+
+Concurrent queries share the views and stacks: each plane and each stack
+is built exactly once, under its view's lock, so two threads asking for a
+missing plane upload it once and the budget counts only what is kept.
+
+While a trace is active, the dispatching thread arms per-thread transfer
+counters (`reset_transfer_stats`): host->device bytes and stack hits and
+misses, read back into the dispatch's `family_dispatch` span. Disarmed,
+an upload pays one thread-local read.
 """
 
 from __future__ import annotations
@@ -36,6 +45,43 @@ from ..spi.data_types import DataType
 from .loader import ImmutableSegment
 
 _MIN_PAD = 1 << 13
+
+# Per-thread transfer attribution for tracing (engine/executor.py arms it
+# at a traced dispatch's start and folds it into the span at its end).
+_TRANSFER_TL = threading.local()
+
+
+def reset_transfer_stats() -> None:
+    """Arm this thread's transfer counters (tracing on)."""
+    _TRANSFER_TL.stats = {"transferBytes": 0, "transfers": {},
+                          "stackHits": 0, "stackMisses": 0}
+
+
+def clear_transfer_stats() -> None:
+    _TRANSFER_TL.stats = None
+
+
+def transfer_stats() -> Optional[dict]:
+    """This thread's counters since the last reset, or None when disarmed:
+    host->device bytes in all and per (column, plane kind), and stack
+    hits and misses."""
+    return getattr(_TRANSFER_TL, "stats", None)
+
+
+def note_upload(key: tuple, nbytes: int) -> None:
+    """Count an upload of `nbytes` for plane `key` into the armed counters
+    (also called by realtime/device_plane.py for its delta uploads)."""
+    stats = getattr(_TRANSFER_TL, "stats", None)
+    if stats is not None:
+        stats["transferBytes"] += nbytes
+        slot = f"{key[0]}:{key[1]}"
+        stats["transfers"][slot] = stats["transfers"].get(slot, 0) + nbytes
+
+
+def _note_stack(hit: bool) -> None:
+    stats = getattr(_TRANSFER_TL, "stats", None)
+    if stats is not None:
+        stats["stackHits" if hit else "stackMisses"] += 1
 
 
 def pad_bucket(n: int) -> int:
@@ -59,14 +105,30 @@ class SegmentDeviceView:
             else bool(packed)
         self.padded = pad_bucket(max(1, segment.num_docs))
         self._planes: dict[tuple[str, str], torch.Tensor] = {}
+        # get-or-create of a plane is atomic: a missing plane is built and
+        # uploaded under this lock, once, however many threads ask
+        self._lock = threading.Lock()
+
+    def _plane(self, key: tuple[str, str], host) -> torch.Tensor:
+        """The cached plane `key`, or `host()` uploaded and cached by the
+        first caller while the others wait for it. Returned through a local
+        reference, so a concurrent evict() never turns a read into a
+        KeyError."""
+        t = self._planes.get(key)
+        if t is not None:
+            return t
+        with self._lock:
+            t = self._planes.get(key)
+            if t is None:
+                t = self._put(key, host())
+        return t
 
     def _put(self, key: tuple[str, str], host: np.ndarray) -> torch.Tensor:
-        """Upload-and-cache; returns the plane through a local reference so
-        a concurrent evict() never turns a read into a KeyError."""
-        t = self._planes.get(key)
-        if t is None:
-            t = torch.from_numpy(host).to(self.device)
-            self._planes[key] = t
+        """Upload `host` as plane `key` and keep it: once per plane, under
+        the view's lock."""
+        t = torch.from_numpy(host).to(self.device)
+        self._planes[key] = t
+        note_upload(key, _tensor_bytes(t))
         return t
 
     def _padded_plane(self, values: np.ndarray, dtype) -> np.ndarray:
@@ -76,12 +138,8 @@ class SegmentDeviceView:
 
     def dict_ids(self, column: str) -> torch.Tensor:
         """Padded int32 dict-id plane (pad value 0; rows masked by num_docs)."""
-        key = (column, "ids")
-        cached = self._planes.get(key)
-        if cached is not None:
-            return cached
-        ids = self.segment.get_dict_ids(column)
-        return self._put(key, self._padded_plane(ids, np.int32))
+        return self._plane((column, "ids"), lambda: self._padded_plane(
+            self.segment.get_dict_ids(column), np.int32))
 
     def dict_ids_packed(self, column: str):
         """(plane, width): the id plane stored as uint8 for <= 8-bit ids and
@@ -91,35 +149,29 @@ class SegmentDeviceView:
         if not self.packed or bits > 16:
             return self.dict_ids(column), 0
         width = 8 if bits <= 8 else 16
-        key = (column, "ids_packed")
-        cached = self._planes.get(key)
-        if cached is not None:
-            return cached, width
-        ids = self.segment.get_dict_ids(column)
         dtype = np.uint8 if width == 8 else np.uint16
-        return self._put(key, self._padded_plane(ids, dtype)), width
+        return self._plane((column, "ids_packed"), lambda: self._padded_plane(
+            self.segment.get_dict_ids(column), dtype)), width
 
     def mv_dict_ids(self, column: str) -> torch.Tensor:
         """A multi-value column's (padded, max_mv) int32 dict-id matrix,
         every pad slot (and every pad row) holding the sentinel
         `cardinality`, which no predicate matches."""
-        key = (column, "mvids")
-        cached = self._planes.get(key)
-        if cached is not None:
-            return cached
-        mat = self.segment.get_mv_dict_id_matrix(column)
-        card = self.segment.column_metadata(column).cardinality
-        out = np.full((self.padded, mat.shape[1]), card, dtype=np.int32)
-        out[: mat.shape[0]] = mat
-        return self._put(key, out)
+        def host():
+            mat = self.segment.get_mv_dict_id_matrix(column)
+            card = self.segment.column_metadata(column).cardinality
+            out = np.full((self.padded, mat.shape[1]), card, dtype=np.int32)
+            out[: mat.shape[0]] = mat
+            return out
+
+        return self._plane((column, "mvids"), host)
 
     def raw(self, column: str) -> torch.Tensor:
-        key = (column, "raw")
-        cached = self._planes.get(key)
-        if cached is not None:
-            return cached
-        vals = self.segment.get_raw(column)
-        return self._put(key, self._padded_plane(vals, vals.dtype))
+        def host():
+            vals = self.segment.get_raw(column)
+            return self._padded_plane(vals, vals.dtype)
+
+        return self._plane((column, "raw"), host)
 
     def raw_f32_rebased(self, column: str) -> torch.Tensor:
         """(v - column min) as a float32 plane: the histogram-binning view
@@ -127,38 +179,33 @@ class SegmentDeviceView:
         The rebase runs on the host in float64 before the cast, as the
         JAX package's does, so both packages bin from the same bits; a
         narrow-range column of large values keeps its full precision."""
-        key = (column, "rawf32r")
-        cached = self._planes.get(key)
-        if cached is not None:
-            return cached
-        vals = self.segment.get_raw(column)
-        base = float(self.segment.column_metadata(column).min_value)
-        out = np.zeros(self.padded, dtype=np.float32)
-        out[: vals.shape[0]] = (vals - base).astype(np.float32)
-        return self._put(key, out)
+        def host():
+            vals = self.segment.get_raw(column)
+            base = float(self.segment.column_metadata(column).min_value)
+            out = np.zeros(self.padded, dtype=np.float32)
+            out[: vals.shape[0]] = (vals - base).astype(np.float32)
+            return out
+
+        return self._plane((column, "rawf32r"), host)
 
     def dict_values(self, column: str) -> torch.Tensor:
         """Numeric dictionary on the device, for on-device decode."""
-        key = (column, "dict")
-        cached = self._planes.get(key)
-        if cached is not None:
-            return cached
         m = self.segment.column_metadata(column)
         if not DataType(m.data_type).is_fixed_width:
             raise ValueError(f"{column}: var-width dictionaries stay on the host")
-        d = self.segment.get_dictionary(column)
-        return self._put(key, np.array(d.values))  # a writable copy
+        # a writable copy
+        return self._plane((column, "dict"), lambda: np.array(
+            self.segment.get_dictionary(column).values))
 
     def null_plane(self, column: str) -> torch.Tensor:
-        key = (column, "null")
-        cached = self._planes.get(key)
-        if cached is not None:
-            return cached
-        nulls = self.segment.get_null_bitmap(column)
-        out = np.zeros(self.padded, dtype=bool)
-        if nulls is not None:
-            out[: nulls.shape[0]] = nulls
-        return self._put(key, out)
+        def host():
+            nulls = self.segment.get_null_bitmap(column)
+            out = np.zeros(self.padded, dtype=bool)
+            if nulls is not None:
+                out[: nulls.shape[0]] = nulls
+            return out
+
+        return self._plane((column, "null"), host)
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
@@ -181,14 +228,23 @@ class StackedSegmentView:
         # the members' names: a dropped segment finds its stacks by name
         self.names = frozenset(str(n) for n in names)
         self._planes: dict[tuple, torch.Tensor] = {}
+        # a missing stack is built under this lock, once (as
+        # SegmentDeviceView._plane)
+        self._lock = threading.Lock()
 
     def plane(self, plane_key: tuple, build) -> torch.Tensor:
-        """The cached stack `plane_key`, built by `build()` on first use;
-        returned through a local reference, as SegmentDeviceView._put."""
+        """The cached stack `plane_key`, built by `build()` by the first
+        caller while the others wait; returned through a local reference,
+        as SegmentDeviceView._plane."""
         t = self._planes.get(plane_key)
         if t is None:
-            t = build()
-            self._planes[plane_key] = t
+            with self._lock:
+                t = self._planes.get(plane_key)
+                if t is None:
+                    t = self._planes[plane_key] = build()
+                    _note_stack(hit=False)
+                    return t
+        _note_stack(hit=True)
         return t
 
     def nbytes(self) -> int:

@@ -54,7 +54,8 @@ def test_port_files_are_found():
     names = {p.name for p in _port_files()}
     assert {"chip_smoke.py", "kernels.py", "fused_groupby.py",
             "mxu_groupby.py", "query_executor.py", "transforms.py",
-            "dim_tables.py"} <= names
+            "dim_tables.py", "coalesce.py", "explain.py",
+            "trace.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

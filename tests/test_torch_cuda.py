@@ -21,7 +21,11 @@ index, VECTOR_SIMILARITY: mask planes on the card). The multi-stage join
 pipeline's device stages (partition planes, the fused join+aggregate, the
 chain gather, the pair join) on the card equal the same torch ops on the
 CPU element for element at about 2^20 skewed keys, and a q8-shaped
-statement on the card equals the CPU executor's rows.
+statement on the card equals the CPU executor's rows. A coalesced group
+of eight queries is one launch of kernel A with rows equal to the CPU's,
+kernel A at a group's S*Q = 32 and 64 members equals its plain version, a
+traced family times the card (deviceExecMs > 0), and eight threads on a
+fresh executor upload each plane once.
 """
 
 from __future__ import annotations
@@ -1345,3 +1349,122 @@ def test_capped_allocation_relieves_once_and_answers(cuda, tmp_path):
         ballast = None
         torch.cuda.set_per_process_memory_fraction(1.0)
     assert qe.execute_sql(sql).result_table.rows == want
+
+
+# -- coalescing, tracing and the device caches under concurrency -------------
+
+
+def _concurrent(qe, sqls):
+    """Run the SQLs on one thread each, released together."""
+    import threading
+
+    barrier = threading.Barrier(len(sqls))
+    out: list = [None] * len(sqls)
+
+    def work(i, sql):
+        barrier.wait(timeout=60)
+        out[i] = qe.execute_sql(sql)
+
+    threads = [threading.Thread(target=work, args=(i, s))
+               for i, s in enumerate(sqls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert all(r is not None for r in out), "a worker thread failed or hung"
+    return out
+
+
+_CO_SQL = ("SELECT d_year, p_brand, SUM(lo_revenue), COUNT(*) FROM ssb "
+           "WHERE lo_revenue > {lit} GROUP BY d_year, p_brand LIMIT 10000")
+
+
+def test_coalesced_group_on_the_card_matches_cpu(cuda, small_table,
+                                                 monkeypatch):
+    """Eight concurrent queries of one family, four literals, coalesce
+    into one launch of kernel A over [S*Q] members; each query's rows equal
+    the CPU executor's."""
+    from pinot_tpu_torch.engine.coalesce import FamilyTraffic, QueryCoalescer
+
+    schema, segs = small_table
+    gpu, cpu = QueryExecutor(device="cuda"), QueryExecutor(device="cpu")
+    for qe in (gpu, cpu):
+        qe.add_table(schema, segs)
+    gpu.coalescer = QueryCoalescer(FamilyTraffic(min_traffic=1.0))
+    sqls = [_CO_SQL.format(lit=lit) for lit in (0, 1000, 250_000, 500_000)] * 2
+    want = [sorted(map(tuple, cpu.execute_sql(s).result_table.rows))
+            for s in sqls]
+    monkeypatch.setenv("PINOT_TPU_COALESCE_WINDOW_MS", "5000")
+    monkeypatch.setenv("PINOT_TPU_COALESCE_MAX_QUERIES", str(len(sqls)))
+    before = _cuda.LAUNCHES["limb_sums"]
+    got = _concurrent(gpu, sqls)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["limb_sums"] == before + 1
+    assert sum(r.num_device_dispatches for r in got) == 1
+    for r, w in zip(got, want):
+        assert r.num_coalesced_queries == len(sqls) - 1
+        assert sorted(map(tuple, r.result_table.rows)) == w
+
+
+@pytest.mark.parametrize("q", [8, 16])
+def test_family_limb_sums_at_the_coalesced_shape(cuda, q):
+    """Kernel A over S*Q = 32 and 64 members (4 segments, Q queries), as
+    a coalesced group of q2_family's shape launches it: element-equal to
+    its plain version."""
+    planes, gid = _family_inputs(4, 1 << 18, 4, 7001, q, cuda)
+    planes = planes.repeat(q, 1, 1)
+    gid = gid.repeat(q, 1)
+    got = mxu_groupby.limb_sums(planes, gid, 7001)
+    assert got.shape == (4 * q, 4, 7001)
+    assert torch.equal(got, mxu_groupby.limb_sums_plain(planes, gid, 7001))
+
+
+def test_traced_family_times_the_device(cuda, small_table):
+    schema, segs = small_table
+    qe = QueryExecutor(device="cuda")
+    qe.add_table(schema, segs)
+    sql = _CO_SQL.format(lit=0)
+    qe.execute_sql(sql)
+    resp = qe.execute_sql("SET trace = true; " + sql)
+    spans = [s for s in resp.trace_info if s["operator"] == "family_dispatch"]
+    assert len(spans) == 1
+    assert spans[0]["attributes"]["device"] == "cuda"
+    assert spans[0]["attributes"]["deviceExecMs"] > 0
+    rows = qe.execute_sql("EXPLAIN ANALYZE " + sql).result_table.rows
+    assert any("family_dispatch(numSegments:2, device:cuda" in r[0]
+               for r in rows)
+
+
+def test_concurrent_uploads_each_plane_once_on_the_card(cuda, small_table,
+                                                        monkeypatch):
+    """F7 on the card: 8 threads run one family query on a fresh executor;
+    each plane is uploaded once and each stack built once."""
+    from collections import Counter
+
+    from pinot_tpu_torch.engine import executor as port_executor
+    from pinot_tpu_torch.segment import device_cache
+
+    puts: Counter = Counter()
+    stacks: list = []
+    real_put = device_cache.SegmentDeviceView._put
+    real_stack = port_executor._stack
+
+    def counting_put(view, key, host):
+        puts[(view.segment.name, key)] += 1
+        return real_put(view, key, host)
+
+    def counting_stack(planes):
+        stacks.append(planes[0].shape)
+        return real_stack(planes)
+
+    monkeypatch.setattr(device_cache.SegmentDeviceView, "_put", counting_put)
+    monkeypatch.setattr(port_executor, "_stack", counting_stack)
+    schema, segs = small_table
+    qe = QueryExecutor(device="cuda")
+    qe.add_table(schema, segs)
+    got = _concurrent(qe, [_CO_SQL.format(lit=0)] * 8)
+    assert all(r.result_table.rows == got[0].result_table.rows for r in got)
+    assert puts and max(puts.values()) == 1, puts
+    # at most one stack per family plane (every thread built its own
+    # before the repair)
+    assert 0 < len(stacks) <= len(puts) // len(segs)

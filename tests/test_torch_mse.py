@@ -15,6 +15,7 @@ numpy code, so there is no float tolerance anywhere here.
 from __future__ import annotations
 
 import math
+import re
 import sqlite3
 import sys
 import threading
@@ -347,10 +348,84 @@ def test_parse_and_explain_equal_jax(engines, sql):
     assert got.result_table.rows == want.result_table.rows
 
 
-def test_explain_analyze_is_refused(engines):
-    with pytest.raises(UnsupportedQueryError):
-        engines[0].execute_sql("EXPLAIN ANALYZE SELECT o.oid FROM orders o "
-                               "JOIN customers c ON o.cust_id = c.cid")
+# EXPLAIN ANALYZE labels: the timings are masked, and the attributes that
+# differ by design (tests/test_torch_explain.py `_masked`): the port's
+# dispatch spans name their device, the JAX package counts jit compiles
+_ANALYZE_TIMINGS = re.compile(
+    r"\b(ms|timeMs|deviceExecMs|compileMs|device_partition_ms):[^,)]*")
+
+
+def _analyze_tree(resp) -> list:
+    assert not resp.exceptions, resp.exceptions
+    out = []
+    for op, oid, parent in resp.result_table.rows:
+        op = _ANALYZE_TIMINGS.sub(lambda m: m.group(1) + ":*", op)
+        op = re.sub(r"device:(cpu|cuda), ", "", op)
+        out.append([re.sub(r"compiles:\d+", "compiles:*", op), oid, parent])
+    return out
+
+
+def _leaf_spans_nest_under_stages(trace_info) -> int:
+    """Every family_dispatch span's parent is an mse_stage span; returns
+    how many there are."""
+    by_id = {s["spanId"]: s for s in trace_info}
+    leaves = [s for s in trace_info if s["operator"] == "family_dispatch"]
+    for s in leaves:
+        assert by_id[s["parentId"]]["operator"].startswith("mse_stage:")
+    return len(leaves)
+
+
+@pytest.mark.parametrize("shape", ["semi", "chain2"])
+def test_explain_analyze_fused_join_equals_jax(engines, shape):
+    """ANALYZE of a statement whose join runs as the fused device stage:
+    the stage spans, their stats and the leaves' dispatch spans equal the
+    JAX package's tree; the root's rows equal a plain run's."""
+    port, jax, _ = engines
+    sql = FUSED + "EXPLAIN ANALYZE " + SHAPES[shape]
+    plain = port.execute_sql(FUSED + SHAPES[shape])
+    jax.execute_sql(FUSED + SHAPES[shape])
+    got, want = port.execute_sql(sql), jax.execute_sql(sql)
+    assert _analyze_tree(got) == _analyze_tree(want)
+    assert f"rows:{len(plain.result_table.rows)}," in got.result_table.rows[0][0]
+    assert "join_impl:device-fused" in "\n".join(
+        r[0] for r in got.result_table.rows)
+    assert _leaf_spans_nest_under_stages(got.trace_info) > 0
+
+
+def test_explain_analyze_pair_join_equals_jax(engines, monkeypatch):
+    """ANALYZE of a join returning rows, through the pair join on the
+    device (two join workers adopt the stage's trace)."""
+    from pinot_tpu_torch.mse import device_join
+
+    calls = []
+    real = device_join.device_join_indices
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(device_join, "device_join_indices", counting)
+    monkeypatch.setenv("PINOT_TPU_DEVICE_JOIN", "1")
+    port, jax, _ = engines
+    stmt = ("SELECT o.oid, c.name, o.amount FROM orders o JOIN customers c "
+            "ON o.cust_id = c.cid WHERE o.amount > 20 ORDER BY o.oid")
+    plain = port.execute_sql(MSE + stmt)
+    jax.execute_sql(MSE + stmt)
+    got = port.execute_sql(MSE + "EXPLAIN ANALYZE " + stmt)
+    want = jax.execute_sql(MSE + "EXPLAIN ANALYZE " + stmt)
+    assert calls, "the pair join did not run"
+    assert _analyze_tree(got) == _analyze_tree(want)
+    assert f"rows:{len(plain.result_table.rows)}," in got.result_table.rows[0][0]
+    assert _leaf_spans_nest_under_stages(got.trace_info) > 0
+
+
+def test_traced_statement_attaches_its_spans(engines):
+    port = engines[0]
+    resp = port.execute_sql(MSE + "SET trace = true; " + SHAPES["semi"])
+    ops = [s["operator"] for s in resp.trace_info]
+    assert any(op.startswith("mse_stage:") for op in ops), ops
+    assert "traceInfo" in resp.to_json()
+    assert port.execute_sql(MSE + SHAPES["semi"]).trace_info is None
 
 
 # -- op_join against sqlite ----------------------------------------------------
