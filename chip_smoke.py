@@ -191,6 +191,28 @@ Phases, each printing one JSON line:
            the untraced run, each on cuda with deviceExecMs > 0, a traced
            run's rows equal to the oracle's; an untraced warm q2_family
            makes no synchronize, no span and one host fetch
+  cluster  the cluster serving path (cluster/): a PropertyStore, a
+           controller, 2 ServerInstance(device="cuda") and a Broker over
+           loopback, table `ssb` registered from phase `data`'s segment
+           directories at replication 1 (no new build); q1, q2 (kernel B on
+           each segment), q2_family (kernel A once a server, over its family
+           of 2), q3 and sel_limit through the broker, each with its counts
+           set to 0 just before it: rows against the oracle, both servers
+           responding, dispatches equal to the families each server's
+           segments form, the kernels launched through the servers; per
+           query the broker p50 and the same query's in-process p50 over
+           --iters warm runs, and the wire (DataTable bytes, server
+           execute_segments, encode, RPC, decode, route and merge + reduce
+           ms, host clock in one process); kernel A's and kernel B's
+           recorded inputs against their plain versions. Then replication
+           2: the query's first RPC dropped (retried on the replica), a
+           corrupt DataTable (retried), a server's error (the query fails,
+           or answers partial with allowPartialResults, as the JAX broker
+           does), and the server that answered q2_family stopped (the
+           other replica alone answers it)
+  doctor   `python -m pinot_tpu_torch.tools.doctor`'s probe (a supervised
+           child: the card, the kernel build, kernel A against its plain
+           version) must classify `ok`
   mse_layers
            per statement: parse + plan, the leaf stages, the join stage
            and the rest (shuffles, final aggregate, sort), host clock over
@@ -203,7 +225,9 @@ Phases, each printing one JSON line:
            one q8 with torch.cuda.set_sync_debug_mode("warn"): the
            synchronizing calls inside its fused stage
   times    p50 query latency over --iters warm runs (1 for a query slower
-           than 1 s), the multi-stage statements included
+           than 1 s), the multi-stage statements included; q6, q6m and
+           q6_sort are left out (host-held: their rows, dispatches and
+           launches are held in `queries`)
   layers   a warm query's host time split into parse + prune + plan,
            dispatch, collect (the query's one fetch and the decode) and
            combine + reduce (1 run for a query slower than 1 s); q6, q6m
@@ -225,7 +249,8 @@ Phases, each printing one JSON line:
            occupancy
   total    the run's wall time, the build included
   kernels  the kernel table (the realtime and index queries' launches
-           included, one row each): per kernel and main-path shape, the kernel's
+           included, one row each, and kernel A over a cluster server's
+           family of 2): per kernel and main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
            rotated over the recorded inputs of the query's segments or
            families and, where those are small, fresh copies of them, so
@@ -236,7 +261,9 @@ Phases, each printing one JSON line:
            share, the plain version's time and one PyTorch library call
            computing the same sums, both rotated over the same inputs
 
-The line before the last is the kernel table, the last line
+Every phase line carries `seconds`: the host time since the previous
+phase line, or the phase's own where it measures one. The line before the
+last is the kernel table, the last line
 {"ok": true, "device": {...}}. Any failure raises and the script exits
 non-zero without that line. It exits non-zero at once when no CUDA device
 is present or the pinot_tpu_torch package is not beside it.
@@ -568,14 +595,25 @@ FUSED_MSE = ("q8", "q9j", "q10")
 # (lo_discount = 0) keeps about 1M
 MAX_ROWS_IN_JOIN = 1 << 24
 # q6, q6m and q6_sort are held by the host decode (PERF.md §5): they run
-# in `queries` and `times`, and leave `layers` and `profile`
+# in `queries` (rows, dispatches, launches), and leave `times`, `layers`
+# and `profile`
 HOST_HELD = ("q6", "q6m", "q6_sort")
 # a query slower than this takes 1 warm run in `times`, `layers` and
 # `profile`
 SLOW_QUERY_MS = 1000.0
 
 
+_LAST_PHASE = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase line gains `seconds`, the host time
+    since the previous phase line (its own, where it sets one)."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        obj = dict(obj)
+        obj.setdefault("seconds", now - _LAST_PHASE[0])
+        _LAST_PHASE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1592,8 +1630,8 @@ def phase_index_checks(qe, results, facts, card):
             timer, orig)
         try:
             query_ctx = parse_sql(QUERIES[qname])
-            segments, _ = qe.prune_segments(
-                query_ctx, qe.pinned_segments(qe._table(query_ctx.table_name)))
+            segments, _ = qe.prune_segments(query_ctx, qe.pinned_segments(
+                qe._table(query_ctx.table_name).segments))
             plans = qe.plan_segments(qe.route_segments(query_ctx, segments))
         finally:
             plan_mod.eval_host_mask, plan_mod.eval_map_index_predicate = orig
@@ -1623,14 +1661,18 @@ def _mask_params(node, ir) -> list:
     return [m for k in kids for m in _mask_params(k, ir)]
 
 
-def family_count(qe, sql) -> int:
+def family_count(qe, sql, table=None) -> int:
     """Batch families (and lone segments) the query's plans form: the
-    device dispatches it makes outside the device combine's merge."""
+    device dispatches it makes outside the device combine's merge. `table`
+    names the executor's table when it differs from the query's (a cluster
+    server's `ssb_OFFLINE`)."""
     from pinot_tpu_torch.query.parser.sql import parse_sql
 
     query = parse_sql(sql)
+    if table is not None:
+        query.table_name = table
     segments, _ = qe.prune_segments(
-        query, qe.pinned_segments(qe._table(query.table_name)))
+        query, qe.pinned_segments(qe._table(query.table_name).segments))
     routes = qe.route_segments(query, segments)
     plans = qe.plan_segments(routes)
     return len(qe._batch_families(query, [r.segment for r in routes],
@@ -2508,6 +2550,286 @@ def phase_explain(torch, qe, expected, card) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+# the cluster serving path: these queries through the broker, 2 servers
+CLUSTER_QUERIES = ("q1", "q2", "q2_family", "q3", "sel_limit")
+CLUSTER_SERVERS = 2
+
+
+def _cluster_start(torch, tmp, schema, segments: int, rows: int,
+                   replication: int):
+    """A PropertyStore, a controller, CLUSTER_SERVERS servers on the card
+    and a broker over loopback, with table `ssb` registered from the
+    segment directories phase `data` built (no new build)."""
+    from pinot_tpu_torch.cluster import (Broker, ClusterController,
+                                         PropertyStore, ServerInstance)
+
+    store = PropertyStore()
+    ctl = ClusterController(store)
+    servers = [ServerInstance(store, f"Server_{i}", device=DEVICE)
+               for i in range(CLUSTER_SERVERS)]
+    for srv in servers:
+        srv.start()
+    ctl.add_schema(schema.to_json())
+    table = ctl.create_table({"tableName": "ssb", "replication": replication})
+    for i in range(segments):
+        ctl.add_segment(table, f"ssb_{i}", {"location": f"{tmp}/ssb_{i}",
+                                            "numDocs": rows})
+    return store, ctl, servers, Broker(store)
+
+
+def _cluster_stop(cluster) -> None:
+    _, _, servers, broker = cluster
+    for srv in servers:
+        if srv._started:
+            srv.stop()
+    broker.close()
+
+
+def _wire(resp) -> dict:
+    """One response's wire, summed over its shards (ms on the host clock;
+    the servers share this process, so `rpc` includes the other shard's
+    work on the same GIL)."""
+    w = resp.wire_stats or []
+    return {"servers": len(w),
+            "datatable_bytes": sum(x["datatableBytes"] for x in w),
+            "server_execute_ms": max((x["executeMs"] for x in w), default=0),
+            "encode_ms": sum(x["encodeMs"] for x in w),
+            "rpc_ms": max((x["rpcMs"] for x in w), default=0),
+            "decode_ms": sum(x["decodeMs"] for x in w),
+            "route_ms": w[0]["routeMs"] if w else 0.0,
+            "merge_reduce_ms": w[0]["mergeReduceMs"] if w else 0.0}
+
+
+def phase_cluster(args, torch, qe, tmp, schema, expected, _cuda, interp,
+                  mxu, fg, card) -> dict:
+    """The cluster serving path on the card: 2 ServerInstance(device=
+    "cuda") and a Broker over loopback, table `ssb` from phase `data`'s
+    directories at replication 1 (2 segments a server). Each query of
+    CLUSTER_QUERIES once with every count set to 0 just before it (rows
+    against the oracle, 2 servers responding, dispatches equal to the
+    families each server's segments form, kernels A and B launched through
+    the servers), then --iters warm runs for the broker p50, the same
+    query's in-process p50 and the wire; then replication 2: a dropped
+    connection and a corrupt DataTable retried on the replica, a server's
+    error failing the query (partial with allowPartialResults) as the JAX
+    broker does, and the server that answered q2_family stopped with the
+    other replica alone answering it. Returns kernel A's recorded q2_family inputs through the
+    servers and their launches for the kernel table."""
+    from pinot_tpu_torch.spi import faults
+
+    t_phase = time.perf_counter()
+    rows = args.rows_per_segment
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    # as in phase `coalesce`: the script's heap is frozen out of the
+    # collector, as a server freezes its own after loading, so no full
+    # collection of it lands in the timed runs (counted, to be sure)
+    gc.collect()
+    gc.freeze()
+    gen2 = gc.get_stats()[2]["collections"]
+    cluster = _cluster_start(torch, tmp, schema, args.segments, rows, 1)
+    _, _, servers, broker = cluster
+    out = {"queries": {}, "card": card}
+    recorded = {}
+    try:
+        hosted = {srv.instance_id: sorted(srv.segments.get("ssb_OFFLINE", {}))
+                  for srv in servers}
+        if sorted(n for v in hosted.values() for n in v) != [
+                f"ssb_{i}" for i in range(args.segments)]:
+            raise AssertionError(f"cluster: segments hosted {hosted}")
+        launches = {k: 0 for k in _cuda.LAUNCHES}
+        for qname in CLUSTER_QUERIES:
+            sql = QUERIES[qname]
+            want_disp = sum(family_count(srv.executor, sql, "ssb_OFFLINE")[0]
+                            for srv in servers)
+            _cuda.reset_launches()
+            with recording(mxu, "limb_sums") as a_calls, \
+                    recording(fg, "fused_limb_sums") as b_calls:
+                t0 = time.perf_counter()
+                resp = broker.execute_sql(sql)
+                torch.cuda.synchronize()
+                cold_ms = (time.perf_counter() - t0) * 1e3
+            made = dict(_cuda.LAUNCHES)
+            if resp.exceptions:
+                raise AssertionError(f"cluster {qname}: {resp.exceptions}")
+            _rows_equal(f"cluster {qname}", resp, expected[qname],
+                        qname in ORDERED)
+            if resp.num_servers_queried != CLUSTER_SERVERS or \
+                    resp.num_servers_responded != CLUSTER_SERVERS:
+                raise AssertionError(
+                    f"cluster {qname}: {resp.num_servers_responded} of "
+                    f"{resp.num_servers_queried} servers responded")
+            if resp.num_device_dispatches != want_disp:
+                raise AssertionError(
+                    f"cluster {qname}: {resp.num_device_dispatches} "
+                    f"dispatches, the servers' families {want_disp}")
+            kernel = EXPECTED_KERNEL.get(qname)
+            if kernel is not None and made[kernel] == 0:
+                raise AssertionError(f"cluster {qname} did not launch {kernel}")
+            if made["limb_sums"] != len(a_calls) or \
+                    made["fused_limb_sums"] != len(b_calls):
+                raise AssertionError(f"cluster {qname}: {made} launches, "
+                                     f"{len(a_calls)} + {len(b_calls)} calls")
+            for k in launches:
+                launches[k] += made[k]
+            recorded[qname] = (a_calls, b_calls)
+            ts, local, wires = [], [], []
+            for _ in range(args.iters):
+                t0 = time.perf_counter()
+                r = broker.execute_sql(sql)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+                wires.append(_wire(r))
+                t0 = time.perf_counter()
+                qe.execute_sql(sql)
+                torch.cuda.synchronize()
+                local.append((time.perf_counter() - t0) * 1e3)
+            out["queries"][qname] = {
+                "rows": len(resp.result_table.rows), "cold_ms": cold_ms,
+                "broker_p50_ms": float(np.median(ts)),
+                "broker_p25_p75_ms": [float(q) for q in
+                                      np.percentile(ts, [25, 75])],
+                "in_process_p50_ms": float(np.median(local)),
+                "device_dispatches": resp.num_device_dispatches,
+                "in_process_dispatches": qe.execute_sql(
+                    sql).num_device_dispatches,
+                "launches": made,
+                "wire_p50": {k: float(np.median([w[k] for w in wires]))
+                             for k in wires[0]}}
+        for k, v in launches.items():
+            if v == 0:
+                raise AssertionError(f"the cluster path never launched {k}")
+        out["launches"] = launches
+        out["server_cache_bytes"] = {
+            srv.instance_id: srv.executor.executor.cache.bytes_used()
+            for srv in servers}
+        torch.cuda.synchronize()
+        out["allocated_bytes_over_phase_start"] = \
+            torch.cuda.memory_allocated() - mem0
+        out["health"] = servers[0]._handle({"type": "status"})["device"]
+    finally:
+        _cluster_stop(cluster)
+    parity = {}
+    for k, rec in enumerate(recorded["q2_family"][0]):
+        parity[f"limb_sums/cluster_q2_family/server{k}"] = check_equal(
+            torch, f"limb_sums cluster q2_family, server {k}",
+            mxu.limb_sums(*rec), mxu.limb_sums_plain(*rec))
+    for k, rec in enumerate(recorded["q2"][1]):
+        parity[f"fused_limb_sums/cluster_q2/launch{k}"] = check_equal(
+            torch, f"fused_limb_sums cluster q2, launch {k}",
+            fg.fused_limb_sums(*rec), fg.fused_limb_sums_plain(*rec))
+    out["parity"] = parity
+    del cluster, servers, broker
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # replication 2: every segment on both servers
+    cluster = _cluster_start(torch, tmp, schema, args.segments, rows, 2)
+    _, _, servers, broker = cluster
+    sql, want = QUERIES["q2_family"], expected["q2_family"]
+    failures = {}
+    try:
+        resp = broker.execute_sql(sql)
+        _rows_equal("cluster rep2", resp, want, False)
+        # the query's first RPC drops (the connection-failure shape): its
+        # shard fails over to the other replica
+        faults.FAULTS.arm("transport.call", kind="drop", times=1)
+        resp = broker.execute_sql(sql)
+        fired = faults.FAULTS.fired("transport.call")
+        faults.FAULTS.reset()
+        _rows_equal("cluster drop", resp, want, False)
+        if fired != 1 or resp.num_scatter_retries < 1:
+            raise AssertionError(f"cluster drop: {fired} drops, "
+                                 f"{resp.num_scatter_retries} retries")
+        failures["transport.call drop"] = {
+            "retries": resp.num_scatter_retries,
+            "servers_responded": resp.num_servers_responded}
+        faults.FAULTS.arm("datatable.encode", kind="corrupt", times=1)
+        resp = broker.execute_sql(sql)
+        faults.FAULTS.reset()
+        _rows_equal("cluster corrupt", resp, want, False)
+        if resp.num_corrupt_shards_retried != 1 or \
+                resp.num_scatter_retries < 1:
+            raise AssertionError(
+                f"cluster corrupt: {resp.num_corrupt_shards_retried} "
+                f"corrupt shards, {resp.num_scatter_retries} retries")
+        failures["datatable.encode corrupt"] = {
+            "retries": resp.num_scatter_retries,
+            "corrupt_shards": resp.num_corrupt_shards_retried}
+        # a handler's error: terminal (RemoteError), as in the JAX broker
+        faults.FAULTS.arm("server.query", kind="error", times=1)
+        resp = broker.execute_sql(sql)
+        faults.FAULTS.arm("server.query", kind="error", times=1)
+        part = broker.execute_sql("SET allowPartialResults = true; " + sql)
+        faults.FAULTS.reset()
+        if resp.result_table is not None or not resp.exceptions[0] \
+                .startswith("RemoteError") or not part.partial_result:
+            raise AssertionError(f"cluster server.query error: "
+                                 f"{resp.exceptions} / {part.exceptions}")
+        failures["server.query error"] = {
+            "exception": resp.exceptions[0][:80],
+            "partial_servers_responded": part.num_servers_responded}
+        # failover: stop a server that answered the last query (adaptive
+        # selection may route every segment to one replica), and the
+        # query is answered by the other replica alone
+        resp = broker.execute_sql(sql)
+        answered = sorted({w["server"] for w in resp.wire_stats or []})
+        if not answered:
+            raise AssertionError("cluster failover: no server answered")
+        victim = answered[0]
+        next(s for s in servers if s.instance_id == victim).stop()
+        resp = broker.execute_sql(sql)
+        _rows_equal("cluster failover", resp, want, False)
+        after = sorted({w["server"] for w in resp.wire_stats or []})
+        if resp.num_servers_responded != 1 or victim in after or not after:
+            raise AssertionError(
+                f"cluster failover: {victim} stopped, then "
+                f"{resp.num_servers_responded} servers ({after}) answered")
+        failures["failover"] = {
+            "answered_before": answered, "stopped": victim,
+            "answered_after": after,
+            "servers_responded": resp.num_servers_responded,
+            "device_dispatches": resp.num_device_dispatches}
+    finally:
+        faults.FAULTS.reset()
+        _cluster_stop(cluster)
+        out["gc_gen2_collections"] = gc.get_stats()[2]["collections"] - gen2
+        gc.unfreeze()
+    del cluster, servers, broker
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["failures"] = failures
+    seconds = time.perf_counter() - t_phase
+    emit(dict({"phase": "cluster", "servers": CLUSTER_SERVERS,
+               "replication": [1, 2], "seconds": seconds,
+               "budget_s": CLUSTER_BUDGET_S,
+               "note": "one process: the servers and the broker share its "
+                       "GIL, so wire times are a one-process cluster's"},
+              **out))
+    return {"q2_family": recorded["q2_family"][0],
+            "launches": out["queries"]["q2_family"]["launches"]["limb_sums"],
+            "err": max(v for k, v in parity.items()
+                       if k.startswith("limb_sums/cluster_q2_family"))}
+
+
+# the phase's share of the run's 1200 s limit (reported beside `seconds`)
+CLUSTER_BUDGET_S = 60.0
+
+
+def phase_doctor(card) -> None:
+    """The GPU probe (tools/doctor.py) in its supervised child: it must
+    classify `ok`."""
+    from pinot_tpu_torch.tools import doctor
+
+    report = doctor.run_probe(timeout_s=300)
+    if report["classification"] != "ok":
+        raise AssertionError(f"doctor: {report['classification']}: "
+                             f"{report['remedy']}\n{report['stderrTail']}")
+    emit({"phase": "doctor", "card": card,
+          "classification": report["classification"],
+          "device": report["device"], "probe_s": report["elapsedS"]})
+
+
 def phase_oom(torch, qe, expected, card) -> None:
     """Device-memory relief under a per-process cap
     (torch.cuda.set_per_process_memory_fraction). q4's 16 segments are made
@@ -2870,7 +3192,8 @@ def phase_layers(torch, qe, iters, card, slow) -> dict:
             t0 = time.perf_counter()
             query = parse_sql(sql)
             table = qe._table(query.table_name)
-            segments, _ = qe.prune_segments(query, qe.pinned_segments(table))
+            segments, _ = qe.prune_segments(
+                query, qe.pinned_segments(table.segments))
             routes = qe.route_segments(query, segments)
             plans = qe.plan_segments(routes)
             t1 = time.perf_counter()
@@ -3554,6 +3877,10 @@ def main(argv=None) -> int:
                 mxu_groupby.limb_sums_plain(planes, gid, G))
         torch.cuda.empty_cache()
         phase_explain(torch, qe, expected, dev["nvidia_smi"])
+        cluster = phase_cluster(args, torch, qe, tmp, tables["ssb"][0],
+                                expected, _cuda, interp, mxu_groupby,
+                                fused_groupby, dev["nvidia_smi"])
+        phase_doctor(dev["nvidia_smi"])
         planes, gid, G = mse["agg_recs"][0]
         parity["limb_sums/mse_agg_inputs/family"] = check_equal(
             torch, f"limb_sums mse_agg inputs, family of {planes.shape[0]}",
@@ -3651,8 +3978,11 @@ def main(argv=None) -> int:
         phase_geometry(torch, _cuda, mxu_groupby, fused_groupby, recorded)
 
         # -- times ----------------------------------------------------------
-        p50, quartiles, slow, docs = {}, {}, set(), {}
+        p50, quartiles, slow, docs, full_gc = {}, {}, set(), {}, {}
         for qname, sql in QUERIES.items():
+            if qname in HOST_HELD:
+                continue  # rows and dispatches held in `queries`
+            gen2 = gc.get_stats()[2]["collections"]
             ts = []
             while len(ts) < (1 if qname in slow else args.iters):
                 t0 = time.perf_counter()
@@ -3663,6 +3993,8 @@ def main(argv=None) -> int:
                     slow.add(qname)
             p50[qname] = float(np.median(ts))
             quartiles[qname] = [float(q) for q in np.percentile(ts, [25, 75])]
+            if gc.get_stats()[2]["collections"] > gen2:
+                full_gc[qname] = gc.get_stats()[2]["collections"] - gen2
         p50.update(mse["p50"])
         quartiles.update(mse["quartiles"])
         docs.update(mse["docs"])
@@ -3670,7 +4002,9 @@ def main(argv=None) -> int:
         emit({"phase": "times", "card": dev["nvidia_smi"],
               "query_p50_ms": p50, "query_p25_p75_ms": quartiles,
               "rows_per_s": {k: docs[k] / (v / 1e3) for k, v in p50.items()},
-              "iters": args.iters, "iters_1": sorted(slow)})
+              "iters": args.iters, "iters_1": sorted(slow),
+              "left_out": list(HOST_HELD),
+              "full_collections_during": full_gc})
         phase_layers(torch, qe, args.iters, dev["nvidia_smi"], slow)
         phase_profile(torch, qe, dev["nvidia_smi"], slow)
         phase_chain(torch, qe, interp, dev["nvidia_smi"])
@@ -3719,6 +4053,13 @@ def main(argv=None) -> int:
                 f"{len(segments)} segments ({rec[0].shape[0]} members), "
                 "one launch"))
         del group_inputs
+        # kernel A through the cluster: each server's family of 2
+        kernels.append(kernel_a_row(
+            torch, mxu_groupby, _cuda, cluster["q2_family"],
+            cluster["launches"], cluster["err"],
+            f"q2_family through the cluster: each of {CLUSTER_SERVERS} "
+            "servers' family of its segments, one launch a server"))
+        del cluster
         # the multi-stage leaf partial aggregate's launch of kernel A
         kernels.append(kernel_a_row(
             torch, mxu_groupby, _cuda, mse["agg_recs"], mse["agg_launches"],

@@ -1,14 +1,15 @@
-"""Broker result cache of multi-stage statements (cache tier 3).
+"""Broker result cache (cache tier 3) and table lineage epochs.
 
-The port of pinot_tpu/cache/results.py's `BrokerResultCache`: a TTL- and
-byte-budgeted LRU of BrokerResponses. The multi-stage executor keys it by
-its plan fingerprint and every scanned segment's token (mse/executor.py),
-so a replaced segment changes the key. Entries expire by TTL
-(PINOT_TPU_RESULT_CACHE_TTL_S, default 300) and a byte budget
-(PINOT_TPU_RESULT_CACHE_MB, default 64); the clock is injectable.
-
-Not ported: the lineage epochs (`lineage_epoch`, `bump_lineage_epoch`) of
-the cluster broker's tier, which the port does not have yet.
+The port of pinot_tpu/cache/results.py: a TTL- and byte-budgeted LRU of
+BrokerResponses. The multi-stage executor keys it by its plan fingerprint
+and every scanned segment's token (mse/executor.py), so a replaced segment
+changes the key. The cluster broker (cluster/broker.py) keys it by the
+query's fingerprint and the table's **lineage epoch**: a counter in the
+property store (``/CACHEEPOCH/{tableNameWithType}``) that the controller
+bumps on every segment add, drop and replace (cluster/controller.py), so a
+bumped epoch makes every older key of the table unreachable. Entries
+expire by TTL (PINOT_TPU_RESULT_CACHE_TTL_S, default 300) and a byte
+budget (PINOT_TPU_RESULT_CACHE_MB, default 64); the clock is injectable.
 """
 
 from __future__ import annotations
@@ -20,12 +21,28 @@ import time
 from collections import OrderedDict
 from typing import Optional
 
+from ..spi.metrics import BROKER_METRICS, BrokerMeter
+
+EPOCH_PREFIX = "/CACHEEPOCH"
+
 
 def result_cache_enabled() -> bool:
     """On by default; PINOT_TPU_RESULT_CACHE=0 turns it off process-wide
     (per statement: `SET resultCache = false`)."""
     return os.environ.get("PINOT_TPU_RESULT_CACHE", "1") \
         not in ("0", "false", "")
+
+
+def lineage_epoch(store, name_with_type: str) -> int:
+    """Current lineage epoch for a table (0 = never bumped)."""
+    return int(store.get(f"{EPOCH_PREFIX}/{name_with_type}") or 0)
+
+
+def bump_lineage_epoch(store, name_with_type: str) -> None:
+    """Advance the table's epoch: every broker result-cache key derived
+    from the old epoch becomes unreachable at once."""
+    store.update(f"{EPOCH_PREFIX}/{name_with_type}",
+                 lambda cur: int(cur or 0) + 1)
 
 
 def _estimate_response_bytes(resp) -> int:
@@ -88,6 +105,7 @@ class BrokerResultCache:
                 _, (_, freed, _) = self._entries.popitem(last=False)
                 self._bytes -= freed
                 self.evictions += 1
+                BROKER_METRICS.add_meter(BrokerMeter.RESULT_CACHE_EVICTIONS)
 
     def clear(self) -> int:
         with self._lock:

@@ -1,0 +1,24 @@
+"""Cluster layer: controller / broker / server roles over a shared
+property store, the Helix-over-ZooKeeper analogue.
+
+The port of pinot_tpu/cluster/'s single-stage serving path. Reference
+analogue: Apache Helix + ZooKeeper control plane, PinotHelixResourceManager
+(pinot-controller/.../helix/core/PinotHelixResourceManager.java), broker
+routing (pinot-broker/.../routing/BrokerRoutingManager.java), and the
+server state model (pinot-server/.../helix/
+SegmentOnlineOfflineStateModelFactory.java:44).
+
+The control plane is host-side and lightweight (an in-process store with
+watches); the data plane is a socket scatter/gather whose per-server
+execution path is the port's device engine on the card. Ideal state (what
+should be) vs external view (what is), with servers converging one to the
+other. Not ported yet: rebalance, REST, the query log, quota, periodic
+tasks, the cluster multi-stage engine and realtime consumption.
+"""
+
+from .broker import Broker
+from .controller import ClusterController
+from .server import ServerInstance
+from .store import PropertyStore
+
+__all__ = ["PropertyStore", "ClusterController", "ServerInstance", "Broker"]

@@ -1,0 +1,297 @@
+"""Cluster controller: table/segment lifecycle + assignment + retention.
+
+The port of pinot_tpu/cluster/controller.py: table names with type,
+schemas, tables, segment add/drop with replica-group and instance-partition
+assignment, and retention. Segment add, drop and replace bump the table's
+lineage epoch (cache/results.py), which keys the broker's result cache.
+Not ported yet: rebalance, tier relocation and the realtime segment
+completion manager.
+
+Reference analogue: PinotHelixResourceManager (pinot-controller/.../helix/
+core/PinotHelixResourceManager.java, 4.6K LoC — create/delete tables, add
+segments, ideal-state updates, instance management), segment assignment
+strategies (.../helix/core/assignment/segment/BaseSegmentAssignment.java),
+TableRebalancer (.../helix/core/rebalance/TableRebalancer.java) and
+RetentionManager (.../helix/core/retention/).
+
+State layout in the property store (ZK-analogue paths):
+  /CONFIGS/TABLE/{tableNameWithType}   table config JSON
+  /SCHEMAS/{rawName}                   schema JSON
+  /IDEALSTATES/{tableNameWithType}     {segment: {instance: state}}
+  /EXTERNALVIEW/{tableNameWithType}    same shape, written by servers
+  /LIVEINSTANCES/{instanceId}          ephemeral {host, port}
+  /INSTANCECONFIGS/{instanceId}        {host, port, tags}
+  /SEGMENTS/{tableNameWithType}/{seg}  segment metadata (location, docs, time range)
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+from ..cache.results import bump_lineage_epoch
+from ..spi.metrics import CONTROLLER_METRICS, ControllerMeter
+from .leader import LeadControllerManager
+from .store import PropertyStore
+
+ONLINE = "ONLINE"
+OFFLINE = "OFFLINE"
+CONSUMING = "CONSUMING"
+# external-view-only state: the replica failed integrity verification and
+# is quarantined — never advertised ONLINE, excluded from broker routing
+# (reference: Helix ERROR state on a failed state transition)
+ERROR = "ERROR"
+
+
+def table_name_with_type(name: str, table_type: str = "OFFLINE") -> str:
+    if name.endswith("_OFFLINE") or name.endswith("_REALTIME"):
+        return name
+    return f"{name}_{table_type}"
+
+
+def raw_table_name(name_with_type: str) -> str:
+    for suffix in ("_OFFLINE", "_REALTIME"):
+        if name_with_type.endswith(suffix):
+            return name_with_type[: -len(suffix)]
+    return name_with_type
+
+
+class ClusterController:
+    """``instance_id=None`` (the default) keeps the single-controller mode:
+    no election. With an ``instance_id`` the controller joins the leader
+    election (cluster/leader.py); the leader-only duties (periodic tasks,
+    segment completion) are not ported yet."""
+
+    def __init__(self, store: PropertyStore,
+                 instance_id: Optional[str] = None):
+        self.store = store
+        self.instance_id = instance_id
+        self.leader: Optional[LeadControllerManager] = None
+        if instance_id is not None:
+            self.leader = LeadControllerManager(
+                store, instance_id, on_change=self._on_leadership)
+            self.leader.start()
+
+    def _on_leadership(self, is_leader: bool) -> None:
+        CONTROLLER_METRICS.add_meter(ControllerMeter.LEADER_CHANGES)
+
+    def is_leader(self) -> bool:
+        return self.leader is None or self.leader.is_leader
+
+    def stop(self) -> None:
+        """Graceful shutdown: resign leadership (atomic delete_if).
+        Crash-death is modeled by ``leader.disconnect()`` +
+        ``store.expire_session`` instead."""
+        if self.leader is not None:
+            self.leader.stop()
+
+    # -- instances ---------------------------------------------------------
+    def list_instances(self, tag: Optional[str] = None) -> list[str]:
+        out = []
+        for inst in self.store.children("/INSTANCECONFIGS"):
+            cfg = self.store.get(f"/INSTANCECONFIGS/{inst}") or {}
+            if tag is None or tag in cfg.get("tags", []):
+                out.append(inst)
+        return out
+
+    def live_instances(self) -> list[str]:
+        return self.store.children("/LIVEINSTANCES")
+
+    def server_instances(self, tag: Optional[str] = None) -> list[str]:
+        """Segment-hosting candidates: registered instances that are
+        servers. Minions/brokers register with an explicit non-SERVER type
+        and must never be assigned segments (reference: Helix instance
+        tags — segments go to server-tenant-tagged instances only)."""
+        out = []
+        for inst in self.list_instances(tag):
+            cfg = self.store.get(f"/INSTANCECONFIGS/{inst}") or {}
+            if cfg.get("type", "SERVER") == "SERVER":
+                out.append(inst)
+        return out
+
+    # -- schemas / tables ---------------------------------------------------
+    def add_schema(self, schema_json: dict) -> None:
+        self.store.set(f"/SCHEMAS/{schema_json['schemaName']}", schema_json)
+
+    def create_table(self, table_config: dict) -> str:
+        """table_config needs at least tableName; optional tableType
+        (OFFLINE default), replication (1), serverTag, timeColumn,
+        retentionDays."""
+        name = table_name_with_type(table_config["tableName"],
+                                    table_config.get("tableType", "OFFLINE"))
+        table_config = dict(table_config, tableNameWithType=name)
+        self.store.set(f"/CONFIGS/TABLE/{name}", table_config)
+        if self.store.get(f"/IDEALSTATES/{name}") is None:
+            self.store.set(f"/IDEALSTATES/{name}", {})
+        return name
+
+    def drop_table(self, name_with_type: str) -> None:
+        for seg in self.store.children(f"/SEGMENTS/{name_with_type}"):
+            self.store.delete(f"/SEGMENTS/{name_with_type}/{seg}")
+        self.store.delete(f"/IDEALSTATES/{name_with_type}")
+        self.store.delete(f"/CONFIGS/TABLE/{name_with_type}")
+
+    def table_config(self, name_with_type: str) -> Optional[dict]:
+        return self.store.get(f"/CONFIGS/TABLE/{name_with_type}")
+
+    # -- segments -----------------------------------------------------------
+    def add_segment(self, name_with_type: str, segment_name: str,
+                    metadata: dict) -> list[str]:
+        """metadata: {location: dir path (deep-store address), numDocs,
+        startTimeMs?, endTimeMs?, crc?}. Assigns replicas and updates the
+        ideal state; servers converge and load. Returns assigned instances."""
+        cfg = self.table_config(name_with_type)
+        if cfg is None:
+            raise KeyError(f"table {name_with_type} not found")
+        metadata = dict(metadata, segmentName=segment_name,
+                        pushTimeMs=int(time.time() * 1000))
+        self.store.set(f"/SEGMENTS/{name_with_type}/{segment_name}", metadata)
+        assigned = self._assign_segment(cfg, metadata)
+        state = CONSUMING if metadata.get("consuming") else ONLINE
+
+        def upd(ideal):
+            ideal = ideal or {}
+            ideal[segment_name] = {inst: state for inst in assigned}
+            return ideal
+
+        self.store.update(f"/IDEALSTATES/{name_with_type}", upd)
+        # lineage epoch bump (cache/results.py): every upload/refresh makes
+        # broker result-cache entries for this table unreachable
+        bump_lineage_epoch(self.store, name_with_type)
+        return assigned
+
+    def drop_segment(self, name_with_type: str, segment_name: str) -> None:
+        def upd(ideal):
+            ideal = ideal or {}
+            ideal.pop(segment_name, None)
+            return ideal
+
+        self.store.update(f"/IDEALSTATES/{name_with_type}", upd)
+        self.store.delete(f"/SEGMENTS/{name_with_type}/{segment_name}")
+        bump_lineage_epoch(self.store, name_with_type)
+
+    def segment_metadata(self, name_with_type: str, segment_name: str) -> Optional[dict]:
+        return self.store.get(f"/SEGMENTS/{name_with_type}/{segment_name}")
+
+    # -- instance partitions (replica groups) --------------------------------
+    def configure_instance_partitions(self, name_with_type: str,
+                                      num_replica_groups: int,
+                                      instances_per_group: Optional[int] = None,
+                                      num_partitions: Optional[int] = None) -> dict:
+        """Partition the table's eligible instances into replica groups
+        (reference: InstanceAssignmentDriver +
+        InstanceReplicaGroupPartitionSelector — each replica of a segment
+        lands in a DISTINCT group, so one group can serve a full copy of
+        the table and queries fan out within a single group). Selection is
+        deterministic (sorted instances, round-robin into groups) so
+        re-running after membership changes moves as little as possible."""
+        cfg = self.table_config(name_with_type)
+        if cfg is None:
+            raise KeyError(name_with_type)
+        candidates = sorted(set(self.server_instances(cfg.get("serverTag")))
+                            & set(self.live_instances()))
+        per_group = instances_per_group or len(candidates) // num_replica_groups
+        need = num_replica_groups * per_group
+        if per_group < 1 or len(candidates) < need:
+            raise RuntimeError(
+                f"need {num_replica_groups}x{per_group} instances, "
+                f"have {candidates}")
+        # sticky re-run: instances keep their previous group when still
+        # eligible, so new capacity fills gaps instead of reshuffling
+        # whole groups (and the follow-up rebalance moves the minimum)
+        prev = (self.instance_partitions(name_with_type)
+                or {}).get("replicaGroups", [])
+        eligible = set(candidates)
+        groups: list[list] = []
+        taken: set = set()
+        for g in range(num_replica_groups):
+            kept = [i for i in (prev[g] if g < len(prev) else [])
+                    if i in eligible and i not in taken][:per_group]
+            groups.append(kept)
+            taken.update(kept)
+        pool = [i for i in candidates if i not in taken]
+        for g in range(num_replica_groups):
+            while len(groups[g]) < per_group:
+                groups[g].append(pool.pop(0))
+        record = {"replicaGroups": groups}
+        if num_partitions:
+            record["numPartitions"] = int(num_partitions)
+        self.store.set(f"/INSTANCEPARTITIONS/{name_with_type}", record)
+        return record
+
+    def instance_partitions(self, name_with_type: str) -> Optional[dict]:
+        return self.store.get(f"/INSTANCEPARTITIONS/{name_with_type}")
+
+    @staticmethod
+    def _segment_partition_id(metadata: Optional[dict]) -> Optional[int]:
+        """First stamped partition id on the segment's push metadata."""
+        for info in ((metadata or {}).get("partitions") or {}).values():
+            parts = info.get("partitions") if isinstance(info, dict) else None
+            if parts:
+                return int(parts[0])
+        return None
+
+    # -- assignment ---------------------------------------------------------
+    def _assign_segment(self, cfg: dict,
+                        metadata: Optional[dict] = None) -> list[str]:
+        """Replica-group assignment when instance partitions are configured
+        (one instance from EACH group — partition-stamped segments pin to
+        group member p % group_size, reference
+        BaseSegmentAssignment.assignSegment replica-group path); otherwise
+        balanced least-loaded assignment
+        (BalancedNumSegmentAssignmentStrategy)."""
+        name = cfg["tableNameWithType"]
+        ideal = self.store.get(f"/IDEALSTATES/{name}") or {}
+        ip = self.instance_partitions(name)
+        if ip:
+            live = set(self.live_instances())
+            load = {}
+            for seg_map in ideal.values():
+                for inst in seg_map:
+                    load[inst] = load.get(inst, 0) + 1
+            pid = self._segment_partition_id(metadata)
+            out = []
+            for group in ip["replicaGroups"]:
+                members = [i for i in group if i in live]
+                if not members:
+                    raise RuntimeError(f"replica group {group} has no live "
+                                       f"members for {name}")
+                if pid is not None:
+                    out.append(members[pid % len(members)])
+                else:
+                    out.append(min(members,
+                                   key=lambda i: (load.get(i, 0), i)))
+            return out
+        replication = int(cfg.get("replication", 1))
+        tag = cfg.get("serverTag")
+        candidates = [i for i in self.server_instances(tag)
+                      if i in set(self.live_instances())]
+        if len(candidates) < replication:
+            raise RuntimeError(
+                f"not enough live servers: need {replication}, have {candidates}")
+        load = {i: 0 for i in candidates}
+        for seg_map in ideal.values():
+            for inst in seg_map:
+                if inst in load:
+                    load[inst] += 1
+        return sorted(candidates, key=lambda i: (load[i], i))[:replication]
+
+    # -- retention ----------------------------------------------------------
+    def run_retention(self, now_ms: Optional[int] = None) -> list[str]:
+        """Drop segments past the table's retentionDays (reference:
+        RetentionManager periodic task)."""
+        now_ms = now_ms or int(time.time() * 1000)
+        dropped = []
+        for table in self.store.children("/CONFIGS/TABLE"):
+            cfg = self.table_config(table) or {}
+            days = cfg.get("retentionDays")
+            if not days:
+                continue
+            cutoff = now_ms - int(days) * 86_400_000
+            for seg in self.store.children(f"/SEGMENTS/{table}"):
+                meta = self.segment_metadata(table, seg) or {}
+                end = meta.get("endTimeMs")
+                if end is not None and end < cutoff:
+                    self.drop_segment(table, seg)
+                    dropped.append(f"{table}/{seg}")
+        return dropped

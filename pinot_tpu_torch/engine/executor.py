@@ -40,6 +40,7 @@ from ..segment.device_cache import (DeviceSegmentCache, clear_transfer_stats,
                                     pad_bucket, reset_transfer_stats,
                                     transfer_stats)
 from ..segment.loader import ImmutableSegment
+from ..spi import faults
 from ..spi.data_types import DataType
 from ..spi.trace import TRACING
 from .plan import SegmentPlan, SegmentPlanner
@@ -250,6 +251,10 @@ class SegmentExecutor:
                       plan: SegmentPlan) -> PackedOuts:
         """Launch the segment's program and return its outputs packed into
         one device buffer, not yet copied to the host."""
+        if faults.ACTIVE:
+            # kind="hbm_oom" raises RESOURCE_EXHAUSTED here, which the
+            # caller's with_oom_retry absorbs as a device OOM
+            faults.FAULTS.fire("device.dispatch", segment=segment.name)
         return _traced(lambda span: self._dispatch_plan(segment, plan, span))
 
     def _dispatch_plan(self, segment, plan: SegmentPlan, span) -> PackedOuts:
@@ -291,6 +296,8 @@ class SegmentExecutor:
         """dispatch_plan without the fused kernel and the packing: (device
         outputs, view), for callers that keep computing on the device (the
         sparse device combine)."""
+        if faults.ACTIVE:
+            faults.FAULTS.fire("device.dispatch", segment=segment.name)
         return _traced(lambda span: self._dispatch_plan_raw(segment, plan,
                                                             span))
 
@@ -380,6 +387,9 @@ class SegmentExecutor:
         per-segment dispatch. With `repeat` = Q, a coalesced group of Q
         queries over `segments` (see _gather_batch): the outputs' leading
         dim is S*Q, query q's rows q*S to (q+1)*S."""
+        if faults.ACTIVE:
+            faults.FAULTS.fire("device.dispatch", segment=segments[0].name,
+                               batch_size=len(segments))
         return _traced(lambda span: self._dispatch_batch(segments, plans,
                                                          repeat, span))
 

@@ -251,9 +251,14 @@ def analyze_table(trace_json: list, resp, table_name: str = "") -> ResultTable:
         attrs = s.get("attributes") or {}
         bits = [f"{k}:{attrs[k]}" for k in _ANALYZE_ATTRS if k in attrs]
         bits.append(f"ms:{s.get('durationMs', 0.0)}")
+        label = s.get("operator", "?")
+        # a server's top spans in the broker's merged trace (cluster/
+        # broker.py) carry the server they ran on
+        if s.get("server"):
+            label = f"{s['server']}/{label}"
         parent = by_span.get(s.get("parentId"), root)
         by_span[s.get("spanId")] = add(
-            s.get("operator", "?") + "(" + ", ".join(bits) + ")", parent)
+            label + "(" + ", ".join(bits) + ")", parent)
     if not trace_json:
         if resp.cache_outcome == "hit":
             # a result-cache hit: nothing ran, no spans

@@ -73,6 +73,7 @@ from ..segment.device_cache import DeviceSegmentCache
 from ..segment.loader import ImmutableSegment
 from ..segment.startree import StarTreeRewrite, remap_states, try_rewrite
 from ..spi.data_types import Schema
+from ..spi.metrics import SERVER_METRICS, ServerMeter, ServerTimer
 from ..spi.trace import TRACING, ServerQueryPhase
 from .aggregation import (MultistageRefusal, UnsupportedQueryError,
                           semantics_for)
@@ -165,6 +166,8 @@ class PlannedQuery:
     routes: Optional[list]
     plans: list
     t0: float
+    # plan_query's cancel and deadline check, None with neither
+    check: Optional[Callable[[int], None]] = None
 
 
 @dataclass
@@ -307,24 +310,49 @@ class QueryExecutor:
         out.trace_info = trace_json
         return out
 
-    def plan_query(self, query: QueryContext) -> PlannedQuery:
+    def plan_query(self, query: QueryContext, segments: Optional[list] = None,
+                   tracker=None) -> PlannedQuery:
         """The planning half of `execute`: prune, route and plan every
-        segment. A shape the port does not lower raises
-        UnsupportedQueryError here, before anything reaches the device."""
+        segment of the table, or of `segments` where given (a cluster
+        server's list, execute_segments). A shape the port does not lower
+        raises UnsupportedQueryError here, before anything reaches the
+        device. `tracker` (engine/scheduler.py QueryResourceTracker) and
+        the ``timeoutMs`` option arm the plan's check, run between
+        segments while planning and between families while dispatching."""
         t0 = time.perf_counter()
-        segments = self.pinned_segments(self._table(query.table_name))
+        if segments is None:
+            segments = self._table(query.table_name).segments
+        segments = self.pinned_segments(segments)
         kept, num_pruned = self.prune_segments(query, segments)
         routes = self.route_segments(query, kept)
+        check = self._cancel_check(query, tracker, len(routes), t0)
         return PlannedQuery(query, segments, kept, num_pruned, routes,
-                            self.plan_segments(routes), t0)
+                            self.plan_segments(routes, check), t0, check)
+
+    @staticmethod
+    def _cancel_check(query: QueryContext, tracker, num_routes: int,
+                      t0: float) -> Optional[Callable[[int], None]]:
+        """`check(done)`: raise on a kill of `tracker` or past the
+        ``timeoutMs`` deadline counted from `t0`; None with neither."""
+        timeout_ms = query.query_options.get("timeoutMs")
+        if tracker is None and timeout_ms is None:
+            return None
+        deadline = None if timeout_ms is None \
+            else t0 + float(timeout_ms) / 1000
+
+        def check(done: int):
+            if tracker is not None:
+                tracker.check_cancel()
+            if deadline is not None and time.perf_counter() > deadline:
+                raise TimeoutError(
+                    f"query exceeded timeoutMs={timeout_ms} "
+                    f"({done}/{num_routes} segments done)")
+
+        return check
 
     def run_planned(self, p: PlannedQuery) -> BrokerResponse:
-        """The running half of `execute`: serve what the segment partial
-        cache holds, dispatch every family and lone segment of the rest
-        (the device queue fills back to back), fetch all outputs in one
-        copy, collect (inserting the misses), combine and reduce. A device
-        OOM relieves pressure once and retries (engine/oom.py); a second
-        fails this query alone with HbmExhaustedError."""
+        """The running half of `execute`: the server half (serve_planned),
+        then the broker reduce."""
         query = p.query
         # own the trace only when nobody upstream (EXPLAIN ANALYZE, the
         # multi-stage engine) started one: a nested run joins its tree
@@ -340,39 +368,92 @@ class QueryExecutor:
 
     def _run_planned(self, p: PlannedQuery, trace) -> BrokerResponse:
         query = p.query
-        reset_dispatch_counters()
-        reset_coalesce_stats()
         with TRACING.scope(ServerQueryPhase.QUERY_PLAN_EXECUTION):
-            pending = self.dispatch_segments(query, p.routes, p.plans)
-            inters = self.collect_segments(p.routes, p.plans, pending)
-            with TRACING.scope(ServerQueryPhase.SERVER_COMBINE):
-                combined = self._combine(query, inters)
-        if any(getattr(s, "is_mutable", False) for s in p.kept):
-            note_realtime_device_query()
+            combined, stats = self.serve_planned(p)
         try:
             with TRACING.scope("BROKER_REDUCE"):
                 result = BrokerReducer(self._table(
                     query.table_name).schema).reduce(query, combined)
         except UnsupportedQueryError as e:
             raise ReduceRefused(str(e)) from e
-        peers, wait_ms = coalesce_stats()
         return BrokerResponse(
             result_table=result,
             num_docs_scanned=combined.num_docs_scanned,
-            total_docs=sum(s.num_docs for s in p.segments),
+            total_docs=stats["total_docs"],
             num_segments_queried=len(p.segments),
-            num_segments_processed=len(p.kept),
-            num_segments_pruned=p.num_pruned,
+            num_segments_processed=stats["num_segments_processed"],
+            num_segments_pruned=stats["num_segments_pruned"],
             time_used_ms=(time.perf_counter() - p.t0) * 1000,
-            num_device_dispatches=dispatch_counters(),
+            num_device_dispatches=stats["num_device_dispatches"],
             num_groups_limit_reached=getattr(combined, "groups_trimmed",
                                              False),
-            num_segments_cache_hit=pending.cache_hits,
-            num_segments_cache_miss=pending.cache_misses,
-            num_coalesced_queries=peers,
-            coalesce_wait_ms=wait_ms,
+            num_segments_cache_hit=stats["num_segments_cache_hit"],
+            num_segments_cache_miss=stats["num_segments_cache_miss"],
+            num_coalesced_queries=stats["num_coalesced_queries"],
+            coalesce_wait_ms=stats["coalesce_wait_ms"],
             trace_info=None if trace is None else trace.to_json(),
         )
+
+    def execute_segments(self, query: QueryContext, segments: list,
+                         tracker=None):
+        """The server half of a query over an explicit segment list (the
+        port of pinot_tpu/engine/query_executor.py:373, what a cluster
+        server runs for the segments the broker routed to it): plan_query
+        over `segments`, then serve_planned. Returns (combined
+        intermediate, stats)."""
+        return self.serve_planned(self.plan_query(query, segments, tracker))
+
+    def serve_planned(self, p: PlannedQuery):
+        """The server half of a planned query, shared by the in-process
+        path and the cluster data plane: serve what the segment partial
+        cache holds, dispatch every family and lone segment of the rest
+        (the device queue fills back to back), fetch all outputs in one
+        copy, collect (inserting the misses) and combine, with no broker
+        reduce. A device OOM relieves pressure once and retries
+        (engine/oom.py); a second fails this query alone with
+        HbmExhaustedError. Returns (combined intermediate, stats), the
+        stats under the JAX package's keys, and records the server
+        meters. The counters read here are thread-local: every dispatch of
+        the query runs on the calling thread."""
+        query = p.query
+        reset_dispatch_counters()
+        reset_coalesce_stats()
+        pending = self.dispatch_segments(query, p.routes, p.plans, p.check)
+        inters = self.collect_segments(p.routes, p.plans, pending)
+        with TRACING.scope(ServerQueryPhase.SERVER_COMBINE):
+            combined = self._combine(query, inters)
+        if any(getattr(s, "is_mutable", False) for s in p.kept):
+            note_realtime_device_query()
+        num_dispatches = dispatch_counters()
+        peers, wait_ms = coalesce_stats()
+        SERVER_METRICS.update_timer(ServerTimer.QUERY_PROCESSING_TIME_MS,
+                                    (time.perf_counter() - p.t0) * 1000)
+        SERVER_METRICS.add_meter(ServerMeter.QUERIES)
+        SERVER_METRICS.add_table_meter(query.table_name, ServerMeter.QUERIES)
+        SERVER_METRICS.add_meter(ServerMeter.NUM_DOCS_SCANNED,
+                                 combined.num_docs_scanned)
+        SERVER_METRICS.add_meter(ServerMeter.NUM_SEGMENTS_PROCESSED,
+                                 len(p.kept))
+        SERVER_METRICS.add_meter(ServerMeter.NUM_SEGMENTS_PRUNED,
+                                 p.num_pruned)
+        SERVER_METRICS.add_meter(ServerMeter.NUM_DEVICE_DISPATCHES,
+                                 num_dispatches)
+        SERVER_METRICS.add_meter(ServerMeter.NUM_COMPILES, 0)
+        SERVER_METRICS.add_meter(ServerMeter.SEGMENT_CACHE_HITS,
+                                 pending.cache_hits)
+        SERVER_METRICS.add_meter(ServerMeter.SEGMENT_CACHE_MISSES,
+                                 pending.cache_misses)
+        return combined, {
+            "total_docs": sum(s.num_docs for s in p.segments),
+            "num_segments_processed": len(p.kept),
+            "num_segments_pruned": p.num_pruned,
+            "num_device_dispatches": num_dispatches,
+            "num_compiles": 0,
+            "num_segments_cache_hit": pending.cache_hits,
+            "num_segments_cache_miss": pending.cache_misses,
+            "num_coalesced_queries": peers,
+            "coalesce_wait_ms": wait_ms,
+        }
 
     def execute_selection_columnar(self, query: QueryContext):
         """The multi-stage engine's scan leaf (reference:
@@ -402,7 +483,8 @@ class QueryExecutor:
                 for e in query.select_expressions):
             return None
         t0 = time.perf_counter()
-        segments = self.pinned_segments(self._table(query.table_name))
+        segments = self.pinned_segments(
+            self._table(query.table_name).segments)
         kept, num_pruned = self.prune_segments(query, segments)
         plans = [self.executor.plan(query, seg) for seg in kept]
         if any(p.program.mode != "selection" or p.selection_exprs
@@ -458,12 +540,12 @@ class QueryExecutor:
                       "num_device_dispatches": dispatch_counters()}
 
     @staticmethod
-    def pinned_segments(table) -> list:
-        """A table's segments as one query sees them: each consuming
-        segment's snapshot pinned (row count, dictionary cardinalities,
-        upsert validity) for the whole query."""
+    def pinned_segments(segments: list) -> list:
+        """Segments as one query sees them: each consuming segment's
+        snapshot pinned (row count, dictionary cardinalities, upsert
+        validity) for the whole query."""
         return [s.snapshot_view() if getattr(s, "is_mutable", False)
-                else s for s in table.segments]
+                else s for s in segments]
 
     def prune_segments(self, query: QueryContext, segments: list):
         """(kept segments, number pruned): the segments whose metadata,
@@ -486,18 +568,30 @@ class QueryExecutor:
                           else Route(rewrite.query, rewrite.view, rewrite))
         return routes
 
-    def plan_segments(self, routes: list) -> list:
-        return [self.executor.plan(r.query, r.segment) for r in routes]
+    def plan_segments(self, routes: list,
+                      check: Optional[Callable[[int], None]] = None) -> list:
+        """Each route's plan; `check(done)`, where given, runs before each
+        (plan_query's cancel and deadline check)."""
+        plans = []
+        for r in routes:
+            if check is not None:
+                check(len(plans))
+            plans.append(self.executor.plan(r.query, r.segment))
+        return plans
 
     def dispatch_segments(self, query: QueryContext, routes: list,
-                          plans: list) -> Pending:
+                          plans: list,
+                          check: Optional[Callable[[int], None]] = None
+                          ) -> Pending:
         """Launch the query's device work: the sparse device combine when
         it applies, else one dispatch per batch family (a family of one,
         or one that turns out to mismatch, dispatches alone, with the
         fused kernel where it applies). `query` is the query as sent: its
         options decide the batching and the cache. With the segment
         partial cache on, a segment it holds fills its intermediate and
-        never reaches dispatch; the families form over the rest."""
+        never reaches dispatch; the families form over the rest.
+        `check(done)`, where given, runs before each family's or lone
+        segment's dispatch (plan_query's cancel and deadline check)."""
         segments = [r.segment for r in routes]
         cache_on = bool(routes) and self._segment_cache_enabled(query)
         traced = TRACING.active_trace() is not None
@@ -536,6 +630,8 @@ class QueryExecutor:
         for fkey, positions in self._batch_families(
                 query, [segments[i] for i in todo], [plans[i] for i in todo]):
             positions = [todo[p] for p in positions]
+            if check is not None:
+                check(len(pending.order))
             pending.order.extend(positions)
             if fkey is not None and len(positions) > 1:
                 fam = [segments[i] for i in positions]

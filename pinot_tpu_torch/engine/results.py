@@ -71,9 +71,23 @@ class BrokerResponse:
     # from the cache and kept segments computed and inserted
     num_segments_cache_hit: int = 0
     num_segments_cache_miss: int = 0
-    # multi-stage result cache (mse/executor.py): "hit", "miss", or "" when
-    # the statement bypassed it
+    # result caches (mse/executor.py, cluster/broker.py): "hit", "miss",
+    # or "" / "bypass" when the statement bypassed them
     cache_outcome: str = ""
+    # scatter/gather accounting of the cluster broker (cluster/broker.py;
+    # reference numServersQueried/Responded): responded < queried implies
+    # a degraded path; RPCs re-scattered to another replica, and shards
+    # whose DataTable failed its checksum and were re-dispatched
+    num_servers_queried: int = 0
+    num_servers_responded: int = 0
+    num_scatter_retries: int = 0
+    num_corrupt_shards_retried: int = 0
+    # the broker's query id (shards carry "<query_id>:<n>")
+    query_id: str = ""
+    # the wire of a cluster query, one entry per answered shard: server
+    # execute_segments and encode ms, DataTable bytes, the RPC's wall ms
+    # at the broker and its decode ms (cluster/broker.py)
+    wire_stats: Optional[list] = None
 
     def to_json(self) -> dict:
         out = {
@@ -101,6 +115,13 @@ class BrokerResponse:
         if self.num_segments_cache_hit or self.num_segments_cache_miss:
             out["numSegmentsCacheHit"] = self.num_segments_cache_hit
             out["numSegmentsCacheMiss"] = self.num_segments_cache_miss
+        if self.num_servers_queried:
+            out["numServersQueried"] = self.num_servers_queried
+            out["numServersResponded"] = self.num_servers_responded
+        if self.num_scatter_retries:
+            out["numScatterRetries"] = self.num_scatter_retries
+        if self.num_corrupt_shards_retried:
+            out["numCorruptShardsRetried"] = self.num_corrupt_shards_retried
         if self.num_coalesced_queries:
             out["numCoalescedQueries"] = self.num_coalesced_queries
             out["coalesceWindowMs"] = self.coalesce_wait_ms

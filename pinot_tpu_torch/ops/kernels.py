@@ -400,6 +400,95 @@ def unpack_outputs(p: PackedOuts) -> list:
     return fetch_packed_batch([p])[0]
 
 
+# -- the JAX package's wire pack (PTDP) ---------------------------------------
+#
+# cluster/datatable.py's PTDP blocks carry the byte layout of the JAX
+# package's `_pack_u8` (pinot_tpu/ops/kernels.py:260), so a mixed fleet
+# decodes either package's blocks: bool as uint8, float64 as four 32-bit
+# words from `_encode_f64` (an exact float32 triplet of the value scaled
+# by a power-of-two bucket, then the bucket and the nan/inf/sign flags),
+# every other dtype as its raw little-endian bytes. The port's own fetch
+# (pack_outputs above) copies float64 raw instead.
+
+_F64_HALF_SCALES = tuple(2.0 ** (-90 * k) for k in range(-6, 7))
+
+
+def _encode_f64(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int32 words [..., 4], bit for bit the JAX package's
+    `_encode_f64` (same arithmetic in the same order)."""
+    finite = torch.isfinite(x)
+    xs = torch.where(finite, x, torch.zeros_like(x))
+    ax = xs.abs()
+    # bucket k: exponent(x) in [180k-60, 180k+120)
+    k = sum((ax >= 2.0 ** (180 * kk - 60)).to(torch.int32)
+            for kk in range(-5, 7)) - 6
+    half = torch.tensor(_F64_HALF_SCALES, dtype=torch.float64,
+                        device=x.device)[(k + 6).long()]
+    y = xs * half * half  # two exact multiplies (2^(180*6) overflows alone)
+    a = y.to(torch.float32)
+    r1 = y - a.to(torch.float64)
+    b = r1.to(torch.float32)
+    c = (r1 - b.to(torch.float64)).to(torch.float32)
+    nan = torch.isnan(x)
+    # the JAX package's zero sign test: 1/-0.0 = -inf (a NaN is never neg)
+    neg = (x < 0) | ((x == 0) & (1.0 / x < 0))
+    meta = ((k + 6) | (nan.to(torch.int32) << 8)
+            | ((~finite & ~nan).to(torch.int32) << 9)
+            | (neg.to(torch.int32) << 10))
+    return torch.stack([a.view(torch.int32), b.view(torch.int32),
+                        c.view(torch.int32), meta.to(torch.int32)], dim=-1)
+
+
+def _decode_f64(raw: np.ndarray, shape) -> np.ndarray:
+    """The inverse of `_encode_f64` on the host (pinot_tpu/ops/kernels.py
+    `_decode_f64`)."""
+    w = raw.view(np.uint32).reshape(-1, 4)
+    a = np.ascontiguousarray(w[:, 0]).view(np.float32).astype(np.float64)
+    b = np.ascontiguousarray(w[:, 1]).view(np.float32).astype(np.float64)
+    c = np.ascontiguousarray(w[:, 2]).view(np.float32).astype(np.float64)
+    k = (w[:, 3] & 0xFF).astype(np.int32) - 6
+    neg = (w[:, 3] >> 10) & 1
+    x = np.ldexp(a + b + c, 180 * k)
+    zneg = (x == 0) & (neg == 1)  # -0.0 + 0.0 = +0.0 loses the zero sign
+    if zneg.any():
+        x = np.where(zneg, -0.0, x)
+    isinf = (w[:, 3] >> 9) & 1
+    if isinf.any():
+        x = np.where(isinf == 1, np.where(neg == 1, -np.inf, np.inf), x)
+    isnan = (w[:, 3] >> 8) & 1
+    if isnan.any():
+        x = np.where(isnan == 1, np.nan, x)
+    return x.reshape(shape)
+
+
+def pack_u8_wire(outs: tuple) -> torch.Tensor:
+    """The tensors as ONE uint8 buffer on their device, in the JAX
+    package's `_pack_u8` layout."""
+    chunks = []
+    for o in outs:
+        if o.dtype == torch.bool:
+            o = o.to(torch.uint8)
+        elif o.dtype == torch.float64:
+            o = _encode_f64(o)
+        chunks.append(o.contiguous().reshape(-1).view(torch.uint8))
+    return torch.cat(chunks) if len(chunks) > 1 else chunks[0]
+
+
+def split_flat_wire(flat: np.ndarray, metas) -> list:
+    """`pack_u8_wire`'s buffer -> numpy arrays of (dtype, shape) metas."""
+    out, off = [], 0
+    for dt, shape in metas:
+        count = int(np.prod(shape, dtype=np.int64))
+        if dt == np.float64:  # 4 x 32-bit words per value
+            nbytes = count * 16
+            out.append(_decode_f64(flat[off:off + nbytes], shape))
+        else:
+            nbytes = count * dt.itemsize
+            out.append(flat[off:off + nbytes].view(dt).reshape(shape))
+        off += nbytes
+    return out
+
+
 # -- programs -----------------------------------------------------------------
 
 

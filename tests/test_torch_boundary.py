@@ -55,7 +55,8 @@ def test_port_files_are_found():
     assert {"chip_smoke.py", "kernels.py", "fused_groupby.py",
             "mxu_groupby.py", "query_executor.py", "transforms.py",
             "dim_tables.py", "coalesce.py", "explain.py",
-            "trace.py"} <= names
+            "trace.py", "broker.py", "server.py", "transport.py",
+            "datatable.py", "scheduler.py", "doctor.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

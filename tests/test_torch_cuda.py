@@ -25,7 +25,11 @@ statement on the card equals the CPU executor's rows. A coalesced group
 of eight queries is one launch of kernel A with rows equal to the CPU's,
 kernel A at a group's S*Q = 32 and 64 members equals its plain version, a
 traced family times the card (deviceExecMs > 0), and eight threads on a
-fresh executor upload each plane once.
+fresh executor upload each plane once. A cluster of two servers on the
+card (cluster/) answers q2 and q2_family with a CPU cluster's rows,
+launching kernel B on each segment and kernel A on each server's family;
+PTDP blocks packed on the card equal the CPU's bytes; and the doctor
+(tools/doctor.py) classifies the card `ok`.
 """
 
 from __future__ import annotations
@@ -1468,3 +1472,107 @@ def test_concurrent_uploads_each_plane_once_on_the_card(cuda, small_table,
     # at most one stack per family plane (every thread built its own
     # before the repair)
     assert 0 < len(stacks) <= len(puts) // len(segs)
+
+
+# -- the cluster serving path, PTDP and the doctor on the card ---------------
+
+
+@pytest.fixture(scope="module")
+def cluster_segments(tmp_path_factory):
+    """Four segment directories of q2's columns for the cluster tests."""
+    rng = np.random.default_rng(31)
+    n = 40_000
+    schema = Schema.build("ssb", dimensions=[
+        ("d_year", "INT"), ("p_brand", "INT"), ("s_region", "STRING")],
+        metrics=[("lo_revenue", "INT")])
+    cfg = TableConfig(table_name="ssb", indexing=IndexingConfig(
+        no_dictionary_columns=["lo_revenue"]))
+    root = tmp_path_factory.mktemp("torch_cuda_cluster")
+    paths = []
+    for i in range(4):
+        cols = {"d_year": rng.integers(1992, 1999, n).astype(np.int32),
+                "p_brand": rng.integers(0, 1000, n).astype(np.int32),
+                "s_region": np.asarray(["AMERICA", "ASIA", "EUROPE"],
+                                       dtype=object)[rng.integers(0, 3, n)],
+                "lo_revenue": rng.integers(1, 600_000, n).astype(np.int32)}
+        SegmentBuilder(schema, cfg, f"ssb_{i}").build(cols, root / f"ssb_{i}")
+        paths.append(str(root / f"ssb_{i}"))
+    return schema, paths
+
+
+def _cluster(schema, paths, device):
+    from pinot_tpu_torch.cluster import (Broker, ClusterController,
+                                         PropertyStore, ServerInstance)
+
+    store = PropertyStore()
+    ctl = ClusterController(store)
+    servers = [ServerInstance(store, f"Server_{i}", device=device)
+               for i in range(2)]
+    for s in servers:
+        s.start()
+    ctl.add_schema(schema.to_json())
+    table = ctl.create_table({"tableName": "ssb", "replication": 1})
+    for i, path in enumerate(paths):
+        ctl.add_segment(table, f"ssb_{i}", {"location": path,
+                                            "numDocs": 40_000})
+    return servers, Broker(store)
+
+
+@pytest.mark.parametrize("sql,kernel", [
+    ("SET segmentBatch = false; SELECT d_year, p_brand, SUM(lo_revenue) "
+     "FROM ssb WHERE s_region = 'ASIA' GROUP BY d_year, p_brand LIMIT 10000",
+     "fused_limb_sums"),
+    ("SELECT d_year, p_brand, SUM(lo_revenue) FROM ssb "
+     "WHERE s_region = 'ASIA' GROUP BY d_year, p_brand LIMIT 10000",
+     "limb_sums"),
+])
+def test_card_cluster_equals_cpu_cluster(cuda, cluster_segments, sql, kernel):
+    """Two servers on the card answer q2 (kernel B on each segment) and
+    q2_family (kernel A on each server's family of 2) with the rows,
+    scanned docs and dispatches of two servers on the CPU."""
+    schema, paths = cluster_segments
+    out = {}
+    for device in ("cpu", "cuda"):
+        servers, broker = _cluster(schema, paths, device)
+        try:
+            _cuda.reset_launches()
+            resp = broker.execute_sql(sql)
+            torch.cuda.synchronize()
+            out[device] = (sorted(map(tuple, resp.result_table.rows)),
+                           resp.num_docs_scanned, resp.num_device_dispatches,
+                           resp.num_servers_responded, dict(_cuda.LAUNCHES))
+        finally:
+            for s in servers:
+                s.stop()
+            broker.close()
+    assert out["cuda"][:4] == out["cpu"][:4]
+    assert out["cuda"][3] == 2
+    assert out["cuda"][4][kernel] == (4 if kernel == "fused_limb_sums" else 2)
+
+
+def test_packed_block_on_the_card_equals_the_cpu_bytes(cuda):
+    from pinot_tpu_torch.cluster import datatable
+
+    rng = np.random.default_rng(5)
+    n = 100_003
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 5e-324,
+                         -5e-324, 1e-310, 2.2250738585072014e-308, 1e308])
+    block = {"i": rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32),
+             "l": rng.integers(-2 ** 62, 2 ** 62, n),
+             "b": rng.integers(0, 2, n).astype(bool),
+             "f": np.concatenate([specials, rng.normal(0, 1e6, n),
+                                  rng.normal(size=n) * 1e-300])}
+    on_card = datatable.encode_packed_block(block, device="cuda")
+    assert on_card == datatable.encode_packed_block(block, device="cpu")
+    back = datatable.decode_packed_block(on_card)
+    for k, v in block.items():
+        assert back[k].tobytes() == v.tobytes(), k
+
+
+def test_doctor_classifies_the_card_ok(cuda):
+    from pinot_tpu_torch.tools import doctor
+
+    report = doctor.run_probe(timeout_s=600)
+    assert report["classification"] == "ok", report["stderrTail"]
+    assert report["device"]["capability"] == [9, 0]
+    assert report["device"]["maxAbsErr"] == 0
