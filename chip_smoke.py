@@ -24,7 +24,8 @@ Phases, each printing one JSON line:
            port's CPU run (on values at bin edges, where a width computed
            another way moves a row)
   data     an SSB-shaped table generated from --seed, built with the
-           port's builder into --segments segments, and the same rows again
+           port's builder (every segment in the spawn process pool of
+           index_data) into --segments segments, and the same rows again
            into 16 segments (bench.py's 16-segment q4, q3m); the same rows
            with a tags-like INT multi-value column (1 to 4 values a row of
            1000) in --segments segments (table `mvt`); bench.py's taxi table
@@ -210,6 +211,24 @@ Phases, each printing one JSON line:
            or answers partial with allowPartialResults, as the JAX broker
            does), and the server that answered q2_family stopped (the
            other replica alone answers it)
+  mse_cluster
+           the cluster multi-stage engine (mse/distributed.py) on phase
+           `cluster`'s layout, its store behind a PropertyStoreServer: q8,
+           q10, mse_agg and mse_agg_solo (mse_agg with SET segmentBatch =
+           false) through the broker, each once with its counts set to 0
+           just before it: rows against the oracle, stage workers on both
+           servers, kernel A once a server on mse_agg and kernel B once a
+           segment on mse_agg_solo (their inputs against the plain
+           versions), and on q8 and q10 the join workers' pair join on the
+           card (forced: PINOT_TPU_DEVICE_JOIN=1), PTDP exchange bytes and
+           pack_u8_wire given card tensors; per statement the broker p50
+           over --iters warm runs beside phase `mse`'s in-process p50, per
+           stage workers, wall ms, shuffled rows and bytes and PTDP bytes,
+           and the mailbox peak; a `mailbox.deliver` failure (the re-sent
+           chunk dropped, rows equal); a server in a second OS process on
+           the card joining through RemoteStore, and q8 over `ssb_l` (an
+           in-process server) JOIN `ssb_r` (the child); a crashed server:
+           q8 fails within its timeoutMs, every mailbox store emptied
   doctor   `python -m pinot_tpu_torch.tools.doctor`'s probe (a supervised
            child: the card, the kernel build, kernel A against its plain
            version) must classify `ok`
@@ -230,7 +249,8 @@ Phases, each printing one JSON line:
            launches are held in `queries`)
   layers   a warm query's host time split into parse + prune + plan,
            dispatch, collect (the query's one fetch and the decode) and
-           combine + reduce (1 run for a query slower than 1 s); q6, q6m
+           combine + reduce, medians of 5 runs (1 for a query slower than
+           1 s); q6, q6m
            and q6_sort are left out (host-held, PERF.md §5)
   profile  device busy share and the top device kernels under
            torch.profiler (3 warm queries, 1 for a query slower than 1 s;
@@ -249,8 +269,9 @@ Phases, each printing one JSON line:
            occupancy
   total    the run's wall time, the build included
   kernels  the kernel table (the realtime and index queries' launches
-           included, one row each, and kernel A over a cluster server's
-           family of 2): per kernel and main-path shape, the kernel's
+           included, one row each, kernel A over a cluster server's
+           family of 2, and kernels A and B through the cluster
+           multi-stage engine's leaves): per kernel and main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
            rotated over the recorded inputs of the query's segments or
            families and, where those are small, fresh copies of them, so
@@ -585,6 +606,15 @@ MSE_QUERIES = {
                  "ORDER BY b.lo_revenue DESC, a.lo_orderkey, a.d_year "
                  "LIMIT 1000",
     "mse_agg": MSE + Q2}
+# phase `mse_cluster`: q8, q10 and mse_agg through the broker's cluster
+# MSE, mse_agg again with one dispatch a segment (kernel B), and q8 across
+# two OS processes (`ssb_l` on an in-process server, `ssb_r` on a child)
+MSE_CLUSTER_QUERIES = {
+    "q8": MSE_QUERIES["q8"], "q10": MSE_QUERIES["q10"],
+    "mse_agg": MSE_QUERIES["mse_agg"],
+    "mse_agg_solo": NO_BATCH + MSE_QUERIES["mse_agg"],
+    "q8_two_process": MSE_QUERIES["q8"].replace(
+        "FROM ssb a JOIN ssb b", "FROM ssb_l a JOIN ssb_r b")}
 # the statements whose aggregate-over-join stage runs fused on the card, one
 # host crossing each (q10's middle join absorbed into it)
 FUSED_MSE = ("q8", "q9j", "q10")
@@ -601,6 +631,9 @@ HOST_HELD = ("q6", "q6m", "q6_sort")
 # a query slower than this takes 1 warm run in `times`, `layers` and
 # `profile`
 SLOW_QUERY_MS = 1000.0
+# warm runs a query in `layers` (at most --iters): cut from 10 to fit phase
+# `mse_cluster` in the run's time limit; `times` keeps --iters
+LAYERS_ITERS = 5
 
 
 _LAST_PHASE = [time.perf_counter()]
@@ -1217,97 +1250,97 @@ def dispatch_rows(ex):
         del ex.dispatch_plan, ex.dispatch_plan_batch
 
 
-def phase_data(args, torch, tmp: str):
+def _data_table(name: str):
+    """(schema, table config) of a table phase `data` builds."""
+    from pinot_tpu_torch.spi.data_types import Schema
+    from pinot_tpu_torch.spi.table_config import IndexingConfig, TableConfig
+
+    raw = RAW_COLUMNS
+    if name == MV_TABLE:
+        schema = Schema.build(name, dimensions=SCHEMA_DIMS + [
+            ("lo_tags", "INT", False)], metrics=SCHEMA_METRICS)
+    elif name == TAXI_TABLE:
+        schema = Schema.build(name, dimensions=[("pickup_day", "INT"),
+                                                ("passenger_count", "INT")],
+                              metrics=[("fare", "DOUBLE")])
+        raw = ["fare"]
+    elif name == TIME_TABLE:
+        schema = Schema.build(name, dimensions=SCHEMA_DIMS + [
+            ("lo_orderdate", "TIMESTAMP"), ("lo_commit_ts", "TIMESTAMP")],
+            metrics=SCHEMA_METRICS)
+        raw = RAW_COLUMNS + ["lo_commit_ts"]
+    else:
+        schema = Schema.build(name, dimensions=SCHEMA_DIMS,
+                              metrics=SCHEMA_METRICS)
+    return schema, TableConfig(table_name=name, indexing=IndexingConfig(
+        no_dictionary_columns=raw))
+
+
+def build_data_segment(task):
+    """Build one segment of a phase `data` table (a worker of the spawn
+    process pool): (table, seconds). An `lo_tags` column arrives as its
+    (flat values, lengths)."""
+    from pinot_tpu_torch.segment.builder import MultiValues, SegmentBuilder
+
+    name, i, cols, path = task
+    t0 = time.perf_counter()
+    if "lo_tags" in cols:
+        cols = dict(cols, lo_tags=MultiValues(*cols["lo_tags"]))
+    schema, cfg = _data_table(name)
+    SegmentBuilder(schema, cfg, f"{name}_{i}").build(cols, path)
+    return name, time.perf_counter() - t0
+
+
+def phase_data(args, torch, tmp: str, pool):
     """The generated rows, built once into --segments segments (table
     `ssb`), once more into FAMILY_SEGMENTS segments (table `ssb16`), with
     the lo_tags column into --segments segments (table `mvt`), and with
     lo_orderdate and lo_commit_ts (table `ssbt`); bench.py's taxi rows
     into --segments segments (table `taxi`), and the `brands` dimension
-    table, under the build dir `tmp`; returns {table: (schema,
-    segments)}, the brands (schema, segments), the ssb columns, the two
-    date columns, the tags and the taxi columns."""
-    from pinot_tpu_torch.segment.builder import MultiValues, SegmentBuilder
+    table, under the build dir `tmp`, every segment built in the spawn
+    process `pool`; returns {table: (schema, segments)}, the brands
+    (schema, segments), the ssb columns, the two date columns, the tags
+    and the taxi columns."""
+    from pinot_tpu_torch.segment.builder import SegmentBuilder
     from pinot_tpu_torch.segment.loader import load_segment
     from pinot_tpu_torch.spi.data_types import Schema
-    from pinot_tpu_torch.spi.table_config import IndexingConfig, TableConfig
+    from pinot_tpu_torch.spi.table_config import TableConfig
 
     t0 = time.perf_counter()
     rows = args.rows_per_segment * args.segments
     cols = gen_ssb(rows, args.seed)
     t_gen = time.perf_counter() - t0
-    tables, build_s = {}, {}
-    for name, count in (("ssb", args.segments),
-                        (FAMILY_TABLE, FAMILY_SEGMENTS)):
-        t1 = time.perf_counter()
-        schema = Schema.build(name, dimensions=SCHEMA_DIMS,
-                              metrics=SCHEMA_METRICS)
-        cfg = TableConfig(table_name=name, indexing=IndexingConfig(
-            no_dictionary_columns=RAW_COLUMNS))
+    tags = gen_tags(rows, args.seed)
+    taxi = gen_taxi(rows)
+    dates = gen_dates(cols["d_year"], args.seed)
+    offsets = np.r_[0, np.cumsum(tags[1])]
+    counts = {"ssb": args.segments, FAMILY_TABLE: FAMILY_SEGMENTS,
+              MV_TABLE: args.segments, TAXI_TABLE: args.segments,
+              TIME_TABLE: args.segments}
+    futures = []
+    for name, count in counts.items():
         per = rows // count
-        segments = []
         for i in range(count):
             sl = slice(i * per, (i + 1) * per)
-            d = f"{tmp}/{name}_{i}"
-            SegmentBuilder(schema, cfg, f"{name}_{i}").build(
-                {k: v[sl] for k, v in cols.items()}, d)
-            segments.append(load_segment(d))
-        tables[name] = (schema, segments)
-        build_s[name] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    tags = gen_tags(rows, args.seed)
-    schema = Schema.build(MV_TABLE,
-                          dimensions=SCHEMA_DIMS + [("lo_tags", "INT", False)],
-                          metrics=SCHEMA_METRICS)
-    cfg = TableConfig(table_name=MV_TABLE, indexing=IndexingConfig(
-        no_dictionary_columns=RAW_COLUMNS))
-    per = rows // args.segments
-    offsets = np.r_[0, np.cumsum(tags[1])]
-    segments = []
-    for i in range(args.segments):
-        sl = slice(i * per, (i + 1) * per)
-        d = f"{tmp}/{MV_TABLE}_{i}"
-        seg_cols = {k: v[sl] for k, v in cols.items()}
-        seg_cols["lo_tags"] = MultiValues(
-            tags[0][offsets[i * per]:offsets[(i + 1) * per]], tags[1][sl])
-        SegmentBuilder(schema, cfg, f"{MV_TABLE}_{i}").build(seg_cols, d)
-        segments.append(load_segment(d))
-    tables[MV_TABLE] = (schema, segments)
-    build_s[MV_TABLE] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    taxi = gen_taxi(rows)
-    schema = Schema.build(TAXI_TABLE, dimensions=[("pickup_day", "INT"),
-                                                  ("passenger_count", "INT")],
-                          metrics=[("fare", "DOUBLE")])
-    cfg = TableConfig(table_name=TAXI_TABLE, indexing=IndexingConfig(
-        no_dictionary_columns=["fare"]))
-    per = rows // args.segments
-    segments = []
-    for i in range(args.segments):
-        d = f"{tmp}/{TAXI_TABLE}_{i}"
-        SegmentBuilder(schema, cfg, f"{TAXI_TABLE}_{i}").build(
-            {k: v[i * per:(i + 1) * per] for k, v in taxi.items()}, d)
-        segments.append(load_segment(d))
-    tables[TAXI_TABLE] = (schema, segments)
-    build_s[TAXI_TABLE] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    dates = gen_dates(cols["d_year"], args.seed)
-    schema = Schema.build(TIME_TABLE, dimensions=SCHEMA_DIMS + [
-        ("lo_orderdate", "TIMESTAMP"), ("lo_commit_ts", "TIMESTAMP")],
-        metrics=SCHEMA_METRICS)
-    cfg = TableConfig(table_name=TIME_TABLE, indexing=IndexingConfig(
-        no_dictionary_columns=RAW_COLUMNS + ["lo_commit_ts"]))
-    per = rows // args.segments
-    segments = []
-    for i in range(args.segments):
-        sl = slice(i * per, (i + 1) * per)
-        d = f"{tmp}/{TIME_TABLE}_{i}"
-        seg_cols = {k: v[sl] for k, v in cols.items()}
-        seg_cols["lo_orderdate"], seg_cols["lo_commit_ts"] = (
-            dates[0][sl], dates[1][sl])
-        SegmentBuilder(schema, cfg, f"{TIME_TABLE}_{i}").build(seg_cols, d)
-        segments.append(load_segment(d))
-    tables[TIME_TABLE] = (schema, segments)
-    build_s[TIME_TABLE] = time.perf_counter() - t1
+            part = {k: v[sl] for k, v in (
+                taxi if name == TAXI_TABLE else cols).items()}
+            if name == MV_TABLE:
+                part["lo_tags"] = (
+                    tags[0][offsets[i * per]:offsets[(i + 1) * per]],
+                    tags[1][sl])
+            elif name == TIME_TABLE:
+                part["lo_orderdate"], part["lo_commit_ts"] = (
+                    dates[0][sl], dates[1][sl])
+            futures.append(pool.submit(build_data_segment, (
+                name, i, part, f"{tmp}/{name}_{i}")))
+    # each table's segment builds, summed over the workers that ran them
+    build_s = {}
+    for fut in futures:
+        name, sec = fut.result()
+        build_s[name] = build_s.get(name, 0.0) + sec
+    tables = {name: (_data_table(name)[0],
+                     [load_segment(f"{tmp}/{name}_{i}") for i in range(count)])
+              for name, count in counts.items()}
     schema = Schema.build(DIM_TABLE, dimensions=[
         ("b_id", "INT"), ("b_category", "STRING"), ("b_region", "STRING")],
         primary_key_columns=["b_id"])
@@ -2556,16 +2589,18 @@ CLUSTER_SERVERS = 2
 
 
 def _cluster_start(torch, tmp, schema, segments: int, rows: int,
-                   replication: int):
-    """A PropertyStore, a controller, CLUSTER_SERVERS servers on the card
-    and a broker over loopback, with table `ssb` registered from the
-    segment directories phase `data` built (no new build)."""
+                   replication: int, store=None, tags=None):
+    """A PropertyStore (or `store`), a controller, CLUSTER_SERVERS servers
+    on the card (server i tagged `tags[i]` where given) and a broker over
+    loopback, with table `ssb` registered from the segment directories
+    phase `data` built (no new build)."""
     from pinot_tpu_torch.cluster import (Broker, ClusterController,
                                          PropertyStore, ServerInstance)
 
-    store = PropertyStore()
+    store = store if store is not None else PropertyStore()
     ctl = ClusterController(store)
-    servers = [ServerInstance(store, f"Server_{i}", device=DEVICE)
+    servers = [ServerInstance(store, f"Server_{i}", device=DEVICE,
+                              tags=tags[i] if tags else None)
                for i in range(CLUSTER_SERVERS)]
     for srv in servers:
         srv.start()
@@ -2814,6 +2849,333 @@ def phase_cluster(args, torch, qe, tmp, schema, expected, _cuda, interp,
 
 # the phase's share of the run's 1200 s limit (reported beside `seconds`)
 CLUSTER_BUDGET_S = 60.0
+
+
+# the phase's share of the run's 1200 s limit (reported beside `seconds`)
+MSE_CLUSTER_BUDGET_S = 120.0
+# the child server process's start (spawn, torch, the card, its segments)
+CHILD_START_S = 180.0
+
+
+def _await(predicate, timeout_s: float, what: str) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"mse_cluster: timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def _stage_summary(resps: list) -> dict:
+    """Per stage over warm runs: workers, median wall ms (the slowest
+    worker's), rows and bytes shuffled and PTDP bytes (the last run's)."""
+    out = {}
+    for sid, st in resps[-1].mse_stage_stats.items():
+        out[str(sid)] = {
+            "workers": st["workers"], "leaf_pushdown": st["leaf_pushdown"],
+            "wall_ms": float(np.median([r.mse_stage_stats[sid]["wall_ms"]
+                                        for r in resps])),
+            "rows_in": st["rows_in"], "rows_out": st["rows_out"],
+            "shuffled_rows": st["shuffled_rows"],
+            "shuffled_bytes": st["shuffled_bytes"],
+            "packed_bytes": st["packed_bytes"]}
+    return out
+
+
+def _exchange_view(resp) -> dict:
+    ex = resp.mse_exchange
+    return {k: ex[k] for k in ("packed_bytes", "packed_blocks",
+                               "packed_bytes_by", "mailbox_bytes_total",
+                               "mailbox_bytes_peak",
+                               "mailbox_duplicates_dropped", "workers")}
+
+
+def _set_env(name: str, value: str | None) -> None:
+    """Set ``name`` to ``value``, or unset it for None."""
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+def _warm(torch, broker, sql, iters) -> tuple:
+    """--iters warm runs (1 for a statement whose first warm run took over
+    1 s, as in `times`): (times, responses)."""
+    ts, resps = [], []
+    while len(ts) < (1 if ts and ts[0] > SLOW_QUERY_MS else iters):
+        t0 = time.perf_counter()
+        r = broker.execute_sql(sql)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+        if r.exceptions:
+            raise AssertionError(f"mse_cluster warm: {r.exceptions}")
+        resps.append(r)
+    return ts, resps
+
+
+def phase_mse_cluster(args, torch, tmp, schema, expected, _cuda, mxu, fg,
+                      in_process_p50, card) -> dict:
+    """The cluster multi-stage engine (mse/distributed.py) on the card: the
+    phase `cluster` layout (2 ServerInstance(device="cuda"), a Broker,
+    `ssb` from phase `data`'s directories at replication 1, 2 segments a
+    server), its PropertyStore served by a PropertyStoreServer. Each of
+    q8, q10, mse_agg and mse_agg_solo (MSE_CLUSTER_QUERIES) once with every
+    count set to 0 just before it: rows against the oracle, stage workers
+    on both servers, the fused stage never taken (in-process only), kernel
+    A once a server on mse_agg and kernel B once a segment on
+    mse_agg_solo (their recorded inputs held against the plain versions
+    after the phase), and on q8 and q10 the join workers' pair join
+    (device_join_indices, gather_payload) on cuda, PTDP bytes > 0 (the
+    DEVICE_PACKED_EXCHANGE_BYTES meter) and pack_u8_wire given cuda
+    tensors. The pair join is forced with the deployment knob
+    PINOT_TPU_DEVICE_JOIN=1 for the phase: each of the 2 join workers sees
+    about 2.2M key rows of q8, under the 4M auto gate. Then --iters warm
+    runs a statement: broker p50 beside phase `mse`'s in-process p50, per
+    stage workers, wall ms, shuffled rows and bytes, PTDP bytes and the
+    mailbox peak; and --iters warm runs of q8 without the knob, the host
+    pair join a user's cluster takes. Then a `mailbox.deliver` failure
+    (its re-sent chunk dropped as a duplicate, rows equal); a server in a second OS process
+    (spawn) on the same card joining through RemoteStore, `ssb_l` on
+    Server_0 and `ssb_r` on the child, and q8 across them (rows, workers
+    in both processes, PTDP bytes from the child, broker p50); last,
+    Server_1's endpoint closed (a crash): q8 answers with an exception
+    within its timeoutMs and every in-process mailbox store is empty."""
+    from pinot_tpu_torch.cluster.remote_store import (PropertyStoreServer,
+                                                      serve_server_process)
+    from pinot_tpu_torch.mse import device_join
+    from pinot_tpu_torch.ops import kernels
+    from pinot_tpu_torch.spi import faults
+    from pinot_tpu_torch.spi.metrics import SERVER_METRICS, ServerMeter
+
+    t_phase = time.perf_counter()
+    rows = args.rows_per_segment
+    meter = ServerMeter.DEVICE_PACKED_EXCHANGE_BYTES
+    gc.collect()
+    gc.freeze()
+    gen2 = gc.get_stats()[2]["collections"]
+    prev_join = os.environ.get("PINOT_TPU_DEVICE_JOIN")
+    os.environ["PINOT_TPU_DEVICE_JOIN"] = "1"
+    store_server = PropertyStoreServer()
+    cluster = _cluster_start(torch, tmp, schema, args.segments, rows, 1,
+                             store=store_server.store,
+                             tags=[["DefaultTenant", "tenantL"],
+                                   ["DefaultTenant"]])
+    store, ctl, servers, broker = cluster
+    names = {s.instance_id for s in servers}
+    out = {"queries": {}, "card": card, "servers": CLUSTER_SERVERS,
+           "pair_join_forced": "PINOT_TPU_DEVICE_JOIN=1"}
+    recorded, launches = {}, {k: 0 for k in _cuda.LAUNCHES}
+    child = None
+    try:
+        for qname in ("q8", "q10", "mse_agg", "mse_agg_solo"):
+            sql = MSE_CLUSTER_QUERIES[qname]
+            agg = qname.startswith("mse_agg")
+            _cuda.reset_launches()
+            meter0 = SERVER_METRICS.meter_count(meter)
+            with recording(mxu, "limb_sums") as a_calls, \
+                    recording(fg, "fused_limb_sums") as b_calls, \
+                    recording(device_join, "device_join_indices") as pairs, \
+                    recording(device_join, "gather_payload") as gathers, \
+                    recording(device_join, "run_fused") as fused, \
+                    recording(kernels, "pack_u8_wire") as packs:
+                t0 = time.perf_counter()
+                resp = broker.execute_sql(sql)
+                torch.cuda.synchronize()
+                cold_ms = (time.perf_counter() - t0) * 1e3
+            made = dict(_cuda.LAUNCHES)
+            packed = SERVER_METRICS.meter_count(meter) - meter0
+            pack_devices = sorted({t.device.type for call in packs
+                                   for t in call[0]})
+            del packs
+            if resp.exceptions:
+                raise AssertionError(f"mse_cluster {qname}: {resp.exceptions}")
+            _rows_equal(f"mse_cluster {qname}", resp,
+                        expected["mse_agg" if agg else qname], not agg)
+            ex = resp.mse_exchange
+            if set(ex["workers"]) != names or fused:
+                raise AssertionError(
+                    f"mse_cluster {qname}: stage workers {ex['workers']}, "
+                    f"{len(fused)} fused stages")
+            if made["limb_sums"] != len(a_calls) or \
+                    made["fused_limb_sums"] != len(b_calls):
+                raise AssertionError(f"mse_cluster {qname}: {made} launches, "
+                                     f"{len(a_calls)} + {len(b_calls)} calls")
+            want = {"mse_agg": ("limb_sums", CLUSTER_SERVERS),
+                    "mse_agg_solo": ("fused_limb_sums", args.segments)}
+            if qname in want and made[want[qname][0]] != want[qname][1]:
+                raise AssertionError(f"mse_cluster {qname}: {made} launches, "
+                                     f"{want[qname]} expected")
+            pair_devices = sorted({str(torch.device(c[3]).type) for c in pairs}
+                                  | {str(torch.device(c[2]).type)
+                                     for c in gathers})
+            card_type = [torch.device(DEVICE).type]
+            if not agg and (not pairs or pair_devices != card_type
+                            or packed <= 0 or packed != ex["packed_bytes"]
+                            or pack_devices != card_type):
+                raise AssertionError(
+                    f"mse_cluster {qname}: {len(pairs)} pair joins on "
+                    f"{pair_devices}, {packed} PTDP bytes (exchange "
+                    f"{ex['packed_bytes']}), packed from {pack_devices}")
+            for k in launches:
+                launches[k] += made[k]
+            recorded[qname] = (list(a_calls), list(b_calls))
+            ts, resps = _warm(torch, broker, sql, args.iters)
+            out["queries"][qname] = {
+                "rows": len(resp.result_table.rows), "cold_ms": cold_ms,
+                "broker_p50_ms": float(np.median(ts)),
+                "broker_p25_p75_ms": [float(q) for q in
+                                      np.percentile(ts, [25, 75])],
+                "warm_runs": len(ts),
+                "in_process_p50_ms": in_process_p50.get(qname),
+                "launches": made, "pair_joins": len(pairs),
+                "payload_gathers": len(gathers),
+                "pair_join_devices": pair_devices,
+                "pack_devices": pack_devices, "ptdp_bytes_meter": packed,
+                "exchange": _exchange_view(resps[-1]),
+                "stages": _stage_summary(resps)}
+        out["launches"] = launches
+
+        # the path a user's cluster takes: the auto gate, under which each
+        # join worker's 2.2M key rows of q8 join on the host
+        _set_env("PINOT_TPU_DEVICE_JOIN", prev_join)
+        with recording(device_join, "device_join_indices") as pairs:
+            ts, resps = _warm(torch, broker, MSE_CLUSTER_QUERIES["q8"],
+                              args.iters)
+        os.environ["PINOT_TPU_DEVICE_JOIN"] = "1"
+        _rows_equal("mse_cluster q8 auto", resps[0], expected["q8"], True)
+        out["q8_auto_gate"] = {
+            "broker_p50_ms": float(np.median(ts)),
+            "broker_p25_p75_ms": [float(q) for q in
+                                  np.percentile(ts, [25, 75])],
+            "warm_runs": len(ts), "pair_joins_on_card": len(pairs),
+            "stages": _stage_summary(resps)}
+        del pairs
+
+        # a lost acknowledgement: the sender re-sends, the store drops it
+        faults.FAULTS.arm("mailbox.deliver", kind="error", times=1,
+                          match=lambda c: c.get("chunk"))
+        resp = broker.execute_sql(MSE_CLUSTER_QUERIES["q8"])
+        fired = faults.FAULTS.fired("mailbox.deliver")
+        faults.FAULTS.reset()
+        if resp.exceptions:
+            raise AssertionError(f"mse_cluster deliver: {resp.exceptions}")
+        _rows_equal("mse_cluster deliver", resp, expected["q8"], True)
+        dups = resp.mse_exchange["mailbox_duplicates_dropped"]
+        if fired != 1 or dups < 1:
+            raise AssertionError(f"mse_cluster deliver: {fired} faults, "
+                                 f"{dups} duplicates dropped")
+        out["deliver_failure"] = {"faults": fired, "duplicates_dropped": dups}
+
+        # a server in a second OS process on the same card
+        t0 = time.perf_counter()
+        host, port = store_server.address
+        child = multiprocessing.get_context("spawn").Process(
+            target=serve_server_process,
+            args=(host, port, "Remote_0", DEVICE,
+                  ["DefaultTenant", "tenantR"]), daemon=True)
+        child.start()
+        _await(lambda: "Remote_0" in store.children("/LIVEINSTANCES"),
+               CHILD_START_S, "the child server's liveness")
+        for table, tag in (("ssb_l", "tenantL"), ("ssb_r", "tenantR")):
+            ctl.add_schema(dict(schema.to_json(), schemaName=table))
+            t = ctl.create_table({"tableName": table, "replication": 1,
+                                  "serverTag": tag})
+            for i in range(args.segments):
+                ctl.add_segment(t, f"ssb_{i}", {
+                    "location": f"{tmp}/ssb_{i}", "numDocs": rows})
+        _await(lambda: all(
+            "Remote_0" in m for m in (store.get(
+                "/EXTERNALVIEW/ssb_r_OFFLINE") or {}).values()) and len(
+            store.get("/EXTERNALVIEW/ssb_r_OFFLINE") or {}) == args.segments,
+            CHILD_START_S, "the child server's segments")
+        start_s = time.perf_counter() - t0
+        sql = MSE_CLUSTER_QUERIES["q8_two_process"]
+        if "ssb_r" not in sql:
+            raise AssertionError("q8_two_process does not name ssb_r")
+        t0 = time.perf_counter()
+        resp = broker.execute_sql(sql)
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        if resp.exceptions:
+            raise AssertionError(f"mse_cluster two-process: {resp.exceptions}")
+        _rows_equal("mse_cluster two-process", resp, expected["q8"], True)
+        ex = resp.mse_exchange
+        if "Remote_0" not in ex["workers"] or not names & set(ex["workers"]) \
+                or ex["packed_bytes_by"].get("Remote_0", 0) <= 0:
+            raise AssertionError(f"mse_cluster two-process: {ex}")
+        ts, resps = _warm(torch, broker, sql, args.iters)
+        out["two_process"] = {
+            "child_start_s": start_s, "cold_ms": cold_ms,
+            "broker_p50_ms": float(np.median(ts)), "warm_runs": len(ts),
+            "exchange": _exchange_view(resps[-1]),
+            "stages": _stage_summary(resps)}
+        store.set("/CONTROL/STOP/Remote_0", True)
+        child.join(timeout=60)
+        out["two_process"]["child_exitcode"] = child.exitcode
+        if child.exitcode != 0:
+            raise AssertionError(f"mse_cluster: the child server exited "
+                                 f"{child.exitcode}")
+        child = None
+
+        # a crash: Server_1's endpoint dies, its live-instance entry stays
+        servers[1]._rpc.close()
+        t0 = time.perf_counter()
+        resp = broker.execute_sql("SET timeoutMs = 30000; "
+                                  + MSE_CLUSTER_QUERIES["q8"])
+        crash_ms = (time.perf_counter() - t0) * 1e3
+        left = {s.instance_id: sorted(s.mse_worker.boxes.open_queries())
+                for s in servers}
+        left["broker"] = sorted(broker.mse_dispatcher.boxes.open_queries())
+        if resp.result_table is not None or not resp.exceptions \
+                or crash_ms > 30000 or any(left.values()):
+            raise AssertionError(f"mse_cluster crash: {resp.exceptions} in "
+                                 f"{crash_ms} ms, stores {left}")
+        out["crash"] = {"ms": crash_ms, "exception": resp.exceptions[0][:120],
+                        "open_mailboxes": left}
+    finally:
+        faults.FAULTS.reset()
+        if child is not None:
+            try:
+                store.set("/CONTROL/STOP/Remote_0", True)
+            except Exception:
+                pass
+            child.join(timeout=30)
+            if child.is_alive():
+                child.kill()
+                child.join(timeout=10)
+        _cluster_stop(cluster)
+        store_server.close()
+        _set_env("PINOT_TPU_DEVICE_JOIN", prev_join)
+        out["gc_gen2_collections"] = gc.get_stats()[2]["collections"] - gen2
+        gc.unfreeze()
+    parity = {}
+    for k, rec in enumerate(recorded["mse_agg"][0]):
+        parity[f"limb_sums/mse_cluster_agg/server{k}"] = check_equal(
+            torch, f"limb_sums mse_cluster mse_agg, server {k}",
+            mxu.limb_sums(*rec), mxu.limb_sums_plain(*rec))
+    for k, rec in enumerate(recorded["mse_agg_solo"][1]):
+        parity[f"fused_limb_sums/mse_cluster_agg_solo/launch{k}"] = \
+            check_equal(torch, f"fused_limb_sums mse_cluster mse_agg_solo, "
+                        f"launch {k}", fg.fused_limb_sums(*rec),
+                        fg.fused_limb_sums_plain(*rec))
+    out["parity"] = parity
+    del cluster, servers, broker
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dict({"phase": "mse_cluster",
+               "seconds": time.perf_counter() - t_phase,
+               "budget_s": MSE_CLUSTER_BUDGET_S,
+               "note": "the servers and the broker share one process and "
+                       "its GIL, but for the child server of two_process"},
+              **out))
+    return {"a_recs": recorded["mse_agg"][0],
+            "a_launches": out["queries"]["mse_agg"]["launches"]["limb_sums"],
+            "a_err": max(v for k, v in parity.items()
+                         if k.startswith("limb_sums/")),
+            "b_recs": recorded["mse_agg_solo"][1],
+            "b_launches": out["queries"]["mse_agg_solo"]["launches"][
+                "fused_limb_sums"],
+            "b_err": max(v for k, v in parity.items()
+                         if k.startswith("fused_limb_sums/"))}
 
 
 def phase_doctor(card) -> None:
@@ -3817,7 +4179,7 @@ def main(argv=None) -> int:
                                  .get_context("spawn")) as pool:
             pending = submit_index_builds(args, tmp, pool)
             tables, dim, cols, dates, tags, taxi_cols = phase_data(
-                args, torch, tmp)
+                args, torch, tmp, pool)
             index, index_expected, facts = index_tables(args, cols, tmp, pool,
                                                         pending)
         segments = tables["ssb"][1]
@@ -3880,6 +4242,9 @@ def main(argv=None) -> int:
         cluster = phase_cluster(args, torch, qe, tmp, tables["ssb"][0],
                                 expected, _cuda, interp, mxu_groupby,
                                 fused_groupby, dev["nvidia_smi"])
+        mse_cluster = phase_mse_cluster(
+            args, torch, tmp, tables["ssb"][0], expected, _cuda, mxu_groupby,
+            fused_groupby, mse["p50"], dev["nvidia_smi"])
         phase_doctor(dev["nvidia_smi"])
         planes, gid, G = mse["agg_recs"][0]
         parity["limb_sums/mse_agg_inputs/family"] = check_equal(
@@ -4005,7 +4370,8 @@ def main(argv=None) -> int:
               "iters": args.iters, "iters_1": sorted(slow),
               "left_out": list(HOST_HELD),
               "full_collections_during": full_gc})
-        phase_layers(torch, qe, args.iters, dev["nvidia_smi"], slow)
+        phase_layers(torch, qe, min(args.iters, LAYERS_ITERS),
+                     dev["nvidia_smi"], slow)
         phase_profile(torch, qe, dev["nvidia_smi"], slow)
         phase_chain(torch, qe, interp, dev["nvidia_smi"])
         phase_oom(torch, qe, expected, dev["nvidia_smi"])
@@ -4060,6 +4426,21 @@ def main(argv=None) -> int:
             f"q2_family through the cluster: each of {CLUSTER_SERVERS} "
             "servers' family of its segments, one launch a server"))
         del cluster
+        # the cluster multi-stage engine's leaves: kernel A over each
+        # server's family of 2 (mse_agg), kernel B a segment (mse_agg_solo)
+        kernels.append(kernel_a_row(
+            torch, mxu_groupby, _cuda, mse_cluster["a_recs"],
+            mse_cluster["a_launches"], mse_cluster["a_err"],
+            f"mse_agg through the cluster MSE: the leaf partial aggregate "
+            f"of each of {CLUSTER_SERVERS} servers over its family of "
+            "segments, one launch a server"))
+        kernels.append(kernel_b_row(
+            torch, fused_groupby, _cuda, mse_cluster["b_recs"],
+            mse_cluster["b_launches"], mse_cluster["b_err"],
+            "mse_agg_solo through the cluster MSE: the leaf partial "
+            "aggregate with SET segmentBatch = false, a segment a launch "
+            "on its server"))
+        del mse_cluster
         # the multi-stage leaf partial aggregate's launch of kernel A
         kernels.append(kernel_a_row(
             torch, mxu_groupby, _cuda, mse["agg_recs"], mse["agg_launches"],

@@ -12,8 +12,10 @@ The control plane is host-side and lightweight (an in-process store with
 watches); the data plane is a socket scatter/gather whose per-server
 execution path is the port's device engine on the card. Ideal state (what
 should be) vs external view (what is), with servers converging one to the
-other. Not ported yet: rebalance, REST, the query log, quota, periodic
-tasks, the cluster multi-stage engine and realtime consumption.
+other. The multi-stage engine runs across the servers (stage workers on
+each server's card, mse/distributed.py), and a role in another OS process
+joins through remote_store.py. Not ported yet: rebalance, REST, the query
+log, quota, periodic tasks and realtime consumption.
 """
 
 from .broker import Broker

@@ -1,8 +1,8 @@
 """Broker role: route, scatter, gather, reduce.
 
-The port of pinot_tpu/cluster/broker.py's single-stage path. Reference
-analogue: pinot-broker — BaseSingleStageBrokerRequestHandler
-.handleRequest:279 (parse → optimize → route → scatter → gather → reduce),
+The port of pinot_tpu/cluster/broker.py. Reference analogue:
+pinot-broker — BaseSingleStageBrokerRequestHandler.handleRequest:279
+(parse → optimize → route → scatter → gather → reduce),
 BrokerRoutingManager (routing tables from external view), replica
 selection (BalancedInstanceSelector / adaptive), circuit breakers
 (cluster/breaker.py), TimeBoundaryManager:56 (hybrid OFFLINE+REALTIME
@@ -14,11 +14,14 @@ the scatter edge (a corrupt blob fails over like a dropped connection),
 merges and reduces with the port's BrokerReducer. A failed shard retries
 on the segment's other replicas under capped backoff, inside the query's
 deadline; with `allowPartialResults` the broker answers with what the
-responding servers held. A statement that needs the multi-stage engine
-comes back with an exception: the cluster multi-stage engine is not
-ported. Not ported either: hedging (off by default in the JAX package),
-quota and admission control, cursors, streaming, the perf ledger, the
-query log, the trace store and workload accounting.
+responding servers held. A statement the single-stage grammar rejects
+(joins, subqueries, set operations) and `SET useMultistageEngine = true`
+go to the cluster multi-stage engine (mse/distributed.py
+`DistributedMseDispatcher`): plan fragments to stage workers on the
+servers, the exchange between them, the final receive here. Not ported:
+hedging (off by default in the JAX package), quota and admission control
+(on either engine), cursors, streaming, the perf ledger, the query log,
+the trace store and workload accounting.
 """
 
 from __future__ import annotations
@@ -43,7 +46,6 @@ from ..engine.reduce import BrokerReducer
 from ..engine.results import (AggIntermediate, BrokerResponse, DataSchema,
                               GroupArrays, GroupByIntermediate, ResultTable,
                               SelectionIntermediate)
-from ..mse.parser import parse_relational
 from ..query.context import QueryContext
 from ..query.expressions import ExpressionContext
 from ..query.filter import FilterContext, Predicate, PredicateType
@@ -68,12 +70,6 @@ BROKER_TIMEOUT_MS = 60000.0
 SCATTER_RETRIES = 2
 # the ceiling of the exponential backoff between those rounds
 SCATTER_BACKOFF_CAP_MS = 1000.0
-
-_MSE_NOT_PORTED = ("UnsupportedQueryError: this statement needs the "
-                   "multi-stage engine, and the cluster multi-stage engine "
-                   "is not ported (QueryExecutor.execute_sql runs it "
-                   "in-process)")
-
 
 class _StaleRoutingError(Exception):
     """A routed segment vanished mid-query; the scatter must restart on a
@@ -161,7 +157,11 @@ class Broker:
         self._lock = threading.Lock()
 
     def close(self) -> None:
-        """Release the scatter threads and pooled connections."""
+        """Release the scatter threads, pooled connections and the
+        multi-stage dispatcher."""
+        dispatcher = getattr(self, "_mse_dispatcher", None)
+        if dispatcher is not None:
+            dispatcher.close()
         self._pool.shutdown(wait=True)
         with self._lock:
             clients, self._clients = list(self._clients.values()), {}
@@ -264,16 +264,23 @@ class Broker:
         try:
             query = parse_sql(sql)
         except SqlParseError as e:
-            # joins, subqueries, set operations: the multi-stage grammar's
-            try:
-                parse_relational(sql)
-            except Exception:
+            # shapes the single-stage grammar rejects (joins, subqueries,
+            # set operations) go to the multi-stage dispatcher, the
+            # reference's cross-engine fallback at the broker
+            resp = self.execute_sql_mse(sql)
+            if resp.exceptions and any(
+                    x.startswith(("SqlParseError", "PlanError", "ParseError"))
+                    for x in resp.exceptions):
+                # neither grammar accepts it: the V1 error names the
+                # query's syntax problem; an MSE execution failure passes
                 resp = BrokerResponse(exceptions=[f"SqlParseError: {e}"])
-            else:
-                resp = BrokerResponse(exceptions=[_MSE_NOT_PORTED])
             query = None
         if query is not None:
-            resp = self._execute_sql_impl(query, segments)
+            if query.query_options.get("useMultistageEngine") in (
+                    True, "true", 1):
+                resp = self.execute_sql_mse(sql)
+            else:
+                resp = self._execute_sql_impl(query, segments)
         if not resp.time_used_ms:
             resp.time_used_ms = (time.perf_counter() - t0) * 1000
         # the broker-side end-to-end latency histogram
@@ -284,11 +291,27 @@ class Broker:
                                            BrokerMeter.QUERIES)
         return resp
 
+    def execute_sql_mse(self, sql: str) -> BrokerResponse:
+        """Multi-stage execution across the servers: plan fragments travel
+        to stage workers, shuffle blocks cross the TCP transport, the final
+        receive is here (reference: MultiStageBrokerRequestHandler →
+        QueryDispatcher.submitAndReduce)."""
+        return self.mse_dispatcher.execute_sql(sql)
+
+    @property
+    def mse_dispatcher(self):
+        """The multi-stage dispatcher with its mailbox endpoint, built on
+        the first multi-stage statement."""
+        with self._lock:
+            if not hasattr(self, "_mse_dispatcher"):
+                from ..mse.distributed import DistributedMseDispatcher
+
+                self._mse_dispatcher = DistributedMseDispatcher(self)
+            return self._mse_dispatcher
+
     def _execute_sql_impl(self, query: QueryContext,
                           segments: Optional[dict]) -> BrokerResponse:
         t0 = time.perf_counter()
-        if query.query_options.get("useMultistageEngine") in (True, "true", 1):
-            return BrokerResponse(exceptions=[_MSE_NOT_PORTED])
         if getattr(query, "explain", False) == "analyze":
             # EXPLAIN ANALYZE: run the scatter for real with tracing armed
             # (caches live) and render ONE merged broker-side tree

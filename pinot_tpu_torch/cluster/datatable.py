@@ -400,8 +400,9 @@ def _to_tag(t):
 #
 # The MSE cross-server shuffle's fast wire format: every numeric column of
 # an exchange block is byte-packed into ONE buffer on the device
-# (ops/kernels.pack_u8_wire), so the host path is memcpy→socket with zero
-# per-row Python encodes. The cluster MSE, its caller, is not ported yet. Its own magic keeps
+# (ops/kernels.pack_u8_wire) of the sending server, so the host path is
+# memcpy→socket with zero per-row Python encodes; its caller is the
+# cluster MSE's exchange (mse/distributed.py). Its own magic keeps
 # it loudly incompatible with the row-wise PTDT container: an old reader
 # handed a PTDP blob raises DataTableError instead of misparsing.
 #

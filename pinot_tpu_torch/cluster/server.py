@@ -17,10 +17,15 @@ is no CPU fallback. Each server's executor has its own device cache, so
 in-process replicas each upload their own planes, and a dropped segment's
 views, stacks and partials are released from this server's cache by name.
 
+The multi-stage engine's stage worker (mse/distributed.py
+`MseWorkerService`) answers the `mse_*` requests: it runs plan fragments
+on this server's device over the segments the broker routed to it and
+exchanges mailbox blocks with the other servers and the broker.
+
 Not ported yet: tiered storage (cold and lazy segments, prefetch), the
 repair path (a segment that fails verification is quarantined: advertised
-ERROR, never routed), streaming queries, `scan_arrow`, the multi-stage
-worker, and index backfill at load.
+ERROR, never routed), streaming queries, `scan_arrow` and index backfill
+at load.
 """
 
 from __future__ import annotations
@@ -143,6 +148,9 @@ class ServerInstance:
         self._started = False
         self._converged = False
         self._rpc.close()
+        worker = getattr(self, "_mse_worker", None)
+        if worker is not None:
+            worker.close()
         # a dead server left in the store's watch list is pinned alive
         # with every loaded segment
         self.store.unwatch(self._on_ideal_state)
@@ -382,7 +390,27 @@ class ServerInstance:
                     qid, reason=reason) > 0}
             return {"cancelled": self.scheduler.accountant.kill_query(
                 qid, reason=reason)}
+        if isinstance(kind, str) and kind.startswith("mse_"):
+            return self.mse_worker.handle(request)
         raise ValueError(f"unknown request type {kind}")
+
+    @property
+    def mse_worker(self):
+        """The multi-stage stage worker (mse/distributed.py), built on the
+        first `mse_*` request. Double-checked under the instance lock:
+        stage dispatches and mailbox deliveries arrive concurrently, and an
+        unlocked first touch could build two services, the losing
+        request's blocks landing in an orphaned store."""
+        worker = getattr(self, "_mse_worker", None)
+        if worker is None:
+            with self._lock:
+                worker = getattr(self, "_mse_worker", None)
+                if worker is None:
+                    from ..mse.distributed import MseWorkerService
+
+                    worker = MseWorkerService(self)
+                    self._mse_worker = worker
+        return worker
 
     def _handle_query(self, request):
         """Execute a QueryContext over an explicit segment list (the broker

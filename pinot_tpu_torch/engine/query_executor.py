@@ -467,11 +467,14 @@ class QueryExecutor:
         return None if planned is None else self.run_selection_columnar(
             planned)
 
-    def plan_selection_columnar(self, query: QueryContext):
-        """The planning half of `execute_selection_columnar`: None for a
-        shape the row path must run (not a plain identifier selection, or
-        one with ordering, DISTINCT, offset or null handling, or traced:
-        the row path records the query's spans)."""
+    def plan_selection_columnar(self, query: QueryContext,
+                                segments: Optional[list] = None):
+        """The planning half of `execute_selection_columnar`, over the
+        table's segments or `segments` where given (a cluster stage
+        worker's routed list): None for a shape the row path must run (not
+        a plain identifier selection, or one with ordering, DISTINCT,
+        offset or null handling, or traced: the row path records the
+        query's spans)."""
         if (not query.is_selection or query.distinct
                 or query.group_by_expressions or query.order_by_expressions
                 or query.having_filter is not None or query.offset
@@ -483,8 +486,9 @@ class QueryExecutor:
                 for e in query.select_expressions):
             return None
         t0 = time.perf_counter()
-        segments = self.pinned_segments(
-            self._table(query.table_name).segments)
+        if segments is None:
+            segments = self._table(query.table_name).segments
+        segments = self.pinned_segments(segments)
         kept, num_pruned = self.prune_segments(query, segments)
         plans = [self.executor.plan(query, seg) for seg in kept]
         if any(p.program.mode != "selection" or p.selection_exprs

@@ -88,6 +88,11 @@ class BrokerResponse:
     # execute_segments and encode ms, DataTable bytes, the RPC's wall ms
     # at the broker and its decode ms (cluster/broker.py)
     wire_stats: Optional[list] = None
+    # the exchange of a cluster multi-stage statement (mse/distributed.py):
+    # PTDP blob bytes and blocks shipped (and the bytes per sending
+    # instance), mailbox bytes (total and the largest store's peak),
+    # re-sent chunks dropped, stage workers and device per instance
+    mse_exchange: Optional[dict] = None
 
     def to_json(self) -> dict:
         out = {

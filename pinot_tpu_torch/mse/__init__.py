@@ -1,6 +1,6 @@
 """Multi-stage query engine (MSE) of the port.
 
-The port of pinot_tpu/mse/ for in-process execution: the relational
+The port of pinot_tpu/mse/, in-process and across a cluster: the relational
 parser, the logical planner with its partial/final aggregate split, the
 filter pushdown, the fragmenter, the host operators (join, window, set
 operations, sort) and the stage runtime with its in-memory mailboxes.
@@ -13,8 +13,9 @@ executor's device. Reference analogue: the V2 engine — Calcite front-end
 fragmenter (PlanFragmenter), and the worker runtime with mailbox shuffle
 (pinot-query-runtime/, QueryRunner.processQuery:210, MailboxService:40).
 
-Not ported: the cluster MSE (pinot_tpu/mse/distributed.py,
-plan_serde.py), the MSE result cache and EXPLAIN ANALYZE.
+Across a cluster (distributed.py), the broker's dispatcher sends each
+stage as JSON (plan_serde.py) to stage workers on the servers, which run
+it on their device and exchange blocks over TCP.
 """
 
 from .executor import MultistageExecutor

@@ -43,6 +43,34 @@ from .parser import parse_relational
 from .runtime import StageRunner
 
 
+
+def concat_columns(parts: list) -> np.ndarray:
+    """One column from its per-segment parts (object dtype when any part
+    is)."""
+    if not parts:
+        return np.empty(0)
+    if len(parts) == 1:
+        return parts[0]
+    if any(p.dtype.kind == "O" for p in parts):
+        parts = [p.astype(object) for p in parts]
+    return np.concatenate(parts)
+
+
+def scan_segments(segments, columns) -> dict[str, np.ndarray]:
+    """Host columns of a generic scan over ``segments``: a consuming
+    segment read through its pinned snapshot, upsert-invalid rows
+    dropped."""
+    out: dict[str, list] = {c: [] for c in columns}
+    for seg in segments:
+        view = seg.snapshot_view() if getattr(seg, "is_mutable", False) else seg
+        vd = getattr(view, "valid_doc_ids", None)
+        keep = vd.mask(view.num_docs) if vd is not None else None
+        for c in columns:
+            vals = np.asarray(view.get_values(c))
+            out[c].append(vals if keep is None else vals[keep])
+    return {c: concat_columns(parts) for c, parts in out.items()}
+
+
 class MultistageExecutor:
     """Runs the multi-stage dialect over a single-stage QueryExecutor's
     table registry (engine/query_executor.py), on its device."""
@@ -110,31 +138,12 @@ class MultistageExecutor:
         return out
 
     def _read_table(self, table: str, columns: list[str]) -> dict[str, np.ndarray]:
-        """Host columns of a generic scan: every segment's rows (a
-        consuming segment's pinned snapshot), upsert-invalid rows
-        dropped."""
+        """Host columns of a generic scan over every segment of the
+        table."""
         t = self.qe.tables.get(table)
         if t is None:
             raise KeyError(f"table {table} not found")
-        out: dict[str, list] = {c: [] for c in columns}
-        for seg in list(t.segments):
-            view = seg.snapshot_view() if getattr(seg, "is_mutable", False) else seg
-            vd = getattr(view, "valid_doc_ids", None)
-            keep = vd.mask(view.num_docs) if vd is not None else None
-            for c in columns:
-                vals = np.asarray(view.get_values(c))
-                out[c].append(vals if keep is None else vals[keep])
-        result = {}
-        for c, parts in out.items():
-            if not parts:
-                result[c] = np.empty(0)
-            elif len(parts) == 1:
-                result[c] = parts[0]
-            else:
-                if any(p.dtype.kind == "O" for p in parts):
-                    parts = [p.astype(object) for p in parts]
-                result[c] = np.concatenate(parts)
-        return result
+        return scan_segments(list(t.segments), columns)
 
     # -- entry -------------------------------------------------------------
     def plan(self, query):

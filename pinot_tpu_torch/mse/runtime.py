@@ -17,9 +17,11 @@ While a trace is active, each stage runs under an `mse_stage:<id>` span
 carrying its stats; the partition workers adopt the trace with the stage's
 span as parent, so the leaves' spans nest under their stage.
 
-The port's copy of pinot_tpu/mse/runtime.py without the server meters and
-perf-ledger events, and without the reference's recovery from a device
-failure: an error in a fused stage fails the query (only the
+The port's copy of pinot_tpu/mse/runtime.py with its server meters
+(MSE_DEVICE_JOINS, MSE_FUSED_STAGES, MSE_HOST_CROSSINGS,
+MSE_DEVICE_JOIN_FALLBACKS) and without the perf-ledger events (they wait
+for engine/perf_ledger.py), and without the reference's recovery from a
+device failure: an error in a fused stage fails the query (only the
 deterministic gates of run_fused send a stage to the host path).
 """
 
@@ -38,6 +40,7 @@ from ..ops import kernels
 from ..query.context import QueryContext
 from ..query.converter import FilterConversionError, filter_from_expression
 from ..query.expressions import ExpressionContext
+from ..spi.metrics import SERVER_METRICS, ServerMeter
 from ..spi.trace import TRACING
 from .fragmenter import MailboxReceiveNode, Stage, receive_nodes
 from .logical import (
@@ -149,7 +152,13 @@ class StageRunner:
         return None
 
     def _plan_fused(self) -> None:
-        """Mark the stages that take the device-resident join path."""
+        """Mark the stages that take the device-resident join path. Only
+        the in-process mailbox can hand device arrays across a stage
+        boundary by reference; the cluster's RoutedMailbox keeps the wire
+        path (its runners never call run(), so this is also never reached
+        there)."""
+        if type(self.mailbox) is not MailboxService:
+            return
         if self.device is None or self._device_join_option() is False:
             return
         if device_join.env_mode() in ("0", "off", "false"):
@@ -418,9 +427,17 @@ class StageRunner:
                 st["host_crossings"] = (kernels.thread_host_fetches()
                                         - fetches0)
                 self.stats["num_device_dispatches"] += info["dispatches"]
+                SERVER_METRICS.add_meter(ServerMeter.MSE_DEVICE_JOINS)
+                SERVER_METRICS.add_meter(ServerMeter.MSE_FUSED_STAGES,
+                                         1 + len(chain_sids))
+                SERVER_METRICS.add_meter(ServerMeter.MSE_HOST_CROSSINGS,
+                                         st["host_crossings"])
                 for csid in chain_sids:
                     self._sstat(csid)["join_impl"] = "device-fused"
                 return [block]
+            # an eligible stage whose deterministic gate failed takes the
+            # host path (a stage below the size threshold counts nothing)
+            SERVER_METRICS.add_meter(ServerMeter.MSE_DEVICE_JOIN_FALLBACKS)
         # host path: same hash routing the children would have used,
         # then the exact host join+aggregate operators per partition. An
         # absorbed chain re-materializes through the host joiner itself —

@@ -56,7 +56,8 @@ def test_port_files_are_found():
             "mxu_groupby.py", "query_executor.py", "transforms.py",
             "dim_tables.py", "coalesce.py", "explain.py",
             "trace.py", "broker.py", "server.py", "transport.py",
-            "datatable.py", "scheduler.py", "doctor.py"} <= names
+            "datatable.py", "scheduler.py", "doctor.py", "distributed.py",
+            "plan_serde.py", "remote_store.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -28,8 +28,10 @@ replica, a `server.query` error that fails the query or answers partial
 as the JAX broker does, a corrupt DataTable retried, partial results, a
 timeout whose cancel reaches the server's `kill_prefix`), the broker result cache with its
 lineage epochs and `SET trace = true` span trees are held against the JAX
-broker's outcomes too. Request frames pickle only the port's classes, and
-`ServerInstance()` raises without a card. An `hbm_oom` fault at
+broker's outcomes too. A join answers through the cluster multi-stage
+engine with the JAX cluster's rows. Request frames pickle only the port's
+classes (the multi-stage stage and mailbox frames: plain data and numpy
+columns), and `ServerInstance()` raises without a card. An `hbm_oom` fault at
 `device.dispatch` is relieved on the server. The control plane: the
 store's CAS, ephemerals, watches and journal recovery (a torn tail cut),
 leader failover, replica-group assignment, retention and its lineage bump,
@@ -310,14 +312,20 @@ def test_explain_rows_equal_jax(clusters):
     assert _rows(port.execute_sql(EXPLAIN)) == _rows(ref.execute_sql(EXPLAIN))
 
 
-def test_multistage_statement_says_the_cluster_mse_is_not_ported(clusters):
-    (_, _, _, port), _ = clusters
-    resp = port.execute_sql(
-        "SELECT a.d_year, COUNT(*) FROM cl_ssb a JOIN cl_ssb b "
-        "ON a.lo_orderkey = b.lo_orderkey GROUP BY a.d_year")
-    assert resp.result_table is None
-    assert "multi-stage engine is not ported" in resp.exceptions[0]
+MSE_JOIN = ("SELECT a.d_year, COUNT(*) FROM cl_ssb a JOIN cl_ssb b "
+            "ON a.lo_orderkey = b.lo_orderkey GROUP BY a.d_year")
+
+
+def test_multistage_statement_answers_through_the_cluster_mse(clusters):
+    # a join goes to the cluster multi-stage engine: stage workers on the
+    # servers, the rows the JAX cluster's MSE gives (tests/
+    # test_torch_mse_distributed.py holds the engine itself)
+    (_, _, _, port), (_, _, _, ref) = clusters
+    got, want = port.execute_sql(MSE_JOIN), ref.execute_sql(MSE_JOIN)
+    assert sorted(_rows(got)) == sorted(_rows(want))
+    assert len(got.mse_exchange["workers"]) == 3
     bad = port.execute_sql("SELEC nonsense")
+    assert bad.result_table is None
     assert bad.exceptions[0].startswith("SqlParseError")
 
 
@@ -566,9 +574,15 @@ def test_request_frames_pickle_only_port_classes(clusters, monkeypatch):
     frames = []
     real = ptransport._send_frame
 
+    mse_frames = {"mse_stage": [], "mse_mailbox": []}
+
     def spy(sock, obj):
-        if isinstance(obj, dict) and obj.get("type") == "query":
+        kind = obj.get("type") if isinstance(obj, dict) else None
+        if kind == "query":
             frames.append(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
+        elif kind in mse_frames:
+            mse_frames[kind].append(
+                pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
         return real(sock, obj)
 
     monkeypatch.setattr(ptransport, "_send_frame", spy)
@@ -579,6 +593,17 @@ def test_request_frames_pickle_only_port_classes(clusters, monkeypatch):
     assert mods and all(m.split(".")[0] in ("pinot_tpu_torch", "builtins")
                         for m in mods), mods
     assert not any(re.match(r"pinot_tpu(\.|$)", m) for m in mods)
+    # the cluster MSE's frames: a stage is plain JSON data, a mailbox
+    # chunk numpy columns; neither names a class of the JAX package
+    assert not port.execute_sql(MSE_JOIN).exceptions
+    assert all(mse_frames.values()), {k: len(v) for k, v in mse_frames.items()}
+    stage_mods = set().union(*(_globals_in(f)
+                               for f in mse_frames["mse_stage"]))
+    assert stage_mods <= {"builtins"}, stage_mods
+    box_mods = set().union(*(_globals_in(f)
+                             for f in mse_frames["mse_mailbox"]))
+    assert all(m.split(".")[0] in ("numpy", "builtins")
+               for m in box_mods), box_mods
     # and a port QueryContext carries no JAX package class either way
     assert "pinot_tpu." not in str(_globals_in(pickle.dumps(
         parse_sql(QUERIES["lookup"]))))

@@ -28,8 +28,11 @@ traced family times the card (deviceExecMs > 0), and eight threads on a
 fresh executor upload each plane once. A cluster of two servers on the
 card (cluster/) answers q2 and q2_family with a CPU cluster's rows,
 launching kernel B on each segment and kernel A on each server's family;
-PTDP blocks packed on the card equal the CPU's bytes; and the doctor
-(tools/doctor.py) classifies the card `ok`.
+PTDP blocks packed on the card equal the CPU's bytes; the cluster
+multi-stage engine on two servers on the card runs its join workers' pair
+join on the card, packs its exchange blocks from card tensors and launches
+kernels A and B through its leaves, with the CPU cluster's rows; and the
+doctor (tools/doctor.py) classifies the card `ok`.
 """
 
 from __future__ import annotations
@@ -1567,6 +1570,90 @@ def test_packed_block_on_the_card_equals_the_cpu_bytes(cuda):
     back = datatable.decode_packed_block(on_card)
     for k, v in block.items():
         assert back[k].tobytes() == v.tobytes(), k
+
+
+MSE_CLUSTER_JOIN = (
+    "SELECT a.d_year, COUNT(*), SUM(b.lo_revenue) FROM ssb a JOIN ssb b "
+    "ON a.p_brand = b.p_brand WHERE a.lo_revenue < 3000 AND b.d_year = 1995 "
+    "GROUP BY a.d_year ORDER BY a.d_year")
+
+
+def test_cluster_mse_join_on_the_card_equals_cpu_cluster(
+        cuda, cluster_segments, monkeypatch):
+    """The cluster multi-stage engine on two servers on the card: the join
+    workers' pair join (forced) runs on the card, exchange blocks above
+    the (lowered) threshold are packed from card tensors, and rows and
+    PTDP bytes equal two servers on the CPU."""
+    from pinot_tpu_torch.mse import device_join
+    from pinot_tpu_torch.mse import distributed
+    from pinot_tpu_torch.ops import kernels
+
+    monkeypatch.setattr(distributed, "DEVICE_PACK_MIN_BYTES", 4096)
+    monkeypatch.setenv("PINOT_TPU_DEVICE_JOIN", "1")
+    joins, packs = [], []
+    real_join, real_pack = device_join.device_join_indices, kernels.pack_u8_wire
+
+    def join_spy(lcodes, rcodes, limit, device):
+        joins.append(torch.device(device).type)
+        return real_join(lcodes, rcodes, limit, device)
+
+    def pack_spy(outs):
+        packs.append({t.device.type for t in outs})
+        return real_pack(outs)
+
+    monkeypatch.setattr(device_join, "device_join_indices", join_spy)
+    monkeypatch.setattr(kernels, "pack_u8_wire", pack_spy)
+    schema, paths = cluster_segments
+    out = {}
+    for device in ("cpu", "cuda"):
+        servers, broker = _cluster(schema, paths, device)
+        joins.clear()
+        packs.clear()
+        try:
+            resp = broker.execute_sql(MSE_CLUSTER_JOIN)
+            torch.cuda.synchronize()
+            assert not resp.exceptions, resp.exceptions
+            out[device] = ([tuple(r) for r in resp.result_table.rows],
+                           resp.mse_exchange["packed_bytes"],
+                           sorted(set(joins)), [sorted(p) for p in packs])
+        finally:
+            for s in servers:
+                s.stop()
+            broker.close()
+    assert out["cuda"][:2] == out["cpu"][:2]
+    assert out["cuda"][1] > 0
+    assert out["cuda"][2] == ["cuda"]
+    assert out["cuda"][3] and all(p == ["cuda"] for p in out["cuda"][3])
+
+
+@pytest.mark.parametrize("batch,kernel,launches", [
+    ("", "limb_sums", 2), ("SET segmentBatch = false; ", "fused_limb_sums", 4)])
+def test_cluster_mse_leaf_launches_the_kernels(cuda, cluster_segments, batch,
+                                               kernel, launches):
+    """q2 under SET useMultistageEngine = true through the broker: the
+    leaf's partial aggregate is each server's family dispatch (kernel A
+    once a server), or one kernel B launch a segment, with the CPU
+    cluster's rows."""
+    sql = (batch + "SET useMultistageEngine = true; SELECT d_year, p_brand, "
+           "SUM(lo_revenue) FROM ssb WHERE s_region = 'ASIA' "
+           "GROUP BY d_year, p_brand LIMIT 10000")
+    schema, paths = cluster_segments
+    out = {}
+    for device in ("cpu", "cuda"):
+        servers, broker = _cluster(schema, paths, device)
+        try:
+            _cuda.reset_launches()
+            resp = broker.execute_sql(sql)
+            torch.cuda.synchronize()
+            assert not resp.exceptions, resp.exceptions
+            out[device] = (sorted(map(tuple, resp.result_table.rows)),
+                           dict(_cuda.LAUNCHES))
+        finally:
+            for s in servers:
+                s.stop()
+            broker.close()
+    assert out["cuda"][0] == out["cpu"][0]
+    assert out["cuda"][1][kernel] == launches
 
 
 def test_doctor_classifies_the_card_ok(cuda):
