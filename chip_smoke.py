@@ -117,7 +117,7 @@ Phases, each printing one JSON line:
            before the phase and read after it): `ssb_rt`, the 4 ssb
            segments plus a consuming segment of the ssb schema fed a row at
            a time (gen_ssb rows from --seed + 3) through generations g0
-           (2^22 - 2^15 rows), g1 (+2^16, crossing into the 2^23 bucket:
+           (2^21 - 2^14 rows), g1 (+2^15, crossing into the 2^22 bucket:
            every plane grows on the card) and g2 (+2^10), each query cold
            then warm: rows equal to the numpy oracle over every row the
            pinned snapshot holds, 2 dispatches and 1 fetch; per generation
@@ -127,11 +127,41 @@ Phases, each printing one JSON line:
            g1's tail must be below 1/8 of g0's bytes. Then `ups`, an upsert
            table (FULL, comparison column ts = arrival order, one row in
            64 older than every version) of the ssb columns plus a pk LONG
-           drawn from 2^20 keys: one committed segment of 2^21 rows (built,
+           drawn from 2^19 keys: one committed segment of 2^20 rows (built,
            then replayed with add_segment) and one consuming segment of
-           2^21 rows (index + add_record), queried before and after 2^16
+           2^20 rows (index + add_record), queried before and after 2^15
            more rows overwrite keys: rows equal to the oracle of the
            newest version of each key, and the overwrite must change them
+  ingest   realtime tables fed from a stream through the port's
+           RealtimeTableDataManager (stream SPI, transform pipeline,
+           consuming segments, commit, checkpoints), each counted query's
+           counts set to 0 just before it and its rows held against a numpy
+           oracle over the rows read back from the topic: `ingest`, the ssb
+           schema from a 2-partition in-memory topic keyed by lo_orderkey
+           (576,000 rows a partition on average, gen_ssb rows from --seed +
+           6, published in batches of 64,000 while the consumers run; each
+           segment seals at 512,000 rows), at its settle point 2 committed
+           segments (kernel A over their family) and the consuming
+           snapshots, rt_q1, rt_q2 and rt_range and their warm p50; the
+           freshness of a 1,000-row trickle; force_commit and the cold
+           queries after it; a restart from the checkpoints (offsets equal
+           to the topic's, the segments loaded in commit order, nothing
+           consumed again). Then two replicas on one partition (288,000
+           rows, flush 256,000) through two leader-elected controllers'
+           completion protocol, each replica with its own executor on the
+           card: one DONE record and one name, the loser downloading the
+           winner's build, rt_q2 on both (kernel B on the committed segment
+           and on the snapshot); a leaderless window (both controllers
+           killed: the consumers hold, never ERROR, and commit once one is
+           back); a committer that dies before segment_commit_end, replaced
+           after its 2 s lease. Then an upsert table (262,144 rows over
+           65,536 keys, flush 128,000) through the manager: `ups` against
+           the newest version of each key, kernel A with the validity mask.
+           Every sealed segment's planes leave REALTIME_PLANES and every
+           executor's cache at its commit, and no retirement raises. Rows/s
+           per manager, feed_us_per_row (decode + transform + index), build
+           and load ms, freshness, the cold query after a commit, election,
+           download and re-election ms, bytes freed
   index_checks
            the star-tree queries' routes (rewritten but for st_bypass),
            st_q2's scanned rows equal to the views' ASIA rows and
@@ -268,8 +298,8 @@ Phases, each printing one JSON line:
   geometry each kernel shape's launch geometry and the card's cluster
            occupancy
   total    the run's wall time, the build included
-  kernels  the kernel table (the realtime and index queries' launches
-           included, one row each, kernel A over a cluster server's
+  kernels  the kernel table (the realtime, ingest and index queries'
+           launches included, one row each, kernel A over a cluster server's
            family of 2, and kernels A and B through the cluster
            multi-stage engine's leaves): per kernel and main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
@@ -302,6 +332,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor
 
@@ -494,14 +525,17 @@ PASS_LABELS = {"q5": ("counts", "distinct", "percentile pass 1",
 MV_QUERIES = ("mv_filter", "mv_group", "mv_aggs")
 # the realtime tables: `ssb_rt`, the 4 ssb segments (the same objects) and
 # one consuming segment with the ssb schema fed a row at a time through
-# MutableSegment.index, in three generations (g0 ends just below the 2^22
-# bucket, g1 crosses into 2^23, g2 adds a small tail); `ups`, an upsert
+# MutableSegment.index, in three generations (g0 ends just below the 2^21
+# bucket, g1 crosses into 2^22, g2 adds a small tail); `ups`, an upsert
 # table (FULL, comparison column ts) of one committed segment and one
-# consuming segment, then overwritten with UPS_OVERWRITE more rows
+# consuming segment, then overwritten with UPS_OVERWRITE more rows. Both
+# are half what they were before phase `ingest` joined the run (g0 2^22 -
+# 2^15, g1 2^16, and 2^21 rows a ups segment over 2^20 keys with 2^16
+# overwrites), to keep the run inside its time limit
 RT_TABLE, UPS_TABLE = "ssb_rt", "ups"
-RT_GENERATIONS = (("g0", (1 << 22) - (1 << 15)), ("g1", 1 << 16),
+RT_GENERATIONS = (("g0", (1 << 21) - (1 << 14)), ("g1", 1 << 15),
                   ("g2", 1 << 10))
-UPS_ROWS, UPS_KEYS, UPS_OVERWRITE = 1 << 21, 1 << 20, 1 << 16
+UPS_ROWS, UPS_KEYS, UPS_OVERWRITE = 1 << 20, 1 << 19, 1 << 15
 UPS_STALE_EVERY = 64  # one row in 64 arrives older than every version
 # phase `cache`: rows fed to ssb_rt's consuming segment after the realtime
 # phase (a new generation), and ups overwrites of committed keys
@@ -520,6 +554,35 @@ RT_QUERIES = {
 # A over the immutable family, or the committed segment, and kernel A or B
 # over the consuming snapshot
 RT_KERNEL_QUERIES = ("rt_q2", "rt_range", "ups")
+# phase `ingest`: realtime tables fed from a stream through the port's
+# RealtimeTableDataManager (spi/stream.py, ingestion/transform.py,
+# realtime/manager.py, realtime/completion.py). `ingest`: the ssb schema
+# from a 2-partition in-memory topic (a clickstream or orders topic feeding
+# a dashboard table), keyed by lo_orderkey, INGEST_ROWS rows a partition on
+# average published in batches of INGEST_BATCH while the consumers run;
+# each segment seals at INGEST_FLUSH_ROWS (Pinot's documented
+# realtime.segment.flush.threshold.rows default is 5,000,000; cut for time,
+# and a multiple of the in-memory consumer's 1000-message fetch: a sealed
+# segment holds that many rows, or up to 999 more where a fetch came back
+# short because the consumer had caught up with the producer, as in the
+# JAX package; it pads to 2^19). Then two
+# replicas of it on one partition through the leader controller's
+# completion protocol (REPLICA_* rows, flush REPLICA_FLUSH_ROWS), and an
+# upsert table through the manager (UPS_INGEST_*)
+INGEST_TABLE, UPS_INGEST_TABLE = "ingest", "ups_ingest"
+INGEST_PARTITIONS, INGEST_ROWS, INGEST_BATCH = 2, 576_000, 64_000
+INGEST_FLUSH_ROWS = 512_000
+INGEST_TRICKLE = 1_000  # rows published after the settle point: freshness
+REPLICA_FLUSH_ROWS, REPLICA_TAIL = 256_000, 16_000
+REPLICA_COMPLETION = {"num_replicas": 2, "commit_lease_s": 2.0,
+                      "decision_wait_s": 1.0}
+UPS_INGEST_ROWS, UPS_INGEST_KEYS, UPS_INGEST_FLUSH = 262_144, 65_536, 128_000
+INGEST_WAIT_S = 240.0  # the longest any settle point may take
+INGEST_QUERIES = {q: RT_QUERIES[q].replace(f"FROM {RT_TABLE}",
+                                           f"FROM {INGEST_TABLE}")
+                  for q in ("rt_q1", "rt_q2", "rt_range")}
+INGEST_QUERIES["ups"] = RT_QUERIES["ups"].replace(
+    f"FROM {UPS_TABLE}", f"FROM {UPS_INGEST_TABLE}")
 # the index tables: `ssb_st`, the ssb rows with a star-tree of Pinot's
 # documented config shape (dimensionsSplitOrder, functionColumnPairs,
 # maxLeafRecords default 10,000); `events`, a log/event table of gen_ssb
@@ -2039,6 +2102,608 @@ def phase_realtime(args, torch, qe, tables, rt_base, interp, tmp, card):
     return final, launches, state
 
 
+@contextlib.contextmanager
+def ingest_timers():
+    """Host-clock time inside the realtime managers while active, per call
+    (the consumer threads call them): `index`, each fetched batch through
+    decode + transform + index (RealtimeSegmentDataManager._index_batch)
+    with its rows; `build`, each sealed segment converted and built
+    (RealtimeSegmentConverter.convert); `load`, each build loaded
+    (realtime/manager.py load_segment); `download`, a losing replica's
+    copy of the winner's build, its load included
+    (RealtimeTableDataManager._handle_discard)."""
+    from pinot_tpu_torch.realtime import converter, manager
+
+    spent = {"index": [], "index_rows": 0, "build": [], "load": [],
+             "download": []}
+    patched = [(manager.RealtimeSegmentDataManager, "_index_batch", "index"),
+               (converter.RealtimeSegmentConverter, "convert", "build"),
+               (manager, "load_segment", "load"),
+               (manager.RealtimeTableDataManager, "_handle_discard",
+                "download")]
+    origs = [getattr(owner, m) for owner, m, _ in patched]
+    lock = threading.Lock()
+
+    def timed(orig, key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                spent[key].append(ms)
+                if key == "index":
+                    spent["index_rows"] += args[1].message_count
+            return out
+        return call
+
+    for (owner, m, key), orig in zip(patched, origs):
+        setattr(owner, m, timed(orig, key))
+    try:
+        yield spent
+    finally:
+        for (owner, m, _), orig in zip(patched, origs):
+            setattr(owner, m, orig)
+
+
+class TimedCompletion:
+    """A completion client that passes every call on and notes, per
+    segment, the host-clock time of the first segment_consumed and of the
+    first COMMIT answer to each instance (the elections)."""
+
+    def __init__(self, client):
+        self.client = client
+        self.first_vote, self.commits = {}, {}
+
+    def segment_consumed(self, table, segment, instance, offset):
+        t = time.perf_counter()
+        self.first_vote.setdefault(segment, t)
+        resp = self.client.segment_consumed(table, segment, instance, offset)
+        if resp.status == "COMMIT":
+            self.commits.setdefault((segment, instance), time.perf_counter())
+        return resp
+
+    def __getattr__(self, name):
+        return getattr(self.client, name)
+
+
+def _await_ingest(pred, what: str, timeout_s: float = INGEST_WAIT_S) -> float:
+    """Wait for pred(); the host seconds it took. Fails after timeout_s."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"ingest: {what} not reached in "
+                                 f"{timeout_s} s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def topic_columns(registry, topic: str, names) -> tuple:
+    """(columns of every row the topic holds, read back partition by
+    partition, rows per partition): the oracle's input."""
+    t = registry.topic(topic)
+    with t.lock:
+        parts = [list(p) for p in t.partitions]
+    cols = {}
+    for c in names:
+        vals = [m.value[c] for p in parts for m in p]
+        cols[c] = (np.asarray(vals, dtype=object) if c == "s_region"
+                   else np.asarray(vals, dtype=np.int64))
+    return cols, [len(p) for p in parts]
+
+
+def _publish(registry, topic: str, cols: dict, lo: int, hi: int,
+             key: str = "lo_orderkey") -> None:
+    """Rows lo..hi of the generated columns as row dicts, in batches of
+    INGEST_BATCH (a million row dicts at once would cost gigabytes)."""
+    names = list(cols)
+    for a in range(lo, hi, INGEST_BATCH):
+        b = min(hi, a + INGEST_BATCH)
+        batch = [dict(zip(names, r)) for r in zip(
+            *[cols[c][a:b].tolist() for c in names])]
+        registry.publish(topic, batch, partition_key=key)
+
+
+def _retired_names_gone(names) -> None:
+    """No plane set in REALTIME_PLANES and nothing in any live executor's
+    device cache under the names of sealed consuming segments (called
+    before any query touched their immutable replacements)."""
+    from pinot_tpu_torch.realtime.device_plane import REALTIME_PLANES
+    from pinot_tpu_torch.segment.device_cache import live_caches
+
+    left = set(names) & REALTIME_PLANES.names()
+    for cache in live_caches():
+        left |= set(names) & cache.segment_names()
+    if left:
+        raise AssertionError(f"ingest: sealed segments {sorted(left)} still "
+                             "hold device state after their commit")
+
+
+class _IngestRun:
+    """The phase's counted queries: each one's counts set to 0 just before
+    it and read just after, its rows held against the oracle; the phase
+    sums the launches."""
+
+    def __init__(self, torch, interp):
+        self.torch, self.interp = torch, interp
+        from pinot_tpu_torch.ops import _cuda
+
+        self._cuda = _cuda
+        self.launches = {k: 0 for k in _cuda.LAUNCHES}
+
+    def query(self, qe, qname, want, sql=None):
+        _cuda, torch = self._cuda, self.torch
+        from pinot_tpu_torch.realtime import device_plane
+
+        _cuda.reset_launches()
+        device_plane.reset_realtime_stats()
+        fetch0 = self.interp.host_fetches()
+        resident = qe.executor.cache.bytes_used()
+        t0 = time.perf_counter()
+        resp = qe.execute_sql(sql or INGEST_QUERIES[qname])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = sorted(tuple(r) for r in resp.result_table.rows)
+        if got != sorted(tuple(r) for r in want):
+            raise AssertionError(f"ingest {qname}: {len(got)} rows differ "
+                                 f"from the oracle's {len(want)}")
+        fetches = self.interp.host_fetches() - fetch0
+        if fetches != 1:
+            raise AssertionError(f"ingest {qname}: {fetches} host fetches")
+        for k, v in _cuda.LAUNCHES.items():
+            self.launches[k] += v
+        st = device_plane.realtime_stats()
+        return {"ms": ms, "launches": dict(_cuda.LAUNCHES),
+                "device_dispatches": resp.num_device_dispatches,
+                "uploaded_bytes": qe.executor.cache.bytes_used() - resident
+                + st["deltaBytes"], "delta_bytes": st["deltaBytes"]}
+
+    def warm_p50(self, qe, qname, iters) -> float:
+        ts = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            qe.execute_sql(INGEST_QUERIES[qname])
+            self.torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+
+def _record_kernels(qe, qname, mxu, fg, torch, counted: dict,
+                    sql=None) -> list:
+    """One more run of the query with each kernel launch's inputs recorded,
+    each with the live rows of the segments its dispatch covers; each
+    launch held against its plain version, and the launches equal to the
+    counted run's (`counted`). [(name, inputs, live, err, launches)]."""
+    with dispatch_rows(qe.executor) as rows, \
+            recording(mxu, "limb_sums", rows) as a_calls, \
+            recording(fg, "fused_limb_sums", rows) as b_calls:
+        qe.execute_sql(sql or INGEST_QUERIES[qname])
+    made = {"limb_sums": len(a_calls), "fused_limb_sums": len(b_calls)}
+    if made != {k: counted[k] for k in made}:
+        raise AssertionError(f"ingest {qname}: the recording run made "
+                             f"{made} calls, the counted run {counted}")
+    out = []
+    for name, calls, kernel, plain in (
+            ("limb_sums", a_calls, mxu.limb_sums, mxu.limb_sums_plain),
+            ("fused_limb_sums", b_calls, fg.fused_limb_sums,
+             fg.fused_limb_sums_plain)):
+        for k, (rec, live) in enumerate(calls):
+            err = check_equal(torch, f"{name} ingest {qname} launch {k}",
+                              kernel(*rec), plain(*rec))
+            out.append((name, rec, live, err))
+    return out
+
+
+def _retired(managers) -> dict:
+    """The managers' retirement counts, summed."""
+    out = {"segments": 0, "bytesFreed": 0, "errors": 0}
+    for m in managers:
+        for k, v in m.retirement_stats().items():
+            out[k] += v
+    return out
+
+
+def _kill_controller(live: dict, store, cid: str) -> None:
+    """Crash-death of a controller, as the JAX package's soak test kills
+    one: gone from the resolver, its session expired (the seat frees)."""
+    c = live.pop(cid)
+    c.leader.disconnect()
+    store.expire_session(cid)
+    c.leader.stop()
+
+
+def phase_ingest(args, torch, qe, interp, mxu, fg, tmp, card) -> dict:
+    """Realtime ingestion through the port's managers on the card: (1)
+    `ingest` from a 2-partition topic: settle (2 committed segments of
+    INGEST_FLUSH_ROWS, kernel A over their family; the consuming snapshots),
+    freshness of a trickle, force_commit, a restart from the checkpoints
+    with nothing consumed twice; (2) two replicas through the leader
+    controller: one election and download, a leaderless window the
+    consumers hold through, a committer that dies before commit_end
+    replaced after its lease; (3) an upsert table through the manager.
+    Every query's rows against a numpy oracle over the rows read back from
+    the topic; every sealed segment's device state retired on commit."""
+    from pinot_tpu_torch.cluster.controller import ClusterController
+    from pinot_tpu_torch.cluster.store import PropertyStore
+    from pinot_tpu_torch.engine.query_executor import QueryExecutor
+    from pinot_tpu_torch.realtime import manager as rtm
+    from pinot_tpu_torch.realtime.completion import LeaderCompletionClient
+    from pinot_tpu_torch.spi.data_types import Schema
+    from pinot_tpu_torch.spi.metrics import SERVER_METRICS, ServerMeter
+    from pinot_tpu_torch.spi.stream import GLOBAL_STREAM_REGISTRY as reg
+    from pinot_tpu_torch.spi.table_config import (IndexingConfig,
+                                                  IngestionConfig,
+                                                  TableConfig, TableType,
+                                                  UpsertConfig)
+
+    t_phase = time.perf_counter()
+    run = _IngestRun(torch, interp)
+    oracle_cols = ("d_year", "p_brand", "s_region", "lo_discount",
+                   "lo_quantity", "lo_extendedprice", "lo_revenue")
+
+    def config(name, topic, flush, **kw):
+        return TableConfig(
+            table_name=name, table_type=TableType.REALTIME,
+            indexing=IndexingConfig(no_dictionary_columns=kw.pop(
+                "raw", RAW_COLUMNS)),
+            ingestion=IngestionConfig(stream_configs={
+                "streamType": "inmemory", "stream.inmemory.topic.name": topic,
+                "realtime.segment.flush.threshold.rows": flush}), **kw)
+
+    def oracle(topic):
+        cols, per_partition = topic_columns(reg, topic, oracle_cols)
+        return rt_expected([rt_partials(cols)]), per_partition
+
+    def state_ok(mgrs):
+        for m in mgrs:
+            with m._lock:
+                states = [c.state for c in m._consuming.values()]
+            if "ERROR" in states:
+                raise AssertionError(f"ingest: a consumer of "
+                                     f"{m.instance_id} is in ERROR")
+
+    schema = Schema.build(INGEST_TABLE, dimensions=SCHEMA_DIMS,
+                          metrics=SCHEMA_METRICS)
+    out = {"phase": "ingest", "card": card}
+    recs = {}
+    started, controllers = [], []
+    with ingest_timers() as spent:
+        try:
+            # -- (1) one replica, INGEST_PARTITIONS partitions -------------
+            topic = "ingest_lineorder"
+            reg.create_topic(topic, num_partitions=INGEST_PARTITIONS)
+            total = INGEST_PARTITIONS * INGEST_ROWS
+            cols = gen_ssb(total + INGEST_TRICKLE, args.seed + 6)
+            cfg = config(INGEST_TABLE, topic, INGEST_FLUSH_ROWS)
+            data_dir = f"{tmp}/{INGEST_TABLE}"
+            mgr = rtm.RealtimeTableDataManager(schema, cfg, data_dir)
+            started.append(mgr)
+            qe.add_table(schema, mgr.segments, INGEST_TABLE)
+            t0 = time.perf_counter()
+            mgr.start()
+            # this thread is the producer, publishing while the consumer
+            # threads run
+            _publish(reg, topic, cols, 0, total)
+            t_last = time.perf_counter()
+            publish_s = t_last - t0
+            _await_ingest(lambda: mgr.total_docs() == total
+                          and len(mgr._committed) == INGEST_PARTITIONS,
+                          "the 2-partition settle point")
+            consumed_s = time.perf_counter() - t0
+            drain_ms = (time.perf_counter() - t_last) * 1e3
+            state_ok([mgr])
+            sealed = list(mgr._segment_names)
+            _retired_names_gone(sealed)
+            want, per_partition = oracle(topic)
+            one = {"rows": total, "rows_per_partition": per_partition,
+                   "publish_s": publish_s, "consume_s": consumed_s,
+                   "rows_per_s": total / consumed_s,
+                   "drain_ms_after_last_publish": drain_ms,
+                   "committed_docs": [s.num_docs for s in mgr._committed],
+                   "queries": {}}
+            if not all(INGEST_FLUSH_ROWS <= n < INGEST_FLUSH_ROWS + 1000
+                       for n in one["committed_docs"]):
+                raise AssertionError(f"ingest: committed {one['committed_docs']}")
+            for qname in ("rt_q1", "rt_q2", "rt_range"):
+                one["queries"][qname] = run.query(qe, qname, want[qname])
+            one["warm_p50_ms"] = {q: run.warm_p50(qe, q, args.iters)
+                                  for q in ("rt_q2", "rt_range")}
+            counted = one["queries"]["rt_q2"]["launches"]
+            recs["rt_q2"] = (_record_kernels(qe, "rt_q2", mxu, fg, torch,
+                                             counted), counted)
+            # freshness: a trickle of rows after the settle point, timed
+            # from its publish to the first query that counts it
+            count_sql = f"SELECT COUNT(*) FROM {INGEST_TABLE}"
+            t0 = time.perf_counter()
+            _publish(reg, topic, cols, total, total + INGEST_TRICKLE)
+            polls = 0
+            while True:
+                polls += 1
+                n = qe.execute_sql(count_sql).result_table.rows[0][0]
+                if n == total + INGEST_TRICKLE:
+                    break
+                if time.perf_counter() - t0 > INGEST_WAIT_S:
+                    raise AssertionError(f"ingest: trickle unseen ({n})")
+            one["freshness_ms"] = (time.perf_counter() - t0) * 1e3
+            one["freshness_polls"] = polls
+            total += INGEST_TRICKLE
+            del cols
+            want, per_partition = oracle(topic)
+            for qname in ("rt_q1", "rt_q2", "rt_range"):
+                run.query(qe, qname, want[qname])  # the snapshots' planes
+            retired0 = mgr.retirement_stats()
+            t0 = time.perf_counter()
+            forced = mgr.force_commit(timeout=INGEST_WAIT_S)
+            one["force_commit_ms"] = (time.perf_counter() - t0) * 1e3
+            _await_ingest(lambda: mgr.retirement_stats()["segments"]
+                          == retired0["segments"] + len(forced),
+                          "the forced commits' retirement")
+            state_ok([mgr])
+            _retired_names_gone(forced)
+            one["forced"] = {"segments": len(forced), "bytes_freed":
+                             mgr.retirement_stats()["bytesFreed"]
+                             - retired0["bytesFreed"]}
+            if len(forced) != INGEST_PARTITIONS or \
+                    one["forced"]["bytes_freed"] <= 0:
+                raise AssertionError(f"ingest: force_commit {one['forced']}")
+            one["after_commit"] = {q: run.query(qe, q, want[q])
+                                   for q in ("rt_q2", "rt_range")}
+            # restart from the checkpoints: the committed segments load in
+            # commit order, nothing is consumed again
+            names = list(mgr._segment_names)
+            cp = json.loads(open(f"{data_dir}/_checkpoints.json").read())
+            if [int(cp["partitions"][str(p)]) for p in range(
+                    INGEST_PARTITIONS)] != per_partition:
+                raise AssertionError(f"ingest: checkpoint {cp['partitions']} "
+                                     f"against the topic's {per_partition}")
+            mgr.stop()
+            for seg in mgr._committed:
+                qe.executor.cache.drop(seg)
+            t0 = time.perf_counter()
+            mgr = rtm.RealtimeTableDataManager(schema, cfg, data_dir)
+            started.append(mgr)
+            qe.add_table(schema, mgr.segments, INGEST_TABLE)
+            mgr.start()
+            one["restart_ms"] = (time.perf_counter() - t0) * 1e3
+            time.sleep(0.2)  # a re-consume would show in rows_indexed
+            again = sum(m.rows_indexed for m in mgr._consuming.values())
+            if ([s.name for s in mgr._committed] != names
+                    or mgr.total_docs() != total or again):
+                raise AssertionError(
+                    f"ingest restart: {mgr.total_docs()} docs, {again} "
+                    f"consumed again, order {mgr._segment_names}")
+            one["restart"] = run.query(qe, "rt_q2", want["rt_q2"])
+            mgr.stop()
+            for seg in mgr._committed:
+                qe.executor.cache.drop(seg)
+            del qe.tables[INGEST_TABLE]
+            reg.delete_topic(topic)
+            out["partitions"] = one
+
+            # -- (2) two replicas through the leader controller -----------
+            topic = "ingest_replicas"
+            reg.create_topic(topic, num_partitions=1)
+            n_rows = REPLICA_FLUSH_ROWS + 2 * REPLICA_TAIL
+            cols = gen_ssb(n_rows, args.seed + 7)
+            store = PropertyStore()
+            live = {cid: ClusterController(store, instance_id=cid,
+                                           completion_config=REPLICA_COMPLETION)
+                    for cid in ("Ctrl_0", "Ctrl_1")}
+            controllers = list(live.values())
+            client = TimedCompletion(LeaderCompletionClient(store, live.get))
+            die = {"armed": False, "fired": None}
+
+            def die_once(m):
+                if die["armed"] and die["fired"] is None:
+                    die["fired"] = (m.instance_id, time.perf_counter())
+                    return True
+                return False
+
+            rcfg = config(INGEST_TABLE, topic, REPLICA_FLUSH_ROWS)
+            mgrs, qes = {}, {}
+            for inst in ("A", "B"):
+                mgrs[inst] = rtm.RealtimeTableDataManager(
+                    schema, rcfg, f"{tmp}/{INGEST_TABLE}_{inst}",
+                    completion=client, instance_id=inst,
+                    test_hooks={"die_before_commit_end": die_once})
+                started.append(mgrs[inst])
+                qes[inst] = QueryExecutor(device=DEVICE)
+                qes[inst].add_table(schema, mgrs[inst].segments, INGEST_TABLE)
+            t0 = time.perf_counter()
+            for m in mgrs.values():
+                m.start()
+            _publish(reg, topic, cols, 0, REPLICA_FLUSH_ROWS + REPLICA_TAIL)
+            _await_ingest(lambda: all(
+                m.total_docs() == REPLICA_FLUSH_ROWS + REPLICA_TAIL
+                and len(m._committed) == 1 for m in mgrs.values()),
+                "the replicas' first commit")
+            two = {"consume_s": time.perf_counter() - t0}
+            two["rows_per_s_per_replica"] = (REPLICA_FLUSH_ROWS
+                                             + REPLICA_TAIL) / two["consume_s"]
+            state_ok(mgrs.values())
+            done = store.children(f"/SEGMENTS/{INGEST_TABLE}")
+            names = {i: list(m._segment_names) for i, m in mgrs.items()}
+            if len(done) != 1 or names["A"] != names["B"] != done:
+                raise AssertionError(f"ingest replicas: DONE {done}, {names}")
+            seg0 = done[0]
+            rec = store.get(f"/SEGMENTS/{INGEST_TABLE}/{seg0}")
+            winner = rec["committer"]
+            loser = "B" if winner == "A" else "A"
+            own = f"{tmp}/{INGEST_TABLE}_{loser}/{seg0}"
+            if rec["location"] == own or not os.path.isdir(own):
+                raise AssertionError(f"ingest replicas: {loser} did not "
+                                     f"download {seg0} into its directory")
+            two["election_ms"] = (client.commits[(seg0, winner)]
+                                  - client.first_vote[seg0]) * 1e3
+            two["download_ms"] = list(spent["download"])
+            _retired_names_gone([seg0])
+            want, _ = oracle(topic)
+            two["queries"] = {}
+            for inst in ("A", "B"):
+                two["queries"][inst] = run.query(qes[inst], "rt_q2",
+                                                 want["rt_q2"])
+            counted = two["queries"][winner]["launches"]
+            recs["rt_q2_replica"] = (_record_kernels(
+                qes[winner], "rt_q2", mxu, fg, torch, counted), counted)
+
+            # a leaderless window: both controllers die; the consumers
+            # hold (COMPLETION_HOLDS_NO_LEADER), never ERROR, and commit
+            # once a controller is back
+            for cid in list(live):
+                _kill_controller(live, store, cid)
+            holds0 = SERVER_METRICS.meter_count(
+                ServerMeter.COMPLETION_HOLDS_NO_LEADER)
+            retired0 = _retired(mgrs.values())
+            for m in mgrs.values():
+                with m._lock:
+                    consuming = list(m._consuming.values())
+                for c in consuming:
+                    c.force_commit()
+            _await_ingest(lambda: SERVER_METRICS.meter_count(
+                ServerMeter.COMPLETION_HOLDS_NO_LEADER) > holds0,
+                "a hold without a leader")
+            time.sleep(0.5)
+            if len(store.children(f"/SEGMENTS/{INGEST_TABLE}")) != 1:
+                raise AssertionError("ingest: a commit without a leader")
+            state_ok(mgrs.values())
+            two["holds_no_leader"] = SERVER_METRICS.meter_count(
+                ServerMeter.COMPLETION_HOLDS_NO_LEADER) - holds0
+            t0 = time.perf_counter()
+            live["Ctrl_0"] = ClusterController(
+                store, instance_id="Ctrl_0",
+                completion_config=REPLICA_COMPLETION)
+            controllers.append(live["Ctrl_0"])
+            _await_ingest(lambda: all(len(m._committed) == 2
+                                      for m in mgrs.values())
+                          and _retired(mgrs.values())["segments"]
+                          == retired0["segments"] + 2,
+                          "the commit after the leaderless window")
+            two["commit_after_leader_ms"] = (time.perf_counter() - t0) * 1e3
+            done = store.children(f"/SEGMENTS/{INGEST_TABLE}")
+            names = {i: list(m._segment_names) for i, m in mgrs.items()}
+            if len(done) != 2 or names["A"] != names["B"]:
+                raise AssertionError(f"ingest leaderless: {done}, {names}")
+            _retired_names_gone([names["A"][1]])
+            two["bytes_freed_leaderless_commit"] = (
+                _retired(mgrs.values())["bytesFreed"]
+                - retired0["bytesFreed"])
+            if two["bytes_freed_leaderless_commit"] <= 0:
+                raise AssertionError("ingest: the sealed snapshots' planes "
+                                     "were not freed")
+
+            # a committer that dies between its build and commit_end: the
+            # other replica is re-elected once the lease is over
+            _publish(reg, topic, cols, REPLICA_FLUSH_ROWS + REPLICA_TAIL,
+                     n_rows)
+            _await_ingest(lambda: all(m.total_docs() == n_rows
+                                      for m in mgrs.values()),
+                          "the replicas' tail")
+            want, _ = oracle(topic)
+            die["armed"] = True
+            for m in mgrs.values():
+                with m._lock:
+                    consuming = list(m._consuming.values())
+                for c in consuming:
+                    c.force_commit()
+            _await_ingest(lambda: len(store.children(
+                f"/SEGMENTS/{INGEST_TABLE}")) == 3,
+                "the re-elected commit")
+            dead = die["fired"][0]
+            survivor = "B" if dead == "A" else "A"
+            _await_ingest(lambda: len(mgrs[survivor]._committed) == 3,
+                          "the survivor's third segment")
+            seg2 = mgrs[survivor]._segment_names[2]
+            rec = store.get(f"/SEGMENTS/{INGEST_TABLE}/{seg2}")
+            if (rec["committer"] != survivor
+                    or mgrs[survivor]._committed[2].num_docs != REPLICA_TAIL):
+                raise AssertionError(f"ingest crash: {rec}")
+            two["reelection_ms"] = (client.commits[(seg2, survivor)]
+                                    - die["fired"][1]) * 1e3
+            state_ok(mgrs.values())
+            two["crash"] = run.query(qes[survivor], "rt_q2", want["rt_q2"])
+            two["done_records"] = len(store.children(
+                f"/SEGMENTS/{INGEST_TABLE}"))
+            for m in mgrs.values():
+                m.stop()
+            for c in controllers:
+                c.stop()
+            reg.delete_topic(topic)
+            del qes, cols
+            out["replicas"] = two
+
+            # -- (3) an upsert table through the manager ------------------
+            topic = "ingest_upsert"
+            reg.create_topic(topic, num_partitions=1)
+            ucols = gen_ssb(UPS_INGEST_ROWS, args.seed + 8)
+            ucols["pk"] = np.random.default_rng(args.seed + 9).integers(
+                0, UPS_INGEST_KEYS, UPS_INGEST_ROWS)
+            ts = np.arange(UPS_INGEST_ROWS, dtype=np.int64)
+            stale = np.arange(UPS_INGEST_ROWS) % UPS_STALE_EVERY \
+                == UPS_STALE_EVERY - 1
+            ts[stale] = -1 - ts[stale]
+            ucols["ts"] = ts
+            uschema = Schema.build(UPS_INGEST_TABLE,
+                                   dimensions=SCHEMA_DIMS + [("pk", "LONG")],
+                                   metrics=SCHEMA_METRICS,
+                                   date_times=[("ts", "LONG")],
+                                   primary_key_columns=["pk"])
+            ucfg = config(UPS_INGEST_TABLE, topic, UPS_INGEST_FLUSH,
+                          raw=RAW_COLUMNS + ["pk", "ts"],
+                          upsert=UpsertConfig(mode="FULL",
+                                              comparison_columns=["ts"]))
+            umgr = rtm.RealtimeTableDataManager(
+                uschema, ucfg, f"{tmp}/{UPS_INGEST_TABLE}")
+            started.append(umgr)
+            qe.add_table(uschema, umgr.segments, UPS_INGEST_TABLE)
+            t0 = time.perf_counter()
+            umgr.start()
+            _publish(reg, topic, ucols, 0, UPS_INGEST_ROWS, key="pk")
+            n_commits = UPS_INGEST_ROWS // UPS_INGEST_FLUSH
+            _await_ingest(lambda: umgr.total_docs() == UPS_INGEST_ROWS
+                          and len(umgr._committed) == n_commits,
+                          "the upsert table's settle point")
+            three = {"consume_s": time.perf_counter() - t0}
+            three["rows_per_s"] = UPS_INGEST_ROWS / three["consume_s"]
+            state_ok([umgr])
+            _retired_names_gone(umgr._segment_names)
+            rcols, _ = topic_columns(reg, topic, (
+                "pk", "ts", "s_region", "d_year", "lo_revenue"))
+            want_ups = ups_expected(rcols, rcols["pk"], rcols["ts"])
+            three["query"] = run.query(qe, "ups", want_ups)
+            three["primary_keys"] = umgr.pk_manager.num_primary_keys()
+            counted = three["query"]["launches"]
+            recs["ups"] = (_record_kernels(qe, "ups", mxu, fg, torch,
+                                           counted), counted)
+            umgr.stop()
+            for seg in umgr._committed:
+                qe.executor.cache.drop(seg)
+            del qe.tables[UPS_INGEST_TABLE]
+            reg.delete_topic(topic)
+            del ucols, rcols
+            out["upsert"] = three
+        finally:
+            for m in started:
+                m.stop()
+            for c in controllers:
+                c.stop()
+    retired = _retired(started)
+    if retired["errors"]:
+        raise AssertionError(f"ingest: {retired['errors']} retirements "
+                             "raised")
+    for k in run.launches:
+        if run.launches[k] == 0:
+            raise AssertionError(f"the ingest phase never launched {k}")
+    index_ms = sum(spent["index"])
+    out.update({
+        "launches": run.launches, "retired": retired,
+        "feed_us_per_row": index_ms * 1e3 / max(1, spent["index_rows"]),
+        "rows_through_managers": spent["index_rows"],
+        "build_ms": spent["build"], "load_ms": spent["load"],
+        "seconds": time.perf_counter() - t_phase})
+    emit(out)
+    gc.collect()
+    return recs
+
+
 def _rows_equal(qname, resp, want, ordered) -> None:
     got = [tuple(r) for r in resp.result_table.rows]
     want = [tuple(r) for r in want]
@@ -2275,9 +2940,9 @@ def fill_free_blocks(torch) -> list:
 # -- coalescing and tracing ----------------------------------------------------
 
 # client threads of phase `coalesce`; each runs COALESCE_ITERS queries in
-# a closed loop
+# a closed loop (16 before phase `ingest` joined the run)
 COALESCE_CLIENTS = (1, 2, 4, 8, 16)
-COALESCE_ITERS = 16
+COALESCE_ITERS = 8
 COALESCE_WINDOW_MS = "2"
 # the queries whose EXPLAIN rows on the card must equal the CPU executor's
 EXPLAIN_QUERIES = ("q1", "q2", "q2_family", "q3", "q5", "sel_order",
@@ -4222,6 +4887,12 @@ def main(argv=None) -> int:
         _, rt_per_query, _ = phase_queries(torch, qe, expected, _cuda,
                                            interp, names=list(RT_QUERIES))
         per_query.update(rt_per_query)
+        # realtime tables fed from a stream through the managers
+        ingest = phase_ingest(args, torch, qe, interp, mxu_groupby,
+                              fused_groupby, tmp, dev["nvidia_smi"])
+        for qname, (recs, _) in ingest.items():
+            for k, (name, _, _, err) in enumerate(recs):
+                parity[f"{name}/ingest_{qname}_inputs/launch{k}"] = err
         mse = phase_mse(torch, qe, expected, _cuda, interp, mxu_groupby,
                         args.iters, dev["nvidia_smi"])
         expected.update(phase_cache(args, torch, qe, expected, interp,
@@ -4465,6 +5136,24 @@ def main(argv=None) -> int:
                     kernels.append(kernel_b_row(
                         torch, fused_groupby, _cuda, [rec], launches,
                         parity[label], note))
+        # the ingest phase's launches: kernel A over the families of the
+        # segments the managers committed (and of their consuming
+        # snapshots), kernel A or B over a lone segment or snapshot
+        for qname, (recs, counted) in ingest.items():
+            for k, (name, rec, live, err) in enumerate(recs):
+                launches = counted[name] // sum(n == name for n, *_ in recs)
+                note = (f"ingest {qname}: the main path's planes of "
+                        f"{len(live)} segment(s) of a realtime manager, one "
+                        "launch")
+                if name == "limb_sums":
+                    kernels.append(kernel_a_row(
+                        torch, mxu_groupby, _cuda, [rec], launches, err,
+                        note, live))
+                else:
+                    kernels.append(kernel_b_row(
+                        torch, fused_groupby, _cuda, [rec], launches, err,
+                        note))
+        del ingest
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

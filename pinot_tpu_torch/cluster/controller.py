@@ -2,10 +2,10 @@
 
 The port of pinot_tpu/cluster/controller.py: table names with type,
 schemas, tables, segment add/drop with replica-group and instance-partition
-assignment, and retention. Segment add, drop and replace bump the table's
-lineage epoch (cache/results.py), which keys the broker's result cache.
-Not ported yet: rebalance, tier relocation and the realtime segment
-completion manager.
+assignment, retention, and the leader-hosted realtime segment completion
+manager (realtime/completion.py). Segment add, drop and replace bump the
+table's lineage epoch (cache/results.py), which keys the broker's result
+cache. Not ported yet: rebalance and tier relocation.
 
 Reference analogue: PinotHelixResourceManager (pinot-controller/.../helix/
 core/PinotHelixResourceManager.java, 4.6K LoC — create/delete tables, add
@@ -26,6 +26,7 @@ State layout in the property store (ZK-analogue paths):
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Optional
 
@@ -58,32 +59,64 @@ def raw_table_name(name_with_type: str) -> str:
 
 class ClusterController:
     """``instance_id=None`` (the default) keeps the single-controller mode:
-    no election. With an ``instance_id`` the controller joins the leader
-    election (cluster/leader.py); the leader-only duties (periodic tasks,
-    segment completion) are not ported yet."""
+    no election, every helper available. With an ``instance_id`` the
+    controller joins the leader election (cluster/leader.py) and hosts the
+    realtime SegmentCompletionManager only while it leads: the Helix
+    arrangement where exactly one controller owns segment completion.
+    ``completion_config`` holds the manager's keyword arguments
+    (num_replicas, commit_lease_s, decision_wait_s)."""
 
     def __init__(self, store: PropertyStore,
-                 instance_id: Optional[str] = None):
+                 instance_id: Optional[str] = None,
+                 completion_config: Optional[dict] = None):
         self.store = store
         self.instance_id = instance_id
+        self.completion_config = completion_config or {}
+        self._completion = None
+        self._completion_lock = threading.Lock()
         self.leader: Optional[LeadControllerManager] = None
         if instance_id is not None:
             self.leader = LeadControllerManager(
                 store, instance_id, on_change=self._on_leadership)
             self.leader.start()
 
+    # -- leadership / completion hosting ------------------------------------
     def _on_leadership(self, is_leader: bool) -> None:
         CONTROLLER_METRICS.add_meter(ControllerMeter.LEADER_CHANGES)
+        if not is_leader:
+            # drop the hosted completion manager: its in-memory FSMs belong
+            # to the seat, not the process. The next leader starts clean:
+            # replicas re-poll, the lease model re-elects, and the durable
+            # DONE record keeps already-committed segments idempotent.
+            with self._completion_lock:
+                self._completion = None
 
     def is_leader(self) -> bool:
         return self.leader is None or self.leader.is_leader
 
+    def completion_manager(self):
+        """The leader-hosted SegmentCompletionManager; None while this
+        controller is not the leader (callers hold and retry)."""
+        if not self.is_leader():
+            return None
+        with self._completion_lock:
+            if self._completion is None:
+                # the realtime package imports the engine, which imports
+                # this package: the completion manager is imported on use
+                from ..realtime.completion import SegmentCompletionManager
+
+                self._completion = SegmentCompletionManager(
+                    self.store, **self.completion_config)
+            return self._completion
+
     def stop(self) -> None:
-        """Graceful shutdown: resign leadership (atomic delete_if).
-        Crash-death is modeled by ``leader.disconnect()`` +
+        """Graceful shutdown: resign leadership (atomic delete_if) and drop
+        hosted state. Crash-death is modeled by ``leader.disconnect()`` +
         ``store.expire_session`` instead."""
         if self.leader is not None:
             self.leader.stop()
+        with self._completion_lock:
+            self._completion = None
 
     # -- instances ---------------------------------------------------------
     def list_instances(self, tag: Optional[str] = None) -> list[str]:

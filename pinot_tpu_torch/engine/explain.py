@@ -60,10 +60,12 @@ def explain_plan(query, table, pruner, packed_on: bool,
     having = f", having:{query.having_filter}" if query.having_filter else ""
     root = add(f"BROKER_REDUCE(limit:{query.limit}{ob}{having})", -1)
 
-    segments = [s for s in table.segments
-                if not getattr(s, "is_mutable", False)]
+    # one copy of the (possibly live) list: a commit between two reads
+    # would skew the count of consuming segments
+    every = list(table.segments)
+    segments = [s for s in every if not getattr(s, "is_mutable", False)]
     kept, pruned = pruner.prune(query, segments) if segments else ([], 0)
-    mutable = len(table.segments) - len(segments)
+    mutable = len(every) - len(segments)
 
     if query.is_aggregation_query or query.is_group_by or query.distinct:
         combine = "COMBINE_GROUP_BY" if (query.is_group_by or query.distinct) \

@@ -202,9 +202,14 @@ class QueryExecutor:
                   name: Optional[str] = None):
         """Register a table of ImmutableSegments and, for a realtime or
         hybrid table, consuming MutableSegments (segment/mutable.py): each
-        query pins a snapshot of every consuming segment."""
+        query pins a snapshot of every consuming segment. ``segments`` is
+        held BY REFERENCE when it is a list: a realtime data manager
+        (realtime/manager.py) rewrites its list in place as segments commit
+        and rotate, and each query copies it once before pinning."""
         name = name or schema.schema_name
-        self.tables[name] = Table(name, schema, list(segments))
+        if not isinstance(segments, list):
+            segments = list(segments)  # may be a generator
+        self.tables[name] = Table(name, schema, segments)
 
     def add_dimension_table(self, schema: Schema, segments: list,
                             name: Optional[str] = None) -> None:
@@ -545,11 +550,11 @@ class QueryExecutor:
 
     @staticmethod
     def pinned_segments(segments: list) -> list:
-        """Segments as one query sees them: each consuming segment's
-        snapshot pinned (row count, dictionary cardinalities, upsert
-        validity) for the whole query."""
+        """Segments as one query sees them: the (possibly live) list copied
+        once, then each consuming segment's snapshot pinned (row count,
+        dictionary cardinalities, upsert validity) for the whole query."""
         return [s.snapshot_view() if getattr(s, "is_mutable", False)
-                else s for s in segments]
+                else s for s in list(segments)]
 
     def prune_segments(self, query: QueryContext, segments: list):
         """(kept segments, number pruned): the segments whose metadata,

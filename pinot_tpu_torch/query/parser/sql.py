@@ -526,3 +526,13 @@ def parse_filter_expression(expr: str):
     if p.peek().kind != "eof":
         raise SqlParseError(f"trailing input in filter expression: {expr!r}")
     return p._to_filter(e)
+
+
+def parse_expression_str(expr: str) -> ExpressionContext:
+    """Parse a standalone value expression (ingestion transformConfigs and
+    filterFunction, ingestion/transform.py)."""
+    p = _Parser(tokenize(expr))
+    e = p.parse_expression()
+    if p.peek().kind != "eof":
+        raise SqlParseError(f"trailing input in expression: {expr!r}")
+    return e

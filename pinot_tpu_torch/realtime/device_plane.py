@@ -343,6 +343,12 @@ class RealtimePlaneRegistry:
         bytes freed."""
         return self._drop(lambda seg, ps: seg is not keep)
 
+    def names(self) -> set:
+        """The names of the segments that hold plane sets."""
+        with self._lock:
+            return {ps.name for per_device in self._sets.values()
+                    for ps in per_device.values()}
+
     def nbytes(self) -> int:
         with self._lock:
             sets = [ps for per_device in self._sets.values()

@@ -35,6 +35,7 @@ an upload pays one thread-local read.
 from __future__ import annotations
 
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Optional
 
@@ -259,6 +260,18 @@ def _tensor_bytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+# every DeviceSegmentCache alive in the process (one per executor), weakly
+# held: a committed realtime segment is dropped by name from each of them
+# (realtime/manager.py), so a replica's or a second executor's cache over
+# the same table is reached too
+_LIVE_CACHES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def live_caches() -> list:
+    """The DeviceSegmentCaches alive now."""
+    return list(_LIVE_CACHES)
+
+
 class DeviceSegmentCache:
     """Segment -> device-view cache with byte-budget LRU eviction: while
     the resident bytes exceed `budget_bytes`, cached partials go first
@@ -280,6 +293,7 @@ class DeviceSegmentCache:
         self.partial_misses = 0
         self.evictions = 0
         self._lock = threading.Lock()
+        _LIVE_CACHES.add(self)
 
     def view(self, segment: ImmutableSegment) -> SegmentDeviceView:
         key = id(segment)
@@ -485,6 +499,17 @@ class DeviceSegmentCache:
                 victims += 1
             self.evictions += victims
         return freed, victims
+
+    def segment_names(self) -> set:
+        """The names of the segments this cache holds a view, a stack
+        member or a partial of."""
+        with self._lock:
+            out = {str(getattr(v.segment, "name", ""))
+                   for v in self._views.values()}
+            for sv in self._stacks.values():
+                out |= sv.names
+            out |= {ent[2] for ent in self._partials.values()}
+        return out
 
     def stats(self) -> dict:
         """Resident bytes by kind, and the partial tier's counters."""

@@ -75,6 +75,30 @@ class ColumnMetadata:
         return m
 
 
+def partition_push_metadata(segment_dir) -> dict:
+    """{"partitions": {col: [ids]}} for partition-stamped columns of a
+    built segment directory, or {}: a realtime commit's DONE record carries
+    it (realtime/manager.py), so the MSE dispatcher can place
+    partition-aligned (colocated) workers next to their segments
+    (reference: SegmentZKMetadata's partitionMetadata feeding the broker's
+    TablePartitionInfo). The port's builder stamps no partitions, so its
+    segments give {}."""
+    meta_path = Path(segment_dir) / METADATA_FILE
+    if not meta_path.exists():
+        return {}
+    meta = SegmentMetadata.from_json(json.loads(meta_path.read_text()))
+    out = {}
+    for col, m in meta.columns.items():
+        if m.partition_function and m.partitions is not None \
+                and m.num_partitions:
+            # function + count travel with the ids so consumers can reject
+            # stamps that predate a segmentPartitionConfig change
+            out[col] = {"functionName": m.partition_function,
+                        "numPartitions": int(m.num_partitions),
+                        "partitions": [int(p) for p in m.partitions]}
+    return {"partitions": out} if out else {}
+
+
 @dataclass
 class SegmentMetadata:
     segment_name: str

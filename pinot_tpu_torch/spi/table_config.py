@@ -5,7 +5,8 @@ Subset of the reference's TableConfig
 (pinot-spi/.../spi/config/table/TableConfig.java:38): table type, the
 dictionary-less (raw) column list, the sorted column, the star-tree, JSON,
 text, vector and custom index declarations, the time column and the upsert
-and dedup configs. The JSON layout is the same as the full model's, so a
+and dedup configs, and the ingestion config (the stream, the transforms
+and the filter a realtime table consumes with). The JSON layout is the same as the full model's, so a
 config written by either reads back here.
 """
 
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
 
 
 class TableType(enum.Enum):
@@ -69,6 +70,15 @@ class DedupConfig:
 
 
 @dataclass
+class IngestionConfig:
+    """Stream + transform config (reference IngestionConfig.java)."""
+
+    stream_configs: dict[str, Any] = field(default_factory=dict)
+    transform_configs: list[dict] = field(default_factory=list)  # {columnName, transformFunction}
+    filter_function: Optional[str] = None
+
+
+@dataclass
 class TableConfig:
     table_name: str
     table_type: TableType = TableType.OFFLINE
@@ -77,6 +87,7 @@ class TableConfig:
         default_factory=SegmentsValidationConfig)
     upsert: UpsertConfig = field(default_factory=UpsertConfig)
     dedup: DedupConfig = field(default_factory=DedupConfig)
+    ingestion: IngestionConfig = field(default_factory=IngestionConfig)
 
     def __post_init__(self):
         if isinstance(self.table_type, str):
@@ -106,6 +117,11 @@ class TableConfig:
                 "deletedKeysTTL": self.upsert.deleted_keys_ttl,
                 "consistencyMode": self.upsert.consistency_mode,
             },
+            "ingestionConfig": {
+                "streamConfigs": self.ingestion.stream_configs,
+                "transformConfigs": self.ingestion.transform_configs,
+                "filterFunction": self.ingestion.filter_function,
+            },
         }
 
     @classmethod
@@ -113,6 +129,7 @@ class TableConfig:
         idx = d.get("tableIndexConfig", {})
         seg = d.get("segmentsConfig", {})
         up = d.get("upsertConfig") or {}
+        ing = d.get("ingestionConfig", {})
         return cls(
             table_name=d["tableName"],
             table_type=TableType(d.get("tableType", "OFFLINE")),
@@ -134,4 +151,8 @@ class TableConfig:
                 delete_record_column=up.get("deleteRecordColumn", ""),
                 deleted_keys_ttl=float(up.get("deletedKeysTTL", 0.0)),
                 consistency_mode=up.get("consistencyMode", "NONE")),
+            ingestion=IngestionConfig(
+                stream_configs=ing.get("streamConfigs") or {},
+                transform_configs=ing.get("transformConfigs") or [],
+                filter_function=ing.get("filterFunction")),
         )

@@ -272,6 +272,12 @@ class TableUpsertMetadataManager:
                 if seg is old:
                     self._map[pk] = (new, doc, cmp_val, seq)
 
+    def remove_segment(self, segment) -> None:
+        with self._lock:
+            for pk, loc in list(self._map.items()):
+                if loc[0] is segment:
+                    del self._map[pk]
+
     def add_segment(self, segment) -> None:
         """Bootstrap metadata from a committed segment (restart recovery —
         reference: addSegment replays validDocIds from pk + comparison
@@ -363,6 +369,12 @@ class TableDedupManager:
         return row
 
     def add_record(self, segment, doc_id: int, row: dict) -> None:
+        pass
+
+    def replace_segment(self, old, new) -> None:
+        pass
+
+    def remove_segment(self, segment) -> None:
         pass
 
     def add_segment(self, segment) -> None:

@@ -31,8 +31,11 @@ launching kernel B on each segment and kernel A on each server's family;
 PTDP blocks packed on the card equal the CPU's bytes; the cluster
 multi-stage engine on two servers on the card runs its join workers' pair
 join on the card, packs its exchange blocks from card tensors and launches
-kernels A and B through its leaves, with the CPU cluster's rows; and the
-doctor (tools/doctor.py) classifies the card `ok`.
+kernels A and B through its leaves, with the CPU cluster's rows; a
+realtime manager consuming a 2-partition stream feeds the card (kernel A
+over its committed family, kernel B over each consuming snapshot, rows
+equal to the CPU's) and a commit leaves no plane of the sealed segments on
+the card; and the doctor (tools/doctor.py) classifies the card `ok`.
 """
 
 from __future__ import annotations
@@ -943,6 +946,109 @@ def test_hybrid_and_upsert_queries_on_the_card_match_cpu(cuda, tmp_path):
                for dev, qe in qes.items()}
         assert got["cuda"] == got["cpu"]
         put(_live_rows(500, 6, t0=20_000))
+
+
+def _fed_manager(tmp_path, monkeypatch, flush=10_000):
+    """A RealtimeTableDataManager over a fresh 2-partition in-memory topic
+    (the port's registry replaced), with the topic: partition 0 gets 11,000
+    rows and partition 1 19,000, so each commits one segment of `flush`
+    rows (a family of 2 on the card) and keeps a consuming segment of
+    1,000 and 9,000 rows (two pad buckets: each snapshot dispatches
+    alone)."""
+    from pinot_tpu_torch.realtime.manager import RealtimeTableDataManager
+    from pinot_tpu_torch.spi import stream
+    from pinot_tpu_torch.spi.table_config import IngestionConfig, TableType
+
+    reg = stream.InMemoryStreamRegistry()
+    monkeypatch.setattr(stream, "GLOBAL_STREAM_REGISTRY", reg)
+    reg.create_topic("card_rt", num_partitions=2)
+    topic = reg.topic("card_rt")
+    rows = _live_rows(30_000, 7)
+    for i, r in enumerate(rows):
+        topic.publish(0 if i < 11_000 else 1, r)
+    schema = Schema.build("live", **_LIVE_SCHEMA)
+    cfg = TableConfig(
+        table_name="live", table_type=TableType.REALTIME,
+        indexing=IndexingConfig(no_dictionary_columns=["lo_revenue"]),
+        ingestion=IngestionConfig(stream_configs={
+            "streamType": "inmemory", "stream.inmemory.topic.name": "card_rt",
+            "realtime.segment.flush.threshold.rows": flush}))
+    mgr = RealtimeTableDataManager(schema, cfg, tmp_path / "rt")
+    qes = {dev: QueryExecutor(device=dev) for dev in ("cpu", "cuda")}
+    for qe in qes.values():
+        qe.add_table(schema, mgr.segments)
+    return mgr, qes, rows
+
+
+_RT_Q2 = ("SELECT d_year, p_brand, SUM(lo_revenue) FROM live WHERE s_region "
+          "= 'ASIA' GROUP BY d_year, p_brand LIMIT 10000")
+
+
+def _settle(mgr, total, committed, timeout=60.0):
+    import time
+
+    t0 = time.time()
+    while not (mgr.total_docs() == total
+               and len(mgr._committed) == committed):
+        assert time.time() - t0 < timeout, (mgr.total_docs(),
+                                            len(mgr._committed))
+        time.sleep(0.01)
+
+
+def test_realtime_manager_feeds_the_card(cuda, tmp_path, monkeypatch):
+    """A manager consuming a 2-partition stream feeds a QueryExecutor on
+    the card: at the settle point the Q2 shape's rows equal a CPU
+    executor's over the same live list, kernel A runs over the committed
+    family of 2 and kernel B over each consuming snapshot."""
+    mgr, qes, rows = _fed_manager(tmp_path, monkeypatch)
+    mgr.start()
+    try:
+        _settle(mgr, len(rows), 2)
+        assert sorted(s.num_docs for s in mgr._committed) == [10_000, 10_000]
+        _cuda.reset_launches()
+        got = qes["cuda"].execute_sql(_RT_Q2)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        assert got.num_device_dispatches == 3
+        assert launches == {"limb_sums": 1, "fused_limb_sums": 2}
+        want = qes["cpu"].execute_sql(_RT_Q2)
+        assert sorted(got.result_table.rows) == sorted(want.result_table.rows)
+        assert len(got.result_table.rows) > 0
+    finally:
+        mgr.stop()
+
+
+def test_commit_retires_the_sealed_planes_on_the_card(cuda, tmp_path,
+                                                       monkeypatch):
+    """After a force_commit, neither REALTIME_PLANES nor the card's or the
+    CPU executor's cache holds a plane of the sealed segments; their bytes
+    were freed, nothing raised, and the next query (the immutable
+    replacements, cold) still equals the CPU's."""
+    from pinot_tpu_torch.realtime.device_plane import REALTIME_PLANES
+
+    mgr, qes, rows = _fed_manager(tmp_path, monkeypatch)
+    mgr.start()
+    try:
+        _settle(mgr, len(rows), 2)
+        for qe in qes.values():
+            qe.execute_sql(_RT_Q2)  # the snapshots' planes, both devices
+        sealed = [m.segment.name for m in mgr._consuming.values()]
+        assert set(sealed) <= REALTIME_PLANES.names()
+        before = mgr.retirement_stats()
+        assert sorted(mgr.force_commit()) == sorted(sealed)
+        _settle(mgr, len(rows), 4)
+        after = mgr.retirement_stats()
+        assert after["segments"] == before["segments"] + 2
+        assert after["errors"] == before["errors"]
+        assert after["bytesFreed"] > before["bytesFreed"]
+        assert not set(sealed) & REALTIME_PLANES.names()
+        for qe in qes.values():
+            assert not set(sealed) & qe.executor.cache.segment_names()
+        got = {dev: sorted(qe.execute_sql(_RT_Q2).result_table.rows)
+               for dev, qe in qes.items()}
+        assert got["cuda"] == got["cpu"]
+    finally:
+        mgr.stop()
 
 
 @pytest.fixture(scope="module")
