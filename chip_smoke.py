@@ -113,6 +113,28 @@ Phases, each printing one JSON line:
              ups                                GROUP BY d_year over `ups`:
                  kernel A on the committed and on the consuming segment,
                  each with its upsert validity plane in the filter
+  segment_formats
+           `ssbz`: phase data's rows in 4 segments of 2^21, segment k the
+           rows whose lo_orderkey is k modulo 4 (stamped modulo 4), built
+           in the spawn pool with lo_revenue raw under LZ4,
+           lo_extendedprice raw under SNAPPY, p_brand's ids under GZIP, a
+           raw var-width lo_note, a CLP lo_log of templated lines and a
+           bloom filter on s_region, and registered under a schema that
+           adds s_nation and lo_tax (virtual default columns in every
+           segment): per codec the ms and MB/s of decompressing the
+           buffers on their first read, the ms of decoding one segment's
+           whole lo_note and lo_log, then z_year (GROUP BY d_year over the
+           LZ4 plane, kernel A over the family), z_q2_family and z_q2
+           (bench.py Q2 over the GZIP p_brand: kernel A over the family,
+           kernel B a segment), z_evolved (GROUP BY s_nation, SUM(lo_tax):
+           kernel A), z_select (lo_note and lo_log of 10 rows beside a
+           filter on the card), z_bloom (a region no row holds, inside
+           every segment's min / max: 4 pruned) and z_partition (one
+           lo_orderkey inside every segment's range: 3 pruned), each
+           counted from 0, its rows held against a numpy oracle, its
+           dispatches, launches and pruned / processed segments against
+           what the data implies, every launch against the plain version;
+           cold and warm p50s
   realtime consuming segments on the card (the same counts, set to 0 just
            before the phase and read after it): `ssb_rt`, the 4 ssb
            segments plus a consuming segment of the ssb schema fed a row at
@@ -482,6 +504,45 @@ TRANSFORM_REFUSED = (
     "GROUP BY lo_orderkey + toEpochDays(lo_orderdate) LIMIT 10")
 # the transform queries that launch a new kernel A shape, one launch each
 TRANSFORM_QUERIES = ("q7", "time_group", "str_group", "time_raw")
+# phase segment_formats: `ssbz`, the ssb rows in FORMATS_SEGMENTS segments
+# of FORMATS_ROWS, segment k holding the rows whose lo_orderkey is k modulo
+# FORMATS_SEGMENTS (a stream partitioned on the key, stamped modulo), built
+# with compressed forward indexes, a raw var-width note, a CLP log column
+# and a bloom filter, and registered under a schema that adds two columns
+FORMATS_TABLE, FORMATS_SEGMENTS, FORMATS_ROWS = "ssbz", 4, 1 << 21
+FORMATS_DIMS = [("d_year", "INT"), ("p_brand", "INT"), ("s_region", "STRING"),
+                ("lo_orderkey", "INT"), ("lo_note", "STRING"),
+                ("lo_log", "STRING")]
+FORMATS_METRICS = [("lo_extendedprice", "INT"), ("lo_revenue", "INT")]
+FORMATS_ADDED_DIMS, FORMATS_ADDED_METRICS = [("s_nation", "STRING")], \
+    [("lo_tax", "INT")]
+FORMATS_CODECS = {"lo_revenue": "LZ4", "lo_extendedprice": "SNAPPY",
+                  "p_brand": "GZIP", "lo_log": "CLP"}
+FORMATS_RAW = ["lo_revenue", "lo_extendedprice", "lo_note", "lo_log"]
+FORMATS_NUMERIC = ("d_year", "p_brand", "s_region", "lo_orderkey",
+                   "lo_extendedprice", "lo_revenue", "lo_quantity",
+                   "lo_discount")
+# machine-log lines of four templates (by lo_discount), their variables of
+# low cardinality, as a service's repeated messages are
+LOG_TEMPLATES = ("INFO order shipped qty={q} brand=MFGR#{b} year={y}",
+                 "WARN order delayed {q} days at dc{b}",
+                 "ERROR task_{q} failed after {y}.{b}s",
+                 "INFO user u{b} paid {q}.50 USD")
+# a region no row holds, between the columns' min and max: only the bloom
+# filters prune it
+BLOOM_PROBE = "ANTARCTICA"
+FORMATS_QUERIES = {
+    "z_year": "SELECT d_year, SUM(lo_revenue) FROM ssbz GROUP BY d_year",
+    "z_q2_family": Q2.replace("FROM ssb", "FROM ssbz"),
+    "z_q2": NO_BATCH + Q2.replace("FROM ssb", "FROM ssbz"),
+    "z_evolved": "SELECT s_nation, SUM(lo_tax), COUNT(*) FROM ssbz "
+                 "GROUP BY s_nation",
+    "z_select": "SELECT lo_note, lo_log, lo_revenue FROM ssbz "
+                "WHERE d_year = 1995 LIMIT 10",
+    "z_bloom": f"SELECT COUNT(*) FROM ssbz WHERE s_region = '{BLOOM_PROBE}'",
+    "z_partition": "SELECT COUNT(*), SUM(lo_revenue) FROM ssbz "
+                   "WHERE lo_orderkey = {key}",
+}
 # the kernel each query must launch (q1 is ungrouped: it launches neither;
 # the sparse GROUP BYs run torch ops)
 EXPECTED_KERNEL = {"q2": "fused_limb_sums", "q9": "fused_limb_sums",
@@ -1870,6 +1931,253 @@ def phase_queries(torch, qe, expected, _cuda, interp, names=None):
           "resident_bytes": qe.executor.cache.bytes_used(),
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     return launches, per_query, results
+
+
+# -- phase segment_formats ----------------------------------------------------
+
+
+def formats_table(evolved: bool):
+    """(schema, table config) of `ssbz`: the schema its segments are built
+    with, or (`evolved`) the one it is registered under, which adds
+    s_nation and lo_tax."""
+    from pinot_tpu_torch.spi.data_types import Schema
+    from pinot_tpu_torch.spi.table_config import IndexingConfig, TableConfig
+
+    schema = Schema.build(
+        FORMATS_TABLE,
+        dimensions=FORMATS_DIMS + (FORMATS_ADDED_DIMS if evolved else []),
+        metrics=FORMATS_METRICS + (FORMATS_ADDED_METRICS if evolved else []))
+    return schema, TableConfig(table_name=FORMATS_TABLE, indexing=IndexingConfig(
+        no_dictionary_columns=FORMATS_RAW, compression_configs=FORMATS_CODECS,
+        bloom_filter_columns=["s_region"],
+        segment_partition_config={"lo_orderkey": {
+            "functionName": "modulo", "numPartitions": FORMATS_SEGMENTS}}))
+
+
+def formats_strings(cols: dict, rows=slice(None)) -> tuple:
+    """The note and log line of each row of `rows`: lo_note names the order,
+    lo_log fills a template chosen by lo_discount (each distinct line
+    formatted once)."""
+    notes = [f"order-{k}" for k in cols["lo_orderkey"][rows].tolist()]
+    t = (cols["lo_discount"][rows] % len(LOG_TEMPLATES)).astype(np.int64)
+    q = cols["lo_quantity"][rows].astype(np.int64)
+    b = (cols["p_brand"][rows] % 100).astype(np.int64)
+    y = cols["d_year"][rows].astype(np.int64)
+    code = ((t * 64 + q) * 128 + b) * 4096 + y
+    uniq, inv = np.unique(code, return_inverse=True)
+    lines = np.asarray([LOG_TEMPLATES[c >> 25].format(
+        q=(c >> 19) & 63, b=(c >> 12) & 127, y=c & 4095)
+        for c in uniq.tolist()], dtype=object)
+    return notes, lines[inv].tolist()
+
+
+def formats_columns(cols: dict, rows: int) -> list:
+    """`ssbz`'s segments from phase `data`'s rows: segment k the first
+    `rows` rows whose lo_orderkey is k modulo FORMATS_SEGMENTS (their keys
+    still sorted)."""
+    residue = cols["lo_orderkey"] % FORMATS_SEGMENTS
+    parts = []
+    for k in range(FORMATS_SEGMENTS):
+        idx = np.nonzero(residue == k)[0][:rows]
+        if len(idx) != rows:
+            raise AssertionError(f"{len(idx)} rows of residue {k}")
+        parts.append({c: cols[c][idx] for c in FORMATS_NUMERIC})
+    return parts
+
+
+def build_formats_segment(task):
+    """Build one `ssbz` segment (a worker of the spawn process pool), its
+    strings made here from the numeric columns: (index, seconds)."""
+    from pinot_tpu_torch.segment.builder import SegmentBuilder
+
+    i, part, path = task
+    t0 = time.perf_counter()
+    notes, logs = formats_strings(part)
+    cols = {c: part[c] for c, _ in FORMATS_DIMS + FORMATS_METRICS
+            if c in part}
+    cols["lo_note"] = np.asarray(notes, dtype=object)
+    cols["lo_log"] = np.asarray(logs, dtype=object)
+    schema, cfg = formats_table(evolved=False)
+    SegmentBuilder(schema, cfg, f"{FORMATS_TABLE}_{i}").build(cols, path)
+    return i, time.perf_counter() - t0
+
+
+def formats_oracle(parts: list) -> tuple:
+    """The rows of FORMATS_QUERIES from the numpy columns, the partition
+    query's key (a key of segment 1 inside every segment's key range, so
+    only the partition stamps prune) and the pruned / processed segments
+    the data implies for the two pruned queries."""
+    cat = {c: np.concatenate([p[c] for p in parts]) for c in FORMATS_NUMERIC}
+    year, rev = cat["d_year"], cat["lo_revenue"].astype(np.int64)
+    want = {"z_year": [[int(y), float(rev[year == y].sum())]
+                       for y in np.unique(year)]}
+    asia = cat["s_region"] == "ASIA"
+    keys = year[asia].astype(np.int64) * 1000 + cat["p_brand"][asia]
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.bincount(inv, weights=rev[asia]).astype(np.int64)
+    want["z_q2_family"] = want["z_q2"] = [
+        [int(k // 1000), int(k % 1000), float(v)] for k, v in zip(uniq, sums)]
+    want["z_evolved"] = [["null", 0.0, len(year)]]
+    rows = []
+    for p in parts:
+        idx = np.nonzero(p["d_year"] == 1995)[0][:10 - len(rows)]
+        notes, logs = formats_strings(p, idx)
+        rows += [[n, g, int(r)] for n, g, r in
+                 zip(notes, logs, p["lo_revenue"][idx].tolist())]
+        if len(rows) == 10:
+            break
+    want["z_select"] = rows
+    want["z_bloom"] = [[0]]
+    seg1 = parts[1]["lo_orderkey"]
+    key = int(seg1[len(seg1) // 2])
+    if not all(p["lo_orderkey"].min() <= key <= p["lo_orderkey"].max()
+               for p in parts):
+        raise AssertionError(f"key {key} outside a segment's key range")
+    if not all(min(p["s_region"]) < BLOOM_PROBE < max(p["s_region"])
+               for p in parts):
+        raise AssertionError(f"{BLOOM_PROBE} outside a segment's range")
+    hit = cat["lo_orderkey"] == key
+    want["z_partition"] = [[int(hit.sum()), float(rev[hit].sum())]]
+    holders = sum(int((p["lo_orderkey"] == key).any()) for p in parts)
+    pruned = {"z_bloom": (len(parts), 0),
+              "z_partition": (len(parts) - holders, holders)}
+    return want, key, pruned
+
+
+def phase_segment_formats(args, torch, qe, dirs, parts, build_s, _cuda, mxu,
+                          fg, card) -> dict:
+    """`ssbz` on the card: its compressed, var-width, CLP, bloom and
+    partition-stamped segments loaded (per codec the ms of the first read
+    of each compressed buffer, decompressing it, and its MB/s; the ms of
+    decoding a whole var-width and CLP column of one segment), registered
+    under the schema that adds s_nation and lo_tax, and each of
+    FORMATS_QUERIES run with its counts set to 0 just before it and read
+    just after, its rows held against the numpy oracle, its dispatches,
+    kernel launches and pruned / processed segments against what the
+    query implies; then cold and warm p50s. Returns each kernel launch's
+    recorded inputs (held against the plain version here) and the
+    launches."""
+    from pinot_tpu_torch.segment.loader import load_segment
+
+    t_phase = time.perf_counter()
+    want, key, pruned_want = formats_oracle(parts)
+    queries = dict(FORMATS_QUERIES)
+    queries["z_partition"] = queries["z_partition"].format(key=key)
+    t0 = time.perf_counter()
+    segs = [load_segment(d) for d in dirs]
+    load_ms = (time.perf_counter() - t0) * 1e3
+    decode = {}
+    for seg in segs:
+        for name, entry in seg.metadata.buffers.items():
+            if len(entry) != 3:
+                continue
+            t0 = time.perf_counter()
+            raw = seg._buffer(name)
+            ms = (time.perf_counter() - t0) * 1e3
+            d = decode.setdefault(entry[2], {"buffers": 0, "ms": 0.0,
+                                             "bytes": 0, "stored_bytes": 0})
+            d["buffers"] += 1
+            d["ms"] += ms
+            d["bytes"] += len(raw)
+            d["stored_bytes"] += entry[1]
+    for d in decode.values():
+        d["mb_per_s"] = d["bytes"] / 1e6 / (d["ms"] / 1e3)
+    if set(decode) != {"LZ4", "SNAPPY", "GZIP"}:
+        raise AssertionError(f"compressed buffers of codecs {sorted(decode)}")
+    # a whole var-width and CLP column of one segment, on its own copy:
+    # the table's segments decode only the rows a selection returns
+    alone = load_segment(dirs[0], verify=False)
+    var_ms = {}
+    for col in ("lo_note", "lo_log"):
+        t0 = time.perf_counter()
+        vals = alone.get_values(col)
+        var_ms[col] = (time.perf_counter() - t0) * 1e3
+        if len(vals) != alone.num_docs:
+            raise AssertionError(f"{col}: {len(vals)} values")
+    notes, logs = formats_strings(parts[0], slice(0, 1000))
+    if alone.get_values("lo_note")[:1000].tolist() != notes \
+            or alone.get_values("lo_log")[:1000].tolist() != logs:
+        raise AssertionError("decoded var-width values differ from the input")
+    del alone, vals
+    schema, _ = formats_table(evolved=True)
+    qe.add_table(schema, segs)
+
+    kernel_of = {"z_year": "limb_sums", "z_q2_family": "limb_sums",
+                 "z_evolved": "limb_sums", "z_q2": "fused_limb_sums"}
+    dispatches_want = {"z_year": 1, "z_q2_family": 1, "z_evolved": 1,
+                       "z_q2": len(segs), "z_select": 1, "z_bloom": 0,
+                       "z_partition": 1}
+    per_query, results, recs, cold = {}, {}, {}, {}
+    for qname, sql in queries.items():
+        kernel = kernel_of.get(qname)
+        owner = fg if kernel == "fused_limb_sums" else mxu
+        _cuda.reset_launches()
+        with recording(owner, kernel or "limb_sums") as calls:
+            t0 = time.perf_counter()
+            resp = qe.execute_sql(sql)
+            torch.cuda.synchronize()
+            cold[qname] = (time.perf_counter() - t0) * 1e3
+        per_query[qname] = dict(_cuda.LAUNCHES)
+        results[qname] = resp
+        got = [list(r) for r in resp.result_table.rows]
+        exp = want[qname]
+        if qname != "z_select":
+            got, exp = sorted(map(tuple, got)), sorted(map(tuple, exp))
+        if got != exp:
+            raise AssertionError(f"{qname}: rows differ from the oracle "
+                                 f"({len(got)} vs {len(exp)} rows)")
+        if resp.num_device_dispatches != dispatches_want[qname]:
+            raise AssertionError(f"{qname}: {resp.num_device_dispatches} "
+                                 "dispatches")
+        launched = {k: v for k, v in per_query[qname].items() if v}
+        launches_want = {kernel: len(calls)} if kernel else {}
+        if kernel and len(calls) != (len(segs) if qname == "z_q2" else 1):
+            raise AssertionError(f"{qname}: {len(calls)} calls of {kernel}")
+        if launched != launches_want:
+            raise AssertionError(f"{qname}: launches {launched}")
+        if kernel:
+            recs[qname] = (kernel, list(calls))
+        p_want = pruned_want.get(qname, (0, len(segs)))
+        if (resp.num_segments_pruned, resp.num_segments_processed) != p_want:
+            raise AssertionError(
+                f"{qname}: {resp.num_segments_pruned} pruned, "
+                f"{resp.num_segments_processed} processed, want {p_want}")
+    parity = {}
+    for qname, (kernel, calls) in recs.items():
+        for k, rec in enumerate(calls):
+            label = f"{kernel}/{qname}_inputs/launch{k}"
+            if kernel == "limb_sums":
+                got = mxu.limb_sums(*rec)
+                ref = mxu.limb_sums_plain(*rec)
+            else:
+                got = fg.fused_limb_sums(*rec)
+                ref = fg.fused_limb_sums_plain(*rec)
+            parity[label] = check_equal(torch, label, got, ref)
+    iters = min(args.iters, 5)
+    warm = {}
+    for qname, sql in queries.items():
+        ts = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            qe.execute_sql(sql)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        warm[qname] = float(np.median(ts))
+    emit({"phase": "segment_formats", "card": card, "table": FORMATS_TABLE,
+          "segments": len(segs), "rows_per_segment": segs[0].num_docs,
+          "build_s": build_s, "load_ms": load_ms, "decode": decode,
+          "var_decode_ms": var_ms, "oracle": "equal",
+          "cold_ms": cold, "warm_p50_ms": warm, "warm_iters": iters,
+          "launches_per_query": per_query,
+          "device_dispatches": {k: r.num_device_dispatches
+                                for k, r in results.items()},
+          "segments_pruned": {k: r.num_segments_pruned
+                              for k, r in results.items()},
+          "segments_processed": {k: r.num_segments_processed
+                                 for k, r in results.items()},
+          "partition_key": key, "max_abs_err": parity,
+          "seconds": time.perf_counter() - t_phase})
+    return {"recs": recs, "launches": per_query, "parity": parity}
 
 
 @contextlib.contextmanager
@@ -4845,8 +5153,17 @@ def main(argv=None) -> int:
             pending = submit_index_builds(args, tmp, pool)
             tables, dim, cols, dates, tags, taxi_cols = phase_data(
                 args, torch, tmp, pool)
+            formats_parts = formats_columns(cols, min(
+                FORMATS_ROWS, args.rows_per_segment * args.segments
+                // (FORMATS_SEGMENTS * FORMATS_SEGMENTS)))
+            formats_dirs = [f"{tmp}/{FORMATS_TABLE}_{i}"
+                            for i in range(FORMATS_SEGMENTS)]
+            formats_pending = [pool.submit(build_formats_segment, (
+                i, part, d)) for i, (part, d) in enumerate(zip(
+                    formats_parts, formats_dirs))]
             index, index_expected, facts = index_tables(args, cols, tmp, pool,
                                                         pending)
+            formats_build_s = sum(f.result()[1] for f in formats_pending)
         segments = tables["ssb"][1]
         expected = oracle(cols)
         rt_base = rt_partials(cols)
@@ -4878,6 +5195,11 @@ def main(argv=None) -> int:
         launches, per_query, results = phase_queries(torch, qe, expected,
                                                      _cuda, interp)
         phase_index_checks(qe, results, facts, dev["nvidia_smi"])
+        formats = phase_segment_formats(
+            args, torch, qe, formats_dirs, formats_parts, formats_build_s,
+            _cuda, mxu_groupby, fused_groupby, dev["nvidia_smi"])
+        parity.update(formats["parity"])
+        del formats_parts
         rt_final, rt_launches, rt_state = phase_realtime(
             args, torch, qe, tables, rt_base, interp, tmp, dev["nvidia_smi"])
         # the realtime queries at their final state join every later phase
@@ -5154,6 +5476,24 @@ def main(argv=None) -> int:
                         torch, fused_groupby, _cuda, [rec], launches, err,
                         note))
         del ingest
+        # the segment formats' launches: kernel A over the family of the 4
+        # compressed, schema-evolved `ssbz` segments, kernel B a segment
+        for qname, (name, recs) in formats["recs"].items():
+            launches = formats["launches"][qname][name]
+            err = max(v for k, v in formats["parity"].items()
+                      if k.startswith(f"{name}/{qname}_inputs/"))
+            note = (f"segment_formats {qname}: the main path's planes of "
+                    f"the {FORMATS_SEGMENTS} `{FORMATS_TABLE}` segments "
+                    "(decompressed, virtual columns)")
+            if name == "limb_sums":
+                kernels.append(kernel_a_row(
+                    torch, mxu_groupby, _cuda, recs, launches, err,
+                    note + ", one launch"))
+            else:
+                kernels.append(kernel_b_row(
+                    torch, fused_groupby, _cuda, recs, launches, err,
+                    note + ", in turn"))
+        del formats
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -14,7 +14,8 @@ corrupted on the second merge.
 The sparse device combine's per-segment tables stay on the device, in
 segment/device_cache.py under its byte budget; this tier holds host objects
 under its own (PINOT_TPU_PARTIAL_CACHE_MB, default 256). Counters live on
-the cache (`stats()`); the port has no metrics registry.
+the cache (`stats()`); an eviction also counts the JAX package's server
+meter `segmentCacheEvictions`.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import os
 import threading
 from collections import OrderedDict
 from typing import Optional
+
+from ..spi.metrics import SERVER_METRICS, ServerMeter
 
 
 def partial_cache_enabled() -> bool:
@@ -98,6 +101,7 @@ class SegmentPartialCache:
                 _, (_, freed, _) = self._entries.popitem(last=False)
                 self._bytes -= freed
                 self.evictions += 1
+                SERVER_METRICS.add_meter(ServerMeter.SEGMENT_CACHE_EVICTIONS)
 
     def invalidate_segment(self, segment_name: str) -> int:
         """Drop every entry derived from `segment_name`. Content-addressed

@@ -22,10 +22,14 @@ The multi-stage engine's stage worker (mse/distributed.py
 on this server's device over the segments the broker routed to it and
 exchanges mailbox blocks with the other servers and the broker.
 
+A segment loads under its table's config: the bloom filters the config
+asks for and the segment was written without are built at load
+(segment/loader.py backfill_indexes; reference SegmentPreProcessor), so
+adding one to a live table prunes its old segments too.
+
 Not ported yet: tiered storage (cold and lazy segments, prefetch), the
 repair path (a segment that fails verification is quarantined: advertised
-ERROR, never routed), streaming queries, `scan_arrow` and index backfill
-at load.
+ERROR, never routed), streaming queries and `scan_arrow`.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from ..segment.loader import SegmentIntegrityError, load_segment
 from ..spi import faults
 from ..spi.data_types import Schema
 from ..spi.metrics import SERVER_METRICS, ServerGauge, ServerMeter
+from ..spi.table_config import TableConfig
 from ..spi.trace import TRACING
 from .controller import ERROR, ONLINE, raw_table_name
 from .datatable import encode
@@ -177,6 +182,11 @@ class ServerInstance:
                 if m.get(self.instance_id) == ONLINE}
         with self._lock:
             have = set(self.segments.get(table, {}))
+            indexing = None
+            if want - have:
+                cfg_json = self.store.get(f"/CONFIGS/TABLE/{table}")
+                if cfg_json and "tableName" in cfg_json:
+                    indexing = TableConfig.from_json(cfg_json).indexing
             for seg in want - have:
                 meta = self.store.get(f"/SEGMENTS/{table}/{seg}")
                 if meta is None:
@@ -187,7 +197,8 @@ class ServerInstance:
                         >= LOAD_RETRIES:
                     continue
                 try:
-                    segment = self._load_segment_verified(table, seg, meta)
+                    segment = self._load_segment_verified(table, seg, meta,
+                                                          indexing)
                 except SegmentIntegrityError as e:
                     self._quarantine(table, seg, e)
                     continue
@@ -224,10 +235,12 @@ class ServerInstance:
         # would silently lose its rows
         self._update_external_view(table, want & loaded)
 
-    def _load_segment_verified(self, table: str, seg: str, meta: dict):
+    def _load_segment_verified(self, table: str, seg: str, meta: dict,
+                               indexing=None):
         """Load + verify one segment directory in place (the deep-store
         address is a plain directory: there is no tier manager to fetch
-        into). The ``segment.load`` fault point fires here; a ``corrupt``
+        into), then build the bloom filters `indexing` asks for and it
+        lacks. The ``segment.load`` fault point fires here; a ``corrupt``
         fault fails verification as a damaged copy would."""
         if faults.ACTIVE:
             try:
@@ -242,6 +255,8 @@ class ServerInstance:
             raise SegmentIntegrityError(
                 seg, meta["location"],
                 f"crc {have} differs from the pushed crc {want}")
+        if indexing is not None:
+            segment.backfill_indexes(indexing)
         return segment
 
     def _quarantine(self, table: str, seg: str, err) -> None:

@@ -26,7 +26,10 @@ error. Here only the gates the solo family path itself accepts do that
 (`BatchFamilyMismatch`, `HbmExhaustedError`: the group's planes do not
 match or do not fit); any other error reaches every member's caller.
 
-The port has no metrics registry, so the counts live in `snapshot()`.
+Server meters, as in the JAX package: `coalescedQueries` counts the peers
+of each group a leader dispatched (Q - 1), and the `coalesceWaitMs` timer
+takes each query's wait in the window, a leader's alone included;
+`snapshot()` holds the coalescer's own counts.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import os
 import threading
 import time
 
+from ..spi.metrics import SERVER_METRICS, ServerMeter, ServerTimer
 from .executor import BatchFamilyMismatch
 from .oom import HbmExhaustedError
 
@@ -79,6 +83,7 @@ def _note_stats(peers: int, wait_ms: float) -> None:
     if s is not None:
         s[0] += peers
         s[1] += wait_ms
+    SERVER_METRICS.update_timer(ServerTimer.COALESCE_WAIT_MS, wait_ms)
 
 
 # -- (table, family) traffic nomination --------------------------------------
@@ -264,6 +269,7 @@ class QueryCoalescer:
             self.groups_formed += 1
             self.queries_coalesced += q
         _note_stats(q - 1, wait_ms)
+        SERVER_METRICS.add_meter(ServerMeter.COALESCED_QUERIES, q - 1)
         return CoalesceResult([o[:s] for o in g.outs], q - 1, wait_ms)
 
     def snapshot(self) -> dict:

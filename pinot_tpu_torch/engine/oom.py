@@ -13,6 +13,11 @@ HbmExhaustedError, never the process.
 Torch raises OOM at the allocation, synchronously, so unlike XLA no output
 buffer is left poisoned. `retry_fn` stays all the same: a fetch's inputs
 may be the stacks relief freed, so its retry re-dispatches.
+
+The server meters are the JAX package's: `hbmOomEvents` a relief,
+`hbmOomEvictions` the device cache's victims, `hbmOomQueryFailures` a
+query failed with HbmExhaustedError; `oom_stats()` adds the bytes freed
+and the relief's host ms.
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ from typing import Callable, Optional
 
 import torch
 
-# process counters (the port has no metrics registry): reliefs run, bytes
-# they freed, their host ms, and queries failed with HbmExhaustedError
+from ..spi.metrics import SERVER_METRICS, ServerMeter
+
+# process counters: reliefs run, bytes they freed, their host ms, and
+# queries failed with HbmExhaustedError
 _STATS_LOCK = threading.Lock()
 _STATS = {"reliefs": 0, "freedBytes": 0, "reliefMs": 0.0, "failures": 0}
 
@@ -72,7 +79,9 @@ def relieve_pressure(keep_segment=None, cache=None) -> int:
 
     freed = 0
     if cache is not None:
-        freed += cache.evict_all_except(keep_segment)[0]
+        freed, victims = cache.evict_all_except(keep_segment)
+        if victims:
+            SERVER_METRICS.add_meter(ServerMeter.HBM_OOM_EVICTIONS, victims)
     freed += REALTIME_PLANES.clear(keep=getattr(keep_segment, "_seg",
                                                 keep_segment))
     gc.collect()  # drop tensors only reference cycles still hold
@@ -92,6 +101,7 @@ def with_oom_retry(fn: Callable, keep_segment=None, cache=None,
     except Exception as e:  # noqa: BLE001 - classified, re-raised if not OOM
         if not is_hbm_oom(e):
             raise
+    SERVER_METRICS.add_meter(ServerMeter.HBM_OOM_EVENTS)
     t0 = time.perf_counter()
     freed = relieve_pressure(keep_segment, cache)
     _note(reliefs=1, freedBytes=freed,
@@ -103,6 +113,7 @@ def with_oom_retry(fn: Callable, keep_segment=None, cache=None,
     except Exception as e:  # noqa: BLE001
         if not is_hbm_oom(e):
             raise
+        SERVER_METRICS.add_meter(ServerMeter.HBM_OOM_QUERY_FAILURES)
         _note(failures=1)
         raise HbmExhaustedError(
             f"device memory exhausted after relieving {freed} cached bytes "

@@ -205,10 +205,17 @@ class QueryExecutor:
         query pins a snapshot of every consuming segment. ``segments`` is
         held BY REFERENCE when it is a list: a realtime data manager
         (realtime/manager.py) rewrites its list in place as segments commit
-        and rotate, and each query copies it once before pinning."""
+        and rotate, and each query copies it once before pinning. A
+        segment that predates a column of `schema` gets a virtual default
+        column (segment/loader.py apply_schema: schema evolution without
+        rewriting old segments); a consuming segment has no apply_schema
+        and is registered as it is, as in the JAX package."""
         name = name or schema.schema_name
         if not isinstance(segments, list):
             segments = list(segments)  # may be a generator
+        for seg in segments:
+            if hasattr(seg, "apply_schema"):
+                seg.apply_schema(schema)
         self.tables[name] = Table(name, schema, segments)
 
     def add_dimension_table(self, schema: Schema, segments: list,
@@ -276,7 +283,11 @@ class QueryExecutor:
 
     def execute(self, query: QueryContext) -> BrokerResponse:
         """Run a parsed query; EXPLAIN plans it, EXPLAIN ANALYZE runs it
-        under an analyze trace and returns the annotated span tree."""
+        under an analyze trace and returns the annotated span tree. A query
+        that fails raises, after counting the server meter
+        `queryExecutionExceptions` as the JAX package does for a query it
+        answers with an exception; a MultistageRefusal is not counted (the
+        multi-stage engine takes the query)."""
         explain = getattr(query, "explain", False)
         if explain == "analyze":
             return self._execute_analyze(query)
@@ -288,7 +299,13 @@ class QueryExecutor:
             return BrokerResponse(
                 result_table=rt,
                 time_used_ms=(time.perf_counter() - t0) * 1000)
-        return self.run_planned(self.plan_query(query))
+        try:
+            return self.run_planned(self.plan_query(query))
+        except MultistageRefusal:
+            raise
+        except Exception:
+            SERVER_METRICS.add_meter(ServerMeter.QUERY_EXECUTION_EXCEPTIONS)
+            raise
 
     def _execute_analyze(self, query: QueryContext) -> BrokerResponse:
         """EXPLAIN ANALYZE: run the query for real under an analyze trace

@@ -24,6 +24,15 @@ consuming segment on that invariant:
   mask with its upsert generation (`ValidDocIds.snapshot`), and the planner
   ships it as an `ir.MaskParam` plane, as for an immutable upsert segment.
 
+The `realtime.upload` fault seam (spi/faults.py) fires before a delta
+touches device state. An error fault, or a delay past the upload budget
+(`PINOT_TPU_RT_UPLOAD_BUDGET_MS`, default 100), raises RealtimeUploadError
+and leaves every plane and watermark as it was; an injected corruption
+drops the segment's whole plane set, so the next query uploads it again
+from row 0. The JAX package answers the failed query on its host engine;
+the port has none and does not hide the device, so the query fails with
+that error.
+
 `RealtimeSegmentPlanner` lowers plans against a pinned `MutableSegmentView`:
 the insertion-ordered mutable dictionary breaks the sorted-id-interval
 RANGE lowering, so ranges lower to value-space boolean LUTs; MV and
@@ -34,7 +43,9 @@ UnsupportedQueryError, as it does for `SET realtimeDevicePlanes = false`.
 
 from __future__ import annotations
 
+import os
 import threading
+import time
 import weakref
 from typing import Optional
 
@@ -47,7 +58,9 @@ from ..engine.executor import _dict_pad
 from ..engine.plan import SegmentPlanner, _coerce_like
 from ..query.filter import PredicateType
 from ..segment.device_cache import note_upload, pad_bucket
+from ..spi import faults
 from ..spi.data_types import DataType
+from ..spi.metrics import SERVER_METRICS, ServerMeter
 
 # smallest delta chunk written in one upload: power-of-two chunks bound the
 # distinct write shapes to log2(bucket) while keeping upload bytes
@@ -56,9 +69,11 @@ _MIN_CHUNK = 256
 
 
 class RealtimeUploadError(Exception):
-    """A plane this port keeps on the host for consuming segments was asked
-    for (an MV id matrix, a rebased float plane): the planner refuses those
-    slots first, so this guards the device view."""
+    """A delta upload failed (an injected fault, a delay past the upload
+    budget; planes and watermarks keep their state from before it, or the
+    whole set was dropped on a corruption), or a plane this port keeps on
+    the host for consuming segments was asked for (an MV id matrix, a
+    rebased float plane; the planner refuses those slots first)."""
 
 
 def realtime_device_enabled(query=None) -> bool:
@@ -69,6 +84,13 @@ def realtime_device_enabled(query=None) -> bool:
         if str(k).lower() == "realtimedeviceplanes":
             return str(v).strip().lower() not in ("0", "false", "off")
     return True
+
+
+def _upload_budget_ms() -> float:
+    try:
+        return float(os.environ.get("PINOT_TPU_RT_UPLOAD_BUDGET_MS", "100"))
+    except ValueError:
+        return 100.0
 
 
 # -- per-query upload attribution --------------------------------------------
@@ -94,6 +116,7 @@ def _note_delta(nbytes: int) -> None:
 
 def note_realtime_device_query() -> None:
     """One query answered over a consuming segment on the device path."""
+    SERVER_METRICS.add_meter(ServerMeter.REALTIME_DEVICE_QUERIES, 1)
     st = getattr(_TLS, "stats", None)
     if st is not None:
         st["deviceQueries"] += 1
@@ -143,8 +166,37 @@ class RealtimePlaneSet:
         self._lock = threading.Lock()
         self._gen_rows = 0  # highest row watermark any plane reached
 
+    def _fire_fault(self, column: str, kind: str, nbytes: int) -> None:
+        """The `realtime.upload` seam, called with self._lock held before
+        the delta touches device state."""
+        if not faults.ACTIVE:
+            return
+        t0 = time.perf_counter()
+        try:
+            faults.FAULTS.fire("realtime.upload", segment=self.name,
+                               column=column, plane=kind, nbytes=nbytes)
+        except faults.InjectedCorruption as c:
+            # a damaged delta on the device would poison every later query:
+            # drop the whole set, the next query uploads it from row 0
+            self._planes.clear()
+            raise RealtimeUploadError(
+                f"injected corruption uploading {self.name}.{column}: "
+                f"plane set dropped, full re-upload next query") from c
+        except faults.InjectedFault as e:
+            raise RealtimeUploadError(
+                f"injected fault uploading {self.name}.{column}") from e
+        # a delay fault sleeps inside fire(): hold the upload budget
+        waited_ms = (time.perf_counter() - t0) * 1000.0
+        budget = _upload_budget_ms()
+        if waited_ms > budget:
+            raise RealtimeUploadError(
+                f"delta upload for {self.name}.{column} stalled "
+                f"{waited_ms:.0f}ms > budget {budget:.0f}ms")
+
     def _account(self, nbytes: int) -> None:
         note_upload((f"rt:{self.name}", "delta"), nbytes)
+        SERVER_METRICS.add_meter(
+            ServerMeter.REALTIME_DELTA_UPLOAD_BYTES, nbytes)
         _note_delta(nbytes)
         self.registry._note(nbytes)
 
@@ -160,8 +212,11 @@ class RealtimePlaneSet:
             grown[:st.arr.shape[0]].copy_(st.arr)
             st.arr = grown
 
-    def _upload(self, st: _Plane, delta: np.ndarray, dtype) -> None:
-        """Write `delta` at the watermark as one power-of-two chunk."""
+    def _upload(self, st: _Plane, delta: np.ndarray, dtype, column: str,
+                kind: str) -> None:
+        """Write `delta` at the watermark as one power-of-two chunk, after
+        the fault seam."""
+        self._fire_fault(column, kind, int(delta.nbytes))
         chunk = _chunk_len(len(delta), st.arr.shape[0] - st.rows)
         upd = np.zeros(chunk, dtype=dtype)
         upd[:len(delta)] = delta
@@ -192,10 +247,12 @@ class RealtimePlaneSet:
             st = self._planes.setdefault((column, kind), _Plane())
             self._ensure_capacity(st, padded, dtype)
             if st.rows < n:
-                self._upload(st, slicer(st.rows, n), dtype)
+                self._upload(st, slicer(st.rows, n), dtype, column, kind)
                 st.rows = n
                 if n > self._gen_rows:
                     self._gen_rows = n
+                    SERVER_METRICS.add_meter(
+                        ServerMeter.REALTIME_PLANE_GENERATIONS, 1)
                     self.registry.generations += 1
             arr = st.arr
         return arr if arr.shape[0] == padded else arr[:padded]
@@ -215,7 +272,7 @@ class RealtimePlaneSet:
             self._ensure_capacity(st, max(target, 1), dtype)
             if st.rows < card:
                 self._upload(st, col.dict_values_numeric(st.rows, card),
-                             dtype)
+                             dtype, column, "dict")
                 st.rows = card
             arr = st.arr
         return arr if arr.shape[0] == target else arr[:target]

@@ -5,16 +5,26 @@ SegmentIndexCreationDriverImpl.java (init:116, build:231) — a two-pass build
 (stats collection, then per-column index creation). Here ingestion is columnar,
 so stats + dictionary + encode happen in one vectorized pass per column.
 
-Single-value columns, dictionary-encoded or raw fixed-width
-(noDictionaryColumns), and dictionary-encoded multi-value columns; the
-JSON, text and vector indexes, custom indexes (segment/index_spi.py: the
-map index) and star-trees (segment/startree.py) the table config asks for.
-The on-disk format and its CRCs are the JAX package's, byte for byte.
+Single-value columns, dictionary-encoded, raw fixed-width or raw var-byte
+(noDictionaryColumns; STRING, BYTES and JSON as a value stream and u64
+offsets), or CLP (segment/clp.py, `compressionConfigs: {col: "CLP"}` on a
+raw STRING column); dictionary-encoded multi-value columns; forward
+buffers in a PTCC container where `compressionConfigs` names a codec
+(segment/compression.py); partition stamps (`segmentPartitionConfig`,
+spi/partition.py); the bloom filters, JSON, text and vector indexes,
+custom indexes (segment/index_spi.py: the map index) and star-trees
+(segment/startree.py) the table config asks for. The on-disk format and
+its CRCs are the JAX package's, byte for byte, with two exceptions: an
+LZ4 or Snappy buffer holds a literal-only stream (the JAX package's
+native encoder finds matches; both decode to the same bytes), and the
+inverted, range and geo indexes are not built (they feed only the JAX
+package's host engine, which the port does not have).
 """
 
 from __future__ import annotations
 
 import itertools
+import operator
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -23,13 +33,16 @@ from typing import Iterable, Mapping, Optional
 import numpy as np
 
 from ..spi.data_types import DataType, Schema
+from ..spi.partition import get_partition_function
 from ..spi.table_config import TableConfig
 from . import bitpack
+from .clp import encode_column, serialize_clp
 from .dictionary import (build_dictionary, deserialize_dictionary,
                          serialize_dictionary)
 from .format import ColumnMetadata, SegmentMetadata, SegmentWriter
 from .index_spi import build_custom_indexes
-from .indexes import (JsonIndex, TextIndex, VectorIndex, serialize_json_index,
+from .indexes import (BloomFilter, JsonIndex, TextIndex, VectorIndex,
+                      serialize_bloom, serialize_json_index,
                       serialize_text_index, serialize_vector_index)
 from .startree import StarTreeConfig, build_star_tree
 
@@ -83,6 +96,10 @@ class SegmentBuilder:
             if spec.single_value:
                 col_metas[name] = self._build_sv_column(
                     writer, name, spec, values, num_docs, raw=name in no_dict)
+                pconf = self.table_config.indexing \
+                    .segment_partition_config.get(name)
+                if pconf:
+                    _stamp_partition(col_metas[name], pconf, values)
             else:
                 col_metas[name] = self._build_mv_column(
                     writer, name, spec, values, num_docs)
@@ -151,9 +168,9 @@ class SegmentBuilder:
         return chain
 
     def _build_indexes(self, writer, columns) -> None:
-        """The JSON, text and vector indexes and the custom indexes the
-        table config asks for, in the JAX builder's order and bytes
-        (reference: per-column IndexCreators invoked by
+        """The bloom filters, the JSON, text and vector indexes and the
+        custom indexes the table config asks for, in the JAX builder's
+        order and bytes (reference: per-column IndexCreators invoked by
         SegmentColumnarIndexCreator)."""
         idx = self.table_config.indexing
 
@@ -161,6 +178,10 @@ class SegmentBuilder:
             for suffix, arr in bufs:
                 writer.add_buffer(f"{col}.{suffix}", np.ascontiguousarray(arr))
 
+        for col in idx.bloom_filter_columns:
+            if col in columns:
+                add(col, serialize_bloom(BloomFilter.build(
+                    _bloom_values(columns[col]))))
         for col in idx.json_index_columns:
             if col in columns:
                 add(col, serialize_json_index(JsonIndex.build(columns[col])))
@@ -241,12 +262,14 @@ class SegmentBuilder:
     def _build_sv_column(self, writer, name, spec, values, num_docs, raw: bool) -> ColumnMetadata:
         values, nulls = self._replace_nulls(values, spec)
         dt = spec.data_type
-        if raw:
-            if not dt.is_fixed_width:
-                raise ValueError(
-                    f"column {name!r}: raw var-width columns are not built")
+        codec = self.table_config.indexing.compression_configs.get(name)
+        if codec == "CLP" and not (raw and dt.value == "STRING"):
+            raise ValueError(
+                f"column {name!r}: CLP encoding requires a STRING column "
+                "listed in noDictionaryColumns")
+        if raw and dt.is_fixed_width:
             arr = np.ascontiguousarray(values, dtype=dt.numpy_dtype)
-            writer.add_buffer(f"{name}.fwd", arr)
+            writer.add_buffer(f"{name}.fwd", arr, codec=codec)
             meta = ColumnMetadata(
                 name=name, data_type=dt.value, field_type=spec.field_type.value,
                 encoding="RAW", cardinality=0, bits_per_value=arr.dtype.itemsize * 8,
@@ -255,10 +278,24 @@ class SegmentBuilder:
                 is_sorted=bool(num_docs == 0 or np.all(np.diff(arr) >= 0)),
                 total_number_of_entries=num_docs,
             )
+        elif raw and codec == "CLP":
+            # log-structured: template dictionary + variable streams
+            # (reference CLPForwardIndexCreatorV1)
+            writer.add_buffer(f"{name}.fwd",
+                              serialize_clp(encode_column(values)))
+            meta = ColumnMetadata(
+                name=name, data_type=dt.value, field_type=spec.field_type.value,
+                encoding="CLP", cardinality=0, bits_per_value=0,
+                min_value=None, max_value=None, is_sorted=False,
+                total_number_of_entries=num_docs)
+        elif raw:
+            meta = _build_var_byte_column(writer, name, spec, values,
+                                          num_docs, codec)
         else:
             dictionary, dict_ids = build_dictionary(values, dt)
             bits = bitpack.num_bits_for_cardinality(dictionary.cardinality)
-            writer.add_buffer(f"{name}.fwd", bitpack.pack(dict_ids, bits))
+            writer.add_buffer(f"{name}.fwd", bitpack.pack(dict_ids, bits),
+                              codec=codec)
             writer.add_buffer(f"{name}.dict", serialize_dictionary(dictionary))
             meta = ColumnMetadata(
                 name=name, data_type=dt.value, field_type=spec.field_type.value,
@@ -314,6 +351,69 @@ class SegmentBuilder:
             writer.add_buffer(f"{name}.nulls", bitpack.pack_bitmap(nulls))
             meta.has_nulls = True
         return meta
+
+
+def _build_var_byte_column(writer, name, spec, values, num_docs,
+                           codec) -> ColumnMetadata:
+    """A raw STRING / JSON / BYTES column: the values' bytes back to back
+    and u64 offsets (reference VarByteChunkForwardIndexWriterV4), with the
+    JAX builder's bytes and min / max / sorted metadata over the str (or
+    bytes) values, built by whole-column passes instead of its loop."""
+    dt = spec.data_type
+    if dt.value == "BYTES":
+        keys = [bytes(v) for v in values]
+        encoded = keys
+    else:
+        keys = [str(v) for v in values]
+        encoded = [v.encode("utf-8") for v in keys]
+    offsets = np.zeros(num_docs + 1, dtype=np.uint64)
+    np.cumsum(np.fromiter(map(len, encoded), dtype=np.uint64,
+                          count=num_docs), out=offsets[1:])
+    writer.add_buffer(f"{name}.fwd", b"".join(encoded), codec=codec)
+    writer.add_buffer(f"{name}.voff", offsets, codec=codec)
+    return ColumnMetadata(
+        name=name, data_type=dt.value, field_type=spec.field_type.value,
+        encoding="RAW", cardinality=0, bits_per_value=0,
+        min_value=min(keys) if keys else None,
+        max_value=max(keys) if keys else None,
+        is_sorted=all(map(operator.le, keys, itertools.islice(keys, 1, None))),
+        total_number_of_entries=num_docs,
+    )
+
+
+def _stamp_partition(meta: ColumnMetadata, pconf: dict, values) -> None:
+    """Record the partitions this segment's values fall in (the JAX
+    builder's _stamp_partition; reference SegmentColumnarIndexCreator
+    stamps ColumnPartitionMetadata from the column's partition config),
+    computed over the distinct non-null values."""
+    fn = get_partition_function(
+        pconf["functionName"], int(pconf["numPartitions"]))
+    if isinstance(values, np.ndarray) and values.dtype != object:
+        uniq = np.unique(values)
+    else:
+        uniq = sorted({v for v in values if v is not None}, key=repr)
+    parts = sorted({int(p) for p in fn.partitions_of(uniq)}) \
+        if len(uniq) else []
+    meta.partition_function = fn.name
+    meta.num_partitions = fn.num_partitions
+    meta.partitions = parts
+    meta.partition_id = parts[0] if len(parts) == 1 else None
+
+
+def _bloom_values(values):
+    """A column's values for its bloom filter, as the JAX builder
+    gathers them: every non-null value, a multi-value document's each."""
+    if isinstance(values, MultiValues):
+        return np.asarray(values.values)
+    if isinstance(values, np.ndarray) and values.dtype != object:
+        return values
+    flat = []
+    for v in values:
+        if isinstance(v, (list, tuple, np.ndarray)):
+            flat.extend(v)
+        elif v is not None:
+            flat.append(v)
+    return flat
 
 
 def _vector_matrix(values) -> np.ndarray:

@@ -356,7 +356,7 @@ class DeviceSegmentCache:
         (narrow) id planes and, for numeric dictionaries, their values; raw
         columns their value plane and, for FLOAT/DOUBLE, the rebased f32
         plane the percentile histograms bin from; multi-value columns their
-        id matrix."""
+        id matrix. Var-width and CLP columns have no device plane."""
         v = self.view(segment)
         n = 0
         for col in (columns or segment.columns()):
@@ -371,7 +371,7 @@ class DeviceSegmentCache:
                         in "iuf":
                     v.dict_values(col)
                     n += 1
-            else:
+            elif m.encoding == "RAW" and DataType(m.data_type).is_fixed_width:
                 v.raw(col)
                 n += 1
                 if m.data_type in ("FLOAT", "DOUBLE") \

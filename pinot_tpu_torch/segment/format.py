@@ -9,11 +9,17 @@ buffers here are whole-column (the unit of device transfer is the column plane,
 not a 10K-doc block — see SURVEY.md §7 design stance).
 
 Buffer kinds per column:
-  fwd    packed dict ids (fixed-bit LSB-first) for DICT encoding, or raw
-         fixed-width values for RAW encoding
+  fwd    packed dict ids (fixed-bit LSB-first) for DICT encoding, raw
+         fixed-width values or a var-byte value stream for RAW encoding,
+         the serialized CLP column (segment/clp.py) for CLP encoding
+  voff   u64 offsets into a var-byte value stream (RAW STRING/BYTES/JSON)
   dict   serialized sorted dictionary (DICT only)
   nulls  packed null bitmap (present iff column had nulls)
   mvoff  u32 row-offsets into the MV value stream (MV columns only)
+
+A buffer written with a codec (table config `compressionConfigs`) is a
+PTCC container (segment/compression.py), and its entry in the buffer map
+is [offset, size, codec] instead of [offset, size].
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ class ColumnMetadata:
     name: str
     data_type: str              # DataType.value
     field_type: str             # FieldType.value
-    encoding: str               # "DICT" | "RAW"
+    encoding: str               # "DICT" | "RAW" | "CLP"
     single_value: bool = True
     cardinality: int = 0
     bits_per_value: int = 0
@@ -81,8 +87,7 @@ def partition_push_metadata(segment_dir) -> dict:
     it (realtime/manager.py), so the MSE dispatcher can place
     partition-aligned (colocated) workers next to their segments
     (reference: SegmentZKMetadata's partitionMetadata feeding the broker's
-    TablePartitionInfo). The port's builder stamps no partitions, so its
-    segments give {}."""
+    TablePartitionInfo)."""
     meta_path = Path(segment_dir) / METADATA_FILE
     if not meta_path.exists():
         return {}
@@ -105,14 +110,15 @@ class SegmentMetadata:
     table_name: str
     num_docs: int
     columns: dict[str, ColumnMetadata] = field(default_factory=dict)
-    buffers: dict[str, list[int]] = field(default_factory=dict)  # name -> [offset, size]
+    # name -> [offset, size], or [offset, size, codec] for a PTCC container
+    buffers: dict[str, list] = field(default_factory=dict)
     time_column: Optional[str] = None
     start_time: Optional[int] = None
     end_time: Optional[int] = None
     format_version: int = FORMAT_VERSION
     crc: Optional[str] = None
     # integrity fingerprints finer than the whole-segment crc: per-buffer
-    # crc32 of the bytes as written and
+    # crc32 of the bytes as written (compressed form for PTCC buffers) and
     # per-column crc32 chained over that column's buffers in write order —
     # the loader verifies on load and names the damaged column(s)
     buffer_crcs: dict = field(default_factory=dict)   # buffer name -> crc hex
@@ -171,11 +177,17 @@ class SegmentWriter:
     def __init__(self, directory: str | Path):
         self.directory = Path(directory)
         self._buffers: list[tuple[str, bytes]] = []
+        # buffer name -> codec, applied at write() so peek_buffer and the
+        # index builders always read uncompressed bytes
+        self.compress_on_write: dict[str, str] = {}
 
-    def add_buffer(self, name: str, data: bytes | np.ndarray) -> None:
+    def add_buffer(self, name: str, data: bytes | np.ndarray,
+                   codec: Optional[str] = None) -> None:
         if isinstance(data, np.ndarray):
             data = data.tobytes()
         self._buffers.append((name, data))
+        if codec and codec.upper() != "PASS_THROUGH":
+            self.compress_on_write[name] = codec.upper()
 
     def peek_buffer(self, name: str) -> np.ndarray:
         """Re-read an already-added buffer (the sort-order scan derives from
@@ -188,6 +200,8 @@ class SegmentWriter:
     def write(self, metadata: SegmentMetadata) -> None:
         import zlib
 
+        from .compression import compress_buffer
+
         self.directory.mkdir(parents=True, exist_ok=True)
         offset = 0
         crc = 0
@@ -195,7 +209,12 @@ class SegmentWriter:
         columns = sorted(metadata.columns, key=len, reverse=True)
         with open(self.directory / DATA_FILE, "wb") as f:
             for name, data in self._buffers:
-                metadata.buffers[name] = [offset, len(data)]
+                codec = self.compress_on_write.get(name)
+                if codec:
+                    data = compress_buffer(data, codec)
+                    metadata.buffers[name] = [offset, len(data), codec]
+                else:
+                    metadata.buffers[name] = [offset, len(data)]
                 f.write(data)
                 metadata.buffer_crcs[name] = format(zlib.crc32(data), "08x")
                 # chain this buffer into its owning column's checksum

@@ -1,8 +1,9 @@
 """Per-column auxiliary indexes: bloom, JSON, text and vector.
 
 The port's own copy of pinot_tpu/segment/indexes.py for the indexes the
-device path reads: the bloom filter reader (segment pruning,
-engine/pruner.py), and the JSON, text and vector indexes behind JSON_MATCH,
+device path reads: the bloom filter (segment pruning, engine/pruner.py;
+written by segment/builder.py and built at load by
+segment/loader.py backfill_indexes), and the JSON, text and vector indexes behind JSON_MATCH,
 TEXT_MATCH and VECTOR_SIMILARITY. Those predicates have no vector form over
 a column plane: the planner evaluates them here, on the host, into a doc
 mask that rides the device program as a boolean param plane
@@ -26,7 +27,7 @@ from ..utils.sketches import hash64_any
 
 # ---------------------------------------------------------------------------
 # Bloom filter (per-column EQ pruning — reference guava-backed
-# BloomFilterSegmentPruner path). The port's builder writes none.
+# BloomFilterSegmentPruner path).
 # ---------------------------------------------------------------------------
 
 
@@ -35,6 +36,28 @@ class BloomFilter:
     bits: np.ndarray  # packed u8, little-endian bit order
     num_bits: int
     num_hashes: int
+
+    @staticmethod
+    def build(values, fpp: float = 0.05) -> "BloomFilter":
+        """The JAX package's filter over `values`, bit for bit: sized for
+        every value, duplicates included, and each distinct hash set once
+        (a bit set twice is set once, so hashing the distinct values gives
+        the same bits)."""
+        vals = _bloom_canon(np.asarray(values))
+        n = max(1, len(vals))
+        num_bits = max(64, int(-n * np.log(fpp) / (np.log(2) ** 2)))
+        num_bits = (num_bits + 7) & ~7
+        k = max(1, int(round(num_bits / n * np.log(2))))
+        bf = BloomFilter(np.zeros(num_bits // 8, dtype=np.uint8), num_bits, k)
+        if vals.dtype.kind == "f":
+            # distinct bit patterns: the hash reads the float's bits
+            distinct = np.unique(vals.view(np.int64)).view(np.float64)
+        else:
+            distinct = np.asarray(list(dict.fromkeys(
+                str(x) for x in vals.ravel().tolist())), dtype=object)
+        pos = bf._positions(hash64_any(distinct)).ravel()
+        np.bitwise_or.at(bf.bits, pos >> 3, (1 << (pos & 7)).astype(np.uint8))
+        return bf
 
     def _positions(self, h: np.ndarray) -> np.ndarray:
         h1 = h & np.uint64(0xFFFFFFFF)
@@ -56,6 +79,11 @@ def _bloom_canon(vals: np.ndarray) -> np.ndarray:
     if vals.dtype.kind in ("i", "u", "f", "b"):
         return vals.astype(np.float64)
     return vals
+
+
+def serialize_bloom(bf: BloomFilter) -> list[tuple[str, np.ndarray]]:
+    header = np.asarray([bf.num_bits, bf.num_hashes], dtype=np.int64)
+    return [("bloom.hdr", header), ("bloom.bits", bf.bits)]
 
 
 def deserialize_bloom(hdr: np.ndarray, bits: np.ndarray) -> BloomFilter:

@@ -7,12 +7,21 @@ of PinotDataBuffer.mapFile, pinot-segment-spi/.../memory/PinotDataBuffer.java:27
 and columns decode lazily into host int32/value planes, cached, ready for one
 copy to the device via device_cache.DeviceSegmentCache.
 
-Dictionary-encoded columns, single- and multi-value, and raw fixed-width
-single-value columns; bloom filters for pruning; the JSON, text, vector and
-custom (map) indexes, read lazily and cached; the star-trees' pre-aggregated
-views. The on-disk format is shared with the JAX package, so either
-package's builder output loads here. Columns of other encodings load their
-metadata but raise when their planes are read.
+Dictionary-encoded columns, single- and multi-value; raw single-value
+columns, fixed-width or var-byte (STRING, BYTES, JSON: a value stream and
+u64 offsets); CLP log columns (segment/clp.py); any buffer in a PTCC
+container (segment/compression.py: LZ4, SNAPPY, GZIP, ZSTANDARD),
+decompressed once on its first read and cached; bloom filters for pruning;
+the JSON, text, vector and custom (map) indexes, read lazily and cached;
+the star-trees' pre-aggregated views. The on-disk format is shared with
+the JAX package, so either package's builder output loads here.
+
+Var-width and CLP values live on the host only (the planner refuses them
+in a filter, key or value), so a selection decodes just the rows it
+returns (`get_values_at`); a whole-column read decodes once and caches.
+`apply_schema` gives a column the segment predates a virtual default
+column; `backfill_indexes` builds the bloom filters a table config asks
+for and the segment was written without.
 """
 
 from __future__ import annotations
@@ -25,12 +34,14 @@ import numpy as np
 
 from ..spi.data_types import DataType
 from . import bitpack
+from .clp import deserialize_clp
+from .compression import decompress_buffer
 from .dictionary import Dictionary, deserialize_dictionary
 from .format import DATA_FILE, ColumnMetadata, SegmentMetadata, read_metadata
 from .index_spi import load_custom_index
-from .indexes import (JsonIndex, TextIndex, VectorIndex, deserialize_bloom,
-                      deserialize_json_index, deserialize_text_index,
-                      deserialize_vector_index)
+from .indexes import (BloomFilter, JsonIndex, TextIndex, VectorIndex,
+                      deserialize_bloom, deserialize_json_index,
+                      deserialize_text_index, deserialize_vector_index)
 from .startree import StarTreeView
 
 
@@ -62,6 +73,7 @@ class ImmutableSegment:
         self.metadata: SegmentMetadata = read_metadata(self.directory)
         self._data = np.memmap(self.directory / DATA_FILE, dtype=np.uint8, mode="r")
         self._dictionaries: dict[str, Dictionary] = {}
+        self._decompressed: dict[str, np.ndarray] = {}
         self._dict_ids: dict[str, np.ndarray] = {}
         self._raw: dict[str, np.ndarray] = {}
         self._nulls: dict[str, Optional[np.ndarray]] = {}
@@ -118,6 +130,58 @@ class ImmutableSegment:
         raise SegmentIntegrityError(self.metadata.segment_name,
                                     self.directory, reason, columns)
 
+    # -- schema evolution and index backfill ----------------------------------
+    def apply_schema(self, schema) -> None:
+        """Give every single-value column of `schema` that this segment
+        predates a virtual dictionary column of cardinality 1 holding the
+        field's default value, so predicates, group keys and projections
+        read it as any dictionary column (the JAX package's
+        ImmutableSegment.apply_schema; reference: SegmentPreProcessor's
+        default-column update on load). Multi-value columns get none, as
+        there."""
+        for name in schema.column_names():
+            if name in self.metadata.columns:
+                continue
+            spec = schema.field_spec(name)
+            if not spec.single_value:
+                continue
+            default = spec.default_null_value
+            dt = spec.data_type
+            n = self.num_docs
+            self.metadata.columns[name] = ColumnMetadata(
+                name=name, data_type=dt.value,
+                field_type=spec.field_type.value, encoding="DICT",
+                cardinality=1, bits_per_value=1, min_value=default,
+                max_value=default, is_sorted=True,
+                total_number_of_entries=n)
+            values = (np.asarray([default], dtype=object)
+                      if dt.value in ("STRING", "JSON", "BYTES")
+                      else np.asarray([default], dtype=dt.numpy_dtype))
+            self._dictionaries[name] = Dictionary(dt, values)
+            self._dict_ids[name] = np.zeros(n, dtype=np.int32)
+            self._nulls[name] = None
+
+    def backfill_indexes(self, indexing) -> list[str]:
+        """Build the bloom filters `indexing` (spi/table_config.py
+        IndexingConfig) asks for and this segment was written without, in
+        memory, as the JAX package's backfill_indexes does: over the
+        dictionary's values, or a raw column's values. Returns what it
+        built ("bloom:<column>"). The JSON, text and vector indexes build
+        on a query's first need (`or_build`); inverted, range and geo
+        indexes feed only the JAX package's host engine and are not
+        built."""
+        built = []
+        for col in indexing.bloom_filter_columns:
+            if not self.has_column(col) \
+                    or self.get_bloom_filter(col) is not None:
+                continue
+            m = self.column_metadata(col)
+            values = (self.get_dictionary(col).values
+                      if m.encoding == "DICT" else self.get_raw(col))
+            self._indexes[("bloom", col)] = BloomFilter.build(values)
+            built.append(f"bloom:{col}")
+        return built
+
     # -- identity ----------------------------------------------------------
     @property
     def name(self) -> str:
@@ -139,8 +203,13 @@ class ImmutableSegment:
     # -- buffers -----------------------------------------------------------
     def _buffer(self, name: str) -> np.ndarray:
         entry = self.metadata.buffers[name]
-        if len(entry) != 2:  # [offset, size, codec]: a compressed buffer
-            raise ValueError(f"buffer {name}: compressed buffers are not read")
+        if len(entry) == 3:  # [offset, size, codec]: a PTCC container
+            if name not in self._decompressed:
+                off, size, _codec = entry
+                self._decompressed[name] = np.frombuffer(
+                    decompress_buffer(self._data[off:off + size]),
+                    dtype=np.uint8)
+            return self._decompressed[name]
         off, size = entry
         return self._data[off : off + size]
 
@@ -195,16 +264,59 @@ class ImmutableSegment:
         return out
 
     def get_raw(self, column: str) -> np.ndarray:
-        """Raw fixed-width value plane of a single-value RAW column."""
+        """Every value of a single-value raw column: the fixed-width value
+        plane, or an object array of a var-byte or CLP column's values
+        (str, or bytes for BYTES), decoded once and cached."""
         if column not in self._raw:
+            m = self.column_metadata(column)
+            if m.encoding == "CLP":
+                self._raw[column] = self._clp(column).decode_all()
+                return self._raw[column]
             m = self._sv(column, "RAW")
             dtype = DataType(m.data_type)
-            if not dtype.is_fixed_width:
-                raise ValueError(f"{column}: var-width raw columns are not read")
-            self._raw[column] = np.frombuffer(
-                self._buffer(f"{column}.fwd"),
-                dtype=dtype.numpy_dtype, count=self.num_docs)
+            if dtype.is_fixed_width:
+                self._raw[column] = np.frombuffer(
+                    self._buffer(f"{column}.fwd"),
+                    dtype=dtype.numpy_dtype, count=self.num_docs)
+            else:
+                self._raw[column] = self._var_values(column, None)
         return self._raw[column]
+
+    def _var_values(self, column: str, doc_ids) -> np.ndarray:
+        """A var-byte raw column's values at `doc_ids` (all with None):
+        the value stream sliced at its u64 offsets (reference
+        VarByteChunkForwardIndexReaderV4). STRING and JSON values are
+        str, BYTES values bytes, as the JAX package's loop per row gives
+        them; an ASCII stream decodes once and is sliced as text."""
+        buf = self._buffer(f"{column}.fwd")
+        offs = np.frombuffer(self._buffer(f"{column}.voff"), dtype=np.uint64,
+                             count=self.num_docs + 1)
+        is_bytes = self.column_metadata(column).data_type == "BYTES"
+        if doc_ids is None:
+            blob = buf.tobytes()
+            starts, ends = offs[:-1].tolist(), offs[1:].tolist()
+            if is_bytes:
+                vals = [blob[a:b] for a, b in zip(starts, ends)]
+            elif blob.isascii():
+                text = blob.decode("ascii")
+                vals = [text[a:b] for a, b in zip(starts, ends)]
+            else:
+                vals = [blob[a:b].decode("utf-8")
+                        for a, b in zip(starts, ends)]
+        else:
+            idx = np.asarray(doc_ids, dtype=np.int64).ravel()
+            pieces = [buf[a:b].tobytes() for a, b in
+                      zip(offs[idx].tolist(), offs[idx + 1].tolist())]
+            vals = pieces if is_bytes else [p.decode("utf-8")
+                                            for p in pieces]
+        out = np.empty(len(vals), dtype=object)
+        out[:] = vals
+        return out
+
+    def _clp(self, column: str):
+        """A CLP column's encoded form (segment/clp.py), parsed once."""
+        return self._index(("clp", column), lambda: deserialize_clp(
+            bytes(self._buffer(f"{column}.fwd"))))
 
     def get_null_bitmap(self, column: str) -> Optional[np.ndarray]:
         """Boolean null vector, or None when the column has no nulls
@@ -311,7 +423,14 @@ class ImmutableSegment:
         package's `get_values(column)[doc_ids]`), decoding only those
         docs' values."""
         m = self.column_metadata(column)
-        if m.encoding == "RAW":
+        if m.encoding in ("RAW", "CLP") and column not in self._raw \
+                and not isinstance(doc_ids, slice):
+            # a var-width column's selected rows only
+            if m.encoding == "CLP":
+                return self._clp(column).decode_docs(doc_ids)
+            if not DataType(m.data_type).is_fixed_width:
+                return self._var_values(column, doc_ids)
+        if m.encoding in ("RAW", "CLP"):
             return self.get_raw(column)[doc_ids]
         if not m.single_value:
             raise ValueError(f"{column} is MV; use get_mv_values")
@@ -323,8 +442,8 @@ class ImmutableSegment:
         version of a row (decoded planes are cached, so O(1) after the
         first read of a column)."""
         m = self.column_metadata(column)
-        if m.encoding == "RAW":
-            return _py(self.get_raw(column)[doc_id])
+        if m.encoding in ("RAW", "CLP"):
+            return _py(self.get_values_at(column, np.asarray([doc_id]))[0])
         d = self.get_dictionary(column)
         ids = self.get_dict_ids(column)
         if m.single_value:

@@ -1,13 +1,13 @@
 """Table configuration model: the subset the segment builder, the realtime
-converter and the upsert/dedup managers read.
+converter, the server's load path and the upsert/dedup managers read.
 
 Subset of the reference's TableConfig
-(pinot-spi/.../spi/config/table/TableConfig.java:38): table type, the
-dictionary-less (raw) column list, the sorted column, the star-tree, JSON,
-text, vector and custom index declarations, the time column and the upsert
-and dedup configs, and the ingestion config (the stream, the transforms
-and the filter a realtime table consumes with). The JSON layout is the same as the full model's, so a
-config written by either reads back here.
+(pinot-spi/.../spi/config/table/TableConfig.java:38): table type, every
+index declaration of the JAX package's IndexingConfig, the time column and
+the upsert and dedup configs, and the ingestion config (the stream, the
+transforms and the filter a realtime table consumes with). The
+`tableIndexConfig` JSON is the JAX package's, key for key, so a config
+written by either reads back here with nothing dropped.
 """
 
 from __future__ import annotations
@@ -25,21 +25,42 @@ class TableType(enum.Enum):
 @dataclass
 class IndexingConfig:
     """Per-table index declarations (reference IndexingConfig.java):
-    'noDictionaryColumns', columns stored as raw fixed-width values;
-    'sortedColumn', the column a committed realtime segment is sorted on
-    (realtime/converter.py); star-tree configs, pre-aggregated tables
-    (segment/startree.py); the JSON, text and vector index columns
-    (segment/indexes.py); custom index types by column
-    (segment/index_spi.py: {"colA": {"type": "map", ...}}), which, as in the
-    full model, do not ride the JSON form."""
 
+    - 'noDictionaryColumns': columns stored raw, fixed-width values or a
+      var-byte stream with u64 offsets (STRING, BYTES, JSON);
+    - 'compressionConfigs': column -> codec of its forward buffers
+      (PASS_THROUGH, LZ4, SNAPPY, GZIP, ZSTANDARD; segment/compression.py),
+      or CLP for a raw STRING column (segment/clp.py);
+    - 'bloomFilterColumns' and 'segmentPartitionConfig' (column ->
+      {"functionName": "murmur|modulo|hashcode", "numPartitions": N}): the
+      builder writes the bloom filters and partition stamps the pruner
+      reads (engine/pruner.py), and a server builds a missing bloom filter
+      at load (segment/loader.py backfill_indexes);
+    - 'sortedColumn': the column a committed realtime segment is sorted on
+      (realtime/converter.py);
+    - star-tree configs, pre-aggregated tables (segment/startree.py); the
+      JSON, text and vector index columns (segment/indexes.py); custom
+      index types by column (segment/index_spi.py: {"colA": {"type":
+      "map", ...}}), which, as in the full model, do not ride the JSON form;
+    - 'invertedIndexColumns', 'rangeIndexColumns' and 'geoIndexConfigs'
+      are kept and round-trip, but nothing here builds them: those indexes
+      feed only the JAX package's host engine, which the port does not
+      have."""
+
+    inverted_index_columns: list[str] = field(default_factory=list)
+    range_index_columns: list[str] = field(default_factory=list)
+    bloom_filter_columns: list[str] = field(default_factory=list)
     no_dictionary_columns: list[str] = field(default_factory=list)
     sorted_column: Optional[str] = None
     star_tree_index_configs: list[dict] = field(default_factory=list)
     json_index_columns: list[str] = field(default_factory=list)
     text_index_columns: list[str] = field(default_factory=list)
     vector_index_columns: list[str] = field(default_factory=list)
+    # {"latColumn": ..., "lngColumn": ..., "resolutionDeg": 0.5}
+    geo_index_configs: list[dict] = field(default_factory=list)
+    compression_configs: dict[str, str] = field(default_factory=dict)
     custom_index_configs: dict[str, dict] = field(default_factory=dict)
+    segment_partition_config: dict[str, dict] = field(default_factory=dict)
 
 
 @dataclass
@@ -98,12 +119,20 @@ class TableConfig:
             "tableName": self.table_name,
             "tableType": self.table_type.value,
             "tableIndexConfig": {
+                "invertedIndexColumns": self.indexing.inverted_index_columns,
+                "rangeIndexColumns": self.indexing.range_index_columns,
+                "bloomFilterColumns": self.indexing.bloom_filter_columns,
                 "noDictionaryColumns": self.indexing.no_dictionary_columns,
                 "sortedColumn": self.indexing.sorted_column,
                 "starTreeIndexConfigs": self.indexing.star_tree_index_configs,
+                "compressionConfigs": self.indexing.compression_configs,
                 "jsonIndexColumns": self.indexing.json_index_columns,
                 "textIndexColumns": self.indexing.text_index_columns,
                 "vectorIndexColumns": self.indexing.vector_index_columns,
+                "geoIndexConfigs": self.indexing.geo_index_configs,
+                "segmentPartitionConfig": {
+                    "columnPartitionMap":
+                        self.indexing.segment_partition_config},
             },
             "segmentsConfig": {
                 "timeColumnName": self.validation.time_column_name,
@@ -134,12 +163,20 @@ class TableConfig:
             table_name=d["tableName"],
             table_type=TableType(d.get("tableType", "OFFLINE")),
             indexing=IndexingConfig(
+                inverted_index_columns=idx.get("invertedIndexColumns") or [],
+                range_index_columns=idx.get("rangeIndexColumns") or [],
+                bloom_filter_columns=idx.get("bloomFilterColumns") or [],
                 no_dictionary_columns=idx.get("noDictionaryColumns") or [],
                 sorted_column=idx.get("sortedColumn"),
                 star_tree_index_configs=idx.get("starTreeIndexConfigs") or [],
+                compression_configs=idx.get("compressionConfigs") or {},
                 json_index_columns=idx.get("jsonIndexColumns") or [],
                 text_index_columns=idx.get("textIndexColumns") or [],
-                vector_index_columns=idx.get("vectorIndexColumns") or []),
+                vector_index_columns=idx.get("vectorIndexColumns") or [],
+                geo_index_configs=idx.get("geoIndexConfigs") or [],
+                segment_partition_config=(idx.get("segmentPartitionConfig")
+                                          or {}).get("columnPartitionMap")
+                or {}),
             validation=SegmentsValidationConfig(
                 time_column_name=seg.get("timeColumnName")),
             upsert=UpsertConfig(

@@ -35,7 +35,9 @@ kernels A and B through its leaves, with the CPU cluster's rows; a
 realtime manager consuming a 2-partition stream feeds the card (kernel A
 over its committed family, kernel B over each consuming snapshot, rows
 equal to the CPU's) and a commit leaves no plane of the sealed segments on
-the card; and the doctor (tools/doctor.py) classifies the card `ok`.
+the card; the doctor (tools/doctor.py) classifies the card `ok`; and a
+family of compressed segments under an evolved schema runs kernels A and
+B on its decompressed planes and virtual columns with the CPU's rows.
 """
 
 from __future__ import annotations
@@ -1769,3 +1771,61 @@ def test_doctor_classifies_the_card_ok(cuda):
     assert report["classification"] == "ok", report["stderrTail"]
     assert report["device"]["capability"] == [9, 0]
     assert report["device"]["maxAbsErr"] == 0
+
+
+@pytest.mark.parametrize("batch,launches", [
+    (True, [{"limb_sums": 1, "fused_limb_sums": 0}] * 2),
+    (False, [{"limb_sums": 3, "fused_limb_sums": 0},
+             {"limb_sums": 0, "fused_limb_sums": 3}])])
+def test_compressed_schema_evolved_family_on_the_card(cuda, tmp_path, batch,
+                                                      launches):
+    """Three segments with LZ4 / SNAPPY raw planes and a GZIP dictionary
+    key, registered under a schema that adds a column: kernel A over the
+    family on their decompressed planes and virtual columns; with SET
+    segmentBatch = false kernel A a segment where a virtual column is
+    summed, kernel B a segment where only raw planes are; rows equal to
+    the CPU's."""
+    rng = np.random.default_rng(16)
+    schema = Schema.build("cz", dimensions=[("d_year", "INT"),
+                                            ("p_brand", "INT"),
+                                            ("s_region", "STRING")],
+                          metrics=[("lo_revenue", "INT"), ("lo_tax", "INT")])
+    built = Schema.build("cz", dimensions=[("d_year", "INT"),
+                                           ("p_brand", "INT"),
+                                           ("s_region", "STRING")],
+                         metrics=[("lo_revenue", "INT")])
+    cfg = TableConfig(table_name="cz", indexing=IndexingConfig(
+        no_dictionary_columns=["lo_revenue"], compression_configs={
+            "lo_revenue": "LZ4", "p_brand": "GZIP", "d_year": "SNAPPY"}))
+    regions = np.asarray(["AMERICA", "ASIA", "EUROPE"], dtype=object)
+    paths = []
+    for i in range(3):
+        n = 1 << 16
+        SegmentBuilder(built, cfg, f"cz{i}").build({
+            "d_year": rng.integers(1992, 1999, n).astype(np.int32),
+            "p_brand": rng.integers(0, 300, n).astype(np.int32),
+            "s_region": regions[rng.integers(0, 3, n)],
+            "lo_revenue": rng.integers(1, 600_000, n).astype(np.int32)},
+            tmp_path / f"cz{i}")
+        paths.append(tmp_path / f"cz{i}")
+    prefix = "" if batch else "SET segmentBatch = false; "
+    sqls = [prefix + "SELECT d_year, p_brand, SUM(lo_revenue), SUM(lo_tax) "
+            "FROM cz WHERE s_region = 'ASIA' GROUP BY d_year, p_brand "
+            "LIMIT 10000",
+            prefix + "SELECT d_year, SUM(lo_revenue), COUNT(*) FROM cz "
+            "GROUP BY d_year"]
+    rows = {}
+    for device in ("cpu", cuda):
+        qe = QueryExecutor(device=device)
+        qe.add_table(schema, [load_segment(p) for p in paths])
+        for sql, want in zip(sqls, launches):
+            before = dict(_cuda.LAUNCHES)
+            resp = qe.execute_sql(sql)
+            if device != "cpu":
+                torch.cuda.synchronize()
+                assert {k: _cuda.LAUNCHES[k] - before[k] for k in want} \
+                    == want
+            rows.setdefault(sql, []).append(sorted(map(tuple,
+                                                       resp.result_table.rows)))
+    for sql, (cpu_rows, card_rows) in rows.items():
+        assert cpu_rows == card_rows and cpu_rows, sql
