@@ -263,6 +263,27 @@ Phases, each printing one JSON line:
            or answers partial with allowPartialResults, as the JAX broker
            does), and the server that answered q2_family stopped (the
            other replica alone answers it)
+  flight_recorder
+           the flight recorder and the regression sentinel on phase
+           `cluster`'s 2 card servers (replication 1), its line printed
+           after `cluster`'s: the compile registry, family guard and AOT
+           state emptied as in a fresh process, the AOT cache on in this
+           run's directory; with PINOT_TPU_TRACE_SAMPLE = 1.0, q2_family
+           (kernel A on each server's family) and q2 (kernel B a segment)
+           through the broker, counts set to 0 just before each: rows
+           against the oracle, the trace retained as `sampled` with the
+           broker's and both servers' spans, its Chrome export checked
+           (matched B/E pairs, scatter and gather flows), each kernel call
+           against its plain version; q2_family's broker p50 over --iters
+           at sampling 0 and 1.0 in turns; the sentinel: a baseline, a
+           50 ms `device.dispatch` delay until `latency-drift` fires (at
+           most 12 rounds of 6 queries), its exemplar traces, the clean
+           rounds that clear it, the ledger persisted and restored; the
+           registry's dispatches against the responses' and each family's
+           cold ms; q2_family twice in two child processes on the card
+           over Server_0's segments, one prewarmed from this run's AOT
+           records and one not (prewarm ms, families loaded, first and
+           second query ms, aotCacheHits)
   mse_cluster
            the cluster multi-stage engine (mse/distributed.py) on phase
            `cluster`'s layout, its store behind a PropertyStoreServer: q8,
@@ -322,7 +343,8 @@ Phases, each printing one JSON line:
   total    the run's wall time, the build included
   kernels  the kernel table (the realtime, ingest and index queries'
            launches included, one row each, kernel A over a cluster server's
-           family of 2, and kernels A and B through the cluster
+           family of 2, kernels A and B head-sampled through the cluster
+           (phase flight_recorder), and kernels A and B through the cluster
            multi-stage engine's leaves): per kernel and main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
            rotated over the recorded inputs of the query's segments or
@@ -3715,6 +3737,9 @@ def phase_cluster(args, torch, qe, tmp, schema, expected, _cuda, interp,
         out["allocated_bytes_over_phase_start"] = \
             torch.cuda.memory_allocated() - mem0
         out["health"] = servers[0]._handle({"type": "status"})["device"]
+        # the flight recorder and the sentinel on these servers
+        fr = phase_flight_recorder(args, torch, cluster, tmp, schema,
+                                   expected, _cuda, mxu, fg, card)
     finally:
         _cluster_stop(cluster)
     parity = {}
@@ -3807,14 +3832,16 @@ def phase_cluster(args, torch, qe, tmp, schema, expected, _cuda, interp,
     gc.collect()
     torch.cuda.empty_cache()
     out["failures"] = failures
-    seconds = time.perf_counter() - t_phase
+    seconds = time.perf_counter() - t_phase - fr["seconds"]
     emit(dict({"phase": "cluster", "servers": CLUSTER_SERVERS,
                "replication": [1, 2], "seconds": seconds,
                "budget_s": CLUSTER_BUDGET_S,
                "note": "one process: the servers and the broker share its "
-                       "GIL, so wire times are a one-process cluster's"},
+                       "GIL, so wire times are a one-process cluster's; "
+                       "phase flight_recorder's seconds are not counted"},
               **out))
-    return {"q2_family": recorded["q2_family"][0],
+    emit(fr.pop("line"))
+    return {"flight_recorder": fr, "q2_family": recorded["q2_family"][0],
             "launches": out["queries"]["q2_family"]["launches"]["limb_sums"],
             "err": max(v for k, v in parity.items()
                        if k.startswith("limb_sums/cluster_q2_family"))}
@@ -3822,6 +3849,353 @@ def phase_cluster(args, torch, qe, tmp, schema, expected, _cuda, interp,
 
 # the phase's share of the run's 1200 s limit (reported beside `seconds`)
 CLUSTER_BUDGET_S = 60.0
+FLIGHT_RECORDER_BUDGET_S = 90.0
+# the sentinel loop: at most this many rounds of SENTINEL_BURST queries to
+# fire under the dispatch delay, and as many clean ones to clear
+SENTINEL_ROUNDS = 12
+SENTINEL_BURST = 6
+SENTINEL_DELAY_S = 0.05
+# a retention reason must not depend on this host's speed
+FR_SLOW_THRESHOLD_MS = 60_000.0
+
+
+def _chrome_checked(trace_events: dict, servers: set) -> dict:
+    """A retained trace's Chrome export, checked: matched B/E pairs on
+    every lane, every flow an s/f pair, a process per participant, and a
+    scatter flow reaching every server. Returns its counts."""
+    from collections import defaultdict
+
+    stacks, flows, procs = defaultdict(list), defaultdict(list), {}
+    for e in trace_events["traceEvents"]:
+        if e["ph"] == "M":
+            if e["name"] == "process_name":
+                procs[e["pid"]] = e["args"]["name"]
+        elif e["ph"] == "B":
+            stacks[(e["pid"], e["tid"])].append(e["name"])
+        elif e["ph"] == "E":
+            lane = stacks[(e["pid"], e["tid"])]
+            if not lane or lane.pop() != e["name"]:
+                raise AssertionError(f"chrome export: unmatched E {e}")
+        else:
+            flows[e["id"]].append(e["ph"])
+    if any(stacks.values()) or any(sorted(f) != ["f", "s"]
+                                   for f in flows.values()):
+        raise AssertionError("chrome export: unbalanced B/E or flows")
+    if set(procs.values()) != {"broker"} | servers:
+        raise AssertionError(f"chrome export: processes {procs}")
+    return {"events": len(trace_events["traceEvents"]),
+            "flows": len(flows), "processes": sorted(procs.values())}
+
+
+AOT_CHILD = r"""
+import json, sys, time
+import torch
+from pinot_tpu_torch.engine import aot_cache
+from pinot_tpu_torch.engine.compile_registry import COMPILE_REGISTRY
+from pinot_tpu_torch.engine.query_executor import QueryExecutor
+from pinot_tpu_torch.engine.reduce import BrokerReducer
+from pinot_tpu_torch.query.parser.sql import parse_sql
+from pinot_tpu_torch.segment.loader import load_segment
+from pinot_tpu_torch.spi.data_types import Schema
+from pinot_tpu_torch.spi.metrics import SERVER_METRICS
+
+device, schema = sys.argv[1], Schema.from_json(json.loads(sys.argv[2]))
+sql = sys.argv[3]
+segments = [load_segment(p) for p in sys.argv[4:]]
+sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+torch.zeros(1, device=device)
+sync()
+qe = QueryExecutor(device=device)
+t0 = time.perf_counter()
+qe.add_table(schema, segments)
+sync()
+add_ms = (time.perf_counter() - t0) * 1e3
+before = COMPILE_REGISTRY.snapshot()
+# each run split as phase `layers` splits a warm query, so the cold run
+# shows where a first query's time goes
+times, layers = [], []
+for _ in range(2):
+    t0 = time.perf_counter()
+    query = parse_sql(sql)
+    table = qe._table(query.table_name)
+    routes = qe.route_segments(query, qe.prune_segments(
+        query, qe.pinned_segments(table.segments))[0])
+    plans = qe.plan_segments(routes)
+    t1 = time.perf_counter()
+    pending = qe.dispatch_segments(query, routes, plans)
+    sync()
+    t2 = time.perf_counter()
+    inter = qe.collect_segments(routes, plans, pending)
+    t3 = time.perf_counter()
+    rows = BrokerReducer(table.schema).reduce(
+        query, qe._combine(query, inter)).rows
+    t4 = time.perf_counter()
+    times.append((t4 - t0) * 1e3)
+    layers.append(dict(zip(("parse_plan_ms", "dispatch_ms", "collect_ms",
+                            "combine_reduce_ms"),
+                           ((b - a) * 1e3 for a, b in zip(
+                               (t0, t1, t2, t3), (t1, t2, t3, t4))))))
+snap = SERVER_METRICS.snapshot()
+prewarm = snap["timers"].get("aotPrewarmMs", {})
+print(json.dumps({
+    "aot": aot_cache.enabled(), "add_table_ms": add_ms,
+    "prewarm_ms": prewarm.get("totalMs", 0.0),
+    "families_loaded": len(aot_cache.AOT_READY),
+    "families_before_first_query": before["families"],
+    "first_ms": times[0], "second_ms": times[1], "rows": len(rows),
+    "first_layers": layers[0], "second_layers": layers[1],
+    "aot_hits": snap["meters"].get("aotCacheHits", 0),
+    "aot_misses": snap["meters"].get("aotCacheMisses", 0),
+    "cold_ms": {e["fingerprint"][:12]: e["compileMsLast"]
+                for e in COMPILE_REGISTRY.snapshot()["compiles"]}}))
+"""
+
+
+def _aot_child(schema, sql, paths, aot_dir) -> dict:
+    """One AOT child process on the card: a QueryExecutor over `paths`
+    (prewarmed from `aot_dir` where given), then `sql` twice."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PINOT_TPU_AOT_CACHE_DIR", "PINOT_TPU_TRACE_SAMPLE")}
+    if aot_dir:
+        env["PINOT_TPU_AOT_CACHE_DIR"] = aot_dir
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", AOT_CHILD, DEVICE,
+         json.dumps(schema.to_json()), sql, *paths],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        raise AssertionError(f"aot child failed:\n{out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    res["process_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_flight_recorder(args, torch, cluster, tmp, schema, expected,
+                          _cuda, mxu, fg, card) -> dict:
+    """The flight recorder and the regression sentinel on phase `cluster`'s
+    2 card servers and broker (replication 1). The registry, family guard
+    and AOT state start empty, as in a fresh process, and the AOT cache
+    persists into this run's directory. 1: with PINOT_TPU_TRACE_SAMPLE =
+    1.0, q2_family (kernel A on each server's family) and q2 (kernel B a
+    segment), counts set to 0 just before each: rows against the oracle,
+    the trace retained as `sampled` with the broker's and both servers'
+    spans, its Chrome export checked, each kernel call against its plain
+    version. 2: q2_family's broker p50 over --iters, sampling at 0 and 1.0
+    in turns. 3: the sentinel on the card: a baseline, a `device.dispatch`
+    delay until `latency-drift` fires, its exemplar traces, the clean
+    rounds that clear it, the ledger persisted and restored. 4: the
+    registry's families and dispatches against the responses'. 5: q2_family
+    in two child processes on the card, one prewarmed from this run's
+    records and one not."""
+    from pinot_tpu_torch.cluster.sentinel import (SENTINEL_REPORT_PATH,
+                                                  PerfRegressionSentinel)
+    from pinot_tpu_torch.engine import aot_cache
+    from pinot_tpu_torch.engine import executor as executor_mod
+    from pinot_tpu_torch.engine.compile_registry import COMPILE_REGISTRY
+    from pinot_tpu_torch.engine.perf_ledger import (ALERTS, LEDGER_PATH,
+                                                    PERF_LEDGER, PerfLedger)
+    from pinot_tpu_torch.spi import faults
+    from pinot_tpu_torch.spi.trace import TRACE_SAMPLE_ENV
+    from pinot_tpu_torch.spi.traceexport import to_chrome_trace
+
+    t_phase = time.perf_counter()
+    store, ctl, servers, broker = cluster
+    names = {s.instance_id for s in servers}
+    aot_dir = os.path.join(tmp, "aot")
+    _set_env("PINOT_TPU_AOT_CACHE_DIR", aot_dir)
+    aot_cache.reset()
+    executor_mod._FAMILIES.clear()
+    COMPILE_REGISTRY.reset()
+    PERF_LEDGER.clear()
+    ALERTS.clear()
+    broker.query_logger.slow_threshold_ms = FR_SLOW_THRESHOLD_MS
+    out = {"card": card}
+    dispatched = [0]
+
+    def run(sql):
+        resp = broker.execute_sql(sql)
+        if resp.exceptions:
+            raise AssertionError(f"flight_recorder: {resp.exceptions}")
+        dispatched[0] += resp.num_device_dispatches
+        return resp
+
+    recs = {}
+    try:
+        # -- 1: sampled retention through both kernels ------------------
+        _set_env(TRACE_SAMPLE_ENV, "1.0")
+        retained = {}
+        for qname, kernel, want in (("q2_family", "limb_sums",
+                                     CLUSTER_SERVERS),
+                                    ("q2", "fused_limb_sums",
+                                     args.segments)):
+            _cuda.reset_launches()
+            with recording(mxu, "limb_sums") as a_calls, \
+                    recording(fg, "fused_limb_sums") as b_calls:
+                resp = run(QUERIES[qname])
+                torch.cuda.synchronize()
+            made = dict(_cuda.LAUNCHES)
+            _rows_equal(f"flight_recorder {qname}", resp, expected[qname],
+                        qname in ORDERED)
+            if made[kernel] != want or resp.trace_info is not None:
+                raise AssertionError(f"flight_recorder {qname}: {made}, "
+                                     f"trace shipped {bool(resp.trace_info)}")
+            ent = broker.trace_store.get(resp.query_id)
+            if ent is None or ent["reason"] != "sampled":
+                raise AssertionError(f"flight_recorder {qname}: retained "
+                                     f"{ent and ent['reason']}")
+            spans = ent["spans"]
+            if {s.get("server") for s in spans} - {None} != names or \
+                    not {"BROKER_SCATTER", "BROKER_REDUCE"} <= {
+                        s["operator"] for s in spans}:
+                raise AssertionError(f"flight_recorder {qname}: spans of "
+                                     f"{[s['operator'] for s in spans]}")
+            retained[qname] = dict(
+                _chrome_checked(to_chrome_trace(spans, resp.query_id),
+                                names),
+                spans=len(spans), launches=made,
+                dispatches=resp.num_device_dispatches,
+                bytes=ent["bytes"])
+            recs[qname] = a_calls if kernel == "limb_sums" else b_calls
+        out["retained"] = retained
+        parity = {}
+        for k, rec in enumerate(recs["q2_family"]):
+            parity[f"limb_sums/fr_q2_family/server{k}"] = check_equal(
+                torch, f"limb_sums flight_recorder q2_family, server {k}",
+                mxu.limb_sums(*rec), mxu.limb_sums_plain(*rec))
+        for k, rec in enumerate(recs["q2"]):
+            parity[f"fused_limb_sums/fr_q2/launch{k}"] = check_equal(
+                torch, f"fused_limb_sums flight_recorder q2, launch {k}",
+                fg.fused_limb_sums(*rec), fg.fused_limb_sums_plain(*rec))
+        out["parity"] = parity
+
+        # -- 2: what sampling costs a query -----------------------------
+        sql = QUERIES["q2_family"]
+        ts = {"0": [], "1.0": []}
+        for _ in range(args.iters):
+            for rate in ("0", "1.0"):
+                _set_env(TRACE_SAMPLE_ENV, rate)
+                t0 = time.perf_counter()
+                run(sql)
+                torch.cuda.synchronize()
+                ts[rate].append((time.perf_counter() - t0) * 1e3)
+        out["sampling"] = {
+            f"broker_p50_ms_at_{r}": float(np.median(v))
+            for r, v in ts.items()}
+        out["sampling"]["cost_ms"] = float(np.median(ts["1.0"])
+                                           - np.median(ts["0"]))
+        out["sampling"]["trace_store"] = broker.trace_store.stats()
+
+        # -- 3: the sentinel on the card --------------------------------
+        _set_env(TRACE_SAMPLE_ENV, "0")
+        PERF_LEDGER.clear()
+        ALERTS.clear()
+        for _ in range(8):
+            run(sql)
+        PERF_LEDGER.rotate_now()
+        sentinel = PerfRegressionSentinel(store, ctl, min_queries=3,
+                                          breaches=2, clears=2)
+        report = sentinel.evaluate()
+        if report["anomalies"]:
+            raise AssertionError(f"sentinel baseline: {report['anomalies']}")
+        alert, fire_rounds = None, 0
+        with faults.injected("device.dispatch", kind="delay",
+                             delay_s=SENTINEL_DELAY_S, times=None):
+            for fire_rounds in range(1, SENTINEL_ROUNDS + 1):
+                for _ in range(SENTINEL_BURST):
+                    run(sql)
+                report = sentinel.evaluate()
+                if ALERTS.active_count:
+                    alert = ALERTS.active()[0]
+                    break
+            if alert is None or alert["type"] != "latency-drift":
+                raise AssertionError(f"sentinel: no latency-drift alert "
+                                     f"after {fire_rounds} rounds ({alert})")
+            for _ in range(4):  # the exemplar claims
+                run(sql)
+        exemplars = ALERTS.get(alert["id"])["exemplarTraceIds"]
+        ent = broker.trace_store.get(exemplars[0]) if exemplars else None
+        if ent is None or alert["id"] not in ent.get("alertIds", []):
+            raise AssertionError(f"sentinel: exemplars {exemplars}")
+        # an exemplar claim forces the broker's sampling only: the
+        # servers decide by the rate (0 here), as in the JAX package
+        exemplar_chrome = _chrome_checked(
+            to_chrome_trace(ent["spans"], exemplars[0]), set())
+        clear_rounds = 0
+        for clear_rounds in range(1, SENTINEL_ROUNDS + 1):
+            for _ in range(SENTINEL_BURST):
+                run(sql)
+            sentinel.evaluate()
+            if not ALERTS.active_count:
+                break
+        rec = ALERTS.get(alert["id"])
+        if ALERTS.active_count or rec["clearReason"] != "recovered":
+            raise AssertionError(f"sentinel: never cleared ({rec})")
+        scrape = sentinel()
+        restored = PerfLedger().restore(store)
+        if store.get(LEDGER_PATH) is None or restored < 1 or \
+                store.get(SENTINEL_REPORT_PATH) is None:
+            raise AssertionError("sentinel: ledger or report not persisted")
+        out["sentinel"] = {
+            "rounds_to_fire": fire_rounds, "rounds_to_clear": clear_rounds,
+            "round_queries": SENTINEL_BURST,
+            "delay_ms": SENTINEL_DELAY_S * 1e3,
+            "alert": {k: alert[k] for k in ("id", "type", "summary")},
+            "details": alert["details"], "exemplars": len(exemplars),
+            "exemplar_chrome": exemplar_chrome,
+            "plans_restored": restored,
+            "bench_baseline": scrape["benchBaseline"]}
+
+        # -- 4: the registry against the responses ----------------------
+        snap = COMPILE_REGISTRY.snapshot()
+        if snap["totalDispatches"] != dispatched[0] or \
+                snap["totalCompiles"] != 0:
+            raise AssertionError(
+                f"registry: {snap['totalDispatches']} dispatches, the "
+                f"responses {dispatched[0]}; {snap['totalCompiles']} compiles")
+        out["registry"] = {
+            "families": snap["families"],
+            "dispatches": snap["totalDispatches"],
+            "responses_dispatches": dispatched[0],
+            "cold_ms": {f"{e['family']['mode']}/S{e['family']['batchSize']}"
+                        f"/{e['family']['fused'] or 'two-step'}":
+                        e["compileMsLast"] for e in snap["compiles"]},
+            "aot_records": aot_cache.stats()}
+    finally:
+        faults.FAULTS.reset()
+        _set_env(TRACE_SAMPLE_ENV, None)
+        _set_env("PINOT_TPU_AOT_CACHE_DIR", None)
+        PERF_LEDGER.clear()
+        ALERTS.clear()
+
+    # -- 5: AOT in two child processes on the card ----------------------
+    hosted = sorted(servers[0].segments.get("ssb_OFFLINE", {}))
+    paths = [f"{tmp}/{name}" for name in hosted]
+    children = {"without_aot": _aot_child(schema, sql, paths, None),
+                "with_aot": _aot_child(schema, sql, paths, aot_dir)}
+    if children["with_aot"]["aot_hits"] < 1 or \
+            children["with_aot"]["families_loaded"] < 1 or \
+            children["without_aot"]["aot_hits"] != 0:
+        raise AssertionError(f"aot children: {children}")
+    if children["with_aot"]["rows"] != children["without_aot"]["rows"]:
+        raise AssertionError(f"aot children rows: {children}")
+    out["aot_children"] = children
+    out["aot_children"]["segments"] = hosted
+    seconds = time.perf_counter() - t_phase
+    line = dict({"phase": "flight_recorder", "servers": len(servers),
+                 "seconds": seconds, "budget_s": FLIGHT_RECORDER_BUDGET_S,
+                 "note": "one process: the servers and the broker share its "
+                         "GIL; cold_ms is each family's first dispatch "
+                         "after a registry reset in this warm process, the "
+                         "AOT children's first_ms a cold process's"}, **out)
+    return {"seconds": seconds, "line": line,
+            "a_recs": recs["q2_family"], "b_recs": recs["q2"],
+            "a_launches": retained["q2_family"]["launches"]["limb_sums"],
+            "b_launches": retained["q2"]["launches"]["fused_limb_sums"],
+            "a_err": max(v for k, v in parity.items()
+                         if k.startswith("limb_sums/")),
+            "b_err": max(v for k, v in parity.items()
+                         if k.startswith("fused_limb_sums/"))}
 
 
 # the phase's share of the run's 1200 s limit (reported beside `seconds`)
@@ -5418,7 +5792,18 @@ def main(argv=None) -> int:
             cluster["launches"], cluster["err"],
             f"q2_family through the cluster: each of {CLUSTER_SERVERS} "
             "servers' family of its segments, one launch a server"))
-        del cluster
+        # the flight recorder's sampled runs through the cluster
+        fr = cluster["flight_recorder"]
+        kernels.append(kernel_a_row(
+            torch, mxu_groupby, _cuda, fr["a_recs"], fr["a_launches"],
+            fr["a_err"], f"flight_recorder q2_family, head-sampled through "
+            f"the cluster: each of {CLUSTER_SERVERS} servers' family of its "
+            "segments, one launch a server"))
+        kernels.append(kernel_b_row(
+            torch, fused_groupby, _cuda, fr["b_recs"], fr["b_launches"],
+            fr["b_err"], "flight_recorder q2, head-sampled through the "
+            "cluster: a segment a launch on its server"))
+        del cluster, fr
         # the cluster multi-stage engine's leaves: kernel A over each
         # server's family of 2 (mse_agg), kernel B a segment (mse_agg_solo)
         kernels.append(kernel_a_row(

@@ -14,8 +14,11 @@ raises on a torch.Tensor too: plan params are host numpy, and a device
 tensor reaching a key would cost a device-to-host copy a query. A plan
 that fingerprints nothing bypasses the cache.
 
-Digests need not equal the JAX package's (qualnames differ); stability
-across planners and sensitivity to literals and options are what hold.
+Both packages encode a type by its `__qualname__`, and the port's IR
+dataclasses have the JAX package's names and fields, so a family
+fingerprint (`family_fingerprint`) equals the JAX package's for the same
+Program and variant. For the other keys only stability across planners
+and sensitivity to literals and options are held.
 """
 
 from __future__ import annotations
@@ -163,6 +166,26 @@ def mse_plan_fingerprint(stages, query_options,
     truncates). A foreign node makes the plan uncacheable (None)."""
     return _digest(("msefp1", tuple(stages), _result_options(query_options),
                     int(parallelism)))
+
+
+def family_fingerprint(program, padded: int, fused: str = "",
+                       lut_meta: tuple = (),
+                       batch_size: int = 0) -> Optional[str]:
+    """Fingerprint of one executable FAMILY: the Program IR plus the
+    shape and variant axes a dispatch specializes on (padded bucket,
+    fused variant, LUT run metadata, batch size) and nothing that is a
+    runtime argument (param values, literals, query text). The compile
+    registry keys on it and the AOT cache persists under it
+    (engine/compile_registry.py, engine/aot_cache.py). It is telemetry,
+    not a result-cache key, so it does not count in
+    `fingerprint_computations()`, and it is computed on a family's first
+    dispatch only. The port has no mesh, so no mesh axis."""
+    try:
+        return hashlib.sha256(canonical_bytes((
+            "ffp1", canonical_bytes(program), int(padded), str(fused),
+            tuple(lut_meta), int(batch_size)))).hexdigest()
+    except UnfingerprintableError:
+        return None
 
 
 def segment_token(segment) -> Optional[tuple]:

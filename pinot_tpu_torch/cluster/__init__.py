@@ -14,13 +14,20 @@ execution path is the port's device engine on the card. Ideal state (what
 should be) vs external view (what is), with servers converging one to the
 other. The multi-stage engine runs across the servers (stage workers on
 each server's card, mse/distributed.py), and a role in another OS process
-joins through remote_store.py. Not ported yet: rebalance, REST, the query
-log, quota, periodic tasks and realtime consumption.
+joins through remote_store.py. The broker keeps the flight recorder (its
+TraceStore and QueryLogger) and feeds the perf ledger, which the
+regression sentinel (PerfRegressionSentinel) judges. Not ported yet:
+rebalance, REST, quota, periodic tasks (the sentinel is called directly)
+and realtime consumption.
 """
 
 from .broker import Broker
 from .controller import ClusterController
+from .querylog import QueryLogger
+from .sentinel import PerfRegressionSentinel
 from .server import ServerInstance
 from .store import PropertyStore
+from .tracestore import TraceStore
 
-__all__ = ["PropertyStore", "ClusterController", "ServerInstance", "Broker"]
+__all__ = ["PropertyStore", "ClusterController", "ServerInstance", "Broker",
+           "TraceStore", "QueryLogger", "PerfRegressionSentinel"]

@@ -18,10 +18,23 @@ responding servers held. A statement the single-stage grammar rejects
 (joins, subqueries, set operations) and `SET useMultistageEngine = true`
 go to the cluster multi-stage engine (mse/distributed.py
 `DistributedMseDispatcher`): plan fragments to stage workers on the
-servers, the exchange between them, the final receive here. Not ported:
-hedging (off by default in the JAX package), quota and admission control
-(on either engine), cursors, streaming, the perf ledger, the query log,
-the trace store and workload accounting.
+servers, the exchange between them, the final receive here.
+
+The flight recorder: every response passes one funnel in `execute_sql`.
+A traced response (head-sampled under PINOT_TPU_TRACE_SAMPLE, `SET trace
+= true`, EXPLAIN ANALYZE) is offered to the broker's TraceStore
+(cluster/tracestore.py), pinned when slow, partial or failed; the query
+log (cluster/querylog.py) takes a line and, past its slow threshold, a
+slow entry linking the retained trace; the perf ledger
+(engine/perf_ledger.py) records the plan's counters. A head-sampled
+response ships without its trace, and the result cache keeps a plain
+copy. When the sentinel (cluster/sentinel.py) armed exemplars for a plan
+or table, the broker claims one per query, forces its sampling and pins
+its trace under the alert. None of these hooks can fail a query.
+
+Not ported: hedging (off by default in the JAX package), quota and
+admission control (on either engine), cursors, streaming and workload
+accounting.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ from ..engine.aggregation import semantics_for
 from ..engine.combine import (combine_aggregation, combine_group_arrays,
                               combine_group_by, combine_selection)
 from ..engine.explain import analyze_table
+from ..engine.perf_ledger import ALERTS, PERF_LEDGER
 from ..engine.reduce import BrokerReducer
 from ..engine.results import (AggIntermediate, BrokerResponse, DataSchema,
                               GroupArrays, GroupByIntermediate, ResultTable,
@@ -53,12 +67,14 @@ from ..query.parser.sql import SqlParseError, parse_sql
 from ..spi import faults
 from ..spi.data_types import Schema
 from ..spi.metrics import BROKER_METRICS, BrokerMeter, BrokerTimer
-from ..spi.trace import TRACING
+from ..spi.trace import TRACING, sample_decision, trace_sample_rate
 from .breaker import CircuitBreakerTable
 from .controller import ONLINE, raw_table_name, table_name_with_type
 from .datatable import DataTableError
 from .datatable import decode as decode_datatable
+from .querylog import QueryLogger
 from .store import PropertyStore
+from .tracestore import TraceStore
 from .transport import RemoteError, RpcClient, TransportError
 
 # a query that sets no allowPartialResults fails on a lost segment
@@ -70,6 +86,12 @@ BROKER_TIMEOUT_MS = 60000.0
 SCATTER_RETRIES = 2
 # the ceiling of the exponential backoff between those rounds
 SCATTER_BACKOFF_CAP_MS = 1000.0
+
+
+def _sql_key(sql: str) -> str:
+    """The perf-ledger key of a query without a plan fingerprint."""
+    return "sql:%08x" % (zlib.crc32(sql.encode()) & 0xFFFFFFFF)
+
 
 class _StaleRoutingError(Exception):
     """A routed segment vanished mid-query; the scatter must restart on a
@@ -146,6 +168,25 @@ class Broker:
         # fingerprint + the table's lineage epoch, so a segment add, drop
         # or replace makes old entries unreachable
         self.result_cache = BrokerResultCache()
+        # flight recorder: retained traces (head-sampled + tail-captured
+        # slow/partial/failed); the query logger links its slow entries
+        # to retained trace ids
+        self.trace_store = TraceStore()
+        # supplier gauges: polled only when the metrics are snapshotted,
+        # the query path never pays for them
+        BROKER_METRICS.set_gauge("traceStoreTraces",
+                                 lambda: self.trace_store.stats()["traces"])
+        BROKER_METRICS.set_gauge("traceStoreBytes",
+                                 lambda: self.trace_store.stats()["bytes"])
+        BROKER_METRICS.set_gauge("ledgerFingerprints",
+                                 lambda: len(PERF_LEDGER))
+        BROKER_METRICS.set_gauge(
+            "exemplarsPinned",
+            lambda: self.trace_store.stats()["alertExemplars"])
+        BROKER_METRICS.set_gauge(
+            "traceStoreEvictions",
+            lambda: self.trace_store.stats()["evictions"])
+        self.query_logger = QueryLogger(trace_store=self.trace_store)
         self._server_stats: dict[str, _ServerStats] = {}
         # last successfully computed routing per table: a control-plane
         # outage degrades to serving the last external view
@@ -259,7 +300,10 @@ class Broker:
     def execute_sql(self, sql: str,
                     segments: Optional[dict] = None) -> BrokerResponse:
         """``segments``: optional {tableNameWithType: [segment, ...]}
-        restriction (an explicit searchSegments list)."""
+        restriction (an explicit searchSegments list). Every response,
+        the multi-stage ones and the failures included, passes the
+        flight recorder's funnel: trace retention, the query log, the
+        perf ledger."""
         t0 = time.perf_counter()
         try:
             query = parse_sql(sql)
@@ -280,16 +324,91 @@ class Broker:
                     True, "true", 1):
                 resp = self.execute_sql_mse(sql)
             else:
-                resp = self._execute_sql_impl(query, segments)
+                resp = self._execute_sql_impl(query, segments, sql)
         if not resp.time_used_ms:
             resp.time_used_ms = (time.perf_counter() - t0) * 1000
         # the broker-side end-to-end latency histogram
         BROKER_METRICS.update_timer(BrokerTimer.QUERY_PROCESSING_TIME_MS,
                                     resp.time_used_ms)
+        table = ""
         if query is not None:
-            BROKER_METRICS.add_table_meter(query.table_name,
-                                           BrokerMeter.QUERIES)
+            table = query.table_name
+            BROKER_METRICS.add_table_meter(table, BrokerMeter.QUERIES)
+        # retention BEFORE the query log, so a slow entry links the
+        # retained trace id
+        self._retain_trace(resp, table)
+        try:
+            self.query_logger.log(sql, resp, table=table)
+        except Exception:
+            pass  # the query log must never fail a query
+        self._record_ledger(sql, resp, table)
+        if getattr(resp, "trace_sampled", False):
+            # the client never asked for this trace: the store and the
+            # query log took their copies, the response ships plain
+            resp.trace_info = None
         return resp
+
+    def _retain_trace(self, resp: BrokerResponse, table: str) -> None:
+        """Offer every traced completion, head-sampled or asked for, to
+        the TraceStore under its query id. Tail capture PINS the traces
+        that matter most (slow, partial, failed, alert exemplars): they
+        outlive healthy samples when the byte budget evicts."""
+        if not resp.trace_info or not resp.query_id:
+            return
+        time_ms = resp.time_used_ms or 0
+        n_exc = len(resp.exceptions or [])
+        partial = resp.partial_result
+        slow = time_ms >= self.query_logger.slow_threshold_ms
+        if n_exc:
+            reason = "failed"
+        elif partial:
+            reason = "partial"
+        elif slow:
+            reason = "slow"
+        elif getattr(resp, "trace_sampled", False):
+            reason = "sampled"
+        else:
+            reason = "traced"
+        alert_id = getattr(resp, "_alert_id", "") or ""
+        try:
+            resp.trace_id = self.trace_store.offer(
+                resp.query_id, resp.trace_info, reason=reason,
+                pinned=bool(n_exc or partial or slow or alert_id),
+                table=table, time_ms=time_ms, exceptions=n_exc,
+                partial=partial, alert_id=alert_id)
+            if alert_id:
+                # the alert record links back to its pinned exemplars
+                ALERTS.note_exemplar(alert_id, resp.trace_id)
+        except Exception:
+            pass  # retention is best-effort; never fail the query for it
+
+    def _record_ledger(self, sql: str, resp: BrokerResponse,
+                       table: str) -> None:
+        """The plan's perf-ledger bump: counter arithmetic over fields the
+        response carries. The key is the plan fingerprint when the
+        result-cache path computed one, a crc of the SQL text otherwise:
+        never a fresh canonicalization walk."""
+        try:
+            key = getattr(resp, "_ledger_key", None)
+            if key is None:
+                key = _sql_key(sql)
+            crossings = bytes_shuffled = 0
+            for st in (resp.mse_stage_stats or {}).values():
+                crossings += int(st.get("host_crossings", 0) or 0)
+                bytes_shuffled += int(st.get("shuffled_bytes", 0) or 0)
+            PERF_LEDGER.record(
+                key, table=table, time_ms=resp.time_used_ms or 0.0,
+                error=bool(resp.exceptions), partial=resp.partial_result,
+                dispatches=resp.num_device_dispatches,
+                compiles=resp.num_compiles,
+                cache_outcome=resp.cache_outcome or "",
+                seg_cache_hits=resp.num_segments_cache_hit,
+                seg_cache_misses=resp.num_segments_cache_miss,
+                coalesced=resp.num_coalesced_queries,
+                host_crossings=crossings, bytes_shuffled=bytes_shuffled,
+                sql=sql)
+        except Exception:
+            pass  # the ledger must never fail a query
 
     def execute_sql_mse(self, sql: str) -> BrokerResponse:
         """Multi-stage execution across the servers: plan fragments travel
@@ -309,8 +428,8 @@ class Broker:
                 self._mse_dispatcher = DistributedMseDispatcher(self)
             return self._mse_dispatcher
 
-    def _execute_sql_impl(self, query: QueryContext,
-                          segments: Optional[dict]) -> BrokerResponse:
+    def _execute_sql_impl(self, query: QueryContext, segments: Optional[dict],
+                          sql: str) -> BrokerResponse:
         t0 = time.perf_counter()
         if getattr(query, "explain", False) == "analyze":
             # EXPLAIN ANALYZE: run the scatter for real with tracing armed
@@ -326,27 +445,50 @@ class Broker:
             except Exception as e:
                 return BrokerResponse(exceptions=[f"{type(e).__name__}: {e}"])
         ck = self._result_cache_key(query, segments)
+        ledger_key = f"fp:{str(ck[0])[:16]}" if ck is not None else None
         if ck is not None:
             cached = self.result_cache.get(ck)
             if cached is not None:
                 BROKER_METRICS.add_meter(BrokerMeter.RESULT_CACHE_HITS)
                 cached.cache_outcome = "hit"
                 cached.time_used_ms = (time.perf_counter() - t0) * 1000
+                cached._ledger_key = ledger_key
                 return cached
+        # exemplar pinning (engine/perf_ledger.py): ONE attribute read while
+        # disarmed; when the sentinel armed this plan or table, the claim
+        # forces head sampling and tags the trace with the alert
+        exemplar_alert = None
+        if PERF_LEDGER.exemplar_armed:
+            exemplar_alert = PERF_LEDGER.claim_exemplar(
+                ledger_key or _sql_key(sql), query.table_name)
         budget = _QueryBudget(self._timeout_ms(query),
                               self._partial_allowed(query))
         try:
-            resp = self._execute(query, only_segments=segments, budget=budget)
+            resp = self._execute(query, only_segments=segments, budget=budget,
+                                 force_trace=bool(exemplar_alert))
         except Exception as e:
             resp = BrokerResponse(exceptions=[f"{type(e).__name__}: {e}"],
                                   query_id=budget.query_id)
         resp.time_used_ms = (time.perf_counter() - t0) * 1000
         resp.cache_outcome = "miss" if ck is not None else "bypass"
+        if ledger_key is not None:
+            resp._ledger_key = ledger_key
+        if exemplar_alert:
+            resp._alert_id = exemplar_alert
         if ck is not None and not resp.exceptions \
                 and not resp.partial_result \
                 and resp.result_table is not None:
             BROKER_METRICS.add_meter(BrokerMeter.RESULT_CACHE_MISSES)
-            self.result_cache.put(ck, resp)
+            if getattr(resp, "trace_sampled", False) and resp.trace_info:
+                # a head-sampled query is cacheable (the client never asked
+                # for a trace), but the cached copy is plain, or the next
+                # client's hit would replay a stale trace
+                plain = copy.copy(resp)
+                plain.trace_info = None
+                plain.trace_sampled = False
+                self.result_cache.put(ck, plain)
+            else:
+                self.result_cache.put(ck, resp)
         return resp
 
     def _execute_analyze(self, query: QueryContext,
@@ -445,7 +587,8 @@ class Broker:
 
     def _execute(self, query: QueryContext,
                  only_segments: Optional[dict] = None,
-                 budget: Optional[_QueryBudget] = None) -> BrokerResponse:
+                 budget: Optional[_QueryBudget] = None,
+                 force_trace: bool = False) -> BrokerResponse:
         t_route = time.perf_counter()
         raw = raw_table_name(query.table_name)
         offline = table_name_with_type(raw, "OFFLINE")
@@ -480,14 +623,25 @@ class Broker:
 
         # the broker owns the root trace; each server ships its own span
         # list back next to the DataTable and they are merged (ids
-        # namespaced per instance) into one response trace_info
+        # namespaced per instance) into one response trace_info. Head
+        # sampling: with PINOT_TPU_TRACE_SAMPLE set, a production query
+        # whose id hashes into the rate is traced here and on every server
+        # (each strips its `:<n>` shard suffix and decides the same), with
+        # no option on the wire; analyze=True keeps the caches live, so a
+        # sampled query behaves as its unsampled twin. `force_trace` is an
+        # exemplar claim: sampled whatever the rate.
         trace = None
-        if TRACING.active_trace() is None and \
-                query.query_options.get("trace") in (True, "true", 1):
-            trace = TRACING.start_trace(
-                f"broker:{raw}",
-                analyze=query.query_options.get("analyze") in
-                (True, "true", 1))
+        sampled = False
+        if TRACING.active_trace() is None:
+            if query.query_options.get("trace") in (True, "true", 1):
+                trace = TRACING.start_trace(
+                    f"broker:{raw}",
+                    analyze=query.query_options.get("analyze") in
+                    (True, "true", 1))
+            elif force_trace or sample_decision(budget.query_id,
+                                                trace_sample_rate()):
+                sampled = True
+                trace = TRACING.start_trace(f"broker:{raw}", analyze=True)
         stats_sum = _stats_template()
         route_ms = (time.perf_counter() - t_route) * 1000
         try:
@@ -572,6 +726,9 @@ class Broker:
                 self._broadcast_cancel(budget, stats_sum)
         if trace_info is not None:
             resp.trace_info = trace_info
+        # the execute_sql funnel strips a trace the client never asked for
+        # after the trace store and the query log took their copies
+        resp.trace_sampled = sampled
         return resp
 
     def _timeout_ms(self, query: QueryContext) -> float:

@@ -27,7 +27,12 @@ asks for and the segment was written without are built at load
 (segment/loader.py backfill_indexes; reference SegmentPreProcessor), so
 adding one to a live table prunes its old segments too.
 
-Not ported yet: tiered storage (cold and lazy segments, prefetch), the
+With PINOT_TPU_TRACE_SAMPLE set, a shard whose query id the broker's
+head sampling picks is traced here too (spi/trace.py `sample_decision`),
+and its spans join the broker's retained trace.
+
+Not ported yet: tiered storage (cold and lazy segments, prefetch, and the
+AOT prewarm the JAX server runs when it prefetches a segment), the
 repair path (a segment that fails verification is quarantined: advertised
 ERROR, never routed), streaming queries and `scan_arrow`.
 """
@@ -44,6 +49,7 @@ from typing import Optional
 import torch
 
 from ..cache.partial import GLOBAL_PARTIAL_CACHE
+from ..engine.compile_registry import COMPILE_REGISTRY
 from ..engine.dim_tables import alias_dimension_table
 from ..engine.explain import explain_plan
 from ..engine.query_executor import QueryExecutor
@@ -53,7 +59,7 @@ from ..spi import faults
 from ..spi.data_types import Schema
 from ..spi.metrics import SERVER_METRICS, ServerGauge, ServerMeter
 from ..spi.table_config import TableConfig
-from ..spi.trace import TRACING
+from ..spi.trace import TRACING, sample_decision, trace_sample_rate
 from .controller import ERROR, ONLINE, raw_table_name
 from .datatable import encode
 from .store import PropertyStore, StoreError
@@ -115,10 +121,17 @@ class ServerInstance:
         self._lock = threading.RLock()
         self._rpc = RpcServer(self._handle)
         # supplier gauges, polled only at scrape time: this server's device
-        # cache bytes, and each card's allocated bytes
+        # cache bytes, each card's allocated bytes, and the process's
+        # executable families with their summed cold cost (the compile
+        # registry: the dispatch path never pays for these)
         cache = self.executor.executor.cache
-        self._gauges = {ServerGauge.HBM_BYTES_USED: cache.bytes_used,
-                        ServerGauge.HBM_EVICTIONS: lambda: cache.evictions}
+        self._gauges = {
+            ServerGauge.HBM_BYTES_USED: cache.bytes_used,
+            ServerGauge.HBM_EVICTIONS: lambda: cache.evictions,
+            ServerGauge.COMPILE_FAMILIES:
+                lambda: COMPILE_REGISTRY.totals()["families"],
+            ServerGauge.COMPILE_MS_TOTAL:
+                lambda: COMPILE_REGISTRY.totals()["compileMs"]}
         if self.device.type == "cuda":
             for i in range(torch.cuda.device_count()):
                 self._gauges[f"hbmBytesUsedDevice.{i}"] = \
@@ -463,13 +476,23 @@ class ServerInstance:
         # covers execute_segments and its dispatches; the span list rides
         # back next to the DataTable for the broker to merge
         trace = None
-        if TRACING.active_trace() is None and \
-                query.query_options.get("trace") in (True, "true", 1):
-            # the analyze marker keeps cache tiers live under this trace
-            trace = TRACING.start_trace(
-                f"server:{self.instance_id}",
-                analyze=query.query_options.get("analyze") in
-                (True, "true", 1))
+        if TRACING.active_trace() is None:
+            if query.query_options.get("trace") in (True, "true", 1):
+                # the analyze marker keeps cache tiers live under this trace
+                trace = TRACING.start_trace(
+                    f"server:{self.instance_id}",
+                    analyze=query.query_options.get("analyze") in
+                    (True, "true", 1))
+            elif query_id:
+                # flight-recorder head sampling: hash the broker's query id
+                # (a shard carries `<query_id>:<n>`), so every shard makes
+                # the broker's own decision with no option on the wire;
+                # analyze=True keeps the caches live, so a sampled query
+                # behaves as its unsampled twin
+                root_qid = str(query_id).split(":", 1)[0]
+                if sample_decision(root_qid, trace_sample_rate()):
+                    trace = TRACING.start_trace(
+                        f"server:{self.instance_id}", analyze=True)
         t_exec = time.perf_counter()
         try:
             combined, stats = self.scheduler.submit(

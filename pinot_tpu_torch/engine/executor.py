@@ -21,6 +21,15 @@ launches, waited for only while traced (on the CPU, where the plain
 versions run synchronously, the host clock). Eager PyTorch compiles no
 program, so compileMs is 0. Tracing off, a dispatch pays one thread-local
 read: no span, no event, no synchronize.
+
+Every dispatch names its executable family: (program, padded bucket,
+fused variant, LUT runs) for a segment, ("batch", program, padded bucket,
+packing, the stacked planes' dtypes and shapes, members) for a family.
+A family's first dispatch in the process registers it with the compile
+registry (engine/compile_registry.py), its host wall time as the family's
+cold cost, and, with the AOT cache on (engine/aot_cache.py), persists
+the family's record; every later one is a dict lookup and counter bumps.
+A family the AOT prewarm installed counts `aotCacheHits`.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from ..cache.keys import family_fingerprint
 from ..ops import fused_groupby
 from ..ops.kernels import (PackedOuts, pack_outputs, run_program,
                            run_program_batch, unpack_outputs)
@@ -42,7 +52,10 @@ from ..segment.device_cache import (DeviceSegmentCache, clear_transfer_stats,
 from ..segment.loader import ImmutableSegment
 from ..spi import faults
 from ..spi.data_types import DataType
+from ..spi.metrics import SERVER_METRICS, ServerMeter
 from ..spi.trace import TRACING
+from . import aot_cache
+from .compile_registry import COMPILE_REGISTRY, describe_family
 from .plan import SegmentPlan, SegmentPlanner
 from .results import (AggIntermediate, GroupArrays, GroupByIntermediate,
                       SelectionIntermediate)
@@ -66,6 +79,80 @@ def dispatch_counters() -> int:
 def _count_dispatch() -> None:
     if hasattr(_TLS, "dispatches"):
         _TLS.dispatches += 1
+
+
+class _FamilyGuard:
+    """The executable families this process has dispatched, by family key:
+    `note` says whether a key is new. Bounded like the registry: past its
+    size the set starts over, and the families dispatch as first ones
+    again."""
+
+    def __init__(self, limit: int = COMPILE_REGISTRY.max_entries):
+        self.limit = limit
+        self._lock = threading.Lock()
+        self._seen: set = set()
+
+    def note(self, key) -> bool:
+        with self._lock:
+            if key in self._seen:
+                return False
+            if len(self._seen) >= self.limit:
+                self._seen.clear()
+            self._seen.add(key)
+            return True
+
+    def forget(self, key) -> None:
+        with self._lock:
+            self._seen.discard(key)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._seen.clear()
+
+
+_FAMILIES = _FamilyGuard()
+
+
+def _run_family(gkey, family: tuple, device: torch.device, launch):
+    """`launch()` as a dispatch of the family `gkey`; `family` is its
+    (program, padded, fused, lut_meta, batch_size) for describe_family.
+    A warm dispatch bumps the registry's counters; the first one
+    fingerprints and registers the family, times `launch` on the host
+    clock (no sync) as its cold cost, and hands the kernel calls it
+    recorded to the AOT cache when that is on."""
+    if aot_cache.AOT_READY and gkey in aot_cache.AOT_READY:
+        SERVER_METRICS.add_meter(ServerMeter.AOT_CACHE_HITS)
+    if not _FAMILIES.note(gkey):
+        out = launch()
+        COMPILE_REGISTRY.note_dispatch(gkey)
+        return out
+    program, padded, fused, lut_meta, batch_size = family
+    fp = family_fingerprint(program, padded, fused, lut_meta, batch_size)
+    described = describe_family(program, padded, fused, lut_meta, batch_size)
+    COMPILE_REGISTRY.note_first_dispatch(gkey, fp, described)
+    calls = aot_cache.start_recording()
+    t0 = time.perf_counter()
+    try:
+        out = launch()
+    except BaseException:
+        _FAMILIES.forget(gkey)
+        raise
+    finally:
+        aot_cache.stop_recording(calls)
+    cold_ms = round((time.perf_counter() - t0) * 1000, 3)
+    COMPILE_REGISTRY.note_cold_cost(gkey, cold_ms)
+    if calls is not None and fp is not None:
+        aot_cache.on_first_dispatch(gkey, fp, cold_ms, described, calls,
+                                    device)
+    return out
+
+
+def _fused_label(device: torch.device, fused) -> str:
+    """The fused kernel's form in a family key and a span: its CUDA build,
+    or its plain version on the CPU; "" off the fused path."""
+    if not fused:
+        return ""
+    return "cuda" if device.type == "cuda" else "plain"
 
 
 class _DeviceTimer:
@@ -118,9 +205,7 @@ def _span_plan(span, plan, view, device: torch.device, fused=False) -> None:
     span.set_attribute("padded", view.padded)
     span.set_attribute("device", device.type)
     if fused:
-        # the fused kernel: its CUDA build, or its plain version on the CPU
-        span.set_attribute("fused", "cuda" if device.type == "cuda"
-                           else "plain")
+        span.set_attribute("fused", _fused_label(device, fused))
 
 
 class BatchFamilyMismatch(Exception):
@@ -285,9 +370,14 @@ class SegmentExecutor:
         if span is not None:
             _span_plan(span, plan, view, self.device, fused)
             timer = _DeviceTimer(self.device)
-        outs = run_program(plan.program, arrays, params, segment.num_docs,
-                           view.padded, packed=packed, fused=fused,
-                           fused_lut_meta=lut_meta, device=view.device)
+        label = _fused_label(self.device, fused)
+        outs = _run_family(
+            (plan.program, view.padded, label, lut_meta),
+            (plan.program, view.padded, label, lut_meta, 0), self.device,
+            lambda: run_program(plan.program, arrays, params,
+                                segment.num_docs, view.padded, packed=packed,
+                                fused=fused, fused_lut_meta=lut_meta,
+                                device=view.device))
         if timer is not None:
             timer.stop(span)
         return pack_outputs(outs)
@@ -314,8 +404,12 @@ class SegmentExecutor:
         if span is not None:
             _span_plan(span, plan, view, self.device)
             timer = _DeviceTimer(self.device)
-        outs = run_program(plan.program, arrays, params, segment.num_docs,
-                           view.padded, packed=packed, device=view.device)
+        outs = _run_family(
+            (plan.program, view.padded, "", ()),
+            (plan.program, view.padded, "", (), 0), self.device,
+            lambda: run_program(plan.program, arrays, params,
+                                segment.num_docs, view.padded, packed=packed,
+                                device=view.device))
         if timer is not None:
             timer.stop(span)
         return outs, view
@@ -404,9 +498,14 @@ class SegmentExecutor:
         if span is not None:
             _span_plan(span, plans[0], views[0], self.device)
             timer = _DeviceTimer(self.device)
-        outs = run_program_batch(plans[0].program, arrays, params_b,
-                                 num_docs, views[0].padded, packed=packed,
-                                 device=self.device)
+        program, padded = plans[0].program, views[0].padded
+        asig = tuple((str(a.dtype), tuple(a.shape)) for a in arrays)
+        outs = _run_family(
+            ("batch", program, padded, packed, asig, len(plans)),
+            (program, padded, "", (), len(plans)), self.device,
+            lambda: run_program_batch(program, arrays, params_b, num_docs,
+                                      padded, packed=packed,
+                                      device=self.device))
         if timer is not None:
             timer.stop(span)
         return outs, views

@@ -48,6 +48,11 @@ the first holds the family open for the others, launches once over all
 their plans and fetches once; each query decodes its own rows. Traced
 queries, consuming segments' families and `SET coalesce = false` never
 join.
+
+With PINOT_TPU_AOT_CACHE_DIR set, `add_table` prewarms the table's
+persisted families on the executor's device (engine/aot_cache.py), and
+each query stamps its table so a family's first dispatch persists under
+it.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from ..segment.startree import StarTreeRewrite, remap_states, try_rewrite
 from ..spi.data_types import Schema
 from ..spi.metrics import SERVER_METRICS, ServerMeter, ServerTimer
 from ..spi.trace import TRACING, ServerQueryPhase
+from . import aot_cache
 from .aggregation import (MultistageRefusal, UnsupportedQueryError,
                           semantics_for)
 from .coalesce import (QueryCoalescer, coalesce_enabled, coalesce_stats,
@@ -217,6 +223,10 @@ class QueryExecutor:
             if hasattr(seg, "apply_schema"):
                 seg.apply_schema(schema)
         self.tables[name] = Table(name, schema, segments)
+        # cold starts without the one-time costs: replay and install the
+        # table's best persisted families, off the serving path
+        if aot_cache.enabled():
+            aot_cache.prewarm_table(name, device=self.device)
 
     def add_dimension_table(self, schema: Schema, segments: list,
                             name: Optional[str] = None) -> None:
@@ -439,6 +449,8 @@ class QueryExecutor:
         the query runs on the calling thread."""
         query = p.query
         reset_dispatch_counters()
+        # the table a family's first dispatch persists under (AOT cache)
+        aot_cache.set_current_table(query.table_name)
         reset_coalesce_stats()
         pending = self.dispatch_segments(query, p.routes, p.plans, p.check)
         inters = self.collect_segments(p.routes, p.plans, pending)

@@ -19,10 +19,11 @@ span as parent, so the leaves' spans nest under their stage.
 
 The port's copy of pinot_tpu/mse/runtime.py with its server meters
 (MSE_DEVICE_JOINS, MSE_FUSED_STAGES, MSE_HOST_CROSSINGS,
-MSE_DEVICE_JOIN_FALLBACKS) and without the perf-ledger events (they wait
-for engine/perf_ledger.py), and without the reference's recovery from a
-device failure: an error in a fused stage fails the query (only the
-deterministic gates of run_fused send a stage to the host path).
+MSE_DEVICE_JOIN_FALLBACKS) and the perf ledger's `device-join-host` event
+(engine/perf_ledger.py, read by the sentinel's fallback-surge rule), and
+without the reference's recovery from a device failure: an error in a
+fused stage fails the query (only the deterministic gates of run_fused
+send a stage to the host path).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..engine.aggregation import UnsupportedQueryError
+from ..engine.perf_ledger import PERF_LEDGER
 from ..ops import kernels
 from ..query.context import QueryContext
 from ..query.converter import FilterConversionError, filter_from_expression
@@ -438,6 +440,7 @@ class StageRunner:
             # an eligible stage whose deterministic gate failed takes the
             # host path (a stage below the size threshold counts nothing)
             SERVER_METRICS.add_meter(ServerMeter.MSE_DEVICE_JOIN_FALLBACKS)
+            PERF_LEDGER.note_event("device-join-host")
         # host path: same hash routing the children would have used,
         # then the exact host join+aggregate operators per partition. An
         # absorbed chain re-materializes through the host joiner itself —

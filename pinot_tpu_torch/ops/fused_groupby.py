@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from . import _cuda, geometry, mxu_groupby
-from ..engine import ir
+from ..engine import aot_cache, ir
 
 _I32_MIN = -(1 << 31)
 _I32_MAX = (1 << 31) - 1
@@ -373,6 +373,12 @@ def fused_limb_sums(fp: FusedPlan, planes_in, scalars: torch.Tensor,
                 f"{t.device}; want (n={n},) uint8/uint16/int32 on {device}")
     if scalars.dtype != torch.int32 or scalars.dim() != 1:
         raise TypeError("fused_limb_sums: scalars must be a 1-D int32 tensor")
+    if aot_cache.RECORDING[0]:
+        aot_cache.note_kernel_call({
+            "kernel": "fused_limb_sums", "plan": fp,
+            "slotTypes": [str(t.dtype).removeprefix("torch.")
+                          for t in planes_in],
+            "planes": len(fp.planes), "groups": num_segments, "rows": n})
     if device.type == "cpu":
         return fused_limb_sums_plain(fp, planes_in, scalars, num_segments, n)
     if device.type != "cuda":

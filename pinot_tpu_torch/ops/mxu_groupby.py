@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from . import _cuda, geometry
+from ..engine import aot_cache
 
 LANES = 128
 # the same domain as the TPU kernel, so planner decisions match
@@ -66,6 +67,11 @@ def limb_sums(planes: torch.Tensor, gid: torch.Tensor,
                          f"match planes {tuple(planes.shape)}")
     if planes.device != gid.device:
         raise ValueError("limb_sums: planes and gid on different devices")
+    if aot_cache.RECORDING[0]:
+        aot_cache.note_kernel_call({"kernel": "limb_sums",
+                                    "segments": segments,
+                                    "planes": num_planes,
+                                    "groups": num_segments, "rows": n})
     if gid.device.type == "cpu":
         out = limb_sums_plain(planes, gid, num_segments)
     elif gid.device.type != "cuda":

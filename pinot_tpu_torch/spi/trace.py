@@ -14,13 +14,19 @@ device-phase detail (deviceExecMs, transferBytes, compileMs).
 
 With tracing off, a call site pays one thread-local read and allocates no
 span (`span_allocations` counts every Span made, for the guard tests).
+
+Head sampling (the flight recorder): with PINOT_TPU_TRACE_SAMPLE set, the
+broker and every server trace the same production queries, each deciding
+alone from a hash of the broker's query id (`sample_decision`).
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import time
+import zlib
 from contextlib import contextmanager
 from typing import Any, Optional
 
@@ -44,6 +50,46 @@ _SPAN_ALLOCS = [0]
 
 def span_allocations() -> int:
     return _SPAN_ALLOCS[0]
+
+
+# PINOT_TPU_TRACE_SAMPLE in [0, 1] arms tracing of a share of production
+# queries (no SET trace, no EXPLAIN ANALYZE). The decision is a hash of the
+# query id, not a coin flip: the broker stamps one id a query and every
+# scatter shard carries `<queryId>:<n>`, so the broker and the servers,
+# each reading only its own environment, trace exactly the same queries
+# and the merged trace is whole. The variable is read only where a trace
+# could start (a broker or server entry), never per span.
+TRACE_SAMPLE_ENV = "PINOT_TPU_TRACE_SAMPLE"
+
+# crc32(queryId) % 10000 < rate * 10000: a 0.01% granularity, the same in
+# every process and across restarts
+_SAMPLE_SPACE = 10000
+
+
+def trace_sample_rate() -> float:
+    """The head-sampling rate, read per query (not cached) so a live
+    process can be re-armed through the environment; clamped to [0, 1],
+    0 when unset or not a number."""
+    raw = os.environ.get(TRACE_SAMPLE_ENV)
+    if not raw:
+        return 0.0
+    try:
+        return min(1.0, max(0.0, float(raw)))
+    except ValueError:
+        return 0.0
+
+
+def sample_decision(query_id: str, rate: float) -> bool:
+    """Whether the query `query_id` is traced at `rate`: the same id and
+    rate give the same answer in every process. The caller strips a shard
+    id (`<queryId>:<n>`) to its query id, so every shard agrees with the
+    broker."""
+    if rate <= 0.0:
+        return False
+    if rate >= 1.0:
+        return True
+    return zlib.crc32(query_id.encode()) % _SAMPLE_SPACE \
+        < int(rate * _SAMPLE_SPACE)
 
 
 class Span:

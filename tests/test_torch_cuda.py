@@ -37,12 +37,17 @@ over its committed family, kernel B over each consuming snapshot, rows
 equal to the CPU's) and a commit leaves no plane of the sealed segments on
 the card; the doctor (tools/doctor.py) classifies the card `ok`; and a
 family of compressed segments under an evolved schema runs kernels A and
-B on its decompressed planes and virtual columns with the CPU's rows.
+B on its decompressed planes and virtual columns with the CPU's rows. With
+head sampling on, a 2-server card cluster retains q2_family with both
+servers' spans and the compile registry counts one dispatch per launch of
+kernel A; the AOT prewarm of a card executor's persisted families launches
+kernels A and B once each, element-equal to their plain versions.
 """
 
 from __future__ import annotations
 
 import gc
+import os
 
 import numpy as np
 import pytest
@@ -1829,3 +1834,95 @@ def test_compressed_schema_evolved_family_on_the_card(cuda, tmp_path, batch,
                                                        resp.result_table.rows)))
     for sql, (cpu_rows, card_rows) in rows.items():
         assert cpu_rows == card_rows and cpu_rows, sql
+
+
+# -- the flight recorder and the AOT family cache on the card -----------------
+
+_FR_FAMILY = ("SELECT d_year, p_brand, SUM(lo_revenue) FROM ssb "
+              "WHERE s_region = 'ASIA' GROUP BY d_year, p_brand LIMIT 10000")
+_FR_SOLO = "SET segmentBatch = false; " + _FR_FAMILY
+
+
+def _fresh_families():
+    from pinot_tpu_torch.engine import aot_cache, executor
+    from pinot_tpu_torch.engine.compile_registry import COMPILE_REGISTRY
+
+    aot_cache.reset()
+    executor._FAMILIES.clear()
+    COMPILE_REGISTRY.reset()
+
+
+def test_sampled_family_query_on_the_card_retains_both_servers(
+        cuda, cluster_segments, monkeypatch):
+    """Head sampling on a 2-server card cluster: q2_family (kernel A on
+    each server's family) is retained with the broker's and both servers'
+    spans, and the registry counts one dispatch per launch of kernel A."""
+    from pinot_tpu_torch.engine.compile_registry import COMPILE_REGISTRY
+    from pinot_tpu_torch.spi.traceexport import to_chrome_trace
+
+    monkeypatch.setenv("PINOT_TPU_TRACE_SAMPLE", "1.0")
+    schema, paths = cluster_segments
+    servers, broker = _cluster(schema, paths, cuda)
+    broker.query_logger.slow_threshold_ms = 60_000.0
+    try:
+        _fresh_families()
+        _cuda.reset_launches()
+        resp = broker.execute_sql(_FR_FAMILY)
+        torch.cuda.synchronize()
+        assert not resp.exceptions and resp.trace_info is None
+        ent = broker.trace_store.get(resp.query_id)
+        assert ent["reason"] == "sampled"
+        assert {s.get("server") for s in ent["spans"]} >= {"Server_0",
+                                                           "Server_1"}
+        assert to_chrome_trace(ent["spans"], resp.query_id)["traceEvents"]
+        snap = COMPILE_REGISTRY.snapshot()
+        assert snap["totalDispatches"] == resp.num_device_dispatches \
+            == _cuda.LAUNCHES["limb_sums"] == 2
+        assert snap["totalCompiles"] == 0
+        assert all(e["compileMsLast"] > 0 for e in snap["compiles"])
+    finally:
+        for s in servers:
+            s.stop()
+        broker.close()
+
+
+def test_prewarm_on_the_card_launches_both_kernels_once(
+        cuda, cluster_segments, tmp_path, monkeypatch):
+    """A card executor persists q2_family's family (kernel A) and q2's
+    (kernel B, one family for the four equal segments); after a restart
+    the prewarm launches each kernel once on the card, each launch
+    element-equal to its plain version on the same inputs, and the next
+    queries count aotCacheHits."""
+    import pickle
+
+    from pinot_tpu_torch.engine import aot_cache
+    from pinot_tpu_torch.spi.metrics import SERVER_METRICS
+
+    monkeypatch.setenv("PINOT_TPU_AOT_CACHE_DIR", str(tmp_path / "aot"))
+    schema, paths = cluster_segments
+    _fresh_families()
+    qe = QueryExecutor(device=cuda)
+    qe.add_table(schema, [load_segment(p) for p in paths])
+    rows = {sql: qe.execute_sql(sql).result_table.rows
+            for sql in (_FR_FAMILY, _FR_SOLO)}
+    torch.cuda.synchronize()
+    _fresh_families()
+    _cuda.reset_launches()
+    got = aot_cache.prewarm_table("ssb", device=cuda)
+    assert got["loaded"] == 2 and got["refused"] == 0
+    assert dict(_cuda.LAUNCHES) == {"limb_sums": 1, "fused_limb_sums": 1}
+    plain = {"limb_sums": mxu_groupby.limb_sums_plain,
+             "fused_limb_sums": fused_groupby.fused_limb_sums_plain}
+    for name in sorted(os.listdir(tmp_path / "aot")):
+        if not name.endswith(".aot"):
+            continue
+        blob = pickle.loads((tmp_path / "aot" / name).read_bytes())
+        assert blob["envTag"] == aot_cache.env_tag(cuda)
+        launches = pickle.loads(blob["payload"])["launches"]
+        for fn, args, out in aot_cache.replay(launches, cuda):
+            assert torch.equal(out, plain[fn](*args)), fn
+    hits = SERVER_METRICS.snapshot()["meters"].get("aotCacheHits", 0)
+    for sql, want in rows.items():
+        assert qe.execute_sql(sql).result_table.rows == want
+    assert SERVER_METRICS.snapshot()["meters"]["aotCacheHits"] == hits + 5
+    _fresh_families()

@@ -25,12 +25,14 @@ import numpy as np
 import pytest
 
 import pinot_tpu.cluster as jcl
+from pinot_tpu.engine import perf_ledger as _jax_perf_ledger
 from pinot_tpu.segment.builder import SegmentBuilder as JaxBuilder
 from pinot_tpu.segment.loader import load_segment as jax_load
 from pinot_tpu.spi import stream as jax_stream
 from pinot_tpu.spi import table_config as jax_tc
 from pinot_tpu.spi.data_types import Schema as JaxSchema
 from pinot_tpu_torch import cluster as pcl
+from pinot_tpu_torch.engine import perf_ledger as _port_perf_ledger
 from pinot_tpu_torch.segment.builder import SegmentBuilder
 from pinot_tpu_torch.segment.loader import load_segment
 from pinot_tpu_torch.spi import stream
@@ -54,6 +56,18 @@ EVERY_FIELD = dict(
     segment_partition_config={
         "user": {"functionName": "murmur", "numPartitions": 4}})
 COUNT_SQL = "SELECT COUNT(*), SUM(clicks) FROM clicks WHERE site = '{}'"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_ledger_left_behind():
+    """Both packages' brokers record every query, failures included, in
+    their process-wide perf ledgers: leave the ledgers and alert books
+    empty, so a later module's sentinel does not judge this module's
+    queries (an SLO burn it fires arms exemplars that outlive it)."""
+    yield
+    for mod in (_jax_perf_ledger, _port_perf_ledger):
+        mod.PERF_LEDGER.clear()
+        mod.ALERTS.clear()
 
 
 @pytest.fixture(autouse=True)

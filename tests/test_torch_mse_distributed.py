@@ -43,6 +43,7 @@ import torch
 
 import pinot_tpu.cluster as jcl
 import pinot_tpu.mse.distributed as jdist
+from pinot_tpu.engine import perf_ledger as _jax_perf_ledger
 from pinot_tpu.engine.query_executor import QueryExecutor as JaxQueryExecutor
 from pinot_tpu.segment.builder import SegmentBuilder as JaxSegmentBuilder
 from pinot_tpu.segment.format import partition_push_metadata
@@ -55,6 +56,7 @@ from pinot_tpu.spi.table_config import TableConfig as JaxTableConfig
 from pinot_tpu_torch import cluster as pcl
 from pinot_tpu_torch.cluster.remote_store import (PropertyStoreServer,
                                                   serve_server_process)
+from pinot_tpu_torch.engine import perf_ledger as _port_perf_ledger
 from pinot_tpu_torch.engine.query_executor import QueryExecutor
 from pinot_tpu_torch.mse import device_join
 from pinot_tpu_torch.mse import distributed as pdist
@@ -111,6 +113,18 @@ STATEMENTS = {
                     "ON f.k = d.k WHERE f.v < 500 GROUP BY d.w",
 }
 ORDERED = ("join", "mse_agg")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_ledger_left_behind():
+    """Both packages' brokers record every query, failures included, in
+    their process-wide perf ledgers: leave the ledgers and alert books
+    empty, so a later module's sentinel does not judge this module's
+    queries (an SLO burn it fires arms exemplars that outlive it)."""
+    yield
+    for mod in (_jax_perf_ledger, _port_perf_ledger):
+        mod.PERF_LEDGER.clear()
+        mod.ALERTS.clear()
 
 
 @pytest.fixture(autouse=True)
