@@ -302,6 +302,24 @@ Phases, each printing one JSON line:
            the card joining through RemoteStore, and q8 over `ssb_l` (an
            in-process server) JOIN `ssb_r` (the child); a crashed server:
            q8 fails within its timeoutMs, every mailbox store emptied
+  admission_tiers
+           the broker's admission layer and the servers' tiered storage on
+           clusters of their own over `ssb`: 16 closed-loop clients against
+           a gate of 2 in flight and 2 queued (each answer the oracle's or a
+           rejection, the queriesRejected meter, the in-flight gauge's peak,
+           admitted p50 / p99, the queue wait, the gate's cost an admit); a
+           QPS quota of 5 under a burst of 20 (q2_family, q8 through the
+           cluster MSE); sel_limit through a cursor in pages of 1000; a
+           LIMIT 100 selection streamed and stopped early; q2_family with
+           each primary RPC delayed 250 ms, unhedged and hedged at 20 ms
+           (p50 / p99, rows bit-identical, hedges, wins, the losers'
+           cancels); then tarred segments on servers whose tier holds one
+           of their two: the cold first q2_family (coldLoadMs), an eviction
+           pass (the card's bytes freed) and the fetch again, a corrupt
+           cold fetch quarantined and repaired, a StoragePrefetcher nudge
+           fed by the broker's beacon (prefetch hits, the AOT prewarm), q2
+           with kernel B a warmed segment, mse_agg's leaves warming a cold
+           segment, and the disk against the budget at every step
   doctor   `python -m pinot_tpu_torch.tools.doctor`'s probe (a supervised
            child: the card, the kernel build, kernel A against its plain
            version) must classify `ok`
@@ -344,8 +362,10 @@ Phases, each printing one JSON line:
   kernels  the kernel table (the realtime, ingest and index queries'
            launches included, one row each, kernel A over a cluster server's
            family of 2, kernels A and B head-sampled through the cluster
-           (phase flight_recorder), and kernels A and B through the cluster
-           multi-stage engine's leaves): per kernel and main-path shape, the kernel's
+           (phase flight_recorder), kernels A and B through the cluster
+           multi-stage engine's leaves, and kernels A and B through phase
+           admission_tiers' tiered and hedged paths): per kernel and
+           main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
            rotated over the recorded inputs of the query's segments or
            families and, where those are small, fresh copies of them, so
@@ -378,7 +398,7 @@ import sys
 import tempfile
 import threading
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -4525,6 +4545,680 @@ def phase_mse_cluster(args, torch, tmp, schema, expected, _cuda, mxu, fg,
                          if k.startswith("fused_limb_sums/"))}
 
 
+# phase `admission_tiers`: the broker's admission layer and the servers'
+# tiered storage on the card
+ADMISSION_TIERS_BUDGET_S = 60.0
+ADMISSION_CLIENTS = 16
+ADMISSION_ROUNDS = 4  # queries a closed-loop client sends
+ADMISSION_MAX_INFLIGHT = 2
+ADMISSION_MAX_QUEUED = 2
+GATE_ADMITS = 20_000  # admit() calls timed alone for the gate's cost
+QUOTA_QPS = 5
+QUOTA_BURST = 20
+CURSOR_PAGE = 1000
+# sel_limit at ten pages of CURSOR_PAGE rows
+SEL_LIMIT_10K = QUERIES["sel_limit"].replace("LIMIT 1000", "LIMIT 10000")
+STREAM_SQL = QUERIES["sel_limit"].replace("LIMIT 1000", "LIMIT 100")
+HEDGE_DELAY_S = 0.25
+HEDGE_MS = 20.0
+HEDGE_ITERS = 10
+# each tiered server's budget: its smallest segment directory times this,
+# so converge keeps one of its two segments and demotes the other to cold
+TIER_BUDGET_SEGMENTS = 1.5
+TIER_WAIT_S = 120.0  # the longest a repair or a prefetch warm may take
+
+
+def _wait_for(predicate, timeout_s: float, what: str) -> float:
+    """Wait for `predicate` (bounded); returns the seconds it took."""
+    t0 = time.monotonic()
+    while not predicate():
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"admission_tiers: timed out waiting for "
+                                 f"{what}")
+        time.sleep(0.01)
+    return time.monotonic() - t0
+
+
+def _tar_segment(tmp, name) -> str:
+    """A segment directory as a tarball beside it (the deep store's form),
+    gzip at level 0 (stored blocks: no compression work), copied in 16 MiB
+    chunks so the thread holds the GIL for little of it."""
+    import tarfile
+
+    tar = f"{tmp}/{name}.tar.gz"
+    with tarfile.open(tar, "w:gz", compresslevel=0) as tf:
+        tf.copybufsize = 16 << 20
+        tf.add(f"{tmp}/{name}", arcname=name)
+    return tar
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def phase_admission_tiers(args, torch, tmp, schema, expected, _cuda, mxu, fg,
+                          card) -> dict:
+    """The broker's admission layer (cluster/quota.py, cluster/workload.py)
+    and the servers' tiered storage (storage/) on the card, on clusters of
+    their own over phase `data`'s `ssb` directories (4 x 2^23 rows).
+
+    Replication 2, plain directories: 16 closed-loop clients send
+    q2_family to a broker whose gate admits 2 and queues 2 (every answer
+    the oracle's rows or a rejection, the queriesRejected meter equal to
+    the rejections, the in-flight gauge never above 2; admitted p50 / p99
+    and the queue wait; the gate's own cost per admit); a QPS quota of 5
+    under a burst of 20 (q2_family, and q8 through the cluster MSE) admits
+    5; sel_limit through a cursor in pages of 1000 (and a 10,000-row
+    variant in ten pages) equals the full response; a LIMIT 100 selection
+    streams and stops early; q2_family with the first server.query RPC of
+    each query delayed 250 ms, without hedging and with hedge_ms = 20
+    (rows bit-identical, hedges and wins, the loser's cancel at its
+    server).
+
+    Replication 1, tarballs: each server's tier holds 1.5 of its smallest
+    segments, so it keeps one of its two and demotes the other cold. The
+    first q2_family warms the cold ones (coldLoadMs) and launches kernel A
+    over each server's family; an eviction pass demotes one segment a
+    server (the card's allocated bytes fall by its plane bytes) and the
+    next query fetches it again; a `storage.fetch` corrupt fault
+    quarantines a segment, the repair fetches a fresh copy and the next
+    query is exact; a StoragePrefetcher fed by the broker's beacon warms
+    a cold segment a server into headroom (demoting the other: the tier
+    holds one) and replays the AOT records of phase `flight_recorder`;
+    mse_agg's leaves warm the demoted ones; before the prefetch, q2 under
+    segmentBatch = false launches kernel B on every segment the queries
+    warmed; the disk stays within the budget plus one segment at every
+    check."""
+    from pinot_tpu_torch.cluster import (Broker, ClusterController,
+                                         PropertyStore, ServerInstance)
+    from pinot_tpu_torch.cluster.quota import (AdmissionController,
+                                               QueryQuotaManager)
+    from pinot_tpu_torch.engine import aot_cache
+    from pinot_tpu_torch.spi import faults
+    from pinot_tpu_torch.spi.metrics import (BROKER_METRICS, SERVER_METRICS,
+                                             BrokerMeter, BrokerTimer,
+                                             ServerMeter, ServerTimer)
+    from pinot_tpu_torch.storage import StoragePrefetcher
+
+    t_phase = time.perf_counter()
+    rows = args.rows_per_segment
+    sql, want = QUERIES["q2_family"], expected["q2_family"]
+    out = {"card": card}
+    recs = {}
+    # every earlier phase ran brokers with hedging off (the default)
+    out["hedges_before_phase"] = BROKER_METRICS.meter_count(
+        BrokerMeter.HEDGED_REQUESTS)
+    if out["hedges_before_phase"]:
+        raise AssertionError("admission_tiers: a default broker hedged "
+                             f"{out['hedges_before_phase']} requests")
+    gc.collect()
+    gc.freeze()
+    # the tiered part's tarballs are written in the background meanwhile
+    names = [f"ssb_{i}" for i in range(args.segments)]
+    tar_pool = ThreadPoolExecutor(len(names))
+    tar_jobs = [tar_pool.submit(_tar_segment, tmp, n) for n in names]
+    t_tar = time.perf_counter()
+    cluster = _cluster_start(torch, tmp, schema, args.segments, rows, 2)
+    _, _, servers, base = cluster
+    store = cluster[0]
+    brokers = [base]
+    try:
+        # both replicas' planes on the card before anything is timed
+        for srv in servers:
+            srv.executor.execute_sql(sql.replace("FROM ssb",
+                                                 "FROM ssb_OFFLINE"))
+        torch.cuda.synchronize()
+
+        # -- 1: the admission gate under 16 closed-loop clients ----------
+        adm = Broker(store, max_inflight=ADMISSION_MAX_INFLIGHT,
+                     max_queued=ADMISSION_MAX_QUEUED)
+        brokers.append(adm)
+        _rows_equal("admission warm", adm.execute_sql(sql), want, False)
+        rejected0 = BROKER_METRICS.meter_count(BrokerMeter.QUERIES_REJECTED)
+        waits0 = BROKER_METRICS.timer_stats(BrokerTimer.ADMISSION_WAIT_MS)[0]
+        peak, stop = [0.0], threading.Event()
+
+        def sample():
+            while not stop.is_set():
+                peak[0] = max(peak[0], BROKER_METRICS.gauge_value(
+                    "brokerQueriesInflight"))
+                time.sleep(0.0005)
+
+        answers, lock = [], threading.Lock()
+        barrier = threading.Barrier(ADMISSION_CLIENTS)
+
+        def client():
+            barrier.wait()
+            for _ in range(ADMISSION_ROUNDS):
+                t0 = time.perf_counter()
+                r = adm.execute_sql(sql)
+                ms = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    answers.append((r, ms))
+
+        sampler = threading.Thread(target=sample)
+        sampler.start()
+        t_run = time.perf_counter()
+        threads = [threading.Thread(target=client)
+                   for _ in range(ADMISSION_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        run_s = time.perf_counter() - t_run
+        stop.set()
+        sampler.join()
+        admitted, rejected = [], 0
+        for r, ms in answers:
+            if r.query_rejected and r.exceptions and \
+                    r.exceptions[0].startswith("QueryRejectedError") and \
+                    r.result_table is None:
+                rejected += 1
+                continue
+            _rows_equal("admission", r, want, False)
+            admitted.append(ms)
+        meter = BROKER_METRICS.meter_count(BrokerMeter.QUERIES_REJECTED) \
+            - rejected0
+        if meter != rejected or peak[0] > ADMISSION_MAX_INFLIGHT \
+                or not admitted:
+            raise AssertionError(
+                f"admission: {rejected} rejected, the meter {meter}; the "
+                f"in-flight gauge peaked at {peak[0]}; "
+                f"{len(admitted)} admitted")
+        gate = AdmissionController(max_inflight=ADMISSION_MAX_INFLIGHT)
+        t0 = time.perf_counter()
+        for _ in range(GATE_ADMITS):
+            with gate.admit(timeout_s=1.0):
+                pass
+        gate_us = (time.perf_counter() - t0) / GATE_ADMITS * 1e6
+        out["admission"] = {
+            "clients": ADMISSION_CLIENTS, "queries": len(answers),
+            "max_inflight": ADMISSION_MAX_INFLIGHT,
+            "max_queued": ADMISSION_MAX_QUEUED,
+            "admitted": len(admitted), "rejected": rejected,
+            "queries_rejected_meter": meter,
+            "inflight_gauge_peak": peak[0], "run_s": run_s,
+            "admitted_p50_ms": float(np.percentile(admitted, 50)),
+            "admitted_p99_ms": float(np.percentile(admitted, 99)),
+            "queue_waits": BROKER_METRICS.timer_stats(
+                BrokerTimer.ADMISSION_WAIT_MS)[0] - waits0,
+            "queue_wait_p50_ms": BROKER_METRICS.timer_quantile(
+                BrokerTimer.ADMISSION_WAIT_MS, 0.5),
+            "queue_wait_p99_ms": BROKER_METRICS.timer_quantile(
+                BrokerTimer.ADMISSION_WAIT_MS, 0.99),
+            "gate_admit_us": gate_us,
+            "note": "host clock; admitted ms is the client's wall time, "
+                    "its queue wait included"}
+
+        # -- 1b: a QPS quota of 5 under a burst of 20 --------------------
+        qb = Broker(store)
+        brokers.append(qb)
+        quota = {}
+        # q8's pair join on the card, as phase mse_cluster runs it (under
+        # the auto gate its 5 admitted statements join on the host at once:
+        # 11.2 s on an H100 80GB HBM3 at 700 W)
+        prev_join = os.environ.get("PINOT_TPU_DEVICE_JOIN")
+        for qname, qsql, qwant, ordered in (
+                ("q2_family", sql, want, False),
+                ("q8", MSE_QUERIES["q8"], expected["q8"], True)):
+            _set_env("PINOT_TPU_DEVICE_JOIN", "1" if qname == "q8"
+                     else prev_join)
+            qb.quota = QueryQuotaManager()
+            qb.quota.set_qps_limit("ssb", QUOTA_QPS)
+            results = []
+            burst = threading.Barrier(QUOTA_BURST)
+
+            def fire():
+                burst.wait()
+                r = qb.execute_sql(qsql)
+                with lock:
+                    results.append(r)
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=fire)
+                       for _ in range(QUOTA_BURST)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            burst_s = time.perf_counter() - t0
+            ok = [r for r in results if not r.exceptions]
+            over = [r for r in results if r.exceptions and r.exceptions[0]
+                    .startswith("QueryQuotaExceededError")]
+            if len(ok) != QUOTA_QPS or len(over) != QUOTA_BURST - QUOTA_QPS:
+                raise AssertionError(
+                    f"quota {qname}: {len(ok)} answered, {len(over)} over "
+                    f"quota of {QUOTA_BURST}: "
+                    f"{[r.exceptions[:1] for r in results]}")
+            for r in ok:
+                _rows_equal(f"quota {qname}", r, qwant, ordered)
+            quota[qname] = {"answered": len(ok), "over_quota": len(over),
+                            "burst_s": burst_s,
+                            "exception": over[0].exceptions[0][:80]}
+        _set_env("PINOT_TPU_DEVICE_JOIN", prev_join)
+        out["quota"] = dict(quota, qps=QUOTA_QPS, burst=QUOTA_BURST,
+                            q8_pair_join="PINOT_TPU_DEVICE_JOIN=1")
+
+        # -- 2: cursors and streaming ------------------------------------
+        cb = Broker(store)
+        brokers.append(cb)
+        cursors = {}
+        for qname, qsql in (("sel_limit", QUERIES["sel_limit"]),
+                            ("sel_limit_10k", SEL_LIMIT_10K)):
+            full = cb.execute_sql(qsql)
+            if full.exceptions:
+                raise AssertionError(f"cursor {qname}: {full.exceptions}")
+            if qname == "sel_limit":
+                _rows_equal("cursor sel_limit", full, expected["sel_limit"],
+                            "sel_limit" in ORDERED)
+            page = cb.execute_sql_cursor(qsql, num_rows=CURSOR_PAGE)
+            pages = [page]
+            while page["offset"] + page["numRows"] < page["totalRows"]:
+                page = cb.fetch_cursor(page["cursorId"],
+                                       page["offset"] + CURSOR_PAGE,
+                                       CURSOR_PAGE)
+                pages.append(page)
+            got = [r for p in pages for r in p["resultTable"]["rows"]]
+            if got != [list(r) for r in full.result_table.rows]:
+                raise AssertionError(f"cursor {qname}: {len(got)} paged rows "
+                                     f"differ from the full response's")
+            cursors[qname] = {"pages": len(pages), "rows": len(got),
+                              "page_rows": CURSOR_PAGE}
+        out["cursors"] = cursors
+        scanned = []
+        for srv in servers:
+            orig = srv.executor.execute_segments
+
+            def counting(query, segs, tracker=None, _orig=orig):
+                scanned.append(len(segs))
+                return _orig(query, segs, tracker=tracker)
+
+            srv.executor.execute_segments = counting
+        try:
+            t0 = time.perf_counter()
+            pages = list(cb.execute_sql_stream(STREAM_SQL))
+            stream_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for srv in servers:
+                del srv.executor.execute_segments
+        streamed = sum(len(p.rows) for p in pages)
+        if streamed != 100 or sum(scanned) >= args.segments:
+            raise AssertionError(f"stream: {streamed} rows in {len(pages)} "
+                                 f"pages, {sum(scanned)} of {args.segments} "
+                                 "segments read")
+        out["stream"] = {"limit": 100, "pages": len(pages), "rows": streamed,
+                         "segments_read": sum(scanned),
+                         "segments_routed": args.segments, "ms": stream_ms}
+
+        # -- 3: hedging ----------------------------------------------------
+        # round-robin selection (each query one shard of the 4 segments, on
+        # the replicas in turn); before each query the fault is armed anew
+        # to delay its first server.query RPC, the primary's
+        plain = Broker(store, adaptive_selection=False)
+        hedged = Broker(store, adaptive_selection=False, hedge_ms=HEDGE_MS)
+        brokers += [plain, hedged]
+        cancels = {srv.instance_id: [] for srv in servers}
+        handlers = {srv.instance_id: srv._rpc.handler for srv in servers}
+        for srv in servers:
+            orig = srv._rpc.handler
+
+            def record(request, _inst=srv.instance_id, _orig=orig):
+                if request.get("type") == "cancel":
+                    cancels[_inst].append(request["queryId"])
+                return _orig(request)
+
+            srv._rpc.handler = record
+        plain_ms, hedged_ms, hedge_runs = [], [], []
+        plain_rows = None
+        for r_ in range(HEDGE_ITERS):
+            faults.FAULTS.reset()
+            faults.FAULTS.arm("server.query", kind="delay",
+                              delay_s=HEDGE_DELAY_S, schedule=frozenset({0}))
+            t0 = time.perf_counter()
+            r = plain.execute_sql(sql)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            if r.exceptions or r.num_hedged_requests:
+                raise AssertionError(f"hedge off: {r.exceptions}, "
+                                     f"{r.num_hedged_requests} hedges")
+            rows_ = [list(x) for x in r.result_table.rows]
+            if plain_rows is None:
+                plain_rows = rows_
+                _rows_equal("unhedged", r, want, False)
+            elif rows_ != plain_rows:
+                raise AssertionError("unhedged runs differ in their rows")
+        _cuda.reset_launches()
+        launches_h = []
+        for r_ in range(HEDGE_ITERS):
+            faults.FAULTS.reset()
+            faults.FAULTS.arm("server.query", kind="delay",
+                              delay_s=HEDGE_DELAY_S, schedule=frozenset({0}))
+            before = _cuda.LAUNCHES["limb_sums"]
+            with recording(mxu, "limb_sums") as a_calls:
+                t0 = time.perf_counter()
+                r = hedged.execute_sql(sql)
+                torch.cuda.synchronize()
+                hedged_ms.append((time.perf_counter() - t0) * 1e3)
+            launches_h.append(_cuda.LAUNCHES["limb_sums"] - before)
+            if r.exceptions or [list(x) for x in r.result_table.rows] \
+                    != plain_rows:
+                raise AssertionError(f"hedged rows differ from the "
+                                     f"unhedged: {r.exceptions}")
+            hedge_runs.append((r.query_id, r.num_hedged_requests,
+                               r.num_hedge_wins,
+                               {w["server"] for w in r.wire_stats or []}))
+            recs["hedged"] = list(a_calls)
+        faults.FAULTS.reset()
+        # the losers' cancels land off the winners' threads
+        _wait_for(lambda: all(
+            any(q.startswith(f"{qid}:") for v in cancels.values() for q in v)
+            for qid, h, w, _ in hedge_runs if w), 10.0, "hedge cancels")
+        for srv in servers:
+            srv._rpc.handler = handlers[srv.instance_id]
+        losers_ok = all(
+            not any(q.startswith(f"{qid}:") for q in cancels[inst])
+            for qid, _, _, winners in hedge_runs for inst in winners)
+        hedges = sum(h for _, h, _, _ in hedge_runs)
+        wins = sum(w for _, _, w, _ in hedge_runs)
+        if hedges < 1 or wins < 1 or not losers_ok:
+            raise AssertionError(f"hedging: {hedges} hedges, {wins} wins, "
+                                 f"cancels {cancels}")
+        out["hedging"] = {
+            "delay_ms": HEDGE_DELAY_S * 1e3, "hedge_ms": HEDGE_MS,
+            "iters": HEDGE_ITERS,
+            "unhedged_p50_ms": float(np.median(plain_ms)),
+            "unhedged_p99_ms": float(np.percentile(plain_ms, 99)),
+            "hedged_p50_ms": float(np.median(hedged_ms)),
+            "hedged_p99_ms": float(np.percentile(hedged_ms, 99)),
+            "hedged_requests": hedges, "hedge_wins": wins,
+            "cancels_at_losers": sum(map(len, cancels.values())),
+            "launches_a_hedged_query": launches_h,
+            "rows_bit_identical": True,
+            "note": "each query's first server.query RPC (its primary's) "
+                    "delayed; host clock"}
+        recs["hedged_launches"] = launches_h[-1]
+    finally:
+        faults.FAULTS.reset()
+        for b in brokers:
+            b.close()
+        _cluster_stop(cluster)
+        # no tar thread outlives a failure of the parts above
+        tar_pool.shutdown(wait=True)
+    del cluster, servers, base, brokers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 4: tiered storage ---------------------------------------------
+    t_wait = time.perf_counter()
+    tars = [job.result() for job in tar_jobs]
+    tar_pool.shutdown()
+    seg_bytes = {n: _dir_bytes(f"{tmp}/{n}") for n in names}
+    budget = TIER_BUDGET_SEGMENTS * min(seg_bytes.values())
+    bound_bytes = budget + max(seg_bytes.values())
+    tier = {"tar_wait_s": time.perf_counter() - t_wait,
+            "tar_since_phase_start_s": time.perf_counter() - t_tar,
+            "segment_bytes": seg_bytes, "budget_bytes": int(budget)}
+    store = PropertyStore()
+    ctl = ClusterController(store)
+    servers = [ServerInstance(store, f"Server_{i}", device=DEVICE,
+                              local_storage_mb=budget / (1 << 20))
+               for i in range(CLUSTER_SERVERS)]
+    broker = Broker(store)
+    disk = []
+
+    def disk_check(step):
+        used = {srv.instance_id: srv._tier.stats()["bytesUsed"]
+                for srv in servers}
+        disk.append(max(used.values()))
+        if max(used.values()) > bound_bytes:
+            raise AssertionError(f"tier {step}: {used} bytes on disk, the "
+                                 f"budget {budget} plus one segment")
+
+    def inventory():
+        return {srv.instance_id: srv.debug_storage()["tables"].get(
+            "ssb_OFFLINE", {}) for srv in servers}
+
+    def evict_pass():
+        # the pass every tier fetch runs: demote the least recently used
+        # unpinned copies until the tier is within its budget
+        for srv in servers:
+            srv._tier._make_room()
+
+    def tier_query(label, qsql, qwant, ordered, kernel=None, count=None):
+        cold0 = SERVER_METRICS.meter_count(ServerMeter.SEGMENT_COLD_LOADS)
+        _cuda.reset_launches()
+        with recording(mxu, "limb_sums") as a_calls, \
+                recording(fg, "fused_limb_sums") as b_calls:
+            t0 = time.perf_counter()
+            r = broker.execute_sql(qsql)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        made = dict(_cuda.LAUNCHES)
+        if r.exceptions or r.partial_result:
+            raise AssertionError(f"tier {label}: {r.exceptions}")
+        _rows_equal(f"tier {label}", r, qwant, ordered)
+        if kernel is not None and made[kernel] != count:
+            raise AssertionError(f"tier {label}: {made} launches, {count} "
+                                 f"of {kernel} expected")
+        disk_check(label)
+        return r, ms, made, list(a_calls), list(b_calls), \
+            SERVER_METRICS.meter_count(ServerMeter.SEGMENT_COLD_LOADS) - cold0
+
+    try:
+        t0 = time.perf_counter()
+        for srv in servers:
+            srv.start()
+        ctl.add_schema(schema.to_json())
+        table = ctl.create_table({"tableName": "ssb", "replication": 1})
+        for name, tar in zip(names, tars):
+            ctl.add_segment(table, name, {"location": tar, "numDocs": rows})
+        tier["converge_s"] = time.perf_counter() - t0
+        inv = inventory()
+        if any(len(v.get("resident", [])) != 1 or len(v.get("cold", [])) != 1
+               for v in inv.values()):
+            raise AssertionError(f"tier converge: {inv}")
+        view = store.get("/EXTERNALVIEW/ssb_OFFLINE") or {}
+        if sorted(view) != names or any(
+                st != "ONLINE" for m in view.values() for st in m.values()):
+            raise AssertionError(f"tier converge: external view {view}")
+        tier["converged"] = inv
+        disk_check("converge")
+
+        # the first query warms each server's cold segment
+        timer0 = SERVER_METRICS.timer_stats(ServerTimer.COLD_LOAD_MS)[0]
+        r, cold_ms, made, a_calls, _, cold = tier_query(
+            "cold first query", sql, want, False, "limb_sums",
+            CLUSTER_SERVERS)
+        if cold != CLUSTER_SERVERS or r.cold_segments_warming or \
+                any(c[0].shape[0] != 2 for c in a_calls):
+            raise AssertionError(f"tier cold: {cold} cold loads, "
+                                 f"{r.cold_segments_warming} still warming")
+        recs["cold"] = a_calls
+        tier["cold_query"] = {
+            "ms": cold_ms, "cold_loads": cold,
+            "cold_load_ms_timings": SERVER_METRICS.timer_stats(
+                ServerTimer.COLD_LOAD_MS)[0] - timer0,
+            "cold_load_ms_p50": SERVER_METRICS.timer_quantile(
+                ServerTimer.COLD_LOAD_MS, 0.5),
+            "launches": made}
+        warm = []
+        for _ in range(args.iters):
+            t0 = time.perf_counter()
+            r = broker.execute_sql(sql)
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        _rows_equal("tier warm", r, want, False)
+        tier["warm_p50_ms"] = float(np.median(warm))
+
+        # an eviction pass demotes a segment a server; its planes leave the
+        # card, and the next query fetches it again onto fresh planes
+        views = {}
+        for srv in servers:
+            cache = srv.executor.executor.cache
+            views[srv.instance_id] = {v.segment.name: v.nbytes()
+                                      for v in cache._views.values()}
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        evict_pass()
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = before - torch.cuda.memory_allocated()
+        demoted = {srv.instance_id: srv.debug_storage()["tables"][
+            "ssb_OFFLINE"]["cold"] for srv in servers}
+        plane_bytes = sum(views[i][n] for i, ns in demoted.items()
+                          for n in ns)
+        left = [n for srv in servers for n in demoted[srv.instance_id]
+                if n in srv.executor.executor.cache.segment_names()]
+        if freed < plane_bytes or left or not plane_bytes:
+            raise AssertionError(f"tier evict: {freed} bytes freed on the "
+                                 f"card, the demoted planes {plane_bytes}; "
+                                 f"left in the cache {left}")
+        r, ms, made, a_calls, _, cold = tier_query(
+            "fetch again", sql, want, False, "limb_sums", CLUSTER_SERVERS)
+        if cold != CLUSTER_SERVERS:
+            raise AssertionError(f"tier fetch again: {cold} cold loads")
+        recs["refetch"] = a_calls
+        tier["evict_fetch_again"] = {
+            "demoted": demoted, "plane_bytes": plane_bytes,
+            "card_bytes_freed": freed, "fetch_again_ms": ms,
+            "cold_loads": cold}
+
+        # a corrupt cold fetch: quarantine, then the repair's fresh copy
+        evict_pass()
+        q0 = SERVER_METRICS.meter_count(ServerMeter.SEGMENTS_QUARANTINED)
+        rep0 = SERVER_METRICS.meter_count(ServerMeter.SEGMENT_REPAIRS)
+        faults.FAULTS.arm("storage.fetch", kind="corrupt", times=1)
+        t0 = time.perf_counter()
+        part = broker.execute_sql("SET allowPartialResults = true; " + sql)
+        fired = faults.FAULTS.fired("storage.fetch")
+        repair_s = _wait_for(lambda: SERVER_METRICS.meter_count(
+            ServerMeter.SEGMENT_REPAIRS) > rep0, TIER_WAIT_S, "the repair")
+        repair_ms = (time.perf_counter() - t0) * 1e3
+        faults.FAULTS.reset()
+        r, ms, made, a_calls, _, _ = tier_query(
+            "after repair", sql, want, False, "limb_sums", CLUSTER_SERVERS)
+        quarantined = SERVER_METRICS.meter_count(
+            ServerMeter.SEGMENTS_QUARANTINED) - q0
+        if fired != 1 or quarantined != 1:
+            raise AssertionError(f"tier corrupt: {fired} faults, "
+                                 f"{quarantined} quarantined")
+        recs["repaired"] = a_calls
+        tier["corrupt_repair"] = {
+            "first_query_partial": part.partial_result,
+            "first_query_exceptions": [e[:80] for e in part.exceptions],
+            "quarantined": quarantined,
+            "repairs": SERVER_METRICS.meter_count(
+                ServerMeter.SEGMENT_REPAIRS) - rep0,
+            "repair_ms": repair_ms, "repair_wait_s": repair_s,
+            "next_query_ms": ms}
+
+        # kernel B a segment over the segments the queries above warmed
+        # (no eviction pass since: all four resident, over the budget)
+        r, ms, made, _, b_calls, cold = tier_query(
+            "q2 warmed", QUERIES["q2"], expected["q2"], False,
+            "fused_limb_sums", args.segments)
+        if cold:
+            raise AssertionError(f"tier q2 warmed: {cold} cold loads")
+        recs["q2_warmed"] = b_calls
+        tier["q2_warmed"] = {"ms": ms, "cold_loads": cold, "launches": made}
+
+        # the prefetcher, fed by the broker's beacon, warms the cold
+        # segments into headroom and replays the table's AOT records; a
+        # server's tier holds one of its segments, so the warm demotes the
+        # other (hot too, and the least recently used)
+        evict_pass()
+        cold_before = {i: v["cold"] for i, v in inventory().items()}
+        _set_env("PINOT_TPU_AOT_CACHE_DIR", os.path.join(tmp, "aot"))
+        aot_cache.reset()
+        hits0 = SERVER_METRICS.meter_count(ServerMeter.PREFETCH_HITS)
+        prewarms = []
+        orig_prewarm = aot_cache.prewarm_table
+
+        def prewarm(table, *a, **kw):
+            res = orig_prewarm(table, *a, **kw)
+            prewarms.append((threading.current_thread().name, res))
+            return res
+
+        aot_cache.prewarm_table = prewarm
+        try:
+            state = broker.publish_state()
+            t0 = time.perf_counter()
+            nudge = StoragePrefetcher(store)()
+            warm_s = _wait_for(lambda: SERVER_METRICS.meter_count(
+                ServerMeter.PREFETCH_HITS) - hits0 >= CLUSTER_SERVERS
+                and any(n.startswith("aot-prewarm") for n, _ in prewarms),
+                TIER_WAIT_S, "the prefetch warm")
+        finally:
+            aot_cache.prewarm_table = orig_prewarm
+            _set_env("PINOT_TPU_AOT_CACHE_DIR", None)
+            aot_cache.reset()
+        inv = inventory()
+        if nudge["nudged"] != ["ssb"] or any(
+                v["resident"] != cold_before[i] for i, v in inv.items()):
+            raise AssertionError(f"tier prefetch: {nudge}, {inv}, the cold "
+                                 f"segments before {cold_before}")
+        disk_check("prefetch")
+        loaded = sum(res.get("loaded", 0) for _, res in prewarms)
+        if loaded < 1:
+            raise AssertionError(f"tier prefetch: AOT prewarm {prewarms}")
+        tier["prefetch"] = {
+            "beacon_table_costs_ms": state["tableCostsMs"],
+            "nudged": nudge["nudged"],
+            "prefetch_hits": SERVER_METRICS.meter_count(
+                ServerMeter.PREFETCH_HITS) - hits0,
+            "warm_s": warm_s, "since_nudge_ms":
+                (time.perf_counter() - t0) * 1e3,
+            "warmed": cold_before,
+            "aot_prewarms": len(prewarms), "aot_families_loaded": loaded,
+            "hot_tables": sorted(servers[0]._tier.stats()["hotTables"])}
+
+        # mse_agg's leaves warm the segment a server's prefetch demoted
+        r, ms, made, a_calls, _, cold = tier_query(
+            "mse_agg", MSE_QUERIES["mse_agg"], expected["mse_agg"], False,
+            "limb_sums", CLUSTER_SERVERS)
+        if cold != CLUSTER_SERVERS:
+            raise AssertionError(f"tier mse_agg: {cold} cold loads")
+        recs["mse_agg"] = a_calls
+        tier["mse_agg"] = {"ms": ms, "cold_loads": cold, "launches": made}
+        tier["disk_bytes_peak"] = max(disk)
+        tier["disk_bound_bytes"] = int(bound_bytes)
+        tier["storage"] = {srv.instance_id: srv._tier.stats()
+                           for srv in servers}
+        out["tiers"] = tier
+    finally:
+        faults.FAULTS.reset()
+        for srv in servers:
+            if srv._started:
+                srv.stop()
+        broker.close()
+        for tar in tars:
+            os.remove(tar)
+        gc.unfreeze()
+    del servers, broker
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    parity = {}
+    for label in ("cold", "refetch", "repaired", "hedged", "mse_agg"):
+        parity[label] = max(check_equal(
+            torch, f"limb_sums admission_tiers {label}, launch {k}",
+            mxu.limb_sums(*rec), mxu.limb_sums_plain(*rec))
+            for k, rec in enumerate(recs[label]))
+    parity["q2_warmed"] = max(check_equal(
+        torch, f"fused_limb_sums admission_tiers q2_warmed, segment {k}",
+        fg.fused_limb_sums(*rec), fg.fused_limb_sums_plain(*rec))
+        for k, rec in enumerate(recs["q2_warmed"]))
+    out["parity"] = parity
+    seconds = time.perf_counter() - t_phase
+    emit(dict({"phase": "admission_tiers", "seconds": seconds,
+               "budget_s": ADMISSION_TIERS_BUDGET_S,
+               "note": "one process: the servers and the brokers share its "
+                       "GIL and its card"}, **out))
+    return {"recs": recs, "parity": parity}
+
+
 def phase_doctor(card) -> None:
     """The GPU probe (tools/doctor.py) in its supervised child: it must
     classify `ok`."""
@@ -5612,6 +6306,9 @@ def main(argv=None) -> int:
         mse_cluster = phase_mse_cluster(
             args, torch, tmp, tables["ssb"][0], expected, _cuda, mxu_groupby,
             fused_groupby, mse["p50"], dev["nvidia_smi"])
+        admission_tiers = phase_admission_tiers(
+            args, torch, tmp, tables["ssb"][0], expected, _cuda, mxu_groupby,
+            fused_groupby, dev["nvidia_smi"])
         phase_doctor(dev["nvidia_smi"])
         planes, gid, G = mse["agg_recs"][0]
         parity["limb_sums/mse_agg_inputs/family"] = check_equal(
@@ -5819,6 +6516,35 @@ def main(argv=None) -> int:
             "aggregate with SET segmentBatch = false, a segment a launch "
             "on its server"))
         del mse_cluster
+        # phase admission_tiers: kernel A over each tiered server's family
+        # of 2 (cold segments warmed, a segment fetched again, a repaired
+        # one), on the hedged duplicate's replica and in mse_agg's leaves
+        # over warmed cold segments; kernel B a warmed segment
+        at = admission_tiers["recs"]
+        for label, note in (
+                ("cold", "q2_family through a tiered cluster, each server's "
+                 "cold segment warmed by the first query: its family of 2"),
+                ("refetch", "q2_family after an eviction pass, the demoted "
+                 "segment fetched again onto fresh planes: each server's "
+                 "family of 2"),
+                ("repaired", "q2_family after a storage.fetch corruption "
+                 "and its repair: each server's family of 2"),
+                ("hedged", "q2_family hedged at 20 ms past a 250 ms primary: "
+                 "the duplicate on the other replica, a family of 4"),
+                ("mse_agg", "mse_agg through the cluster MSE, each leaf "
+                 "warming a cold segment: each server's family of 2")):
+            launches = (at["hedged_launches"] if label == "hedged"
+                        else len(at[label]))
+            kernels.append(kernel_a_row(
+                torch, mxu_groupby, _cuda, at[label], launches,
+                admission_tiers["parity"][label],
+                f"admission_tiers {label}: {note}, one launch a family"))
+        kernels.append(kernel_b_row(
+            torch, fused_groupby, _cuda, at["q2_warmed"],
+            len(at["q2_warmed"]), admission_tiers["parity"]["q2_warmed"],
+            "admission_tiers q2 (SET segmentBatch = false) over the "
+            "prefetched tiered segments, a segment a launch"))
+        del admission_tiers, at
         # the multi-stage leaf partial aggregate's launch of kernel A
         kernels.append(kernel_a_row(
             torch, mxu_groupby, _cuda, mse["agg_recs"], mse["agg_launches"],

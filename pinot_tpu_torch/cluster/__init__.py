@@ -16,9 +16,13 @@ other. The multi-stage engine runs across the servers (stage workers on
 each server's card, mse/distributed.py), and a role in another OS process
 joins through remote_store.py. The broker keeps the flight recorder (its
 TraceStore and QueryLogger) and feeds the perf ledger, which the
-regression sentinel (PerfRegressionSentinel) judges. Not ported yet:
-rebalance, REST, quota, periodic tasks (the sentinel is called directly)
-and realtime consumption.
+regression sentinel (PerfRegressionSentinel) judges. The broker admits
+queries through a per-table quota and an admission gate, accounts their
+cost, spools cursors, streams selections and hedges stragglers on request
+(quota.py, workload.py); the servers keep segments in a byte-budgeted
+local tier with cold registration, repair and prefetch (storage/). Not
+ported yet: rebalance, REST, periodic tasks (the sentinel and the
+prefetcher are called directly) and realtime consumption.
 """
 
 from .broker import Broker

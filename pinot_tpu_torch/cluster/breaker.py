@@ -22,7 +22,7 @@ State machine per server (the classic closed → open → half-open cycle):
 All transitions are pure call-count/clock bookkeeping — no background
 thread — so the deterministic fault schedules in spi/faults.py drive the
 full lifecycle from tests. Left out: the JAX package's error-rate trip
-(off unless its environment knob is set) and its debug snapshot.
+(off unless its environment knob is set).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ class CircuitBreaker:
     CircuitBreakerTable serializes access."""
 
     __slots__ = ("state", "consecutive_failures", "cooldown_s", "open_until",
-                 "probe_inflight_since")
+                 "probe_inflight_since", "opened_count")
 
     def __init__(self, base_cooldown_s: float):
         self.state = CLOSED
@@ -49,6 +49,7 @@ class CircuitBreaker:
         self.cooldown_s = base_cooldown_s
         self.open_until = 0.0
         self.probe_inflight_since: float | None = None
+        self.opened_count = 0
 
 
 class CircuitBreakerTable:
@@ -134,6 +135,7 @@ class CircuitBreakerTable:
     def _open_locked(self, b: CircuitBreaker, now: float) -> bool:
         b.state = OPEN
         b.open_until = now + b.cooldown_s
+        b.opened_count += 1
         return True
 
     # -- observability -------------------------------------------------------
@@ -153,3 +155,18 @@ class CircuitBreakerTable:
         with self._lock:
             return sum(1 for b in self._breakers.values()
                        if b.state == OPEN and b.open_until > now)
+
+    def snapshot(self) -> dict:
+        """The breaker table (the JAX broker's GET /debug/servers, and the
+        /BROKERSTATE beacon)."""
+        with self._lock:
+            items = list(self._breakers.items())
+        out = {}
+        for inst, b in items:
+            out[inst] = {
+                "state": self.state(inst),
+                "consecutiveFailures": b.consecutive_failures,
+                "cooldownS": round(b.cooldown_s, 3),
+                "timesOpened": b.opened_count,
+            }
+        return out

@@ -32,9 +32,37 @@ copy. When the sentinel (cluster/sentinel.py) armed exemplars for a plan
 or table, the broker claims one per query, forces its sampling and pins
 its trace under the alert. None of these hooks can fail a query.
 
-Not ported: hedging (off by default in the JAX package), quota and
-admission control (on either engine), cursors, streaming and workload
-accounting.
+Admission (cluster/quota.py): a per-table QPS quota is checked before the
+result cache, on either engine (`Broker.quota.set_qps_limit`); past it a
+query comes back with a QueryQuotaExceededError. A broker-wide gate
+(`max_inflight`, `max_queued`, `heavy_query_ms`; off by default) admits a
+query whose budget is already running, so the time it waits for a slot
+comes out of its own deadline; a full queue, a wait past the deadline or a
+heavy query at saturation answers at once with `query_rejected` and a
+QueryRejectedError (the queriesRejected meter). Every response is folded
+into the workload tracker (cluster/workload.py), whose decayed per-table
+cost is the heavy-query hint and, in the /BROKERSTATE/{id} beacon
+(`publish_state`), the servers' eviction heat and the prefetcher's input.
+Cursors spool a full result and serve it page by page
+(`execute_sql_cursor`, `fetch_cursor`); `execute_sql_stream` yields a
+selection's pages a server segment at a time and stops at its LIMIT.
+
+Hedging is opt-in (`hedge_ms`, or `hedge_quantile` over the scatterRpcMs
+histogram): a shard still in flight past the delay gets a duplicate RPC on
+another replica that holds all its segments; the first complete answer
+wins, the loser is cancelled by its shard id, and the gather keeps the
+shards' submission order, so a hedged answer is bit-identical to an
+unhedged one. Cold-aware routing: a server that reports a routed segment
+still warming (tiered storage) is avoided for that segment for a short
+TTL, and the response counts `cold_segments_warming`.
+
+The JAX broker reads its defaults from environment variables
+(PINOT_TPU_HEDGE_MS, PINOT_TPU_MAX_INFLIGHT_QUERIES, ...); the port's
+constructor arguments are the interface, with the defaults those
+variables have when unset. Not ported yet: the REST surface that serves
+`/debug/workload` and `/debug/servers` and answers a rejection with 429
+(`cluster/rest.py`, ROADMAP Queue 1 item 4); the tests read
+`workload.snapshot()` and `server_health()`.
 """
 
 from __future__ import annotations
@@ -45,7 +73,7 @@ import threading
 import time
 import uuid
 import zlib
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from typing import Optional
 
 from ..cache.keys import query_fingerprint
@@ -73,9 +101,12 @@ from .controller import ONLINE, raw_table_name, table_name_with_type
 from .datatable import DataTableError
 from .datatable import decode as decode_datatable
 from .querylog import QueryLogger
+from .quota import (AdmissionController, AdmissionRejectedError,
+                    QueryQuotaExceededError, QueryQuotaManager, ResponseStore)
 from .store import PropertyStore
 from .tracestore import TraceStore
 from .transport import RemoteError, RpcClient, TransportError
+from .workload import WorkloadTracker
 
 # a query that sets no allowPartialResults fails on a lost segment
 ALLOW_PARTIAL_DEFAULT = False
@@ -86,6 +117,11 @@ BROKER_TIMEOUT_MS = 60000.0
 SCATTER_RETRIES = 2
 # the ceiling of the exponential backoff between those rounds
 SCATTER_BACKOFF_CAP_MS = 1000.0
+# scatterRpcMs samples the quantile hedge delay needs before it applies
+HEDGE_MIN_SAMPLES = 20
+# how long a replica that reported a segment still warming is avoided for
+# that segment
+COLD_HINT_TTL_S = 15.0
 
 
 def _sql_key(sql: str) -> str:
@@ -134,8 +170,9 @@ class _QueryBudget:
         return self.deadline - time.monotonic()
 
     def next_shard_id(self) -> str:
-        """One id per scatter RPC (``<query_id>:<n>``); a broadcast cancel
-        kills the whole ``<query_id>`` prefix."""
+        """One id per scatter RPC (``<query_id>:<n>``): a hedged duplicate
+        can be cancelled alone without killing its sibling shards, while a
+        broadcast cancel kills the whole ``<query_id>`` prefix."""
         return f"{self.query_id}:{next(self._shard_seq)}"
 
 
@@ -144,7 +181,8 @@ def _stats_template() -> dict:
             "num_segments_pruned": 0, "num_segments_queried": 0,
             "num_device_dispatches": 0, "num_compiles": 0,
             "num_segments_cache_hit": 0, "num_segments_cache_miss": 0,
-            "scatter_retries": 0, "corrupt_shards_retried": 0,
+            "scatter_retries": 0, "hedged_requests": 0, "hedge_wins": 0,
+            "corrupt_shards_retried": 0, "cold_segments_warming": 0,
             "num_coalesced_queries": 0, "coalesce_wait_ms": 0.0,
             "server_traces": [], "wire": [],
             "servers_queried": [], "servers_responded": [],
@@ -154,8 +192,23 @@ def _stats_template() -> dict:
 class Broker:
     def __init__(self, store: PropertyStore, num_scatter_threads: int = 8,
                  adaptive_selection: bool = True,
-                 scatter_backoff_ms: float = 50.0):
+                 scatter_backoff_ms: float = 50.0,
+                 hedge_ms: Optional[float] = None,
+                 hedge_quantile: float = 0.0,
+                 max_inflight: Optional[int] = None,
+                 max_queued: Optional[int] = None,
+                 heavy_query_ms: float = 0.0,
+                 broker_id: Optional[str] = None,
+                 state_publish_s: float = 0.0):
         self.store = store
+        self.broker_id = broker_id or f"Broker_{uuid.uuid4().hex[:8]}"
+        # brokers are store CLIENTS (never in /LIVEINSTANCES), so their
+        # load and workload state reaches the controller, the servers'
+        # tiers and the prefetcher through /BROKERSTATE beacons. Publishing
+        # from the query path is opt-in (`state_publish_s` > 0) and at most
+        # once an interval: the common case is one clock comparison.
+        self._state_publish_s = float(state_publish_s or 0.0)
+        self._state_published_at = 0.0
         # per-server circuit breakers drive replica selection and the
         # serversUnhealthy gauge
         self.breakers = CircuitBreakerTable()
@@ -163,6 +216,26 @@ class Broker:
         self.backoff_base_s = scatter_backoff_ms / 1000.0
         BROKER_METRICS.set_gauge("serversUnhealthy",
                                  self.breakers.down_count)
+        # hedging is OPT-IN (a fixed `hedge_ms`, or `hedge_quantile` over
+        # the scatterRpcMs histogram): a duplicate RPC changes the
+        # cluster's call pattern, which must never happen behind the back
+        # of a deterministic fault schedule
+        self.hedge_fixed_ms = hedge_ms
+        self.hedge_quantile = float(hedge_quantile or 0.0)
+        self.hedge_min_samples = HEDGE_MIN_SAMPLES
+        # broker-wide admission gate; disabled by default (then admit() is
+        # a plain yield)
+        self.admission = AdmissionController(max_inflight, max_queued,
+                                             heavy_query_ms)
+        BROKER_METRICS.set_gauge("brokerQueriesInflight",
+                                 lambda: self.admission.inflight())
+        BROKER_METRICS.set_gauge("brokerQueriesQueued",
+                                 lambda: self.admission.queued())
+        self.quota = QueryQuotaManager()
+        self.response_store = ResponseStore()
+        # per-query cost accounting into decaying per-table and per-client
+        # rollups: the admission cost hint and the beacon's table costs
+        self.workload = WorkloadTracker()
         self.adaptive_selection = adaptive_selection
         # full-response cache (cache/results.py): keyed on the query
         # fingerprint + the table's lineage epoch, so a segment add, drop
@@ -192,6 +265,12 @@ class Broker:
         # outage degrades to serving the last external view
         self._last_routing: dict[str, dict[str, list[str]]] = {}
         self._clients: dict[str, RpcClient] = {}
+        # cold-aware routing hints (tiered storage): (instance, segment) →
+        # hint expiry, learned from cold_segments warming reports; while a
+        # hint is live, selection prefers replicas holding the segment
+        # resident, and when none does the pick triggers the warm
+        self._cold_hints: dict[tuple, float] = {}
+        self._cold_hint_ttl = COLD_HINT_TTL_S
         self._rr = 0  # round-robin cursor for replica selection
         self._pool = ThreadPoolExecutor(max_workers=num_scatter_threads,
                                         thread_name_prefix="broker-scatter")
@@ -208,6 +287,50 @@ class Broker:
             clients, self._clients = list(self._clients.values()), {}
         for c in clients:
             c.close()
+
+    # -- health -------------------------------------------------------------
+    def publish_state(self) -> dict:
+        """Write this broker's beacon to /BROKERSTATE/{id}: breaker
+        states, admission load, latency quantiles, result-cache counters
+        and the per-table decayed query cost the servers' tiers weigh
+        eviction by and the StoragePrefetcher ranks hot tables by. Called
+        from the query path when `state_publish_s` is set, or directly."""
+        state = {
+            "brokerId": self.broker_id,
+            "publishedAtMs": int(time.time() * 1000),
+            "breakers": self.breakers.snapshot(),
+            "inflight": self.admission.inflight(),
+            "queued": self.admission.queued(),
+            "queryP50Ms": round(BROKER_METRICS.timer_quantile(
+                BrokerTimer.QUERY_PROCESSING_TIME_MS, 0.5), 3),
+            "queryP99Ms": round(BROKER_METRICS.timer_quantile(
+                BrokerTimer.QUERY_PROCESSING_TIME_MS, 0.99), 3),
+            "resultCacheHits": BROKER_METRICS.meter_count(
+                BrokerMeter.RESULT_CACHE_HITS),
+            "resultCacheMisses": BROKER_METRICS.meter_count(
+                BrokerMeter.RESULT_CACHE_MISSES),
+            "tableCostsMs": self.workload.table_costs(),
+        }
+        self.store.set(f"/BROKERSTATE/{self.broker_id}", state)
+        return state
+
+    def server_health(self) -> dict:
+        """Breaker and adaptive-selection state per server (the JAX
+        broker's GET /debug/servers)."""
+        breakers = self.breakers.snapshot()
+        with self._lock:
+            stats = {i: {"ewmaLatencyMs": round(s.ewma_ms, 3),
+                         "inflight": s.inflight}
+                     for i, s in self._server_stats.items()}
+        out = {}
+        for inst in sorted(set(breakers) | set(stats)):
+            entry = dict(breakers.get(inst) or {
+                "state": "closed", "consecutiveFailures": 0,
+                "cooldownS": self.breakers.base_cooldown_s,
+                "timesOpened": 0})
+            entry.update(stats.get(inst, {}))
+            out[inst] = entry
+        return out
 
     # -- routing ------------------------------------------------------------
     def routing_table(self, name_with_type: str) -> dict[str, list[str]]:
@@ -269,12 +392,21 @@ class Broker:
         with self._lock:
             self._rr += 1
             rr = self._rr
+            hints = dict(self._cold_hints) if self._cold_hints else None
+        now = time.monotonic() if hints else 0.0
         for seg, replicas in routing.items():
             # breaker-gated: open breakers are skipped; if EVERY replica is
             # tripped the query still goes out (last-resort traffic beats a
             # guaranteed failure, and doubles as probing)
             healthy = [i for i in replicas if self.breakers.allow(i)]
             candidates = healthy or replicas
+            if hints:
+                # cold-aware routing: prefer a replica NOT recently seen
+                # warming this segment; when every replica is cold, fall
+                # through and let the pick trigger the warm
+                resident = [i for i in candidates
+                            if hints.get((i, seg), 0.0) <= now]
+                candidates = resident or candidates
             if not candidates:
                 unavailable.append(seg)
                 continue
@@ -296,6 +428,17 @@ class Broker:
                     f"no online replica for segments {unavailable}")
         return plan
 
+    def _note_cold(self, inst: str, seg: str) -> None:
+        """A server reported `seg` cold (still warming): route the next
+        queries to other replicas for the hint TTL, then forget: the warm
+        completes in the background, so the hint must expire."""
+        now = time.monotonic()
+        with self._lock:
+            if len(self._cold_hints) > 4096:
+                self._cold_hints = {
+                    k: t for k, t in self._cold_hints.items() if t > now}
+            self._cold_hints[(inst, seg)] = now + self._cold_hint_ttl
+
     # -- query --------------------------------------------------------------
     def execute_sql(self, sql: str,
                     segments: Optional[dict] = None) -> BrokerResponse:
@@ -311,7 +454,7 @@ class Broker:
             # shapes the single-stage grammar rejects (joins, subqueries,
             # set operations) go to the multi-stage dispatcher, the
             # reference's cross-engine fallback at the broker
-            resp = self.execute_sql_mse(sql)
+            resp = self._admitted_mse(sql)
             if resp.exceptions and any(
                     x.startswith(("SqlParseError", "PlanError", "ParseError"))
                     for x in resp.exceptions):
@@ -322,7 +465,7 @@ class Broker:
         if query is not None:
             if query.query_options.get("useMultistageEngine") in (
                     True, "true", 1):
-                resp = self.execute_sql_mse(sql)
+                resp = self._admitted_mse(sql)
             else:
                 resp = self._execute_sql_impl(query, segments, sql)
         if not resp.time_used_ms:
@@ -341,11 +484,22 @@ class Broker:
             self.query_logger.log(sql, resp, table=table)
         except Exception:
             pass  # the query log must never fail a query
+        try:
+            self.workload.note_response(sql, resp, table=table)
+        except Exception:
+            pass  # nor may the workload accounting
         self._record_ledger(sql, resp, table)
         if getattr(resp, "trace_sampled", False):
             # the client never asked for this trace: the store and the
             # query log took their copies, the response ships plain
             resp.trace_info = None
+        if self._state_publish_s and time.monotonic() \
+                - self._state_published_at >= self._state_publish_s:
+            self._state_published_at = time.monotonic()
+            try:
+                self.publish_state()
+            except Exception:
+                pass  # a glitching store must not fail the query
         return resp
 
     def _retain_trace(self, resp: BrokerResponse, table: str) -> None:
@@ -417,6 +571,91 @@ class Broker:
         QueryDispatcher.submitAndReduce)."""
         return self.mse_dispatcher.execute_sql(sql)
 
+    def _admitted_mse(self, sql: str) -> BrokerResponse:
+        """The multi-stage dispatch behind the same admission gate as the
+        single-stage path (its quota check runs in the dispatcher, over
+        every table a leaf stage scans)."""
+        try:
+            with self.admission.admit(timeout_s=BROKER_TIMEOUT_MS / 1000.0):
+                return self.execute_sql_mse(sql)
+        except AdmissionRejectedError as e:
+            return self._rejected_response(e)
+
+    def _rejected_response(self, e: Exception) -> BrokerResponse:
+        BROKER_METRICS.add_meter(BrokerMeter.QUERIES_REJECTED)
+        return BrokerResponse(exceptions=[f"QueryRejectedError: {e}"],
+                              query_rejected=True)
+
+    def execute_sql_cursor(self, sql: str, num_rows: int = 1000) -> dict:
+        """Spool the full result and return the first page with its cursor
+        id (reference: the getCursor=true query option and the
+        /resultStore endpoints); later pages come from fetch_cursor()."""
+        resp = self.execute_sql(sql)
+        if resp.exceptions or resp.result_table is None:
+            return {"exceptions": resp.exceptions}
+        rt = resp.result_table
+        cursor_id = self.response_store.create_cursor(
+            rt.schema.column_names, rt.schema.column_types, rt.rows)
+        return self.response_store.fetch(cursor_id, 0, num_rows)
+
+    def fetch_cursor(self, cursor_id: str, offset: int,
+                     num_rows: int = 1000) -> dict:
+        return self.response_store.fetch(cursor_id, offset, num_rows)
+
+    def execute_sql_stream(self, sql: str):
+        """Streaming query: a generator of ResultTable pages (reference:
+        the gRPC streaming broker path). A selection WITHOUT order-by or
+        offset streams one page per server segment as it completes and
+        stops early once LIMIT rows have been emitted; other shapes
+        (aggregation, group-by, order-by, offset) run whole and yield one
+        page."""
+        try:
+            query = parse_sql(sql)
+        except SqlParseError as e:
+            raise ValueError(f"SqlParseError: {e}") from None
+        streamable = (not query.is_aggregation_query and not query.is_group_by
+                      and not query.distinct
+                      and not query.order_by_expressions
+                      and not query.offset)
+        if not streamable:
+            resp = self.execute_sql(sql)
+            if resp.exceptions:
+                raise RuntimeError("; ".join(resp.exceptions))
+            yield resp.result_table
+            return
+        raw = raw_table_name(query.table_name)
+        schema_json = self.store.get(f"/SCHEMAS/{raw}")
+        reducer = BrokerReducer(
+            Schema.from_json(schema_json) if schema_json else None)
+        remaining = query.limit
+        for ttype in ("OFFLINE", "REALTIME"):
+            nwt = table_name_with_type(raw, ttype)
+            if self.store.get(f"/CONFIGS/TABLE/{nwt}") is None:
+                continue
+            routing = self.routing_table(nwt)
+            if not routing:
+                continue
+            plan = self._select_instances(routing)
+            sub = _with_filter(query, nwt, None)
+            for inst, segs in plan.items():
+                stream = self._client(inst).call_stream(
+                    {"type": "query_stream", "table": nwt,
+                     "segments": segs, "query": sub})
+                for blob in stream:
+                    combined, _st = decode_datatable(blob)
+                    if isinstance(combined, SelectionIntermediate) and \
+                            not combined.rows:
+                        continue
+                    page = reducer.reduce(sub, combined)
+                    if remaining is not None:
+                        page.rows = page.rows[:remaining]
+                        remaining -= len(page.rows)
+                    if page.rows:
+                        yield page
+                    if remaining is not None and remaining <= 0:
+                        stream.close()  # early termination
+                        return
+
     @property
     def mse_dispatcher(self):
         """The multi-stage dispatcher with its mailbox endpoint, built on
@@ -444,6 +683,11 @@ class Broker:
                 return self._explain(query)
             except Exception as e:
                 return BrokerResponse(exceptions=[f"{type(e).__name__}: {e}"])
+        try:
+            self.quota.acquire(raw_table_name(query.table_name))
+        except QueryQuotaExceededError as e:
+            return BrokerResponse(
+                exceptions=[f"QueryQuotaExceededError: {e}"])
         ck = self._result_cache_key(query, segments)
         ledger_key = f"fp:{str(ck[0])[:16]}" if ck is not None else None
         if ck is not None:
@@ -461,11 +705,22 @@ class Broker:
         if PERF_LEDGER.exemplar_armed:
             exemplar_alert = PERF_LEDGER.claim_exemplar(
                 ledger_key or _sql_key(sql), query.table_name)
+        # admission control (load shedding): the budget starts ticking NOW,
+        # so time queued for a broker slot comes out of the query's own
+        # deadline; an overloaded broker sheds with a 429-style rejection
+        # instead of stacking unbounded work
         budget = _QueryBudget(self._timeout_ms(query),
                               self._partial_allowed(query))
         try:
-            resp = self._execute(query, only_segments=segments, budget=budget,
-                                 force_trace=bool(exemplar_alert))
+            with self.admission.admit(
+                    timeout_s=budget.remaining_s(),
+                    cost_hint_ms=self.workload.expected_cost_ms(
+                        raw_table_name(query.table_name))):
+                resp = self._execute(query, only_segments=segments,
+                                     budget=budget,
+                                     force_trace=bool(exemplar_alert))
+        except AdmissionRejectedError as e:
+            resp = self._rejected_response(e)
         except Exception as e:
             resp = BrokerResponse(exceptions=[f"{type(e).__name__}: {e}"],
                                   query_id=budget.query_id)
@@ -520,7 +775,14 @@ class Broker:
         sub.query_options["analyze"] = True
         budget = _QueryBudget(self._timeout_ms(query),
                               self._partial_allowed(query))
-        resp = self._execute(sub, only_segments=segments, budget=budget)
+        try:
+            with self.admission.admit(
+                    timeout_s=budget.remaining_s(),
+                    cost_hint_ms=self.workload.expected_cost_ms(raw)):
+                resp = self._execute(sub, only_segments=segments,
+                                     budget=budget)
+        except AdmissionRejectedError as e:
+            return self._rejected_response(e)
         resp.time_used_ms = (time.perf_counter() - t0) * 1000
         if resp.exceptions:
             return resp
@@ -709,7 +971,10 @@ class Broker:
             num_servers_queried=len(queried),
             num_servers_responded=len(responded),
             num_scatter_retries=stats_sum["scatter_retries"],
+            num_hedged_requests=stats_sum["hedged_requests"],
+            num_hedge_wins=stats_sum["hedge_wins"],
             num_corrupt_shards_retried=stats_sum["corrupt_shards_retried"],
+            cold_segments_warming=stats_sum["cold_segments_warming"],
             num_coalesced_queries=stats_sum["num_coalesced_queries"],
             coalesce_wait_ms=stats_sum["coalesce_wait_ms"],
             query_id=budget.query_id,
@@ -762,6 +1027,35 @@ class Broker:
                     retry=False, timeout=2.0)
             except (TransportError, RemoteError):
                 pass  # cancel is advisory; the server may already be gone
+
+    def _cancel_shard(self, inst: str, shard_qid: str) -> None:
+        """Cancel one hedging loser by its shard id, off-thread (the
+        loser's server is usually the slow one: never block the winner on
+        it). The server's accountant kills the shard's tracker, or
+        tombstones the id so it dies on arrival, and its segment loop's
+        check_cancel stops the device work. Uses a DEDICATED connection,
+        never the pooled per-instance client: the losing RPC itself holds
+        a pooled connection right now."""
+        cfg = self.store.get(f"/LIVEINSTANCES/{inst}") or \
+            self.store.get(f"/INSTANCECONFIGS/{inst}") or {}
+        host, port = cfg.get("host"), cfg.get("port")
+        if port is None:
+            return  # instance gone; nothing left to cancel
+
+        def _send():
+            client = RpcClient(host, port, timeout=2.0)
+            try:
+                client.call(
+                    {"type": "cancel", "queryId": shard_qid,
+                     "reason": "hedged duplicate superseded"},
+                    retry=False, timeout=2.0)
+            except (TransportError, RemoteError):
+                pass  # advisory, as the broadcast cancel
+            finally:
+                client.close()
+
+        threading.Thread(target=_send, daemon=True,
+                         name="broker-hedge-cancel").start()
 
     def _scatter_gather(self, table: str, query: QueryContext, stats_sum: dict,
                         budget: _QueryBudget,
@@ -823,7 +1117,7 @@ class Broker:
                 f"segments {sorted(segs)}: {err}")
 
         results, failed = self._dispatch_round(
-            plan, table, query, budget, stats_sum)
+            plan, table, query, budget, stats_sum, routing)
 
         # replica-aware retry: a shard that failed at the connection level
         # re-scatters to replicas not yet tried, under capped exponential
@@ -878,11 +1172,12 @@ class Broker:
                 for s in segs:
                     tried.setdefault(s, set()).add(inst)
             more, failed = self._dispatch_round(
-                retry_plan, table, query, budget, stats_sum)
+                retry_plan, table, query, budget, stats_sum, retry_routing)
             results.extend(more)
             attempt += 1
 
         combineds = []
+        cold_segs: set = set()
 
         def absorb(inst, r, missing_sink):
             combined, st = r["decoded"]
@@ -896,6 +1191,14 @@ class Broker:
                       "num_segments_cache_miss", "num_coalesced_queries",
                       "coalesce_wait_ms"):
                 stats_sum[k] += st.get(k, 0)
+            # tiered storage: segments the server reported COLD (still
+            # warming) ride the missing-segments retry below, and are
+            # counted and hinted so routing and the response reflect it
+            for s in st.get("cold_segments", []):
+                cold_segs.add(s)
+                self._note_cold(inst, s)
+            stats_sum["cold_segments_warming"] += \
+                len(st.get("cold_segments", []))
             for s in st.get("missing_segments", []):
                 missing_sink.setdefault(inst, []).append(s)
 
@@ -917,6 +1220,12 @@ class Broker:
                         raise _StaleRoutingError(
                             f"segment {s} replaced mid-query")
                     replicas = [i for i in fresh[s] if i != inst]
+                    if not replicas and s in cold_segs:
+                        # the only replica is still WARMING the segment:
+                        # retry the same instance; its background warm
+                        # (bounded by our remaining budget there) usually
+                        # lands before the retry does
+                        replicas = [inst]
                     if not replicas:
                         if budget.partial_ok:
                             degrade(inst, [s], RuntimeError(
@@ -928,7 +1237,7 @@ class Broker:
             still_missing: dict[str, list[str]] = {}
             more, failed = self._dispatch_round(
                 self._select_instances(sub_routing), table, query, budget,
-                stats_sum)
+                stats_sum, sub_routing)
             for inst, out in more:
                 absorb(inst, out, still_missing)
             for inst, segs, err in failed:
@@ -1029,23 +1338,136 @@ class Broker:
                 stats.inflight -= 1
 
     def _dispatch_round(self, plan: dict, table: str, query: QueryContext,
-                        budget: _QueryBudget, stats_sum: dict):
-        """One scatter round: each (instance, segments) shard goes out as
-        one RPC, all at once. Returns ``(results, failed)``: ``results`` =
-        [(instance, out)] in plan order, ``failed`` = [(instance,
-        segments, error)]."""
-        futures = [self._pool.submit(self._call_one, inst, segs, table,
-                                     query, budget, stats_sum,
-                                     budget.next_shard_id())
-                   for inst, segs in plan.items()]
-        results, failed = [], []
-        for fut in futures:
-            inst, segs, out, err = fut.result()
-            if err is None:
-                results.append((inst, out))
-            else:
-                failed.append((inst, segs, err))
+                        budget: _QueryBudget, stats_sum: dict,
+                        routing: dict):
+        """One scatter round with hedging: each (instance, segments) shard
+        goes out as one RPC; a shard in flight past the hedge delay gets a
+        duplicate on another replica holding all its segments. The first
+        complete response wins: exactly one response per shard enters the
+        merge, in shard submission order, so a hedged run stays
+        bit-identical to an unhedged one, and the loser is cancelled by its
+        shard id.
+
+        Returns ``(results, failed)``: ``results`` = [(instance, out)] in
+        plan order, ``failed`` = [(instance, segments, error)], one entry
+        per shard whose every attempt failed."""
+        hedge_delay = self._hedge_delay_s()
+        shards = []
+        pending: dict = {}  # future → (shard, inst, shard_qid)
+        for idx, (inst, segs) in enumerate(plan.items()):
+            sh = {"idx": idx, "primary": inst, "segs": segs,
+                  "t0": time.monotonic(), "resolved": False,
+                  "hedged": hedge_delay is None, "outstanding": 1,
+                  "errors": []}
+            qid = budget.next_shard_id()
+            fut = self._pool.submit(self._call_one, inst, segs, table,
+                                    query, budget, stats_sum, qid)
+            pending[fut] = (sh, inst, qid)
+            shards.append(sh)
+        out_by_idx: dict[int, tuple] = {}
+        failed: list[tuple[str, list, Exception]] = []
+        while pending:
+            timeout = None
+            if hedge_delay is not None:
+                due = [sh["t0"] + hedge_delay for sh in shards
+                       if not sh["resolved"] and not sh["hedged"]]
+                if due:
+                    timeout = max(0.0, min(due) - time.monotonic())
+            done, _ = wait(set(pending), timeout=timeout,
+                           return_when=FIRST_COMPLETED)
+            if not done:
+                # a straggler crossed the hedge delay: duplicate its RPC
+                # onto another replica (at most one hedge per shard)
+                now = time.monotonic()
+                for sh in shards:
+                    if sh["resolved"] or sh["hedged"] or \
+                            now - sh["t0"] < hedge_delay:
+                        continue
+                    sh["hedged"] = True
+                    target = self._hedge_target(sh, routing)
+                    if target is None or budget.remaining_s() <= 0:
+                        continue
+                    BROKER_METRICS.add_meter(BrokerMeter.HEDGED_REQUESTS)
+                    with self._lock:
+                        stats_sum["hedged_requests"] += 1
+                    qid = budget.next_shard_id()
+                    fut = self._pool.submit(
+                        self._call_one, target, sh["segs"], table, query,
+                        budget, stats_sum, qid)
+                    pending[fut] = (sh, target, qid)
+                    sh["outstanding"] += 1
+                continue
+            for fut in done:
+                entry = pending.pop(fut, None)
+                if entry is None:
+                    # its shard already resolved in this same batch and the
+                    # winner's cleanup dropped this duplicate
+                    continue
+                sh, inst, qid = entry
+                sh["outstanding"] -= 1
+                if sh["resolved"]:
+                    continue  # a duplicate of an already-won shard
+                _i, _s, out, err = fut.result()
+                if err is None:
+                    sh["resolved"] = True
+                    if inst != sh["primary"]:
+                        BROKER_METRICS.add_meter(BrokerMeter.HEDGE_WINS)
+                        with self._lock:
+                            stats_sum["hedge_wins"] += 1
+                    out_by_idx[sh["idx"]] = (inst, out)
+                    # first complete wins: drop and cancel the outstanding
+                    # duplicate so it stops burning server and card time
+                    for ofut, (osh, oinst, oqid) in list(pending.items()):
+                        if osh is sh:
+                            del pending[ofut]
+                            self._cancel_shard(oinst, oqid)
+                else:
+                    sh["errors"].append((inst, err))
+                    if sh["outstanding"] == 0:
+                        # every attempt failed: classify on the primary's
+                        # error when it is among them (the hedge may have
+                        # failed differently)
+                        pick = next((p for p in sh["errors"]
+                                     if p[0] == sh["primary"]),
+                                    sh["errors"][0])
+                        failed.append((pick[0], sh["segs"], pick[1]))
+        results = [out_by_idx[i] for i in sorted(out_by_idx)]
         return results, failed
+
+    def _hedge_delay_s(self) -> Optional[float]:
+        """Straggler threshold before a duplicate RPC goes out. A fixed
+        `hedge_fixed_ms` wins (0 disables); otherwise the `hedge_quantile`
+        of the scatterRpcMs histogram, once it holds enough samples to
+        mean something. None = hedging off (the default)."""
+        if self.hedge_fixed_ms is not None:
+            return self.hedge_fixed_ms / 1000.0 \
+                if self.hedge_fixed_ms > 0 else None
+        if self.hedge_quantile <= 0:
+            return None
+        count, _total = BROKER_METRICS.timer_stats(BrokerTimer.SCATTER_RPC_MS)
+        if count < self.hedge_min_samples:
+            return None
+        q_ms = BROKER_METRICS.timer_quantile(BrokerTimer.SCATTER_RPC_MS,
+                                             self.hedge_quantile)
+        return max(q_ms / 1000.0, 0.001)
+
+    def _hedge_target(self, sh: dict, routing: dict) -> Optional[str]:
+        """Another replica hosting EVERY segment of the straggling shard
+        (never the primary, breaker permitting); None when the shard has
+        no full-coverage alternative."""
+        candidates: Optional[set] = None
+        for seg in sh["segs"]:
+            replicas = set(routing.get(seg, ()))
+            candidates = replicas if candidates is None \
+                else candidates & replicas
+        picks = [i for i in (candidates or ())
+                 if i != sh["primary"] and self.breakers.allow(i)]
+        if not picks:
+            return None
+        with self._lock:
+            return min(picks, key=lambda i: (
+                self._server_stats.setdefault(i, _ServerStats()).score(),
+                i))
 
     def _backoff_sleep(self, attempt: int, budget: _QueryBudget) -> None:
         """Capped exponential backoff before a retry round, never past the

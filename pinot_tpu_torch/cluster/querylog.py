@@ -5,8 +5,8 @@ pinot-broker/.../querylog/QueryLogger.java: one structured log line per
 completed query (requestId, table, latency, docs scanned, exceptions),
 throttled by a token bucket so a hot broker cannot flood the log; the
 dropped lines are counted and reported with the next line that passes.
-The port's broker has no hedging, admission control or tiered storage
-yet, so its slow entries carry none of their fields.
+A slow entry names the hedges, the cold segments still warming and an
+admission rejection where the query met them.
 """
 
 from __future__ import annotations
@@ -75,14 +75,23 @@ class QueryLogger:
         if getattr(response, "num_servers_queried", 0):
             entry["numServersQueried"] = response.num_servers_queried
             entry["numServersResponded"] = response.num_servers_responded
-        # self-healing scatter/gather: a slow query that healed (retried
-        # its way to a full answer) says so in the log
+        # self-healing scatter/gather: a slow query that healed (retried or
+        # hedged its way to a full answer) says so in the log
         if getattr(response, "num_scatter_retries", 0):
             entry["scatterRetries"] = response.num_scatter_retries
+        if getattr(response, "num_hedged_requests", 0):
+            entry["hedgedRequests"] = response.num_hedged_requests
+            entry["hedgeWins"] = response.num_hedge_wins
         # wire-integrity healing: shards whose DataTable failed its
         # checksum and were re-dispatched to another replica
         if getattr(response, "num_corrupt_shards_retried", 0):
             entry["corruptShardsRetried"] = response.num_corrupt_shards_retried
+        # tiered storage: the query raced a cold segment's warm, slow (or
+        # partial) because the bytes were still on their way up the tiers
+        if getattr(response, "cold_segments_warming", 0):
+            entry["coldSegmentsWarming"] = response.cold_segments_warming
+        if getattr(response, "query_rejected", False):
+            entry["queryRejected"] = True
         from ..spi import faults
 
         if faults.ACTIVE:

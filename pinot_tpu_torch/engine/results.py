@@ -76,12 +76,21 @@ class BrokerResponse:
     cache_outcome: str = ""
     # scatter/gather accounting of the cluster broker (cluster/broker.py;
     # reference numServersQueried/Responded): responded < queried implies
-    # a degraded path; RPCs re-scattered to another replica, and shards
-    # whose DataTable failed its checksum and were re-dispatched
+    # a degraded path; RPCs re-scattered to another replica, straggler
+    # RPCs duplicated after the hedge delay and hedges that beat their
+    # primary, and shards whose DataTable failed its checksum and were
+    # re-dispatched
     num_servers_queried: int = 0
     num_servers_responded: int = 0
     num_scatter_retries: int = 0
+    num_hedged_requests: int = 0
+    num_hedge_wins: int = 0
     num_corrupt_shards_retried: int = 0
+    # the broker's admission control shed this query (429-style rejection)
+    query_rejected: bool = False
+    # tiered storage: cold (metadata-only) segments still warming when the
+    # response was assembled; the answer may be partial, never wrong
+    cold_segments_warming: int = 0
     # the broker's query id (shards carry "<query_id>:<n>")
     query_id: str = ""
     # the wire of a cluster query, one entry per answered shard: server
@@ -125,8 +134,15 @@ class BrokerResponse:
             out["numServersResponded"] = self.num_servers_responded
         if self.num_scatter_retries:
             out["numScatterRetries"] = self.num_scatter_retries
+        if self.num_hedged_requests:
+            out["numHedgedRequests"] = self.num_hedged_requests
+            out["numHedgeWins"] = self.num_hedge_wins
         if self.num_corrupt_shards_retried:
             out["numCorruptShardsRetried"] = self.num_corrupt_shards_retried
+        if self.query_rejected:
+            out["queryRejected"] = True
+        if self.cold_segments_warming:
+            out["coldSegmentsWarming"] = self.cold_segments_warming
         if self.num_coalesced_queries:
             out["numCoalescedQueries"] = self.num_coalesced_queries
             out["coalesceWindowMs"] = self.coalesce_wait_ms

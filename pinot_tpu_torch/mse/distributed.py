@@ -31,15 +31,17 @@ Leaf stages run the single-stage engine on the worker's device over an
 explicit per-worker segment list chosen by the broker's replica selector
 (never "all hosted segments": with replication > 1 that would double-count
 rows), and hybrid tables are split offline/realtime at the time boundary
-exactly like the single-stage broker path. A routed segment the worker
-does not host fails the stage: the port's server has no tiered storage, so
-there is no cold segment to warm (that waits for `storage/`). Join stages
-run the pair join on the worker's device (mse/operators.py); the fused
-join stage stays in-process only, as in the JAX package.
+exactly like the single-stage broker path. A routed segment registered
+cold on the worker's server (tiered storage, cluster/server.py) is warmed
+within the stage's deadline; one still cold at the deadline, or one the
+worker does not host, fails the stage. Join stages run the pair join on
+the worker's device (mse/operators.py); the fused join stage stays
+in-process only, as in the JAX package.
 
-Left out: the broker's per-table quota and admission gate in front of the
-dispatch (`pinot_tpu/mse/distributed.py:947-954`,
-`pinot_tpu/cluster/broker.py:778-789`): the port's broker has neither yet.
+At the broker, a statement passes the per-table QPS quota of every table a
+leaf stage scans (`Broker.quota`) and, through `Broker._admitted_mse`, the
+same admission gate as the single-stage path.
+
 The cluster reads no environment variable: `CHUNK_ROWS`,
 `MAILBOX_BUFFER_BYTES`, `MAILBOX_WAIT_S` and `DEVICE_PACK_MIN_BYTES` are
 module constants with the JAX package's defaults.
@@ -511,7 +513,7 @@ class _LeafEngine:
     def _half_queries(self, qc):
         for nwt, seg_names, extra in self.worker._halves_for(
                 self.halves, qc.table_name):
-            segs = self.worker._leaf_segments(nwt, seg_names)
+            segs = self.worker._leaf_segments(nwt, seg_names, self.deadline)
             q2 = copy.deepcopy(qc)
             q2.table_name = nwt
             if self.deadline is not None:
@@ -675,7 +677,7 @@ class MseWorkerService:
         # the server's device: the stage's pair joins run there
         runner = StageRunner([stage], request.get("parallelism", 1),
                              _LeafEngine(self, halves, deadline),
-                             self._make_read_table(halves),
+                             self._make_read_table(halves, deadline),
                              query_options=request.get("options") or {},
                              device=self.server.device)
         runner.mailbox = mailbox
@@ -731,11 +733,22 @@ class MseWorkerService:
                 f"table {table} not assigned to this worker")
         return entry
 
-    def _leaf_segments(self, nwt: str, seg_names) -> list:
-        """The routed segments, in order. A routed segment this server
-        does not host raises: an MSE leaf has no partial-results channel,
-        so skipping it would silently truncate the scan."""
+    def _leaf_segments(self, nwt: str, seg_names,
+                       deadline: Optional[float] = None) -> list:
+        """The routed segments, in order, lazily warming cold (metadata-
+        only) registrations within the stage deadline (`deadline`,
+        absolute monotonic; None waits for the warm). An MSE leaf has no
+        partial-results channel, so a routed segment still cold at the
+        deadline, or one this server does not host, raises rather than be
+        skipped into a silently truncated scan."""
         server = self.server
+        deadline_ms = None
+        if deadline is not None:
+            deadline_ms = max(0.0, (deadline - time.monotonic()) * 1000.0)
+        still = server._warm_routed(nwt, list(seg_names), deadline_ms)
+        if still:
+            raise RuntimeError(
+                f"cold segments still warming for {nwt}: {still}")
         with server._lock:
             hosted = dict(server.segments.get(nwt, {}))
         missing = [n for n in seg_names if n not in hosted]
@@ -745,7 +758,8 @@ class MseWorkerService:
                 f"{missing} routed to it")
         return [hosted[n] for n in seg_names]
 
-    def _make_read_table(self, halves: dict) -> Callable:
+    def _make_read_table(self, halves: dict,
+                         deadline: Optional[float] = None) -> Callable:
         """Generic scan over assigned segments (leaf shapes the single-stage
         engine refuses), with the hybrid time-boundary filter applied per
         half, upsert-invalid rows dropped and a consuming segment read
@@ -754,7 +768,7 @@ class MseWorkerService:
         def read_table(table: str, columns: list[str]) -> dict[str, np.ndarray]:
             blocks = []
             for nwt, seg_names, extra in self._halves_for(halves, table):
-                segs = self._leaf_segments(nwt, seg_names)
+                segs = self._leaf_segments(nwt, seg_names, deadline)
                 extra_ec = expr_from_json(extra) if extra is not None else None
                 need = list(dict.fromkeys(
                     list(columns) + sorted(extra_ec.columns() if extra_ec else [])))
@@ -1001,6 +1015,16 @@ class DistributedMseDispatcher:
             return BrokerResponse(result_table=ResultTable(
                 DataSchema(["plan"], ["STRING"]),
                 [[line] for line in text.split("\n")])), False
+
+        # the per-table QPS quota applies to every engine at the broker
+        # (reference: the quota check in BrokerRequestHandler before the
+        # dispatch), over every table a leaf stage scans
+        quota_tables = set()
+        for stage in stages:
+            if stage.stage_id != 0:
+                quota_tables.update(s.table for s in stage.scans())
+        for t in sorted(quota_tables):
+            self.broker.quota.acquire(t)
 
         topo = StageRunner(stages, STAGE_PARALLELISM, None, None)
         servers = self._server_instances()

@@ -292,6 +292,9 @@ class DeviceSegmentCache:
         self.partial_hits = 0
         self.partial_misses = 0
         self.evictions = 0
+        # the most bytes held at once, sampled before every release and at
+        # each read of `high_water_bytes` (the hbmBytesHighWater gauge)
+        self._high_water = 0
         self._lock = threading.Lock()
         _LIVE_CACHES.add(self)
 
@@ -423,6 +426,7 @@ class DeviceSegmentCache:
         key = id(segment)
         name = getattr(segment, "name", None)
         with self._lock:
+            self._note_high_water()
             victims = 0
             v = self._views.pop(key, None)
             if v is not None:
@@ -450,6 +454,7 @@ class DeviceSegmentCache:
         name = str(segment_name)
         freed = victims = 0
         with self._lock:
+            self._note_high_water()
             dead = [k for k, v in self._views.items()
                     if str(getattr(v.segment, "name", "")) == name]
             for key in dead:
@@ -474,6 +479,34 @@ class DeviceSegmentCache:
             self.evictions += victims
         return freed
 
+    def release(self, segment) -> int:
+        """Release the device view of this segment OBJECT and every family
+        stack it is a member of, by id (a tiered server's evicted copy,
+        once its last reader has drained). The caller keeps the object
+        alive until this returns, so its id names no other segment; a
+        newer incarnation of the same name keeps its own view and stacks.
+        Returns the bytes freed."""
+        key = id(segment)
+        freed = victims = 0
+        with self._lock:
+            self._note_high_water()
+            v = self._views.get(key)
+            if v is not None and v.segment is segment:
+                del self._views[key]
+                freed += v.nbytes()
+                v.evict()
+                if key in self._order:
+                    self._order.remove(key)
+                victims += 1
+            for skey in [k for k in self._stacks if key in k]:
+                sv = self._stacks.pop(skey)
+                freed += sv.nbytes()
+                sv.evict()
+                self._stack_order.remove(skey)
+                victims += 1
+            self.evictions += victims
+        return freed
+
     def evict_all_except(self, keep_segment=None) -> tuple[int, int]:
         """Device-memory pressure relief (engine/oom.py): evict every
         cached partial, then every stack, then every view but
@@ -481,6 +514,7 @@ class DeviceSegmentCache:
         keep_key = id(keep_segment) if keep_segment is not None else None
         freed = victims = 0
         with self._lock:
+            self._note_high_water()
             for _, nbytes, _ in self._partials.values():
                 freed += nbytes
                 victims += 1
@@ -525,9 +559,23 @@ class DeviceSegmentCache:
 
     def bytes_used(self) -> int:
         with self._lock:
-            return (sum(v.nbytes() for v in self._views.values())
-                    + sum(s.nbytes() for s in self._stacks.values())
-                    + sum(e[1] for e in self._partials.values()))
+            return self._bytes_locked()
+
+    def _bytes_locked(self) -> int:
+        return (sum(v.nbytes() for v in self._views.values())
+                + sum(s.nbytes() for s in self._stacks.values())
+                + sum(e[1] for e in self._partials.values()))
+
+    def _note_high_water(self) -> None:
+        # caller holds self._lock
+        self._high_water = max(self._high_water, self._bytes_locked())
+
+    def high_water_bytes(self) -> int:
+        """The most bytes this cache held at once, as far as it sampled:
+        before each release and at each call."""
+        with self._lock:
+            self._note_high_water()
+            return self._high_water
 
     def _maybe_evict(self) -> None:
         # caller holds self._lock. Planes upload (and stacks build) lazily

@@ -45,6 +45,11 @@ from .indexes import (BloomFilter, JsonIndex, TextIndex, VectorIndex,
 from .startree import StarTreeView
 
 
+# full-segment verifications so far (a perf guard: a warm query path,
+# tiered storage's resident path included, must not move it)
+VERIFY_CALLS = 0
+
+
 class SegmentIntegrityError(RuntimeError):
     """A loaded segment's bytes do not match its build-time checksums
     (bit rot, truncation, torn copy); names the damaged columns."""
@@ -86,6 +91,8 @@ class ImmutableSegment:
         builder stamped into metadata.json; raise SegmentIntegrityError on
         any mismatch, naming the damaged column(s) when the per-buffer
         crcs localize it. One full sequential pass at load time."""
+        global VERIFY_CALLS
+        VERIFY_CALLS += 1
         meta = self.metadata
         expected_end = max(
             (off + size for off, size, *_ in meta.buffers.values()),

@@ -41,7 +41,12 @@ B on its decompressed planes and virtual columns with the CPU's rows. With
 head sampling on, a 2-server card cluster retains q2_family with both
 servers' spans and the compile registry counts one dispatch per launch of
 kernel A; the AOT prewarm of a card executor's persisted families launches
-kernels A and B once each, element-equal to their plain versions.
+kernels A and B once each, element-equal to their plain versions. A
+tiered card server (storage/tier.py) warms a cold segment and launches
+kernel A once over the family with the CPU's rows; a demoted segment's
+planes leave the card and upload fresh when it is fetched again; and
+queries racing a thread that keeps demoting and fetching the segments
+again launch kernel A exactly.
 """
 
 from __future__ import annotations
@@ -1926,3 +1931,206 @@ def test_prewarm_on_the_card_launches_both_kernels_once(
         assert qe.execute_sql(sql).result_table.rows == want
     assert SERVER_METRICS.snapshot()["meters"]["aotCacheHits"] == hits + 5
     _fresh_families()
+
+
+# -- tiered storage on the card ------------------------------------------------
+
+_TIER_FAMILY = ("SELECT d_year, p_brand, SUM(lo_revenue) FROM ssb "
+                "WHERE s_region = 'ASIA' GROUP BY d_year, p_brand LIMIT 10000")
+
+
+def _tarred(paths, root) -> tuple:
+    """Each segment directory as a tarball: (tars, the largest directory's
+    bytes, the tier's measure of a segment)."""
+    import tarfile
+    from pathlib import Path
+
+    tars, biggest = [], 0
+    for p in paths:
+        tar = Path(root) / f"{Path(p).name}.tar.gz"
+        with tarfile.open(tar, "w:gz", compresslevel=1) as tf:
+            tf.add(p, arcname=Path(p).name)
+        tars.append(str(tar))
+        biggest = max(biggest, sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _, fs in os.walk(p) for f in fs))
+    return tars, biggest
+
+
+def _tiered_server(schema, tars, biggest, device, per_server=2):
+    """One server over `tars` whose tier holds `per_server - 1` segments:
+    the first loads, the rest register cold (metadata only)."""
+    from pinot_tpu_torch.cluster import (Broker, ClusterController,
+                                         PropertyStore, ServerInstance)
+
+    store = PropertyStore()
+    ctl = ClusterController(store)
+    server = ServerInstance(store, "Server_0", device=device,
+                            local_storage_mb=biggest * (per_server - 1)
+                            / (1 << 20))
+    server.start()
+    ctl.add_schema(schema.to_json())
+    table = ctl.create_table({"tableName": "ssb", "replication": 1})
+    for i, tar in enumerate(tars[:per_server]):
+        ctl.add_segment(table, f"ssb_{i}", {"location": tar,
+                                            "numDocs": 40_000})
+    return server, Broker(store)
+
+
+def test_warmed_cold_segment_family_on_the_card_equals_plain(
+        cuda, cluster_segments, tmp_path):
+    """A card server holds one of its two segments and registers the
+    other cold: q2_family warms the cold one and launches kernel A once
+    over the family of both, element-equal to the plain version on the
+    same planes, with the rows of the same query on the CPU."""
+    schema, paths = cluster_segments
+    tars, biggest = _tarred(paths, tmp_path)
+    want = None
+    for device in ("cpu", "cuda"):
+        server, broker = _tiered_server(schema, tars, biggest, device)
+        try:
+            cold = server.debug_storage()["tables"]["ssb_OFFLINE"]["cold"]
+            assert len(cold) == 1
+            calls = []
+            orig = mxu_groupby.limb_sums
+
+            def rec(*args, **kw):
+                calls.append(args)
+                return orig(*args, **kw)
+
+            mxu_groupby.limb_sums = rec
+            _cuda.reset_launches()
+            try:
+                resp = broker.execute_sql(_TIER_FAMILY)
+            finally:
+                mxu_groupby.limb_sums = orig
+            assert not resp.exceptions and not resp.partial_result
+            rows = sorted(map(tuple, resp.result_table.rows))
+            if device == "cpu":
+                want = rows
+                continue
+            torch.cuda.synchronize()
+            assert rows == want
+            assert _cuda.LAUNCHES["limb_sums"] == 1 and len(calls) == 1
+            planes, gid, g = calls[0]
+            assert planes.device.type == "cuda" and planes.shape[0] == 2
+            assert torch.equal(mxu_groupby.limb_sums(planes, gid, g),
+                               mxu_groupby.limb_sums_plain(planes, gid, g))
+        finally:
+            server.stop()
+            broker.close()
+
+
+def test_evicted_planes_leave_the_card_and_upload_fresh(
+        cuda, cluster_segments, tmp_path):
+    """Demoting a segment to cold frees its planes and family stacks on
+    the card (allocated bytes fall by at least its plane bytes); fetched
+    again, it uploads fresh planes (a new view) and kernel A over them
+    equals the plain version, with the same rows."""
+    schema, paths = cluster_segments
+    tars, biggest = _tarred(paths, tmp_path)
+    server, broker = _tiered_server(schema, tars, biggest, "cuda",
+                                    per_server=3)
+    try:
+        cache = server.executor.executor.cache
+        first = broker.execute_sql(_TIER_FAMILY)
+        assert not first.exceptions
+        torch.cuda.synchronize()
+        names = {v.segment.name: v for v in cache._views.values()}
+        victim = sorted(names)[0]
+        old_view = names[victim]
+        plane_bytes = old_view.nbytes()
+        assert plane_bytes > 0
+        before = torch.cuda.memory_allocated()
+        server._tier.budget_bytes = 0  # every unpinned copy must go
+        server._tier._make_room()
+        server._tier.budget_bytes = int(biggest * 3)
+        gc.collect()
+        torch.cuda.synchronize()
+        assert victim not in cache.segment_names()
+        assert before - torch.cuda.memory_allocated() >= plane_bytes
+        calls = []
+        orig = mxu_groupby.limb_sums
+
+        def rec(*args, **kw):
+            calls.append(args)
+            return orig(*args, **kw)
+
+        mxu_groupby.limb_sums = rec
+        try:
+            again = broker.execute_sql(_TIER_FAMILY)
+        finally:
+            mxu_groupby.limb_sums = orig
+        torch.cuda.synchronize()
+        assert not again.exceptions
+        assert sorted(map(tuple, again.result_table.rows)) == \
+            sorted(map(tuple, first.result_table.rows))
+        fresh = [v for v in cache._views.values()
+                 if v.segment.name == victim]
+        assert fresh and fresh[0] is not old_view
+        for planes, gid, g in calls:
+            assert torch.equal(mxu_groupby.limb_sums(planes, gid, g),
+                               mxu_groupby.limb_sums_plain(planes, gid, g))
+    finally:
+        server.stop()
+        broker.close()
+
+
+def test_eviction_racing_dispatches_leaves_every_launch_exact(
+        cuda, cluster_segments, tmp_path):
+    """Queries on the card while another thread keeps demoting and
+    fetching the same segments again: every answer is the first one's
+    rows, and every recorded launch of kernel A equals its plain version
+    on the planes it was given."""
+    import threading
+
+    schema, paths = cluster_segments
+    tars, biggest = _tarred(paths, tmp_path)
+    server, broker = _tiered_server(schema, tars, biggest, "cuda",
+                                    per_server=3)
+    try:
+        want = sorted(map(tuple, broker.execute_sql(
+            _TIER_FAMILY).result_table.rows))
+        stop = threading.Event()
+        errors = []
+
+        def churn():
+            tier = server._tier
+            while not stop.is_set():
+                budget = tier.budget_bytes
+                tier.budget_bytes = 0
+                tier._make_room()
+                tier.budget_bytes = budget
+
+        calls = []
+        orig = mxu_groupby.limb_sums
+
+        def rec(*args, **kw):
+            out = orig(*args, **kw)
+            calls.append((args, out.clone()))
+            return out
+
+        mxu_groupby.limb_sums = rec
+        t = threading.Thread(target=churn)
+        t.start()
+        try:
+            for _ in range(6):
+                resp = broker.execute_sql(
+                    "SET allowPartialResults = true; " + _TIER_FAMILY)
+                if resp.partial_result:
+                    continue  # a segment caught cold: flagged, not wrong
+                if sorted(map(tuple, resp.result_table.rows)) != want:
+                    errors.append(resp.exceptions)
+        finally:
+            stop.set()
+            t.join(60.0)
+            mxu_groupby.limb_sums = orig
+        torch.cuda.synchronize()
+        assert not errors
+        assert calls
+        for (planes, gid, g), out in calls:
+            assert torch.equal(out, mxu_groupby.limb_sums_plain(
+                planes, gid, g))
+    finally:
+        server.stop()
+        broker.close()
