@@ -307,9 +307,10 @@ Phases, each printing one JSON line:
            clusters of their own over `ssb`: 16 closed-loop clients against
            a gate of 2 in flight and 2 queued (each answer the oracle's or a
            rejection, the queriesRejected meter, the in-flight gauge's peak,
-           admitted p50 / p99, the queue wait, the gate's cost an admit); a
-           QPS quota of 5 under a burst of 20 (q2_family, q8 through the
-           cluster MSE); sel_limit through a cursor in pages of 1000; a
+           admitted p50 / p99, the queue wait, the gate's cost an admit);
+           under a burst of 20 a QPS quota of 5 on q2_family and of 1 on q8
+           through the cluster MSE; sel_limit through a cursor in pages of
+           1000; a
            LIMIT 100 selection streamed and stopped early; q2_family with
            each primary RPC delayed 250 ms, unhedged and hedged at 20 ms
            (p50 / p99, rows bit-identical, hedges, wins, the losers'
@@ -320,6 +321,25 @@ Phases, each printing one JSON line:
            fed by the broker's beacon (prefetch hits, the AOT prewarm), q2
            with kernel B a warmed segment, mse_agg's leaves warming a cold
            segment, and the disk against the budget at every step
+  operations
+           the operations layer on the card over loopback HTTP, a cluster
+           of its own over `ssb` (2 card servers, replication 1, a third
+           that joins): REST p50 of q2_family against Broker.execute_sql's,
+           q2_family (kernel A) and q2 (kernel B) over POST /query/sql with
+           the oracle's rows, a 1 qps quota's rejection, a shed query's
+           429, BasicAuth's 401 and 403, /metrics as Prometheus text, every
+           /debug route; POST /tables/ssb/rebalance moving a segment onto
+           the joiner under a REST client (every answer the oracle's, no
+           segment below one routable replica) and the source's device
+           bytes freed; a drain of Server_0 whose first destination fetch
+           a rebalance.move fault corrupts (quarantined, repaired by the
+           SegmentIntegrityChecker's nudge, the job DONE), kernel A over
+           the destination's family; a lineage swap of ssb_0 to a renamed
+           copy under a REST client (rows counted once, the old planes
+           released); the fleet health scrape (each server's device bytes
+           equal to its cache's) flagging a delayed server straggler, and
+           /debug/cluster; build_default_scheduler's tasks run once each,
+           their ms
   doctor   `python -m pinot_tpu_torch.tools.doctor`'s probe (a supervised
            child: the card, the kernel build, kernel A against its plain
            version) must classify `ok`
@@ -363,8 +383,10 @@ Phases, each printing one JSON line:
            launches included, one row each, kernel A over a cluster server's
            family of 2, kernels A and B head-sampled through the cluster
            (phase flight_recorder), kernels A and B through the cluster
-           multi-stage engine's leaves, and kernels A and B through phase
-           admission_tiers' tiered and hedged paths): per kernel and
+           multi-stage engine's leaves, kernels A and B through phase
+           admission_tiers' tiered and hedged paths, and kernels A and B
+           through phase operations' REST, moved and swapped segments):
+           per kernel and
            main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
            rotated over the recorded inputs of the query's segments or
@@ -387,18 +409,23 @@ is present or the pinot_tpu_torch package is not beside it.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import gc
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -4554,6 +4581,10 @@ ADMISSION_MAX_INFLIGHT = 2
 ADMISSION_MAX_QUEUED = 2
 GATE_ADMITS = 20_000  # admit() calls timed alone for the gate's cost
 QUOTA_QPS = 5
+# q8's burst admits one statement: its 5 admitted pair joins took 9.7 to
+# 11.2 s at once (host-bound under one GIL); one shows the quota in front
+# of the cluster MSE's dispatch as well (cut for phase operations)
+QUOTA_QPS_Q8 = 1
 QUOTA_BURST = 20
 CURSOR_PAGE = 1000
 # sel_limit at ten pages of CURSOR_PAGE rows
@@ -4607,9 +4638,9 @@ def phase_admission_tiers(args, torch, tmp, schema, expected, _cuda, mxu, fg,
     q2_family to a broker whose gate admits 2 and queues 2 (every answer
     the oracle's rows or a rejection, the queriesRejected meter equal to
     the rejections, the in-flight gauge never above 2; admitted p50 / p99
-    and the queue wait; the gate's own cost per admit); a QPS quota of 5
-    under a burst of 20 (q2_family, and q8 through the cluster MSE) admits
-    5; sel_limit through a cursor in pages of 1000 (and a 10,000-row
+    and the queue wait; the gate's own cost per admit); under a burst of
+    20 a QPS quota of 5 admits 5 q2_family and one of 1 admits 1 q8
+    through the cluster MSE; sel_limit through a cursor in pages of 1000 (and a 10,000-row
     variant in ten pages) equals the full response; a LIMIT 100 selection
     streams and stops early; q2_family with the first server.query RPC of
     each query delayed 250 ms, without hedging and with hedge_ms = 20
@@ -4751,7 +4782,7 @@ def phase_admission_tiers(args, torch, tmp, schema, expected, _cuda, mxu, fg,
             "note": "host clock; admitted ms is the client's wall time, "
                     "its queue wait included"}
 
-        # -- 1b: a QPS quota of 5 under a burst of 20 --------------------
+        # -- 1b: QPS quotas under a burst of 20 --------------------------
         qb = Broker(store)
         brokers.append(qb)
         quota = {}
@@ -4759,13 +4790,14 @@ def phase_admission_tiers(args, torch, tmp, schema, expected, _cuda, mxu, fg,
         # the auto gate its 5 admitted statements join on the host at once:
         # 11.2 s on an H100 80GB HBM3 at 700 W)
         prev_join = os.environ.get("PINOT_TPU_DEVICE_JOIN")
-        for qname, qsql, qwant, ordered in (
-                ("q2_family", sql, want, False),
-                ("q8", MSE_QUERIES["q8"], expected["q8"], True)):
+        for qname, qsql, qwant, ordered, qps in (
+                ("q2_family", sql, want, False, QUOTA_QPS),
+                ("q8", MSE_QUERIES["q8"], expected["q8"], True,
+                 QUOTA_QPS_Q8)):
             _set_env("PINOT_TPU_DEVICE_JOIN", "1" if qname == "q8"
                      else prev_join)
             qb.quota = QueryQuotaManager()
-            qb.quota.set_qps_limit("ssb", QUOTA_QPS)
+            qb.quota.set_qps_limit("ssb", qps)
             results = []
             burst = threading.Barrier(QUOTA_BURST)
 
@@ -4786,18 +4818,18 @@ def phase_admission_tiers(args, torch, tmp, schema, expected, _cuda, mxu, fg,
             ok = [r for r in results if not r.exceptions]
             over = [r for r in results if r.exceptions and r.exceptions[0]
                     .startswith("QueryQuotaExceededError")]
-            if len(ok) != QUOTA_QPS or len(over) != QUOTA_BURST - QUOTA_QPS:
+            if len(ok) != qps or len(over) != QUOTA_BURST - qps:
                 raise AssertionError(
                     f"quota {qname}: {len(ok)} answered, {len(over)} over "
                     f"quota of {QUOTA_BURST}: "
                     f"{[r.exceptions[:1] for r in results]}")
             for r in ok:
                 _rows_equal(f"quota {qname}", r, qwant, ordered)
-            quota[qname] = {"answered": len(ok), "over_quota": len(over),
-                            "burst_s": burst_s,
+            quota[qname] = {"qps": qps, "answered": len(ok),
+                            "over_quota": len(over), "burst_s": burst_s,
                             "exception": over[0].exceptions[0][:80]}
         _set_env("PINOT_TPU_DEVICE_JOIN", prev_join)
-        out["quota"] = dict(quota, qps=QUOTA_QPS, burst=QUOTA_BURST,
+        out["quota"] = dict(quota, burst=QUOTA_BURST,
                             q8_pair_join="PINOT_TPU_DEVICE_JOIN=1")
 
         # -- 2: cursors and streaming ------------------------------------
@@ -5217,6 +5249,554 @@ def phase_admission_tiers(args, torch, tmp, schema, expected, _cuda, mxu, fg,
                "note": "one process: the servers and the brokers share its "
                        "GIL and its card"}, **out))
     return {"recs": recs, "parity": parity}
+
+
+OPERATIONS_BUDGET_S = 40.0
+OPS_P50_ITERS = 5
+OPS_STRAGGLE_S = 0.25  # the server.query delay on the straggler
+OPS_STRAGGLE_QUERIES = 8
+OPS_WAIT_S = 120.0  # the longest a move, a repair or a swap may take
+OPS_PRINCIPALS = [
+    {"username": "ops", "password": "ops-secret"},
+    {"username": "scoped", "password": "scoped-secret",
+     "tables": ["other"]}]
+OPS_BROKER_DEBUG = ("/debug/queries", "/debug/cache", "/debug/servers",
+                    "/debug/workload", "/debug/traces", "/debug/compiles",
+                    "/debug/ledger", "/debug/alerts")
+OPS_CONTROLLER_DEBUG = ("/debug/cluster", "/debug/store", "/debug/rebalance")
+OPS_SERVER_DEBUG = ("/debug/tables/ssb_OFFLINE", "/debug/segments",
+                    "/debug/queries", "/debug/compiles", "/debug/status",
+                    "/debug/storage")
+PROM_LINE = re.compile(r"(#.*|[A-Za-z_:][A-Za-z0-9_:]*(\{[^}]*\})? "
+                       r"[-+0-9.eEinfNa]+)")
+
+
+def _http(url: str, body=None, method=None, headers=None):
+    """(status, parsed JSON or text) of one loopback HTTP request."""
+    data = None if body is None else json.dumps(body).encode()
+    hdrs = dict(headers or {})
+    if data is not None:
+        hdrs["Content-Type"] = "application/json"
+    req = urllib.request.Request(url, data=data, method=method, headers=hdrs)
+    try:
+        with urllib.request.urlopen(req, timeout=OPS_WAIT_S) as r:
+            code, raw, ctype = r.status, r.read(), r.headers.get(
+                "Content-Type", "")
+    except urllib.error.HTTPError as e:
+        code, raw, ctype = e.code, e.read(), e.headers.get("Content-Type",
+                                                           "")
+    text = raw.decode("utf-8")
+    return code, (json.loads(text) if "json" in ctype else text)
+
+
+def _prometheus_samples(url: str, role: str) -> int:
+    """GET /metrics must parse as Prometheus text exposition; returns the
+    number of samples."""
+    code, text = _http(url + "/metrics")
+    lines = [x for x in text.splitlines() if x]
+    if code != 200 or not lines or not all(PROM_LINE.fullmatch(x)
+                                           for x in lines):
+        raise AssertionError(f"operations /metrics {role}: {code}, "
+                             f"{len(lines)} lines")
+    return sum(not x.startswith("#") for x in lines)
+
+
+def _basic(user: str, password: str) -> dict:
+    return {"Authorization": "Basic " + base64.b64encode(
+        f"{user}:{password}".encode()).decode()}
+
+
+def _rest_rows_equal(label, body, want) -> None:
+    _rows_equal(label, SimpleNamespace(result_table=SimpleNamespace(
+        rows=body["resultTable"]["rows"])), want, False)
+
+
+def _renamed_copy(src: str, dst: str, name: str) -> str:
+    """A copy of a segment directory under another segment name: the same
+    rows and data bytes (the crc covers the data alone)."""
+    shutil.copytree(src, dst)
+    meta_path = os.path.join(dst, "metadata.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    meta["segmentName"] = name
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    return dst
+
+
+@contextlib.contextmanager
+def _rest_load(url, sql, want):
+    """A client sending `sql` over REST while the block runs; each answer
+    is held against the oracle. Yields the count of answers so far (a
+    list of one int)."""
+    stop, answers, errors = threading.Event(), [0], []
+
+    def run():
+        while not stop.is_set():
+            code, body = _http(url + "/query/sql", {"sql": sql})
+            try:
+                if code != 200:
+                    raise AssertionError(f"{code} {str(body)[:200]}")
+                _rest_rows_equal("REST client", body, want)
+            except AssertionError as e:
+                errors.append(str(e)[:200])
+                return
+            answers[0] += 1
+
+    t = threading.Thread(target=run, name="ops-rest-client")
+    t.start()
+    try:
+        yield answers
+    finally:
+        stop.set()
+        t.join(OPS_WAIT_S)
+    if errors or not answers[0]:
+        raise AssertionError(f"operations REST client: {answers[0]} "
+                             f"answers, {errors[:1]}")
+
+
+def phase_operations(args, torch, tmp, schema, expected, _cuda, mxu, fg,
+                     card) -> dict:
+    """The operations layer (cluster/rest.py, auth.py, rebalance.py,
+    periodic.py) on the card, over loopback HTTP, on a cluster of its own
+    over phase `data`'s `ssb` directories (4 x 2^23 rows): 2 card servers
+    at replication 1 (each a family of 2), a broker, a controller and
+    their REST servers; a third card server joins for the rebalance.
+
+    REST serving: q2_family (kernel A once a server) and q2 (kernel B a
+    segment) over POST /query/sql with the oracle's rows, every count set
+    to 0 just before each; the REST p50 of q2_family beside
+    Broker.execute_sql's; a quota of 1 qps rejects the second query (500,
+    QueryQuotaExceededError, as the JAX REST answers); a query the
+    admission gate sheds answers 429; BasicAuth with two principals
+    answers 401 without credentials and 403 on a table outside the grant;
+    /metrics of each role parses as Prometheus text; every /debug route
+    answers 200 with JSON.
+
+    Rebalance: the joiner starts and POST /tables/ssb/rebalance moves a
+    segment onto it while a client sends q2_family over REST (every answer
+    the oracle's; no segment below one routable replica); the source's
+    device cache lets the moved planes go (bytes freed). A drain of
+    Server_0 moves its segments onto the other two with the first
+    destination fetch corrupted by a `rebalance.move` fault: the verifying
+    loader quarantines it, the SegmentIntegrityChecker's /REPAIRS/ nudge
+    repairs it and the job ends DONE; q2_family then launches kernel A
+    over the destination's family of 2. Lineage: ssb_0 is replaced by a
+    renamed copy (start_replace, the copy added, end_replace) under a REST
+    client: the rows are the oracle's in progress and after (counted
+    once), and the old segment's planes leave its server. Fleet health:
+    a scrape of the 3 servers (each server's device bytes equal to its
+    cache's), then with Server_1's server.query RPCs delayed the next
+    scrape flags it `straggler`, served by GET /debug/cluster. Scheduler:
+    build_default_scheduler's tasks, each run once and timed."""
+    from pinot_tpu_torch.cluster import (Broker, ClusterController,
+                                         PropertyStore, ServerInstance)
+    from pinot_tpu_torch.cluster.auth import BasicAuthAccessControl
+    from pinot_tpu_torch.cluster.periodic import (ClusterHealthChecker,
+                                                  SegmentIntegrityChecker,
+                                                  SegmentLineageManager,
+                                                  build_default_scheduler)
+    from pinot_tpu_torch.cluster.quota import AdmissionController
+    from pinot_tpu_torch.cluster.rebalance import SegmentRebalancer
+    from pinot_tpu_torch.cluster.rest import (BrokerRestServer,
+                                              ControllerRestServer,
+                                              ServerRestServer)
+    from pinot_tpu_torch.spi import faults
+
+    t_phase = time.perf_counter()
+    rows = args.rows_per_segment
+    sql, want = QUERIES["q2_family"], expected["q2_family"]
+    out = {"card": card}
+    recs = {}
+    launches = {}
+    store = PropertyStore()
+    ctl = ClusterController(store)
+    # automatic repair off: the integrity checker's nudge repairs
+    servers = [ServerInstance(store, f"Server_{i}", device=DEVICE,
+                              auto_repair=False)
+               for i in range(CLUSTER_SERVERS)]
+    broker = Broker(store)
+    rests = []
+    copy_dir = f"{tmp}/ssb_0r"
+
+    def caches():
+        return {s.instance_id: s.executor.executor.cache for s in servers}
+
+    def rest_query(label, qsql, qwant, url, per_kernel):
+        """One REST query with every count set to 0 just before it; the
+        launches it made must be `per_kernel` exactly."""
+        _cuda.reset_launches()
+        with recording(mxu, "limb_sums") as a_calls, \
+                recording(fg, "fused_limb_sums") as b_calls:
+            t0 = time.perf_counter()
+            code, body = _http(url + "/query/sql", {"sql": qsql})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        made = dict(_cuda.LAUNCHES)
+        if code != 200:
+            raise AssertionError(f"operations {label}: {code} {body}")
+        _rest_rows_equal(f"operations {label}", body, qwant)
+        if made != per_kernel:
+            raise AssertionError(f"operations {label}: launches {made}, "
+                                 f"{per_kernel} expected")
+        launches[label] = made
+        return ms, list(a_calls), list(b_calls)
+
+    def per_server_kernels(table):
+        """Kernel A once a server routing 2 or more segments, kernel B a
+        segment on a server routing 1 (no family to batch)."""
+        routed = {}
+        for insts in broker.routing_table(table).values():
+            routed[insts[0]] = routed.get(insts[0], 0) + 1
+        return {"limb_sums": sum(1 for n in routed.values() if n > 1),
+                "fused_limb_sums": sum(n for n in routed.values()
+                                       if n == 1)}
+
+    try:
+        t0 = time.perf_counter()
+        for srv in servers:
+            srv.start()
+        ctl.add_schema(schema.to_json())
+        table = ctl.create_table({"tableName": "ssb", "replication": 1})
+        for i in range(args.segments):
+            ctl.add_segment(table, f"ssb_{i}", {"location": f"{tmp}/ssb_{i}",
+                                                "numDocs": rows})
+        b_rest = BrokerRestServer(broker)
+        c_rest = ControllerRestServer(ctl)
+        rests += [b_rest, c_rest] + [ServerRestServer(s) for s in servers]
+        # every server's planes on the card before anything is timed
+        _rows_equal("operations warm", broker.execute_sql(sql), want, False)
+        _rows_equal("operations warm q2", broker.execute_sql(QUERIES["q2"]),
+                    expected["q2"], False)
+        torch.cuda.synchronize()
+        out["start_s"] = time.perf_counter() - t0
+
+        # -- 1: REST serving ----------------------------------------------
+        _, recs["rest_q2_family"], _ = rest_query(
+            "rest_q2_family", sql, want, b_rest.url,
+            {"limb_sums": CLUSTER_SERVERS, "fused_limb_sums": 0})
+        _, _, recs["rest_q2"] = rest_query(
+            "rest_q2", QUERIES["q2"], expected["q2"], b_rest.url,
+            {"limb_sums": 0, "fused_limb_sums": args.segments})
+        rest_ms, direct_ms = [], []
+        for _ in range(OPS_P50_ITERS):
+            t0 = time.perf_counter()
+            code, body = _http(b_rest.url + "/query/sql", {"sql": sql})
+            torch.cuda.synchronize()
+            rest_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            r = broker.execute_sql(sql)
+            torch.cuda.synchronize()
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+            if code != 200 or r.exceptions:
+                raise AssertionError(f"operations p50: {code}, "
+                                     f"{r.exceptions}")
+        broker.quota.set_qps_limit("ssb", 1)
+        try:
+            quota = [_http(b_rest.url + "/query/sql", {"sql": sql})
+                     for _ in range(2)]
+        finally:
+            broker.quota.set_qps_limit("ssb", None)
+        if quota[0][0] != 200 or quota[1][0] != 500 or not quota[1][1][
+                "exceptions"][0].startswith("QueryQuotaExceededError"):
+            raise AssertionError(f"operations quota: {quota[1]}")
+        saved = broker.admission
+        broker.admission = AdmissionController(max_inflight=1, max_queued=0)
+        try:
+            with broker.admission.admit(timeout_s=5.0):
+                shed = _http(b_rest.url + "/query/sql", {"sql": sql})
+        finally:
+            broker.admission = saved
+        if shed[0] != 429 or shed[1].get("queryRejected") is not True:
+            raise AssertionError(f"operations shed: {shed}")
+        auth_rest = BrokerRestServer(
+            broker, access_control=BasicAuthAccessControl(OPS_PRINCIPALS))
+        rests.append(auth_rest)
+        auth = {
+            "no_credentials": _http(auth_rest.url + "/query/sql",
+                                    {"sql": sql})[0],
+            "ops": _http(auth_rest.url + "/query/sql", {"sql": sql},
+                         headers=_basic("ops", "ops-secret"))[0],
+            "scoped_table_outside_grant": _http(
+                auth_rest.url + "/query/sql", {"sql": sql},
+                headers=_basic("scoped", "scoped-secret"))[0],
+            "health_open": _http(auth_rest.url + "/health")[0]}
+        if auth != {"no_credentials": 401, "ops": 200,
+                    "scoped_table_outside_grant": 403, "health_open": 200}:
+            raise AssertionError(f"operations auth: {auth}")
+        metrics = {role: _prometheus_samples(rest.url, role) for role, rest
+                   in (("broker", b_rest), ("server", rests[2]))}
+        debug = {}
+        for rest, routes in ((b_rest, OPS_BROKER_DEBUG),
+                             (c_rest, OPS_CONTROLLER_DEBUG),
+                             (rests[2], OPS_SERVER_DEBUG)):
+            for route in routes:
+                code, body = _http(rest.url + route)
+                ok = code == 200 and isinstance(body, (dict, list))
+                # before the first scrape the controller has no snapshot
+                if route == "/debug/cluster" and code == 503:
+                    ok = isinstance(body, dict)
+                if not ok:
+                    raise AssertionError(f"operations {route}: {code}")
+                debug[route] = code
+        out["rest"] = {
+            "q2_family_rest_p50_ms": float(np.median(rest_ms)),
+            "q2_family_execute_sql_p50_ms": float(np.median(direct_ms)),
+            "rest_overhead_p50_ms": float(np.median(rest_ms))
+            - float(np.median(direct_ms)),
+            "iters": OPS_P50_ITERS,
+            "quota_1qps": [quota[0][0], quota[1][0],
+                           quota[1][1]["exceptions"][0][:60]],
+            "shed_status": shed[0], "auth": auth,
+            "metrics_samples": metrics, "debug_routes": debug,
+            "launches": {k: launches[k] for k in ("rest_q2_family",
+                                                  "rest_q2")},
+            "note": "host clock; REST adds the HTTP round trip and the "
+                    "JSON encode and decode"}
+
+        # -- 2: rebalance onto a joining card server ----------------------
+        held = {i: (c.bytes_used(), c.segment_names())
+                for i, c in caches().items()}
+        joiner = ServerInstance(store, f"Server_{CLUSTER_SERVERS}",
+                                device=DEVICE, auto_repair=False)
+        joiner.start()
+        servers.append(joiner)
+        rests.append(ServerRestServer(joiner))
+        stop, floor = threading.Event(), []
+
+        def replicas():
+            while not stop.is_set():
+                floor.append(min(len(v) for v in
+                                 broker.routing_table(table).values()))
+                time.sleep(0.002)
+
+        watcher = threading.Thread(target=replicas)
+        watcher.start()
+        try:
+            with _rest_load(b_rest.url, sql, want) as answers:
+                t0 = time.perf_counter()
+                code, job = _http(c_rest.url + "/tables/ssb/rebalance", {})
+                move_s = time.perf_counter() - t0
+        finally:
+            stop.set()
+            watcher.join(OPS_WAIT_S)
+        moved = [m for m in job.get("movePlan", [])
+                 if joiner.instance_id in m["adds"]]
+        if code != 200 or job.get("status") != "DONE" or not moved or \
+                min(floor) < 1:
+            raise AssertionError(f"operations rebalance: {code} {job}, "
+                                 f"replica floor {min(floor, default=None)}")
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = {}
+        for m in moved:
+            src = m["drops"][0]
+            cache = caches()[src]
+            if m["segment"] in cache.segment_names() or \
+                    m["segment"] not in held[src][1]:
+                raise AssertionError(f"operations rebalance: {m['segment']} "
+                                     f"left on {src}'s card")
+            freed[src] = held[src][0] - cache.bytes_used()
+        if not all(v > 0 for v in freed.values()):
+            raise AssertionError(f"operations rebalance: freed {freed}")
+        out["rebalance"] = {
+            "moves": [{"segment": m["segment"], "from": m["drops"],
+                       "to": sorted(m["adds"]),
+                       "ms": m["finishedMs"] - m["startedMs"]}
+                      for m in moved],
+            "rest_call_s": move_s, "client_answers": answers[0],
+            "replica_floor": min(floor),
+            "source_card_bytes_freed": freed}
+
+        # a drain of Server_0, its first destination fetch corrupted
+        held = {i: (c.bytes_used(), c.segment_names())
+                for i, c in caches().items()}
+        rb = SegmentRebalancer(ctl, move_timeout_s=OPS_WAIT_S)
+        checker = SegmentIntegrityChecker(store, ctl)
+        faults.FAULTS.arm("rebalance.move", kind="corrupt", times=1)
+        rb.plan(table, trigger="health", exclude=frozenset({"Server_0"}))
+        t0 = time.perf_counter()
+        t_quarantined = t_repaired = None
+        nudges = []
+        while time.perf_counter() - t0 < OPS_WAIT_S:
+            rb.tick()
+            view = store.get(f"/EXTERNALVIEW/{table}") or {}
+            errored = sorted(s for s, m in view.items()
+                             if "ERROR" in m.values())
+            if errored and t_quarantined is None:
+                t_quarantined = time.perf_counter()
+                nudges.append(checker()[table]["erroredReplicas"])
+            if t_quarantined is not None and t_repaired is None \
+                    and not errored:
+                t_repaired = time.perf_counter()
+                checker()  # the repaired replica's nudge is cleared
+            if rb.job(table)["status"] != "IN_PROGRESS":
+                break
+            time.sleep(0.005)
+        job = rb.job(table)
+        fired = faults.FAULTS.fired("rebalance.move")
+        faults.FAULTS.reset()
+        if job["status"] != "DONE" or fired != 1 or not nudges or \
+                t_repaired is None or store.children(f"/REPAIRS/{table}"):
+            raise AssertionError(f"operations drain: {job['status']}, "
+                                 f"{fired} faults, nudges {nudges}")
+        gc.collect()
+        torch.cuda.synchronize()
+        drained = caches()["Server_0"]
+        if drained.segment_names():
+            raise AssertionError(f"operations drain: Server_0 still holds "
+                                 f"{drained.segment_names()}")
+        kernels = per_server_kernels(table)
+        if kernels != {"limb_sums": 2, "fused_limb_sums": 0}:
+            raise AssertionError(f"operations drain: routing {kernels}")
+        _, recs["moved"], _ = rest_query("moved", sql, want, b_rest.url,
+                                         kernels)
+        dst_names = caches()[joiner.instance_id].segment_names()
+        if len(dst_names) != 2:
+            raise AssertionError(f"operations drain: the joiner holds "
+                                 f"{dst_names}")
+        out["repair"] = {
+            "fault": "rebalance.move corrupt, times=1", "nudged": nudges,
+            "quarantine_to_online_ms": (t_repaired - t_quarantined) * 1e3,
+            "job_s": time.perf_counter() - t0,
+            "moves": [{"segment": m["segment"], "from": m["drops"],
+                       "to": sorted(m["adds"]), "attempts": m["attempts"],
+                       "ms": m["finishedMs"] - m["startedMs"]}
+                      for m in job["movePlan"]],
+            "drained_card_bytes_freed": held["Server_0"][0]
+            - drained.bytes_used(),
+            "joiner_family": sorted(dst_names)}
+
+        # -- 3: a lineage swap under a REST client -----------------------
+        t0 = time.perf_counter()
+        _renamed_copy(f"{tmp}/ssb_0", copy_dir, "ssb_0r")
+        copy_s = time.perf_counter() - t0
+        owner = sorted(store.get(f"/IDEALSTATES/{table}")["ssb_0"])[0]
+        held = caches()[owner].bytes_used()
+        lineage = SegmentLineageManager(store, ctl)
+        # a client runs while the copy is pushed and while the swap
+        # commits; each measured query runs alone, its counts set to 0
+        with _rest_load(b_rest.url, sql, want) as pushed:
+            t0 = time.perf_counter()
+            lid = lineage.start_replace(table, ["ssb_0"], ["ssb_0r"])
+            ctl.add_segment(table, "ssb_0r", {"location": copy_dir,
+                                              "numDocs": rows})
+            _wait_for(lambda: (store.get(f"/EXTERNALVIEW/{table}") or {})
+                      .get("ssb_0r"), OPS_WAIT_S, "the copy online")
+            push_ms = (time.perf_counter() - t0) * 1e3
+        in_progress = rest_query("lineage_in_progress", sql, want,
+                                 b_rest.url, per_server_kernels(table))
+        with _rest_load(b_rest.url, sql, want) as swapped:
+            t0 = time.perf_counter()
+            lineage.end_replace(table, lid)
+            swap_ms = (time.perf_counter() - t0) * 1e3
+            # the client answers at least once after the swap committed
+            n0 = swapped[0]
+            _wait_for(lambda: swapped[0] > n0 + 1, OPS_WAIT_S,
+                      "an answer after the swap")
+        _, recs["lineage"], recs["lineage_b"] = rest_query(
+            "lineage", sql, want, b_rest.url, per_server_kernels(table))
+        gc.collect()
+        torch.cuda.synchronize()
+        if "ssb_0" in caches()[owner].segment_names() or \
+                store.get(f"/LINEAGE/{table}"):
+            raise AssertionError(f"operations lineage: ssb_0 left on "
+                                 f"{owner}'s card")
+        out["lineage"] = {
+            "copy_s": copy_s, "push_to_online_ms": push_ms,
+            "end_replace_ms": swap_ms, "in_progress_ms": in_progress[0],
+            "client_answers": pushed[0] + swapped[0],
+            "routed": sorted(broker.routing_table(table)),
+            "old_segment_card_bytes_freed": held
+            - caches()[owner].bytes_used(),
+            "launches": {k: launches[k] for k in ("lineage_in_progress",
+                                                  "lineage")}}
+
+        # -- 4: fleet health ----------------------------------------------
+        health = ClusterHealthChecker(store, ctl)
+        snap = health()
+        bytes_ok = {i: snap["servers"][i]["hbm"]["hbmBytesUsed"]
+                    == c.bytes_used() for i, c in caches().items()}
+        if snap["fleet"]["serversReachable"] != len(servers) or \
+                not all(bytes_ok.values()):
+            raise AssertionError(f"operations health: {snap['fleet']}, "
+                                 f"device bytes equal {bytes_ok}")
+        first_scrape_ms = snap["scrapeMs"]
+        # a fresh latency window: the rings hold this phase's cold queries
+        for srv in servers:
+            srv._query_ms.clear()
+        faults.FAULTS.arm("server.query", kind="delay",
+                          delay_s=OPS_STRAGGLE_S, times=None,
+                          match=lambda c: c.get("instance") == "Server_1")
+        try:
+            for _ in range(OPS_STRAGGLE_QUERIES):
+                _rows_equal("operations straggled", broker.execute_sql(sql),
+                            want, False)
+        finally:
+            faults.FAULTS.reset()
+        snap = health()
+        flagged = sorted((a["type"], a["instance"]) for a in snap["anomalies"])
+        code, body = _http(c_rest.url + "/debug/cluster")
+        if ("straggler", "Server_1") not in flagged or code != 200 or \
+                body["checkedAtMs"] != snap["checkedAtMs"]:
+            raise AssertionError(f"operations straggler: {flagged}, {code}")
+        out["health"] = {
+            "servers": len(servers), "first_scrape_ms": first_scrape_ms,
+            "scrape_ms": snap["scrapeMs"], "anomalies": flagged,
+            "device_bytes": {i: c.bytes_used() for i, c in caches().items()},
+            "device_bytes_match_cache": bytes_ok,
+            "p99_ms": {i: s["queryLatencyMs"]["p99"]
+                       for i, s in snap["servers"].items()},
+            "straggle_delay_s": OPS_STRAGGLE_S}
+
+        # -- 5: the scheduler's tasks, each run once ---------------------
+        sched = build_default_scheduler(store, ctl, interval_s=3600.0)
+        task_ms = {}
+        for name in sorted(sched.tasks):
+            t0 = time.perf_counter()
+            sched.run_once(name)
+            task_ms[name] = (time.perf_counter() - t0) * 1e3
+        errs = {n: t.last_error for n, t in sched.tasks.items()
+                if t.last_error}
+        if errs or any(t.runs != 1 for t in sched.tasks.values()):
+            raise AssertionError(f"operations scheduler: {errs}")
+        out["scheduler"] = {"task_ms": task_ms}
+        # the controller's meters exist once it has rebalanced and scraped
+        out["rest"]["metrics_samples"]["controller"] = _prometheus_samples(
+            c_rest.url, "controller")
+    finally:
+        faults.FAULTS.reset()
+        for rest in rests:
+            rest.close()
+        for srv in servers:
+            if srv._started:
+                srv.stop()
+        broker.close()
+        shutil.rmtree(copy_dir, ignore_errors=True)
+    del servers, broker
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    parity = {}
+    for label in ("rest_q2_family", "moved", "lineage"):
+        parity[label] = max(check_equal(
+            torch, f"limb_sums operations {label}, launch {k}",
+            mxu.limb_sums(*rec), mxu.limb_sums_plain(*rec))
+            for k, rec in enumerate(recs[label]))
+    for label in ("rest_q2", "lineage_b"):
+        if recs[label]:
+            parity[label] = max(check_equal(
+                torch, f"fused_limb_sums operations {label}, launch {k}",
+                fg.fused_limb_sums(*rec), fg.fused_limb_sums_plain(*rec))
+                for k, rec in enumerate(recs[label]))
+    out["parity"] = parity
+    seconds = time.perf_counter() - t_phase
+    emit(dict({"phase": "operations", "seconds": seconds,
+               "budget_s": OPERATIONS_BUDGET_S,
+               "note": "one process: the servers, the broker and the REST "
+                       "servers share its GIL and its card; host clock"},
+              **out))
+    return {"recs": recs, "parity": parity, "launches": launches}
 
 
 def phase_doctor(card) -> None:
@@ -6309,6 +6889,9 @@ def main(argv=None) -> int:
         admission_tiers = phase_admission_tiers(
             args, torch, tmp, tables["ssb"][0], expected, _cuda, mxu_groupby,
             fused_groupby, dev["nvidia_smi"])
+        operations = phase_operations(
+            args, torch, tmp, tables["ssb"][0], expected, _cuda, mxu_groupby,
+            fused_groupby, dev["nvidia_smi"])
         phase_doctor(dev["nvidia_smi"])
         planes, gid, G = mse["agg_recs"][0]
         parity["limb_sums/mse_agg_inputs/family"] = check_equal(
@@ -6545,6 +7128,38 @@ def main(argv=None) -> int:
             "admission_tiers q2 (SET segmentBatch = false) over the "
             "prefetched tiered segments, a segment a launch"))
         del admission_tiers, at
+        # phase operations: kernel A over each server's family of 2 through
+        # POST /query/sql, over the rebalance destination's family after
+        # the moves and over the families the lineage swap left; kernel B
+        # a segment for q2 over REST and on the swap's lone segments
+        op_recs, op_n = operations["recs"], operations["launches"]
+        for label, key, name, note in (
+                ("rest_q2_family", "rest_q2_family", "limb_sums",
+                 "q2_family through POST /query/sql: each of "
+                 f"{CLUSTER_SERVERS} card servers' family of 2, one launch "
+                 "a server"),
+                ("rest_q2", "rest_q2", "fused_limb_sums",
+                 "q2 (SET segmentBatch = false) through POST /query/sql: a "
+                 "segment a launch on its server"),
+                ("moved", "moved", "limb_sums",
+                 "q2_family through REST after the rebalance and the drain: "
+                 "the joining destination's family of 2 and the other "
+                 "server's, one launch a server"),
+                ("lineage", "lineage", "limb_sums",
+                 "q2_family through REST after the lineage swap: the family "
+                 "of 2 of the server the swap left whole"),
+                ("lineage_b", "lineage", "fused_limb_sums",
+                 "q2_family through REST after the lineage swap: a segment "
+                 "a launch on the servers routing one (the renamed copy's "
+                 "and the old owner's)")):
+            if not op_recs[label]:
+                continue
+            row = kernel_a_row if name == "limb_sums" else kernel_b_row
+            owner = mxu_groupby if name == "limb_sums" else fused_groupby
+            kernels.append(row(
+                torch, owner, _cuda, op_recs[label], op_n[key][name],
+                operations["parity"][label], f"operations {note}"))
+        del operations, op_recs
         # the multi-stage leaf partial aggregate's launch of kernel A
         kernels.append(kernel_a_row(
             torch, mxu_groupby, _cuda, mse["agg_recs"], mse["agg_launches"],

@@ -20,18 +20,41 @@ regression sentinel (PerfRegressionSentinel) judges. The broker admits
 queries through a per-table quota and an admission gate, accounts their
 cost, spools cursors, streams selections and hedges stragglers on request
 (quota.py, workload.py); the servers keep segments in a byte-budgeted
-local tier with cold registration, repair and prefetch (storage/). Not
-ported yet: rebalance, REST, periodic tasks (the sentinel and the
-prefetcher are called directly) and realtime consumption.
+local tier with cold registration, repair and prefetch (storage/).
+Operations: the controller's periodic tasks (periodic.py: status,
+integrity repair nudges, the rebalance checker, tier relocation, lineage
+cleanup, the fleet health scrape, the prefetcher and the sentinel, on a
+leader-gated scheduler), segment lineage for atomic replacement (the
+broker routes around it), the durable rebalance engine and its actuator
+(rebalance.py), the REST servers of the three roles with access control
+(rest.py, auth.py) and the config recommender (recommender.py). Realtime
+consumption runs beside the servers (realtime/), as in the JAX package.
 """
 
+from .auth import AccessControl, AllowAllAccessControl, \
+    BasicAuthAccessControl, Principal
 from .broker import Broker
 from .controller import ClusterController
+from .periodic import (ClusterHealthChecker, ControllerPeriodicTaskScheduler,
+                       RebalanceChecker, SegmentIntegrityChecker,
+                       SegmentLineageManager, SegmentRelocator,
+                       SegmentStatusChecker, build_default_scheduler)
 from .querylog import QueryLogger
+from .rebalance import RebalanceActuator, SegmentRebalancer
+from .recommender import recommend
+from .rest import BrokerRestServer, ControllerRestServer, ServerRestServer
 from .sentinel import PerfRegressionSentinel
 from .server import ServerInstance
 from .store import PropertyStore
 from .tracestore import TraceStore
 
 __all__ = ["PropertyStore", "ClusterController", "ServerInstance", "Broker",
-           "TraceStore", "QueryLogger", "PerfRegressionSentinel"]
+           "TraceStore", "QueryLogger", "PerfRegressionSentinel",
+           "Principal", "AccessControl", "AllowAllAccessControl",
+           "BasicAuthAccessControl", "ControllerPeriodicTaskScheduler",
+           "SegmentStatusChecker", "RebalanceChecker",
+           "SegmentLineageManager", "SegmentIntegrityChecker",
+           "SegmentRelocator", "ClusterHealthChecker",
+           "build_default_scheduler", "SegmentRebalancer",
+           "RebalanceActuator", "recommend", "BrokerRestServer",
+           "ControllerRestServer", "ServerRestServer"]

@@ -54,15 +54,17 @@ wins, the loser is cancelled by its shard id, and the gather keeps the
 shards' submission order, so a hedged answer is bit-identical to an
 unhedged one. Cold-aware routing: a server that reports a routed segment
 still warming (tiered storage) is avoided for that segment for a short
-TTL, and the response counts `cold_segments_warming`.
+TTL, and the response counts `cold_segments_warming`. Routing hides the
+segments that `/LINEAGE/{table}` hides (the TO set of a replacement in
+progress, the FROM set of a committed one), bracketing the ideal-state
+read between two lineage reads so a swap never counts rows twice.
 
 The JAX broker reads its defaults from environment variables
 (PINOT_TPU_HEDGE_MS, PINOT_TPU_MAX_INFLIGHT_QUERIES, ...); the port's
 constructor arguments are the interface, with the defaults those
-variables have when unset. Not ported yet: the REST surface that serves
-`/debug/workload` and `/debug/servers` and answers a rejection with 429
-(`cluster/rest.py`, ROADMAP Queue 1 item 4); the tests read
-`workload.snapshot()` and `server_health()`.
+variables have when unset. cluster/rest.py serves the broker over HTTP
+(`/query/sql` answers a rejection with 429, `/debug/workload`,
+`/debug/servers`, `/health/readiness` over `is_ready`).
 """
 
 from __future__ import annotations
@@ -100,6 +102,7 @@ from .breaker import CircuitBreakerTable
 from .controller import ONLINE, raw_table_name, table_name_with_type
 from .datatable import DataTableError
 from .datatable import decode as decode_datatable
+from .periodic import hidden_from_lineage
 from .querylog import QueryLogger
 from .quota import (AdmissionController, AdmissionRejectedError,
                     QueryQuotaExceededError, QueryQuotaManager, ResponseStore)
@@ -289,6 +292,28 @@ class Broker:
             c.close()
 
     # -- health -------------------------------------------------------------
+    def is_ready(self) -> bool:
+        """Readiness = at least one materialized routing snapshot: before
+        the first successful routing read every query would fail routing,
+        so orchestrators should not send traffic yet. Serves the REST
+        GET /health[/readiness] (liveness is unconditional)."""
+        with self._lock:
+            if self._last_routing:
+                return True
+        # no query has warmed routing yet: try to materialize one now so a
+        # freshly-started broker over a healthy store turns ready without
+        # needing traffic first
+        tables = self.store.children("/CONFIGS/TABLE")
+        if not tables:
+            return True  # nothing to route — vacuously ready
+        for nwt in tables:
+            try:
+                self.routing_table(nwt)
+                return True
+            except Exception:
+                continue
+        return False
+
     def publish_state(self) -> dict:
         """Write this broker's beacon to /BROKERSTATE/{id}: breaker
         states, admission load, latency quantiles, result-cache counters
@@ -354,12 +379,22 @@ class Broker:
     def _routing_table_uncached(self, name_with_type: str) -> dict[str, list[str]]:
         if faults.ACTIVE:
             faults.FAULTS.fire("broker.route", table=name_with_type)
-        view = self.store.get(f"/EXTERNALVIEW/{name_with_type}") or {}
-        ideal = self.store.get(f"/IDEALSTATES/{name_with_type}") or {}
-        live = set(self.store.children("/LIVEINSTANCES"))
+        # lineage is read BEFORE and AFTER the ideal-state read: if a
+        # replacement committed in between (entry state changed/vanished),
+        # the ideal snapshot may contain FROM ∪ TO with nothing hidden —
+        # re-snapshot instead of double counting. A stable pair of lineage
+        # reads brackets the ideal read into one routing generation.
+        for _ in range(5):
+            lineage_before = self.store.get(f"/LINEAGE/{name_with_type}")
+            view = self.store.get(f"/EXTERNALVIEW/{name_with_type}") or {}
+            ideal = self.store.get(f"/IDEALSTATES/{name_with_type}") or {}
+            live = set(self.store.children("/LIVEINSTANCES"))
+            if self.store.get(f"/LINEAGE/{name_with_type}") == lineage_before:
+                break
+        hidden = hidden_from_lineage(lineage_before)
         return {seg: sorted(i for i, st in (view.get(seg) or {}).items()
                             if st == ONLINE and i in live)
-                for seg in ideal}
+                for seg in ideal if seg not in hidden}
 
     def _client(self, instance: str) -> RpcClient:
         cfg = self.store.get(f"/LIVEINSTANCES/{instance}") or \

@@ -1,11 +1,12 @@
-"""Cluster controller: table/segment lifecycle + assignment + retention.
+"""Cluster controller: table/segment lifecycle + assignment + rebalance.
 
 The port of pinot_tpu/cluster/controller.py: table names with type,
 schemas, tables, segment add/drop with replica-group and instance-partition
-assignment, retention, and the leader-hosted realtime segment completion
-manager (realtime/completion.py). Segment add, drop and replace bump the
-table's lineage epoch (cache/results.py), which keys the broker's result
-cache. Not ported yet: rebalance and tier relocation.
+assignment, the two-phase rebalance and tier relocation (the durable
+engine over them is rebalance.py), retention, and the leader-hosted
+realtime segment completion manager (realtime/completion.py). Segment add,
+drop and replace bump the table's lineage epoch (cache/results.py), which
+keys the broker's result cache.
 
 Reference analogue: PinotHelixResourceManager (pinot-controller/.../helix/
 core/PinotHelixResourceManager.java, 4.6K LoC — create/delete tables, add
@@ -308,6 +309,318 @@ class ClusterController:
                 if inst in load:
                     load[inst] += 1
         return sorted(candidates, key=lambda i: (load[i], i))[:replication]
+
+    # -- rebalance ----------------------------------------------------------
+    def _rebalance_target(self, name_with_type: str, cfg: dict,
+                          ideal: dict) -> tuple[dict, int]:
+        """Minimal-movement balanced target (replica-group aware when
+        instance partitions are configured)."""
+        ip = self.instance_partitions(name_with_type)
+        if ip:
+            live = set(self.live_instances())
+            target: dict[str, dict] = {}
+            moves = 0
+            load: dict[str, int] = {}
+            for seg in sorted(ideal):
+                pid = self._segment_partition_id(
+                    self.segment_metadata(name_with_type, seg))
+                current = set(ideal[seg])
+                chosen = []
+                for group in ip["replicaGroups"]:
+                    members = [i for i in group if i in live]
+                    if not members:
+                        raise RuntimeError(
+                            f"replica group {group} has no live members")
+                    if pid is not None:
+                        pick = members[pid % len(members)]
+                    else:
+                        # keep the current in-group replica when possible
+                        keep = [i for i in members if i in current]
+                        pick = keep[0] if keep else min(
+                            members, key=lambda i: (load.get(i, 0), i))
+                    chosen.append(pick)
+                    load[pick] = load.get(pick, 0) + 1
+                moves += len(set(chosen) - current)
+                # preserve the segment's state (a moved CONSUMING replica
+                # must re-enter as CONSUMING, not as a deep-store load)
+                state = CONSUMING if CONSUMING in ideal[seg].values() else ONLINE
+                target[seg] = {i: state for i in chosen}
+            return target, moves
+
+        replication = int(cfg.get("replication", 1))
+        candidates = sorted(set(self.server_instances(cfg.get("serverTag")))
+                            & set(self.live_instances()))
+        if len(candidates) < replication:
+            raise RuntimeError("not enough live servers to rebalance")
+        load = {i: 0 for i in candidates}
+        target = {}
+        moves = 0
+        for seg in sorted(ideal):
+            keep = [i for i in ideal[seg] if i in candidates][:replication]
+            target[seg] = {i: ideal[seg][i] for i in keep}
+            for i in keep:
+                load[i] += 1
+        for seg in sorted(ideal):
+            state = CONSUMING if CONSUMING in ideal[seg].values() else ONLINE
+            while len(target[seg]) < replication:
+                pick = min((i for i in candidates if i not in target[seg]),
+                           key=lambda i: (load[i], i))
+                target[seg][pick] = state
+                load[pick] += 1
+                moves += 1
+        # level loads: move replicas from the most- to the least-loaded host
+        # until spread ≤ 1 (balanced target, minimal movement)
+        for _ in range(len(ideal) * replication):
+            hi = max(candidates, key=lambda i: (load[i], i))
+            lo = min(candidates, key=lambda i: (load[i], i))
+            if load[hi] - load[lo] <= 1:
+                break
+            movable = next((s for s in sorted(ideal)
+                            if hi in target[s] and lo not in target[s]), None)
+            if movable is None:
+                break
+            target[movable][lo] = target[movable].pop(hi)
+            load[hi] -= 1
+            load[lo] += 1
+            moves += 1
+        return target, moves
+
+    def rebalance(self, name_with_type: str, dry_run: bool = False,
+                  min_available_replicas: int = 1,
+                  ev_timeout_s: float = 30.0,
+                  include_consuming: bool = False) -> dict:
+        """Safe rebalance (reference: TableRebalancer.rebalance —
+        .../helix/core/rebalance/TableRebalancer.java): compute a
+        minimal-movement target, then converge the ideal state in TWO
+        phases per changed segment — first ADD the target replicas
+        (ideal = current ∪ target) and wait for the external view to show
+        every target replica ONLINE, only then REMOVE the departing ones.
+        A segment's routable replica count therefore never drops below
+        min(current availability, min_available_replicas) at any point:
+        queries keep succeeding throughout the move. Progress is tracked
+        in the store (/REBALANCE/{table}) like the reference's
+        ZK-persisted rebalance job context."""
+        cfg = self.table_config(name_with_type)
+        if cfg is None:
+            raise KeyError(name_with_type)
+        self._check_upsert_movable(name_with_type, cfg)
+        ideal = self.store.get(f"/IDEALSTATES/{name_with_type}") or {}
+        # CONSUMING segments sit out by default (reference: rebalance
+        # includeConsuming=false) — moving an active consumer means
+        # restarting consumption on the new host
+        frozen = {} if include_consuming else {
+            s: m for s, m in ideal.items() if CONSUMING in m.values()}
+        movable = {s: m for s, m in ideal.items() if s not in frozen}
+        target, moves = self._rebalance_target(name_with_type, cfg, movable)
+        target.update({s: dict(m) for s, m in frozen.items()})
+        changed = [s for s in sorted(ideal)
+                   if set(target.get(s, {})) != set(ideal[s])]
+        result = {"table": name_with_type, "moves": moves, "target": target,
+                  "segments_changed": len(changed)}
+        if dry_run:
+            return result
+        return dict(result, **self._apply_target_safely(
+            name_with_type, target, changed, min_available_replicas,
+            ev_timeout_s, moves))
+
+    def _apply_target_safely(self, name_with_type: str, target: dict,
+                             changed: list, min_available_replicas: int,
+                             ev_timeout_s: float, moves: int) -> dict:
+        """Two-phase ideal-state convergence shared by rebalance and the
+        tier relocator: ADD target replicas, wait for the external view,
+        then REMOVE departing ones — availability never dips."""
+        for seg in target:
+            if len(target[seg]) < min_available_replicas:
+                raise RuntimeError(
+                    f"target for {seg} has {len(target[seg])} replicas "
+                    f"< minAvailableReplicas={min_available_replicas}")
+
+        job_id = f"rb_{int(time.time() * 1000)}"
+        job_path = f"/REBALANCE/{name_with_type}"
+        # the durable rebalance engine (cluster/rebalance.py) journals its
+        # move plan at this same path: overwriting an active engine job
+        # would orphan its in-flight moves (leaked ADDING replicas, lost
+        # crash-resume state) while both engines mutate the ideal state
+        existing = self.store.get(job_path)
+        if existing and existing.get("status") in ("IN_PROGRESS",
+                                                   "ABORTING") \
+                and "movePlan" in existing:
+            raise RuntimeError(
+                f"{name_with_type}: durable rebalance job "
+                f"{existing.get('jobId')} is {existing.get('status')}; "
+                "wait for the actuator to finish it or abort it first")
+        job = {"jobId": job_id, "status": "IN_PROGRESS",
+               "segmentsTotal": len(changed), "segmentsDone": 0,
+               "moves": moves, "startedMs": int(time.time() * 1000)}
+        self.store.set(job_path, job)
+        if not changed:
+            job["status"] = "DONE"
+            self.store.set(job_path, job)
+            return {"jobId": job_id, "status": "DONE"}
+
+        # phase 1: additive union — nothing is ever removed here, so
+        # availability only grows. Segments deleted concurrently (retention,
+        # drop) are SKIPPED, not resurrected: the closures re-read current
+        # membership under the store's atomic update.
+        def add_union(cur):
+            cur = cur or {}
+            for seg in changed:
+                if seg not in cur:
+                    continue
+                merged = dict(cur[seg])
+                merged.update(target[seg])
+                cur[seg] = merged
+            return cur
+
+        self.store.update(f"/IDEALSTATES/{name_with_type}", add_union)
+
+        # wait: every ONLINE-target replica of every changed segment shows
+        # ONLINE in the external view (CONSUMING replicas never report
+        # ONLINE — their handoff is the realtime manager's job, not ours)
+        def ev_wait_insts(seg):
+            return [i for i, st in target[seg].items() if st == ONLINE]
+
+        deadline = time.time() + ev_timeout_s
+        pending = set(changed)
+        while pending and time.time() < deadline:
+            view = self.store.get(f"/EXTERNALVIEW/{name_with_type}") or {}
+            ideal_now = self.store.get(f"/IDEALSTATES/{name_with_type}") or {}
+            pending = {s for s in pending if s in ideal_now
+                       and any((view.get(s) or {}).get(i) != ONLINE
+                               for i in ev_wait_insts(s))}
+            if pending:
+                time.sleep(0.05)
+        if pending:
+            job["status"] = "STUCK"
+            job["pending"] = sorted(pending)
+            self.store.set(job_path, job)
+            raise TimeoutError(
+                f"rebalance {job_id}: replicas not ONLINE after "
+                f"{ev_timeout_s}s: {sorted(pending)}")
+
+        # phase 2: drop the departing replicas (targets are serving)
+        def to_target(cur):
+            cur = cur or {}
+            for seg in changed:
+                if seg in cur:
+                    cur[seg] = dict(target[seg])
+            return cur
+
+        self.store.update(f"/IDEALSTATES/{name_with_type}", to_target)
+        job.update(status="DONE", segmentsDone=len(changed),
+                   finishedMs=int(time.time() * 1000))
+        self.store.set(job_path, job)
+        return {"jobId": job_id, "status": "DONE"}
+
+    def rebalance_status(self, name_with_type: str) -> Optional[dict]:
+        return self.store.get(f"/REBALANCE/{name_with_type}")
+
+    def _check_upsert_movable(self, name_with_type: str, cfg: dict) -> None:
+        """Upsert tables keep a per-server primary-key map: every segment
+        of a pk partition must live on the same server or validity planes
+        diverge. Moves are only safe under partition-pinned placement, so
+        rebalance/relocation REFUSES without instance partitions
+        (reference: TableRebalancer requires strict replica groups for
+        upsert tables)."""
+        mode = ((cfg.get("upsertConfig") or {}).get("mode") or "NONE").upper()
+        if mode != "NONE" and not self.instance_partitions(name_with_type):
+            raise RuntimeError(
+                f"{name_with_type} is an upsert table: configure instance "
+                "partitions (partition-pinned placement) before rebalancing "
+                "so pk partitions stay colocated")
+
+    # -- tiered storage ------------------------------------------------------
+    @staticmethod
+    def _parse_age_ms(age: str) -> int:
+        """'7d' / '12h' / '30m' / bare ms (reference TierConfig segmentAge
+        TimeUtils period format)."""
+        age = str(age).strip().lower()
+        mult = {"d": 86_400_000, "h": 3_600_000, "m": 60_000, "s": 1000}
+        if age and age[-1] in mult:
+            return int(float(age[:-1]) * mult[age[-1]])
+        return int(age)
+
+    def _tier_for_segment(self, cfg: dict, seg: str, meta: dict,
+                          now_ms: int) -> Optional[dict]:
+        """First matching tier config wins (reference TierConfigUtils
+        ordering). Selectors: 'time' (segment end time older than
+        segmentAge) and 'fixed' (explicit segment list)."""
+        tiers = cfg.get("tierConfigs") or []
+        # oldest-threshold tier first, so a segment past several thresholds
+        # lands on the coldest matching tier (reference TierConfigUtils
+        # comparator)
+        def age_of(t):
+            return self._parse_age_ms(t.get("segmentAge",
+                                            t.get("segmentAgeMs", "0d")))
+
+        for tier in sorted(tiers, key=lambda t: -age_of(t)):
+            sel = str(tier.get("segmentSelectorType", "time")).lower()
+            if sel == "fixed":
+                if seg in (tier.get("segmentList") or []):
+                    return tier
+            else:
+                end = meta.get("endTimeMs") or meta.get("pushTimeMs")
+                if end is not None and now_ms - int(end) >= age_of(tier):
+                    return tier
+        return None
+
+    def relocate_tiers(self, name_with_type: str, dry_run: bool = False,
+                       now_ms: Optional[int] = None,
+                       min_available_replicas: int = 1,
+                       ev_timeout_s: float = 30.0) -> dict:
+        """Move segments whose tier selector matches onto the tier's
+        tagged servers (reference: SegmentRelocator — relocate ONLINE
+        segments to tiers via a tier-aware rebalance, at most one replica
+        unavailable). Uses the same safe two-phase apply as rebalance."""
+        cfg = self.table_config(name_with_type)
+        if cfg is None:
+            raise KeyError(name_with_type)
+        if not cfg.get("tierConfigs"):
+            return {"table": name_with_type, "moves": 0, "status": "DONE"}
+        self._check_upsert_movable(name_with_type, cfg)
+        now_ms = now_ms or int(time.time() * 1000)
+        replication = int(cfg.get("replication", 1))
+        ideal = self.store.get(f"/IDEALSTATES/{name_with_type}") or {}
+        live = set(self.live_instances())
+        load: dict[str, int] = {}
+        for seg_map in ideal.values():
+            for inst in seg_map:
+                load[inst] = load.get(inst, 0) + 1
+        target: dict[str, dict] = {}
+        tiers_of: dict[str, Optional[str]] = {}
+        moves = 0
+        for seg in sorted(ideal):
+            if CONSUMING in ideal[seg].values():
+                target[seg] = dict(ideal[seg])
+                continue
+            meta = self.segment_metadata(name_with_type, seg) or {}
+            tier = self._tier_for_segment(cfg, seg, meta, now_ms)
+            tag = (tier or {}).get("serverTag") or cfg.get("serverTag")
+            tiers_of[seg] = (tier or {}).get("name")
+            candidates = [i for i in self.server_instances(tag) if i in live]
+            if len(candidates) < replication:
+                raise RuntimeError(
+                    f"tier {tag!r} has {len(candidates)} live servers, "
+                    f"need {replication} for {seg}")
+            keep = [i for i in ideal[seg] if i in candidates][:replication]
+            chosen = list(keep)
+            while len(chosen) < replication:
+                pick = min((i for i in candidates if i not in chosen),
+                           key=lambda i: (load.get(i, 0), i))
+                chosen.append(pick)
+                load[pick] = load.get(pick, 0) + 1
+                moves += 1
+            target[seg] = {i: ONLINE for i in chosen}
+        changed = [s for s in sorted(ideal)
+                   if set(target.get(s, {})) != set(ideal[s])]
+        result = {"table": name_with_type, "moves": moves,
+                  "segments_changed": len(changed), "tiers": tiers_of,
+                  "target": target}
+        if dry_run:
+            return result
+        return dict(result, **self._apply_target_safely(
+            name_with_type, target, changed, min_available_replicas,
+            ev_timeout_s, moves))
 
     # -- retention ----------------------------------------------------------
     def run_retention(self, now_ms: Optional[int] = None) -> list[str]:

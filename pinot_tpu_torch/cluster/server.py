@@ -51,10 +51,11 @@ number of attempts, then flagged `unrepairable`), or on a /REPAIRS/
 nudge. A failed warm or repair never answers from the host: the segment
 stays cold or quarantined and the broker retries a replica or degrades.
 
-Not ported yet: `scan_arrow` (it needs `connectors/arrow_reader.py`,
-ROADMAP Queue 1 item 5) and the rebalance destination check the JAX
-server makes before a `rebalance.move` fault (`cluster/rebalance.py`,
-item 4). The JAX package's PINOT_TPU_AUTO_REPAIR, _REPAIR_RETRIES,
+The destination load of an in-flight rebalance move (the /REBALANCE/
+journal names this server) passes the `rebalance.move` fault point, with
+the same corrupt-then-quarantine contract. Not ported yet: `scan_arrow`
+(it needs `connectors/arrow_reader.py`, ROADMAP Queue 1 item 5). The JAX
+package's PINOT_TPU_AUTO_REPAIR, _REPAIR_RETRIES,
 _REPAIR_BACKOFF_MS, _COLD_SYNC_FLOOR_MS and _LOAD_RETRIES are the
 constructor's `auto_repair` and this module's constants here.
 """
@@ -387,7 +388,9 @@ class ServerInstance:
         fires here, and a cold warm's ``storage.fetch`` too (a ``delay``
         models a slow deep store); an injected ``corrupt`` fault damages a
         local COPY of the fetched directory (the deep store stays
-        pristine, so a repair heals) and the verifying loader catches it."""
+        pristine, so a repair heals) and the verifying loader catches it.
+        The destination load of an in-flight rebalance move passes the
+        ``rebalance.move`` point with the same contract."""
         corruption = None
         if faults.ACTIVE:
             try:
@@ -397,6 +400,16 @@ class ServerInstance:
             if corruption is None and cold:
                 try:
                     faults.FAULTS.fire("storage.fetch", table=table,
+                                       segment=seg,
+                                       instance=self.instance_id)
+                except faults.InjectedCorruption as c:
+                    corruption = c
+            if corruption is None and self._is_move_destination(table, seg):
+                # chaos seam for a mid-rebalance failure: this load is the
+                # DESTINATION fetch of an in-flight segment move (the
+                # /REBALANCE journal names this instance as the target)
+                try:
+                    faults.FAULTS.fire("rebalance.move", table=table,
                                        segment=seg,
                                        instance=self.instance_id)
                 except faults.InjectedCorruption as c:
@@ -430,6 +443,21 @@ class ServerInstance:
                 shutil.rmtree(damaged, ignore_errors=True)
         return segment
 
+
+    def _is_move_destination(self, table: str, seg: str) -> bool:
+        """True when an active rebalance move targets (table, seg) AT this
+        instance; consulted only under faults.ACTIVE, so the extra store
+        read never taxes a normal load."""
+        try:
+            job = self.store.get(f"/REBALANCE/{table}")
+        except (StoreError, OSError):
+            return False
+        if not job or job.get("status") not in ("IN_PROGRESS", "ABORTING"):
+            return False
+        return any(move.get("segment") == seg
+                   and self.instance_id in (move.get("adds") or {})
+                   and move.get("state") in ("PENDING", "ADDING")
+                   for move in job.get("movePlan") or [])
     def _corrupt_local_copy(self, local: str, c) -> Path:
         """Copy the fetched segment directory and damage the copy's data
         file (on-disk or local-FS corruption, the source untouched).
@@ -773,8 +801,10 @@ class ServerInstance:
         }
 
     def health_status(self) -> dict:
-        """Per-instance health beacon (the `status` RPC): instance-local
-        state, the device listing and the process metric singletons."""
+        """Per-instance health beacon (the `status` RPC, GET /debug/status):
+        instance-local state, the device listing, the card bytes this
+        server's device cache holds against its budget (`hbm`) and the
+        process metric singletons."""
         lat = sorted(self._query_ms)
         with self._lock:
             quarantined = {t: sorted(q) for t, q in self.quarantined.items()
@@ -795,12 +825,15 @@ class ServerInstance:
             },
             "device": device_listing(self.device),
             "deviceCache": self.executor.executor.cache.stats(),
+            "hbm": self.executor.executor.cache.hbm_stats(),
             "segmentCache": {
                 "hits": SERVER_METRICS.meter_count(
                     ServerMeter.SEGMENT_CACHE_HITS),
                 "misses": SERVER_METRICS.meter_count(
                     ServerMeter.SEGMENT_CACHE_MISSES),
             },
+            "hbmOomEvents": SERVER_METRICS.meter_count(
+                ServerMeter.HBM_OOM_EVENTS),
             "quarantined": quarantined,
             "numSegments": num_segments,
             "numDocs": num_docs,

@@ -10,8 +10,8 @@ samples are best-effort and go first when the byte budget evicts.
 
 Entries are keyed by the broker's query id: `summaries()` lists them and
 `get(queryId)` returns the span list (spi/traceexport.py renders it for
-Perfetto), the payloads of the JAX package's GET /debug/traces endpoints
-(the port has no REST layer yet). The store is per process and bounded
+Perfetto), the payloads of GET /debug/traces and /debug/traces/{id}
+(cluster/rest.py). The store is per process and bounded
 two ways: PINOT_TPU_TRACE_STORE_BYTES (16 MiB of span JSON by default)
 and PINOT_TPU_TRACE_STORE_MAX entries. Eviction drops the oldest unpinned
 trace first, then the oldest pinned one, and counts what it dropped.

@@ -270,8 +270,8 @@ class WorkloadTracker:
             }
 
     def snapshot(self) -> dict:
-        """The payload of the JAX broker's GET /debug/workload (the port
-        serves it once cluster/rest.py is ported)."""
+        """The payload of the broker's GET /debug/workload
+        (cluster/rest.py)."""
         now = self._clock()
         with self._lock:
             return {

@@ -561,6 +561,19 @@ class DeviceSegmentCache:
         with self._lock:
             return self._bytes_locked()
 
+    def hbm_stats(self) -> dict:
+        """The card bytes this cache holds against its budget (None: no
+        budget), under the JAX device cache's `hbm_stats` keys: the
+        server's `status` beacon and the health scrape's hbm-pressure
+        rule read it."""
+        with self._lock:
+            partial_bytes = sum(e[1] for e in self._partials.values())
+            return {"hbmBytesUsed": self._bytes_locked(),
+                    "hbmBudgetBytes": self.budget_bytes,
+                    "hbmEvictions": self.evictions,
+                    "hbmPartialEntries": len(self._partials),
+                    "hbmPartialBytes": partial_bytes}
+
     def _bytes_locked(self) -> int:
         return (sum(v.nbytes() for v in self._views.values())
                 + sum(s.nbytes() for s in self._stacks.values())

@@ -183,6 +183,10 @@ class Schema:
     def has_column(self, column: str) -> bool:
         return column in self.fields
 
+    def dimension_names(self) -> list[str]:
+        return [n for n, f in self.fields.items()
+                if f.field_type == FieldType.DIMENSION]
+
     def to_json(self) -> dict:
         return {
             "schemaName": self.schema_name,

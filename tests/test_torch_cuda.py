@@ -46,7 +46,12 @@ tiered card server (storage/tier.py) warms a cold segment and launches
 kernel A once over the family with the CPU's rows; a demoted segment's
 planes leave the card and upload fresh when it is fetched again; and
 queries racing a thread that keeps demoting and fetching the segments
-again launch kernel A exactly.
+again launch kernel A exactly. Operations on the card: a rebalance moves
+a segment onto a third card server, whose launch of kernel A over it is
+element-equal to its plain version, with a CPU cluster's rows, and the
+source's device cache lets the moved planes go; a lineage swap to a
+renamed copy of a segment counts its rows once, before and after the
+swap, and the replaced segment's planes leave its server's cache.
 """
 
 from __future__ import annotations
@@ -2134,3 +2139,160 @@ def test_eviction_racing_dispatches_leaves_every_launch_exact(
     finally:
         server.stop()
         broker.close()
+
+
+def _renamed_copy(path, root, name) -> str:
+    """A copy of a segment directory under another segment name: the same
+    rows and data bytes (the crc covers the data alone)."""
+    import json
+    import shutil
+    from pathlib import Path
+
+    dst = Path(root) / name
+    shutil.copytree(path, dst)
+    meta = json.loads((dst / "metadata.json").read_text())
+    meta["segmentName"] = name
+    (dst / "metadata.json").write_text(json.dumps(meta))
+    return str(dst)
+
+
+def _ops_cluster(schema, paths, device, n_servers=2):
+    from pinot_tpu_torch.cluster import (Broker, ClusterController,
+                                         PropertyStore, ServerInstance)
+
+    store = PropertyStore()
+    ctl = ClusterController(store)
+    servers = [ServerInstance(store, f"Server_{i}", device=device)
+               for i in range(n_servers)]
+    for s in servers:
+        s.start()
+    ctl.add_schema(schema.to_json())
+    table = ctl.create_table({"tableName": "ssb", "replication": 1})
+    for i, path in enumerate(paths):
+        ctl.add_segment(table, f"ssb_{i}", {"location": path,
+                                            "numDocs": 40_000})
+    return store, ctl, servers, Broker(store)
+
+
+OPS_SQL = ("SELECT d_year, p_brand, SUM(lo_revenue) FROM ssb WHERE "
+           "s_region = 'ASIA' GROUP BY d_year, p_brand LIMIT 10000")
+
+
+def _cpu_rows(schema, paths):
+    store, ctl, servers, broker = _ops_cluster(schema, paths, "cpu")
+    try:
+        return sorted(map(tuple, broker.execute_sql(OPS_SQL)
+                          .result_table.rows))
+    finally:
+        for s in servers:
+            s.stop()
+        broker.close()
+
+
+def _launches_equal_plain(calls) -> None:
+    for planes, gid, G in calls:
+        assert torch.equal(mxu_groupby.limb_sums(planes, gid, G),
+                           mxu_groupby.limb_sums_plain(planes, gid, G))
+
+
+def test_rebalance_move_on_the_card_frees_the_source(cuda, cluster_segments):
+    """A third card server joins; a rebalance moves a segment onto it,
+    then a drain of Server_0 moves Server_0's segments onto the other two.
+    The next q2_family launches kernel A once over each remaining
+    server's family of 2 (the destination's included), each launch
+    element-equal to its plain version, with the CPU cluster's rows; the
+    drained server's device cache lets every moved segment go."""
+    from pinot_tpu_torch.cluster import ServerInstance
+    from pinot_tpu_torch.cluster.rebalance import SegmentRebalancer
+
+    schema, paths = cluster_segments
+    want = _cpu_rows(schema, paths)
+    store, ctl, servers, broker = _ops_cluster(schema, paths, "cuda")
+    try:
+        assert sorted(map(tuple, broker.execute_sql(OPS_SQL)
+                          .result_table.rows)) == want
+        torch.cuda.synchronize()
+        src = servers[0].executor.executor.cache
+        held = src.bytes_used()
+        dst = ServerInstance(store, "Server_2", device="cuda")
+        dst.start()
+        servers.append(dst)
+        rb = SegmentRebalancer(ctl, move_timeout_s=30.0)
+        assert rb.run("ssb_OFFLINE", timeout_s=60.0)["status"] == "DONE"
+        rb.plan("ssb_OFFLINE", trigger="health",
+                exclude=frozenset({"Server_0"}))
+        job = rb.drive("ssb_OFFLINE", timeout_s=60.0)
+        assert job["status"] == "DONE"
+        _cuda.reset_launches()
+        with _recording_limb_sums() as calls:
+            resp = broker.execute_sql(OPS_SQL)
+            torch.cuda.synchronize()
+        assert sorted(map(tuple, resp.result_table.rows)) == want
+        assert _cuda.LAUNCHES["limb_sums"] == 2 == len(calls)
+        assert all(planes.shape[0] == 2 for planes, _, _ in calls)
+        _launches_equal_plain(calls)
+        assert len(dst.executor.executor.cache.segment_names()) == 2
+        gc.collect()
+        assert not src.segment_names() and src.bytes_used() < held
+    finally:
+        for s in servers:
+            s.stop()
+        broker.close()
+
+
+def test_lineage_swap_on_the_card_counts_rows_once(cuda, cluster_segments,
+                                                   tmp_path):
+    """A renamed copy of ssb_0 replaces it through the lineage protocol:
+    in progress and after the swap q2_family answers the CPU cluster's
+    rows (the replaced rows counted once), each launch of kernel A equal
+    to its plain version; the old segment's planes leave its server."""
+    from pinot_tpu_torch.cluster.periodic import SegmentLineageManager
+
+    schema, paths = cluster_segments
+    want = _cpu_rows(schema, paths)
+    copy = _renamed_copy(paths[0], tmp_path, "ssb_0r")
+    store, ctl, servers, broker = _ops_cluster(schema, paths, "cuda")
+    try:
+        broker.execute_sql(OPS_SQL)
+        owner = next(s for s in servers
+                     if "ssb_0" in s.executor.executor.cache.segment_names())
+        lineage = SegmentLineageManager(store, ctl)
+        lid = lineage.start_replace("ssb_OFFLINE", ["ssb_0"], ["ssb_0r"])
+        ctl.add_segment("ssb_OFFLINE", "ssb_0r", {"location": copy,
+                                                  "numDocs": 40_000})
+        for step in ("in progress", "completed"):
+            if step == "completed":
+                lineage.end_replace("ssb_OFFLINE", lid)
+            _cuda.reset_launches()
+            with _recording_limb_sums() as calls:
+                resp = broker.execute_sql(OPS_SQL)
+                torch.cuda.synchronize()
+            assert sorted(map(tuple, resp.result_table.rows)) == want, step
+            assert resp.total_docs == 4 * 40_000, step
+            assert _cuda.LAUNCHES["limb_sums"] == len(calls) >= 2, step
+            _launches_equal_plain(calls)
+        gc.collect()
+        assert "ssb_0" not in owner.executor.executor.cache.segment_names()
+        assert store.get("/LINEAGE/ssb_OFFLINE") == {}
+    finally:
+        for s in servers:
+            s.stop()
+        broker.close()
+
+
+class _recording_limb_sums:
+    """Record kernel A's inputs while active (the calls go through)."""
+
+    def __enter__(self):
+        self.orig = mxu_groupby.limb_sums
+        self.calls = []
+
+        def wrapper(*args, **kwargs):
+            self.calls.append(args)
+            return self.orig(*args, **kwargs)
+
+        mxu_groupby.limb_sums = wrapper
+        return self.calls
+
+    def __exit__(self, *exc):
+        mxu_groupby.limb_sums = self.orig

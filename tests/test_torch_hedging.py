@@ -14,7 +14,9 @@ is one shard on one server in both, and each case arms the same
   * hedging every shard (a 1 us delay) merges exactly one answer per
     shard in submission order: bit-identical to the unhedged rows;
   * hedging is off by default (and a fixed 0 turns it off);
-  * the loser's server receives the cancel of the losing shard id;
+  * the loser's server receives the cancel of the losing shard id, also
+    when another query reaches a server between arming and the measured
+    query;
   * the query log records the hedge fields of a slow hedged query.
 
 Every wait is bounded. Tolerance: exact.
@@ -47,9 +49,14 @@ SEGMENTS = 4
 TEAMS = ["BOS", "NYA", "SFN", "LAN"]
 SCHEMA = Schema.build("hdg", dimensions=[("team", "STRING"), ("year", "INT")],
                       metrics=[("runs", "INT")])
+SCHEMA_X = Schema.build("hdgx", dimensions=[("team", "STRING"),
+                                           ("year", "INT")],
+                        metrics=[("runs", "INT")])
 NOCACHE = "SET resultCache = false; SET segmentCache = false; "
 SQL = NOCACHE + "SELECT team, year, SUM(runs), COUNT(*) FROM hdg " \
     "GROUP BY team, year ORDER BY team, year LIMIT 100"
+SQL_X = NOCACHE + "SELECT team, SUM(runs) FROM hdgx GROUP BY team " \
+    "ORDER BY team LIMIT 10"
 STALL_S = 2.0
 
 PORT = SimpleNamespace(name="port", cl=pcl, faults=pfaults, bm=PBM,
@@ -90,6 +97,8 @@ def clusters(tmp_path_factory):
         }
         SegmentBuilder(SCHEMA, None, f"hdg_{i}").build(cols, root / f"hdg_{i}")
         paths.append((f"hdg_{i}", str(root / f"hdg_{i}")))
+    # a second table, whose queries stand for another request's RPCs
+    SegmentBuilder(SCHEMA_X, None, "hdgx_0").build(cols, root / "hdgx_0")
     out = {}
     for pkg in BOTH:
         store = pkg.cl.PropertyStore()
@@ -102,11 +111,27 @@ def clusters(tmp_path_factory):
         table = ctl.create_table({"tableName": "hdg", "replication": 2})
         for name, path in paths:
             ctl.add_segment(table, name, {"location": path, "numDocs": ROWS})
+        ctl.add_schema(SCHEMA_X.to_json())
+        ctl.add_segment(ctl.create_table({"tableName": "hdgx",
+                                          "replication": 2}),
+                        "hdgx_0", {"location": str(root / "hdgx_0"),
+                                   "numDocs": ROWS})
         out[pkg.name] = SimpleNamespace(store=store, servers=servers)
     yield out
     for c in out.values():
         for s in c.servers:
             s.stop()
+
+
+def _arm_straggler(pkg) -> None:
+    """Stall the next `server.query` RPC of table hdg for STALL_S. The
+    registry counts one call index per point across the whole process, so
+    a schedule of index 0 would stall whichever RPC came first, of any
+    table; a match on the table with `times=1` stalls this file's next
+    query alone."""
+    pkg.faults.FAULTS.arm("server.query", kind="delay", delay_s=STALL_S,
+                          times=1,
+                          match=lambda ctx: ctx.get("table") == "hdg_OFFLINE")
 
 
 def _broker(pkg, c, **kw):
@@ -132,8 +157,7 @@ def _straggler(pkg, c) -> dict:
         oracle = _rows(broker.execute_sql(SQL))
         m_hedged = pkg.bm.meter_count(pkg.meter.HEDGED_REQUESTS)
         m_wins = pkg.bm.meter_count(pkg.meter.HEDGE_WINS)
-        pkg.faults.FAULTS.arm("server.query", kind="delay", delay_s=STALL_S,
-                              schedule=frozenset({0}))
+        _arm_straggler(pkg)
         t0 = time.perf_counter()
         resp = broker.execute_sql(SQL)
         elapsed = time.perf_counter() - t0
@@ -220,10 +244,13 @@ def test_quantile_hedge_waits_for_enough_samples():
         broker.close()
 
 
-def _loser_cancelled(pkg, c) -> dict:
+def _loser_cancelled(pkg, c, stray=None) -> dict:
     """The loser's server receives a cancel RPC naming the losing shard of
-    the faulted query (a slow warm-up may have hedged too: its cancels
-    carry another query id), and its accountant tombstones the shard."""
+    the faulted query, and its accountant tombstones the shard. The
+    warm-up runs unhedged, one query per replica (round-robin), so no
+    duplicate of it is still on its way to a server when the straggler is
+    armed. ``stray``, when given, sends another request's `server.query`
+    after arming and before the measured query."""
     cancels = {s.instance_id: [] for s in c.servers}
     originals = {}
     for s in c.servers:
@@ -236,11 +263,14 @@ def _loser_cancelled(pkg, c) -> dict:
             return _orig(request)
 
         s._rpc.handler = record
-    broker = _broker(pkg, c, hedge_ms=40.0)
+    broker = _broker(pkg, c)
     try:
-        broker.execute_sql(SQL)
-        pkg.faults.FAULTS.arm("server.query", kind="delay", delay_s=STALL_S,
-                              schedule=frozenset({0}))
+        for _ in c.servers:
+            broker.execute_sql(SQL)
+        broker.hedge_fixed_ms = 40.0
+        _arm_straggler(pkg)
+        if stray is not None:
+            stray(pkg, c)
         resp = broker.execute_sql(SQL)
 
         def ours():
@@ -254,17 +284,27 @@ def _loser_cancelled(pkg, c) -> dict:
         got = ours()
         losers = {i for i, v in got.items() if v}
         shard = next(q for v in got.values() for q, _ in v)
+        loser = next(s for s in c.servers if s.instance_id in losers)
         return {"rows_ok": not resp.exceptions,
                 "cancels": sum(map(len, got.values())),
                 "reason": sorted({r for v in got.values() for _, r in v}),
                 "shard": shard == f"{resp.query_id}:0",
-                "tombstoned": c.servers[0].scheduler.accountant
+                "tombstoned": loser.scheduler.accountant
                 ._tombstone_match_locked(shard) is not None,
                 "winner_not_cancelled": not losers & _responders(resp)}
     finally:
         _close(broker)
         for s in c.servers:
             s._rpc.handler = originals[s.instance_id]
+
+
+def _other_table_query(pkg, c) -> None:
+    # another request's RPC lands between arming and the measured query
+    broker = _broker(pkg, c)
+    try:
+        assert not broker.execute_sql(SQL_X).exceptions
+    finally:
+        _close(broker)
 
 
 def _responders(resp) -> set:
@@ -282,13 +322,21 @@ def test_the_loser_is_cancelled_by_its_shard_id(clusters):
                    "tombstoned": True, "winner_not_cancelled": True}
 
 
+def test_a_stray_query_after_arming_leaves_the_stall_to_the_measured_query(
+        clusters):
+    got = _loser_cancelled(PORT, clusters["port"], _other_table_query)
+    assert got == _loser_cancelled(JAX, clusters["jax"], _other_table_query)
+    assert got == {"rows_ok": True, "cancels": 1,
+                   "reason": ["hedged duplicate superseded"], "shard": True,
+                   "tombstoned": True, "winner_not_cancelled": True}
+
+
 def _logged(pkg, c) -> dict:
     broker = _broker(pkg, c, hedge_ms=40.0)
     broker.query_logger.slow_threshold_ms = 0.0
     try:
         broker.execute_sql(SQL)
-        pkg.faults.FAULTS.arm("server.query", kind="delay", delay_s=STALL_S,
-                              schedule=frozenset({0}))
+        _arm_straggler(pkg)
         broker.execute_sql(SQL)
         entry = max(broker.query_logger.slow_queries(),
                     key=lambda e: e["requestId"])
