@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--seed 2024] [--rows-per-segment 8388608]
-                          [--segments 4] [--iters 10]
+                          [--segments 4] [--iters 5]
 
 Phases, each printing one JSON line:
   device   the card, its compute capability and power limit
@@ -160,9 +160,9 @@ Phases, each printing one JSON line:
            counts set to 0 just before it and its rows held against a numpy
            oracle over the rows read back from the topic: `ingest`, the ssb
            schema from a 2-partition in-memory topic keyed by lo_orderkey
-           (576,000 rows a partition on average, gen_ssb rows from --seed +
+           (288,000 rows a partition on average, gen_ssb rows from --seed +
            6, published in batches of 64,000 while the consumers run; each
-           segment seals at 512,000 rows), at its settle point 2 committed
+           segment seals at 256,000 rows), at its settle point 2 committed
            segments (kernel A over their family) and the consuming
            snapshots, rt_q1, rt_q2 and rt_range and their warm p50; the
            freshness of a 1,000-row trickle; force_commit and the cold
@@ -340,6 +340,29 @@ Phases, each printing one JSON line:
            equal to its cache's) flagging a delayed server straggler, and
            /debug/cluster; build_default_scheduler's tasks run once each,
            their ms
+  batch_ingest
+           an analyst's nightly batch load, after Pinot's batch ingestion
+           job spec (SegmentCreationAndTarPush): 4 input files of 2^19
+           lineorder rows (gen_ssb from --seed + 20), gzipped CSV, JSON
+           lines, Avro (deflate) and Thrift, written by the spawn pool
+           after phase data's builds; IngestionJobLauncher's multiprocess runner (4
+           spawned workers, file:// in and out) builds and tars one segment
+           a file, timed per format in the worker (read, transform, build,
+           tar + copy); push_segments_to_cluster to 2 card servers at
+           replication 1, one tarball moved to an s3:// deep store first
+           (S3PinotFS over an in-memory client, registered with
+           register_fs), each server fetching, untarring and loading
+           through its tier (ms each; the fetch is the file system's
+           open, the untar streams from it); q2_family (kernel A over each
+           server's family of 2) cold and warm, q2 with segmentBatch =
+           false (kernel B a segment) and COUNT(*) = 2,097,152 with the
+           oracle's rows, the bytes on the card; a StreamingSegmentWriter
+           sink (2^18 rows, a segment every 2^17) pushing into a second
+           table on one server, q2_family there (kernel A over its family
+           of 2); client.connect(url).execute(q2_family) against a
+           BrokerRestServer; read_table (the servers' scan_arrow),
+           scan_table and read_sql where pyarrow is importable (it is on
+           the card's machine)
   doctor   `python -m pinot_tpu_torch.tools.doctor`'s probe (a supervised
            child: the card, the kernel build, kernel A against its plain
            version) must classify `ok`
@@ -360,11 +383,11 @@ Phases, each printing one JSON line:
            launches are held in `queries`)
   layers   a warm query's host time split into parse + prune + plan,
            dispatch, collect (the query's one fetch and the decode) and
-           combine + reduce, medians of 5 runs (1 for a query slower than
+           combine + reduce, medians of 3 runs (1 for a query slower than
            1 s); q6, q6m
            and q6_sort are left out (host-held, PERF.md §5)
   profile  device busy share and the top device kernels under
-           torch.profiler (3 warm queries, 1 for a query slower than 1 s;
+           torch.profiler (2 warm runs a query, 1 for one slower than 1 s;
            q6, q6m and q6_sort left out)
   chain    time_raw's MONTH(lo_commit_ts) chain alone over the family's raw
            plane: its time, the torch kernels it launches, the bytes they
@@ -384,8 +407,10 @@ Phases, each printing one JSON line:
            family of 2, kernels A and B head-sampled through the cluster
            (phase flight_recorder), kernels A and B through the cluster
            multi-stage engine's leaves, kernels A and B through phase
-           admission_tiers' tiered and hedged paths, and kernels A and B
-           through phase operations' REST, moved and swapped segments):
+           admission_tiers' tiered and hedged paths, kernels A and B
+           through phase operations' REST, moved and swapped segments, and
+           kernels A and B over phase batch_ingest's pushed and sunk
+           segments):
            per kernel and
            main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
@@ -695,13 +720,13 @@ RT_KERNEL_QUERIES = ("rt_q2", "rt_range", "ups")
 # and a multiple of the in-memory consumer's 1000-message fetch: a sealed
 # segment holds that many rows, or up to 999 more where a fetch came back
 # short because the consumer had caught up with the producer, as in the
-# JAX package; it pads to 2^19). Then two
+# JAX package; it pads to 2^18). Then two
 # replicas of it on one partition through the leader controller's
 # completion protocol (REPLICA_* rows, flush REPLICA_FLUSH_ROWS), and an
 # upsert table through the manager (UPS_INGEST_*)
 INGEST_TABLE, UPS_INGEST_TABLE = "ingest", "ups_ingest"
-INGEST_PARTITIONS, INGEST_ROWS, INGEST_BATCH = 2, 576_000, 64_000
-INGEST_FLUSH_ROWS = 512_000
+INGEST_PARTITIONS, INGEST_ROWS, INGEST_BATCH = 2, 288_000, 64_000
+INGEST_FLUSH_ROWS = 256_000
 INGEST_TRICKLE = 1_000  # rows published after the settle point: freshness
 REPLICA_FLUSH_ROWS, REPLICA_TAIL = 256_000, 16_000
 REPLICA_COMPLETION = {"num_replicas": 2, "commit_lease_s": 2.0,
@@ -824,9 +849,10 @@ HOST_HELD = ("q6", "q6m", "q6_sort")
 # a query slower than this takes 1 warm run in `times`, `layers` and
 # `profile`
 SLOW_QUERY_MS = 1000.0
-# warm runs a query in `layers` (at most --iters): cut from 10 to fit phase
-# `mse_cluster` in the run's time limit; `times` keeps --iters
-LAYERS_ITERS = 5
+# warm runs a query in `layers` (at most --iters): cut from 10 to 5 to fit
+# phase `mse_cluster` in the run's time limit, then to 3 (and --iters from
+# 10 to 5) to fit phase `batch_ingest`; `times` keeps --iters
+LAYERS_ITERS = 3
 
 
 _LAST_PHASE = [time.perf_counter()]
@@ -1116,6 +1142,18 @@ def transform_oracle(cols: dict, dates) -> dict:
     return out
 
 
+def q2_oracle(cols: dict, region: str = "ASIA") -> list:
+    """bench.py Q2's rows over `cols`, with s_region = `region`."""
+    year = cols["d_year"].astype(np.int64)
+    brand = cols["p_brand"].astype(np.int64)
+    m = cols["s_region"] == region
+    key = ((year - 1992) * 1000 + brand)[m]
+    sums = np.bincount(key, weights=cols["lo_revenue"][m].astype(
+        np.float64), minlength=7000)
+    return [[int(1992 + k // 1000), int(k % 1000), float(sums[k])]
+            for k in np.nonzero(np.bincount(key, minlength=7000))[0]]
+
+
 def oracle(cols: dict) -> dict:
     """Expected result rows of every query, from the generated columns with
     numpy alone. Group sums come from np.bincount with float64 weights:
@@ -1138,14 +1176,7 @@ def oracle(cols: dict) -> dict:
     out["q2"] = [[int(1992 + k // 1000), int(k % 1000), float(sums[0][k])]
                  for k in occ]
     for region in REGIONS:  # phase coalesce's mixed literals
-        m = cols["s_region"] == region
-        rkey = ((year - 1992) * 1000 + brand)[m]
-        rsum = np.bincount(rkey, weights=rev[m].astype(np.float64),
-                           minlength=7000)
-        out[f"q2/{region}"] = [[int(1992 + k // 1000), int(k % 1000),
-                                float(rsum[k])]
-                               for k in np.nonzero(np.bincount(
-                                   rkey, minlength=7000))[0]]
+        out[f"q2/{region}"] = q2_oracle(cols, region)
     out["q2_unfused"] = out["q2"]
     out["q9"] = [[int(1992 + k // 1000), int(k % 1000), float(sums[0][k]),
                   float(sums[1][k]), float(sums[2][k])] for k in occ]
@@ -1401,17 +1432,24 @@ def synthetic_fused_cases(torch, fg, seed, n=(1 << 22) + 3):
 
 
 @contextlib.contextmanager
-def recording(owner, name, tag=None, with_kwargs=False):
+def recording(owner, name, tag=None, with_kwargs=False, timed=False):
     """Record the arguments of every call to owner.name (calls go through):
     its positional arguments, or (args, kwargs) with `with_kwargs`, each
-    with tag()'s value at the call when a tag is given."""
+    with tag()'s value at the call when a tag is given, or with the ms the
+    call took (host clock) when `timed`."""
     calls = []
     orig = getattr(owner, name)
 
     def wrapper(*args, **kwargs):
         got = (args, kwargs) if with_kwargs else args
-        calls.append(got if tag is None else (got, tag()))
-        return orig(*args, **kwargs)
+        if not timed:
+            calls.append(got if tag is None else (got, tag()))
+            return orig(*args, **kwargs)
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            calls.append((got, (time.perf_counter() - t0) * 1e3))
 
     setattr(owner, name, wrapper)
     try:
@@ -3317,9 +3355,10 @@ def fill_free_blocks(torch) -> list:
 # -- coalescing and tracing ----------------------------------------------------
 
 # client threads of phase `coalesce`; each runs COALESCE_ITERS queries in
-# a closed loop (16 before phase `ingest` joined the run)
+# a closed loop (16 before phase `ingest` joined the run, 8 before phase
+# `batch_ingest`)
 COALESCE_CLIENTS = (1, 2, 4, 8, 16)
-COALESCE_ITERS = 8
+COALESCE_ITERS = 4
 COALESCE_WINDOW_MS = "2"
 # the queries whose EXPLAIN rows on the card must equal the CPU executor's
 EXPLAIN_QUERIES = ("q1", "q2", "q2_family", "q3", "q5", "sel_order",
@@ -5799,6 +5838,415 @@ def phase_operations(args, torch, tmp, schema, expected, _cuda, mxu, fg,
     return {"recs": recs, "parity": parity, "launches": launches}
 
 
+# -- phase batch_ingest: the offline data path ---------------------------------
+
+# an analyst's nightly batch load, after Pinot's documented batch ingestion
+# job spec (SegmentGenerationJobSpec: jobType SegmentCreationAndTarPush,
+# inputDirURI, includeFileNamePattern, recordReaderSpec.dataFormat,
+# pinotFSSpecs): one lineorder file a format lands in a deep store, one
+# segment is built from each and tar-pushed to the card servers, and
+# dashboards query the table. bench.py's table holds 100M rows; the phase
+# takes BATCH_ROWS a file, 2^21 in all, for time. The sink: a stream
+# framework's writer cutting a segment every SINK_FLUSH_ROWS
+BATCH_TABLE, SINK_TABLE, SINK_TAG = "batch", "sink", "sink_tenant"
+BATCH_FORMATS = ("csv.gz", "json", "avro", "thrift")
+BATCH_ROWS = 1 << 19
+BATCH_WORKERS = 4
+BATCH_ITERS = 5
+BATCH_WAIT_S = 120.0  # the longest the servers may take to load a push
+SINK_ROWS, SINK_FLUSH_ROWS = 1 << 18, 1 << 17
+BATCH_COLUMNS = [c for c, _ in SCHEMA_DIMS + SCHEMA_METRICS]
+# Thrift's field ids, Avro's record schema
+BATCH_THRIFT_IDS = {str(i + 1): c for i, c in enumerate(BATCH_COLUMNS)}
+BATCH_AVRO_SCHEMA = {"type": "record", "name": "lineorder", "fields": [
+    {"name": c, "type": "string" if t == "STRING" else "int"}
+    for c, t in SCHEMA_DIMS + SCHEMA_METRICS]}
+BATCH_QUERIES = {
+    "q2_family": Q2.replace("FROM ssb", f"FROM {BATCH_TABLE}"),
+    "q2": NO_BATCH + Q2.replace("FROM ssb", f"FROM {BATCH_TABLE}"),
+    "count": f"SELECT COUNT(*) FROM {BATCH_TABLE}",
+    "sink_q2_family": Q2.replace("FROM ssb", f"FROM {SINK_TABLE}")}
+
+
+def write_batch_input(task):
+    """Write one input file of phase batch_ingest (a worker of the spawn
+    process pool): the k-th `rows` rows of the phase's columns in format
+    `fmt`, with the port's Avro and Thrift writers; returns (path, bytes,
+    seconds)."""
+    from pinot_tpu_torch.plugins.inputformat import avro, thrift
+
+    k, fmt, seed, rows, path = task
+    t0 = time.perf_counter()
+    cols = gen_ssb(rows * len(BATCH_FORMATS), seed)
+    sl = slice(k * rows, (k + 1) * rows)
+    vals = list(zip(*(cols[c][sl].tolist() for c in BATCH_COLUMNS)))
+    del cols
+    if fmt == "csv.gz":
+        import gzip
+
+        with gzip.open(path, "wt", compresslevel=1) as f:
+            f.write(",".join(BATCH_COLUMNS) + "\n")
+            f.write("\n".join(",".join(map(str, v)) for v in vals) + "\n")
+    elif fmt == "json":
+        with open(path, "w") as f:
+            f.write("\n".join(json.dumps(dict(zip(BATCH_COLUMNS, v)))
+                              for v in vals) + "\n")
+    elif fmt == "avro":
+        with open(path, "wb") as f:
+            avro.write_avro_file(f, BATCH_AVRO_SCHEMA,
+                                 [dict(zip(BATCH_COLUMNS, v)) for v in vals],
+                                 codec="deflate")
+    else:
+        buf = bytearray()
+        for v in vals:
+            thrift.write_struct(buf, dict(enumerate(v, start=1)))
+        with open(path, "wb") as f:
+            f.write(buf)
+    return path, os.path.getsize(path), time.perf_counter() - t0
+
+
+def submit_batch_inputs(args, tmp, pool) -> list:
+    """Phase batch_ingest's input files, one a format, written by `pool`."""
+    os.makedirs(f"{tmp}/batch_in", exist_ok=True)
+    return [pool.submit(write_batch_input, (
+        k, fmt, args.seed + 20, BATCH_ROWS,
+        f"{tmp}/batch_in/lineorder_{k}.{fmt}"))
+        for k, fmt in enumerate(BATCH_FORMATS)]
+
+
+class MemS3Client:
+    """An in-memory object store with the boto3 client surface that
+    S3PinotFS uses: the smoke's s3:// deep store (no network)."""
+
+    def __init__(self):
+        self.objects = {}
+
+    def put_object(self, Bucket, Key, Body=b""):
+        self.objects[(Bucket, Key)] = bytes(Body)
+
+    def get_object(self, Bucket, Key):
+        import io
+
+        return {"Body": io.BytesIO(self.objects[(Bucket, Key)])}
+
+    def head_object(self, Bucket, Key):
+        if (Bucket, Key) not in self.objects:
+            raise KeyError(Key)
+        return {"ContentLength": len(self.objects[(Bucket, Key)])}
+
+    def delete_object(self, Bucket, Key):
+        self.objects.pop((Bucket, Key), None)
+
+    def list_objects_v2(self, Bucket, Prefix, ContinuationToken=None):
+        keys = sorted(k for b, k in self.objects
+                      if b == Bucket and k.startswith(Prefix))
+        return {"Contents": [{"Key": k} for k in keys], "IsTruncated": False}
+
+    def copy_object(self, Bucket, Key, CopySource):
+        self.objects[(Bucket, Key)] = \
+            self.objects[(CopySource["Bucket"], CopySource["Key"])]
+
+
+def _segment_of(uri: str) -> str:
+    name = os.path.basename(str(uri))
+    return name[:-len(".tar.gz")] if name.endswith(".tar.gz") else name
+
+
+def ms_by_segment(calls, i: int) -> dict:
+    """{segment: ms} of recording(..., timed=True)'s calls, summed over the
+    calls whose argument i names one segment."""
+    out = {}
+    for args, ms in calls:
+        seg = _segment_of(args[i])
+        out[seg] = out.get(seg, 0.0) + ms
+    return out
+
+
+def phase_batch_ingest(args, torch, tmp, inputs, _cuda, mxu, fg, card) -> dict:
+    """The offline data path (ingestion/batch.py, plugins/inputformat/,
+    spi/filesystem.py, plugins/filesystem/s3.py, connectors/, client.py)
+    on the card: the multiprocess job over the 4 input files `inputs`
+    wrote, the tar push to 2 card servers (one tarball through an s3://
+    deep store), the queries on the card with the oracle's rows and every
+    kernel launch counted from 0 and recorded, the sink into a second
+    table served by one server, the HTTP client, and the Arrow reads where
+    pyarrow is importable."""
+    import dataclasses
+
+    from pinot_tpu_torch import client as pclient
+    from pinot_tpu_torch.cluster import (Broker, ClusterController,
+                                         PropertyStore, ServerInstance)
+    from pinot_tpu_torch.cluster import server as server_mod
+    from pinot_tpu_torch.cluster.rest import BrokerRestServer
+    from pinot_tpu_torch.connectors import StreamingSegmentWriter
+    from pinot_tpu_torch.ingestion import batch
+    from pinot_tpu_torch.plugins.filesystem.s3 import S3PinotFS
+    from pinot_tpu_torch.spi import filesystem
+
+    t_phase = time.perf_counter()
+    total = BATCH_ROWS * len(BATCH_FORMATS)
+    cols = gen_ssb(total, args.seed + 20)
+    want = {"q2": q2_oracle(cols), "count": [[total]]}
+    want["q2_family"] = want["q2"]
+    scanned = (cols["d_year"] == 1993) & (cols["lo_discount"] == 1)
+    want["scan"] = (int(scanned.sum()),
+                    int(cols["lo_revenue"][scanned].astype(np.int64).sum()))
+    del cols, scanned
+    files = {}
+    for fut in inputs:
+        path, nbytes, sec = fut.result()
+        files[os.path.basename(path)] = {"bytes": nbytes, "write_s": sec}
+    out = {"card": card, "rows": total, "files": files}
+    recs, launches = {}, {}
+    schema, cfg = _data_table(BATCH_TABLE)
+
+    # -- the job: one segment a file, in 4 spawned workers -------------------
+    spec = batch.SegmentGenerationJobSpec(
+        input_dir_uri=f"file://{tmp}/batch_in",
+        output_dir_uri=f"file://{tmp}/batch_deep", schema=schema,
+        table_config=cfg, include_file_name_pattern="lineorder_*",
+        record_reader_config={"fieldIdToName": BATCH_THRIFT_IDS},
+        segment_name_prefix=BATCH_TABLE, create_tar=True,
+        execution_framework="multiprocess", parallelism=BATCH_WORKERS)
+    t0 = time.perf_counter()
+    results = batch.IngestionJobLauncher(spec).run()
+    job_s = time.perf_counter() - t0
+    if [r.num_docs for r in results] != [BATCH_ROWS] * len(BATCH_FORMATS) \
+            or any(r.rows_filtered for r in results):
+        raise AssertionError(f"batch_ingest job: {results}")
+    out["job"] = {"seconds": job_s, "rows_per_s": total / job_s,
+                  "workers": BATCH_WORKERS, "per_format": {
+                      fmt: {"us_per_row": {k: v * 1e3 / r.num_docs
+                                           for k, v in r.timings_ms.items()},
+                            "file_s": sum(r.timings_ms.values()) / 1e3,
+                            "tar_bytes": os.path.getsize(
+                                r.output_uri[len("file://"):])}
+                      for fmt, r in zip(BATCH_FORMATS, results)}}
+
+    # -- the push: 2 card servers, one tarball through s3:// ----------------
+    mem = MemS3Client()
+    saved_s3 = filesystem._FS_REGISTRY.get("s3")
+    filesystem.register_fs("s3", lambda: S3PinotFS(client=mem))
+    store = PropertyStore()
+    ctl = ClusterController(store)
+    servers = [ServerInstance(store, f"Server_{i}", device=DEVICE,
+                              tags=["DefaultTenant"] + ([SINK_TAG] if i == 0
+                                                        else []))
+               for i in range(CLUSTER_SERVERS)]
+    broker = Broker(store)
+    rest = None
+    fs_classes = (filesystem.LocalPinotFS, S3PinotFS)
+
+    def caches():
+        return [s.executor.executor.cache for s in servers]
+
+    def await_online(table, n):
+        return _wait_for(lambda: len(broker.routing_table(table)) == n,
+                         BATCH_WAIT_S, f"batch_ingest: {n} segments of "
+                         f"{table} ONLINE")
+
+    def run(label, sql, qwant, per_kernel, query=None):
+        """One query with every count set to 0 just before it: its rows the
+        oracle's, its launches `per_kernel` exactly; its kernel inputs."""
+        _cuda.reset_launches()
+        with recording(mxu, "limb_sums") as a_calls, \
+                recording(fg, "fused_limb_sums") as b_calls:
+            t0 = time.perf_counter()
+            rows = (query or (lambda q: broker.execute_sql(q)))(sql)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        made = dict(_cuda.LAUNCHES)
+        if sorted(map(tuple, rows)) != sorted(map(tuple, qwant)):
+            raise AssertionError(f"batch_ingest {label}: {len(rows)} rows "
+                                 f"against the oracle's {len(qwant)}")
+        if per_kernel is not None and made != per_kernel:
+            raise AssertionError(f"batch_ingest {label}: launches {made}, "
+                                 f"{per_kernel} expected")
+        launches[label] = made
+        return ms, list(a_calls), list(b_calls)
+
+    def broker_rows(sql):
+        resp = broker.execute_sql(sql)
+        if resp.exceptions:
+            raise AssertionError(f"batch_ingest: {resp.exceptions}")
+        return resp.result_table.rows
+
+    try:
+        for srv in servers:
+            srv.start()
+        ctl.add_schema(schema.to_json())
+        table = ctl.create_table({"tableName": BATCH_TABLE,
+                                  "replication": 1})
+        last = results[-1]
+        s3_uri = f"s3://deep/{BATCH_TABLE}/{last.segment_name}.tar.gz"
+        with recording(batch, "untar_segment", timed=True) as untars, \
+                recording(fs_classes[0], "open", timed=True) as local_opens, \
+                recording(fs_classes[1], "open", timed=True) as s3_opens, \
+                recording(server_mod, "load_segment", timed=True) as loads:
+            t0 = time.perf_counter()
+            filesystem.get_fs(s3_uri).copy_from_local(
+                last.output_uri[len("file://"):], s3_uri)
+            s3_put_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            batch.push_segments_to_cluster(
+                results[:-1] + [dataclasses.replace(last, output_uri=s3_uri)],
+                ctl, table)
+            push_ms = (time.perf_counter() - t0) * 1e3
+            online_s = await_online(table, len(results))
+        ideal = store.get(f"/IDEALSTATES/{table}")
+        # the fetch is the file system's open: the in-memory s3:// store's
+        # whole object, a file:// handle; the untar streams from it
+        untar_ms, load_ms = ms_by_segment(untars, 0), ms_by_segment(loads, 0)
+        s3_fetch = ms_by_segment(s3_opens, 1)
+        fetch_ms = dict(ms_by_segment(local_opens, 1), **s3_fetch)
+        per_server = {}
+        for seg, insts in sorted(ideal.items()):
+            for inst in insts:
+                per_server.setdefault(inst, {})[seg] = {
+                    "fetch_ms": fetch_ms[seg],
+                    "untar_ms": untar_ms[seg] - fetch_ms[seg],
+                    "load_ms": load_ms[seg],
+                    "deep_store": "s3" if seg == last.segment_name
+                    else "file"}
+        if not s3_fetch or set(s3_fetch) != {last.segment_name} or \
+                sorted(len(v) for v in per_server.values()) != [2, 2]:
+            raise AssertionError(f"batch_ingest push: {per_server}, s3 "
+                                 f"fetches {s3_fetch}")
+        out["push"] = {"s3_put_ms": s3_put_ms, "push_ms": push_ms,
+                       "online_s": online_s, "servers": per_server}
+
+        # -- the queries on the card ----------------------------------------
+        family = {"limb_sums": CLUSTER_SERVERS, "fused_limb_sums": 0}
+        cold_ms, recs["q2_family"], _ = run(
+            "q2_family", BATCH_QUERIES["q2_family"], want["q2_family"],
+            family, broker_rows)
+        warm = []
+        for _ in range(BATCH_ITERS):
+            t0 = time.perf_counter()
+            broker_rows(BATCH_QUERIES["q2_family"])
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        q2_ms, _, recs["q2"] = run(
+            "q2", BATCH_QUERIES["q2"], want["q2"],
+            {"limb_sums": 0, "fused_limb_sums": len(results)}, broker_rows)
+        count_ms, _, _ = run("count", BATCH_QUERIES["count"], want["count"],
+                             None, broker_rows)
+        out["queries"] = {
+            "q2_family_cold_ms": cold_ms,
+            "q2_family_warm_p50_ms": float(np.median(warm)),
+            "q2_family_warm_ms": warm, "q2_ms": q2_ms, "count_ms": count_ms,
+            "count": total, "launches": dict(launches),
+            "resident_bytes": sum(c.bytes_used() for c in caches())}
+
+        # -- the sink: a second table on Server_0 ---------------------------
+        sink_schema, sink_cfg = _data_table(SINK_TABLE)
+        ctl.add_schema(sink_schema.to_json())
+        sink_table = ctl.create_table({"tableName": SINK_TABLE,
+                                       "replication": 1,
+                                       "serverTag": SINK_TAG})
+        scols = gen_ssb(SINK_ROWS, args.seed + 21)
+        want["sink_q2_family"] = q2_oracle(scols)
+        rows = [dict(zip(BATCH_COLUMNS, v)) for v in zip(
+            *(scols[c].tolist() for c in BATCH_COLUMNS))]
+        del scols
+        t0 = time.perf_counter()
+        writer = StreamingSegmentWriter(
+            sink_schema, f"{tmp}/sink_deep", sink_cfg, controller=ctl,
+            table_name_with_type=sink_table, flush_max_rows=SINK_FLUSH_ROWS)
+        for row in rows:
+            writer.collect(row)
+        uris = writer.close()
+        sink_s = time.perf_counter() - t0
+        del rows
+        if len(uris) != SINK_ROWS // SINK_FLUSH_ROWS:
+            raise AssertionError(f"batch_ingest sink: {uris}")
+        sink_online_s = await_online(sink_table, len(uris))
+        sink_ms, recs["sink_q2_family"], _ = run(
+            "sink_q2_family", BATCH_QUERIES["sink_q2_family"],
+            want["sink_q2_family"], {"limb_sums": 1, "fused_limb_sums": 0},
+            broker_rows)
+        out["sink"] = {"rows": SINK_ROWS, "segments": len(uris),
+                       "flush_rows": SINK_FLUSH_ROWS, "seconds": sink_s,
+                       "us_per_row": sink_s * 1e6 / SINK_ROWS,
+                       "online_s": sink_online_s, "q2_family_ms": sink_ms}
+
+        # -- the HTTP client against a BrokerRestServer ---------------------
+        rest = BrokerRestServer(broker)
+        conn = pclient.connect(rest.url)
+        client_ms, recs["client_q2_family"], _ = run(
+            "client_q2_family", BATCH_QUERIES["q2_family"],
+            want["q2_family"], family, lambda q: conn.execute(q).rows)
+        out["client"] = {"q2_family_ms": client_ms}
+
+        # -- the Arrow reads (pyarrow is an optional library) ---------------
+        try:
+            import pyarrow  # noqa: F401
+        except ImportError:
+            out["arrow"] = "pyarrow not installed"
+        else:
+            from pinot_tpu_torch.connectors import read_sql, read_table
+            from pinot_tpu_torch.connectors.dataframe import scan_table
+
+            t0 = time.perf_counter()
+            t = read_table(broker, table, columns=["lo_revenue"])
+            if t.num_rows != total:
+                raise AssertionError(f"batch_ingest read_table: "
+                                     f"{t.num_rows} rows")
+            read_table_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            batches = [b for _, b in scan_table(
+                broker, table, ["lo_revenue"],
+                where="d_year = 1993 AND lo_discount = 1")]
+            scan = (sum(b.num_rows for b in batches),
+                    sum(sum(b.column(0).to_pylist()) for b in batches))
+            if len(batches) != len(results) or scan != want["scan"]:
+                raise AssertionError(f"batch_ingest scan_table: {scan} "
+                                     f"against {want['scan']}")
+            scan_table_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = read_sql(BATCH_QUERIES["q2_family"], connection=conn)
+            if sorted(map(tuple, zip(*got.to_pydict().values()))) != \
+                    sorted(map(tuple, want["q2_family"])):
+                raise AssertionError("batch_ingest read_sql: rows differ")
+            out["arrow"] = {"read_table_s": read_table_s,
+                            "scan_table_s": scan_table_s,
+                            "scan_table_rows": scan[0],
+                            "read_sql_s": time.perf_counter() - t0}
+    finally:
+        if rest is not None:
+            rest.close()
+        for srv in servers:
+            if srv._started:
+                srv.stop()
+        broker.close()
+        if saved_s3 is None:
+            filesystem._FS_REGISTRY.pop("s3", None)
+        else:
+            filesystem.register_fs("s3", saved_s3)
+    del servers, broker
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    parity = {}
+    for label in ("q2_family", "sink_q2_family", "client_q2_family"):
+        parity[label] = max(check_equal(
+            torch, f"limb_sums batch_ingest {label}, launch {k}",
+            mxu.limb_sums(*rec), mxu.limb_sums_plain(*rec))
+            for k, rec in enumerate(recs[label]))
+    parity["q2"] = max(check_equal(
+        torch, f"fused_limb_sums batch_ingest q2, launch {k}",
+        fg.fused_limb_sums(*rec), fg.fused_limb_sums_plain(*rec))
+        for k, rec in enumerate(recs["q2"]))
+    out["parity"] = parity
+    emit(dict({"phase": "batch_ingest",
+               "seconds": time.perf_counter() - t_phase,
+               "note": "one process: the servers, the broker and the REST "
+                       "server share its GIL and its card; the job's "
+                       "workers are processes of their own; host clock"},
+              **out))
+    return {"recs": recs, "parity": parity, "launches": launches}
+
+
 def phase_doctor(card) -> None:
     """The GPU probe (tools/doctor.py) in its supervised child: it must
     classify `ok`."""
@@ -6198,8 +6646,8 @@ def phase_layers(torch, qe, iters, card, slow) -> dict:
 
 
 def phase_profile(torch, qe, card, slow) -> dict:
-    """Device busy share of warm runs under torch.profiler (3 queries, 1
-    for the queries in `slow`): the device time of every CUDA kernel over
+    """Device busy share of warm runs under torch.profiler (2 runs a query,
+    1 for the queries in `slow`): the device time of every CUDA kernel over
     the host wall time, and the kernels that take the most of it."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -6210,7 +6658,7 @@ def phase_profile(torch, qe, card, slow) -> dict:
                    "mv_filter", "mv_group", "mv_aggs") + TRANSFORM_QUERIES
                   + ("post_agg",) + RT_KERNEL_QUERIES + ST_QUERIES
                   + INDEX_QUERIES):
-        runs = 1 if qname in slow else 3
+        runs = 1 if qname in slow else 2
         if runs > 1:
             qe.execute_sql(QUERIES[qname])
         torch.cuda.synchronize()
@@ -6720,7 +7168,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=2024)
     ap.add_argument("--rows-per-segment", type=int, default=1 << 23)
     ap.add_argument("--segments", type=int, default=4)
-    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--events-rows", type=int, default=1 << 20,
                     help="rows of each of the 4 `events` segments")
     ap.add_argument("--vec-rows", type=int, default=1 << 16,
@@ -6801,6 +7249,9 @@ def main(argv=None) -> int:
             pending = submit_index_builds(args, tmp, pool)
             tables, dim, cols, dates, tags, taxi_cols = phase_data(
                 args, torch, tmp, pool)
+            # the batch job's input files, behind the data builds that
+            # phase `data` waits for
+            batch_inputs = submit_batch_inputs(args, tmp, pool)
             formats_parts = formats_columns(cols, min(
                 FORMATS_ROWS, args.rows_per_segment * args.segments
                 // (FORMATS_SEGMENTS * FORMATS_SEGMENTS)))
@@ -6812,6 +7263,8 @@ def main(argv=None) -> int:
             index, index_expected, facts = index_tables(args, cols, tmp, pool,
                                                         pending)
             formats_build_s = sum(f.result()[1] for f in formats_pending)
+            for fut in batch_inputs:
+                fut.result()
         segments = tables["ssb"][1]
         expected = oracle(cols)
         rt_base = rt_partials(cols)
@@ -6891,6 +7344,9 @@ def main(argv=None) -> int:
             fused_groupby, dev["nvidia_smi"])
         operations = phase_operations(
             args, torch, tmp, tables["ssb"][0], expected, _cuda, mxu_groupby,
+            fused_groupby, dev["nvidia_smi"])
+        batch_ingest = phase_batch_ingest(
+            args, torch, tmp, batch_inputs, _cuda, mxu_groupby,
             fused_groupby, dev["nvidia_smi"])
         phase_doctor(dev["nvidia_smi"])
         planes, gid, G = mse["agg_recs"][0]
@@ -7160,6 +7616,28 @@ def main(argv=None) -> int:
                 torch, owner, _cuda, op_recs[label], op_n[key][name],
                 operations["parity"][label], f"operations {note}"))
         del operations, op_recs
+        # phase batch_ingest: kernel A over each card server's family of 2
+        # pushed segments (the same inputs through the broker and the HTTP
+        # client) and over the sink's family of 2; kernel B a segment
+        bi_recs, bi_n = batch_ingest["recs"], batch_ingest["launches"]
+        for label, name, note in (
+                ("q2_family", "limb_sums",
+                 "q2_family over the batch job's tar-pushed segments (one "
+                 "through s3://): each of 2 card servers' family of 2, one "
+                 "launch a server; the client's run over HTTP made the "
+                 "same launches"),
+                ("q2", "fused_limb_sums",
+                 "q2 (SET segmentBatch = false) over the batch job's "
+                 "segments: a segment a launch on its server"),
+                ("sink_q2_family", "limb_sums",
+                 "q2_family over the StreamingSegmentWriter's 2 segments "
+                 "on one server: its family of 2, one launch")):
+            row = kernel_a_row if name == "limb_sums" else kernel_b_row
+            owner = mxu_groupby if name == "limb_sums" else fused_groupby
+            kernels.append(row(
+                torch, owner, _cuda, bi_recs[label], bi_n[label][name],
+                batch_ingest["parity"][label], f"batch_ingest {note}"))
+        del batch_ingest, bi_recs
         # the multi-stage leaf partial aggregate's launch of kernel A
         kernels.append(kernel_a_row(
             torch, mxu_groupby, _cuda, mse["agg_recs"], mse["agg_launches"],

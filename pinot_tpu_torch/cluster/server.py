@@ -53,9 +53,11 @@ stays cold or quarantined and the broker retries a replica or degrades.
 
 The destination load of an in-flight rebalance move (the /REBALANCE/
 journal names this server) passes the `rebalance.move` fault point, with
-the same corrupt-then-quarantine contract. Not ported yet: `scan_arrow`
-(it needs `connectors/arrow_reader.py`, ROADMAP Queue 1 item 5). The JAX
-package's PINOT_TPU_AUTO_REPAIR, _REPAIR_RETRIES,
+the same corrupt-then-quarantine contract. A `scan_arrow` request reads
+one hosted segment straight from its storage as Arrow IPC bytes
+(`connectors/arrow_reader.py`), under the tier's reading pin; it needs
+pyarrow, and without it raises the same ImportError as the JAX package's.
+The JAX package's PINOT_TPU_AUTO_REPAIR, _REPAIR_RETRIES,
 _REPAIR_BACKOFF_MS, _COLD_SYNC_FLOOR_MS and _LOAD_RETRIES are the
 constructor's `auto_repair` and this module's constants here.
 """
@@ -938,6 +940,8 @@ class ServerInstance:
             return self._handle_query_stream(request)
         if kind == "explain":
             return self._handle_explain(request)
+        if kind == "scan_arrow":
+            return self._handle_scan_arrow(request)
         if kind == "ping":
             return "pong"
         if kind == "cancel":
@@ -1077,6 +1081,23 @@ class ServerInstance:
         if trace is not None:
             out["trace"] = trace.to_json()
         return out
+
+    def _handle_scan_arrow(self, request):
+        """Direct Arrow IPC segment read for external engines — straight
+        from segment storage, no SQL/DataTable in the data path
+        (reference: the Spark connector's gRPC server reads;
+        connectors/arrow_reader.py holds the client half)."""
+        from ..connectors.arrow_reader import segment_ipc_bytes
+
+        table = request["table"]
+        name = request["segment"]
+        with self._lock:
+            seg = self.segments.get(table, {}).get(name)
+        if seg is None:
+            raise ValueError(f"segment {name} not hosted for {table}")
+        with self._tier.reading(table, [name]):
+            ipc = segment_ipc_bytes(seg, request.get("columns"))
+        return {"ipc": ipc, "numRows": seg.num_docs}
 
     def _handle_explain(self, request):
         """Render the operator-tree plan for this server's hosted segments

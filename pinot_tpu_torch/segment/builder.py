@@ -28,7 +28,7 @@ import operator
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterable, Mapping, Optional
+from typing import Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -61,6 +61,14 @@ class MultiValues:
         return len(self.lengths)
 
 
+def rows_to_columns(rows: Sequence[Mapping], schema: Schema) -> dict[str, list]:
+    cols: dict[str, list] = {name: [] for name in schema.column_names()}
+    for row in rows:
+        for name in cols:
+            cols[name].append(row.get(name))
+    return cols
+
+
 class SegmentBuilder:
     """Builds one immutable segment directory from columnar data."""
 
@@ -73,6 +81,9 @@ class SegmentBuilder:
         self.schema = schema
         self.table_config = table_config or TableConfig(table_name=schema.schema_name)
         self.segment_name = segment_name
+
+    def build_from_rows(self, rows: Sequence[Mapping], out_dir: str | Path) -> Path:
+        return self.build(rows_to_columns(rows, self.schema), out_dir)
 
     def build(self, columns: Mapping[str, Iterable], out_dir: str | Path) -> Path:
         """columns: column name -> values (may contain None for nulls)."""

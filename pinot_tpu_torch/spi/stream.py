@@ -9,10 +9,13 @@ creates per-partition consumers and a metadata provider. The in-memory stream
 FakeStreamConsumerFactory, pinot-core/src/test/.../fakestream/) and the
 process-local producer API used by quickstarts.
 
-Stream types and decoders resolve through the registries below only: the
-plugin discovery of the Kafka, Kinesis, Pulsar and Confluent connectors is
-not part of the port, so an unregistered streamType raises and an
-unregistered decoder name falls back to JSON.
+An unregistered streamType resolves through the plugin loader
+(``spi/plugins.py`` ``resolve("stream", name)``, which imports
+``pinot_tpu_torch.plugins.stream.<name>``), as in the JAX package. The
+Kafka, Kinesis, Pulsar and Confluent plugins are not ported yet, so such a
+type still raises ``ValueError("unknown streamType ...")``, and an
+unregistered decoder name falls back to JSON (the JAX package imports its
+Confluent decoder for a "confluent" name first).
 """
 
 from __future__ import annotations
@@ -183,9 +186,16 @@ def register_decoder(name: str, decoder: Callable[[], StreamDataDecoder]):
 
 def get_stream_consumer_factory(config: StreamConfig) -> StreamConsumerFactory:
     if config.stream_type not in _FACTORIES:
-        raise ValueError(
-            f"unknown streamType {config.stream_type!r}; "
-            f"registered: {sorted(_FACTORIES)}")
+        # plugin discovery via the shared loader (reference: PluginManager
+        # resolving the stream factory class name)
+        from .plugins import resolve
+
+        try:
+            resolve("stream", config.stream_type)
+        except ValueError:
+            raise ValueError(
+                f"unknown streamType {config.stream_type!r}; "
+                f"registered: {sorted(_FACTORIES)}") from None
     return _FACTORIES[config.stream_type](config)
 
 
@@ -306,3 +316,7 @@ class InMemoryStreamConsumerFactory(StreamConsumerFactory):
 
 register_stream_type("inmemory", InMemoryStreamConsumerFactory)
 
+
+from .plugins import register_kind as _register_kind  # noqa: E402
+
+_register_kind("stream", _FACTORIES.get)

@@ -10,8 +10,10 @@ Semantics:
 
 * Plain-directory locations (the deep store IS a local dir) are served
   in place: no copy, no bytes charged, never evicted here.
-* Tarball locations (``.tar.gz`` / ``.tgz``, a local path or a
-  ``file://`` URI) are untarred into a per-instance tier directory and
+* Tarball locations (``.tar.gz`` / ``.tgz``, a local path or any URI a
+  registered PinotFS serves: ``file://``, ``s3://``, ...) are fetched
+  through ``spi/filesystem.get_fs`` and untarred (``ingestion/batch.py``
+  ``untar_segment``) into a per-instance tier directory and
   charged their on-disk size. When the budget is exceeded, the manager
   evicts least-recently-used entries first, weighted by table heat
   (hot and pinned tables go last), calling ``evict_cb`` so the server can
@@ -43,12 +45,10 @@ from __future__ import annotations
 import logging
 import os
 import shutil
-import tarfile
 import tempfile
 import threading
 import time
 from contextlib import contextmanager
-from pathlib import Path
 from typing import Callable, Optional
 
 log = logging.getLogger(__name__)
@@ -99,24 +99,6 @@ class _Entry:
 
 def _is_tar(location: str) -> bool:
     return str(location).endswith((".tar.gz", ".tgz"))
-
-
-def untar_segment(tar_uri: str, dest_dir: str) -> str:
-    """Server-side fetch + untar of a tarred segment into `dest_dir`
-    (reference: SegmentFetcherFactory + untar on OFFLINE->ONLINE); returns
-    the segment directory. The port reads the local file system only (a
-    path or a ``file://`` URI): the JAX package's other file systems wait
-    for `spi/filesystem.py`."""
-    path = str(tar_uri)
-    if path.startswith("file://"):
-        path = path[len("file://"):]
-    with tarfile.open(path, "r:gz") as tf:
-        tf.extractall(dest_dir, filter="data")
-    name = Path(path).name
-    for suffix in (".tar.gz", ".tgz"):
-        if name.endswith(suffix):
-            name = name[: -len(suffix)]
-    return str(Path(dest_dir) / name)
 
 
 class SegmentTierManager:
@@ -198,6 +180,7 @@ class SegmentTierManager:
                     e.refs += 1
                 return e.path
         # fetch OUTSIDE the lock: untar + size walk are the slow parts
+        from ..ingestion.batch import untar_segment
         with self._lock:
             self._seq += 1
             seq = self._seq

@@ -57,7 +57,65 @@ def test_port_files_are_found():
             "dim_tables.py", "coalesce.py", "explain.py",
             "trace.py", "broker.py", "server.py", "transport.py",
             "datatable.py", "scheduler.py", "doctor.py", "distributed.py",
-            "plan_serde.py", "remote_store.py"} <= names
+            "plan_serde.py", "remote_store.py", "plugins.py",
+            "filesystem.py", "s3.py", "gcs.py", "adls.py", "hdfs.py",
+            "readers.py", "avro.py", "thrift.py", "protobuf.py",
+            "clplog.py", "batch.py", "sink.py", "arrow_reader.py",
+            "dataframe.py", "client.py"} <= names
+
+
+# every kind and every name the port ships, resolved through the plugin
+# loader, whose module paths are strings built at run time (a dict, an
+# f-string), which the import scan above cannot see
+RESOLVE_EVERY_PLUGIN = """
+import sys
+import chip_smoke  # noqa: F401
+from pinot_tpu_torch.spi import filesystem, plugins
+from pinot_tpu_torch.spi.stream import StreamConfig, get_stream_consumer_factory
+for scheme in ("s3", "gs", "abfs", "hdfs"):
+    try:
+        plugins.resolve("filesystem",
+                        filesystem._SCHEME_MODULES.get(scheme, scheme))
+    except ValueError:  # adls registers its schemes, not its module name
+        pass
+    assert scheme in filesystem._FS_REGISTRY, scheme
+from pinot_tpu_torch.plugins.inputformat import readers
+for name in ("csv", "json", "jsonl", "parquet", "orc", "avro", "thrift",
+             "protobuf", "proto", "clplog", "clp"):
+    assert plugins.resolve("inputformat", name) is not None, name
+assert sorted(readers._READERS) == sorted(
+    ("csv", "json", "jsonl", "parquet", "orc", "avro", "thrift", "proto",
+     "protobuf", "clplog", "clp"))
+assert plugins.resolve("stream", "inmemory") is not None
+for kind, name in (("stream", "kafka"), ("filesystem", "zz9"),
+                   ("inputformat", "nope")):
+    try:
+        plugins.resolve(kind, name)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError((kind, name))
+try:
+    get_stream_consumer_factory(StreamConfig(stream_type="kafka"))
+except ValueError as e:
+    assert "unknown streamType" in str(e)
+import pinot_tpu_torch.client, pinot_tpu_torch.connectors  # noqa: E401,F401
+import pinot_tpu_torch.ingestion.batch  # noqa: F401
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pinot_tpu"))
+print("FORBIDDEN", bad)
+"""
+
+
+def test_plugins_resolve_without_the_jax_package():
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-c", RESOLVE_EVERY_PLUGIN],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FORBIDDEN []" in out.stdout, out.stdout
 
 
 @pytest.mark.parametrize("path", _port_files(),

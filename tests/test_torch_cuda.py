@@ -51,13 +51,21 @@ a segment onto a third card server, whose launch of kernel A over it is
 element-equal to its plain version, with a CPU cluster's rows, and the
 source's device cache lets the moved planes go; a lineage swap to a
 renamed copy of a segment counts its rows once, before and after the
-swap, and the replaced segment's planes leave its server's cache.
+swap, and the replaced segment's planes leave its server's cache. The
+offline data path: a batch job's segments (gzipped CSV, JSON, Avro and
+Thrift inputs), tar-pushed through file:// and through an in-memory s3://
+store, load on two card servers, which launch kernel B a segment and
+kernel A over each server's family of 2, every launch equal to its plain
+version, with a CPU cluster's rows.
 """
 
 from __future__ import annotations
 
 import gc
+import importlib.util
 import os
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -2195,6 +2203,28 @@ def _launches_equal_plain(calls) -> None:
                            mxu_groupby.limb_sums_plain(planes, gid, G))
 
 
+class _recording:
+    """Record a kernel wrapper's inputs while active (the calls go
+    through)."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+        self.calls = []
+
+        def wrapper(*args, **kwargs):
+            self.calls.append(args)
+            return self.orig(*args, **kwargs)
+
+        setattr(self.owner, self.name, wrapper)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
 def test_rebalance_move_on_the_card_frees_the_source(cuda, cluster_segments):
     """A third card server joins; a rebalance moves a segment onto it,
     then a drain of Server_0 moves Server_0's segments onto the other two.
@@ -2224,7 +2254,7 @@ def test_rebalance_move_on_the_card_frees_the_source(cuda, cluster_segments):
         job = rb.drive("ssb_OFFLINE", timeout_s=60.0)
         assert job["status"] == "DONE"
         _cuda.reset_launches()
-        with _recording_limb_sums() as calls:
+        with _recording(mxu_groupby, "limb_sums") as calls:
             resp = broker.execute_sql(OPS_SQL)
             torch.cuda.synchronize()
         assert sorted(map(tuple, resp.result_table.rows)) == want
@@ -2264,7 +2294,7 @@ def test_lineage_swap_on_the_card_counts_rows_once(cuda, cluster_segments,
             if step == "completed":
                 lineage.end_replace("ssb_OFFLINE", lid)
             _cuda.reset_launches()
-            with _recording_limb_sums() as calls:
+            with _recording(mxu_groupby, "limb_sums") as calls:
                 resp = broker.execute_sql(OPS_SQL)
                 torch.cuda.synchronize()
             assert sorted(map(tuple, resp.result_table.rows)) == want, step
@@ -2280,19 +2310,152 @@ def test_lineage_swap_on_the_card_counts_rows_once(cuda, cluster_segments,
         broker.close()
 
 
-class _recording_limb_sums:
-    """Record kernel A's inputs while active (the calls go through)."""
+# -- the offline data path on the card -----------------------------------------
 
-    def __enter__(self):
-        self.orig = mxu_groupby.limb_sums
-        self.calls = []
+_BATCH_DIMS = [("d_year", "INT"), ("p_brand", "INT"), ("s_region", "STRING")]
+_BATCH_METRICS = [("lo_revenue", "INT")]
+_BATCH_FAMILY = ("SELECT d_year, p_brand, SUM(lo_revenue) FROM batch "
+                 "WHERE s_region = 'ASIA' GROUP BY d_year, p_brand "
+                 "LIMIT 10000")
 
-        def wrapper(*args, **kwargs):
-            self.calls.append(args)
-            return self.orig(*args, **kwargs)
 
-        mxu_groupby.limb_sums = wrapper
-        return self.calls
+def _mem_s3():
+    """chip_smoke.py's in-memory object store with the boto3 client surface
+    S3PinotFS uses."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_s3", Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.MemS3Client()
 
-    def __exit__(self, *exc):
-        mxu_groupby.limb_sums = self.orig
+
+@pytest.fixture(scope="module")
+def batch_tarballs(tmp_path_factory):
+    """A batch job's tarred segments, one a file: gzipped CSV, JSON lines,
+    Avro (deflate) and Thrift of the same columns, 20,000 rows each."""
+    import csv
+    import gzip
+    import json
+
+    from pinot_tpu_torch.ingestion.batch import (IngestionJobLauncher,
+                                                 SegmentGenerationJobSpec)
+    from pinot_tpu_torch.plugins.inputformat import avro, thrift
+
+    root = tmp_path_factory.mktemp("torch_cuda_batch")
+    ind = root / "in"
+    ind.mkdir()
+    rng = np.random.default_rng(20)
+    names = [c for c, _ in _BATCH_DIMS + _BATCH_METRICS]
+    regions = ["AMERICA", "ASIA", "EUROPE"]
+    parts = []
+    for _ in range(4):
+        n = 20_000
+        parts.append([{"d_year": int(y), "p_brand": int(b),
+                       "s_region": regions[int(r)], "lo_revenue": int(v)}
+                      for y, b, r, v in zip(
+                          rng.integers(1992, 1999, n),
+                          rng.integers(0, 1000, n), rng.integers(0, 3, n),
+                          rng.integers(1, 600_000, n))])
+    with gzip.open(ind / "part_0.csv.gz", "wt", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=names)
+        w.writeheader()
+        w.writerows(parts[0])
+    (ind / "part_1.json").write_text("\n".join(map(json.dumps, parts[1])))
+    with open(ind / "part_2.avro", "wb") as f:
+        avro.write_avro_file(f, {"type": "record", "name": "lineorder",
+                                 "fields": [{"name": c, "type": "string"
+                                             if c == "s_region" else "int"}
+                                            for c in names]},
+                             parts[2], codec="deflate")
+    buf = bytearray()
+    for row in parts[3]:
+        thrift.write_struct(buf, {i + 1: row[c] for i, c in enumerate(names)})
+    (ind / "part_3.thrift").write_bytes(bytes(buf))
+    schema = Schema.build("batch", dimensions=_BATCH_DIMS,
+                          metrics=_BATCH_METRICS)
+    cfg = TableConfig(table_name="batch", indexing=IndexingConfig(
+        no_dictionary_columns=["lo_revenue"]))
+    spec = SegmentGenerationJobSpec(
+        input_dir_uri=f"file://{ind}", output_dir_uri=f"file://{root}/deep",
+        schema=schema, table_config=cfg, create_tar=True,
+        record_reader_config={"fieldIdToName": {
+            str(i + 1): c for i, c in enumerate(names)}})
+    results = IngestionJobLauncher(spec).run()
+    assert [r.num_docs for r in results] == [20_000] * 4
+    return schema, results
+
+
+def _batch_cluster(schema, results, device, client):
+    """Two servers on `device` loading the job's tarballs: three through
+    their file:// URIs, the last through the s3:// store over `client`."""
+    import dataclasses
+
+    from pinot_tpu_torch.cluster import (Broker, ClusterController,
+                                         PropertyStore, ServerInstance)
+    from pinot_tpu_torch.ingestion.batch import push_segments_to_cluster
+    from pinot_tpu_torch.plugins.filesystem.s3 import S3PinotFS
+
+    last = results[-1]
+    uri = f"s3://deep/batch/{last.segment_name}.tar.gz"
+    S3PinotFS(client=client).copy_from_local(
+        last.output_uri[len("file://"):], uri)
+    store = PropertyStore()
+    ctl = ClusterController(store)
+    servers = [ServerInstance(store, f"Server_{i}", device=device)
+               for i in range(2)]
+    for s in servers:
+        s.start()
+    ctl.add_schema(schema.to_json())
+    table = ctl.create_table({"tableName": "batch", "replication": 1})
+    push_segments_to_cluster(
+        results[:-1] + [dataclasses.replace(last, output_uri=uri)], ctl,
+        table)
+    return servers, Broker(store)
+
+
+@pytest.mark.parametrize("sql,kernel,launches", [
+    ("SET segmentBatch = false; " + _BATCH_FAMILY, "fused_limb_sums", 4),
+    (_BATCH_FAMILY, "limb_sums", 2),
+])
+def test_batch_pushed_segments_on_the_card_equal_plain(
+        cuda, batch_tarballs, monkeypatch, sql, kernel, launches):
+    """The batch job's segments, tar-pushed through file:// and through an
+    in-memory s3:// store, load on two card servers: q2 launches kernel B
+    a segment, q2_family kernel A once over each server's family of 2,
+    every launch element-equal to its plain version, with the rows of two
+    CPU servers over the same tarballs."""
+    from pinot_tpu_torch.plugins.filesystem.s3 import S3PinotFS
+    from pinot_tpu_torch.spi import filesystem
+
+    schema, results = batch_tarballs
+    owner = fused_groupby if kernel == "fused_limb_sums" else mxu_groupby
+    plain = getattr(owner, kernel + "_plain")
+    client = _mem_s3()
+    monkeypatch.setitem(filesystem._FS_REGISTRY, "s3",
+                        lambda: S3PinotFS(client=client))
+    rows = {}
+    for device in ("cpu", "cuda"):
+        servers, broker = _batch_cluster(schema, results, device, client)
+        try:
+            t0 = time.monotonic()
+            while len(broker.routing_table("batch_OFFLINE")) < 4:
+                assert time.monotonic() - t0 < 60.0, "segments not ONLINE"
+                time.sleep(0.05)
+            _cuda.reset_launches()
+            with _recording(owner, kernel) as calls:
+                resp = broker.execute_sql(sql)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+            assert not resp.exceptions, resp.exceptions
+            rows[device] = sorted(map(tuple, resp.result_table.rows))
+            if device == "cuda":
+                assert _cuda.LAUNCHES[kernel] == launches == len(calls)
+                for args in calls:
+                    assert torch.equal(getattr(owner, kernel)(*args),
+                                       plain(*args))
+        finally:
+            for s in servers:
+                s.stop()
+            broker.close()
+    assert rows["cuda"] == rows["cpu"] and rows["cpu"]

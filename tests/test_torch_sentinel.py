@@ -23,6 +23,7 @@ end on a port cluster.
 
 from __future__ import annotations
 
+import itertools
 from types import SimpleNamespace
 
 import numpy as np
@@ -260,10 +261,22 @@ def _burst(broker, n):
         assert not resp.exceptions, resp.exceptions
 
 
-def test_sentinel_detects_pins_and_clears(cluster):
-    store, controller, broker = cluster
+def _detect_pin_and_clear(store, controller, broker):
+    """The reference burst, the fault until `latency-drift` fires, the
+    exemplar burst under the fault, then the recovery rounds until the
+    alert clears. The reference is persisted before the fault; after it,
+    the ledger restarts from what was persisted (as a controller taking
+    over restores /PERF/LEDGER), so the recovery is judged in a short
+    window of recovery queries only, against the pre-fault reference. A
+    short window that still held the fault's 16 queries would put its p50
+    at the 0.61 to 0.94 quantile of the recovered latencies, which on a
+    loaded host lies past the 25% / 2 ms rule though the latency is back
+    (test_sentinel_clears_on_a_loaded_host)."""
+    PERF_LEDGER.clear()
+    ALERTS.clear()
     _burst(broker, 8)
     PERF_LEDGER.rotate_now()
+    PERF_LEDGER.persist(store)
     sentinel = PerfRegressionSentinel(store, controller, min_queries=3,
                                       breaches=2, clears=2)
     report = sentinel.evaluate()
@@ -295,6 +308,8 @@ def test_sentinel_detects_pins_and_clears(cluster):
     assert chrome["traceEvents"]
     assert broker.trace_store.stats()["alertExemplars"] >= 1
 
+    PERF_LEDGER.clear()
+    assert PERF_LEDGER.restore(store) == 1
     for _ in range(12):  # recovery
         _burst(broker, 6)
         sentinel.evaluate()
@@ -312,6 +327,35 @@ def test_sentinel_detects_pins_and_clears(cluster):
     sentinel()
     assert store.get(LEDGER_PATH)["plans"]
     assert store.get(SENTINEL_REPORT_PATH)["benchBaseline"] is None
+
+
+def test_sentinel_detects_pins_and_clears(cluster):
+    _detect_pin_and_clear(*cluster)
+
+
+# a loaded host's spread of the clean query's latency (ms), in the order
+# the queries take them: half near 3.5 ms, half stalled to 7.5-12 ms; its
+# median falls in the 4.0 ms bucket, any higher quantile in the 8.0 ms one
+LOADED_HOST_MS = (3.3, 7.9, 3.4, 9.0, 3.5, 12.0, 3.8, 7.5)
+FAULT_FLOOR_MS = 40.0  # the 50 ms dispatch delay keeps its own latency
+
+
+def test_sentinel_clears_on_a_loaded_host(cluster, monkeypatch):
+    """T2: every clean query (reference and recovery alike) takes its
+    latency from one loaded-host spread, so the latency has recovered
+    exactly; the alert must clear. With the fault's queries left in the
+    recovery's short window it never did (its p50 stayed in the 8.0 ms
+    bucket against a 4.0 ms reference)."""
+    spread = itertools.cycle(LOADED_HOST_MS)
+    record = PERF_LEDGER.record
+
+    def loaded(key, **kw):
+        if kw.get("time_ms", 0.0) < FAULT_FLOOR_MS:
+            kw["time_ms"] = next(spread)
+        return record(key, **kw)
+
+    monkeypatch.setattr(PERF_LEDGER, "record", loaded)
+    _detect_pin_and_clear(*cluster)
 
 
 def test_ledger_survives_store_restart(cluster, tmp_path):
