@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--seed 2024] [--rows-per-segment 8388608]
-                          [--segments 4] [--iters 5]
+                          [--segments 4] [--iters 3]
 
 Phases, each printing one JSON line:
   device   the card, its compute capability and power limit
@@ -113,6 +113,17 @@ Phases, each printing one JSON line:
              ups                                GROUP BY d_year over `ups`:
                  kernel A on the committed and on the consuming segment,
                  each with its upsert validity plane in the filter
+  timeseries
+           the timeseries engine (m3ql) over ssbt, in process through
+           TimeSeriesEngine(qe) and through POST
+           /timeseries/api/v1/query_range of a BrokerRestServer holding
+           it: a weekly SUM of lo_revenue by s_region under lo_quantity <
+           25 | moving_avg 4 | topk 3, a daily MAX by s_region, a 30-day
+           COUNT | transform_null 0 over 1991-1999; each fetch one launch
+           of kernel A over the family (G 1836, 12786, 88), each block
+           equal to the numpy oracle's JSON; the fetch's p50 (ending in a
+           synchronize), the pipe's, the REST p50; the fetch over the raw
+           lo_commit_ts refused (TimeSeriesQueryError; 500 over REST)
   segment_formats
            `ssbz`: phase data's rows in 4 segments of 2^21, segment k the
            rows whose lo_orderkey is k modulo 4 (stamped modulo 4), built
@@ -159,8 +170,10 @@ Phases, each printing one JSON line:
            consuming segments, commit, checkpoints), each counted query's
            counts set to 0 just before it and its rows held against a numpy
            oracle over the rows read back from the topic: `ingest`, the ssb
-           schema from a 2-partition in-memory topic keyed by lo_orderkey
-           (288,000 rows a partition on average, gen_ssb rows from --seed +
+           schema from a 2-partition topic keyed by lo_orderkey through the
+           Kafka plugin (`streamType: kafka`, its client_factory over
+           MemKafka, an in-process Kafka cluster with kafka-python's
+           consumer surface), 288,000 rows a partition on average (--seed +
            6, published in batches of 64,000 while the consumers run; each
            segment seals at 256,000 rows), at its settle point 2 committed
            segments (kernel A over their family) and the consuming
@@ -181,7 +194,8 @@ Phases, each printing one JSON line:
            the newest version of each key, kernel A with the validity mask.
            Every sealed segment's planes leave REALTIME_PLANES and every
            executor's cache at its commit, and no retirement raises. Rows/s
-           per manager, feed_us_per_row (decode + transform + index), build
+           per manager, feed_us_per_row (decode + transform + index; the
+           Kafka cell's apart from the in-memory topics' cells), build
            and load ms, freshness, the cold query after a commit, election,
            download and re-election ms, bytes freed
   index_checks
@@ -208,6 +222,11 @@ Phases, each printing one JSON line:
              mse_agg                            bench.py Q2 under SET
                  useMultistageEngine = true: the leaf partial aggregate runs
                  the single-stage family (kernel A), the final on the host
+             f13                                PERCENTILE(lo_revenue, 90) by
+                 s_region with no SET: the single-stage planner refuses the
+                 raw column, execute_sql retries on the multi-stage engine,
+                 whose scan leaves dispatch on the card (rows, leaf
+                 dispatches, docs scanned)
   cache    the caches on (PINOT_TPU_SEGMENT_CACHE=1 and
            PINOT_TPU_RESULT_CACHE=1 around this phase alone, both cleared
            first; every other phase runs with both 0, so a warm run still
@@ -359,7 +378,15 @@ Phases, each printing one JSON line:
            oracle's rows, the bytes on the card; a StreamingSegmentWriter
            sink (2^18 rows, a segment every 2^17) pushing into a second
            table on one server, q2_family there (kernel A over its family
-           of 2); client.connect(url).execute(q2_family) against a
+           of 2); the minion (minion/) on that server's table: a
+           MergeRollupTask (concat) swaps the 2 sink segments for one
+           2^18-row segment through lineage, q2_family over it with the
+           pre-merge answer (one launch), then a PurgeTask evaluates a
+           filter of about 1.1% of rows on the merged segment's planes on
+           the card and swaps in the rest, q2_family with the oracle's rows
+           of what is left; each task's ms, build ms, swap ms and the card
+           bytes freed from the replaced segments;
+           client.connect(url).execute(q2_family) against a
            BrokerRestServer; read_table (the servers' scan_arrow),
            scan_table and read_sql where pyarrow is importable (it is on
            the card's machine)
@@ -387,8 +414,8 @@ Phases, each printing one JSON line:
            1 s); q6, q6m
            and q6_sort are left out (host-held, PERF.md §5)
   profile  device busy share and the top device kernels under
-           torch.profiler (2 warm runs a query, 1 for one slower than 1 s;
-           q6, q6m and q6_sort left out)
+           torch.profiler (one warm run a query; q6, q6m and q6_sort left
+           out)
   chain    time_raw's MONTH(lo_commit_ts) chain alone over the family's raw
            plane: its time, the torch kernels it launches, the bytes they
            move against one fused pass's
@@ -558,7 +585,8 @@ QUERIES.update({
                "MINMV(lo_tags), MAXMV(lo_tags), AVGMV(lo_tags), "
                "MINMAXRANGEMV(lo_tags) FROM mvt GROUP BY d_year"})
 # the matrix-shaped MV functions: the JAX package's device planner refuses
-# them (its host engine answers), so the port raises
+# them, and so does the port's single-stage planner (execute_sql would
+# retry them on the multi-stage engine, as the JAX package does)
 MV_REFUSED = ("SELECT d_year, DISTINCTCOUNTMV(lo_tags) FROM mvt GROUP BY d_year",
               "SELECT d_year, PERCENTILEMV(lo_tags, 90) FROM mvt "
               "GROUP BY d_year")
@@ -589,15 +617,45 @@ QUERIES.update({
                 "WHERE MONTH(lo_commit_ts) = 12 GROUP BY d_year",
     "post_agg": "SELECT d_year, ROUNDDECIMAL(SUM(lo_revenue) / COUNT(*), 1) "
                 "FROM ssb GROUP BY d_year ORDER BY d_year"})
-# shapes the JAX package's device planner refuses (its host engine answers
-# them): a GROUP BY on a transform of a raw column, and a transform of two
-# dictionary columns past the 2^18-entry table
+# shapes the single-stage planners of both packages refuse (the refusal is
+# checked through QueryExecutor.execute): a GROUP BY on a transform of a
+# raw column, and a transform of two dictionary columns past the 2^18-entry
+# table
 TRANSFORM_REFUSED = (
     "SELECT YEAR(lo_commit_ts), COUNT(*) FROM ssbt GROUP BY YEAR(lo_commit_ts)",
     "SELECT lo_orderkey + toEpochDays(lo_orderdate), COUNT(*) FROM ssbt "
     "GROUP BY lo_orderkey + toEpochDays(lo_orderdate) LIMIT 10")
+# F13 (phase mse): the single-stage planner refuses PERCENTILE over the raw
+# lo_revenue; execute_sql answers it on the multi-stage engine
+F13_SQL = ("SELECT s_region, PERCENTILE(lo_revenue, 90) FROM ssb "
+           "GROUP BY s_region ORDER BY s_region")
 # the transform queries that launch a new kernel A shape, one launch each
 TRANSFORM_QUERIES = ("q7", "time_group", "str_group", "time_raw")
+# phase timeseries: m3ql queries over `ssbt` through the timeseries
+# engine, in process and over the broker's REST route; (query, start, end,
+# step). The fetch groups by `lo_orderdate - MOD(lo_orderdate, step)` over
+# the dictionary (and the tags): kernel A over the family of 4
+WEEK_MS = 7 * DAY_MS
+TS_START = 694_224_000_000 // WEEK_MS * WEEK_MS  # 1992-01-01, to the week
+TS_END = 915_148_800_000  # 1999-01-01
+TS_MONTH_MS = 30 * DAY_MS
+TS_QUERIES = {
+    "ts_weekly": ("fetch table=ssbt value=lo_revenue time_col=lo_orderdate "
+                  "filter=\"lo_quantity < 25\" | sum s_region | moving_avg 4 "
+                  "| topk 3", TS_START, TS_END, WEEK_MS),
+    "ts_daily_max": ("fetch table=ssbt value=lo_revenue "
+                     "time_col=lo_orderdate agg=max | max s_region",
+                     TS_START, TS_END, DAY_MS),
+    # 1991-01-01 to 2000-01-01 in 30-day buckets: empty at both ends
+    "ts_count": ("fetch table=ssbt value=lo_revenue time_col=lo_orderdate "
+                 "agg=count filter=\"lo_discount < 2\" | sum "
+                 "| transform_null 0",
+                 662_688_000_000 // TS_MONTH_MS * TS_MONTH_MS,
+                 946_684_800_000, TS_MONTH_MS)}
+# the same fetch over the raw lo_commit_ts: neither package's device
+# planner lowers the bucket over a raw column
+TS_RAW = ("fetch table=ssbt value=lo_revenue time_col=lo_commit_ts "
+          "| sum s_region", TS_START, TS_END, WEEK_MS)
 # phase segment_formats: `ssbz`, the ssb rows in FORMATS_SEGMENTS segments
 # of FORMATS_ROWS, segment k holding the rows whose lo_orderkey is k modulo
 # FORMATS_SEGMENTS (a stream partitioned on the key, stamped modulo), built
@@ -752,9 +810,10 @@ ST_CONFIG = {"dimensionsSplitOrder": ["d_year", "s_region", "p_brand"],
                                      "SUM__lo_quantity", "MIN__lo_quantity",
                                      "MAX__lo_quantity"]}
 INDEX_SEGMENTS = 4
-# worker processes building the index tables beside phase data's builds in
-# the main process (the card's host has 8 cores)
-INDEX_WORKERS = 6
+# worker processes building phase data's tables, the index tables and the
+# batch inputs (the card's host has 8 cores, and the main process waits on
+# them; 6 before phase `timeseries` joined the run)
+INDEX_WORKERS = 7
 EVENTS_SEED, VEC_SEED = 2030, 2031
 EVENTS_SSB = ("d_year", "p_brand", "s_region", "lo_revenue", "lo_quantity")
 EVENTS_DIMS = [("d_year", "INT"), ("p_brand", "INT"), ("s_region", "STRING"),
@@ -851,8 +910,9 @@ HOST_HELD = ("q6", "q6m", "q6_sort")
 SLOW_QUERY_MS = 1000.0
 # warm runs a query in `layers` (at most --iters): cut from 10 to 5 to fit
 # phase `mse_cluster` in the run's time limit, then to 3 (and --iters from
-# 10 to 5) to fit phase `batch_ingest`; `times` keeps --iters
-LAYERS_ITERS = 3
+# 10 to 5) to fit phase `batch_ingest`, then to 2 (and --iters to 3) to fit
+# phase `timeseries`, F13's statement and the minion; `times` keeps --iters
+LAYERS_ITERS = 2
 
 
 _LAST_PHASE = [time.perf_counter()]
@@ -1139,6 +1199,86 @@ def transform_oracle(cols: dict, dates) -> dict:
     sums = np.bincount(year - 1992, weights=rev, minlength=7)
     out["post_agg"] = [[1992 + k, float(np.floor(
         float(sums[k]) / int(cnt[k]) * 10.0 + 0.5) / 10.0)] for k in range(7)]
+    return out
+
+
+def f13_oracle(cols: dict) -> list:
+    """F13_SQL's rows: per region the value at index floor(n * 0.9) of its
+    sorted lo_revenue (the reference's PERCENTILE)."""
+    out = []
+    for r in sorted(REGIONS):
+        v = cols["lo_revenue"][cols["s_region"] == r]
+        k = min(int(len(v) * 90 / 100.0), len(v) - 1)
+        out.append([r, float(np.partition(v, k)[k])])
+    return out
+
+
+def timeseries_oracle(cols: dict, dates) -> dict:
+    """Each TS_QUERIES block's to_json() with numpy alone: the fetch's
+    per-(bucket, tag) SUM / MAX / COUNT by bincount and maximum.at (sums
+    of integers below 2^53: exact), then the pipe stages by the reference
+    engine's formulas (timeseries/engine.py): a tag aggregation over one
+    series a tag is the identity, moving_avg the mean of the window's
+    non-NaN values, topk by the series' nansum, transform_null a fill."""
+    order = dates[0]
+    region = np.zeros(len(order), dtype=np.int64)
+    for i, r in enumerate(REGIONS):
+        region[cols["s_region"] == r] = i
+    names = sorted(REGIONS)
+    rank = np.asarray([names.index(r) for r in REGIONS])[region]
+    rev = cols["lo_revenue"].astype(np.float64)
+
+    def fetch(mask, agg, tags, start, end, step):
+        nb = max(1, -(-(end - start) // step))
+        idx = (order - order % step - start) // step
+        keep = mask & (order >= start) & (order <= end) & (idx >= 0) \
+            & (idx < nb)
+        nk = len(names) if tags else 1
+        flat = idx[keep] * nk + (rank[keep] if tags else 0)
+        cnt = np.bincount(flat, minlength=nb * nk)
+        if agg == "sum":
+            val = np.bincount(flat, weights=rev[keep], minlength=nb * nk)
+        elif agg == "max":
+            val = np.full(nb * nk, -np.inf)
+            np.maximum.at(val, flat, rev[keep])
+        else:
+            val = cnt.astype(np.float64)
+        val = np.where(cnt > 0, val, np.nan).reshape(nb, nk).T
+        series = [({"s_region": names[k]} if tags else {}, val[k])
+                  for k in range(nk) if cnt.reshape(nb, nk)[:, k].any()]
+        return nb, series
+
+    def moving_avg(v, w):
+        out = np.full_like(v, np.nan)
+        for i in range(len(v)):
+            win = v[max(0, i - w + 1):i + 1]
+            win = win[~np.isnan(win)]
+            if len(win):
+                out[i] = win.sum() / len(win)
+        return out
+
+    def block(start, step, nb, series):
+        return {"timeBuckets": {"start": start, "step": step,
+                                "numBuckets": nb},
+                "series": [{"tags": t, "values": [
+                    None if np.isnan(x) else float(x) for x in v]}
+                    for t, v in series]}
+
+    out = {}
+    _, start, end, step = TS_QUERIES["ts_weekly"]
+    nb, series = fetch(cols["lo_quantity"] < 25, "sum", True, start, end,
+                       step)
+    series = [(t, moving_avg(v, 4)) for t, v in series]
+    series = sorted(series, key=lambda s: np.nansum(s[1]), reverse=True)[:3]
+    out["ts_weekly"] = block(start, step, nb, series)
+    _, start, end, step = TS_QUERIES["ts_daily_max"]
+    out["ts_daily_max"] = block(start, step, *fetch(
+        np.ones(len(order), dtype=bool), "max", True, start, end, step))
+    _, start, end, step = TS_QUERIES["ts_count"]
+    nb, series = fetch(cols["lo_discount"] < 2, "count", False, start, end,
+                       step)
+    out["ts_count"] = block(start, step, nb, [
+        (t, np.where(np.isnan(v), 0.0, v)) for t, v in series])
     return out
 
 
@@ -1943,6 +2083,105 @@ def family_count(qe, sql, table=None) -> int:
                                   plans)), {p.program.mode for p in plans}
 
 
+def phase_timeseries(args, torch, qe, expected, _cuda, mxu, fg, card) -> dict:
+    """The timeseries engine (timeseries/) over `ssbt` on the card: each
+    TS_QUERIES query once through TimeSeriesEngine(qe).execute with every
+    count set to 0 just before it (one launch of kernel A over the family,
+    no other), its block's JSON equal to the numpy oracle's; its fetch and
+    its pipe stages timed apart (--iters runs, host clock, the fetch ending
+    in a synchronize); the same query --iters times through POST
+    /timeseries/api/v1/query_range of a BrokerRestServer holding the
+    engine, each answer the oracle's. The fetch over the raw lo_commit_ts
+    raises TimeSeriesQueryError in process and answers 500 over REST."""
+    from pinot_tpu_torch.cluster import Broker, PropertyStore
+    from pinot_tpu_torch.cluster.rest import BrokerRestServer
+    from pinot_tpu_torch.timeseries import TimeBuckets, TimeSeriesEngine
+    from pinot_tpu_torch.timeseries.engine import (TimeSeriesQueryError,
+                                                   parse_m3ql)
+
+    t_phase = time.perf_counter()
+    engine = TimeSeriesEngine(qe)
+    broker = Broker(PropertyStore())
+    rest = BrokerRestServer(broker, timeseries_engine=engine)
+    url = rest.url + "/timeseries/api/v1/query_range"
+    out, recs, launches, parity = {}, {}, {}, {}
+    try:
+        for qname, (query, start, end, step) in TS_QUERIES.items():
+            want = expected[qname]
+            _cuda.reset_launches()
+            with recording(mxu, "limb_sums") as a_calls:
+                block = engine.execute(query, start, end, step)
+                torch.cuda.synchronize()
+            made = dict(_cuda.LAUNCHES)
+            if made != {"limb_sums": 1, "fused_limb_sums": 0}:
+                raise AssertionError(f"timeseries {qname}: launches {made}")
+            if block.to_json() != want:
+                raise AssertionError(f"timeseries {qname}: the block differs "
+                                     "from the oracle's")
+            recs[qname], launches[qname] = list(a_calls), made
+            parity[qname] = check_equal(
+                torch, f"limb_sums timeseries {qname}",
+                mxu.limb_sums(*a_calls[0]), mxu.limb_sums_plain(*a_calls[0]))
+            plan = parse_m3ql(query)
+            buckets = TimeBuckets.for_range(start, end, step)
+            fetch_ms, pipe_ms, rest_ms = [], [], []
+            for _ in range(args.iters):
+                t0 = time.perf_counter()
+                fetched = engine._fetch(plan.fetch, buckets, start, end, step)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                piped = fetched
+                for stage in plan.stages:
+                    piped = engine._apply(stage, piped)
+                t2 = time.perf_counter()
+                fetch_ms.append((t1 - t0) * 1e3)
+                pipe_ms.append((t2 - t1) * 1e3)
+                if piped.to_json() != want:
+                    raise AssertionError(f"timeseries {qname}: a timed run "
+                                         "differs from the oracle")
+            for _ in range(args.iters):
+                t0 = time.perf_counter()
+                code, body = _http(url, {"query": query, "start": start,
+                                         "end": end, "step": step})
+                rest_ms.append((time.perf_counter() - t0) * 1e3)
+                if code != 200 or body != want:
+                    raise AssertionError(f"timeseries {qname} over REST: "
+                                         f"{code}")
+            out[qname] = {
+                "fetch_p50_ms": float(np.median(fetch_ms)),
+                "pipe_p50_ms": float(np.median(pipe_ms)),
+                "rest_p50_ms": float(np.median(rest_ms)),
+                "buckets": buckets.num_buckets,
+                "series": len(want["series"]),
+                "groups": int(sum(np.count_nonzero(~np.isnan(s.values))
+                                  for s in fetched.series)),
+                "kernel_G": int(a_calls[0][2]),
+                "family": list(a_calls[0][0].shape), "launches": made}
+        try:
+            engine.execute(*TS_RAW)
+        except TimeSeriesQueryError as e:
+            raw = str(e)
+        else:
+            raise AssertionError("timeseries: the raw time column's fetch "
+                                 "was not refused")
+        query, start, end, step = TS_RAW
+        code, body = _http(url, {"query": query, "start": start, "end": end,
+                                 "step": step})
+        if code != 500 or not body["error"].startswith(
+                "TimeSeriesQueryError: fetch failed"):
+            raise AssertionError(f"timeseries raw over REST: {code} {body}")
+        out["raw"] = {"error": raw[:160], "rest_status": code}
+    finally:
+        rest.close()
+        broker.close()
+    emit(dict({"phase": "timeseries", "card": card, "table": TIME_TABLE,
+               "oracle": "equal", "iters": args.iters,
+               "seconds": time.perf_counter() - t_phase,
+               "note": "host clock; the fetch ends in a synchronize; REST "
+                       "over loopback in this process"}, **out))
+    return {"recs": recs, "launches": launches, "parity": parity}
+
+
 def phase_queries(torch, qe, expected, _cuda, interp, names=None):
     """The main path: every query once (or the queries `names`), each with
     its launches, device dispatches and host fetches counted from 0 just
@@ -2015,10 +2254,12 @@ def phase_queries(torch, qe, expected, _cuda, interp, names=None):
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"the main path never launched {k}")
+    from pinot_tpu_torch.query.parser.sql import parse_sql
+
     refused = {}
     for sql in () if names else MV_REFUSED + TRANSFORM_REFUSED:
         try:
-            qe.execute_sql(sql)
+            qe.execute(parse_sql(sql))
         except interp_unsupported() as e:
             refused[sql] = str(e)
         else:
@@ -2740,6 +2981,7 @@ def phase_ingest(args, torch, qe, interp, mxu, fg, tmp, card) -> dict:
     from pinot_tpu_torch.cluster.controller import ClusterController
     from pinot_tpu_torch.cluster.store import PropertyStore
     from pinot_tpu_torch.engine.query_executor import QueryExecutor
+    from pinot_tpu_torch.plugins.stream import kafka as kafka_plugin
     from pinot_tpu_torch.realtime import manager as rtm
     from pinot_tpu_torch.realtime.completion import LeaderCompletionClient
     from pinot_tpu_torch.spi.data_types import Schema
@@ -2755,17 +2997,20 @@ def phase_ingest(args, torch, qe, interp, mxu, fg, tmp, card) -> dict:
     oracle_cols = ("d_year", "p_brand", "s_region", "lo_discount",
                    "lo_quantity", "lo_extendedprice", "lo_revenue")
 
-    def config(name, topic, flush, **kw):
+    def config(name, topic, flush, stream="inmemory", **kw):
+        streams = {"streamType": stream,
+                   f"stream.{stream}.topic.name": topic,
+                   "realtime.segment.flush.threshold.rows": flush}
+        if stream == "kafka":
+            streams["stream.kafka.broker.list"] = "memkafka:9092"
         return TableConfig(
             table_name=name, table_type=TableType.REALTIME,
             indexing=IndexingConfig(no_dictionary_columns=kw.pop(
                 "raw", RAW_COLUMNS)),
-            ingestion=IngestionConfig(stream_configs={
-                "streamType": "inmemory", "stream.inmemory.topic.name": topic,
-                "realtime.segment.flush.threshold.rows": flush}), **kw)
+            ingestion=IngestionConfig(stream_configs=streams), **kw)
 
-    def oracle(topic):
-        cols, per_partition = topic_columns(reg, topic, oracle_cols)
+    def oracle(topic, source=reg):
+        cols, per_partition = topic_columns(source, topic, oracle_cols)
         return rt_expected([rt_partials(cols)]), per_partition
 
     def state_ok(mgrs):
@@ -2781,14 +3026,21 @@ def phase_ingest(args, torch, qe, interp, mxu, fg, tmp, card) -> dict:
     out = {"phase": "ingest", "card": card}
     recs = {}
     started, controllers = [], []
+    # cell (1) reads through the Kafka plugin, over the in-process MemKafka
+    kafka = MemKafka()
+    factory = kafka_plugin.KafkaStreamConsumerFactory
+    saved_client = factory.__dict__["client_factory"]
+    factory.client_factory = staticmethod(
+        lambda config: (kafka.consumer(), kafka_plugin.TopicPartition))
     with ingest_timers() as spent:
         try:
             # -- (1) one replica, INGEST_PARTITIONS partitions -------------
             topic = "ingest_lineorder"
-            reg.create_topic(topic, num_partitions=INGEST_PARTITIONS)
+            kafka.create_topic(topic, num_partitions=INGEST_PARTITIONS)
             total = INGEST_PARTITIONS * INGEST_ROWS
             cols = gen_ssb(total + INGEST_TRICKLE, args.seed + 6)
-            cfg = config(INGEST_TABLE, topic, INGEST_FLUSH_ROWS)
+            cfg = config(INGEST_TABLE, topic, INGEST_FLUSH_ROWS,
+                         stream="kafka")
             data_dir = f"{tmp}/{INGEST_TABLE}"
             mgr = rtm.RealtimeTableDataManager(schema, cfg, data_dir)
             started.append(mgr)
@@ -2797,7 +3049,7 @@ def phase_ingest(args, torch, qe, interp, mxu, fg, tmp, card) -> dict:
             mgr.start()
             # this thread is the producer, publishing while the consumer
             # threads run
-            _publish(reg, topic, cols, 0, total)
+            _publish(kafka, topic, cols, 0, total)
             t_last = time.perf_counter()
             publish_s = t_last - t0
             _await_ingest(lambda: mgr.total_docs() == total
@@ -2808,8 +3060,9 @@ def phase_ingest(args, torch, qe, interp, mxu, fg, tmp, card) -> dict:
             state_ok([mgr])
             sealed = list(mgr._segment_names)
             _retired_names_gone(sealed)
-            want, per_partition = oracle(topic)
-            one = {"rows": total, "rows_per_partition": per_partition,
+            want, per_partition = oracle(topic, kafka)
+            one = {"stream": "kafka (MemKafka through the Kafka plugin)",
+                   "rows": total, "rows_per_partition": per_partition,
                    "publish_s": publish_s, "consume_s": consumed_s,
                    "rows_per_s": total / consumed_s,
                    "drain_ms_after_last_publish": drain_ms,
@@ -2829,7 +3082,7 @@ def phase_ingest(args, torch, qe, interp, mxu, fg, tmp, card) -> dict:
             # from its publish to the first query that counts it
             count_sql = f"SELECT COUNT(*) FROM {INGEST_TABLE}"
             t0 = time.perf_counter()
-            _publish(reg, topic, cols, total, total + INGEST_TRICKLE)
+            _publish(kafka, topic, cols, total, total + INGEST_TRICKLE)
             polls = 0
             while True:
                 polls += 1
@@ -2842,7 +3095,7 @@ def phase_ingest(args, torch, qe, interp, mxu, fg, tmp, card) -> dict:
             one["freshness_polls"] = polls
             total += INGEST_TRICKLE
             del cols
-            want, per_partition = oracle(topic)
+            want, per_partition = oracle(topic, kafka)
             for qname in ("rt_q1", "rt_q2", "rt_range"):
                 run.query(qe, qname, want[qname])  # the snapshots' planes
             retired0 = mgr.retirement_stats()
@@ -2891,7 +3144,10 @@ def phase_ingest(args, torch, qe, interp, mxu, fg, tmp, card) -> dict:
             for seg in mgr._committed:
                 qe.executor.cache.drop(seg)
             del qe.tables[INGEST_TABLE]
-            reg.delete_topic(topic)
+            kafka.delete_topic(topic)
+            one["feed_us_per_row"] = sum(spent["index"]) * 1e3 / max(
+                1, spent["index_rows"])
+            cell_index = (sum(spent["index"]), spent["index_rows"])
             out["partitions"] = one
 
             # -- (2) two replicas through the leader controller -----------
@@ -3096,6 +3352,7 @@ def phase_ingest(args, torch, qe, interp, mxu, fg, tmp, card) -> dict:
             del ucols, rcols
             out["upsert"] = three
         finally:
+            factory.client_factory = saved_client
             for m in started:
                 m.stop()
             for c in controllers:
@@ -3111,6 +3368,9 @@ def phase_ingest(args, torch, qe, interp, mxu, fg, tmp, card) -> dict:
     out.update({
         "launches": run.launches, "retired": retired,
         "feed_us_per_row": index_ms * 1e3 / max(1, spent["index_rows"]),
+        # the in-memory topics' cells (2) and (3), beside cell (1)'s Kafka
+        "inmemory_feed_us_per_row": (index_ms - cell_index[0]) * 1e3 / max(
+            1, spent["index_rows"] - cell_index[1]),
         "rows_through_managers": spent["index_rows"],
         "build_ms": spent["build"], "load_ms": spent["load"],
         "seconds": time.perf_counter() - t_phase})
@@ -3356,9 +3616,9 @@ def fill_free_blocks(torch) -> list:
 
 # client threads of phase `coalesce`; each runs COALESCE_ITERS queries in
 # a closed loop (16 before phase `ingest` joined the run, 8 before phase
-# `batch_ingest`)
+# `batch_ingest`, 4 before phase `timeseries`)
 COALESCE_CLIENTS = (1, 2, 4, 8, 16)
-COALESCE_ITERS = 4
+COALESCE_ITERS = 2
 COALESCE_WINDOW_MS = "2"
 # the queries whose EXPLAIN rows on the card must equal the CPU executor's
 EXPLAIN_QUERIES = ("q1", "q2", "q2_family", "q3", "q5", "sel_order",
@@ -4631,7 +4891,7 @@ SEL_LIMIT_10K = QUERIES["sel_limit"].replace("LIMIT 1000", "LIMIT 10000")
 STREAM_SQL = QUERIES["sel_limit"].replace("LIMIT 1000", "LIMIT 100")
 HEDGE_DELAY_S = 0.25
 HEDGE_MS = 20.0
-HEDGE_ITERS = 10
+HEDGE_ITERS = 5  # 10 before phase `timeseries` joined the run
 # each tiered server's budget: its smallest segment directory times this,
 # so converge keeps one of its two segments and demotes the other to cold
 TIER_BUDGET_SEGMENTS = 1.5
@@ -5291,7 +5551,7 @@ def phase_admission_tiers(args, torch, tmp, schema, expected, _cuda, mxu, fg,
 
 
 OPERATIONS_BUDGET_S = 40.0
-OPS_P50_ITERS = 5
+OPS_P50_ITERS = 3  # 5 before phase `timeseries` joined the run
 OPS_STRAGGLE_S = 0.25  # the server.query delay on the straggler
 OPS_STRAGGLE_QUERIES = 8
 OPS_WAIT_S = 120.0  # the longest a move, a repair or a swap may take
@@ -5852,9 +6112,11 @@ BATCH_TABLE, SINK_TABLE, SINK_TAG = "batch", "sink", "sink_tenant"
 BATCH_FORMATS = ("csv.gz", "json", "avro", "thrift")
 BATCH_ROWS = 1 << 19
 BATCH_WORKERS = 4
-BATCH_ITERS = 5
+BATCH_ITERS = 3  # 5 before phase `timeseries` joined the run
 BATCH_WAIT_S = 120.0  # the longest the servers may take to load a push
 SINK_ROWS, SINK_FLUSH_ROWS = 1 << 18, 1 << 17
+# the minion's PurgeTask over the merged sink segment: about 1.1% of rows
+SINK_PURGE = "lo_quantity = 7 AND lo_discount < 6"
 BATCH_COLUMNS = [c for c, _ in SCHEMA_DIMS + SCHEMA_METRICS]
 # Thrift's field ids, Avro's record schema
 BATCH_THRIFT_IDS = {str(i + 1): c for i, c in enumerate(BATCH_COLUMNS)}
@@ -5947,6 +6209,100 @@ class MemS3Client:
             self.objects[(CopySource["Bucket"], CopySource["Key"])]
 
 
+class MemKafka:
+    """An in-process Kafka cluster: topics of partitions of records
+    (offset, key, value, timestamp), and consumers with the kafka-python
+    surface that KafkaStreamConsumerFactory uses (assign, seek, poll,
+    partitions_for_topic, beginning_offsets, end_offsets, close): the
+    smoke's `streamType: kafka` cell (no network). `publish` routes row
+    dicts by a key column as the in-memory topic registry does, and
+    `topic` gives the partitions back for the oracle."""
+
+    MAX_POLL_RECORDS = 500
+
+    def __init__(self):
+        from collections import namedtuple
+
+        self.Record = namedtuple("Record",
+                                 ["offset", "key", "value", "timestamp"])
+        self.lock = threading.Lock()
+        self.topics = {}
+
+    def create_topic(self, name: str, num_partitions: int = 1) -> None:
+        with self.lock:
+            self.topics.setdefault(name, SimpleNamespace(
+                lock=self.lock,
+                partitions=[[] for _ in range(num_partitions)]))
+
+    def delete_topic(self, name: str) -> None:
+        with self.lock:
+            self.topics.pop(name, None)
+
+    def topic(self, name: str):
+        return self.topics[name]
+
+    def produce(self, topic: str, partition: int, value, key=None) -> int:
+        with self.lock:
+            log = self.topics[topic].partitions[partition]
+            log.append(self.Record(len(log), key, value,
+                                   int(time.time() * 1000)))
+            return len(log) - 1
+
+    def publish(self, topic: str, rows, partition_key=None) -> None:
+        n = len(self.topics[topic].partitions)
+        for row in rows:
+            key = row.get(partition_key) if partition_key else None
+            p = hash(str(key)) % n if partition_key and n > 1 else 0
+            self.produce(topic, p, row, key)
+
+    def consumer(self) -> "MemKafkaConsumer":
+        return MemKafkaConsumer(self)
+
+
+class MemKafkaConsumer:
+    """The subset of kafka-python's KafkaConsumer that the port's Kafka
+    plugin calls, over a MemKafka."""
+
+    def __init__(self, kafka: MemKafka):
+        self.kafka = kafka
+        self._assigned = []
+        self._positions = {}
+        self.closed = False
+
+    def assign(self, tps) -> None:
+        self._assigned = list(tps)
+
+    def seek(self, tp, offset: int) -> None:
+        self._positions[tp] = offset
+
+    def poll(self, timeout_ms: int = 0) -> dict:
+        out = {}
+        with self.kafka.lock:
+            for tp in self._assigned:
+                log = self.kafka.topics[tp.topic].partitions[tp.partition]
+                pos = self._positions.get(tp, 0)
+                records = log[pos:pos + self.kafka.MAX_POLL_RECORDS]
+                if records:
+                    out[tp] = records
+                    self._positions[tp] = records[-1].offset + 1
+        return out
+
+    def partitions_for_topic(self, topic: str):
+        t = self.kafka.topics.get(topic)
+        return set(range(len(t.partitions))) if t else None
+
+    def beginning_offsets(self, tps) -> dict:
+        return {tp: 0 for tp in tps}
+
+    def end_offsets(self, tps) -> dict:
+        with self.kafka.lock:
+            return {tp: len(self.kafka.topics[tp.topic].partitions[
+                tp.partition]) for tp in tps}
+
+    def close(self) -> None:
+        self.closed = True
+
+
 def _segment_of(uri: str) -> str:
     name = os.path.basename(str(uri))
     return name[:-len(".tar.gz")] if name.endswith(".tar.gz") else name
@@ -5960,6 +6316,76 @@ def ms_by_segment(calls, i: int) -> dict:
         seg = _segment_of(args[i])
         out[seg] = out.get(seg, 0.0) + ms
     return out
+
+
+def minion_tasks(store, ctl, broker, server, table, work_dir, want, run,
+                 broker_rows) -> tuple:
+    """The minion on the card over the sink's 2 segments on `server`: a
+    MergeRollupTask (concat) swaps in one merged segment through lineage,
+    the server loads it, and q2_family over it makes one launch of kernel
+    B with the oracle's rows (the pre-merge answer); then a PurgeTask
+    evaluates SINK_PURGE on the merged segment's planes on the card and
+    swaps in the rest, and q2_family gives the oracle's rows without the
+    purged ones; each q2_family over the lone segment makes one launch, of
+    kernel B where the fused plan takes the segment's planes, else of
+    kernel A. (report, {label: (kernel, its inputs, the segment's rows)})."""
+    from pinot_tpu_torch.minion import MinionInstance, PinotTaskManager
+    from pinot_tpu_torch.minion import tasks as mtasks
+
+    cache = server.executor.executor.cache
+    manager = PinotTaskManager(store, ctl)
+    minion = MinionInstance(store, "Minion_0", ctl, work_dir, device=DEVICE)
+    out, recs = {}, {}
+    for task, label, want_key in (
+            ("MergeRollupTask", "merged_q2_family", "sink_q2_family"),
+            ("PurgeTask", "purged_q2_family", "purged_q2_family")):
+        before = set(store.children(f"/SEGMENTS/{table}"))
+        resident = cache.bytes_used()
+        ids = manager.schedule_tasks(table=table, task_type=task)
+        with recording(mtasks, "_build_and_add", timed=True) as builds, \
+                recording(mtasks, "_replace_via_lineage", timed=True) as swaps, \
+                recording(mtasks, "purge_mask", timed=True) as masks:
+            t0 = time.perf_counter()
+            ran = minion.run_pending_once()
+            task_ms = (time.perf_counter() - t0) * 1e3
+        state = store.get(f"/TASKS/{task}/{ids[0]}") if ids else None
+        if ran != 1 or state["state"] != "COMPLETED":
+            raise AssertionError(f"minion {task}: ran {ran}, {state}")
+        after = store.children(f"/SEGMENTS/{table}")
+        if len(after) != 1 or set(after) & before:
+            raise AssertionError(f"minion {task}: segments {before} -> "
+                                 f"{after}")
+        _wait_for(lambda: not (before & cache.segment_names()), BATCH_WAIT_S,
+                  f"minion {task}: the replaced segments' planes released")
+        freed = resident - cache.bytes_used()
+        _wait_for(lambda: set(broker.routing_table(table)) == set(after),
+                  BATCH_WAIT_S, f"minion {task}: {after} routed")
+        ms, a_calls, b_calls = run(label, BATCH_QUERIES["sink_q2_family"],
+                                   want[want_key], None, broker_rows)
+        if len(a_calls) + len(b_calls) != 1:
+            raise AssertionError(f"minion {label}: {len(a_calls)} + "
+                                 f"{len(b_calls)} launches of A + B")
+        rows = SINK_ROWS - (want["purged_rows"] if task == "PurgeTask"
+                            else 0)
+        recs[label] = (("limb_sums", a_calls, rows) if a_calls
+                       else ("fused_limb_sums", b_calls, rows))
+        build_ms = sum(t for _, t in builds)
+        rec = {"task_ms": task_ms, "build_ms": build_ms,
+               "swap_ms": sum(t for _, t in swaps) - build_ms,
+               "card_bytes_freed": freed, "segments": after,
+               "output": state["output"], "q2_family_cold_ms": ms}
+        if masks:
+            rec["mask_ms"] = sum(t for _, t in masks)
+            if state["output"]["purged"] != {
+                    next(iter(before)): want["purged_rows"]}:
+                raise AssertionError(f"minion purge: {state['output']}, "
+                                     f"{want['purged_rows']} rows expected")
+        elif state["output"]["numDocs"] != SINK_ROWS:
+            raise AssertionError(f"minion merge: {state['output']}")
+        if freed <= 0:
+            raise AssertionError(f"minion {task}: {freed} card bytes freed")
+        out[task] = rec
+    return out, recs
 
 
 def phase_batch_ingest(args, torch, tmp, inputs, _cuda, mxu, fg, card) -> dict:
@@ -6141,14 +6567,19 @@ def phase_batch_ingest(args, torch, tmp, inputs, _cuda, mxu, fg, card) -> dict:
         # -- the sink: a second table on Server_0 ---------------------------
         sink_schema, sink_cfg = _data_table(SINK_TABLE)
         ctl.add_schema(sink_schema.to_json())
-        sink_table = ctl.create_table({"tableName": SINK_TABLE,
-                                       "replication": 1,
-                                       "serverTag": SINK_TAG})
+        sink_table = ctl.create_table({
+            "tableName": SINK_TABLE, "replication": 1, "serverTag": SINK_TAG,
+            "taskConfigs": {"MergeRollupTask": {"mergeType": "concat"},
+                            "PurgeTask": {"purgeFilter": SINK_PURGE}}})
         scols = gen_ssb(SINK_ROWS, args.seed + 21)
         want["sink_q2_family"] = q2_oracle(scols)
+        purged = (scols["lo_quantity"] == 7) & (scols["lo_discount"] < 6)
+        want["purged_rows"] = int(purged.sum())
+        want["purged_q2_family"] = q2_oracle(
+            {k: v[~purged] for k, v in scols.items()})
         rows = [dict(zip(BATCH_COLUMNS, v)) for v in zip(
             *(scols[c].tolist() for c in BATCH_COLUMNS))]
-        del scols
+        del scols, purged
         t0 = time.perf_counter()
         writer = StreamingSegmentWriter(
             sink_schema, f"{tmp}/sink_deep", sink_cfg, controller=ctl,
@@ -6169,6 +6600,12 @@ def phase_batch_ingest(args, torch, tmp, inputs, _cuda, mxu, fg, card) -> dict:
                        "flush_rows": SINK_FLUSH_ROWS, "seconds": sink_s,
                        "us_per_row": sink_s * 1e6 / SINK_ROWS,
                        "online_s": sink_online_s, "q2_family_ms": sink_ms}
+
+        # -- the minion: merge the sink's 2 segments, then purge ~1% --------
+        out["minion"], recs_m = minion_tasks(
+            store, ctl, broker, servers[0], sink_table, f"{tmp}/minion", want,
+            run, broker_rows)
+        recs.update(recs_m)
 
         # -- the HTTP client against a BrokerRestServer ---------------------
         rest = BrokerRestServer(broker)
@@ -6237,6 +6674,13 @@ def phase_batch_ingest(args, torch, tmp, inputs, _cuda, mxu, fg, card) -> dict:
         torch, f"fused_limb_sums batch_ingest q2, launch {k}",
         fg.fused_limb_sums(*rec), fg.fused_limb_sums_plain(*rec))
         for k, rec in enumerate(recs["q2"]))
+    for label in ("merged_q2_family", "purged_q2_family"):
+        name, rs, _ = recs[label]
+        owner = mxu if name == "limb_sums" else fg
+        parity[label] = check_equal(
+            torch, f"{name} batch_ingest {label}",
+            getattr(owner, name)(*rs[0]),
+            getattr(owner, name + "_plain")(*rs[0]))
     out["parity"] = parity
     emit(dict({"phase": "batch_ingest",
                "seconds": time.perf_counter() - t_phase,
@@ -6471,7 +6915,34 @@ def phase_mse(torch, qe, expected, _cuda, interp, mxu, iters, card) -> dict:
             agg_recs = list(a_calls)
         stages[qname] = _stage_view(resp)
         results[qname] = resp
-    emit({"phase": "mse", "oracle": "equal",
+    # F13: a shape the single-stage planner refuses (PERCENTILE over the
+    # raw lo_revenue) through execute_sql with no SET: the multi-stage
+    # engine answers it, its leaves scanning on the card
+    from pinot_tpu_torch.query.parser.sql import parse_sql
+
+    try:
+        qe.execute(parse_sql(F13_SQL))
+    except interp_unsupported() as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("f13: the single-stage planner did not refuse")
+    _cuda.reset_launches()
+    fetch0 = interp.host_fetches()
+    t0 = time.perf_counter()
+    resp = qe.execute_sql(F13_SQL)
+    torch.cuda.synchronize()
+    f13 = {"ms": (time.perf_counter() - t0) * 1e3, "refusal": refusal,
+           "leaf_dispatches": resp.num_device_dispatches,
+           "docs_scanned": resp.num_docs_scanned,
+           "host_fetches": interp.host_fetches() - fetch0,
+           "launches": dict(_cuda.LAUNCHES), "stages": _stage_view(resp)}
+    if [list(r) for r in resp.result_table.rows] != expected["f13"] or \
+            not resp.mse_stage_stats or resp.num_device_dispatches == 0 \
+            or resp.num_docs_scanned != sum(
+                seg.num_docs for seg in qe._table("ssb").segments):
+        raise AssertionError(f"f13: {resp.result_table.rows} against the "
+                             f"oracle's {expected['f13']}, {f13}")
+    emit({"phase": "mse", "oracle": "equal", "f13": f13,
           "rows_checked": {k: len(r.result_table.rows)
                            for k, r in results.items()},
           "mse_pairs_join_rows": expected["mse_pairs_total"],
@@ -6535,7 +7006,7 @@ def phase_mse(torch, qe, expected, _cuda, interp, mxu, iters, card) -> dict:
                                     for t in _tensors(rec)),
                     lambda rec: _clone_call(torch, rec))
                 fns = [lambda fn=fn, r=r: fn(*r[0], **r[1]) for r in pool]
-                ms = device_ms(torch, fns, None, iters=10)
+                ms = device_ms(torch, fns, None, iters=5)
                 run = fns[0]
                 nbytes, shape = _op_cost(name, a, kw)
                 bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -6645,10 +7116,12 @@ def phase_layers(torch, qe, iters, card, slow) -> dict:
     return out
 
 
-def phase_profile(torch, qe, card, slow) -> dict:
-    """Device busy share of warm runs under torch.profiler (2 runs a query,
-    1 for the queries in `slow`): the device time of every CUDA kernel over
-    the host wall time, and the kernels that take the most of it."""
+def phase_profile(torch, qe, card) -> dict:
+    """Device busy share of one warm run a query under torch.profiler (the
+    queries are warm from `times` and `layers`; 2 runs and a warm-up before
+    phase `timeseries` joined the run): the device time of every CUDA
+    kernel over the host wall time, and the kernels that take the most of
+    it."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -6658,15 +7131,11 @@ def phase_profile(torch, qe, card, slow) -> dict:
                    "mv_filter", "mv_group", "mv_aggs") + TRANSFORM_QUERIES
                   + ("post_agg",) + RT_KERNEL_QUERIES + ST_QUERIES
                   + INDEX_QUERIES):
-        runs = 1 if qname in slow else 2
-        if runs > 1:
-            qe.execute_sql(QUERIES[qname])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(runs):
-                qe.execute_sql(QUERIES[qname])
+            qe.execute_sql(QUERIES[qname])
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         # device-side events only (kernels and copies): the CPU-side ops
@@ -6678,13 +7147,13 @@ def phase_profile(torch, qe, card, slow) -> dict:
         busy_us = sum(d[1] for d in device)
         device.sort(key=lambda d: -d[1])
         out[qname] = {
-            "runs": runs,
-            "wall_ms_per_query": wall_us / runs / 1e3,
-            "device_ms_per_query": (busy_us / runs / 1e3 if device
+            "runs": 1,
+            "wall_ms_per_query": wall_us / 1e3,
+            "device_ms_per_query": (busy_us / 1e3 if device
                                     else "not measured"),
             "device_busy_share": busy_us / wall_us if device else "not measured",
-            "top_device": [{"name": k[:60], "ms_per_query": t / runs / 1e3,
-                            "calls_per_query": c / runs}
+            "top_device": [{"name": k[:60], "ms_per_query": t / 1e3,
+                            "calls_per_query": c}
                            for k, t, c in device[:6]]}
     emit({"phase": "profile", "card": card, "profile": out})
     return out
@@ -7168,7 +7637,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=2024)
     ap.add_argument("--rows-per-segment", type=int, default=1 << 23)
     ap.add_argument("--segments", type=int, default=4)
-    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--events-rows", type=int, default=1 << 20,
                     help="rows of each of the 4 `events` segments")
     ap.add_argument("--vec-rows", type=int, default=1 << 16,
@@ -7273,8 +7742,10 @@ def main(argv=None) -> int:
         expected.update(selection_mv_oracle(cols, tags,
                                             args.rows_per_segment))
         expected.update(transform_oracle(cols, dates))
+        expected.update(timeseries_oracle(cols, dates))
         expected.update(mse_oracle(cols))
         expected["mse_agg"] = expected["q2"]
+        expected["f13"] = f13_oracle(cols)
         del cols, taxi_cols, tags, dates
         tables.update(index)
         expected.update(index_expected)
@@ -7295,6 +7766,11 @@ def main(argv=None) -> int:
               "resident_bytes": qe.executor.cache.bytes_used()})
         launches, per_query, results = phase_queries(torch, qe, expected,
                                                      _cuda, interp)
+        timeseries = phase_timeseries(args, torch, qe, expected, _cuda,
+                                      mxu_groupby, fused_groupby,
+                                      dev["nvidia_smi"])
+        for qname, err in timeseries["parity"].items():
+            parity[f"limb_sums/{qname}_inputs/family"] = err
         phase_index_checks(qe, results, facts, dev["nvidia_smi"])
         formats = phase_segment_formats(
             args, torch, qe, formats_dirs, formats_parts, formats_build_s,
@@ -7475,7 +7951,7 @@ def main(argv=None) -> int:
               "full_collections_during": full_gc})
         phase_layers(torch, qe, min(args.iters, LAYERS_ITERS),
                      dev["nvidia_smi"], slow)
-        phase_profile(torch, qe, dev["nvidia_smi"], slow)
+        phase_profile(torch, qe, dev["nvidia_smi"])
         phase_chain(torch, qe, interp, dev["nvidia_smi"])
         phase_oom(torch, qe, expected, dev["nvidia_smi"])
         del qe
@@ -7513,6 +7989,19 @@ def main(argv=None) -> int:
                     parity[f"limb_sums/{qname}_inputs/{label}"],
                     f"{qname} {label}: the main path's planes of the family "
                     f"of {S} segments, one launch"))
+        # the timeseries engine's fetches: kernel A over the family of the
+        # 4 `ssbt` segments, one launch a query
+        for qname, rec in timeseries["recs"].items():
+            _, start, end, step = TS_QUERIES[qname]
+            kernels.append(kernel_a_row(
+                torch, mxu_groupby, _cuda, rec,
+                timeseries["launches"][qname]["limb_sums"],
+                timeseries["parity"][qname],
+                f"timeseries {qname}: the fetch's GROUP BY of the "
+                f"{step // DAY_MS}-day bucket of lo_orderdate (and the "
+                f"tags) over the family of {len(segments)} `{TIME_TABLE}` "
+                "segments, one launch"))
+        del timeseries
         # a coalesced group's launch: one for the Q queries' S * Q members
         for q, rec in group_inputs.items():
             kernels.append(kernel_a_row(
@@ -7631,12 +8120,28 @@ def main(argv=None) -> int:
                  "segments: a segment a launch on its server"),
                 ("sink_q2_family", "limb_sums",
                  "q2_family over the StreamingSegmentWriter's 2 segments "
-                 "on one server: its family of 2, one launch")):
-            row = kernel_a_row if name == "limb_sums" else kernel_b_row
-            owner = mxu_groupby if name == "limb_sums" else fused_groupby
-            kernels.append(row(
-                torch, owner, _cuda, bi_recs[label], bi_n[label][name],
-                batch_ingest["parity"][label], f"batch_ingest {note}"))
+                 "on one server: its family of 2, one launch"),
+                ("merged_q2_family", None,
+                 "q2_family over the minion's MergeRollupTask output (the "
+                 "sink's 2 segments concatenated, 2^18 rows): a lone "
+                 "segment, one launch"),
+                ("purged_q2_family", None,
+                 "q2_family over the PurgeTask's output (the merged segment "
+                 "less its rows matching SINK_PURGE, its mask on the card): "
+                 "a lone segment, one launch")):
+            rec, live = bi_recs[label], None
+            if name is None:  # the minion's lone segment: the kernel it took
+                name, rec, rows = rec
+                live = [rows]
+            n_launched = bi_n[label][name]
+            err = batch_ingest["parity"][label]
+            note = f"batch_ingest {note}"
+            if name == "limb_sums":
+                kernels.append(kernel_a_row(torch, mxu_groupby, _cuda, rec,
+                                            n_launched, err, note, live))
+            else:
+                kernels.append(kernel_b_row(torch, fused_groupby, _cuda, rec,
+                                            n_launched, err, note))
         del batch_ingest, bi_recs
         # the multi-stage leaf partial aggregate's launch of kernel A
         kernels.append(kernel_a_row(

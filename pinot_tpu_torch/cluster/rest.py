@@ -5,9 +5,9 @@ whatever broker, controller and ServerInstance they are given (a server
 on its card by default). Where the JAX package reads its process-wide
 device cache, the port reads each server's own cache: the broker's
 /debug/cache and /debug/compiles list every live device cache in the
-process, a server's routes its own. The timeseries engine is not ported:
-/timeseries/api/v1/query_range answers 501, as the JAX broker does without
-one.
+process, a server's routes its own. The broker's
+/timeseries/api/v1/query_range runs the timeseries engine it is given
+(timeseries/engine.py), and answers 501 without one.
 
 Reference analogue: the broker's Jersey resources
 (pinot-broker/.../api/resources/PinotClientRequest.java — POST /query/sql)
@@ -39,6 +39,7 @@ from ..spi.metrics import (BROKER_METRICS, CONTROLLER_METRICS,
                            PROMETHEUS_CONTENT_TYPE, SERVER_METRICS,
                            render_prometheus)
 from ..spi.traceexport import to_chrome_trace
+from ..timeseries.engine import parse_m3ql
 from .auth import READ, AllowAllAccessControl
 from .broker import Broker
 from .controller import ClusterController, raw_table_name, \
@@ -219,11 +220,11 @@ def _cache_telemetry(cache) -> dict:
 
 class BrokerRestServer(_RestServer):
     """POST /query/sql {"sql": ...} → BrokerResponse JSON (429 when
-    admission control shed it); POST /timeseries/api/v1/query_range
-    answers 501 (no timeseries engine in the port); GET /health."""
+    admission control shed it); POST /timeseries/api/v1/query_range for
+    the timeseries engine (501 without one); GET /health."""
 
     def __init__(self, broker: Broker, host: str = "127.0.0.1", port: int = 0,
-                 access_control=None):
+                 timeseries_engine=None, access_control=None):
         srv = self
 
         class Handler(_JsonHandler):
@@ -266,6 +267,7 @@ class BrokerRestServer(_RestServer):
 
         Handler.access_control = access_control
         self.broker = broker
+        self.timeseries_engine = timeseries_engine
         # cursor id → owning principal name (reference: response store
         # entries are owner-scoped); only the creator may fetch/delete
         self._cursor_owners = {}
@@ -426,7 +428,25 @@ class BrokerRestServer(_RestServer):
         return 200, {"deleted": self.broker.response_store.delete(cursor_id)}
 
     def _timeseries(self, body: dict, principal=None):
-        return 501, {"error": "timeseries engine not configured"}
+        """The timeseries engine's block as JSON; a table-scoped principal
+        reads only the table its fetch names. A failing query (a
+        TimeSeriesQueryError included) answers 500, as in the reference."""
+        if self.timeseries_engine is None:
+            return 501, {"error": "timeseries engine not configured"}
+        if principal is not None:
+            try:
+                table = parse_m3ql(body.get("query", "")).fetch.table
+            except Exception:
+                table = None
+            if table is None and "*" not in principal.tables:
+                return 403, {"error": "cannot resolve table for "
+                                      "table-scoped principal"}
+            if table and not principal.allows(table, READ):
+                return 403, {"error": f"READ on {table} not permitted"}
+        block = self.timeseries_engine.execute(
+            body["query"], int(body["start"]), int(body["end"]),
+            int(body["step"]), body.get("language", "m3ql"))
+        return 200, block.to_json()
 
 
 class ControllerRestServer(_RestServer):

@@ -20,8 +20,10 @@ package sends a query to its host engine (the matrix-shaped MV functions
 such as DISTINCTCOUNTMV and PERCENTILEMV, the matrix-shaped functions over
 a multi-value column, EXPRMIN and the other object-valued functions,
 nullable operands of the non-filterable functions under
-enableNullHandling, a FILTER clause over them), the port raises
-UnsupportedQueryError: it has no host engine.
+enableNullHandling, a FILTER clause over them), the port's planner
+raises UnsupportedQueryError, and QueryExecutor.execute_sql retries the
+query on the multi-stage engine, as the JAX package does under
+backend="tpu": `get_semantics` and `host_state_full` know those functions.
 """
 
 from __future__ import annotations
@@ -217,10 +219,23 @@ _PCT_DIGEST = ("percentileest", "percentiletdigest", "percentilekll",
                "percentilesmarttdigest", "percentilerawest",
                "percentilerawtdigest", "percentilerawkll")
 _MOMENT_FNS = ("stddevpop", "stddevsamp", "varpop", "varsamp")
+# the matrix-shaped MV functions, each with the state of its single-value
+# base: the multi-stage engine aggregates them (host_state_full), as the
+# JAX package's does, and lower_aggregation refuses them, as the JAX
+# package's device planner does
+_MV_MATRIX = {"distinctcountmv": "distinctcount",
+              "distinctcountbitmapmv": "distinctcountbitmap",
+              "distinctcounthllmv": "distinctcounthll",
+              "distinctcounthllplusmv": "distinctcounthllplus",
+              "percentilemv": "percentile",
+              "percentileestmv": "percentileest",
+              "percentiletdigestmv": "percentiletdigest",
+              "percentilekllmv": "percentilekll"}
 
 
 def get_semantics(name: str, extra: tuple = ()) -> AggSemantics:
     name, extra = canonicalize(name, extra)
+    name = _MV_MATRIX.get(name, name)
     if name in ("count", "countmv"):
         return AggSemantics(lambda a, b: a + b, lambda s: s, "LONG", 0)
     if name in ("sum", "summv"):
@@ -508,7 +523,7 @@ def lower_aggregation(ctx: AggPlanContext, expr: ExpressionContext,
     data, extra = split_args(fn)
     name, extra = canonicalize(fn.name, extra)
     sem = get_semantics(name, extra)
-    if name in _HOST_ONLY:
+    if name in _HOST_ONLY or name in _MV_MATRIX:
         raise UnsupportedQueryError(f"aggregation {name} has no device form")
     if _cond is not None and name not in _FILTERABLE:
         raise UnsupportedQueryError(
@@ -806,6 +821,7 @@ def host_state_full(name: str, cols: list, extra: tuple):
     it. The multi-stage operators (mse/operators.py) aggregate with it."""
     name, extra = canonicalize(name, extra)
     get_semantics(name, extra)  # refuses the functions this port lacks
+    name = _MV_MATRIX.get(name, name)
     values = cols[0] if cols else None
     n = 0 if values is None else len(values)
 

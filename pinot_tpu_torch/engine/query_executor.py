@@ -253,12 +253,13 @@ class QueryExecutor:
         engine for a statement the single-stage parser rejects and for
         `SET useMultistageEngine = true`; the single-stage engine
         otherwise, and the multi-stage engine's answer, where it has one,
-        for a query-level shape the single-stage engine refuses
-        (MultistageRefusal: the broker reduce's ReduceRefused, and a
-        selection ORDER BY on an unselected column, refused while planning
-        so no dispatch is spent). A segment planner's other refusals stay
-        refusals: the reference answers those in its single-stage host
-        engine, which the port does not have."""
+        for any shape the single-stage engine refuses with
+        UnsupportedQueryError: a query-level MultistageRefusal (the broker
+        reduce's ReduceRefused, a selection ORDER BY on an unselected
+        column) and a segment planner's refusal alike (PERCENTILE over a
+        raw column, a GROUP BY on a transform of a raw column), as the
+        reference does under backend="tpu". The single-stage refusal is
+        raised when the multi-stage engine fails too."""
         try:
             query = parse_sql(sql)
         except SqlParseError:
@@ -267,7 +268,7 @@ class QueryExecutor:
             return self.multistage.execute_sql(sql)
         try:
             return self.execute(query)
-        except MultistageRefusal:
+        except UnsupportedQueryError:
             mse = self.multistage.execute_sql(sql)
             if not mse.exceptions:
                 return mse
@@ -295,9 +296,9 @@ class QueryExecutor:
         """Run a parsed query; EXPLAIN plans it, EXPLAIN ANALYZE runs it
         under an analyze trace and returns the annotated span tree. A query
         that fails raises, after counting the server meter
-        `queryExecutionExceptions` as the JAX package does for a query it
-        answers with an exception; a MultistageRefusal is not counted (the
-        multi-stage engine takes the query)."""
+        `queryExecutionExceptions` as the JAX package does for a query its
+        single-stage engine answers with an exception, a refusal that
+        `execute_sql` then retries on the multi-stage engine included."""
         explain = getattr(query, "explain", False)
         if explain == "analyze":
             return self._execute_analyze(query)
@@ -311,8 +312,6 @@ class QueryExecutor:
                 time_used_ms=(time.perf_counter() - t0) * 1000)
         try:
             return self.run_planned(self.plan_query(query))
-        except MultistageRefusal:
-            raise
         except Exception:
             SERVER_METRICS.add_meter(ServerMeter.QUERY_EXECUTION_EXCEPTIONS)
             raise

@@ -81,6 +81,17 @@ EC = ExpressionContext
 _LEAF_LIMIT = 1_000_000_000  # effectively unlimited (leaf results feed merges)
 
 
+def _plan_counted(eng, qc):
+    """``eng.plan_query(qc)``; a refusal counts `queryExecutionExceptions`
+    before the leaf takes the generic path, as the reference's leaf counts
+    its single-stage engine's failure."""
+    try:
+        return eng.plan_query(qc)
+    except UnsupportedQueryError:
+        SERVER_METRICS.add_meter(ServerMeter.QUERY_EXECUTION_EXCEPTIONS)
+        raise
+
+
 class StageRunner:
     """Executes one fragmented plan. ``leaf_engine`` is the single-stage
     engine (engine/query_executor.QueryExecutor: plan_query / run_planned,
@@ -624,7 +635,7 @@ class StageRunner:
             planned = eng.plan_selection_columnar(qc)
             if planned is not None:
                 return "columnar", planned, [(q, unq[q]) for q in names]
-            return "rows", eng.plan_query(qc), names
+            return "rows", _plan_counted(eng, qc), names
 
         select: list[EC] = []
         for g in agg.group_exprs:
@@ -646,7 +657,7 @@ class StageRunner:
             group_by_expressions=[_unqualify(g, unq) for g in agg.group_exprs],
             filter=fctx, limit=_LEAF_LIMIT,
             query_options=dict(self.query_options))
-        return "rows", eng.plan_query(qc.finish()), list(agg.schema)
+        return "rows", _plan_counted(eng, qc.finish()), list(agg.schema)
 
     def _resp_to_block(self, resp, names: list[str]) -> Optional[Block]:
         self.stats["num_docs_scanned"] += resp.num_docs_scanned

@@ -187,6 +187,10 @@ class Schema:
         return [n for n, f in self.fields.items()
                 if f.field_type == FieldType.DIMENSION]
 
+    def metric_names(self) -> list[str]:
+        return [n for n, f in self.fields.items()
+                if f.field_type == FieldType.METRIC]
+
     def to_json(self) -> dict:
         return {
             "schemaName": self.schema_name,

@@ -11,11 +11,9 @@ process-local producer API used by quickstarts.
 
 An unregistered streamType resolves through the plugin loader
 (``spi/plugins.py`` ``resolve("stream", name)``, which imports
-``pinot_tpu_torch.plugins.stream.<name>``), as in the JAX package. The
-Kafka, Kinesis, Pulsar and Confluent plugins are not ported yet, so such a
-type still raises ``ValueError("unknown streamType ...")``, and an
-unregistered decoder name falls back to JSON (the JAX package imports its
-Confluent decoder for a "confluent" name first).
+``pinot_tpu_torch.plugins.stream.<name>``: kafka, kinesis, pulsar), as in
+the JAX package; a decoder name holding "confluent" imports the Confluent
+Avro decoder (``plugins/stream/confluent.py``) first.
 """
 
 from __future__ import annotations
@@ -201,6 +199,9 @@ def get_stream_consumer_factory(config: StreamConfig) -> StreamConsumerFactory:
 
 def get_decoder(config: StreamConfig) -> StreamDataDecoder:
     name = config.decoder
+    if name not in _DECODERS and "confluent" in name.lower():
+        # auto-import like stream types: decoder class names resolve on use
+        from ..plugins.stream import confluent  # noqa: F401
     if name not in _DECODERS:
         name = "json"
     factory = _DECODERS[name]

@@ -547,16 +547,26 @@ def test_cpu_run_launches_no_kernel(tables):
     "FROM t GROUP BY d_year",
 ])
 def test_host_engine_shapes_raise(tables, sql):
+    """The single-stage planners of both packages refuse these. Both then
+    retry on their multi-stage engine (execute_sql under backend="tpu"):
+    the port answers what the JAX package answers there, with the same
+    rows, docs scanned and dispatches, and raises where it fails."""
     port, jax, jsegs, psegs = tables
-    with pytest.raises(UnsupportedQueryError):
-        port.execute_sql(sql)
-    # the JAX package's planner declines them too (its host engine runs
-    # them)
     from pinot_tpu.engine.aggregation import \
         UnsupportedQueryError as JaxUnsupported
 
     with pytest.raises(JaxUnsupported):
         JaxPlanner(jax_parse(sql), jsegs[0]).plan()
+    want = jax.execute_sql(sql)
+    if want.exceptions:
+        with pytest.raises(UnsupportedQueryError):
+            port.execute_sql(sql)
+        return
+    got = port.execute_sql(sql)
+    assert sorted(map(repr, got.result_table.rows)) == \
+        sorted(map(repr, want.result_table.rows))
+    assert got.num_docs_scanned == want.num_docs_scanned
+    assert got.num_device_dispatches == want.num_device_dispatches
 
 
 # -- the compiled reference's bin widths (faults F3 and F4) ---------------------

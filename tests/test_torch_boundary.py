@@ -86,8 +86,9 @@ for name in ("csv", "json", "jsonl", "parquet", "orc", "avro", "thrift",
 assert sorted(readers._READERS) == sorted(
     ("csv", "json", "jsonl", "parquet", "orc", "avro", "thrift", "proto",
      "protobuf", "clplog", "clp"))
-assert plugins.resolve("stream", "inmemory") is not None
-for kind, name in (("stream", "kafka"), ("filesystem", "zz9"),
+for name in ("inmemory", "kafka", "kinesis", "pulsar"):
+    assert plugins.resolve("stream", name) is not None, name
+for kind, name in (("stream", "zz9"), ("filesystem", "zz9"),
                    ("inputformat", "nope")):
     try:
         plugins.resolve(kind, name)
@@ -96,11 +97,18 @@ for kind, name in (("stream", "kafka"), ("filesystem", "zz9"),
     else:
         raise AssertionError((kind, name))
 try:
-    get_stream_consumer_factory(StreamConfig(stream_type="kafka"))
+    get_stream_consumer_factory(StreamConfig(stream_type="zz9"))
 except ValueError as e:
     assert "unknown streamType" in str(e)
+else:
+    raise AssertionError("zz9")
+from pinot_tpu_torch.spi.stream import get_decoder
+assert type(get_decoder(StreamConfig(decoder="confluentavro"))).__name__ \
+    == "ConfluentAvroDecoder"
 import pinot_tpu_torch.client, pinot_tpu_torch.connectors  # noqa: E401,F401
+import pinot_tpu_torch.dbapi, pinot_tpu_torch.minion  # noqa: E401,F401
 import pinot_tpu_torch.ingestion.batch  # noqa: F401
+import pinot_tpu_torch.timeseries  # noqa: F401
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pinot_tpu"))
 print("FORBIDDEN", bad)

@@ -2459,3 +2459,117 @@ def test_batch_pushed_segments_on_the_card_equal_plain(
                 s.stop()
             broker.close()
     assert rows["cuda"] == rows["cpu"] and rows["cpu"]
+
+
+# -- timeseries, minion ---------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def time_segments(tmp_path_factory):
+    """Four segments of a day-resolution dictionary-encoded TIMESTAMP over
+    1992-1998 beside q2's columns."""
+    rng = np.random.default_rng(41)
+    n = 40_000
+    schema = Schema.build("tst", dimensions=[
+        ("s_region", "STRING"), ("lo_orderdate", "TIMESTAMP")],
+        metrics=[("lo_revenue", "INT"), ("lo_quantity", "INT")])
+    cfg = TableConfig(table_name="tst", indexing=IndexingConfig(
+        no_dictionary_columns=["lo_revenue", "lo_quantity"]))
+    root = tmp_path_factory.mktemp("torch_cuda_ts")
+    paths = []
+    for i in range(4):
+        cols = {"s_region": np.asarray(["AMERICA", "ASIA", "EUROPE", "AFRICA",
+                                        "MIDDLE EAST"], dtype=object)[
+                    rng.integers(0, 5, n)],
+                "lo_orderdate": rng.integers(8035, 10592, n).astype(np.int64)
+                * 86_400_000,
+                "lo_revenue": rng.integers(1, 600_000, n).astype(np.int32),
+                "lo_quantity": rng.integers(1, 51, n).astype(np.int32)}
+        SegmentBuilder(schema, cfg, f"tst_{i}").build(cols, root / f"tst_{i}")
+        paths.append(str(root / f"tst_{i}"))
+    return schema, paths
+
+
+def test_timeseries_fetch_on_the_card_equals_cpu(cuda, time_segments):
+    """A weekly fetch by region (a GROUP BY of the bucket transform over
+    the dictionary and the tag, G >= 281) launches kernel A once over the
+    family of 4 on the card, every pipe stage after it on the host; the
+    block equals the CPU executor's."""
+    from pinot_tpu_torch.timeseries import TimeSeriesEngine
+
+    schema, paths = time_segments
+    week = 604_800_000
+    start = 694_224_000_000 // week * week
+    query = ("fetch table=tst value=lo_revenue time_col=lo_orderdate "
+             "filter=\"lo_quantity < 25\" | sum s_region | moving_avg 4 "
+             "| topk 3")
+    blocks = {}
+    for device in ("cpu", "cuda"):
+        qe = QueryExecutor(device=device)
+        qe.add_table(schema, [load_segment(p) for p in paths])
+        _cuda.reset_launches()
+        with _recording(mxu_groupby, "limb_sums") as calls:
+            blocks[device] = TimeSeriesEngine(qe).execute(
+                query, start, 915_148_800_000, week)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert _cuda.LAUNCHES["limb_sums"] == 1 == len(calls)
+            assert calls[0][2] >= 281
+            _launches_equal_plain(calls)
+    assert blocks["cuda"].to_json() == blocks["cpu"].to_json()
+    assert len(blocks["cuda"].series) == 3
+
+
+def test_merged_segment_on_the_card(cuda, cluster_segments, tmp_path):
+    """A MergeRollupTask (concat) replaces the four segments with one
+    through lineage; the card server loads it and answers q2_family with
+    the rows of a CPU cluster over the inputs, in one launch of a kernel
+    element-equal to its plain version."""
+    from pinot_tpu_torch.minion import MinionInstance, PinotTaskManager
+
+    schema, paths = cluster_segments
+    want = _cpu_rows(schema, paths)
+    store, ctl, servers, broker = _ops_cluster(schema, paths, "cuda")
+    try:
+        table = "ssb_OFFLINE"
+        cfg = ctl.table_config(table)
+        cfg["taskConfigs"] = {"MergeRollupTask": {"mergeType": "concat"}}
+        store.set(f"/CONFIGS/TABLE/{table}", cfg)
+        ids = PinotTaskManager(store, ctl).schedule_tasks(table=table)
+        minion = MinionInstance(store, "Minion_0", ctl, str(tmp_path / "m"),
+                                device="cuda")
+        assert minion.run_pending_once() == 1
+        state = store.get(f"/TASKS/MergeRollupTask/{ids[0]}")
+        assert state["state"] == "COMPLETED", state
+        assert store.children(f"/SEGMENTS/{table}") == \
+            [state["output"]["outputSegment"]]
+        _cuda.reset_launches()
+        with _recording(mxu_groupby, "limb_sums") as a_calls, \
+                _recording(fused_groupby, "fused_limb_sums") as b_calls:
+            resp = broker.execute_sql(OPS_SQL)
+            torch.cuda.synchronize()
+        assert sorted(map(tuple, resp.result_table.rows)) == want
+        assert sum(_cuda.LAUNCHES.values()) == 1
+        _launches_equal_plain(a_calls)
+        for args in b_calls:
+            assert torch.equal(fused_groupby.fused_limb_sums(*args),
+                               fused_groupby.fused_limb_sums_plain(*args))
+    finally:
+        for s in servers:
+            s.stop()
+        broker.close()
+
+
+@pytest.mark.parametrize("flt", [
+    "s_region = 'ASIA' AND d_year > 1995",
+    "p_brand BETWEEN 10 AND 20 OR lo_revenue < 5000",
+    "NOT (d_year < 1998)"])
+def test_purge_mask_on_the_card_equals_cpu(cuda, cluster_segments, flt):
+    from pinot_tpu_torch.minion.tasks import purge_mask
+    from pinot_tpu_torch.query.parser.sql import parse_filter_expression
+
+    _, paths = cluster_segments
+    seg = load_segment(paths[0])
+    got = purge_mask(seg, parse_filter_expression(flt), "cuda")
+    want = purge_mask(seg, parse_filter_expression(flt), "cpu")
+    assert np.array_equal(got, want) and 0 < want.sum() < len(want)

@@ -15,8 +15,10 @@ dictionary-encoded, raw millis from 1900 to 2100) and a dimension table
 in both packages: date/time over raw and dictionary columns, string
 transforms in filters and GROUP BY keys, LOOKUP, post-aggregation and
 HAVING functions, and selections with transform items. Where the JAX
-package's device planner refuses a segment's plan (it answers such
-shapes on its host engine), the port must raise UnsupportedQueryError.
+package's device planner refuses a segment's plan, both packages retry
+the query on their multi-stage engine: the port must give the JAX
+package's answer there, or raise UnsupportedQueryError where the JAX
+package's multi-stage engine fails too.
 
 The index templates run over a second table with JSON, text, map and
 vector indexes and a star-tree: random index predicates ANDed and ORed
@@ -276,10 +278,12 @@ def test_random_transform_query_matches_jax(tables, sql):
             JaxPlanner(jax_parse(sql), jax_load(p)).plan()
         except JaxUnsupportedQueryError:
             refused = True
-    if refused:
+    if refused and jax.execute_sql(sql).exceptions:
+        # neither package's multi-stage engine answers it either
         with pytest.raises(UnsupportedQueryError):
             port.execute_sql(sql)
     else:
+        # a planner refusal is answered by both multi-stage engines
         _assert_matches_jax(port, jax, sql)
 
 

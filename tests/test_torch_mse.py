@@ -39,6 +39,7 @@ from pinot_tpu_torch.mse.operators import JoinCtx, op_join, pop_join_overflow
 from pinot_tpu_torch.mse.parser import parse_relational
 from pinot_tpu_torch.mse.runtime import StageRunner
 from pinot_tpu_torch.ops import join_pipeline
+from pinot_tpu_torch.query.parser.sql import parse_sql
 from pinot_tpu_torch.query.expressions import ExpressionContext as EC
 from pinot_tpu_torch.segment.builder import SegmentBuilder
 from pinot_tpu_torch.segment.loader import load_segment
@@ -845,11 +846,15 @@ def test_consuming_segment_joins_through_its_snapshot(engines):
 def test_host_only_aggregations_equal_jax(engines, sql):
     """Aggregations with no device form (object-valued, exact decimal,
     arrays): the multi-stage engine's host aggregate answers them as the
-    reference's does; the single-stage planner refuses them."""
+    reference's does; the single-stage planner refuses them, and
+    execute_sql without the option retries them on the multi-stage engine,
+    as the JAX package does under backend="tpu"."""
     port, jax, _ = engines
     got, want = port.execute_sql(MSE + sql), jax.execute_sql(MSE + sql)
     assert sorted(map(repr, _rows(got, False))) == \
         sorted(map(repr, _rows(want, False)))
     if "JOIN" not in sql:
         with pytest.raises(UnsupportedQueryError, match="no device form"):
-            port.execute_sql(sql)
+            port.execute(parse_sql(sql))
+        assert sorted(map(repr, _rows(port.execute_sql(sql), False))) == \
+            sorted(map(repr, _rows(jax.execute_sql(sql), False)))

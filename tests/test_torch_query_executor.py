@@ -26,6 +26,7 @@ from pinot_tpu.spi.data_types import Schema as JaxSchema
 from pinot_tpu_torch.engine.aggregation import UnsupportedQueryError
 from pinot_tpu_torch.engine.query_executor import QueryExecutor
 from pinot_tpu_torch.ops import _cuda
+from pinot_tpu_torch.query.parser.sql import parse_sql
 from pinot_tpu_torch.segment.builder import SegmentBuilder
 from pinot_tpu_torch.segment.loader import load_segment
 from pinot_tpu_torch.spi.data_types import Schema
@@ -215,9 +216,29 @@ def test_cpu_run_launches_no_kernel(tables):
     f"SELECT d_year, SUMMV(lo_revenue) FROM {TABLE} GROUP BY d_year",
     f"SELECT d_year, EXPRMIN(lo_revenue, lo_tax) FROM {TABLE} GROUP BY d_year",
 ])
-def test_unported_shapes_raise(tables, sql):
+def test_unported_shapes_raise(tables, sql, monkeypatch):
+    """The port's single-stage engine refuses these. execute_sql retries
+    them on the multi-stage engine, as the JAX package does under
+    backend="tpu": the rows are the JAX package's, and the docs scanned
+    and dispatches are its multi-stage engine's (its single-stage engine
+    plans the COALESCE selection itself). Where the JAX package's
+    multi-stage engine fails too, the port raises."""
+    port, jax_tpu, _ = tables
+    monkeypatch.setenv("PINOT_TPU_FUSED", "interpret")
     with pytest.raises(UnsupportedQueryError):
-        tables[0].execute_sql(sql)
+        port.execute(parse_sql(sql))
+    want = jax_tpu.execute_sql(sql)
+    if want.exceptions:
+        with pytest.raises(UnsupportedQueryError):
+            port.execute_sql(sql)
+        return
+    got = port.execute_sql(sql)
+    ordered = "GROUP BY" not in sql
+    _assert_rows_equal(got.result_table.rows, want.result_table.rows,
+                       True, ordered, sql)
+    mse = jax_tpu.execute_sql("SET useMultistageEngine = true; " + sql)
+    assert got.num_docs_scanned == mse.num_docs_scanned
+    assert got.num_device_dispatches == mse.num_device_dispatches
 
 
 def test_join_is_answered_by_the_multistage_engine(tables):

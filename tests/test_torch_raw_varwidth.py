@@ -40,6 +40,7 @@ from pinot_tpu.spi.table_config import IndexingConfig as JaxIndexing
 from pinot_tpu.spi.table_config import TableConfig as JaxTableConfig
 from pinot_tpu_torch.engine.aggregation import UnsupportedQueryError
 from pinot_tpu_torch.engine.query_executor import QueryExecutor
+from pinot_tpu_torch.query.parser.sql import parse_sql
 from pinot_tpu_torch.realtime.converter import RealtimeSegmentConverter
 from pinot_tpu_torch.segment import clp
 from pinot_tpu_torch.segment.builder import SegmentBuilder
@@ -215,13 +216,21 @@ def test_port_builder_writes_jax_bytes(built, codec):
     "SELECT COUNT(*) FROM t WHERE log = 'x'",
 ])
 def test_var_width_filters_and_keys_are_refused(built, sql):
-    """The JAX package answers these on its host engine, with no device
-    dispatch; the port, which has none, refuses them."""
+    """Both single-stage planners refuse a filter or key over a raw
+    var-width column; under backend="tpu" the JAX package answers it on
+    its multi-stage engine, with no device dispatch, and so does the
+    port's execute_sql: the same rows, docs scanned and dispatches."""
     dirs, _ = built
     port, jax = _engines(dirs[None, "jax"])
-    assert jax.execute_sql(sql).num_device_dispatches == 0
+    want = jax.execute_sql(sql)
+    assert not want.exceptions and want.num_device_dispatches == 0
     with pytest.raises(UnsupportedQueryError):
-        port.execute_sql(sql)
+        port.execute(parse_sql(sql))
+    got = port.execute_sql(sql)
+    assert sorted(map(repr, got.result_table.rows)) == \
+        sorted(map(repr, want.result_table.rows))
+    assert got.num_docs_scanned == want.num_docs_scanned
+    assert got.num_device_dispatches == want.num_device_dispatches
 
 
 @pytest.mark.parametrize("column,spec", [("d_year", "INT"),

@@ -452,27 +452,46 @@ def test_mv_column_on_a_consuming_segment_raises():
 
 def test_rebased_float_plane_on_a_consuming_segment_raises():
     """The adaptive histogram bins a raw DOUBLE column from its min, which
-    moves while the segment consumes: the realtime planner refuses it."""
-    schema = Schema.build("fares", dimensions=[("day", "INT")],
-                          metrics=[("fare", "DOUBLE")])
+    moves while the segment consumes: the realtime planner refuses it.
+    execute_sql then answers on the multi-stage engine, with the JAX
+    package's multi-stage rows (the JAX package's single-stage engine
+    answers the snapshot on its host engine, which the port does not
+    have)."""
+    spec = {"dimensions": [("day", "INT")], "metrics": [("fare", "DOUBLE")]}
+    schema = Schema.build("fares", **spec)
+    jschema = JaxSchema.build("fares", **spec)
     seg = MutableSegment(schema, "live_fare_0")
+    jseg = JaxMutableSegment(jschema, "live_fare_0")
     for i in range(200):
         seg.index({"day": i % 3, "fare": 0.5 * i})
+        jseg.index({"day": i % 3, "fare": 0.5 * i})
     qe = QueryExecutor(device="cpu")
     qe.add_table(schema, [seg], "fares")
+    jax = JaxQueryExecutor(backend="tpu")
+    jax.add_table(jschema, [jseg], "fares")
+    sql = "SELECT day, PERCENTILETDIGEST(fare, 50) FROM fares GROUP BY day"
     with pytest.raises(UnsupportedQueryError, match="rawf32r"):
-        qe.execute_sql("SELECT day, PERCENTILETDIGEST(fare, 50) FROM fares "
-                       "GROUP BY day")
+        qe.execute(parse_sql(sql))
+    got = qe.execute_sql(sql)
+    want = jax.execute_sql("SET useMultistageEngine = true; " + sql)
+    assert got.mse_stage_stats and not want.exceptions
+    assert _canon(got.result_table.rows) == _canon(want.result_table.rows)
     got = qe.execute_sql("SELECT day, COUNT(*) FROM fares GROUP BY day")
     assert _canon(got.result_table.rows) == [(0, 67), (1, 67), (2, 66)]
 
 
 def test_realtime_device_planes_off_raises():
+    """With the device planes off the single-stage engine refuses the
+    consuming segment; execute_sql answers on the multi-stage engine, with
+    the JAX package's rows (its host engine answers there)."""
     live = Live("live_off_0")
     live.feed(_gen_rows(100, 16))
+    sql = "SET realtimeDevicePlanes = false; SELECT COUNT(*) FROM live"
     with pytest.raises(UnsupportedQueryError):
-        live.port.execute_sql("SET realtimeDevicePlanes = false; "
-                              "SELECT COUNT(*) FROM live")
+        live.port.execute(parse_sql(sql))
+    got = live.port.execute_sql(sql)
+    assert got.mse_stage_stats
+    assert got.result_table.rows == live.jax.execute_sql(sql).result_table.rows
     got = live.port.execute_sql("SET realtimeDevicePlanes = true; "
                                 "SELECT COUNT(*) FROM live")
     assert got.result_table.rows == [[100]]
