@@ -38,7 +38,7 @@ Phases, each printing one JSON line:
            the index tables, their segments built by the port's builder
            in parallel worker processes: `ssb_st`, the ssb rows with a
            star-tree (split order d_year, s_region, p_brand; COUNT, the
-           three SUMs and MIN/MAX of lo_quantity); `events`, 4 x 2^20
+           three SUMs and MIN/MAX of lo_quantity); `events`, 4 x 2^19
            gen_ssb rows (seed 2030) with a JSON (`attrs`), a text (`msg`)
            and a map (`props`) index column; `vecs`, 4 x 2^16 rows with a
            384-wide FLOAT embedding and its vector index (IVF)
@@ -223,10 +223,10 @@ Phases, each printing one JSON line:
                  useMultistageEngine = true: the leaf partial aggregate runs
                  the single-stage family (kernel A), the final on the host
              f13                                PERCENTILE(lo_revenue, 90) by
-                 s_region with no SET: the single-stage planner refuses the
-                 raw column, execute_sql retries on the multi-stage engine,
-                 whose scan leaves dispatch on the card (rows, leaf
-                 dispatches, docs scanned)
+                 s_region over `ssbz` with no SET: the single-stage planner
+                 refuses the raw column, execute_sql retries on the
+                 multi-stage engine, whose scan leaves dispatch on the card
+                 (rows, leaf dispatches, docs scanned)
   cache    the caches on (PINOT_TPU_SEGMENT_CACHE=1 and
            PINOT_TPU_RESULT_CACHE=1 around this phase alone, both cleared
            first; every other phase runs with both 0, so a warm run still
@@ -263,6 +263,30 @@ Phases, each printing one JSON line:
            the untraced run, each on cuda with deviceExecMs > 0, a traced
            run's rows equal to the oracle's; an untraced warm q2_family
            makes no synchronize, no span and one host fetch
+  host_engine
+           the host engine (engine/host_executor.py, engine/funnel.py, the
+           inverted, sorted, range and geo index readers) and the
+           QueryExecutor backends, HOST_THREADS worker threads each:
+           backend "host" over `ssb` (q1, q2_family) and over `clicks` (4
+           x 2^21 rows of a clickstream after Pinot's funnel documentation,
+           built in the index_data pool: user_id, url of 8 pages, ts raw
+           with a range index, s_region with an inverted index, lat / lng
+           raw with a geo index, lo_revenue): FUNNELCOUNT by s_region, a
+           windowed FUNNELMAXSTEP, the inverted-index EQ and IN, the raw
+           RANGE and ST_DISTANCE(lat, lng, ...) < r, no dispatch and no
+           launch; backend "auto" over `clicks` (the EQ, IN and RANGE one
+           family dispatch and one launch of kernel A each, the funnels and
+           the geo filter on the host engine) and over `ssb_rt` with the
+           consuming snapshot refused (SET realtimeDevicePlanes = false:
+           the committed family one launch of kernel A, the snapshot on the
+           host engine); each query timed once, every row against its
+           numpy oracle, each launch against its plain version. A
+           PurgeTask (minion) over a raw STRING filter, which the planner
+           refuses and the host engine evaluates, on a card server: the
+           purged segment's rows equal the oracle's. `python -m
+           pinot_tpu_torch.tools.admin quickstart --once` in a child
+           process (started first, run beside the queries), its servers on
+           the card: its demo rows equal the oracle's
   cluster  the cluster serving path (cluster/): a PropertyStore, a
            controller, 2 ServerInstance(device="cuda") and a Broker over
            loopback, table `ssb` registered from phase `data`'s segment
@@ -437,7 +461,7 @@ Phases, each printing one JSON line:
            admission_tiers' tiered and hedged paths, kernels A and B
            through phase operations' REST, moved and swapped segments, and
            kernels A and B over phase batch_ingest's pushed and sunk
-           segments):
+           segments, kernel A under phase host_engine's backend "auto"):
            per kernel and
            main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
@@ -626,8 +650,11 @@ TRANSFORM_REFUSED = (
     "SELECT lo_orderkey + toEpochDays(lo_orderdate), COUNT(*) FROM ssbt "
     "GROUP BY lo_orderkey + toEpochDays(lo_orderdate) LIMIT 10")
 # F13 (phase mse): the single-stage planner refuses PERCENTILE over the raw
-# lo_revenue; execute_sql answers it on the multi-stage engine
-F13_SQL = ("SELECT s_region, PERCENTILE(lo_revenue, 90) FROM ssb "
+# lo_revenue; execute_sql answers it on the multi-stage engine. Over `ssbz`
+# (phase segment_formats' 4 x 2^21 rows, lo_revenue raw under LZ4) since
+# phase host_engine joined the run: over ssb's 2^25 rows it took 17.4 to
+# 28.3 s, nearly all the multi-stage engine's host work on object strings
+F13_SQL = ("SELECT s_region, PERCENTILE(lo_revenue, 90) FROM ssbz "
            "GROUP BY s_region ORDER BY s_region")
 # the transform queries that launch a new kernel A shape, one launch each
 TRANSFORM_QUERIES = ("q7", "time_group", "str_group", "time_raw")
@@ -858,6 +885,69 @@ QUERIES.update({
 INDEX_KERNEL_QUERIES = ("st_q2", "st_q9", "st_avg") + INDEX_QUERIES
 EXPECTED_KERNEL.update({q: "limb_sums" for q in INDEX_KERNEL_QUERIES})
 ONE_FAMILY += ST_QUERIES + INDEX_QUERIES
+# phase `host_engine`: the host engine (engine/host_executor.py) and the
+# backend selector. `clicks`, a clickstream after Pinot's funnel
+# documentation (FUNNELCOUNT(STEPS(url = ...), CORRELATE_BY(user_id)) over
+# an events table of user_id, url, timestamp), 4 segments of CLICKS_ROWS
+# built from CLICKS_SEED in the index_data pool: user_id of CLICKS_USERS
+# users, url one of 8 pages (skewed), ts a week of epoch millis (raw, a
+# range index), s_region (an inverted index), lat / lng raw DOUBLEs over
+# the continental US (a geo index), lo_revenue INT
+CLICKS_TABLE, CLICKS_SEED, CLICKS_ROWS = "clicks", 2032, 1 << 21
+CLICKS_USERS = 1 << 17
+CLICKS_PAGES = ("/home", "/search", "/product", "/cart", "/checkout", "/pay",
+                "/done", "/help")
+CLICKS_PAGE_P = (0.24, 0.2, 0.18, 0.12, 0.08, 0.07, 0.06, 0.05)
+CLICKS_T0, CLICKS_SPAN = 1_700_006_400_000, 7 * DAY_MS
+CLICKS_DIMS = [("user_id", "INT"), ("url", "STRING"), ("s_region", "STRING")]
+CLICKS_METRICS = [("ts", "LONG"), ("lat", "DOUBLE"), ("lng", "DOUBLE"),
+                  ("lo_revenue", "INT")]
+CLICKS_INDEXING = {
+    "no_dictionary_columns": ["ts", "lat", "lng", "lo_revenue"],
+    "inverted_index_columns": ["s_region"], "range_index_columns": ["ts"],
+    "geo_index_configs": [{"latColumn": "lat", "lngColumn": "lng",
+                           "resolutionDeg": 0.5}]}
+FUNNEL_STEPS = ("/product", "/cart", "/pay")
+MAXSTEP_STEPS, MAXSTEP_WINDOW_MS = ("/search", "/product", "/cart",
+                                    "/pay"), 60_000
+CLICKS_RANGE = (CLICKS_T0 + 2 * DAY_MS, CLICKS_T0 + 3 * DAY_MS)
+GEO_CENTRE, GEO_RADIUS_M = (40.7128, -74.006), 400_000.0
+EARTH_RADIUS_M = 6371008.8
+CLICKS_QUERIES = {
+    "c_funnel": "SELECT s_region, FUNNELCOUNT(STEPS("
+                + ", ".join(f"url = '{u}'" for u in FUNNEL_STEPS)
+                + f"), CORRELATE_BY(user_id)) FROM {CLICKS_TABLE} "
+                "GROUP BY s_region ORDER BY s_region",
+    "c_maxstep": f"SELECT s_region, FUNNELMAXSTEP(ts, {MAXSTEP_WINDOW_MS}, "
+                 f"{len(MAXSTEP_STEPS)}, "
+                 + ", ".join(f"url = '{u}'" for u in MAXSTEP_STEPS)
+                 + f") FROM {CLICKS_TABLE} GROUP BY s_region "
+                 "ORDER BY s_region",
+    "c_eq": f"SELECT url, COUNT(*), SUM(lo_revenue) FROM {CLICKS_TABLE} "
+            "WHERE s_region = 'ASIA' GROUP BY url ORDER BY url",
+    "c_in": f"SELECT s_region, COUNT(*), SUM(lo_revenue) FROM {CLICKS_TABLE} "
+            "WHERE s_region IN ('ASIA', 'EUROPE') GROUP BY s_region "
+            "ORDER BY s_region",
+    "c_range": f"SELECT url, COUNT(*), SUM(lo_revenue) FROM {CLICKS_TABLE} "
+               f"WHERE ts BETWEEN {CLICKS_RANGE[0]} AND {CLICKS_RANGE[1]} "
+               "GROUP BY url ORDER BY url",
+    "c_geo": f"SELECT url, COUNT(*), SUM(lo_revenue) FROM {CLICKS_TABLE} "
+             f"WHERE ST_DISTANCE(lat, lng, {GEO_CENTRE[0]}, {GEO_CENTRE[1]})"
+             f" < {GEO_RADIUS_M} GROUP BY url ORDER BY url"}
+# under backend "auto": the clicks queries the device planner plans (one
+# family dispatch, one launch of kernel A each); the funnels and the
+# ST_DISTANCE filter answer on the host engine
+CLICKS_DEVICE = ("c_eq", "c_in", "c_range")
+# ssb_rt with its consuming snapshot refused (the query option that keeps
+# a consuming segment off the device) while the 4 committed segments plan:
+# one family launch of kernel A, the snapshot on the host engine
+RT_AUTO_SQL = "SET realtimeDevicePlanes = false; " + Q2.replace(
+    "FROM ssb", "FROM ssb_rt")
+HOST_SSB_QUERIES = ("q1", "q2_family")
+# the PurgeTask over a raw STRING column: PURGE_ROWS of the clicks columns
+# (url raw), the rows whose url matches PURGE_FILTER purged
+PURGE_TABLE, PURGE_ROWS, PURGE_FILTER = "clicks_log", 1 << 16, \
+    "url LIKE '/c%' OR url = '/help'"
 # the multi-stage engine over ssb: bench.py Q8, Q9J and Q10 verbatim (a
 # JOIN sends them there), a pair join that returns rows, and bench.py Q2
 # under SET useMultistageEngine = true (a leaf partial aggregate)
@@ -1784,6 +1874,115 @@ def _events_columns(rng, n: int):
             {"ix_json": json_hit, "ix_text": text_hit, "ix_map": map_hit})
 
 
+def haversine_oracle(lat, lng, lat0, lng0):
+    """Great-circle metres (the haversine formula), for the oracle."""
+    p1, l1 = np.radians(lat), np.radians(lng)
+    p2, l2 = np.radians(lat0), np.radians(lng0)
+    a = np.sin((p2 - p1) / 2) ** 2 \
+        + np.cos(p1) * np.cos(p2) * np.sin((l2 - l1) / 2) ** 2
+    return 2 * EARTH_RADIUS_M * np.arcsin(np.sqrt(np.clip(a, 0, 1)))
+
+
+def clicks_columns(i: int, n: int) -> tuple:
+    """Segment i of `clicks` from CLICKS_SEED: (columns, page codes, region
+    codes)."""
+    rng = np.random.default_rng([CLICKS_SEED, i])
+    page = rng.choice(len(CLICKS_PAGES), n, p=CLICKS_PAGE_P)
+    region = rng.integers(0, len(REGIONS), n)
+    cols = {
+        "user_id": rng.integers(0, CLICKS_USERS, n).astype(np.int32),
+        "url": np.asarray(CLICKS_PAGES, dtype=object)[page],
+        "s_region": np.asarray(REGIONS, dtype=object)[region],
+        "ts": CLICKS_T0 + rng.integers(0, CLICKS_SPAN, n).astype(np.int64),
+        "lat": rng.uniform(25.0, 49.0, n),
+        "lng": rng.uniform(-124.0, -67.0, n),
+        "lo_revenue": rng.integers(0, 10_000, n).astype(np.int32),
+    }
+    return cols, page, region
+
+
+def clicks_partials(cols, page, region) -> dict:
+    """One segment's share of every clicks query's oracle, from the drawn
+    codes and values: per page or region the rows and revenue under each
+    filter, per region and funnel step the users that reached it, and the
+    windowed funnel's (ts, step, region) events."""
+    rev = cols["lo_revenue"].astype(np.int64)
+    npages, nreg = len(CLICKS_PAGES), len(REGIONS)
+
+    def by(codes, m, k):
+        return (np.bincount(codes[m], minlength=k),
+                np.bincount(codes[m], weights=rev[m], minlength=k))
+
+    asia, europe = REGIONS.index("ASIA"), REGIONS.index("EUROPE")
+    ts = cols["ts"]
+    d = haversine_oracle(cols["lat"], cols["lng"], *GEO_CENTRE)
+    step_of = np.full(npages, -1)
+    for k, u in enumerate(MAXSTEP_STEPS):
+        step_of[CLICKS_PAGES.index(u)] = k
+    ev = step_of[page] >= 0
+    return {
+        "c_eq": by(page, region == asia, npages),
+        "c_in": by(region, (region == asia) | (region == europe), nreg),
+        "c_range": by(page, (ts >= CLICKS_RANGE[0]) & (ts <= CLICKS_RANGE[1]),
+                      npages),
+        "c_geo": by(page, d < GEO_RADIUS_M, npages),
+        "c_funnel": [[np.unique(cols["user_id"][
+            (region == r) & (page == CLICKS_PAGES.index(u))])
+            for u in FUNNEL_STEPS] for r in range(nreg)],
+        "c_maxstep": (ts[ev], step_of[page[ev]].astype(np.int8),
+                      region[ev].astype(np.int8)),
+    }
+
+
+def _max_step(ts, step, nsteps, window) -> int:
+    """The longest step prefix inside one window from any step-0 event,
+    by brute force over the (ts, step)-sorted events."""
+    order = np.lexsort((step, ts))
+    ts, step = ts[order].tolist(), step[order].tolist()
+    best = 0
+    for k in range(len(ts)):
+        if step[k] != 0:
+            continue
+        got, j = 0, k
+        while j < len(ts) and ts[j] < ts[k] + window:
+            if step[j] == got:
+                got += 1
+                if got == nsteps:
+                    return nsteps
+            j += 1
+        best = max(best, got)
+    return best
+
+
+def clicks_oracle(parts: list) -> dict:
+    """Every clicks query's rows from the segments' partials."""
+    out = {}
+    for q, keys in (("c_eq", CLICKS_PAGES), ("c_in", REGIONS),
+                    ("c_range", CLICKS_PAGES), ("c_geo", CLICKS_PAGES)):
+        n = sum(p[q][0] for p in parts)
+        v = sum(p[q][1] for p in parts)
+        out[q] = sorted([keys[k], int(n[k]), float(v[k])]
+                        for k in range(len(keys)) if n[k])
+    rows = []
+    for r, name in enumerate(REGIONS):
+        sets = [np.unique(np.concatenate([p["c_funnel"][r][k]
+                                          for p in parts]))
+                for k in range(len(FUNNEL_STEPS))]
+        run, counts = None, []
+        for s in sets:
+            run = s if run is None else np.intersect1d(run, s)
+            counts.append(int(len(run)))
+        rows.append([name, counts])
+    out["c_funnel"] = sorted(rows)
+    ts, step, region = (np.concatenate([p["c_maxstep"][k] for p in parts])
+                        for k in range(3))
+    out["c_maxstep"] = sorted(
+        [name, _max_step(ts[region == r], step[region == r],
+                         len(MAXSTEP_STEPS), MAXSTEP_WINDOW_MS)]
+        for r, name in enumerate(REGIONS))
+    return out
+
+
 def build_index_segment(task):
     """Build one segment of `ssb_st`, `events` or `vecs` (a worker of
     index_tables' process pool): (table, seconds, the rows the query
@@ -1795,7 +1994,13 @@ def build_index_segment(task):
     table, i, seed, part, path, extra = task
     t0 = time.perf_counter()
     out = None
-    if table == ST_TABLE:
+    if table == CLICKS_TABLE:
+        schema = Schema.build(table, dimensions=CLICKS_DIMS,
+                              metrics=CLICKS_METRICS)
+        cfg = IndexingConfig(**CLICKS_INDEXING)
+        cols, page, region = clicks_columns(i, part)
+        out = clicks_partials(cols, page, region)
+    elif table == ST_TABLE:
         schema = Schema.build(table, dimensions=SCHEMA_DIMS,
                               metrics=SCHEMA_METRICS)
         cfg = IndexingConfig(no_dictionary_columns=RAW_COLUMNS,
@@ -1859,6 +2064,9 @@ def submit_index_builds(args, tmp: str, pool) -> dict:
                {k: v[i * vec_rows:(i + 1) * vec_rows] for k, v in vec.items()},
                f"{tmp}/{VEC_TABLE}_{i}", (centres, query))
               for i in range(INDEX_SEGMENTS)]
+    tasks += [(CLICKS_TABLE, i, CLICKS_SEED, CLICKS_ROWS,
+               f"{tmp}/{CLICKS_TABLE}_{i}", None)
+              for i in range(INDEX_SEGMENTS)]
     return {"t0": time.perf_counter(), "ev": ev, "query": query,
             "futures": [pool.submit(build_index_segment, t) for t in tasks]}
 
@@ -1879,11 +2087,13 @@ def index_tables(args, cols: dict, tmp: str, pool, pending: dict):
         ST_TABLE, i, args.seed,
         {k: v[i * per:(i + 1) * per] for k, v in cols.items()},
         f"{tmp}/{ST_TABLE}_{i}", None)) for i in range(args.segments)]
-    seconds, hits, exact = {}, {}, {}
+    seconds, hits, exact, clicks = {}, {}, {}, {}
     for fut in pending["futures"] + futures:
         table, i, s, out = fut.result()
         seconds.setdefault(table, []).append(s)
-        if table == EVENTS_TABLE:
+        if table == CLICKS_TABLE:
+            clicks[i] = out
+        elif table == EVENTS_TABLE:
             for q, m in out.items():
                 hits.setdefault(q, []).append(m)
         elif table == VEC_TABLE:
@@ -1894,13 +2104,17 @@ def index_tables(args, cols: dict, tmp: str, pool, pending: dict):
                                           metrics=[("lo_revenue", "INT")]),
                VEC_TABLE: Schema.build(VEC_TABLE, dimensions=[
                    ("d_year", "INT"), ("emb", "FLOAT", False)],
-                   metrics=[("lo_revenue", "INT")])}
+                   metrics=[("lo_revenue", "INT")]),
+               CLICKS_TABLE: Schema.build(CLICKS_TABLE,
+                                          dimensions=CLICKS_DIMS,
+                                          metrics=CLICKS_METRICS)}
     tables = {t: (schemas[t], [load_segment(f"{tmp}/{t}_{i}")
                                for i in range(len(seconds[t]))])
               for t in schemas}
     expected, views = st_oracle(cols, args.segments, per)
     expected.update(events_oracle(pending["ev"], {q: np.concatenate(m)
                                                   for q, m in hits.items()}))
+    expected.update(clicks_oracle([clicks[i] for i in sorted(clicks)]))
     emit({"phase": "index_data",
           "tables": {t: {"segments": len(s), "rows_per_segment": s[0].num_docs,
                          "star_tree_rows": [v.num_docs for x in s
@@ -6691,6 +6905,214 @@ def phase_batch_ingest(args, torch, tmp, inputs, _cuda, mxu, fg, card) -> dict:
     return {"recs": recs, "parity": parity, "launches": launches}
 
 
+QUICKSTART_ROWS = 100_000  # tools/admin.py quickstart's default
+HOST_THREADS = 4  # the host engine's worker threads (num_threads)
+
+
+def quickstart_oracle(rows: int) -> list:
+    """tools/admin.py quickstart's three demo answers by numpy over its
+    columns."""
+    from pinot_tpu_torch.tools.admin import quickstart_segments
+
+    segs = quickstart_segments(rows)
+    c = {k: np.concatenate([s[k] for s in segs]) for k in segs[0]}
+    runs = {t: float(c["runs"][c["teamID"] == t].sum())
+            for t in sorted(set(c["teamID"].tolist()))}
+    years = sorted({int(y) for y in c["yearID"].tolist() if y >= 2015})
+    return [[[len(c["runs"])]],
+            [[t, v] for t, v in sorted(runs.items(), key=lambda kv: -kv[1])
+             ][:5],
+            [[y, float(c["homeRuns"][c["yearID"] == y].max())]
+             for y in years][:10]]
+
+
+def phase_host_engine(args, torch, qe, tables, expected, _cuda, mxu, fg, tmp,
+                      card) -> dict:
+    """The host engine (engine/host_executor.py, engine/funnel.py, the
+    index readers) and QueryExecutor's backends on the card's host: under
+    backend "host", q1 and q2_family over `ssb` and the clicks queries, no
+    dispatch and no launch, each timed once; under "auto", the clicks
+    queries (the device-planned ones one family dispatch and one launch of
+    kernel A each, the funnels and the geo filter on the host) and
+    RT_AUTO_SQL over `ssb_rt` (the committed family one launch of kernel
+    A, the refused consuming snapshot on the host engine); every row
+    against its numpy oracle, every launch against its plain version.
+    Then a PurgeTask over a raw STRING filter (the planner refuses it, the
+    host engine evaluates it) on a card server and minion, the purged
+    segment's rows against the oracle's; then `python -m
+    pinot_tpu_torch.tools.admin quickstart --once` in a child process, its
+    servers on the card, its demo rows against the oracle."""
+    from pinot_tpu_torch.cluster import (ClusterController, PropertyStore,
+                                         ServerInstance)
+    from pinot_tpu_torch.engine.host_executor import HostSegmentExecutor
+    from pinot_tpu_torch.engine.query_executor import QueryExecutor
+    from pinot_tpu_torch.minion import MinionInstance, PinotTaskManager
+    from pinot_tpu_torch.minion import tasks as mtasks
+    from pinot_tpu_torch.segment.builder import SegmentBuilder
+    from pinot_tpu_torch.segment.loader import load_segment
+    from pinot_tpu_torch.spi.data_types import Schema
+    from pinot_tpu_torch.spi.table_config import IndexingConfig, TableConfig
+
+    t_phase = time.perf_counter()
+    # the admin CLI's quickstart in a child process, its servers on the
+    # card, while this process runs the host engine's queries
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get(
+        "PYTHONPATH", ""), TMPDIR=tmp)
+    child = subprocess.Popen(
+        [sys.executable, "-m", "pinot_tpu_torch.tools.admin", "quickstart",
+         "--once", "--rows", str(QUICKSTART_ROWS), "--device", DEVICE],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    host = QueryExecutor(device=DEVICE, backend="host",
+                         num_threads=HOST_THREADS)
+    auto = QueryExecutor(device=DEVICE, backend="auto",
+                         num_threads=HOST_THREADS)
+    for name in ("ssb", CLICKS_TABLE):
+        host.add_table(*tables[name])
+    auto.add_table(*tables[CLICKS_TABLE])
+    rt = qe.tables[RT_TABLE]
+    auto.add_table(rt.schema, rt.segments, RT_TABLE)
+    out, recs, launches, parity = {"host": {}, "auto": {}}, {}, {}, {}
+
+    def run(backend, engine, qname, sql, want, ordered=True):
+        _cuda.reset_launches()
+        with recording(mxu, "limb_sums") as a_calls, \
+                recording(fg, "fused_limb_sums") as b_calls:
+            t0 = time.perf_counter()
+            resp = engine.execute_sql(sql)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        made = dict(_cuda.LAUNCHES)
+        _rows_equal(f"host_engine {backend} {qname}", resp, want, ordered)
+        out[backend][qname] = {
+            "ms": ms, "dispatches": resp.num_device_dispatches,
+            "docs_scanned": resp.num_docs_scanned, "launches": made}
+        return resp, made, list(a_calls), list(b_calls)
+
+    def on_the_device(backend, qname, resp, made, a_calls, b_calls):
+        """One family dispatch and one launch of kernel A, held against its
+        plain version."""
+        if resp.num_device_dispatches != 1 or made != {
+                "limb_sums": 1, "fused_limb_sums": 0} or b_calls:
+            raise AssertionError(f"host_engine {backend} {qname}: "
+                                 f"{resp.num_device_dispatches} dispatches, "
+                                 f"launches {made}")
+        recs[qname], launches[qname] = a_calls, made
+        parity[qname] = check_equal(
+            torch, f"limb_sums host_engine {qname}",
+            mxu.limb_sums(*a_calls[0]), mxu.limb_sums_plain(*a_calls[0]))
+        out[backend][qname]["family"] = list(a_calls[0][0].shape)
+        out[backend][qname]["kernel_G"] = int(a_calls[0][2])
+
+    try:
+        for qname in HOST_SSB_QUERIES:
+            run("host", host, qname, QUERIES[qname], expected[qname],
+                qname in ORDERED)
+        for qname, sql in CLICKS_QUERIES.items():
+            run("host", host, qname, sql, expected[qname])
+        for qname, rec in out["host"].items():
+            if rec["dispatches"] or any(rec["launches"].values()):
+                raise AssertionError(f"host_engine host {qname}: {rec}")
+        for qname, sql in CLICKS_QUERIES.items():
+            got = run("auto", auto, qname, sql, expected[qname])
+            if qname in CLICKS_DEVICE:
+                on_the_device("auto", qname, *got)
+            elif got[0].num_device_dispatches or any(got[1].values()):
+                raise AssertionError(f"host_engine auto {qname}: "
+                                     f"{out['auto'][qname]}")
+        on_the_device("auto", "rt_auto", *run(
+            "auto", auto, "rt_auto", RT_AUTO_SQL, expected["rt_q2"], False))
+    finally:
+        del host, auto
+        torch.cuda.empty_cache()
+
+    # -- a PurgeTask over a raw STRING filter --------------------------------
+    t0 = time.perf_counter()
+    schema = Schema.build(PURGE_TABLE, dimensions=CLICKS_DIMS,
+                          metrics=CLICKS_METRICS)
+    cols, page, _ = clicks_columns(0, PURGE_ROWS)
+    seg_dir, work = f"{tmp}/{PURGE_TABLE}_0", f"{tmp}/purge_work"
+    SegmentBuilder(schema, TableConfig(table_name=PURGE_TABLE, indexing=
+                   IndexingConfig(no_dictionary_columns=["url"] + list(
+                       CLICKS_INDEXING["no_dictionary_columns"]))),
+                   f"{PURGE_TABLE}_0").build(cols, seg_dir)
+    purged = np.isin(page, [k for k, u in enumerate(CLICKS_PAGES)
+                            if u.startswith("/c") or u == "/help"])
+    store = PropertyStore()
+    ctl = ClusterController(store)
+    server = ServerInstance(store, "Server_0", device=DEVICE)
+    server.start()
+    try:
+        ctl.add_schema(schema.to_json())
+        table = ctl.create_table({
+            "tableName": PURGE_TABLE, "replication": 1,
+            "taskConfigs": {"PurgeTask": {"purgeFilter": PURGE_FILTER}}})
+        ctl.add_segment(table, f"{PURGE_TABLE}_0",
+                        {"location": seg_dir, "numDocs": PURGE_ROWS})
+        _wait_for(lambda: f"{PURGE_TABLE}_0" in server.segments.get(
+            table, {}), BATCH_WAIT_S, "the purge table's segment loaded")
+        manager = PinotTaskManager(store, ctl)
+        minion = MinionInstance(store, "Minion_0", ctl, work, device=DEVICE)
+        ids = manager.schedule_tasks(table=table, task_type="PurgeTask")
+        _cuda.reset_launches()
+        with recording(HostSegmentExecutor, "_filter_mask") as host_masks, \
+                recording(mtasks, "purge_mask", timed=True) as masks:
+            t1 = time.perf_counter()
+            ran = minion.run_pending_once()
+            task_ms = (time.perf_counter() - t1) * 1e3
+        state = store.get(f"/TASKS/PurgeTask/{ids[0]}") if ids else None
+        if ran != 1 or state["state"] != "COMPLETED" or len(host_masks) != 1:
+            raise AssertionError(f"host_engine purge: ran {ran}, {state}, "
+                                 f"{len(host_masks)} host masks")
+        if state["output"]["purged"] != {f"{PURGE_TABLE}_0":
+                                         int(purged.sum())}:
+            raise AssertionError(f"host_engine purge: {state['output']}, "
+                                 f"{int(purged.sum())} rows expected")
+        after = store.children(f"/SEGMENTS/{table}")
+        kept = load_segment(ctl.segment_metadata(table, after[0])["location"])
+        for c, v in cols.items():
+            if not np.array_equal(kept.get_values(c), v[~purged]):
+                raise AssertionError(f"host_engine purge: column {c} of "
+                                     f"{after} differs from the oracle's")
+        if any(_cuda.LAUNCHES.values()):
+            raise AssertionError(f"host_engine purge: {_cuda.LAUNCHES}")
+        out["purge"] = {"rows": PURGE_ROWS, "purged": int(purged.sum()),
+                        "filter": PURGE_FILTER, "task_ms": task_ms,
+                        "mask_ms": sum(t for _, t in masks),
+                        "seconds": time.perf_counter() - t0}
+    finally:
+        server.stop()
+
+    # -- the quickstart child's demo rows ------------------------------------
+    t0 = time.perf_counter()
+    try:
+        stdout, stderr = child.communicate(timeout=CHILD_START_S + 120)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"host_engine quickstart: exit "
+                             f"{child.returncode}: {stderr[-2000:]}")
+    demo = [json.loads(line.split("json: ", 1)[1])
+            for line in stdout.splitlines() if line.startswith("  json: ")]
+    if demo != quickstart_oracle(QUICKSTART_ROWS):
+        raise AssertionError(f"host_engine quickstart: demo rows {demo}")
+    if stdout.count(f"({DEVICE}") < 2:
+        raise AssertionError("host_engine quickstart: servers not on the "
+                             f"card: {stdout[:400]}")
+    out["quickstart"] = {"rows": QUICKSTART_ROWS, "demo_queries": len(demo),
+                         "waited_s": time.perf_counter() - t0,
+                         "process_s": time.perf_counter() - t_phase}
+    emit(dict({"phase": "host_engine", "card": card, "oracle": "equal",
+               "seconds": time.perf_counter() - t_phase,
+               "note": "host clock, one run a query ending in a "
+                       "synchronize; launches counted from 0 before each"},
+              **out))
+    return {"recs": recs, "launches": launches, "parity": parity}
+
+
 def phase_doctor(card) -> None:
     """The GPU probe (tools/doctor.py) in its supervised child: it must
     classify `ok`."""
@@ -6939,7 +7361,7 @@ def phase_mse(torch, qe, expected, _cuda, interp, mxu, iters, card) -> dict:
     if [list(r) for r in resp.result_table.rows] != expected["f13"] or \
             not resp.mse_stage_stats or resp.num_device_dispatches == 0 \
             or resp.num_docs_scanned != sum(
-                seg.num_docs for seg in qe._table("ssb").segments):
+                seg.num_docs for seg in qe._table(FORMATS_TABLE).segments):
         raise AssertionError(f"f13: {resp.result_table.rows} against the "
                              f"oracle's {expected['f13']}, {f13}")
     emit({"phase": "mse", "oracle": "equal", "f13": f13,
@@ -7253,12 +7675,19 @@ def cuda_ms(torch, fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
+# profiler windows device_ms may take to see its launches (5 before phase
+# host_engine joined the run; the profiler has kept as few as 17 of 100
+# launch events of one kernel A row in 5)
+PROFILE_WINDOWS = 10
+
+
 def device_ms(torch, fns, kernel, iters=20):
     """The kernel's own device time per launch: torch.profiler's
     self_device_time_total of the CUDA kernel named `kernel`, over `iters`
     calls cycling through `fns` (one per input of the row's L2 pool). The profiler
     may drop some of a window's kernel events: the mean is over the events
-    it kept, gathered over up to 5 windows until `iters` are in. With
+    it kept, gathered over up to PROFILE_WINDOWS windows until `iters` are
+    in. With
     `kernel` None: every CUDA event of one window (an op of several kernels
     and copies), per call."""
     from torch.profiler import ProfilerActivity, profile
@@ -7267,7 +7696,7 @@ def device_ms(torch, fns, kernel, iters=20):
         fn()
     torch.cuda.synchronize()
     total_us, count, seen = 0.0, 0, set()
-    for _ in range(5):
+    for _ in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
@@ -7285,7 +7714,8 @@ def device_ms(torch, fns, kernel, iters=20):
             break
     if count < iters:
         raise AssertionError(f"profiler saw {count} launches of {kernel} "
-                             f"in 5 windows of {iters}: {sorted(seen)}")
+                             f"in {PROFILE_WINDOWS} windows of {iters}: "
+                             f"{sorted(seen)}")
     return total_us / 1e3 / count
 
 
@@ -7638,7 +8068,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rows-per-segment", type=int, default=1 << 23)
     ap.add_argument("--segments", type=int, default=4)
     ap.add_argument("--iters", type=int, default=3)
-    ap.add_argument("--events-rows", type=int, default=1 << 20,
+    # 2^20 before phase host_engine joined the run: the JSON and text
+    # index builds are host Python, and phase index_data waits for them
+    # after phase data
+    ap.add_argument("--events-rows", type=int, default=1 << 19,
                     help="rows of each of the 4 `events` segments")
     ap.add_argument("--vec-rows", type=int, default=1 << 16,
                     help="rows of each of the 4 `vecs` segments")
@@ -7745,7 +8178,9 @@ def main(argv=None) -> int:
         expected.update(timeseries_oracle(cols, dates))
         expected.update(mse_oracle(cols))
         expected["mse_agg"] = expected["q2"]
-        expected["f13"] = f13_oracle(cols)
+        expected["f13"] = f13_oracle({c: np.concatenate(
+            [p[c] for p in formats_parts]) for c in ("s_region",
+                                                     "lo_revenue")})
         del cols, taxi_cols, tags, dates
         tables.update(index)
         expected.update(index_expected)
@@ -7809,6 +8244,30 @@ def main(argv=None) -> int:
                 mxu_groupby.limb_sums_plain(planes, gid, G))
         torch.cuda.empty_cache()
         phase_explain(torch, qe, expected, dev["nvidia_smi"])
+        host_engine = phase_host_engine(
+            args, torch, qe, tables, expected, _cuda, mxu_groupby,
+            fused_groupby, tmp, dev["nvidia_smi"])
+        for qname, err in host_engine["parity"].items():
+            parity[f"limb_sums/host_engine_{qname}_inputs/family"] = err
+        # phase host_engine's launches under backend "auto": kernel A over
+        # the family of the 4 `clicks` segments for each query the device
+        # plans, and over ssb_rt's committed family beside the snapshot the
+        # host engine answers; timed right after the phase (timed at the
+        # end of a run, the profiler kept 17 of 100 of these launches'
+        # events once)
+        host_rows = []
+        for qname, rec in host_engine["recs"].items():
+            what = (f"the family of the {INDEX_SEGMENTS} `{CLICKS_TABLE}` "
+                    "segments" if qname != "rt_auto" else
+                    f"`{RT_TABLE}`'s committed family of {len(segments)} "
+                    "segments (its consuming snapshot on the host engine)")
+            host_rows.append(kernel_a_row(
+                torch, mxu_groupby, _cuda, rec,
+                host_engine["launches"][qname]["limb_sums"],
+                host_engine["parity"][qname],
+                f"host_engine {qname} under backend auto: {what}, one "
+                "launch"))
+        del host_engine
         cluster = phase_cluster(args, torch, qe, tmp, tables["ssb"][0],
                                 expected, _cuda, interp, mxu_groupby,
                                 fused_groupby, dev["nvidia_smi"])
@@ -8002,6 +8461,7 @@ def main(argv=None) -> int:
                 f"tags) over the family of {len(segments)} `{TIME_TABLE}` "
                 "segments, one launch"))
         del timeseries
+        kernels += host_rows
         # a coalesced group's launch: one for the Q queries' S * Q members
         for q, rec in group_inputs.items():
             kernels.append(kernel_a_row(

@@ -763,7 +763,8 @@ class ServerRestServer(_RestServer):
         return 200, {"instanceId": self.server.instance_id,
                      "host": host, "port": port,
                      "tags": self.server.tags,
-                     "device": str(self.server.device)}
+                     "device": str(self.server.device),
+                     "backend": self.server.backend}
 
     def _table_segments(self, table: str):
         segs = self.server.segments.get(table)

@@ -11,9 +11,12 @@ contract.
 
 A server runs its segments through the port's QueryExecutor on its device:
 "cuda" by default (construction raises without an H100-class card), "cpu"
-only when asked for (the tests). A query that fails on the server goes
-back to the broker as the handler's error (transport RemoteError); there
-is no CPU fallback. Each server's executor has its own device cache, so
+only when asked for (the tests), under the executor's `backend`: "device"
+by default, "host" (every segment on the host engine; warmOnLoad uploads
+nothing) or "auto" (a segment the planner refuses on the host engine). A
+query that fails on the server goes back to the broker as the handler's
+error (transport RemoteError); no backend hides a device fault behind the
+host engine. Each server's executor has its own device cache, so
 in-process replicas each upload their own planes, and a dropped segment's
 views, stacks and partials are released from this server's cache by name.
 
@@ -25,7 +28,8 @@ exchanges mailbox blocks with the other servers and the broker.
 A segment loads under its table's config: the bloom filters the config
 asks for and the segment was written without are built at load
 (segment/loader.py backfill_indexes; reference SegmentPreProcessor), so
-adding one to a live table prunes its old segments too.
+adding one to a live table prunes its old segments too; so are the
+inverted, range, JSON, text, vector and geo indexes it asks for.
 
 With PINOT_TPU_TRACE_SAMPLE set, a shard whose query id the broker's
 head sampling picks is traced here too (spi/trace.py `sample_decision`),
@@ -172,13 +176,15 @@ class ServerInstance:
                  device="cuda", tags: Optional[list[str]] = None,
                  max_concurrent_queries: int = 8,
                  local_storage_mb: Optional[float] = None,
-                 auto_repair: bool = True):
+                 auto_repair: bool = True, backend: str = "device"):
         self.store = store
         self.instance_id = instance_id
         self.tags = tags or ["DefaultTenant"]
-        # raises without a usable card unless the caller asked for the CPU
-        self.executor = QueryExecutor(device=device)
+        # raises without a usable card unless the caller asked for the CPU;
+        # `backend` is QueryExecutor's ("device", "host" or "auto")
+        self.executor = QueryExecutor(device=device, backend=backend)
         self.device = self.executor.device
+        self.backend = backend
         # tiered storage: the byte-budgeted local disk tier beneath the
         # device plane cache. Every locally materialized segment directory
         # (converge load, cold lazy load, repair re-fetch) goes through
@@ -862,10 +868,10 @@ class ServerInstance:
         schema = Schema.from_json(schema_json)
         segments = list(self.segments[table].values())
         cfg = self.store.get(f"/CONFIGS/TABLE/{table}") or {}
-        if cfg.get("warmOnLoad"):
+        if cfg.get("warmOnLoad") and self.backend != "host":
             # pre-upload column planes off the convergence thread
             # (reference: segment preload on load; the first query skips
-            # the host-to-device copies)
+            # the host-to-device copies); the host engine reads no plane
             threading.Thread(target=self._warm, args=(table, segments),
                              daemon=True, name=f"warm-{table}").start()
         if cfg.get("isDimTable") and schema.primary_key_columns:
@@ -1110,6 +1116,7 @@ class ServerInstance:
             segs = [hosted[n] for n in names if n in hosted]
         rt = explain_plan(query, SimpleNamespace(segments=segs),
                           self.executor.pruner, self.executor.executor.packed_on,
+                          backend=self.executor.backend,
                           use_star_tree=self.executor.use_star_tree)
         return {"columns": rt.schema.column_names,
                 "types": rt.schema.column_types, "rows": rt.rows}

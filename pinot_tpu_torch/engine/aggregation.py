@@ -20,10 +20,13 @@ package sends a query to its host engine (the matrix-shaped MV functions
 such as DISTINCTCOUNTMV and PERCENTILEMV, the matrix-shaped functions over
 a multi-value column, EXPRMIN and the other object-valued functions,
 nullable operands of the non-filterable functions under
-enableNullHandling, a FILTER clause over them), the port's planner
-raises UnsupportedQueryError, and QueryExecutor.execute_sql retries the
+enableNullHandling, a FILTER clause over them, the FUNNEL family), the
+port's planner raises UnsupportedQueryError. Under QueryExecutor's
+backend "host" or "auto" the host engine (engine/host_executor.py) then
+answers the segment; under the default "device", execute_sql retries the
 query on the multi-stage engine, as the JAX package does under
-backend="tpu": `get_semantics` and `host_state_full` know those functions.
+backend="tpu". `get_semantics` and `host_state_full` know those functions,
+and `semantics_for` the funnels (engine/funnel.py).
 """
 
 from __future__ import annotations
@@ -40,11 +43,15 @@ from ..query.expressions import ExpressionContext, FunctionContext
 from ..utils.sketches import (HyperLogLog, SmartDistinctSet, TDigest,
                               ThetaSketch, ValueHist)
 from . import ir
+# funnel.py imports this module only inside funnel_semantics: no cycle
+from .funnel import FUNNEL_FNS
 
 
 class UnsupportedQueryError(Exception):
-    """A query shape this port does not lower to the device. There is no
-    other engine to answer it: the query fails with this error."""
+    """A query shape this port does not lower to the device. Under
+    QueryExecutor's default backend "device" the query fails with it (and
+    execute_sql retries it on the multi-stage engine); under "auto" the
+    segment answers on the host engine (engine/host_executor.py)."""
 
 
 class MultistageRefusal(UnsupportedQueryError):
@@ -143,6 +150,10 @@ def semantics_for(expr: ExpressionContext) -> AggSemantics:
     fn = expr.function
     if fn.name == "filter":  # FILTER (WHERE ...) wrapper: inner semantics
         return semantics_for(fn.arguments[0])
+    if fn.name in FUNNEL_FNS:  # funnel args are not (data, literal*)
+        from .funnel import funnel_semantics
+
+        return funnel_semantics(fn)
     _, extra = split_args(fn)
     return get_semantics(fn.name, extra)
 
@@ -573,9 +584,9 @@ def lower_aggregation(ctx: AggPlanContext, expr: ExpressionContext,
                            outs[_i][gids].astype(float), outs[_c][gids]),
                        tag))
 
-    # the branches below have no device form that skips null rows: the JAX
-    # package answers a nullable operand under advanced null handling on
-    # its host engine, which this port does not have
+    # the branches below have no device form that skips null rows: a
+    # nullable operand under advanced null handling answers on the host
+    # engine (engine/host_executor.py), as in the JAX package
     for a in data:
         if ctx._null_cond_for(a) is not None:
             raise UnsupportedQueryError(

@@ -11,11 +11,15 @@ segments' tables merge (SERVER_COMBINE) and how many batch families the
 segments form (SEGMENT_BATCH). Planning is host-only: an EXPLAIN gives the
 same rows on every device.
 
-Where the port differs: a shape the segment planner refuses renders
-UNSUPPORTED(...), since the port has no host engine to answer it (the
-JAX package renders HOST_ENGINE(numpy fallback: ...)). The COMBINE row
-counts consuming segments as `consuming(host):N` and plans the immutable
-ones, the reference's wording, as the JAX package does.
+Under QueryExecutor's backend "host" the kernel and its reductions render
+as HOST_KERNEL and HOST_REDUCE, with no kernel B eligibility, no sparse
+device combine and no batch families; a shape the segment planner refuses
+renders HOST_ENGINE(numpy fallback: ...) under "host" and "auto", as in
+the JAX package. Where the port differs: under the default "device" a
+refusal renders UNSUPPORTED(no host engine: ...), since no host engine
+answers it there. The COMBINE row counts consuming segments as
+`consuming(host):N` and plans the immutable ones, the reference's
+wording, as the JAX package does.
 
 `analyze_table` renders an executed run's span tree (spi/trace.py) as the
 same kind of table, each node annotated with its observed stats: the
@@ -38,10 +42,12 @@ from .results import DataSchema, ResultTable
 
 
 def explain_plan(query, table, pruner, packed_on: bool,
+                 backend: str = "device",
                  use_star_tree: bool = True) -> ResultTable:
-    """The plan rows of `query` over `table`'s segments. `packed_on` says
-    whether the device keeps narrow id planes (it shapes the batch family
-    keys SEGMENT_BATCH counts)."""
+    """The plan rows of `query` over `table`'s segments under `backend`
+    ("device", "host" or "auto"). `packed_on` says whether the device
+    keeps narrow id planes (it shapes the batch family keys SEGMENT_BATCH
+    counts)."""
     from ..ops import fused_groupby
 
     # explain what runs: the canonical filter the executor runs
@@ -95,11 +101,13 @@ def explain_plan(query, table, pruner, packed_on: bool,
     try:
         plan = SegmentPlanner(plan_query, plan_seg).plan()
     except UnsupportedQueryError as e:
-        add(f"UNSUPPORTED(no host engine: {e})", cid)
+        add(f"UNSUPPORTED(no host engine: {e})" if backend == "device"
+            else f"HOST_ENGINE(numpy fallback: {e})", cid)
         return _table(rows)
 
+    on_host = backend == "host"
     p = plan.program
-    desc = f"DEVICE_KERNEL(mode:{p.mode}"
+    desc = f"{'HOST' if on_host else 'DEVICE'}_KERNEL(mode:{p.mode}"
     if p.mode in ("group_by", "group_by_sparse"):
         dims = ", ".join(f"{d.column}[card:{d.cardinality}]"
                          for d in plan.group_dims)
@@ -115,7 +123,7 @@ def explain_plan(query, table, pruner, packed_on: bool,
                 desc += ", orderByTrim:exact"
         if p.mv_group_slot is not None:
             desc += ", mvExpansion:true"
-        if fused_groupby.plan(p, None) is not None:
+        if not on_host and fused_groupby.plan(p, None) is not None:
             # kernel B's shape (ops/fused_groupby.py); its use still
             # depends on the planes' dtypes and the LUTs' runs
             desc += ", fusedMxu:eligible"
@@ -129,7 +137,7 @@ def explain_plan(query, table, pruner, packed_on: bool,
         # how the per-segment tables merge: the sparse device merge, the
         # columnar merge, or the per-group dict merge
         vec_ok = all(la.vec is not None for la in plan.lowered_aggs)
-        if (p.mode == "group_by_sparse" and len(kept) > 1
+        if (p.mode == "group_by_sparse" and not on_host and len(kept) > 1
                 and p.group_strides == (1,) and len(p.group_slots) == 1
                 and plan.group_dims and vec_ok
                 and np.issubdtype(np.asarray(
@@ -142,7 +150,7 @@ def explain_plan(query, table, pruner, packed_on: bool,
             impl = "host-dict-merge"
         add(f"SERVER_COMBINE(impl:{impl}, segments:{len(kept)})", cid)
 
-    if implementation and len(kept) > 1:
+    if implementation and not on_host and len(kept) > 1:
         # batch families = device dispatches, over the key the dispatch
         # groups by
         if str(query.query_options.get("segmentBatch")).lower() in (
@@ -169,7 +177,7 @@ def explain_plan(query, table, pruner, packed_on: bool,
         # count and registers no device op of its own
         add(f"AGGREGATE(fn:{a})", kid)
     for agg in p.aggs:
-        label = f"DEVICE_REDUCE(op:{agg.kind}"
+        label = f"{'HOST' if on_host else 'DEVICE'}_REDUCE(op:{agg.kind}"
         if agg.card is not None:
             label += f", card:{agg.card}"
         if agg.bins is not None:

@@ -1,14 +1,14 @@
 """Index-backed predicates evaluated on the host into doc masks.
 
 The port's copy of pinot_tpu/engine/host_executor.py's `eval_json_match`,
-`eval_map_index_predicate` and `eval_host_mask` (the port has no host
-engine, so it takes only these). JSON_MATCH, TEXT_MATCH and
-VECTOR_SIMILARITY have no vector form over a column plane, and a
-`mapvalue(col, 'key')` predicate over a map index is one compare of a
-dense host plane: the planner (engine/plan.py) evaluates each on the host
-through the segment's index into a boolean doc mask and ships it into the
-device program as an ir.MaskParam plane, as the JAX package's device
-planner does (reference: index-backed filter operators,
+`eval_map_index_predicate` and `eval_host_mask`, shared by the device
+planner and the host engine (engine/host_executor.py). JSON_MATCH,
+TEXT_MATCH and VECTOR_SIMILARITY have no vector form over a column plane,
+and a `mapvalue(col, 'key')` predicate over a map index is one compare of
+a dense host plane: the planner (engine/plan.py) evaluates each on the
+host through the segment's index into a boolean doc mask and ships it
+into the device program as an ir.MaskParam plane, as the JAX package's
+device planner does (reference: index-backed filter operators,
 TextMatchFilterOperator, VectorSimilarityFilterOperator,
 JsonMatchFilterOperator).
 """

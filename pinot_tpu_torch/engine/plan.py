@@ -23,8 +23,9 @@ segment's index into a doc mask, a boolean param plane of the same device
 program (ir.MaskParam), as in the JAX package's device planner.
 
 Shapes the JAX package answers on its host engine raise
-UnsupportedQueryError here (the port has none): the aggregations it does
-not lower, a GROUP BY on a transform of a raw column, a transform of
+UnsupportedQueryError here (QueryExecutor's backend "auto" then answers
+the segment on the port's host engine, engine/host_executor.py): the
+aggregations it does not lower, a GROUP BY on a transform of a raw column, a transform of
 dictionary columns whose cartesian product exceeds the LUT limits, two
 multi-value GROUP BY dimensions, a multi-value aggregation under a
 multi-value GROUP BY. Selecting a multi-value column's values raises too.

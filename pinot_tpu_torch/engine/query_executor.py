@@ -14,10 +14,23 @@ for the query (realtime/device_plane.py: append-only device planes, only
 the rows appended since the last query uploaded). An aggregation that fits
 a segment's star-tree runs over its pre-aggregated rows instead
 (segment/startree.py; `use_star_tree`), through the same planner, families
-and kernels; its states map back to the query's afterwards. Every segment
-runs on the executor's device. There is no host engine
-behind it: a query shape this port does not lower raises
-UnsupportedQueryError, and any other failure raises as well.
+and kernels; its states map back to the query's afterwards.
+
+`backend` says which engine answers a segment. "device" (the default):
+every segment runs on the executor's device, and a shape the planner
+refuses raises UnsupportedQueryError (execute_sql then retries the query
+on the multi-stage engine). "host": every segment runs on the host engine
+(engine/host_executor.py, numpy), with no dispatch, no device combine and
+no columnar multi-stage leaf. "auto": a segment whose plan the planner
+refuses runs on the host engine in the same query, beside the device
+segments, as the reference's default does. Only a planner refusal takes
+that route: a CUDA error, a kernel that fails to build or launch, a device
+OOM past its relief (HbmExhaustedError) or a realtime upload fault
+(RealtimeUploadError) fails the query under every backend, where the
+reference answers an upload fault on its host engine. Host segments run
+on a pool of `num_threads` threads (one: the query's thread), after the
+device work is dispatched and before it is fetched; their
+`segment:<name>` spans nest under the query's.
 
 The segment partial cache (cache/partial.py, on by default as in the JAX
 package) serves a segment's aggregation or group-by partial it holds
@@ -93,11 +106,15 @@ from .explain import analyze_table, explain_plan
 from .executor import (BatchFamilyMismatch, SegmentExecutor,
                        batch_family_key, dispatch_counters,
                        reset_dispatch_counters)
+from .host_executor import HostSegmentExecutor
 from .oom import HbmExhaustedError, with_oom_retry
 from .pruner import SegmentPrunerService
 from .reduce import BrokerReducer
 from .results import (AggIntermediate, BrokerResponse, GroupArrays,
                       GroupByIntermediate, SelectionIntermediate)
+from .scheduler import GLOBAL_ACCOUNTANT
+
+BACKENDS = ("device", "host", "auto")
 
 
 class ReduceRefused(MultistageRefusal):
@@ -112,6 +129,21 @@ def _group_arrays_bytes(ga: GroupArrays) -> int:
     return int(sum(np.asarray(k).nbytes for k in ga.key_cols)
                + sum(np.asarray(c).nbytes
                      for comps in ga.state_cols for c in comps))
+
+
+def _estimate_bytes(inter) -> int:
+    """A host intermediate's footprint for the resource accountant, by the
+    reference's container-size heuristics."""
+    if isinstance(inter, GroupArrays):
+        return _group_arrays_bytes(inter) + 64
+    if isinstance(inter, GroupByIntermediate):
+        width = 1 + max((len(v) for v in inter.groups.values()), default=0)
+        return 64 * width * len(inter.groups)
+    if isinstance(inter, SelectionIntermediate):
+        return 32 * max(1, len(inter.columns)) * len(inter.rows)
+    if isinstance(inter, AggIntermediate):
+        return 64 * max(1, len(inter.states))
+    return 64
 
 
 def _opted_out(query: QueryContext, option: str) -> bool:
@@ -174,6 +206,8 @@ class PlannedQuery:
     t0: float
     # plan_query's cancel and deadline check, None with neither
     check: Optional[Callable[[int], None]] = None
+    # the resource tracker (engine/scheduler.py) host segments charge
+    tracker: object = None
 
 
 @dataclass
@@ -187,15 +221,26 @@ class QueryExecutor:
     """Executes SQL over registered tables on one device: "cuda" (the
     default; construction raises unless an H100-class device, compute
     capability (9, 0), is present) or "cpu" (the kernels' plain PyTorch
-    versions, used by the tests)."""
+    versions, used by the tests). `backend`: "device" (the default),
+    "host" or "auto" (the module docstring); `num_threads`: the host
+    engine's worker threads."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", backend: str = "device",
+                 num_threads: int = 1):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
         device = torch.device(device)
         if device.type == "cuda":
             _cuda.require_cuda(device)
         elif device.type != "cpu":
             raise ValueError(f"unsupported device {device}")
         self.device = device
+        self.backend = backend
+        self.host = HostSegmentExecutor()
+        # above 1, host segments run on a worker pool (the reference's
+        # combine fan-out, GroupByCombineOperator.java:54)
+        self.num_threads = max(1, int(num_threads))
+        self._pool = None
         self.tables: dict[str, Table] = {}
         self.executor = SegmentExecutor(DeviceSegmentCache(device))
         self.pruner = SegmentPrunerService()
@@ -306,6 +351,7 @@ class QueryExecutor:
             t0 = time.perf_counter()
             rt = explain_plan(query, self._table(query.table_name),
                               self.pruner, self.executor.packed_on,
+                              backend=self.backend,
                               use_star_tree=self.use_star_tree)
             return BrokerResponse(
                 result_table=rt,
@@ -358,7 +404,8 @@ class QueryExecutor:
         routes = self.route_segments(query, kept)
         check = self._cancel_check(query, tracker, len(routes), t0)
         return PlannedQuery(query, segments, kept, num_pruned, routes,
-                            self.plan_segments(routes, check), t0, check)
+                            self.plan_segments(routes, check), t0, check,
+                            tracker)
 
     @staticmethod
     def _cancel_check(query: QueryContext, tracker, num_routes: int,
@@ -451,11 +498,27 @@ class QueryExecutor:
         # the table a family's first dispatch persists under (AOT cache)
         aot_cache.set_current_table(query.table_name)
         reset_coalesce_stats()
-        pending = self.dispatch_segments(query, p.routes, p.plans, p.check)
-        inters = self.collect_segments(p.routes, p.plans, pending)
+        dev = [i for i, plan in enumerate(p.plans) if plan is not None]
+        host = [i for i, plan in enumerate(p.plans) if plan is None]
+        routes = [p.routes[i] for i in dev]
+        plans = [p.plans[i] for i in dev]
+        pending = Pending()
+        if dev:
+            # the sparse device combine merges every segment or none
+            pending = self.dispatch_segments(query, routes, plans, p.check,
+                                             device_combine=not host)
+        # the host engine runs while the device works through the launches
+        inters = self._run_host(p, host)
+        if dev:
+            collected = self.collect_segments(routes, plans, pending)
+            if host:
+                for i, inter in zip(dev, collected):
+                    inters[i] = inter
+            else:
+                inters = collected
         with TRACING.scope(ServerQueryPhase.SERVER_COMBINE):
             combined = self._combine(query, inters)
-        if any(getattr(s, "is_mutable", False) for s in p.kept):
+        if any(getattr(r.segment, "is_mutable", False) for r in routes):
             note_realtime_device_query()
         num_dispatches = dispatch_counters()
         peers, wait_ms = coalesce_stats()
@@ -488,6 +551,59 @@ class QueryExecutor:
             "coalesce_wait_ms": wait_ms,
         }
 
+    def _host_pool(self):
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(max_workers=self.num_threads,
+                                            thread_name_prefix="host-engine")
+        return self._pool
+
+    def _run_host(self, p: PlannedQuery, positions: list) -> list:
+        """The intermediates of the routes at `positions` on the host
+        engine, each under its `segment:<name>` span, in a list as long as
+        the routes (None elsewhere). Above one thread they run on the
+        pool, each worker's spans nested under the caller's. Each charges
+        its CPU time and an estimate of its bytes to the query's
+        tracker."""
+        inters: list = [None] * len(p.routes)
+
+        def run(route):
+            cpu0 = time.thread_time_ns()
+            with TRACING.scope(
+                    f"segment:{getattr(route.segment, 'name', '?')}"):
+                inter = self.host.execute(route.query, route.segment)
+            return inter, time.thread_time_ns() - cpu0
+
+        if self.num_threads > 1 and len(positions) > 1:
+            trace, span = TRACING.active_trace(), TRACING.current_span()
+
+            def run_adopted(route):
+                TRACING.adopt(trace, span)
+                try:
+                    return run(route)
+                finally:
+                    TRACING.adopt(None)
+
+            jobs = [self._host_pool().submit(run_adopted, p.routes[i]).result
+                    for i in positions]
+        else:
+            jobs = [lambda i=i: run(p.routes[i]) for i in positions]
+        results = []
+        for done, job in enumerate(jobs):
+            if p.check is not None:
+                p.check(done)
+            results.append(job())
+        for i, (inter, cpu_ns) in zip(positions, results):
+            if p.tracker is not None:
+                p.tracker.add_cpu_ns(cpu_ns)
+                GLOBAL_ACCOUNTANT.on_allocation(p.tracker,
+                                                _estimate_bytes(inter))
+            rewrite = p.routes[i].rewrite
+            inters[i] = inter if rewrite is None \
+                else self._remap_star_tree(rewrite, inter)
+        return inters
+
     def execute_selection_columnar(self, query: QueryContext):
         """The multi-stage engine's scan leaf (reference:
         pinot_tpu/engine/query_executor.py:285-371): the filter bitmap of
@@ -507,7 +623,11 @@ class QueryExecutor:
         worker's routed list): None for a shape the row path must run (not
         a plain identifier selection, or one with ordering, DISTINCT,
         offset or null handling, or traced: the row path records the
-        query's spans)."""
+        query's spans; any shape under backend "host", and one the planner
+        refuses under "auto": the row path answers it on the host
+        engine)."""
+        if self.backend == "host":
+            return None
         if (not query.is_selection or query.distinct
                 or query.group_by_expressions or query.order_by_expressions
                 or query.having_filter is not None or query.offset
@@ -523,7 +643,12 @@ class QueryExecutor:
             segments = self._table(query.table_name).segments
         segments = self.pinned_segments(segments)
         kept, num_pruned = self.prune_segments(query, segments)
-        plans = [self.executor.plan(query, seg) for seg in kept]
+        try:
+            plans = [self.executor.plan(query, seg) for seg in kept]
+        except UnsupportedQueryError:
+            if self.backend == "auto":
+                return None
+            raise
         if any(p.program.mode != "selection" or p.selection_exprs
                for p in plans):
             return None
@@ -607,19 +732,30 @@ class QueryExecutor:
 
     def plan_segments(self, routes: list,
                       check: Optional[Callable[[int], None]] = None) -> list:
-        """Each route's plan; `check(done)`, where given, runs before each
-        (plan_query's cancel and deadline check)."""
+        """Each route's plan, or None for a route the host engine answers:
+        every route under backend "host", a route the planner refuses under
+        "auto" (under "device" the refusal raises). `check(done)`, where
+        given, runs before each (plan_query's cancel and deadline
+        check)."""
         plans = []
         for r in routes:
             if check is not None:
                 check(len(plans))
-            plans.append(self.executor.plan(r.query, r.segment))
+            if self.backend == "host":
+                plans.append(None)
+                continue
+            try:
+                plans.append(self.executor.plan(r.query, r.segment))
+            except UnsupportedQueryError:
+                if self.backend != "auto":
+                    raise
+                plans.append(None)
         return plans
 
     def dispatch_segments(self, query: QueryContext, routes: list,
                           plans: list,
-                          check: Optional[Callable[[int], None]] = None
-                          ) -> Pending:
+                          check: Optional[Callable[[int], None]] = None,
+                          device_combine: bool = True) -> Pending:
         """Launch the query's device work: the sparse device combine when
         it applies, else one dispatch per batch family (a family of one,
         or one that turns out to mismatch, dispatches alone, with the
@@ -628,14 +764,17 @@ class QueryExecutor:
         partial cache on, a segment it holds fills its intermediate and
         never reaches dispatch; the families form over the rest.
         `check(done)`, where given, runs before each family's or lone
-        segment's dispatch (plan_query's cancel and deadline check)."""
+        segment's dispatch (plan_query's cancel and deadline check).
+        `device_combine=False` keeps the sparse device combine off (a query
+        whose other segments answer on the host engine)."""
         segments = [r.segment for r in routes]
         cache_on = bool(routes) and self._segment_cache_enabled(query)
         traced = TRACING.active_trace() is not None
         # a traced run's dispatch spans must describe device work: the
         # cache is bypassed, except under EXPLAIN ANALYZE
         bypass = cache_on and traced and not TRACING.analyze_active()
-        if len(segments) > 1 and all(r.rewrite is None for r in routes):
+        if device_combine and len(segments) > 1 \
+                and all(r.rewrite is None for r in routes):
             merged = self._sparse_device_combine(query, segments, plans,
                                                  cache_on and not bypass)
             if merged is not None:

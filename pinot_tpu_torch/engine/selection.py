@@ -14,17 +14,20 @@ from __future__ import annotations
 import numpy as np
 
 from ..query.transforms import eval_expr_np
+from .aggregation import MultistageRefusal
 from .results import SelectionIntermediate
 
 
 def selection_from_mask(query, segment, columns: list[str], mask: np.ndarray,
-                        extra_exprs: dict | None = None) -> SelectionIntermediate:
+                        extra_exprs: dict | None = None,
+                        evaluator=None) -> SelectionIntermediate:
     """Materialize the selected rows of a boolean doc mask (len num_docs).
 
     ``extra_exprs`` maps labels in ``columns`` to the transform
-    expressions of select or ORDER BY items; each evaluates with numpy
-    over the already filtered (and, without ORDER BY, already capped) doc
-    ids only."""
+    expressions of select or ORDER BY items; each evaluates over the
+    already filtered (and, without ORDER BY, already capped) doc ids only,
+    by ``evaluator(expr, doc_ids)`` where given (the host engine's), else
+    with numpy (`eval_at`)."""
     doc_ids = np.nonzero(mask)[0]
     total = int(doc_ids.shape[0])
     cap = query.offset + query.limit
@@ -33,6 +36,8 @@ def selection_from_mask(query, segment, columns: list[str], mask: np.ndarray,
 
     def column_values(c: str) -> np.ndarray:
         if extra_exprs is not None and c in extra_exprs:
+            if evaluator is not None:
+                return np.asarray(evaluator(extra_exprs[c], doc_ids))
             return eval_at(extra_exprs[c], segment, doc_ids)
         return segment.get_values_at(c, doc_ids)
 
@@ -44,6 +49,9 @@ def selection_from_mask(query, segment, columns: list[str], mask: np.ndarray,
         for ob in reversed(query.order_by_expressions):
             key = (ob.expression.identifier if ob.expression.is_identifier
                    else str(ob.expression))
+            if key not in idx:  # the device planner refuses it earlier
+                raise MultistageRefusal(
+                    "selection ORDER BY must reference selected columns")
             arr = cols[idx[key]].tolist()
             order.sort(key=lambda i, _a=arr: _a[i], reverse=not ob.ascending)
         rows = [rows[i] for i in order[:cap]]
@@ -51,9 +59,10 @@ def selection_from_mask(query, segment, columns: list[str], mask: np.ndarray,
 
 
 def eval_at(e, segment, doc_ids) -> np.ndarray:
-    """A transform expression over a subset of a segment's docs (the
-    reference's HostSegmentExecutor.eval_value_at, without its fallback to
-    a host engine: the planner admits only what eval_expr_np evaluates)."""
+    """A transform expression over a subset of a segment's docs, by the
+    registry's numpy forms: the planner admits only what eval_expr_np
+    evaluates (the host engine passes its own evaluator, which falls back
+    to evaluating the whole column)."""
     out = np.asarray(eval_expr_np(
         e, lambda name: segment.get_values_at(name, doc_ids)))
     if out.ndim == 0:

@@ -10,9 +10,11 @@ the controller (PinotTaskManager), executors on minions.
 The port's copy of pinot_tpu/minion/tasks.py. One executor differs:
 PurgeTask plans its purgeFilter through the port's single-stage planner
 and evaluates it on the segment's device planes (the selection program's
-filter bitmap), on the minion's device, where the JAX package evaluates it
-on its host engine, which the port does not have. A filter that the
-planner refuses fails the task, as an unknown column fails it there.
+filter bitmap), on the minion's device, where the JAX package evaluates
+every filter on its host engine. A filter the planner refuses (one over a
+raw var-width column) is evaluated on the port's host engine
+(engine/host_executor.py), as there; an unknown column fails the task in
+both.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from pathlib import Path
 import numpy as np
 
 from ..cluster.controller import raw_table_name, table_name_with_type
+from ..engine.aggregation import UnsupportedQueryError
 from ..engine.executor import SegmentExecutor
+from ..engine.host_executor import HostSegmentExecutor
 from ..ops.kernels import unpack_outputs
 from ..query.context import QueryContext
 from ..query.expressions import ExpressionContext
@@ -279,10 +283,10 @@ def purge_generator(controller, table: str, cfg: dict) -> list[TaskSpec]:
 
 def purge_mask(segment, fctx, device) -> np.ndarray:
     """The rows of ``segment`` that match ``fctx``, as a bool mask: the
-    single-stage planner lowers the filter (an UnsupportedQueryError where
-    it has no device form), and a selection program evaluates it over the
-    segment's planes on ``device`` (ops/kernels.py _eval_filter) and
-    packs it into the bitmap that one copy brings to the host."""
+    single-stage planner lowers the filter, and a selection program
+    evaluates it over the segment's planes on ``device`` (ops/kernels.py
+    _eval_filter) and packs it into the bitmap that one copy brings to the
+    host. A filter the planner refuses is evaluated on the host engine."""
     col = next(c for c in segment.columns()
                if segment.column_metadata(c).single_value)
     qc = QueryContext(
@@ -291,7 +295,10 @@ def purge_mask(segment, fctx, device) -> np.ndarray:
         aliases=[None], filter=fctx,
         limit=max(1, segment.num_docs)).finish()
     executor = SegmentExecutor(DeviceSegmentCache(device))
-    plan = executor.plan(qc, segment)
+    try:
+        plan = executor.plan(qc, segment)
+    except UnsupportedQueryError:
+        return HostSegmentExecutor()._filter_mask(fctx, segment)
     bitmap = unpack_outputs(executor.dispatch_plan(segment, plan))[0]
     return unpack_bitmap(np.asarray(bitmap), segment.num_docs)
 

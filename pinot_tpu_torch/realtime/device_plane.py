@@ -30,15 +30,16 @@ touches device state. An error fault, or a delay past the upload budget
 and leaves every plane and watermark as it was; an injected corruption
 drops the segment's whole plane set, so the next query uploads it again
 from row 0. The JAX package answers the failed query on its host engine;
-the port has none and does not hide the device, so the query fails with
-that error.
+the port does not hide the device, so the query fails with that error,
+under every QueryExecutor backend.
 
 `RealtimeSegmentPlanner` lowers plans against a pinned `MutableSegmentView`:
 the insertion-ordered mutable dictionary breaks the sorted-id-interval
 RANGE lowering, so ranges lower to value-space boolean LUTs; MV and
-rebased-float planes are refused. The JAX package answers those shapes on
-its host engine; the port has none, so the whole query raises
-UnsupportedQueryError, as it does for `SET realtimeDevicePlanes = false`.
+rebased-float planes are refused, as is every shape under `SET
+realtimeDevicePlanes = false`: UnsupportedQueryError, which QueryExecutor's
+backend "auto" answers on the host engine for that snapshot alone (as the
+JAX package does) and the default "device" raises.
 """
 
 from __future__ import annotations

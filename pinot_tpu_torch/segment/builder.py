@@ -11,14 +11,15 @@ offsets), or CLP (segment/clp.py, `compressionConfigs: {col: "CLP"}` on a
 raw STRING column); dictionary-encoded multi-value columns; forward
 buffers in a PTCC container where `compressionConfigs` names a codec
 (segment/compression.py); partition stamps (`segmentPartitionConfig`,
-spi/partition.py); the bloom filters, JSON, text and vector indexes,
-custom indexes (segment/index_spi.py: the map index) and star-trees
-(segment/startree.py) the table config asks for. The on-disk format and
-its CRCs are the JAX package's, byte for byte, with two exceptions: an
-LZ4 or Snappy buffer holds a literal-only stream (the JAX package's
-native encoder finds matches; both decode to the same bytes), and the
-inverted, range and geo indexes are not built (they feed only the JAX
-package's host engine, which the port does not have).
+spi/partition.py); the inverted (single- and multi-value), raw range,
+bloom, JSON, text, geo and vector indexes, custom indexes
+(segment/index_spi.py: the map index) and star-trees (segment/startree.py)
+the table config asks for. A dictionary column's range index is its
+inverted index (a dictId range is one slice of it); a sorted column's
+sorted index is derived at load and not stored. The on-disk format and
+its CRCs are the JAX package's, byte for byte, with one exception: an LZ4
+or Snappy buffer holds a literal-only stream (the JAX package's native
+encoder finds matches; both decode to the same bytes).
 """
 
 from __future__ import annotations
@@ -41,8 +42,10 @@ from .dictionary import (build_dictionary, deserialize_dictionary,
                          serialize_dictionary)
 from .format import ColumnMetadata, SegmentMetadata, SegmentWriter
 from .index_spi import build_custom_indexes
-from .indexes import (BloomFilter, JsonIndex, TextIndex, VectorIndex,
-                      serialize_bloom, serialize_json_index,
+from .indexes import (BloomFilter, GeoGridIndex, InvertedIndex, JsonIndex,
+                      RawRangeIndex, TextIndex, VectorIndex, serialize_bloom,
+                      serialize_geo_index, serialize_inverted,
+                      serialize_json_index, serialize_raw_range,
                       serialize_text_index, serialize_vector_index)
 from .startree import StarTreeConfig, build_star_tree
 
@@ -115,7 +118,7 @@ class SegmentBuilder:
                 col_metas[name] = self._build_mv_column(
                     writer, name, spec, values, num_docs)
 
-        self._build_indexes(writer, columns)
+        self._build_indexes(writer, columns, col_metas)
         star_tree_metas = self._build_star_trees(writer, col_metas)
 
         num_docs = num_docs or 0
@@ -178,10 +181,10 @@ class SegmentBuilder:
                     progress = True
         return chain
 
-    def _build_indexes(self, writer, columns) -> None:
-        """The bloom filters, the JSON, text and vector indexes and the
-        custom indexes the table config asks for, in the JAX builder's
-        order and bytes (reference: per-column IndexCreators invoked by
+    def _build_indexes(self, writer, columns, col_metas) -> None:
+        """The inverted, range, bloom, JSON, text, vector, geo and custom
+        indexes the table config asks for, in the JAX builder's order and
+        bytes (reference: per-column IndexCreators invoked by
         SegmentColumnarIndexCreator)."""
         idx = self.table_config.indexing
 
@@ -189,6 +192,40 @@ class SegmentBuilder:
             for suffix, arr in bufs:
                 writer.add_buffer(f"{col}.{suffix}", np.ascontiguousarray(arr))
 
+        def dict_ids(col: str, m: ColumnMetadata) -> np.ndarray:
+            return bitpack.unpack(writer.peek_buffer(f"{col}.fwd"),
+                                  m.bits_per_value, m.total_number_of_entries)
+
+        for col in idx.inverted_index_columns:
+            m = col_metas.get(col)
+            if m is None or m.encoding != "DICT":
+                continue
+            inv = InvertedIndex.build(dict_ids(col, m), m.cardinality)
+            if not m.single_value:
+                # the flat entry stream's postings map back to documents:
+                # a doc is posted under every value it holds (reference MV
+                # inverted index)
+                off = writer.peek_buffer(f"{col}.mvoff").view(np.uint32)
+                doc_of_entry = np.repeat(
+                    np.arange(len(off) - 1, dtype=np.int64),
+                    np.diff(off.astype(np.int64)))
+                inv = InvertedIndex(inv.offsets,
+                                    doc_of_entry[inv.docs].astype(np.uint32))
+            add(col, serialize_inverted(inv))
+        for col in idx.range_index_columns:
+            m = col_metas.get(col)
+            if m is None or not m.single_value:
+                continue
+            if m.encoding == "DICT":
+                # a dictionary range rides the inverted index (one slice):
+                # build one unless it was asked for already
+                if f"{col}.inv.off" not in writer.buffer_names():
+                    add(col, serialize_inverted(InvertedIndex.build(
+                        dict_ids(col, m), m.cardinality)))
+            else:
+                raw = writer.peek_buffer(f"{col}.fwd").view(
+                    DataType(m.data_type).numpy_dtype)
+                add(col, serialize_raw_range(RawRangeIndex.build(raw)))
         for col in idx.bloom_filter_columns:
             if col in columns:
                 add(col, serialize_bloom(BloomFilter.build(
@@ -203,6 +240,14 @@ class SegmentBuilder:
             if col in columns:
                 add(col, serialize_vector_index(VectorIndex.build(
                     _vector_matrix(columns[col]))))
+        for cfg in idx.geo_index_configs:
+            lat_col, lng_col = cfg["latColumn"], cfg["lngColumn"]
+            if lat_col in columns and lng_col in columns:
+                add(f"{lat_col}__{lng_col}", serialize_geo_index(
+                    GeoGridIndex.build(
+                        np.asarray(columns[lat_col], dtype=np.float64),
+                        np.asarray(columns[lng_col], dtype=np.float64),
+                        float(cfg.get("resolutionDeg", 0.5)))))
         for name, arr in build_custom_indexes(columns,
                                               idx.custom_index_configs):
             writer.add_buffer(name, np.ascontiguousarray(arr))

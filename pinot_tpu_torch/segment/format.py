@@ -189,6 +189,9 @@ class SegmentWriter:
         if codec and codec.upper() != "PASS_THROUGH":
             self.compress_on_write[name] = codec.upper()
 
+    def buffer_names(self) -> set[str]:
+        return {name for name, _ in self._buffers}
+
     def peek_buffer(self, name: str) -> np.ndarray:
         """Re-read an already-added buffer (the sort-order scan derives from
         the forward index without keeping a second copy of the column)."""

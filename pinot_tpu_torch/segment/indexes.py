@@ -1,19 +1,32 @@
-"""Per-column auxiliary indexes: bloom, JSON, text and vector.
+"""Per-column auxiliary indexes: inverted, sorted, range, bloom, JSON,
+text, geo and vector.
 
-The port's own copy of pinot_tpu/segment/indexes.py for the indexes the
-device path reads: the bloom filter (segment pruning, engine/pruner.py;
-written by segment/builder.py and built at load by
-segment/loader.py backfill_indexes), and the JSON, text and vector indexes behind JSON_MATCH,
-TEXT_MATCH and VECTOR_SIMILARITY. Those predicates have no vector form over
-a column plane: the planner evaluates them here, on the host, into a doc
-mask that rides the device program as a boolean param plane
-(engine/host_masks.py, ir.MaskParam). The buffers are the JAX package's,
-byte for byte, so a segment either builder wrote answers the same in both.
-Reference inventory (SURVEY.md §2.2): bloom/, JsonIndexReader, the Lucene
-text index, the HNSW vector index
+The port's own copy of pinot_tpu/segment/indexes.py. The bloom filter
+prunes segments (engine/pruner.py; written by segment/builder.py and built
+at load by segment/loader.py backfill_indexes). The JSON, text and vector
+indexes answer JSON_MATCH, TEXT_MATCH and VECTOR_SIMILARITY: those
+predicates have no vector form over a column plane, so the planner
+evaluates them here, on the host, into a doc mask that rides the device
+program as a boolean param plane (engine/host_masks.py, ir.MaskParam). The
+inverted, sorted, raw range and geo grid indexes feed the host engine
+(engine/host_executor.py), which answers a filter from them instead of a
+scan. The buffers are the JAX package's, byte for byte, so a segment
+either builder wrote answers the same in both.
+
+The inverted index is CSR over (dictId -> ascending docIds). Posting
+lists lie in ascending dictId order, so a dictId range is one contiguous
+slice: for dict columns it doubles as the range index. A raw column's
+range index is (sorted values, argsort permutation): a value range
+binary-searches to one slice of the permutation. The geo index is a
+uniform lat/lng grid (the reference's H3 cells; H3 is not a dependency):
+candidate cells covering the query circle, then an exact haversine
+refinement of their docs.
+
+Reference inventory (SURVEY.md §2.2): BitmapInvertedIndexReader,
+BitSlicedRangeIndexReader, SortedIndexReader, bloom/, JsonIndexReader,
+the Lucene text index, H3IndexReader, the HNSW vector index
 (pinot-segment-local/.../segment/index/readers/).
 """
-
 from __future__ import annotations
 
 import bisect
@@ -24,6 +37,119 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..utils.sketches import hash64_any
+
+# ---------------------------------------------------------------------------
+# Inverted index (CSR): dictId -> sorted docId posting list
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class InvertedIndex:
+    offsets: np.ndarray  # u32[card+1]
+    docs: np.ndarray     # u32[num_docs] grouped by dictId, ascending docId
+
+    @staticmethod
+    def build(dict_ids: np.ndarray, cardinality: int) -> "InvertedIndex":
+        # a stable sort keeps docIds ascending within each dictId
+        order = np.argsort(dict_ids, kind="stable")
+        counts = np.bincount(dict_ids, minlength=cardinality)
+        offsets = np.zeros(cardinality + 1, dtype=np.uint32)
+        np.cumsum(counts, out=offsets[1:])
+        return InvertedIndex(offsets, order.astype(np.uint32))
+
+    def postings(self, dict_id: int) -> np.ndarray:
+        return self.docs[self.offsets[dict_id]:self.offsets[dict_id + 1]]
+
+    def postings_range(self, lo_id: int, hi_id: int) -> np.ndarray:
+        """Every docId with lo_id <= dictId <= hi_id: one contiguous
+        slice."""
+        if hi_id < lo_id:
+            return self.docs[0:0]
+        return self.docs[self.offsets[lo_id]:self.offsets[hi_id + 1]]
+
+    def mask_for_ids(self, ids, num_docs: int) -> np.ndarray:
+        m = np.zeros(num_docs, dtype=bool)
+        for i in ids:
+            m[self.postings(int(i))] = True
+        return m
+
+    def mask_for_range(self, lo_id: int, hi_id: int,
+                       num_docs: int) -> np.ndarray:
+        m = np.zeros(num_docs, dtype=bool)
+        m[self.postings_range(lo_id, hi_id)] = True
+        return m
+
+
+# ---------------------------------------------------------------------------
+# Raw-column range index: sorted values + permutation
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RawRangeIndex:
+    sorted_values: np.ndarray
+    perm: np.ndarray  # u32: sorted_values[i] == raw[perm[i]]
+
+    @staticmethod
+    def build(values: np.ndarray) -> "RawRangeIndex":
+        perm = np.argsort(values, kind="stable")
+        return RawRangeIndex(values[perm], perm.astype(np.uint32))
+
+    def docs_in_range(self, lower, upper, lower_inc=True,
+                      upper_inc=True) -> np.ndarray:
+        lo = 0
+        hi = len(self.sorted_values)
+        if lower is not None:
+            lo = np.searchsorted(self.sorted_values, lower,
+                                 side="left" if lower_inc else "right")
+        if upper is not None:
+            hi = np.searchsorted(self.sorted_values, upper,
+                                 side="right" if upper_inc else "left")
+        return self.perm[lo:hi]
+
+    def mask_in_range(self, num_docs: int, lower, upper, lower_inc=True,
+                      upper_inc=True):
+        m = np.zeros(num_docs, dtype=bool)
+        m[self.docs_in_range(lower, upper, lower_inc, upper_inc)] = True
+        return m
+
+
+# ---------------------------------------------------------------------------
+# Sorted index: for a sorted dict column, dictId -> contiguous [start, end)
+# docId range (the reference's SortedIndexReader reads it off the forward
+# index; nothing is stored)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SortedIndex:
+    # dictId d occupies docs [starts[d], starts[d+1])
+    starts: np.ndarray  # u32[card+1]
+
+    @staticmethod
+    def build(dict_ids: np.ndarray, cardinality: int) -> "SortedIndex":
+        counts = np.bincount(dict_ids, minlength=cardinality)
+        starts = np.zeros(cardinality + 1, dtype=np.uint32)
+        np.cumsum(counts, out=starts[1:])
+        return SortedIndex(starts)
+
+    def doc_range(self, lo_id: int, hi_id: int) -> tuple[int, int]:
+        if hi_id < lo_id:
+            return (0, 0)
+        return int(self.starts[lo_id]), int(self.starts[hi_id + 1])
+
+
+def serialize_inverted(idx: InvertedIndex) -> list[tuple[str, np.ndarray]]:
+    return [("inv.off", idx.offsets), ("inv.docs", idx.docs)]
+
+
+def deserialize_inverted(off: np.ndarray, docs: np.ndarray) -> InvertedIndex:
+    return InvertedIndex(off.view(np.uint32), docs.view(np.uint32))
+
+
+def serialize_raw_range(idx: RawRangeIndex) -> list[tuple[str, np.ndarray]]:
+    return [("rng.sorted", idx.sorted_values), ("rng.perm", idx.perm)]
+
 
 # ---------------------------------------------------------------------------
 # Bloom filter (per-column EQ pruning — reference guava-backed
@@ -571,6 +697,106 @@ def deserialize_text_index(bufs: dict[str, np.ndarray]) -> TextIndex:
                     for i in range(len(terms))]
     return TextIndex(terms, _doc_postings(docs, off[:len(terms) + 1]),
                      pos_postings)
+
+
+# ---------------------------------------------------------------------------
+# Geo grid index (the H3 analogue): lat/lng cells -> postings
+# ---------------------------------------------------------------------------
+
+EARTH_RADIUS_M = 6371008.8
+
+
+def haversine_m(lat1, lng1, lat2, lng2):
+    """Great-circle distance in meters (vectorized)."""
+    lat1, lng1, lat2, lng2 = (np.radians(np.asarray(x, dtype=np.float64))
+                              for x in (lat1, lng1, lat2, lng2))
+    dlat = lat2 - lat1
+    dlng = lng2 - lng1
+    a = np.sin(dlat / 2) ** 2 \
+        + np.cos(lat1) * np.cos(lat2) * np.sin(dlng / 2) ** 2
+    return 2 * EARTH_RADIUS_M * np.arcsin(np.sqrt(np.clip(a, 0, 1)))
+
+
+@dataclass
+class GeoGridIndex:
+    """Fixed-resolution lat/lng grid cells -> doc postings.
+
+    Reference: the H3 hexagon index (H3IndexReader and
+    H3InclusionIndexFilterOperator): the candidate cells that cover the
+    query circle, then an exact haversine refinement of their docs only.
+    Cells here are a uniform grid of `res_deg` degrees."""
+
+    res_deg: float
+    cell_ids: np.ndarray  # sorted unique int64 cell ids
+    offsets: np.ndarray   # CSR into docs
+    docs: np.ndarray
+
+    @staticmethod
+    def cell_of(lat: np.ndarray, lng: np.ndarray,
+                res_deg: float) -> np.ndarray:
+        r = np.int64(np.ceil(360.0 / res_deg))
+        n_lat = np.int64(np.ceil(180.0 / res_deg))
+        la = np.floor((np.asarray(lat, dtype=np.float64) + 90.0)
+                      / res_deg).astype(np.int64)
+        la = np.minimum(la, n_lat - 1)  # lat=+90 lands in the top row
+        lo = np.floor((np.asarray(lng, dtype=np.float64) + 180.0)
+                      / res_deg).astype(np.int64)
+        lo = lo % r  # lng=+180 is the meridian of -180
+        return la * r + lo
+
+    @staticmethod
+    def build(lat: np.ndarray, lng: np.ndarray,
+              res_deg: float = 0.5) -> "GeoGridIndex":
+        cells = GeoGridIndex.cell_of(lat, lng, res_deg)
+        order = np.argsort(cells, kind="stable")
+        uniq, starts = np.unique(cells[order], return_index=True)
+        offsets = np.append(starts, len(cells)).astype(np.uint64)
+        return GeoGridIndex(res_deg, uniq.astype(np.int64), offsets,
+                            order.astype(np.uint32))
+
+    def candidate_docs(self, lat: float, lng: float,
+                       radius_m: float) -> np.ndarray:
+        """Docs in the cells that meet the circle (a superset of the
+        matches)."""
+        deg_lat = np.degrees(radius_m / EARTH_RADIUS_M)
+        cos = max(0.01, np.cos(np.radians(lat)))
+        deg_lng = deg_lat / cos
+        r = np.int64(np.ceil(360.0 / self.res_deg))
+        n_lat = int(np.ceil(180.0 / self.res_deg))
+        la_lo = int(np.floor((lat - deg_lat + 90.0) / self.res_deg))
+        la_hi = int(np.floor((lat + deg_lat + 90.0) / self.res_deg))
+        pole_clip = la_lo < 0 or la_hi >= n_lat  # the circle reaches a pole
+        la_lo, la_hi = max(la_lo, 0), min(la_hi, n_lat - 1)
+        lo_lo = int(np.floor((lng - deg_lng + 180.0) / self.res_deg))
+        lo_hi = int(np.floor((lng + deg_lng + 180.0) / self.res_deg))
+        if pole_clip or lo_hi - lo_lo + 1 >= int(r):
+            lo_cols = np.arange(r, dtype=np.int64)  # every longitude
+        else:
+            # modulo the grid's width: a circle across +-180 degrees keeps
+            # its cells
+            lo_cols = np.arange(lo_lo, lo_hi + 1, dtype=np.int64) % r
+        wanted = np.concatenate([np.int64(la) * r + lo_cols
+                                 for la in range(la_lo, la_hi + 1)])
+        idx = np.searchsorted(self.cell_ids, wanted)
+        idx = idx[idx < len(self.cell_ids)]
+        hit = idx[np.isin(self.cell_ids[idx], wanted)]
+        if not len(hit):
+            return np.empty(0, dtype=np.uint32)
+        return np.concatenate([self.docs[self.offsets[i]:self.offsets[i + 1]]
+                               for i in np.unique(hit)])
+
+
+def serialize_geo_index(idx: GeoGridIndex) -> list[tuple[str, np.ndarray]]:
+    hdr = np.asarray([idx.res_deg], dtype=np.float64)
+    return [("geo.hdr", hdr), ("geo.cells", idx.cell_ids),
+            ("geo.off", idx.offsets), ("geo.docs", idx.docs)]
+
+
+def deserialize_geo_index(bufs: dict[str, np.ndarray]) -> GeoGridIndex:
+    return GeoGridIndex(float(bufs["geo.hdr"].view(np.float64)[0]),
+                        bufs["geo.cells"].view(np.int64),
+                        bufs["geo.off"].view(np.uint64),
+                        bufs["geo.docs"].view(np.uint32))
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ columns, fixed-width or var-byte (STRING, BYTES, JSON: a value stream and
 u64 offsets); CLP log columns (segment/clp.py); any buffer in a PTCC
 container (segment/compression.py: LZ4, SNAPPY, GZIP, ZSTANDARD),
 decompressed once on its first read and cached; bloom filters for pruning;
-the JSON, text, vector and custom (map) indexes, read lazily and cached;
+the inverted, sorted, raw range and geo indexes the host engine reads; the
+JSON, text, vector and custom (map) indexes; each read lazily and cached;
 the star-trees' pre-aggregated views. The on-disk format is shared with
 the JAX package, so either package's builder output loads here.
 
@@ -20,8 +21,8 @@ Var-width and CLP values live on the host only (the planner refuses them
 in a filter, key or value), so a selection decodes just the rows it
 returns (`get_values_at`); a whole-column read decodes once and caches.
 `apply_schema` gives a column the segment predates a virtual default
-column; `backfill_indexes` builds the bloom filters a table config asks
-for and the segment was written without.
+column; `backfill_indexes` builds the indexes a table config asks for
+and the segment was written without.
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ from .compression import decompress_buffer
 from .dictionary import Dictionary, deserialize_dictionary
 from .format import DATA_FILE, ColumnMetadata, SegmentMetadata, read_metadata
 from .index_spi import load_custom_index
-from .indexes import (BloomFilter, JsonIndex, TextIndex, VectorIndex,
-                      deserialize_bloom, deserialize_json_index,
+from .indexes import (BloomFilter, GeoGridIndex, InvertedIndex, JsonIndex,
+                      RawRangeIndex, SortedIndex, TextIndex, VectorIndex,
+                      deserialize_bloom, deserialize_geo_index,
+                      deserialize_inverted, deserialize_json_index,
                       deserialize_text_index, deserialize_vector_index)
 from .startree import StarTreeView
 
@@ -169,15 +172,49 @@ class ImmutableSegment:
             self._nulls[name] = None
 
     def backfill_indexes(self, indexing) -> list[str]:
-        """Build the bloom filters `indexing` (spi/table_config.py
+        """Build the indexes `indexing` (spi/table_config.py
         IndexingConfig) asks for and this segment was written without, in
-        memory, as the JAX package's backfill_indexes does: over the
-        dictionary's values, or a raw column's values. Returns what it
-        built ("bloom:<column>"). The JSON, text and vector indexes build
-        on a query's first need (`or_build`); inverted, range and geo
-        indexes feed only the JAX package's host engine and are not
-        built."""
+        memory, as the JAX package's backfill_indexes does (reference:
+        SegmentPreProcessor's index backfill on load): the inverted index
+        of a dictionary SV column (also for a range index over one), the
+        range index of a raw fixed-width column, the bloom filter (over the
+        dictionary's or the raw column's values), and the JSON, text,
+        vector and geo indexes. Returns what it built ("bloom:<column>",
+        ...)."""
         built = []
+
+        def have(key):
+            return self._indexes.get(key) is not None
+
+        def build_inverted(col, m, label):
+            self._indexes[("inv", col)] = InvertedIndex.build(
+                self.get_dict_ids(col), m.cardinality)
+            built.append(f"{label}:{col}")
+
+        for col in indexing.inverted_index_columns:
+            if not self.has_column(col) or have(("inv", col)) \
+                    or self.get_inverted_index(col) is not None:
+                continue
+            m = self.column_metadata(col)
+            if m.encoding == "DICT" and m.single_value:
+                build_inverted(col, m, "inverted")
+        for col in indexing.range_index_columns:
+            if not self.has_column(col):
+                continue
+            m = self.column_metadata(col)
+            if m.encoding == "DICT":
+                # a dictionary range rides the inverted index, as the
+                # builder decides for rangeIndexColumns
+                if m.single_value and not have(("inv", col)) \
+                        and self.get_inverted_index(col) is None:
+                    build_inverted(col, m, "range(inv)")
+            elif not have(("rng", col)) \
+                    and self.get_range_index(col) is None \
+                    and m.encoding == "RAW" \
+                    and DataType(m.data_type).is_fixed_width:
+                self._indexes[("rng", col)] = RawRangeIndex.build(
+                    self.get_raw(col))
+                built.append(f"range:{col}")
         for col in indexing.bloom_filter_columns:
             if not self.has_column(col) \
                     or self.get_bloom_filter(col) is not None:
@@ -187,6 +224,21 @@ class ImmutableSegment:
                       if m.encoding == "DICT" else self.get_raw(col))
             self._indexes[("bloom", col)] = BloomFilter.build(values)
             built.append(f"bloom:{col}")
+        for kind, cols, get in (
+                ("json", indexing.json_index_columns, self.get_json_index),
+                ("text", indexing.text_index_columns, self.get_text_index),
+                ("vector", indexing.vector_index_columns,
+                 self.get_vector_index)):
+            for col in cols:
+                if self.has_column(col) and get(col) is None:
+                    get(col, or_build=True)
+                    built.append(f"{kind}:{col}")
+        for cfg in indexing.geo_index_configs:
+            lat, lng = cfg.get("latColumn"), cfg.get("lngColumn")
+            if lat and lng and self.has_column(lat) and self.has_column(lng) \
+                    and self.get_geo_index(lat, lng) is None:
+                self.get_geo_index(lat, lng, or_build=True)
+                built.append(f"geo:{lat},{lng}")
         return built
 
     # -- identity ----------------------------------------------------------
@@ -356,6 +408,62 @@ class ImmutableSegment:
     def _bufs(self, column: str, suffixes) -> dict:
         return {s: np.frombuffer(self._buffer(f"{column}.{s}"), dtype=np.uint8)
                 for s in suffixes if self._has_buffer(f"{column}.{s}")}
+
+    def get_inverted_index(self, column: str):
+        """The CSR inverted index (segment/indexes.py; reference
+        BitmapInvertedIndexReader; a dictId range is one slice, so it is
+        the dictionary range index too), or None."""
+        def load():
+            if not self._has_buffer(f"{column}.inv.off"):
+                return None
+            return deserialize_inverted(
+                np.frombuffer(self._buffer(f"{column}.inv.off"),
+                              dtype=np.uint32),
+                np.frombuffer(self._buffer(f"{column}.inv.docs"),
+                              dtype=np.uint32))
+        return self._index(("inv", column), load)
+
+    def get_sorted_index(self, column: str):
+        """A sorted dictionary SV column's dictId -> doc range index,
+        derived from the forward index (nothing is stored; reference
+        SortedIndexReader), or None for any other column."""
+        def load():
+            m = self.column_metadata(column)
+            if not (m.encoding == "DICT" and m.single_value and m.is_sorted):
+                return None
+            return SortedIndex.build(self.get_dict_ids(column),
+                                     m.cardinality)
+        return self._index(("sorted", column), load)
+
+    def get_range_index(self, column: str):
+        """A raw column's range index (sorted values and their
+        permutation), or None."""
+        def load():
+            if not self._has_buffer(f"{column}.rng.perm"):
+                return None
+            dt = DataType(self.column_metadata(column).data_type).numpy_dtype
+            return RawRangeIndex(
+                np.frombuffer(self._buffer(f"{column}.rng.sorted"), dtype=dt),
+                np.frombuffer(self._buffer(f"{column}.rng.perm"),
+                              dtype=np.uint32))
+        return self._index(("rng", column), load)
+
+    def get_geo_index(self, lat_col: str, lng_col: str,
+                      or_build: bool = False):
+        """The geo grid index over (lat_col, lng_col), or (or_build=True)
+        a transient one at the default resolution, built from the columns'
+        values and cached."""
+        pair = f"{lat_col}__{lng_col}"
+
+        def load():
+            if not self._has_buffer(f"{pair}.geo.hdr"):
+                return None
+            return deserialize_geo_index(self._bufs(pair, (
+                "geo.hdr", "geo.cells", "geo.off", "geo.docs")))
+        return self._index(("geo", lat_col, lng_col), load, or_build and (
+            lambda: GeoGridIndex.build(
+                np.asarray(self.get_values(lat_col), dtype=np.float64),
+                np.asarray(self.get_values(lng_col), dtype=np.float64))))
 
     def get_bloom_filter(self, column: str):
         """The column's bloom filter (segment/indexes.py), or None."""

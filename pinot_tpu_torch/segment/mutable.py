@@ -228,7 +228,22 @@ class _NoIndexes:
     """A consuming segment carries no persisted indexes and no star-trees
     (the JAX package's mutable segments answer the same): a TEXT_MATCH,
     VECTOR_SIMILARITY or JSON_MATCH on one raises (engine/host_masks.py),
-    and a `mapvalue` predicate takes the row-wise transform."""
+    a `mapvalue` predicate takes the row-wise transform, and the host
+    engine (engine/host_executor.py) scans where it would read an
+    inverted, sorted, range or geo index."""
+
+    def get_inverted_index(self, column: str):
+        return None
+
+    def get_sorted_index(self, column: str):
+        return None
+
+    def get_range_index(self, column: str):
+        return None
+
+    def get_geo_index(self, lat_col: str, lng_col: str,
+                      or_build: bool = False):
+        return None
 
     def get_bloom_filter(self, column: str):
         return None
@@ -297,6 +312,12 @@ class MutableSegment(_NoIndexes):
     def get_values_at(self, column: str, doc_ids: np.ndarray) -> np.ndarray:
         """Values of a single-value column at `doc_ids` (selection rows)."""
         return self.get_values(column)[doc_ids]
+
+    def get_mv_values(self, column: str) -> list[np.ndarray]:
+        return self._columns[column].mv_snapshot(self._num_docs)
+
+    def get_null_bitmap(self, column: str) -> Optional[np.ndarray]:
+        return _null_bitmap(self._columns[column], self._num_docs)
 
     def read_cell(self, column: str, doc_id: int):
         """Single-cell point read without materializing the column (partial
@@ -429,3 +450,16 @@ class MutableSegmentView(_NoIndexes):
     def get_values_at(self, column: str, doc_ids: np.ndarray) -> np.ndarray:
         """Values of a single-value column at `doc_ids` (selection rows)."""
         return self.get_values(column)[doc_ids]
+
+    def get_mv_values(self, column: str) -> list[np.ndarray]:
+        return self._seg._columns[column].mv_snapshot(self._n)
+
+    def get_null_bitmap(self, column: str) -> Optional[np.ndarray]:
+        """The pinned prefix's null vector, or None when it has no null."""
+        return _null_bitmap(self._seg._columns[column], self._n)
+
+
+def _null_bitmap(col: _MutableColumn, n: int) -> Optional[np.ndarray]:
+    if not col.null_docs or col.null_docs[0] >= n:
+        return None
+    return col.null_slice(0, n)

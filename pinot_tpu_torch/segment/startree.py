@@ -188,7 +188,17 @@ class StarTreeView:
         return None
 
     # no auxiliary indexes on the pre-aggregated table: an index-backed
-    # predicate planned against it raises (engine/host_masks.py)
+    # predicate planned against it raises (engine/host_masks.py), and the
+    # host engine scans the view's columns
+    def get_inverted_index(self, column: str):
+        return None
+
+    def get_sorted_index(self, column: str):
+        return None
+
+    def get_range_index(self, column: str):
+        return None
+
     def get_json_index(self, column: str, or_build: bool = False):
         return None
 
@@ -203,6 +213,9 @@ class StarTreeView:
         if m.encoding == "RAW":
             return self.get_raw(column)
         return self.get_dictionary(column).take(self.get_dict_ids(column))
+
+    def get_mv_values(self, column: str):
+        raise ValueError("star-tree has no MV columns")
 
 
 def agg_column_name(fn: str, col: str) -> str:

@@ -42,10 +42,10 @@ class IndexingConfig:
       JSON, text and vector index columns (segment/indexes.py); custom
       index types by column (segment/index_spi.py: {"colA": {"type":
       "map", ...}}), which, as in the full model, do not ride the JSON form;
-    - 'invertedIndexColumns', 'rangeIndexColumns' and 'geoIndexConfigs'
-      are kept and round-trip, but nothing here builds them: those indexes
-      feed only the JAX package's host engine, which the port does not
-      have."""
+    - 'invertedIndexColumns', 'rangeIndexColumns' and 'geoIndexConfigs':
+      the inverted, range and geo indexes (segment/indexes.py), built by
+      segment/builder.py and at load by backfill_indexes; the host engine
+      (engine/host_executor.py) reads them."""
 
     inverted_index_columns: list[str] = field(default_factory=list)
     range_index_columns: list[str] = field(default_factory=list)

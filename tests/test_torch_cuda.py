@@ -2573,3 +2573,85 @@ def test_purge_mask_on_the_card_equals_cpu(cuda, cluster_segments, flt):
     got = purge_mask(seg, parse_filter_expression(flt), "cuda")
     want = purge_mask(seg, parse_filter_expression(flt), "cpu")
     assert np.array_equal(got, want) and 0 < want.sum() < len(want)
+
+
+# -- the host engine beside the card (backend "auto") -------------------------
+
+AUTO_SQL = [
+    # the consuming snapshot's raw DOUBLE has no rebased plane: the
+    # snapshot answers on the host engine, the committed family on the card
+    "SELECT s_region, PERCENTILETDIGEST(fare, 90), COUNT(*) FROM rt "
+    "GROUP BY s_region ORDER BY s_region",
+    "SELECT s_region, SUM(lo_revenue), COUNT(*) FROM rt "
+    "WHERE ST_DISTANCE(lat, lng, 40.0, -100.0) < 900000 "
+    "GROUP BY s_region ORDER BY s_region",
+    "SELECT s_region, SUM(lo_revenue), MAX(fare) FROM rt "
+    "WHERE s_region IN ('ASIA', 'EUROPE') GROUP BY s_region "
+    "ORDER BY s_region",
+]
+
+
+@pytest.fixture(scope="module")
+def auto_table(tmp_path_factory):
+    dims = [("s_region", "STRING")]
+    mets = [("lo_revenue", "INT"), ("fare", "DOUBLE"), ("lat", "DOUBLE"),
+            ("lng", "DOUBLE")]
+    schema = Schema.build("rt", dimensions=dims, metrics=mets)
+    rng = np.random.default_rng(4242)
+    root = tmp_path_factory.mktemp("torch_cuda_auto")
+    cfg = TableConfig(table_name="rt", indexing=IndexingConfig(
+        no_dictionary_columns=["lo_revenue", "fare", "lat", "lng"],
+        inverted_index_columns=["s_region"],
+        geo_index_configs=[{"latColumn": "lat", "lngColumn": "lng"}]))
+    regions = np.asarray(["AFRICA", "AMERICA", "ASIA", "EUROPE"],
+                         dtype=object)
+
+    def cols(n):
+        return {"s_region": regions[rng.integers(0, 4, n)],
+                "lo_revenue": rng.integers(0, 9000, n).astype(np.int32),
+                "fare": np.round(rng.gamma(3.0, 9.0, n), 2),
+                "lat": rng.uniform(25.0, 49.0, n),
+                "lng": rng.uniform(-124.0, -67.0, n)}
+    paths = []
+    for i in range(2):
+        SegmentBuilder(schema, cfg, f"c{i}").build(cols(1 << 18),
+                                                   root / f"c{i}")
+        paths.append(root / f"c{i}")
+    live_cols = cols(5000)
+    rows = [{k: (v[j].item() if hasattr(v[j], "item") else v[j])
+             for k, v in live_cols.items()} for j in range(5000)]
+    return schema, paths, rows
+
+
+@pytest.mark.parametrize("sql", AUTO_SQL)
+def test_auto_mixed_query_on_the_card_equals_the_cpu(cuda, auto_table, sql):
+    """Under backend "auto" the committed family dispatches on the card,
+    the segments the planner refuses answer on the host engine in the
+    same query; rows, docs scanned and dispatches equal the CPU run's, and
+    every launch of kernel A equals its plain version."""
+    from pinot_tpu_torch.segment.mutable import MutableSegment
+
+    schema, paths, rows = auto_table
+    out = {}
+    for device in ("cpu", "cuda"):
+        live = MutableSegment(schema, "live")
+        for r in rows:
+            live.index(r)
+        qe = QueryExecutor(device=device, backend="auto")
+        qe.add_table(schema, [load_segment(p) for p in paths] + [live])
+        _cuda.reset_launches()
+        with _recording(mxu_groupby, "limb_sums") as a_calls:
+            resp = qe.execute_sql(sql)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        out[device] = (resp, dict(_cuda.LAUNCHES), list(a_calls))
+    (cpu, _, _), (card, launches, a_calls) = out["cpu"], out["cuda"]
+    assert card.result_table.rows == cpu.result_table.rows
+    assert card.num_docs_scanned == cpu.num_docs_scanned
+    assert card.num_device_dispatches == cpu.num_device_dispatches
+    assert launches["limb_sums"] == len(a_calls)
+    if "ST_DISTANCE" in sql:  # every segment on the host engine
+        assert card.num_device_dispatches == 0 and not a_calls
+    else:
+        assert card.num_device_dispatches >= 1 and a_calls
+    _launches_equal_plain(a_calls)

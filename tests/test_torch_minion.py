@@ -10,8 +10,9 @@ outputs, the table's segment list, the lineage replacements the tasks
 started, and the broker's answers, with the timestamps in generated
 segment names taken out. A refresh case covers the eighth task type. The
 purge mask, which the port evaluates with the planner's filter on the
-device planes, must equal the JAX host engine's mask on the same segment
-for every filter shape the port plans. Tolerance: exact.
+device planes (on its host engine for a filter the planner refuses),
+must equal the JAX host engine's mask on the same segment. Tolerance:
+exact.
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ from pinot_tpu.query.parser.sql import \
 from pinot_tpu.segment.loader import load_segment as jax_load
 from pinot_tpu.spi.data_types import Schema as JaxSchema
 from pinot_tpu_torch.engine.aggregation import UnsupportedQueryError
+from pinot_tpu_torch.engine.executor import SegmentExecutor as PlanningExecutor
+from pinot_tpu_torch.query.context import QueryContext
+from pinot_tpu_torch.query.expressions import ExpressionContext
+from pinot_tpu_torch.segment.device_cache import DeviceSegmentCache
 from pinot_tpu_torch.query.parser.sql import parse_filter_expression
 from pinot_tpu_torch.segment.builder import SegmentBuilder
 from pinot_tpu_torch.segment.loader import load_segment
@@ -554,13 +559,39 @@ def test_purge_mask_equals_the_jax_host_mask(mask_segment, flt):
 
 
 def test_purge_filter_over_a_raw_string_fails_the_task(mask_segment):
-    """A deliberate difference: the port's planner has no device form for
-    a filter over a raw var-width column, so its PurgeTask fails on it,
-    where the JAX package's host engine purges the rows."""
+    """A filter over a raw var-width column has no device form: the
+    planner refuses it and the port's PurgeTask evaluates it on its host
+    engine, where the JAX package evaluates every filter; the mask is the
+    JAX host engine's."""
     flt = "tag = 't1'"
     want = HostSegmentExecutor()._filter_mask(jax_parse_filter(flt),
                                               jax_load(mask_segment))
     assert 0 < int(np.sum(want)) < len(want)
     with pytest.raises(UnsupportedQueryError):
-        ptasks.purge_mask(load_segment(mask_segment),
-                          parse_filter_expression(flt), "cpu")
+        PlanningExecutor(DeviceSegmentCache("cpu")).plan(
+            _selection_of(flt), load_segment(mask_segment))
+    got = ptasks.purge_mask(load_segment(mask_segment),
+                            parse_filter_expression(flt), "cpu")
+    assert np.array_equal(got, np.asarray(want, dtype=bool))
+
+
+@pytest.mark.parametrize("flt", [
+    "tag IN ('t0', 't4')",
+    "tag LIKE 't%3' AND day < 20",
+    "tag <> 't2' OR n > 50",
+])
+def test_purge_mask_over_raw_strings_equals_the_jax_host_mask(mask_segment,
+                                                              flt):
+    got = ptasks.purge_mask(load_segment(mask_segment),
+                            parse_filter_expression(flt), "cpu")
+    want = HostSegmentExecutor()._filter_mask(jax_parse_filter(flt),
+                                              jax_load(mask_segment))
+    assert np.array_equal(got, np.asarray(want, dtype=bool))
+    assert 0 < got.sum() < len(got)
+
+
+def _selection_of(flt):
+    return QueryContext(
+        table_name="m", select_expressions=[
+            ExpressionContext.for_identifier("day")], aliases=[None],
+        filter=parse_filter_expression(flt), limit=10).finish()

@@ -431,10 +431,10 @@ def test_server_routes(clusters):
 
     got = _each(clusters, run, kind="server")
     port, jax = got["port"], got["jax"]
-    # the port names its device where the JAX server names its backend,
-    # and its status carries its device listing and device cache
+    # the port names its device beside its backend, and its status
+    # carries its device listing and device cache
     assert port["/instance"][1] == sorted(
-        set(jax["/instance"][1]) - {"backend"} | {"device"})
+        set(jax["/instance"][1]) | {"device"})
     assert set(port["/debug/status"][1]) == set(jax["/debug/status"][1]) | {
         "device", "deviceCache"}
     for key in ("/instance", "/debug/status"):
