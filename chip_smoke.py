@@ -150,7 +150,7 @@ Phases, each printing one JSON line:
            before the phase and read after it): `ssb_rt`, the 4 ssb
            segments plus a consuming segment of the ssb schema fed a row at
            a time (gen_ssb rows from --seed + 3) through generations g0
-           (2^21 - 2^14 rows), g1 (+2^15, crossing into the 2^22 bucket:
+           (2^19 - 2^13 rows), g1 (+2^14, crossing into the 2^20 bucket:
            every plane grows on the card) and g2 (+2^10), each query cold
            then warm: rows equal to the numpy oracle over every row the
            pinned snapshot holds, 2 dispatches and 1 fetch; per generation
@@ -160,9 +160,9 @@ Phases, each printing one JSON line:
            g1's tail must be below 1/8 of g0's bytes. Then `ups`, an upsert
            table (FULL, comparison column ts = arrival order, one row in
            64 older than every version) of the ssb columns plus a pk LONG
-           drawn from 2^19 keys: one committed segment of 2^20 rows (built,
+           drawn from 2^17 keys: one committed segment of 2^18 rows (built,
            then replayed with add_segment) and one consuming segment of
-           2^20 rows (index + add_record), queried before and after 2^15
+           2^18 rows (index + add_record), queried before and after 2^13
            more rows overwrite keys: rows equal to the oracle of the
            newest version of each key, and the overwrite must change them
   ingest   realtime tables fed from a stream through the port's
@@ -321,10 +321,13 @@ Phases, each printing one JSON line:
            at sampling 0 and 1.0 in turns; the sentinel: a baseline, a
            50 ms `device.dispatch` delay until `latency-drift` fires (at
            most 12 rounds of 6 queries), its exemplar traces, the clean
-           rounds that clear it, the ledger persisted and restored; the
+           rounds that clear it (judged on them alone: the reference is
+           persisted before the fault and the ledger restarts from it
+           after), the ledger persisted and restored; the
            registry's dispatches against the responses' and each family's
            cold ms; q2_family twice in two child processes on the card
-           over Server_0's segments, one prewarmed from this run's AOT
+           (side by side) over Server_0's segments, one prewarmed from
+           this run's AOT
            records and one not (prewarm ms, families loaded, first and
            second query ms, aotCacheHits)
   mse_cluster
@@ -414,9 +417,24 @@ Phases, each printing one JSON line:
            BrokerRestServer; read_table (the servers' scan_arrow),
            scan_table and read_sql where pyarrow is importable (it is on
            the card's machine)
+  soak     the soak harness (pinot_tpu_torch/tools/soak.py) through its
+           entry points on the card: soak_sql (the fuzz table at 2^16
+           rows, SOAK_SQL_CHECKS checks: the host engine against sqlite,
+           backend "auto" on the card against the host engine); soak_qps
+           under backend "device" (3 card servers, replication 2, 6
+           segments of 2^21 rows, the 5 query families at 50 queries/s
+           from 8 workers for 20 s), then under corrupt_rate 0.02 for 6 s
+           over 6 segments of 2^19 rows (every corruption detected); and
+           soak_realtime (one committer-crash round, 10 s of device churn
+           on a consuming segment). Each suite's summary, checks or
+           queries a second, p50 / p99, device dispatches, launches (set
+           to 0 just before each suite) counted by shape, and seconds; the
+           first SOAK_KEEP inputs of each kernel shape against the plain
+           versions; its kernel rows timed right after it
   doctor   `python -m pinot_tpu_torch.tools.doctor`'s probe (a supervised
            child: the card, the kernel build, kernel A against its plain
-           version) must classify `ok`
+           version) must classify `ok`; the child runs while phase
+           index_data waits on the build pool, its line prints here
   mse_layers
            per statement: parse + plan, the leaf stages, the join stage
            and the rest (shuffles, final aggregate, sort), host clock over
@@ -461,7 +479,9 @@ Phases, each printing one JSON line:
            admission_tiers' tiered and hedged paths, kernels A and B
            through phase operations' REST, moved and swapped segments, and
            kernels A and B over phase batch_ingest's pushed and sunk
-           segments, kernel A under phase host_engine's backend "auto"):
+           segments, kernel A under phase host_engine's backend "auto",
+           kernel A (and B where it ran) under phase soak's sql and qps
+           suites):
            per kernel and
            main-path shape, the kernel's
            own device time per launch (`ms`, torch.profiler, 20 launches
@@ -765,17 +785,21 @@ PASS_LABELS = {"q5": ("counts", "distinct", "percentile pass 1",
 MV_QUERIES = ("mv_filter", "mv_group", "mv_aggs")
 # the realtime tables: `ssb_rt`, the 4 ssb segments (the same objects) and
 # one consuming segment with the ssb schema fed a row at a time through
-# MutableSegment.index, in three generations (g0 ends just below the 2^21
-# bucket, g1 crosses into 2^22, g2 adds a small tail); `ups`, an upsert
+# MutableSegment.index, in three generations (g0 ends just below the 2^19
+# bucket, g1 crosses into 2^20, g2 adds a small tail); `ups`, an upsert
 # table (FULL, comparison column ts) of one committed segment and one
 # consuming segment, then overwritten with UPS_OVERWRITE more rows. Both
-# are half what they were before phase `ingest` joined the run (g0 2^22 -
-# 2^15, g1 2^16, and 2^21 rows a ups segment over 2^20 keys with 2^16
-# overwrites), to keep the run inside its time limit
+# were halved when phase `ingest` joined the run (from g0 2^22 - 2^15, g1
+# 2^16, and 2^21 rows a ups segment over 2^20 keys with 2^16 overwrites)
+# and quartered when phase `soak` did (from g0 2^21 - 2^14, g1 2^15, and
+# 2^20 rows a ups segment over 2^19 keys with 2^15 overwrites; the
+# row-at-a-time feed and the upsert replay took 51.9 s of the phase's
+# 56.8), to keep the run inside its time limit; the tables' width is
+# unchanged
 RT_TABLE, UPS_TABLE = "ssb_rt", "ups"
-RT_GENERATIONS = (("g0", (1 << 21) - (1 << 14)), ("g1", 1 << 15),
+RT_GENERATIONS = (("g0", (1 << 19) - (1 << 13)), ("g1", 1 << 14),
                   ("g2", 1 << 10))
-UPS_ROWS, UPS_KEYS, UPS_OVERWRITE = 1 << 20, 1 << 19, 1 << 15
+UPS_ROWS, UPS_KEYS, UPS_OVERWRITE = 1 << 18, 1 << 17, 1 << 13
 UPS_STALE_EVERY = 64  # one row in 64 arrives older than every version
 # phase `cache`: rows fed to ssb_rt's consuming segment after the realtime
 # phase (a new generation), and ups overwrites of committed keys
@@ -4511,22 +4535,32 @@ print(json.dumps({
 """
 
 
-def _aot_child(schema, sql, paths, aot_dir) -> dict:
-    """One AOT child process on the card: a QueryExecutor over `paths`
-    (prewarmed from `aot_dir` where given), then `sql` twice."""
+def _aot_child(schema, sql, paths, aot_dir):
+    """Start one AOT child process on the card: a QueryExecutor over
+    `paths` (prewarmed from `aot_dir` where given), then `sql` twice.
+    Returns (the process, its start time) for _aot_result."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("PINOT_TPU_AOT_CACHE_DIR", "PINOT_TPU_TRACE_SAMPLE")}
     if aot_dir:
         env["PINOT_TPU_AOT_CACHE_DIR"] = aot_dir
-    t0 = time.perf_counter()
-    out = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-c", AOT_CHILD, DEVICE,
          json.dumps(schema.to_json()), sql, *paths],
-        capture_output=True, text=True, timeout=300, env=env,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    if out.returncode != 0:
-        raise AssertionError(f"aot child failed:\n{out.stderr[-3000:]}")
-    res = json.loads(out.stdout.strip().splitlines()[-1])
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__))), time.perf_counter()
+
+
+def _aot_result(proc, t0) -> dict:
+    """An AOT child's result line, once it exits (killed past 300 s)."""
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"aot child failed:\n{stderr[-3000:]}")
+    res = json.loads(stdout.strip().splitlines()[-1])
     res["process_s"] = time.perf_counter() - t0
     return res
 
@@ -4546,8 +4580,8 @@ def phase_flight_recorder(args, torch, cluster, tmp, schema, expected,
     delay until `latency-drift` fires, its exemplar traces, the clean
     rounds that clear it, the ledger persisted and restored. 4: the
     registry's families and dispatches against the responses'. 5: q2_family
-    in two child processes on the card, one prewarmed from this run's
-    records and one not."""
+    in two child processes on the card, run side by side, one prewarmed
+    from this run's records and one not."""
     from pinot_tpu_torch.cluster.sentinel import (SENTINEL_REPORT_PATH,
                                                   PerfRegressionSentinel)
     from pinot_tpu_torch.engine import aot_cache
@@ -4653,6 +4687,13 @@ def phase_flight_recorder(args, torch, cluster, tmp, schema, expected,
         for _ in range(8):
             run(sql)
         PERF_LEDGER.rotate_now()
+        # the reference persisted before the fault, the ledger restarted
+        # from it after (as a controller taking over restores
+        # /PERF/LEDGER), so the recovery is judged on recovery queries
+        # alone: with the fault's queries left in the short window its p50
+        # stayed past the drift rule once though the latency was back
+        # (26.9 ms against 38.1, 88 queries in the window)
+        PERF_LEDGER.persist(store)
         sentinel = PerfRegressionSentinel(store, ctl, min_queries=3,
                                           breaches=2, clears=2)
         report = sentinel.evaluate()
@@ -4681,6 +4722,9 @@ def phase_flight_recorder(args, torch, cluster, tmp, schema, expected,
         # servers decide by the rate (0 here), as in the JAX package
         exemplar_chrome = _chrome_checked(
             to_chrome_trace(ent["spans"], exemplars[0]), set())
+        PERF_LEDGER.clear()
+        if PERF_LEDGER.restore(store) < 1:
+            raise AssertionError("sentinel: the reference was not restored")
         clear_rounds = 0
         for clear_rounds in range(1, SENTINEL_ROUNDS + 1):
             for _ in range(SENTINEL_BURST):
@@ -4728,11 +4772,19 @@ def phase_flight_recorder(args, torch, cluster, tmp, schema, expected,
         PERF_LEDGER.clear()
         ALERTS.clear()
 
-    # -- 5: AOT in two child processes on the card ----------------------
+    # -- 5: AOT in two child processes on the card, side by side (one after
+    # the other, 26.7 s, before phase soak joined the run) --------------
     hosted = sorted(servers[0].segments.get("ssb_OFFLINE", {}))
     paths = [f"{tmp}/{name}" for name in hosted]
-    children = {"without_aot": _aot_child(schema, sql, paths, None),
-                "with_aot": _aot_child(schema, sql, paths, aot_dir)}
+    started = {"without_aot": _aot_child(schema, sql, paths, None),
+               "with_aot": _aot_child(schema, sql, paths, aot_dir)}
+    try:
+        children = {k: _aot_result(*v) for k, v in started.items()}
+    finally:
+        for proc, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if children["with_aot"]["aot_hits"] < 1 or \
             children["with_aot"]["families_loaded"] < 1 or \
             children["without_aot"]["aot_hits"] != 0:
@@ -4747,7 +4799,8 @@ def phase_flight_recorder(args, torch, cluster, tmp, schema, expected,
                  "note": "one process: the servers and the broker share its "
                          "GIL; cold_ms is each family's first dispatch "
                          "after a registry reset in this warm process, the "
-                         "AOT children's first_ms a cold process's"}, **out)
+                         "AOT children's first_ms a cold process's (the two "
+                         "children run side by side, on one card)"}, **out)
     return {"seconds": seconds, "line": line,
             "a_recs": recs["q2_family"], "b_recs": recs["q2"],
             "a_launches": retained["q2_family"]["launches"]["limb_sums"],
@@ -6905,6 +6958,208 @@ def phase_batch_ingest(args, torch, tmp, inputs, _cuda, mxu, fg, card) -> dict:
     return {"recs": recs, "parity": parity, "launches": launches}
 
 
+# phase `soak`: the soak harness's device-reaching suites
+# (pinot_tpu_torch/tools/soak.py) through their entry points. sql: the
+# fuzz table at 2^16 rows (the harness's default is 1,600), checks enough
+# for about 20 s; qps: 3 servers, replication 2, 6 segments of 2^21 rows,
+# the 5 query families at 50 queries/s from 8 workers for 20 s under
+# backend "device", then a shorter run under corrupt_rate 0.02 over 6
+# segments of 2^19 rows (the wire corruptions do not depend on the data's
+# size); realtime: one committer-crash round, then 10 s of device churn
+SOAK_SEED = 2033
+SOAK_SQL_ROWS = 1 << 16
+SOAK_SQL_CHECKS = 60
+SOAK_QPS = {"seconds": 20.0, "qps": 50.0, "concurrency": 8, "n_servers": 3,
+            "replication": 2, "n_segments": 6, "rows_per_segment": 1 << 21,
+            "families": 5}
+SOAK_CORRUPT = dict(SOAK_QPS, seconds=6.0, rows_per_segment=1 << 19,
+                    corrupt_rate=0.02)
+SOAK_RT_SECONDS = 10.0
+SOAK_KEEP = 2  # inputs kept for each kernel and shape of a soak suite
+# the most launched shapes of each kernel a suite times in the kernel table
+SOAK_ROWS_TIMED = {"sql": 1, "qps": 3}
+
+
+def _soak_shape(name: str, args) -> tuple:
+    """The shape of a kernel call: kernel A's (planes, gid, G) or kernel
+    B's (fp, planes_in, scalars, G, n)."""
+    if name == "limb_sums":
+        return tuple(args[0].shape), int(args[2])
+    fp, planes_in, _, G, n = args
+    return n, int(G), len(fp.planes), tuple(str(t.dtype) for t in planes_in)
+
+
+@contextlib.contextmanager
+def sampled_recording(owner, name):
+    """Count every call to owner.name by shape (calls go through, from any
+    thread) and keep the positional arguments of the first SOAK_KEEP calls
+    of each shape: a soak suite makes thousands of calls, at the card's
+    data size too many to keep every input."""
+    kept, counts, lock = {}, {}, threading.Lock()
+    orig = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        key = _soak_shape(name, args)
+        with lock:
+            counts[key] = counts.get(key, 0) + 1
+            if len(kept.setdefault(key, [])) < SOAK_KEEP:
+                kept[key].append(args)
+        return orig(*args, **kwargs)
+
+    setattr(owner, name, wrapper)
+    try:
+        yield kept, counts
+    finally:
+        setattr(owner, name, orig)
+
+
+@contextlib.contextmanager
+def double_strikes():
+    """Count the wire corruptions (transport.call) that strike a response
+    whose DataTable a datatable.encode corruption already damaged: one
+    response, two strikes, one detection at the broker."""
+    from pinot_tpu_torch.cluster import datatable, transport
+
+    hits, orig = [0], transport._corrupt_payload
+
+    def wrapper(payload, c):
+        if isinstance(payload, dict) and "datatable" in payload:
+            try:
+                datatable.decode(payload["datatable"])
+            except datatable.DataTableError:
+                hits[0] += 1
+        return orig(payload, c)
+
+    transport._corrupt_payload = wrapper
+    try:
+        yield hits
+    finally:
+        transport._corrupt_payload = orig
+
+
+def phase_soak(torch, _cuda, mxu, fg, card) -> dict:
+    """The soak harness (tools/soak.py) on the card, through its entry
+    points with device "cuda": soak_sql with device parity (the host
+    engine against sqlite, backend "auto" against the host engine),
+    soak_qps under backend "device" over an embedded cluster of card
+    servers, a shorter soak_qps under a corrupt schedule (every corrupted
+    response the broker receives must be detected: strikes less
+    double_strikes), and soak_realtime's committer-crash
+    round and device churn. Each suite raises on a wrong full answer.
+    Launches are counted from 0 just before each suite and read just
+    after; the sql and qps suites' kernel calls are counted by shape and
+    the first SOAK_KEEP inputs of each shape held against the plain
+    versions. Per suite: its summary, checks or queries a second, p50 /
+    p99, device dispatches, launches and seconds."""
+    from pinot_tpu_torch.engine.query_executor import QueryExecutor
+    from pinot_tpu_torch.tools import soak
+
+    t_phase = time.perf_counter()
+    out, recs, parity = {}, {}, {}
+
+    def run(label, fn, **kw):
+        t0 = time.perf_counter()
+        _cuda.reset_launches()
+        with sampled_recording(mxu, "limb_sums") as (a_kept, a_n), \
+                sampled_recording(fg, "fused_limb_sums") as (b_kept, b_n):
+            res = fn(device=DEVICE, **kw)
+            torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        made = {"limb_sums": sum(a_n.values()),
+                "fused_limb_sums": sum(b_n.values())}
+        if made != launches:
+            raise AssertionError(f"soak {label}: {made} wrapper calls, "
+                                 f"{launches} launches")
+        for name, owner, kept in (("limb_sums", mxu, a_kept),
+                                  ("fused_limb_sums", fg, b_kept)):
+            for key, rs in kept.items():
+                for k, rec in enumerate(rs):
+                    parity[f"{name}/soak_{label}_{key}/launch{k}"] = \
+                        check_equal(torch, f"{name} soak {label} {key} "
+                                    f"launch {k}",
+                                    getattr(owner, name)(*rec),
+                                    getattr(owner, name + "_plain")(*rec))
+        recs[label] = {"limb_sums": (a_kept, a_n),
+                       "fused_limb_sums": (b_kept, b_n)}
+        res = dict(res, launches=launches,
+                   launches_by_shape={name: {str(k): v for k, v in n.items()}
+                                      for name, n in (("limb_sums", a_n),
+                                                      ("fused_limb_sums",
+                                                       b_n))},
+                   seconds=time.perf_counter() - t0)
+        out[label] = res
+        return res
+
+    sql = run("sql", soak.soak_sql, seconds=600.0, seed=SOAK_SEED,
+              rows=SOAK_SQL_ROWS, device_parity=True,
+              max_checks=SOAK_SQL_CHECKS)
+    sql["achieved_qps"] = sql["checks"] / sql["elapsed_s"]
+    if sql["checks"] < SOAK_SQL_CHECKS or not sql["device_dispatches"]:
+        raise AssertionError(f"soak sql: {sql}")
+    qps = run("qps", soak.soak_qps, seed=SOAK_SEED, backend="device",
+              **SOAK_QPS)
+    if not qps["queries_ok"] or qps["queries_degraded"] or \
+            not qps["device_dispatches"] or not qps["launches"]["limb_sums"]:
+        raise AssertionError(f"soak qps: {qps}")
+    with double_strikes() as doubled:
+        corrupt = run("qps_corrupt", soak.soak_qps, seed=SOAK_SEED + 1,
+                      backend="device", **SOAK_CORRUPT)
+    cor = corrupt["corruptions"]
+    cor["double_strikes"] = doubled[0]
+    # every corrupted response the broker received was detected
+    if not cor["injected"] or \
+            cor["detected"] != cor["injected"] - doubled[0] or \
+            not corrupt["queries_ok"]:
+        raise AssertionError(f"soak qps_corrupt: {corrupt}")
+    # the realtime churn's device queries, timed on the host clock
+    with recording(QueryExecutor, "execute_sql", timed=True) as calls:
+        rt = run("realtime", soak.soak_realtime, rounds=1, seed=SOAK_SEED,
+                 seconds=SOAK_RT_SECONDS)
+    lat = [ms for (qe, _), ms in calls if qe.backend == "auto"]
+    rt.update(device_queries=len(lat),
+              achieved_qps=len(lat) / SOAK_RT_SECONDS,
+              device_p50_ms=float(np.percentile(lat, 50)),
+              device_p99_ms=float(np.percentile(lat, 99)))
+    if rt["rounds"] != 1 or not rt["device_dispatches"] or \
+            not rt["device_settles"]:
+        raise AssertionError(f"soak realtime: {rt}")
+    suites_s = time.perf_counter() - t_phase
+    # timed right after the phase, as phase host_engine's rows are
+    rows = soak_rows(torch, _cuda, mxu, fg, recs, parity)
+    del recs
+    torch.cuda.empty_cache()
+    emit(dict({"phase": "soak", "card": card,
+               "seconds": time.perf_counter() - t_phase,
+               "suites_s": suites_s,
+               "kernel_rows_s": time.perf_counter() - t_phase - suites_s,
+               "note": "one process: the soak's servers, broker, workers and "
+                       "oracles share its GIL; host clock; every full answer "
+                       "exact (the suites raise otherwise)"}, **out))
+    return {"rows": rows, "parity": parity}
+
+
+def soak_rows(torch, _cuda, mxu, fg, recs, parity) -> list:
+    """The kernel table's rows of phase `soak`: each suite's
+    SOAK_ROWS_TIMED most launched shapes of each kernel; each row's
+    launches are its shape's in the suite."""
+    rows = []
+    for label, top in SOAK_ROWS_TIMED.items():
+        for name, (kept, counts) in recs[label].items():
+            total = sum(counts.values())
+            for key in sorted(counts, key=lambda k: -counts[k])[:top]:
+                err = max(v for k, v in parity.items()
+                          if k.startswith(f"{name}/soak_{label}_{key}/"))
+                note = (f"soak {label}: {counts[key]} of the suite's {total} "
+                        f"launches of {name} ({len(counts)} shapes)")
+                if name == "limb_sums":
+                    rows.append(kernel_a_row(torch, mxu, _cuda, kept[key],
+                                             counts[key], err, note))
+                else:
+                    rows.append(kernel_b_row(torch, fg, _cuda, kept[key],
+                                             counts[key], err, note))
+    return rows
+
+
 QUICKSTART_ROWS = 100_000  # tools/admin.py quickstart's default
 HOST_THREADS = 4  # the host engine's worker threads (num_threads)
 
@@ -7113,12 +7368,10 @@ def phase_host_engine(args, torch, qe, tables, expected, _cuda, mxu, fg, tmp,
     return {"recs": recs, "launches": launches, "parity": parity}
 
 
-def phase_doctor(card) -> None:
-    """The GPU probe (tools/doctor.py) in its supervised child: it must
-    classify `ok`."""
-    from pinot_tpu_torch.tools import doctor
-
-    report = doctor.run_probe(timeout_s=300)
+def phase_doctor(card, report) -> None:
+    """The GPU probe's report (tools/doctor.py `run_probe`, its supervised
+    child started while phase index_data waits on the build pool): it
+    must classify `ok`."""
     if report["classification"] != "ok":
         raise AssertionError(f"doctor: {report['classification']}: "
                              f"{report['remedy']}\n{report['stderrTail']}")
@@ -8094,6 +8347,7 @@ def main(argv=None) -> int:
         from pinot_tpu_torch.engine.query_executor import QueryExecutor
         from pinot_tpu_torch.ops import (_cuda, fused_groupby, geometry,
                                          kernels as interp, mxu_groupby)
+        from pinot_tpu_torch.tools import doctor
         from pinot_tpu_torch.utils.sketches import HyperLogLog
     except ImportError as e:
         print(f"chip_smoke: the pinot_tpu_torch package is missing ({e}); "
@@ -8162,8 +8416,14 @@ def main(argv=None) -> int:
             formats_pending = [pool.submit(build_formats_segment, (
                 i, part, d)) for i, (part, d) in enumerate(zip(
                     formats_parts, formats_dirs))]
-            index, index_expected, facts = index_tables(args, cols, tmp, pool,
-                                                        pending)
+            # the GPU probe's child runs while index_data waits on the
+            # pool (it ran after batch_ingest, 9.2 s, before phase soak
+            # joined the run); phase doctor reads its report
+            with ThreadPoolExecutor(1) as probe:
+                probed = probe.submit(doctor.run_probe, timeout_s=300)
+                index, index_expected, facts = index_tables(
+                    args, cols, tmp, pool, pending)
+                doctor_report = probed.result()
             formats_build_s = sum(f.result()[1] for f in formats_pending)
             for fut in batch_inputs:
                 fut.result()
@@ -8283,7 +8543,10 @@ def main(argv=None) -> int:
         batch_ingest = phase_batch_ingest(
             args, torch, tmp, batch_inputs, _cuda, mxu_groupby,
             fused_groupby, dev["nvidia_smi"])
-        phase_doctor(dev["nvidia_smi"])
+        soak_out = phase_soak(torch, _cuda, mxu_groupby, fused_groupby,
+                              dev["nvidia_smi"])
+        parity.update(soak_out["parity"])
+        phase_doctor(dev["nvidia_smi"], doctor_report)
         planes, gid, G = mse["agg_recs"][0]
         parity["limb_sums/mse_agg_inputs/family"] = check_equal(
             torch, f"limb_sums mse_agg inputs, family of {planes.shape[0]}",
@@ -8603,6 +8866,10 @@ def main(argv=None) -> int:
                 kernels.append(kernel_b_row(torch, fused_groupby, _cuda, rec,
                                             n_launched, err, note))
         del batch_ingest, bi_recs
+        # phase soak: kernel A (and B where it ran) over the sql suite's
+        # fuzz table and the qps suite's servers' families, timed after it
+        kernels += soak_out["rows"]
+        del soak_out
         # the multi-stage leaf partial aggregate's launch of kernel A
         kernels.append(kernel_a_row(
             torch, mxu_groupby, _cuda, mse["agg_recs"], mse["agg_launches"],

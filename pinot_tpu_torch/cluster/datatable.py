@@ -342,7 +342,13 @@ def verify_blob(blob: bytes) -> bool:
 
 
 def decode(blob: bytes):
-    """→ (combined_intermediate, stats dict)."""
+    """→ (combined_intermediate, stats dict).
+
+    A payload without the trailer magic decodes as a legacy one, and must
+    end where its last value ends: bytes left over mean a trailer whose
+    magic was damaged (a flipped bit in its last 4 bytes), and raise
+    DataTableCorruptionError, where the JAX package decodes such a blob
+    as a legacy payload and the damage goes unnoticed."""
     version = _blob_version(blob)
     if not 1 <= version <= VERSION:
         # a NEWER writer (rolling upgrade, new server → old broker) fails
@@ -358,6 +364,15 @@ def decode(blob: bytes):
                 f"{zlib.crc32(body):08x} != trailer {want:08x})")
         blob = body
     r = _Reader(blob, 6)
+    out = _decode_body(r, version)
+    if r.pos != len(blob):
+        raise DataTableCorruptionError(
+            f"{len(blob) - r.pos} bytes past the DataTable's last value "
+            "(a damaged trailer)")
+    return out
+
+
+def _decode_body(r: _Reader, version: int):
     kind = r.u8()
     (mlen,) = r.unpack("<I")
     stats = json.loads(r.take(mlen).decode())

@@ -56,7 +56,9 @@ offline data path: a batch job's segments (gzipped CSV, JSON, Avro and
 Thrift inputs), tar-pushed through file:// and through an in-memory s3://
 store, load on two card servers, which launch kernel B a segment and
 kernel A over each server's family of 2, every launch equal to its plain
-version, with a CPU cluster's rows.
+version, with a CPU cluster's rows. The soak's sql suite
+(tools/soak.py) passes with its device parity on the card, every launch
+it made equal to its plain version.
 """
 
 from __future__ import annotations
@@ -2655,3 +2657,26 @@ def test_auto_mixed_query_on_the_card_equals_the_cpu(cuda, auto_table, sql):
     else:
         assert card.num_device_dispatches >= 1 and a_calls
     _launches_equal_plain(a_calls)
+
+
+def test_soak_sql_with_device_parity_on_the_card(cuda):
+    """The soak's sql suite on the card: the host engine against sqlite,
+    backend "auto" on the card against the host engine (soak_sql raises
+    on any mismatch); every launch of kernels A and B that the parity
+    side made equals its plain version."""
+    from pinot_tpu_torch.tools import soak
+
+    _cuda.reset_launches()
+    with _recording(mxu_groupby, "limb_sums") as a_calls, \
+            _recording(fused_groupby, "fused_limb_sums") as b_calls:
+        out = soak.soak_sql(seconds=120.0, seed=23, rows=1 << 13,
+                            device_parity=True, max_checks=40)
+        torch.cuda.synchronize()
+    assert out["checks"] >= 40 and out["device_dispatches"] > 0, out
+    assert _cuda.LAUNCHES == {"limb_sums": len(a_calls),
+                              "fused_limb_sums": len(b_calls)}
+    _launches_equal_plain(a_calls)
+    for fp, planes_in, scalars, G, n in b_calls:
+        assert torch.equal(
+            fused_groupby.fused_limb_sums(fp, planes_in, scalars, G, n),
+            fused_groupby.fused_limb_sums_plain(fp, planes_in, scalars, G, n))

@@ -331,3 +331,19 @@ def test_doctor_names_a_hang_from_the_watchdog_dump():
         "time.sleep(30)\n"))
     assert report["status"] == "hung"
     assert report["classification"] == "device-hang"
+
+
+@pytest.mark.parametrize("bit", range(32))
+def test_damaged_trailer_magic_is_detected(bit):
+    """A flipped bit in the trailer's magic leaves a blob that frames as a
+    legacy payload with 8 bytes past its last value: the port raises
+    DataTableCorruptionError; the JAX package decodes it as a legacy
+    payload, so the damage goes unnoticed there (a deliberate difference:
+    the soak's corrupt schedule holds every strike to a detection)."""
+    blob = pdt.encode(_intermediates(pres, psk, 2)["group_dict"], STATS)
+    bad = bytearray(blob)
+    bad[len(bad) - 4 + bit // 8] ^= 1 << (bit % 8)
+    with pytest.raises(pdt.DataTableCorruptionError, match="damaged trailer"):
+        pdt.decode(bytes(bad))
+    combined, _ = jdt.decode(bytes(bad))
+    assert combined is not None
