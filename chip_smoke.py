@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing one JSON line:
   device   the card, its compute capability and power limit
-  build    nvcc builds csrc/*.cu for sm_90a; ptxas register/smem lines
+  build    nvcc builds csrc/*.cu for sm_90a; ptxas register/smem lines;
+           g++ builds the native host library (csrc/host_native.cpp)
   parity   each CUDA kernel against its plain PyTorch version on the card,
            element-equal int64, at the main path's shapes and at the edges
            of the kernels' domain and geometry: a table split across the
@@ -431,6 +432,22 @@ Phases, each printing one JSON line:
            to 0 just before each suite) counted by shape, and seconds; the
            first SOAK_KEEP inputs of each kernel shape against the plain
            versions; its kernel rows timed right after it
+  mesh     parallel/mesh.py on the one card named four times (cuda:0 x 4):
+           q2's plan over the first ssb segment (2^23 rows) row-split
+           into 4 shards, kernel B at row offsets 0, 2^21, 2^22, 3 * 2^21,
+           each launch element-equal to its plain version, the merged
+           table equal to the solo fused run and the segment's numpy
+           oracle; q2_family through QueryExecutor(mesh_devices=cuda:0 x
+           4) over the ssb family (dp = 4): one dispatch, kernel A once a
+           shard (each against its plain version), one host fetch, the
+           oracle's rows, the packed buffer byte for byte the solo
+           family's, crossChipCombineMs and the per-device stamps of a
+           traced run, SET meshExecution = false giving the same rows;
+           the native host library (segment/native_bridge.py): the ssbz
+           LZ4 / Snappy buffers re-encoded to the stored bytes and decoded
+           by the library and by the Python codecs alike, and a 2^23-value
+           13-bit plane packed and unpacked as numpy does, with the MB/s
+           of each beside the Python codecs' and numpy's in the same run
   doctor   `python -m pinot_tpu_torch.tools.doctor`'s probe (a supervised
            child: the card, the kernel build, kernel A against its plain
            version) must classify `ok`; the child runs while phase
@@ -1613,13 +1630,21 @@ def phase_device(torch) -> dict:
 
 
 def phase_build(_cuda) -> None:
+    """nvcc builds the kernels; g++ builds the native host library beside
+    them, before any process of the spawn pool needs it."""
+    from pinot_tpu_torch.segment import native_bridge
+
     t0 = time.perf_counter()
-    _cuda.library()
+    with ThreadPoolExecutor(1) as host:
+        native = host.submit(native_bridge.get_lib)
+        _cuda.library()
+        native.result()
     lines = [ln.strip() for ln in _cuda.build_log().splitlines()
              if "registers" in ln or "spill" in ln or "smem" in ln
              or ln.startswith("==")]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": lines})
+          "ptxas": lines,
+          "native_library": native_bridge.library_path().name})
 
 
 def limb_inputs(torch, n, P, G, seed, masked_frac=0.8):
@@ -7368,6 +7393,258 @@ def phase_host_engine(args, torch, qe, tables, expected, _cuda, mxu, fg, tmp,
     return {"recs": recs, "launches": launches, "parity": parity}
 
 
+MESH_DEVICES = ["cuda:0"] * 4  # the one card, four mesh positions
+MESH_ITERS = 3
+NATIVE_PLANE_BITS = 13  # a 2^23-value dict-id plane of up to 8192 values
+
+
+def _mbps(nbytes: int, seconds: float) -> float:
+    return nbytes / 1e6 / seconds if seconds > 0 else float("inf")
+
+
+def phase_mesh(args, torch, qe, tables, formats_dirs, expected, _cuda, mxu,
+               fg, card) -> dict:
+    """The mesh (parallel/mesh.py) and the native host library
+    (segment/native_bridge.py) on the card, over tables phase `data` and
+    `segment_formats` built.
+
+    Row sharding: q2's plan over the first 2^23-row `ssb` segment split
+    over 4 shards on cuda:0, through run_program_row_sharded: kernel B once
+    a shard at row offsets 0, 2^21, 2^22 and 3 * 2^21, each launch held
+    element-equal against fused_limb_sums_plain, the merged table equal to
+    the solo fused run and its rows to the numpy oracle of the segment.
+    Segment sharding: q2_family through QueryExecutor(mesh_devices=cuda:0
+    x 4) (dp = 4): one dispatch, kernel A once a shard (each launch held
+    against its plain version), one host fetch, the rows the oracle's; the
+    family's packed buffer byte for byte the solo family's; a traced run's
+    crossChipCombineMs and per-device stamps; SET meshExecution = false
+    giving the same rows with one launch. Launches are counted from 0 just
+    before each run and read just after. The native library: every LZ4 /
+    Snappy buffer of the `ssbz` segments re-encoded by the library equal to
+    the stored container, decoded by the library and by the port's Python
+    codecs to the same bytes, and a 2^23-value bit-packed plane packed and
+    unpacked by the library equal to the numpy versions; the MB/s of each
+    (host, warm page cache)."""
+    from pinot_tpu_torch.engine.query_executor import QueryExecutor
+    from pinot_tpu_torch.ops import kernels
+    from pinot_tpu_torch.ops.kernels import run_program
+    from pinot_tpu_torch.parallel import mesh as pmesh
+    from pinot_tpu_torch.query.parser.sql import parse_sql
+    from pinot_tpu_torch.segment import bitpack, compression, native_bridge
+    from pinot_tpu_torch.segment.loader import load_segment
+
+    t_phase = time.perf_counter()
+    out = {"phase": "mesh", "card": card}
+    parity, rows = {}, []
+    schema, segs = tables["ssb"]
+    ex = qe.executor
+
+    # -- row sharding: kernel B at four row offsets --------------------------
+    seg = segs[0]
+    query = parse_sql(Q2)
+    plan = ex.plan(query, seg)
+    view, arrays, params, packed, fused, lut_meta = ex.solo_inputs(seg, plan)
+    if not fused:
+        raise AssertionError("mesh: q2's plan is not in kernel B's scope")
+    mesh = pmesh.make_mesh(devices=MESH_DEVICES)
+    shards = pmesh.shard_segment_arrays(arrays, mesh, view.padded, plan.slots)
+    _cuda.reset_launches()
+    with recording(fg, "fused_limb_sums") as b_calls:
+        t0 = time.perf_counter()
+        merged = pmesh.run_program_row_sharded(
+            plan.program, shards, params, seg.num_docs, view.padded, mesh,
+            slots=plan.slots, fused=True, lut_meta=lut_meta, packed=packed)
+        torch.cuda.synchronize()
+        row_ms = (time.perf_counter() - t0) * 1e3
+    b_launches = dict(_cuda.LAUNCHES)
+    local = view.padded // len(MESH_DEVICES)
+    offsets = [int(c[2][1]) for c in b_calls]
+    if b_launches != {"limb_sums": 0, "fused_limb_sums": len(MESH_DEVICES)} \
+            or offsets != [k * local for k in range(len(MESH_DEVICES))]:
+        raise AssertionError(f"mesh row shards: launches {b_launches}, "
+                             f"row offsets {offsets}")
+    for k, rec in enumerate(b_calls):
+        parity[f"fused_limb_sums/mesh_q2_rows/shard{k}"] = check_equal(
+            torch, f"fused_limb_sums mesh q2 shard {k} (row offset "
+            f"{offsets[k]})", fg.fused_limb_sums(*rec),
+            fg.fused_limb_sums_plain(*rec))
+    solo = run_program(plan.program, arrays, params, seg.num_docs,
+                       view.padded, packed=packed, fused=True,
+                       fused_lut_meta=lut_meta)
+    for i, (got, want) in enumerate(zip(merged, solo)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"mesh row shards: output {i} differs from "
+                                 "the solo fused run")
+    inter = ex.collect(query, seg, plan, kernels.pack_outputs(merged))
+    got_rows = sorted([int(y), int(b), float(v)] for y, b, v in zip(
+        inter.key_cols[0], inter.key_cols[1], inter.state_cols[0][0]))
+    seg_cols = {c: seg.get_values(c) for c in ("d_year", "p_brand",
+                                               "s_region", "lo_revenue")}
+    if got_rows != sorted(q2_oracle(seg_cols)):
+        raise AssertionError("mesh row shards: rows differ from the oracle")
+    del seg_cols, solo, merged
+    out["row_sharded"] = {
+        "query": "q2", "segment_rows": seg.num_docs, "shards": len(b_calls),
+        "row_offsets": offsets, "launches": b_launches, "groups":
+        len(got_rows), "host_ms": row_ms}
+
+    # -- segment sharding: q2_family over dp = 4 -----------------------------
+    mqe = QueryExecutor(device=DEVICE, mesh_devices=MESH_DEVICES)
+    mqe.add_table(schema, segs)
+    mqe.execute_sql(Q2)  # uploads and stacks the shards
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    fetches = kernels.host_fetches()
+    with recording(mxu, "limb_sums") as a_calls:
+        resp = mqe.execute_sql(Q2)
+        torch.cuda.synchronize()
+    a_launches = dict(_cuda.LAUNCHES)
+    fetched = kernels.host_fetches() - fetches
+    if a_launches != {"limb_sums": len(MESH_DEVICES), "fused_limb_sums": 0} \
+            or resp.num_device_dispatches != 1 or fetched != 1:
+        raise AssertionError(
+            f"mesh q2_family: launches {a_launches}, dispatches "
+            f"{resp.num_device_dispatches}, host fetches {fetched}")
+    _rows_equal("mesh q2_family", resp, expected["q2"], False)
+    for k, rec in enumerate(a_calls):
+        parity[f"limb_sums/mesh_q2_family/shard{k}"] = check_equal(
+            torch, f"limb_sums mesh q2_family shard {k}",
+            mxu.limb_sums(*rec), mxu.limb_sums_plain(*rec))
+    plans = [mqe.executor.plan(query, s) for s in segs]
+    sharded = mqe.executor.dispatch_plan_batch(segs, plans,
+                                               mesh=(len(MESH_DEVICES),))
+    solo_pack = mqe.executor.dispatch_plan_batch(segs, plans)
+    if sharded.metas != solo_pack.metas \
+            or not torch.equal(sharded.flat, solo_pack.flat):
+        raise AssertionError("mesh q2_family: the sharded pack differs from "
+                             "the solo family's bytes")
+    pack_bytes = sharded.flat.numel()
+    del sharded, solo_pack
+    traced = mqe.execute_sql("SET trace = true; " + Q2)
+    fam = [s["attributes"] for s in traced.trace_info
+           if s.get("attributes", {}).get("meshDevices")]
+    stamps = [(s["attributes"]["device"], s["attributes"]["deviceExecMs"])
+              for s in traced.trace_info
+              if str(s.get("operator", "")).startswith("mesh_device")]
+    if len(fam) != 1 or len(stamps) != len(MESH_DEVICES):
+        raise AssertionError(f"mesh q2_family trace: {fam}, {stamps}")
+    _cuda.reset_launches()
+    off = mqe.execute_sql("SET meshExecution = false; " + Q2)
+    torch.cuda.synchronize()
+    if dict(_cuda.LAUNCHES) != {"limb_sums": 1, "fused_limb_sums": 0}:
+        raise AssertionError(f"meshExecution = false: {_cuda.LAUNCHES}")
+    _rows_equal("mesh q2_family meshExecution = false", off, expected["q2"],
+                False)
+    p50 = {}
+    for label, prefix in (("mesh", ""), ("solo",
+                                         "SET meshExecution = false; ")):
+        ts = []
+        for _ in range(MESH_ITERS):
+            t0 = time.perf_counter()
+            mqe.execute_sql(prefix + Q2)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        p50[label] = float(np.median(ts))
+    out["segment_sharded"] = {
+        "query": "q2_family", "members": len(segs), "dp": len(MESH_DEVICES),
+        "launches": a_launches, "dispatches": resp.num_device_dispatches,
+        "host_fetches": fetched, "pack_bytes": pack_bytes,
+        "pack_byte_identical": True,
+        "crossChipCombineMs": fam[0]["crossChipCombineMs"],
+        "deviceExecMs": fam[0]["deviceExecMs"],
+        "mesh_device_stamps_ms": stamps, "p50_ms": p50,
+        "iters": MESH_ITERS}
+    rows.append(kernel_b_row(
+        torch, fg, _cuda, b_calls, len(b_calls),
+        max(v for k, v in parity.items() if "mesh_q2_rows" in k),
+        f"mesh q2 row-sharded: the first {seg.num_docs}-row ssb segment's "
+        f"raw planes split over {len(MESH_DEVICES)} shards on cuda:0, one "
+        "launch a shard at its row offset"))
+    rows.append(kernel_a_row(
+        torch, mxu, _cuda, a_calls, len(a_calls),
+        max(v for k, v in parity.items() if "mesh_q2_family" in k),
+        f"mesh q2_family segment-sharded: the family of {len(segs)} ssb "
+        f"segments split over dp = {len(MESH_DEVICES)} on cuda:0, one "
+        "launch a shard"))
+    del mqe, resp, traced, off
+
+    # -- the native host library ---------------------------------------------
+    t0 = time.perf_counter()
+    native_bridge.get_lib()
+    codecs = {}
+    for d in formats_dirs:
+        zseg = load_segment(d, verify=False)
+        for name, entry in zseg.metadata.buffers.items():
+            if len(entry) != 3 or entry[2] not in ("LZ4", "SNAPPY"):
+                continue
+            off_, size, codec = entry
+            stored = bytes(zseg._data[off_:off_ + size])
+            c = codecs.setdefault(codec, {"buffers": 0, "raw_bytes": 0,
+                                          "stored_bytes": 0, "encode_s": 0.0,
+                                          "decode_s": 0.0, "py_decode_s": 0.0})
+            t1 = time.perf_counter()
+            raw = compression.decompress_buffer(stored)
+            t2 = time.perf_counter()
+            again = compression.compress_buffer(raw, codec)
+            t3 = time.perf_counter()
+            os.environ["PINOT_TPU_DISABLE_NATIVE"] = "1"
+            try:
+                py_raw = compression.decompress_buffer(stored)
+            finally:
+                del os.environ["PINOT_TPU_DISABLE_NATIVE"]
+            t4 = time.perf_counter()
+            if again != stored or py_raw != raw:
+                raise AssertionError(f"native {codec} {name}: re-encoded "
+                                     f"{again == stored}, Python decode "
+                                     f"{py_raw == raw}")
+            c["buffers"] += 1
+            c["raw_bytes"] += len(raw)
+            c["stored_bytes"] += size
+            c["decode_s"] += t2 - t1
+            c["encode_s"] += t3 - t2
+            c["py_decode_s"] += t4 - t3
+        del zseg
+    if set(codecs) != {"LZ4", "SNAPPY"}:
+        raise AssertionError(f"ssbz native buffers: {sorted(codecs)}")
+    for c in codecs.values():
+        c["encode_mb_per_s"] = _mbps(c["raw_bytes"], c.pop("encode_s"))
+        c["decode_mb_per_s"] = _mbps(c["raw_bytes"], c.pop("decode_s"))
+        c["python_decode_mb_per_s"] = _mbps(c["raw_bytes"],
+                                            c.pop("py_decode_s"))
+        c["ratio"] = c["stored_bytes"] / c["raw_bytes"]
+    rng = np.random.default_rng(args.seed)
+    vals = rng.integers(0, 1 << NATIVE_PLANE_BITS, 1 << 23).astype(np.uint32)
+    t1 = time.perf_counter()
+    packed_plane = bitpack.pack(vals, NATIVE_PLANE_BITS)
+    t2 = time.perf_counter()
+    back = bitpack.unpack(packed_plane, NATIVE_PLANE_BITS, len(vals))
+    t3 = time.perf_counter()
+    os.environ["PINOT_TPU_DISABLE_NATIVE"] = "1"
+    try:
+        np_packed = bitpack.pack(vals, NATIVE_PLANE_BITS)
+        t4 = time.perf_counter()
+        np_back = bitpack.unpack(packed_plane, NATIVE_PLANE_BITS, len(vals))
+        t5 = time.perf_counter()
+    finally:
+        del os.environ["PINOT_TPU_DISABLE_NATIVE"]
+    if not (np.array_equal(packed_plane, np_packed)
+            and np.array_equal(back, vals.astype(np.int32))
+            and np.array_equal(np_back, back)):
+        raise AssertionError("native bit packing differs from numpy's")
+    plane_bytes = 4 * len(vals)
+    out["native"] = {
+        "library": native_bridge.library_path().name, "codecs": codecs,
+        "bitpack": {"values": len(vals), "bits": NATIVE_PLANE_BITS,
+                    "pack_mb_per_s": _mbps(plane_bytes, t2 - t1),
+                    "unpack_mb_per_s": _mbps(plane_bytes, t3 - t2),
+                    "numpy_pack_mb_per_s": _mbps(plane_bytes, t4 - t3),
+                    "numpy_unpack_mb_per_s": _mbps(plane_bytes, t5 - t4)},
+        "seconds": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"parity": parity, "rows": rows}
+
+
 def phase_doctor(card, report) -> None:
     """The GPU probe's report (tools/doctor.py `run_probe`, its supervised
     child started while phase index_data waits on the build pool): it
@@ -8546,6 +8823,10 @@ def main(argv=None) -> int:
         soak_out = phase_soak(torch, _cuda, mxu_groupby, fused_groupby,
                               dev["nvidia_smi"])
         parity.update(soak_out["parity"])
+        mesh_out = phase_mesh(args, torch, qe, tables, formats_dirs,
+                              expected, _cuda, mxu_groupby, fused_groupby,
+                              dev["nvidia_smi"])
+        parity.update(mesh_out["parity"])
         phase_doctor(dev["nvidia_smi"], doctor_report)
         planes, gid, G = mse["agg_recs"][0]
         parity["limb_sums/mse_agg_inputs/family"] = check_equal(
@@ -8870,6 +9151,10 @@ def main(argv=None) -> int:
         # fuzz table and the qps suite's servers' families, timed after it
         kernels += soak_out["rows"]
         del soak_out
+        # phase mesh: kernel B at each row shard's offset, kernel A once a
+        # dp shard of the family
+        kernels += mesh_out["rows"]
+        del mesh_out
         # the multi-stage leaf partial aggregate's launch of kernel A
         kernels.append(kernel_a_row(
             torch, mxu_groupby, _cuda, mse["agg_recs"], mse["agg_launches"],

@@ -170,7 +170,8 @@ def mse_plan_fingerprint(stages, query_options,
 
 def family_fingerprint(program, padded: int, fused: str = "",
                        lut_meta: tuple = (),
-                       batch_size: int = 0) -> Optional[str]:
+                       batch_size: int = 0,
+                       mesh: tuple = ()) -> Optional[str]:
     """Fingerprint of one executable FAMILY: the Program IR plus the
     shape and variant axes a dispatch specializes on (padded bucket,
     fused variant, LUT run metadata, batch size) and nothing that is a
@@ -179,11 +180,16 @@ def family_fingerprint(program, padded: int, fused: str = "",
     (engine/compile_registry.py, engine/aot_cache.py). It is telemetry,
     not a result-cache key, so it does not count in
     `fingerprint_computations()`, and it is computed on a family's first
-    dispatch only. The port has no mesh, so no mesh axis."""
+    dispatch only. A mesh-sharded family (`mesh` its shape) is another
+    artifact: its payload is tagged ffp2 and carries the mesh axis, as in
+    the JAX package; solo families keep the ffp1 digest."""
     try:
-        return hashlib.sha256(canonical_bytes((
-            "ffp1", canonical_bytes(program), int(padded), str(fused),
-            tuple(lut_meta), int(batch_size)))).hexdigest()
+        payload = ("ffp1", canonical_bytes(program), int(padded), str(fused),
+                   tuple(lut_meta), int(batch_size))
+        if mesh:
+            payload = ("ffp2",) + payload[1:] + (
+                tuple(int(x) for x in mesh),)
+        return hashlib.sha256(canonical_bytes(payload)).hexdigest()
     except UnfingerprintableError:
         return None
 

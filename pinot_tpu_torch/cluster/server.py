@@ -87,6 +87,7 @@ from ..engine.dim_tables import alias_dimension_table
 from ..engine.explain import explain_plan
 from ..engine.query_executor import QueryExecutor
 from ..engine.scheduler import QueryScheduler
+from ..parallel.mesh import mesh_device_count
 from ..segment.format import DATA_FILE
 from ..segment.loader import SegmentIntegrityError, load_segment
 from ..spi import faults
@@ -233,6 +234,11 @@ class ServerInstance:
                 lambda: COMPILE_REGISTRY.totals()["families"],
             ServerGauge.COMPILE_MS_TOTAL:
                 lambda: COMPILE_REGISTRY.totals()["compileMs"]}
+        if backend != "host":
+            # the devices the segment-axis mesh spans (parallel/mesh.py)
+            mesh_devices = self.executor.executor.mesh_devices
+            self._gauges[ServerGauge.MESH_DEVICES] = \
+                lambda: mesh_device_count(mesh_devices)
         if self.device.type == "cuda":
             for i in range(torch.cuda.device_count()):
                 self._gauges[f"hbmBytesUsedDevice.{i}"] = \

@@ -30,8 +30,10 @@ dispatch of an installed family counts `aotCacheHits`.
 
 Safety contract: a persisted record is refused, counting
 `aotCacheMisses`, on any mismatch (environment tag, format version,
-payload checksum), an unreadable or garbage file, an `aot.load` fault, or
-a replay that raises. A refused family is dispatched as usual: never a
+record checksum), an unreadable or garbage file, an `aot.load` fault, or
+a replay that raises. The checksum covers every field the loader reads
+(the payload, the fingerprint, the tag, the family, the table and the
+score), so a damaged byte anywhere in a record refuses it. A refused family is dispatched as usual: never a
 wrong answer, never a crash.
 
 Knobs (the JAX package's): PINOT_TPU_AOT_CACHE_DIR (unset = disabled),
@@ -59,7 +61,18 @@ from ..spi import faults
 
 log = logging.getLogger(__name__)
 
-_FORMAT_VERSION = 1
+_FORMAT_VERSION = 2
+
+# the fields of a record its checksum covers, in this order
+_SUMMED = ("version", "fingerprint", "envTag", "payload", "family", "table",
+           "score")
+
+
+def _record_sha(blob: dict) -> str:
+    """sha256 over a record's checksummed fields (pickled as one tuple:
+    pickle keeps every value's type, so a reloaded record sums the same)."""
+    return hashlib.sha256(pickle.dumps(
+        tuple(blob[k] for k in _SUMMED), protocol=4)).hexdigest()
 
 # family key -> fingerprint of every family the prewarm installed. A plain
 # dict: reads are atomic under the GIL, writes happen under _LOCK. The
@@ -119,7 +132,8 @@ def _csrc_digest() -> str:
 def env_tag(device="cuda") -> dict:
     """The environment a record is valid in: a persisted record is only
     replayed under the exact torch and CUDA versions, device name and
-    compute capability, and kernel sources it was written under."""
+    compute capability, local mesh shape and kernel sources it was written
+    under."""
     device = torch.device(device)
     if device.type == "cuda":
         index = device.index if device.index is not None \
@@ -128,8 +142,11 @@ def env_tag(device="cuda") -> dict:
         capability = list(torch.cuda.get_device_capability(index))
     else:
         name, capability = device.type, []
+    from ..parallel.mesh import local_devices, mesh_device_count
+
     return {"torch": torch.__version__, "cuda": torch.version.cuda,
             "deviceName": name, "capability": capability,
+            "meshShape": [mesh_device_count(local_devices(device))],
             "csrc": _csrc_digest()}
 
 
@@ -220,16 +237,17 @@ def on_first_dispatch(gkey, fingerprint: str, cold_ms: float, family: dict,
                 return False  # already persisted under this environment
         payload = pickle.dumps({"gkey": gkey,
                                 "launches": [_with_mode(c) for c in calls]})
-        blob = pickle.dumps({
+        record = {
             "version": _FORMAT_VERSION,
             "fingerprint": fingerprint,
             "envTag": tag,
             "payload": payload,
-            "payloadSha": hashlib.sha256(payload).hexdigest(),
             "family": family,
             "table": current_table(),
             "score": round(float(cold_ms), 3),
-        })
+        }
+        record["recordSha"] = _record_sha(record)
+        blob = pickle.dumps(record)
         with _LOCK:
             manifest = _load_manifest(d)
             if not _make_room(d, manifest, len(blob), float(cold_ms)):
@@ -369,7 +387,7 @@ def _refuse(reason: str, name: str):
 def load_artifact(path: str, expect_tag: dict = None, device="cuda"):
     """Check one record, replay its kernel launches on `device` and
     install the family. Returns the family key, or None on any refusal
-    (unreadable or garbage file, format version, payload checksum,
+    (unreadable or garbage file, format version, record checksum,
     environment mismatch, a replay that raises). Never raises."""
     name = os.path.basename(path)
     try:
@@ -383,9 +401,9 @@ def load_artifact(path: str, expect_tag: dict = None, device="cuda"):
         blob = pickle.loads(data)
         if blob.get("version") != _FORMAT_VERSION:
             return _refuse("format version", name)
+        if _record_sha(blob) != blob["recordSha"]:
+            return _refuse("record checksum", name)
         payload = blob["payload"]
-        if hashlib.sha256(payload).hexdigest() != blob["payloadSha"]:
-            return _refuse("payload checksum", name)
         tag = expect_tag if expect_tag is not None else env_tag(device)
         if blob["envTag"] != tag:
             mism = [k for k in tag if blob["envTag"].get(k) != tag[k]]

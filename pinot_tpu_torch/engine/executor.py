@@ -30,12 +30,24 @@ registry (engine/compile_registry.py), its host wall time as the family's
 cold cost, and, with the AOT cache on (engine/aot_cache.py), persists
 the family's record; every later one is a dict lookup and counter bumps.
 A family the AOT prewarm installed counts `aotCacheHits`.
+
+With a mesh shape (`mesh=(ndev,)`, engine/query_executor.py `_mesh_sig`)
+a family of at least ndev members splits over the executor's first ndev
+mesh devices (parallel/mesh.py): its stacks are cached per shard, a
+ragged family padded by its last member with num_docs 0, each device runs
+its members, and the outputs gather to the executor's device before the
+pack, so the host still crosses once. A traced sharded dispatch adds
+`meshDevices`, a `mesh_device:<k>` span per device and
+`crossChipCombineMs`. A failed sharded dispatch fails the query: there is
+no fallback to the solo family. A coalesced group (`repeat` > 1) runs on
+the executor's device alone.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,6 +56,7 @@ from ..cache.keys import family_fingerprint
 from ..ops import fused_groupby
 from ..ops.kernels import (PackedOuts, pack_outputs, run_program,
                            run_program_batch, unpack_outputs)
+from ..parallel import mesh as pmesh
 from ..query.context import QueryContext
 from ..segment.bitpack import unpack_bitmap
 from ..segment.device_cache import (DeviceSegmentCache, clear_transfer_stats,
@@ -52,7 +65,7 @@ from ..segment.device_cache import (DeviceSegmentCache, clear_transfer_stats,
 from ..segment.loader import ImmutableSegment
 from ..spi import faults
 from ..spi.data_types import DataType
-from ..spi.metrics import SERVER_METRICS, ServerMeter
+from ..spi.metrics import SERVER_METRICS, ServerMeter, ServerTimer
 from ..spi.trace import TRACING
 from . import aot_cache
 from .compile_registry import COMPILE_REGISTRY, describe_family
@@ -113,13 +126,16 @@ class _FamilyGuard:
 _FAMILIES = _FamilyGuard()
 
 
-def _run_family(gkey, family: tuple, device: torch.device, launch):
+def _run_family(gkey, family: tuple, device: torch.device, launch,
+                mesh: tuple = ()):
     """`launch()` as a dispatch of the family `gkey`; `family` is its
     (program, padded, fused, lut_meta, batch_size) for describe_family.
     A warm dispatch bumps the registry's counters; the first one
     fingerprints and registers the family, times `launch` on the host
     clock (no sync) as its cold cost, and hands the kernel calls it
-    recorded to the AOT cache when that is on."""
+    recorded to the AOT cache when that is on. A mesh-sharded family
+    (`mesh` its shape) fingerprints with its mesh axis and never
+    persists: its record is valid only on that device layout."""
     if aot_cache.AOT_READY and gkey in aot_cache.AOT_READY:
         SERVER_METRICS.add_meter(ServerMeter.AOT_CACHE_HITS)
     if not _FAMILIES.note(gkey):
@@ -127,10 +143,11 @@ def _run_family(gkey, family: tuple, device: torch.device, launch):
         COMPILE_REGISTRY.note_dispatch(gkey)
         return out
     program, padded, fused, lut_meta, batch_size = family
-    fp = family_fingerprint(program, padded, fused, lut_meta, batch_size)
+    fp = family_fingerprint(program, padded, fused, lut_meta, batch_size,
+                            mesh=mesh)
     described = describe_family(program, padded, fused, lut_meta, batch_size)
     COMPILE_REGISTRY.note_first_dispatch(gkey, fp, described)
-    calls = aot_cache.start_recording()
+    calls = None if mesh else aot_cache.start_recording()
     t0 = time.perf_counter()
     try:
         out = launch()
@@ -227,7 +244,7 @@ def _dict_pad(card: int) -> int:
 
 
 def batch_family_key(segment: ImmutableSegment, plan: SegmentPlan,
-                     packed_on: bool):
+                     packed_on: bool, mesh: tuple = ()):
     """Host-computable batch family key: segments with equal keys gather
     identically shaped device planes and params, so their kernel inputs
     stack into [S, ...] tensors and run as ONE dispatch.
@@ -238,7 +255,8 @@ def batch_family_key(segment: ImmutableSegment, plan: SegmentPlan,
     (SegmentDeviceView.packed). It mirrors what gather_arrays_packed will
     produce; the family dispatch re-checks the gathered shapes and raises
     BatchFamilyMismatch if the mirror ever drifts. None when a slot's
-    shape cannot be predicted."""
+    shape cannot be predicted. A mesh shape joins the key, so sharded and
+    solo families keep apart."""
     sig = []
     for column, kind in plan.slots:
         m = segment.column_metadata(column)
@@ -265,8 +283,11 @@ def batch_family_key(segment: ImmutableSegment, plan: SegmentPlan,
             return None
     psig = tuple((str(np.asarray(p).dtype), np.asarray(p).shape)
                  for p in plan.params)
-    return (plan.program, pad_bucket(max(1, segment.num_docs)), tuple(sig),
-            psig)
+    key = (plan.program, pad_bucket(max(1, segment.num_docs)), tuple(sig),
+           psig)
+    if mesh:
+        key = key + (("mesh",) + tuple(mesh),)
+    return key
 
 
 def _stack(planes: list) -> torch.Tensor:
@@ -291,8 +312,16 @@ class SegmentExecutor:
     """Executes one QueryContext against one segment, or one batch family
     of segments, on the device."""
 
-    def __init__(self, cache: DeviceSegmentCache):
+    def __init__(self, cache: DeviceSegmentCache,
+                 mesh_devices: Optional[list] = None):
         self.cache = cache
+        # the devices a family may split over, the cache's device first:
+        # the process's cards by default (parallel/mesh.py local_devices);
+        # a list naming one device several times stands in for a host with
+        # more cards than this one
+        self.mesh_devices = [torch.device(d) for d in (
+            pmesh.local_devices(cache.device) if mesh_devices is None
+            else mesh_devices)]
         # the [S*Q, ...] planes built for coalesced groups (never cached):
         # builds, bytes and host ms, summed over the executor's life
         self._repeats = {"builds": 0, "bytes": 0, "ms": 0.0}
@@ -342,10 +371,12 @@ class SegmentExecutor:
             faults.FAULTS.fire("device.dispatch", segment=segment.name)
         return _traced(lambda span: self._dispatch_plan(segment, plan, span))
 
-    def _dispatch_plan(self, segment, plan: SegmentPlan, span) -> PackedOuts:
-        if span is not None:
-            span.set_attribute("segment", segment.name)
-            span.set_attribute("numSegments", 1)
+    def solo_inputs(self, segment, plan: SegmentPlan) -> tuple:
+        """A lone segment's kernel inputs: (view, arrays, params, packed,
+        fused, lut_meta), the planes from the device cache (or the
+        realtime registry) and the params as tensors on the device, with
+        the fused kernel's dict-id run params appended where its plan
+        applies."""
         view = self._view_for(segment)
         arrays, packed = plan.gather_arrays_packed(view)
         host_params = tuple(np.asarray(p) for p in plan.params)
@@ -365,6 +396,14 @@ class SegmentExecutor:
                 fused, lut_meta = False, ()
         params = tuple(torch.from_numpy(np.array(p)).to(view.device)
                        for p in host_params)
+        return view, arrays, params, packed, fused, lut_meta
+
+    def _dispatch_plan(self, segment, plan: SegmentPlan, span) -> PackedOuts:
+        if span is not None:
+            span.set_attribute("segment", segment.name)
+            span.set_attribute("numSegments", 1)
+        view, arrays, params, packed, fused, lut_meta = self.solo_inputs(
+            segment, plan)
         _count_dispatch()
         timer = None
         if span is not None:
@@ -414,12 +453,19 @@ class SegmentExecutor:
             timer.stop(span)
         return outs, view
 
-    def _gather_batch(self, segments: list, plans: list, repeat: int = 1):
+    def _gather_batch(self, segments: list, plans: list, repeat: int = 1,
+                      ndev: int = 1):
         """Gather and stack a family's kernel inputs: member planes from
         the per-segment cache (each uploaded once), the [S, ...] stacks
         from the cache's stacked view. Dictionary planes zero-pad to the
         family's power-of-two bucket. Raises BatchFamilyMismatch when the
         members' planes or params disagree in dtype, shape or packing.
+
+        With `ndev` > 1 the stacks split over the first ndev mesh devices:
+        each slot is a parallel/mesh.py Sharded whose part k (members
+        k * S_pad / ndev on) is cached on its device, and a ragged family
+        pads to a multiple of ndev by repeating its last member with
+        num_docs 0 (its params too).
 
         `repeat` = Q > 1 is a coalesced group (engine/coalesce.py): Q
         queries over the same S segments, `plans` their S*Q plans in query
@@ -449,6 +495,9 @@ class SegmentExecutor:
                     f"slot {i} ({plans[0].slots[i]}): unequal plane "
                     "shapes/dtypes across family members")
             pkey = (plans[0].slots[i], str(a0.dtype), tuple(a0.shape))
+            if ndev > 1:
+                stacked.append(self._sharded_stack(sview, pkey, col, ndev))
+                continue
             stacked.append(sview.plane(pkey, lambda c=tuple(col): _stack(c)))
         if repeat > 1:
             t0 = time.perf_counter()
@@ -461,31 +510,58 @@ class SegmentExecutor:
         nparams = len(plans[0].params)
         if any(len(pl.params) != nparams for pl in plans):
             raise BatchFamilyMismatch("param-count mismatch")
+        pad = (-len(plans)) % ndev
         params_b = []
         for j in range(nparams):
             ps = [np.asarray(pl.params[j]) for pl in plans]
             if any(p.shape != ps[0].shape or p.dtype != ps[0].dtype
                    for p in ps[1:]):
                 raise BatchFamilyMismatch(f"param {j}: shape/dtype mismatch")
-            params_b.append(torch.from_numpy(np.stack(ps)).to(self.device))
-        num_docs = np.asarray([s.num_docs for s in segments] * repeat,
-                              dtype=np.int64)
+            params_b.append(torch.from_numpy(np.stack(ps + ps[-1:] * pad))
+                            .to(self.device))
+        num_docs = np.asarray([s.num_docs for s in segments] * repeat
+                              + [0] * pad, dtype=np.int64)
         return views, tuple(stacked), tuple(params_b), packed, num_docs
 
+    def _sharded_stack(self, sview, pkey: tuple, col: list,
+                       ndev: int) -> pmesh.Sharded:
+        """One slot's family stack split over the first ndev mesh devices,
+        the last member repeated up to a multiple of ndev; part k is
+        cached in the stacked view under its shard."""
+        devices = self.mesh_devices[:ndev]
+        col = col + col[-1:] * ((-len(col)) % ndev)
+        step = len(col) // ndev
+        parts = [sview.plane(
+            pkey + (("mesh", ndev, k),),
+            lambda c=tuple(col[k * step:(k + 1) * step]), d=d:
+            _stack(list(c)).to(d)) for k, d in enumerate(devices)]
+        return pmesh.Sharded(parts, devices)
+
     def dispatch_plan_batch_raw(self, segments: list, plans: list,
-                                repeat: int = 1):
+                                repeat: int = 1, mesh: tuple = ()):
         """ONE dispatch for a whole batch family (equal batch_family_key):
         (device outputs, views), every output carrying a leading [S] dim
         whose row s is what dispatch_plan_raw returns for member s. Raises
         BatchFamilyMismatch, before anything runs, to ask for the
         per-segment dispatch. With `repeat` = Q, a coalesced group of Q
         queries over `segments` (see _gather_batch): the outputs' leading
-        dim is S*Q, query q's rows q*S to (q+1)*S."""
+        dim is S*Q, query q's rows q*S to (q+1)*S. With `mesh` = (ndev,)
+        and at least ndev members, the family splits over the mesh devices
+        and its outputs come back gathered on the executor's device."""
+        return self._batch(segments, plans, repeat, mesh, pack=False)
+
+    def _batch(self, segments: list, plans: list, repeat: int, mesh: tuple,
+               pack: bool):
         if faults.ACTIVE:
             faults.FAULTS.fire("device.dispatch", segment=segments[0].name,
                                batch_size=len(segments))
-        return _traced(lambda span: self._dispatch_batch(segments, plans,
-                                                         repeat, span))
+        ndev = int(mesh[0]) if mesh else 1
+        if ndev > 1 and repeat == 1 and len(segments) >= ndev:
+            return _traced(lambda span: self._dispatch_batch_sharded(
+                segments, plans, ndev, pack, span))
+        outs, views = _traced(lambda span: self._dispatch_batch(
+            segments, plans, repeat, span))
+        return (pack_outputs(outs) if pack else outs), views
 
     def _dispatch_batch(self, segments: list, plans: list, repeat: int,
                         span):
@@ -510,12 +586,64 @@ class SegmentExecutor:
             timer.stop(span)
         return outs, views
 
+    def _dispatch_batch_sharded(self, segments: list, plans: list,
+                                ndev: int, pack: bool, span):
+        """ONE dispatch of the whole family over the first ndev mesh
+        devices: each runs its members, then the outputs gather to the
+        executor's device (packed, or raw for the sparse device combine)
+        before the query's single host crossing. Per-member math is the
+        solo family's, so the bytes are too."""
+        if span is not None:
+            span.set_attribute("numSegments", len(plans))
+        views, arrays, params_b, packed, num_docs = self._gather_batch(
+            segments, plans, ndev=ndev)
+        _count_dispatch()
+        program, padded = plans[0].program, views[0].padded
+        if span is not None:
+            _span_plan(span, plans[0], views[0], self.device)
+            span.set_attribute("meshDevices", ndev)
+        smesh = pmesh.segment_mesh(self.mesh_devices, ndev)
+        asig = tuple((str(a.parts[0].dtype), (len(num_docs),)
+                      + tuple(a.parts[0].shape[1:])) for a in arrays)
+        t1 = time.perf_counter()
+        outs = _run_family(
+            ("batchmesh", ndev, program, padded, packed, asig, len(plans)),
+            (program, padded, "", (), len(plans)), self.device,
+            lambda: pmesh.run_program_batch_sharded(
+                program, arrays, params_b, num_docs, padded, smesh,
+                packed=packed), mesh=(ndev,))
+        if span is not None:
+            stamps = pmesh.block_per_device(outs, ndev, t1)
+            span.set_attribute("compileMs", 0.0)
+            span.set_attribute("deviceExecMs",
+                               stamps[-1][1] if stamps else 0.0)
+            for k, ms in stamps:
+                with TRACING.scope(f"mesh_device:{k}") as dspan:
+                    dspan.set_attribute("device", k)
+                    dspan.set_attribute("deviceExecMs", ms)
+        t2 = time.perf_counter()
+        if pack:
+            result = pmesh.pack_outputs_collective(outs, len(segments), ndev)
+            sync_target = result.flat
+        else:
+            result = pmesh.gather_outputs(outs, len(segments))
+            sync_target = result[0] if result else None
+        if span is not None:
+            if sync_target is not None and sync_target.is_cuda:
+                torch.cuda.synchronize(sync_target.device)
+            combine_ms = round((time.perf_counter() - t2) * 1000, 3)
+            span.set_attribute("crossChipCombineMs", combine_ms)
+            SERVER_METRICS.update_timer(ServerTimer.CROSS_CHIP_COMBINE_MS,
+                                        combine_ms)
+        return result, views
+
     def dispatch_plan_batch(self, segments: list, plans: list,
-                            repeat: int = 1) -> PackedOuts:
+                            repeat: int = 1, mesh: tuple = ()) -> PackedOuts:
         """dispatch_plan_batch_raw packed into one device buffer: one
-        launch and one host copy for the whole family (or group)."""
-        return pack_outputs(self.dispatch_plan_batch_raw(segments, plans,
-                                                         repeat)[0])
+        launch and one host copy for the whole family (or group); a
+        mesh-sharded family packs on the executor's device after the
+        gather."""
+        return self._batch(segments, plans, repeat, mesh, pack=True)[0]
 
     def collect(self, query: QueryContext, segment: ImmutableSegment,
                 plan: SegmentPlan, outs):

@@ -55,6 +55,13 @@ SERVER_COMBINE, BROKER_REDUCE) as `trace_info`; a traced run bypasses the
 segment partial cache, except under EXPLAIN ANALYZE, which shows what a
 real run does.
 
+With more than one mesh device (`mesh_devices`: the process's cards by
+default, parallel/mesh.py; a list may repeat a device), a family of at
+least that many members splits over them, one dispatch and one fetch
+still (engine/executor.py); PINOT_TPU_MESH_DEVICES caps the count and
+`SET meshExecution = false` opts a query out. A failed sharded dispatch
+fails the query.
+
 Concurrent queries of one batch family over the same segments can share
 one dispatch (engine/coalesce.py): with `PINOT_TPU_COALESCE_WINDOW_MS` set,
 the first holds the family open for the others, launches once over all
@@ -82,6 +89,7 @@ from ..cache.keys import program_fingerprint, segment_token
 from ..cache.partial import GLOBAL_PARTIAL_CACHE, partial_cache_enabled
 from ..ops import _cuda, kernels
 from ..ops.kernels import PackedOuts, fetch_packed_batch
+from ..parallel.mesh import mesh_device_count
 from ..query.context import QueryContext
 from ..query.optimizer import optimize_filter
 from ..query.parser.sql import SqlParseError, parse_sql
@@ -149,6 +157,11 @@ def _estimate_bytes(inter) -> int:
 def _opted_out(query: QueryContext, option: str) -> bool:
     """`SET <option> = false` (or 0 / off) in the query."""
     return str(query.query_options.get(option)).lower() in ("false", "0", "off")
+
+
+def _mesh_kw(mesh: tuple) -> dict:
+    """A family dispatch's mesh argument: none for a solo family."""
+    return {"mesh": mesh} if mesh else {}
 
 
 @dataclass
@@ -226,7 +239,7 @@ class QueryExecutor:
     engine's worker threads."""
 
     def __init__(self, device="cuda", backend: str = "device",
-                 num_threads: int = 1):
+                 num_threads: int = 1, mesh_devices: Optional[list] = None):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
         device = torch.device(device)
@@ -242,7 +255,8 @@ class QueryExecutor:
         self.num_threads = max(1, int(num_threads))
         self._pool = None
         self.tables: dict[str, Table] = {}
-        self.executor = SegmentExecutor(DeviceSegmentCache(device))
+        self.executor = SegmentExecutor(DeviceSegmentCache(device),
+                                        mesh_devices)
         self.pruner = SegmentPrunerService()
         # reference: the useStarTree query option, default true
         self.use_star_tree = True
@@ -803,8 +817,10 @@ class QueryExecutor:
         # consuming segment's family is keyed without its snapshot
         # generation: neither joins a coalesced group
         co_on = not traced and coalesce_enabled(query)
+        msig = self._mesh_sig(query)
         for fkey, positions in self._batch_families(
-                query, [segments[i] for i in todo], [plans[i] for i in todo]):
+                query, [segments[i] for i in todo], [plans[i] for i in todo],
+                msig):
             positions = [todo[p] for p in positions]
             if check is not None:
                 check(len(pending.order))
@@ -820,7 +836,8 @@ class QueryExecutor:
                         pending.hosts.append((positions, co.outs))
                         continue
                 try:
-                    pack = self._dispatch_family(segments, plans, positions)
+                    pack = self._dispatch_family(segments, plans, positions,
+                                                 mesh=msig)
                 except (BatchFamilyMismatch, HbmExhaustedError):
                     # the host key over-grouped, or the [S, N] stacks do
                     # not fit even after relief: the members go alone
@@ -836,21 +853,23 @@ class QueryExecutor:
             return ([ex.dispatch_plan(segments[i], plans[i])
                      for i, _ in pending.solo]
                     + [ex.dispatch_plan_batch([segments[i] for i in pos],
-                                              [plans[i] for i in pos])
+                                              [plans[i] for i in pos],
+                                              **_mesh_kw(msig))
                        for pos, _ in pending.families])
 
         pending.redispatch = redispatch
         return pending
 
     def _dispatch_family(self, segments: list, plans: list, positions: list,
-                         raw: bool = False):
+                         raw: bool = False, mesh: tuple = ()):
         """One dispatch of a batch family, relieving device memory once on
-        an OOM (engine/oom.py)."""
+        an OOM (engine/oom.py); split over the mesh devices when `mesh`
+        names a shape."""
         ex = self.executor
         run = ex.dispatch_plan_batch_raw if raw else ex.dispatch_plan_batch
         return with_oom_retry(
             lambda: run([segments[i] for i in positions],
-                        [plans[i] for i in positions]),
+                        [plans[i] for i in positions], **_mesh_kw(mesh)),
             keep_segment=segments[positions[0]], cache=ex.cache)
 
     def _run_group(self, segments: list, plans_all: list, q: int) -> list:
@@ -973,17 +992,31 @@ class QueryExecutor:
         return AggIntermediate(remap_states(rewrite, result.states),
                                result.num_docs_scanned)
 
+    def _mesh_sig(self, query: QueryContext) -> tuple:
+        """The mesh shape of this query's family dispatches: (ndev,) when
+        the executor's mesh spans more than one device (parallel/mesh.py
+        mesh_device_count, capped by PINOT_TPU_MESH_DEVICES), () for solo
+        families. Mesh execution is on by default there; `SET
+        meshExecution = false` opts a query out; the host backend has no
+        mesh. Part of the batch family key."""
+        if self.backend == "host" or _opted_out(query, "meshExecution"):
+            return ()
+        ndev = mesh_device_count(self.executor.mesh_devices)
+        return (ndev,) if ndev > 1 else ()
+
     def _batch_families(self, query: QueryContext, segments: list,
-                        plans: list) -> list:
+                        plans: list, mesh: tuple = ()) -> list:
         """Group the segments into batch families by the host-side family
-        key (engine/executor.py batch_family_key): ordered (key, positions)
-        groups, key None for segments that dispatch alone (batching off,
-        or a slot shape the key cannot predict)."""
+        key (engine/executor.py batch_family_key, `mesh` its mesh axis):
+        ordered (key, positions) groups, key None for segments that
+        dispatch alone (batching off, or a slot shape the key cannot
+        predict)."""
         if len(segments) < 2 or _opted_out(query, "segmentBatch"):
             return [(None, [i]) for i in range(len(segments))]
         groups: dict = {}
         for pos, (segment, plan) in enumerate(zip(segments, plans)):
-            fkey = batch_family_key(segment, plan, self.executor.packed_on)
+            fkey = batch_family_key(segment, plan, self.executor.packed_on,
+                                    mesh)
             groups.setdefault(("__solo__", pos) if fkey is None else fkey,
                               []).append(pos)
         return [(None if k[0] == "__solo__" else k, v)
@@ -1086,14 +1119,16 @@ class QueryExecutor:
                     if tab is not None:
                         cached[i] = tab
         member_outs: list = [None] * len(segments)
-        for fkey, positions in self._batch_families(query, segments, plans):
+        msig = self._mesh_sig(query)
+        for fkey, positions in self._batch_families(query, segments, plans,
+                                                    msig):
             positions = [i for i in positions if i not in cached]
             if not positions:
                 continue
             if fkey is not None and len(positions) > 1:
                 try:
                     outs_b, views_b = self._dispatch_family(
-                        segments, plans, positions, raw=True)
+                        segments, plans, positions, raw=True, mesh=msig)
                 except (BatchFamilyMismatch, HbmExhaustedError):
                     pass  # the members go alone
                 else:

@@ -10,9 +10,9 @@ pull loops); the per-partition work is embarrassingly parallel across
 workers, and big leaf aggregations never reach these operators at all —
 they're pushed into the single-stage device engine by the leaf compiler.
 
-The port's copy of pinot_tpu/mse/operators.py. Differences: factorization
-is numpy only (the reference's native C++ factorizer is not built), and the
-pair join's device path (mse/device_join.py) runs on the device the
+The port's copy of pinot_tpu/mse/operators.py. Integer keys factorize in
+the native host library (segment/native_bridge.py), in first-occurrence
+order, as the reference's do. The difference: the pair join's device path (mse/device_join.py) runs on the device the
 query's JoinCtx names; an error there fails the query instead of falling
 back to the host join.
 """
@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 
 from ..engine.aggregation import UnsupportedQueryError, get_semantics, host_state_full
+from ..segment import native_bridge
 from ..query.expressions import ExpressionContext
 from ..query.transforms import eval_expr_np
 from .ast import OrderItem, WindowSpec
@@ -191,10 +192,16 @@ def group_codes(cols: list[np.ndarray]):
 
 
 def _factorize(a: np.ndarray) -> tuple[np.ndarray, int]:
-    """Dense int64 codes + cardinality: np.unique (sorted codes), or a
-    dict encode for object columns. The reference factorizes integer keys
-    with its native factorizer (first-occurrence codes) where it is built;
-    callers only rely on density, not on code order."""
+    """Dense int64 codes + cardinality. Integer keys ride the native
+    open-addressing factorizer (csrc/host_native.cpp, the
+    DictionaryBasedGroupKeyGenerator analogue: first-occurrence codes);
+    object columns dict-encode; everything else, and integers under
+    PINOT_TPU_DISABLE_NATIVE, uses np.unique (sorted codes). Callers rely
+    only on density, not on code order."""
+    if a.dtype.kind in "iub" and native_bridge.enabled():
+        codes, uniques = native_bridge.factorize_i64(
+            a.astype(np.int64, copy=False))
+        return codes, len(uniques)
     if a.dtype.kind == "O":
         # object columns may hold SQL NULLs (None / NaN from outer joins):
         # np.unique cannot order mixed None/str — dict-encode instead.

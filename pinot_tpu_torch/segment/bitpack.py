@@ -7,11 +7,17 @@ readUnchecked:44). Here the on-disk format is the same idea (LSB-first packed
 bitstream) but decode is a vectorized whole-column operation: the loader
 unpacks the full column once into an int32 plane destined for HBM, so there is
 no per-lookup decode at query time at all.
+
+`pack` and `unpack` run in the native host library (segment/native_bridge.py,
+csrc/host_native.cpp), as the JAX package's do; the numpy versions below run
+under PINOT_TPU_DISABLE_NATIVE. Both write and read the same bytes.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from . import native_bridge
 
 _CHUNK = 1 << 20  # rows per packing chunk, bounds transient bit-matrix memory
 
@@ -26,6 +32,8 @@ def num_bits_for_cardinality(cardinality: int) -> int:
 def pack(values: np.ndarray, num_bits: int) -> np.ndarray:
     """Pack non-negative ints < 2**num_bits into an LSB-first uint8 bitstream."""
     assert 1 <= num_bits <= 32
+    if native_bridge.enabled():
+        return native_bridge.pack_bits(np.asarray(values), num_bits)
     values = np.ascontiguousarray(values, dtype=np.uint32)
     n = values.shape[0]
     if num_bits == 8:
@@ -52,6 +60,9 @@ def pack(values: np.ndarray, num_bits: int) -> np.ndarray:
 def unpack(data: np.ndarray, num_bits: int, count: int, dtype=np.int32) -> np.ndarray:
     """Unpack `count` values from an LSB-first bitstream produced by pack()."""
     assert 1 <= num_bits <= 32
+    if native_bridge.enabled():
+        return native_bridge.unpack_bits(np.asarray(data), num_bits, count,
+                                         dtype)
     data = np.ascontiguousarray(data, dtype=np.uint8)
     if num_bits == 8:
         return data[:count].astype(dtype)

@@ -17,9 +17,10 @@ bloom, JSON, text, geo and vector indexes, custom indexes
 the table config asks for. A dictionary column's range index is its
 inverted index (a dictId range is one slice of it); a sorted column's
 sorted index is derived at load and not stored. The on-disk format and
-its CRCs are the JAX package's, byte for byte, with one exception: an LZ4
-or Snappy buffer holds a literal-only stream (the JAX package's native
-encoder finds matches; both decode to the same bytes).
+its CRCs are the JAX package's, byte for byte, LZ4 and Snappy buffers
+included (both packages encode them in their native host libraries; under
+PINOT_TPU_DISABLE_NATIVE the port writes literal-only streams, which
+decode to the same bytes).
 """
 
 from __future__ import annotations

@@ -18,13 +18,13 @@ for byte:
     u32[n] compressed chunk sizes
     bytes  chunk payloads back-to-back
 
-LZ4 (block format) and Snappy decode in Python, so a stream from either
-package's builder reads here, the JAX package's native encoder's match
-sequences included. Their encoders emit spec-valid literal-only streams.
-ZSTANDARD uses the `zstandard` package and raises ImportError where it is
-missing, as in the JAX package; GZIP uses zlib. The JAX package's native
-LZ4 / Snappy codecs (its `native_bridge`) are not ported: they only make
-the same bytes faster.
+LZ4 (block format) and Snappy encode and decode in the native host
+library (segment/native_bridge.py, csrc/host_native.cpp), so the port's
+chunks are the JAX builder's bytes. Under PINOT_TPU_DISABLE_NATIVE they
+decode in Python (a stream from either package's builder reads there, match
+sequences included) and encode spec-valid literal-only streams. ZSTANDARD
+uses the `zstandard` package and raises ImportError where it is missing, as
+in the JAX package; GZIP uses zlib.
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from . import native_bridge
 
 MAGIC = b"PTCC"
 DEFAULT_CHUNK = 1 << 20
@@ -55,8 +57,12 @@ def _compress_chunk(codec: str, chunk: bytes) -> bytes:
     if codec == "PASS_THROUGH":
         return chunk
     if codec == "LZ4":
+        if native_bridge.enabled():
+            return native_bridge.lz4_compress(chunk)
         return _lz4_compress_literal(chunk)
     if codec == "SNAPPY":
+        if native_bridge.enabled():
+            return native_bridge.snappy_compress(chunk)
         return _snappy_compress_literal(chunk)
     if codec == "ZSTANDARD":
         return _zstd().ZstdCompressor(level=3).compress(chunk)
@@ -69,8 +75,12 @@ def _decompress_chunk(codec: str, blob: bytes, raw_size: int) -> bytes:
     if codec == "PASS_THROUGH":
         return blob
     if codec == "LZ4":
+        if native_bridge.enabled():
+            return native_bridge.lz4_decompress(blob, raw_size)
         return lz4_decompress_py(blob, raw_size)
     if codec == "SNAPPY":
+        if native_bridge.enabled():
+            return native_bridge.snappy_decompress(blob, raw_size)
         return snappy_decompress_py(blob, raw_size)
     if codec == "ZSTANDARD":
         return _zstd().ZstdDecompressor().decompress(

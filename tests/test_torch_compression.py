@@ -16,8 +16,8 @@ compressed, in a family and segment by segment.
 
 Also: the port's decoders against the JAX package's encoders on streams
 with overlapping matches; the container's round trip at chunk edges; the
-port's builder writing the JAX builder's bytes for the deterministic
-codecs; one decompression a buffer; ZSTANDARD without `zstandard` raising
+port's builder writing the JAX builder's bytes for every codec (LZ4 and
+Snappy through both packages' native encoders); one decompression a buffer; ZSTANDARD without `zstandard` raising
 ImportError as in the JAX package. Tolerance: exact.
 """
 
@@ -176,8 +176,12 @@ def test_jax_streams_hold_matches(built, codec):
                                   jseg.get_dict_ids("d_year"))
 
 
-@pytest.mark.parametrize("codec", ["PASS_THROUGH", "GZIP", "ZSTANDARD"])
+@pytest.mark.parametrize("codec", ["PASS_THROUGH", "GZIP", "ZSTANDARD",
+                                   "LZ4", "SNAPPY"])
 def test_port_builder_writes_jax_bytes(built, codec):
+    if codec in ("LZ4", "SNAPPY") and \
+            native_bridge.lz4_compress(b"ab" * 64) is None:
+        pytest.skip("the JAX package's native codec library is not built")
     dirs, _ = built
     for k in range(2):
         got = (dirs[codec, "port"][k] / "data.bin").read_bytes()

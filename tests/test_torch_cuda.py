@@ -58,7 +58,12 @@ store, load on two card servers, which launch kernel B a segment and
 kernel A over each server's family of 2, every launch equal to its plain
 version, with a CPU cluster's rows. The soak's sql suite
 (tools/soak.py) passes with its device parity on the card, every launch
-it made equal to its plain version.
+it made equal to its plain version. The mesh on one card (`cuda:0` four
+times): q2's plan row-sharded over 4 shards launches kernel B at each
+nonzero row offset, every launch equal to its plain version and the
+merged table equal to the solo run; a family split over dp = 4 launches
+kernel A once a shard, each equal to its plain version, and its packed
+buffer equals the solo family's byte for byte.
 """
 
 from __future__ import annotations
@@ -2680,3 +2685,105 @@ def test_soak_sql_with_device_parity_on_the_card(cuda):
         assert torch.equal(
             fused_groupby.fused_limb_sums(fp, planes_in, scalars, G, n),
             fused_groupby.fused_limb_sums_plain(fp, planes_in, scalars, G, n))
+
+
+MESH_CUDA = ["cuda:0"] * 4
+
+
+@pytest.fixture(scope="module")
+def mesh_table(tmp_path_factory):
+    """Six segments of the small table's shape (ragged over 4 devices)."""
+    rng = np.random.default_rng(31)
+    schema = Schema.build("ssb", dimensions=[
+        ("d_year", "INT"), ("p_brand", "INT"), ("s_region", "STRING")],
+        metrics=[("lo_revenue", "INT")])
+    cfg = TableConfig(table_name="ssb", indexing=IndexingConfig(
+        no_dictionary_columns=["lo_revenue"]))
+    paths = []
+    for i in range(6):
+        n = 1 << 16
+        cols = {"d_year": rng.integers(1992, 1999, n).astype(np.int32),
+                "p_brand": rng.integers(0, 1000, n).astype(np.int32),
+                "s_region": np.asarray(["AMERICA", "ASIA", "EUROPE"],
+                                       dtype=object)[rng.integers(0, 3, n)],
+                "lo_revenue": rng.integers(1, 600_000, n).astype(np.int32)}
+        path = tmp_path_factory.mktemp("torch_cuda_mesh") / f"m{i}"
+        SegmentBuilder(schema, cfg, f"m{i}").build(cols, path)
+        paths.append(path)
+    return schema, paths
+
+
+MESH_Q2 = ("SELECT d_year, p_brand, SUM(lo_revenue) FROM ssb WHERE "
+           "s_region = 'ASIA' GROUP BY d_year, p_brand LIMIT 10000")
+
+
+def test_row_sharded_kernel_b_at_nonzero_offsets(cuda, mesh_table):
+    """q2's plan over one segment row-sharded on cuda:0 four times: kernel
+    B once a shard at row offsets 0, n/4, n/2, 3n/4, each launch equal to
+    its plain version, the merged table equal to the solo fused run."""
+    from pinot_tpu_torch.ops.kernels import run_program
+    from pinot_tpu_torch.parallel import mesh as pmesh
+    from pinot_tpu_torch.query.parser.sql import parse_sql
+
+    schema, paths = mesh_table
+    qe = QueryExecutor(device="cuda")
+    seg = load_segment(paths[0])
+    plan = qe.executor.plan(parse_sql(MESH_Q2), seg)
+    view, arrays, params, packed, fused, lut_meta = \
+        qe.executor.solo_inputs(seg, plan)
+    assert fused
+    solo = run_program(plan.program, arrays, params, seg.num_docs,
+                       view.padded, packed=packed, fused=True,
+                       fused_lut_meta=lut_meta)
+    mesh = pmesh.make_mesh(devices=MESH_CUDA)
+    _cuda.reset_launches()
+    with _recording(fused_groupby, "fused_limb_sums") as b_calls:
+        outs = pmesh.run_program_row_sharded(
+            plan.program, pmesh.shard_segment_arrays(
+                arrays, mesh, view.padded, plan.slots),
+            params, seg.num_docs, view.padded, mesh, slots=plan.slots,
+            fused=True, lut_meta=lut_meta, packed=packed)
+        torch.cuda.synchronize()
+    local = view.padded // 4
+    assert _cuda.LAUNCHES["fused_limb_sums"] == 4 == len(b_calls)
+    assert [int(c[2][1]) for c in b_calls] == [k * local for k in range(4)]
+    for fp, planes_in, scalars, G, n in b_calls:
+        assert n == local
+        assert torch.equal(
+            fused_groupby.fused_limb_sums(fp, planes_in, scalars, G, n),
+            fused_groupby.fused_limb_sums_plain(fp, planes_in, scalars, G, n))
+    for got, want in zip(outs, solo):
+        assert torch.equal(got, want)
+
+
+def test_dp4_family_on_the_card_equals_the_solo_pack(cuda, mesh_table):
+    """Six segments split over dp = 4 on cuda:0: kernel A once a shard
+    (each launch equal to its plain version), the packed buffer byte for
+    byte the solo family's, and the query's rows the CPU's with one host
+    fetch."""
+    from pinot_tpu_torch.ops import kernels
+    from pinot_tpu_torch.query.parser.sql import parse_sql
+
+    schema, paths = mesh_table
+    sql = "SET useFusedKernel = false; " + MESH_Q2
+    gpu = QueryExecutor(device="cuda", mesh_devices=MESH_CUDA)
+    cpu = QueryExecutor(device="cpu")
+    for qe in (gpu, cpu):
+        qe.add_table(schema, [load_segment(p) for p in paths])
+    segs = gpu.tables["ssb"].segments
+    plans = [gpu.executor.plan(parse_sql(sql), s) for s in segs]
+    _cuda.reset_launches()
+    with _recording(mxu_groupby, "limb_sums") as a_calls:
+        sharded = gpu.executor.dispatch_plan_batch(segs, plans, mesh=(4,))
+        torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["limb_sums"] == 4 == len(a_calls)
+    assert [c[0].shape[0] for c in a_calls] == [2, 2, 2, 2]  # 6 + 2 pads
+    _launches_equal_plain(a_calls)
+    solo = gpu.executor.dispatch_plan_batch(segs, plans)
+    assert sharded.metas == solo.metas
+    assert torch.equal(sharded.flat, solo.flat)
+    before = kernels.host_fetches()
+    got = gpu.execute_sql(sql)
+    assert kernels.host_fetches() - before == 1
+    assert got.num_device_dispatches == 1
+    assert got.result_table.rows == cpu.execute_sql(sql).result_table.rows
