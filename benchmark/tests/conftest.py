@@ -1,0 +1,14 @@
+"""CPU tests of the benchmark (python -m pytest benchmark/tests from the
+repository root); `gpu` tests need the card and skip without one."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA H100 (run on the card)")
